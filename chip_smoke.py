@@ -9,20 +9,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a;
 3. kernels, at the main-path shapes of Qwen3-1.7B (H=16, K=8, G=2, D=128,
-   page size 16): each kernel against its plain PyTorch version on the
-   card, fp32 (atol 1e-4) and bf16 (atol 2e-2), and the fused bullet
-   kernel bit-equal to flash + paged decode at every decode_share of the
-   tile table; median times over CUDA events (L2 flushed before each
-   launch) beside each kernel's bound and the library yardstick;
-4. reference: a 2-layer cut of Qwen3-1.7B at full width, fp32, prefill +
+   page size 16, dense cache rows of the replay's max_len = 1000, which is
+   not a multiple of 128): each kernel against its plain PyTorch version
+   on the card, fp32 (atol 1e-4) and bf16 (atol 2e-2), dense decode with
+   linear positions and with a scrambled ring with holes; both fused
+   bullet kernels bit-equal to flash + their decode kernel at every
+   decode_share of the tile table; median times over CUDA events (L2
+   flushed before each launch) beside each kernel's bound and the library
+   yardstick;
+4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
+   0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py):
+   its error against flash + dense decode and its time per share;
+5. reference: a 2-layer cut of Qwen3-1.7B at full width, fp32, prefill +
    decode on the card (kernels) against the same on the CPU (plain
    versions);
-5. serve: Qwen3-1.7B at full width and depth, bf16, seeded random
+6. serve: Qwen3-1.7B at full width and depth, bf16, seeded random
    weights, 12 requests through BulletServer fused (the default) with the
    launch counters read around that run, then serial: identical streams;
    then the same requests under the scheduler's defaults (its fused
    share); then a torch.profiler window over 30 fused cycles (device time
-   by kernel kind, device busy share).
+   by kernel kind, device busy share);
+7. replay: Qwen3-1.7B at full width and depth through the OnlineFrontend
+   on a ShareGPT-shaped trace, with observability: (a) a fault-free
+   virtual-clock replay; (b) the same under a fault plan that walks the
+   SLO guard fused→serial→dense and back, invariants audited every cycle,
+   streams equal to (a)'s; (c) the dense slot cache serving the same
+   requests, streams equal to (a)'s; (d) a wall-clock replay in bf16.
 
 The second-last line is the kernel table as JSON, the last line the
 device summary as JSON.
@@ -51,6 +63,9 @@ HBM_BW = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 H, K, G, D, PS = 16, 8, 2, 128, 16
+#: the replay phase's context window, and so the dense cache's rows: not a
+#: multiple of 128 (nor of the kernel's 16-row tile), so the tail path runs
+MAX_LEN = 1000
 
 
 def fail(msg: str) -> None:
@@ -148,6 +163,44 @@ def decode_inputs(gen, dtype):
             torch.from_numpy(bt).cuda(), pos)
 
 
+def dense_inputs(gen, dtype, ring: bool):
+    """8 slots over dense rows of MAX_LEN: the contexts of the paged case
+    (clipped to the row), one inactive slot, and either linear positions
+    or tests/test_kernels.py's scrambled ring with holes (-1), in which
+    the first slot (pos 0) attends no row."""
+    b, s = len(CONTEXTS), MAX_LEN
+    base = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+    if ring:
+        kvpos = torch.where(base % 5 == 0, -1, (base * 13) % (s + 200))
+    else:
+        kvpos = base
+    pos = torch.tensor([min(c, s) - 1 for c in CONTEXTS], dtype=torch.int32,
+                       device="cuda")
+    q = torch.randn(b, K, G, D, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(b, s, K, D, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(b, s, K, D, generator=gen, device="cuda").to(dtype)
+    return q, kc, vc, kvpos.to(torch.int32).contiguous(), pos
+
+
+def attended(kvpos, pos):
+    """(B,) bool: the dense slots with at least one attended row. A slot
+    without one returns zeros from the kernel (as the TPU kernel does) and
+    the mean of V from the plain version (as the XLA reference does), so
+    kernel and plain are compared on the others."""
+    return ((kvpos >= 0) & (kvpos <= pos[:, None])).any(dim=1)
+
+
+def dense_cost(q, kvpos, pos, dtype):
+    """What the dense decode function needs for this run's data: the K and
+    V rows whose position is attended (0 <= kv_position <= pos), q read
+    and the output written, kv_positions and pos read; the scores and the
+    PV product over those rows."""
+    rows = int(((kvpos >= 0) & (kvpos <= pos[:, None])).sum())
+    n_bytes = (2 * rows * K * D + 2 * q.numel()) * esize(dtype) \
+        + 4 * (kvpos.numel() + pos.numel())
+    return n_bytes, 4 * G * D * K * rows
+
+
 def flash_cost(bp, s, dtype):
     n_bytes = (2 * bp * H * s * D + 2 * bp * K * s * D) * esize(dtype)
     n_ops = 4 * D * bp * H * s * (s + 1) / 2          # causal pairs
@@ -203,12 +256,14 @@ def phase_kernels(timer: Timer):
     from repro_torch.core.resource import ResourceManager
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err = {"flash": 0.0, "decode": 0.0, "bullet": 0.0}
+    err = {"flash": 0.0, "decode": 0.0, "bullet": 0.0, "dense": 0.0,
+           "bullet_dense": 0.0}
 
     # -- flash: S in {128, 200, 1000}, Bp in {1, 4}, plus a window case
     for dtype in (torch.float32, torch.bfloat16):
@@ -245,6 +300,27 @@ def phase_kernels(timer: Timer):
             f"{bt.shape[1]}: max|kernel-plain| (active) = {e:.3e}, "
             f"inactive slot zeros")
 
+    # -- dense decode: 8 slots over MAX_LEN rows, linear and ring positions
+    for dtype in (torch.float32, torch.bfloat16):
+        for ring in (False, True):
+            q, kc, vc, kvpos, pos = dense_inputs(gen, dtype, ring)
+            out = DA.decode_attention(q, kc, vc, kvpos, pos)
+            ref = DA.decode_attention_plain(q, kc, vc, kvpos, pos)
+            torch.cuda.synchronize()
+            act = attended(kvpos, pos)
+            e = (out[act].float() - ref[act].float()).abs().max().item()
+            kind = "ring with holes" if ring else "linear"
+            check(math.isfinite(e) and e <= TOL[dtype],
+                  f"dense decode {dtype} {kind}: err {e}")
+            check(bool((out[~act] == 0).all()),
+                  "dense slot with no attended row not zero")
+            if dtype == torch.bfloat16:
+                err["dense"] = max(err["dense"], e)
+            log(f"dense decode {str(dtype)[6:]} S={MAX_LEN} {kind}: "
+                f"max|kernel-plain| ({int(act.sum())} slots with an attended "
+                f"row) = {e:.3e}; {int((~act).sum())} slots without one "
+                f"return zeros")
+
     # -- bullet: every decode_share of the tile table, bit-equal
     rm = ResourceManager(HardwareSpec(), SchedulerConfig().unit_quantum)
     shares = sorted({round(p.decode_share, 6) for p in rm.tile_entries})
@@ -272,6 +348,31 @@ def phase_kernels(timer: Timer):
         log(f"bullet {str(dtype)[6:]}: bit-equal to flash + paged decode at "
             f"all {len(shares)} tile-table shares; max|kernel-plain| = "
             f"{e:.3e}")
+    for dtype in (torch.float32, torch.bfloat16):
+        qp, kpp, vpp = flash_inputs(gen, 2, 200, dtype)
+        fo = FA.flash_attention(qp, kpp, vpp, causal=True, group=G)
+        for ring in (False, True):
+            qd, kc, vc, kvpos, pos = dense_inputs(gen, dtype, ring)
+            do = DA.decode_attention(qd, kc, vc, kvpos, pos)
+            for share in shares:
+                op, od = BA.bullet_attention(qp, kpp, vpp, qd, kc, vc, kvpos,
+                                             pos, decode_share=share, group=G)
+                torch.cuda.synchronize()
+                check(torch.equal(op, fo) and torch.equal(od, do),
+                      f"dense bullet {dtype} ring={ring} share {share}: not "
+                      "bit-equal to flash + dense decode")
+        rp, rd = BA.bullet_attention_plain(qp, kpp, vpp, qd, kc, vc, kvpos,
+                                           pos, group=G)
+        act = attended(kvpos, pos)
+        e = max((op.float() - rp.float()).abs().max().item(),
+                (od[act].float() - rd[act].float()).abs().max().item())
+        check(math.isfinite(e) and e <= TOL[dtype],
+              f"dense bullet {dtype}: {e}")
+        if dtype == torch.bfloat16:
+            err["bullet_dense"] = e
+        log(f"dense bullet {str(dtype)[6:]}: bit-equal to flash + dense decode "
+            f"at all {len(shares)} tile-table shares, linear and ring; "
+            f"max|kernel-plain| = {e:.3e}")
 
     # -- timings at the serving shapes (bf16): the longest prompt of the
     # serve phase, its 8-slot decode batch, and the two fused
@@ -320,6 +421,27 @@ def phase_kernels(timer: Timer):
         max_abs_err=err["decode"],
         shape=f"8 slots contexts {CONTEXTS} n_b={bt.shape[1]} bf16"))
 
+    qdd, kc, vc, kvpos, posd = dense_inputs(gen, dt, False)
+    nb_dd, no_dd = dense_cost(qdd, kvpos, posd, dt)
+    bms, bby = bound_ms(nb_dd, no_dd, dt)
+    kx = kc.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    vx = vc.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    dmask = ((kvpos >= 0) & (kvpos <= posd[:, None]))[:, None, None, :]
+    qsdd = qdd.reshape(qdd.shape[0], H, 1, D)
+    rows.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:62",
+        ms=timer(lambda: DA.decode_attention(qdd, kc, vc, kvpos, posd)),
+        plain_ms=timer(lambda: DA.decode_attention_plain(
+            qdd, kc, vc, kvpos, posd)),
+        bound_ms=bms, bound_by=bby,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qsdd, kx, vx, attn_mask=dmask)),
+        max_abs_err=err["dense"],
+        shape=f"8 slots x S={MAX_LEN} rows, contexts {CONTEXTS} clipped to "
+              f"the row, linear positions, bf16"))
+
     share = round(rm.current.decode_share, 6)
     # one function over both phases' inputs: max(sum of bytes / rate,
     # sum of operations / peak)
@@ -338,11 +460,79 @@ def phase_kernels(timer: Timer):
         max_abs_err=err["bullet"],
         shape=f"flash Bp=1 S=1000 + decode as above, decode_share={share}: "
               f"{n_dec} of {n_ctas} CTAs decode"))
+    bms, bby = bound_ms(nb + nb_dd, no + no_dd, dt)
+    n_ctas = BA.grid_ctas(torch.cuda.current_device(), 1, D, G, PS,
+                          dense=True)
+    n_dec = BA.decode_ctas(share, n_ctas, True, True)
+    rows.append(dict(
+        name="bullet_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/bullet_attention.py:361",
+        ms=timer(lambda: BA.bullet_attention(
+            q, k, v, qdd, kc, vc, kvpos, posd, decode_share=share, group=G)),
+        plain_ms=timer(lambda: BA.bullet_attention_plain(
+            q, k, v, qdd, kc, vc, kvpos, posd, group=G)),
+        bound_ms=bms, bound_by=bby, library_ms=None,
+        max_abs_err=err["bullet_dense"],
+        shape=f"flash Bp=1 S=1000 + dense decode as above, decode_share="
+              f"{share}: {n_dec} of {n_ctas} CTAs decode"))
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}) at {r['shape']}")
     return rows
+
+
+def phase_colocated(timer: Timer) -> int:
+    """The counterpart of examples/colocated_attention.py on the card: one
+    dense fused launch computes a prefill batch's attention and a decode
+    batch's over dense caches, swept over decode_share; every share must
+    equal flash + dense decode run apart. Returns the fused kernel's
+    launches in the sweep."""
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import ops
+
+    # prefill: 2 requests x 256 tokens; decode: 8 requests over 512-row
+    # caches (the example's shapes at the served model's heads, D=128)
+    bp, sp, bd, sk = 2, 256, 8, 512
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qp = torch.randn(bp, sp, H, D, generator=gen, device="cuda")
+    kp = torch.randn(bp, sp, K, D, generator=gen, device="cuda")
+    vp = torch.randn(bp, sp, K, D, generator=gen, device="cuda")
+    qd = torch.randn(bd, 1, H, D, generator=gen, device="cuda")
+    kd = torch.randn(bd, sk, K, D, generator=gen, device="cuda")
+    vd = torch.randn(bd, sk, K, D, generator=gen, device="cuda")
+    kvpos = torch.arange(sk, dtype=torch.int32,
+                         device="cuda")[None].expand(bd, sk).contiguous()
+    pos = torch.from_numpy(np.random.default_rng(0).integers(
+        64, sk, bd).astype(np.int32)).cuda()
+    ref_p = ops.flash_attention_op(qp, kp, vp)
+    ref_d = ops.decode_attention_op(qd, kd, vd, kvpos, pos)
+    n_ctas = BA.grid_ctas(torch.cuda.current_device(), 0, D, G, PS,
+                          dense=True)
+    BA.dense_launches = 0
+    outs = {}
+    for share in (0.0, 0.25, 0.5, 0.75, 1.0):
+        outs[share] = ops.bullet_attention_op(qp, kp, vp, qd, kd, vd, kvpos,
+                                              pos, decode_share=share)
+    launches = BA.dense_launches
+    check(launches == 5, f"colocated: {launches} fused launches, want 5")
+    for share, (op, od) in outs.items():
+        ep = (op - ref_p).abs().max().item()
+        ed = (od - ref_d).abs().max().item()
+        check(ep == 0.0 and ed == 0.0,
+              f"colocated share {share}: prefill err {ep}, decode err {ed}")
+        ms = timer(lambda: ops.bullet_attention_op(
+            qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share))
+        n_dec = BA.decode_ctas(share, n_ctas, True, True)
+        log(f"colocated fp32 decode_share={share:4.2f}: {n_dec:3d} of "
+            f"{n_ctas} CTAs decode, {ms:.4f} ms, prefill err {ep:.1e}, "
+            f"decode err {ed:.1e}")
+    apart = timer(lambda: (ops.flash_attention_op(qp, kp, vp),
+                           ops.decode_attention_op(qd, kd, vd, kvpos, pos)))
+    log(f"colocated: flash + dense decode launched apart {apart:.4f} ms; "
+        "every share equals them bit for bit")
+    return launches
 
 
 def phase_reference():
@@ -578,6 +768,226 @@ def phase_serve(card: str):
     return launches, n_tok / secs
 
 
+#: the replay trace: ShareGPT-shaped lengths fitted to MAX_LEN, Poisson
+#: arrivals at REPLAY_RATE requests per trace second. The rate is a choice
+#: of this smoke test (it keeps prefills overlapping live decodes on the
+#: virtual clock), not a rate measured from any deployment.
+REPLAY_REQUESTS, REPLAY_RATE = 16, 16.0
+
+
+def _replay_trace(n: int = REPLAY_REQUESTS):
+    from repro_torch.serving.workload import (fit_trace_to_context,
+                                              generate_trace)
+    return fit_trace_to_context(
+        generate_trace("sharegpt", REPLAY_RATE, 60.0, seed=0,
+                       max_requests=n), MAX_LEN)
+
+
+def _replay(cfg, params, dtype, *, paged=True, plan=None, wall=False,
+            n_requests=REPLAY_REQUESTS, audit=None):
+    """One OnlineFrontend replay of the trace through BulletServer with
+    observability on: the virtual clock priced by the H100 estimator, or
+    the wall clock. The scheduler runs as in the serve phase's main path
+    (one prompt per prefill batch, no §3.3.3 decode pause), so every
+    request's prefill shapes, and so its numerics, do not depend on which
+    requests happen to be admitted together. ``plan`` attaches a fault
+    injector and the SLO guard. ``audit(server)`` runs after every cycle.
+    Returns (server, guard, metrics, wall seconds, per-cycle records)."""
+    from repro_torch.core.config import (CacheConfig, ControlConfig,
+                                         ServerConfig)
+    from repro_torch.core.engine import BulletServer
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.obs import Observability
+    from repro_torch.resilience import FaultInjector, SLOGuard
+    from repro_torch.serving.frontend import (OnlineFrontend, VirtualClock,
+                                              WallClock, estimator_cycle_cost)
+    from repro_torch.serving.request import WORKLOAD_SLOS
+
+    guard = SLOGuard() if plan is not None else None
+    server = BulletServer(cfg, params, config=ServerConfig(
+        slo=WORKLOAD_SLOS["sharegpt"], max_slots=8, max_len=MAX_LEN,
+        max_prefill_batch=1, dtype=dtype, cache=CacheConfig(paged=paged),
+        control=ControlConfig(sched=SchedulerConfig(
+            max_decode_pause_cycles=0)),
+        obs=Observability(), guard=guard,
+        faults=FaultInjector(plan) if plan is not None else None),
+        device="cuda")
+    records = []
+    last = [time.perf_counter()]
+
+    def on_cycle(srv, now):
+        t = time.perf_counter()
+        check(len(records) < 50_000, "replay did not drain")
+        records.append(dict(fused=srv.last_fused,
+                            prefill=srv.last_prefill_tokens,
+                            decode=srv.last_decode is not None,
+                            wall=t - last[0]))
+        last[0] = t
+        if audit is not None:
+            audit(srv)
+
+    fe = OnlineFrontend(server, WallClock() if wall else VirtualClock(),
+                        cycle_cost=None if wall else estimator_cycle_cost,
+                        on_cycle=on_cycle)
+    trace = _replay_trace(n_requests)
+    fe.submit_trace(trace, cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last[0] = t0
+    m = fe.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(not fe.truncated, "replay truncated")
+    for r in trace:
+        got = server.outputs.get(r.rid, [])
+        check(len(got) == r.output_len,
+              f"replay request {r.rid}: {len(got)} tokens, want "
+              f"{r.output_len}")
+        check(all(0 <= x < cfg.vocab_size for x in got),
+              f"replay request {r.rid}: token out of vocab")
+    check(server.pool.available_blocks == server.pool.n_blocks,
+          "replay: KV pool not clean")
+    return server, guard, m, secs, records
+
+
+def _decode_only_ms(records) -> float:
+    """Mean host wall time of the cycles that ran a decode iteration and no
+    prefill group (the engine reads its sampled tokens back every cycle,
+    so this includes the device time)."""
+    ts = [r["wall"] for r in records if r["decode"] and not r["prefill"]]
+    return 1e3 * statistics.mean(ts) if ts else float("nan")
+
+
+def phase_replay(card: str) -> dict:
+    """Trace replay at full Qwen3-1.7B width and depth. (a), (b) and (c)
+    run in fp32: (b)'s guard re-prefills every preempted request over its
+    generated prefix, which in bf16 rounds differently from the decode
+    steps that first produced it, and would let greedy streams drift for a
+    reason that is not a fault of the port. Virtual-clock metrics depend
+    on the estimator's prices, not on the dtype. (d) serves in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.resilience import FaultPlan, FaultSpec
+    from repro_torch.serving.request import WORKLOAD_SLOS
+
+    def counters():
+        return {"flash_attention": FA.launches,
+                "paged_decode_attention": PD.launches,
+                "bullet_attention_paged": BA.launches,
+                "decode_attention": DA.launches,
+                "bullet_attention": BA.dense_launches}
+
+    def reset():
+        FA.launches = PD.launches = BA.launches = DA.launches = 0
+        BA.dense_launches = 0
+
+    cfg = get_config("qwen3-1.7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    trace = _replay_trace()
+    log(f"replay: qwen3-1.7b full width/depth, {len(trace)} ShareGPT-shaped "
+        f"requests fitted to max_len {MAX_LEN} (prompts "
+        f"{[r.prompt_len for r in trace]}, outputs "
+        f"{[r.output_len for r in trace]}), Poisson arrivals at "
+        f"{REPLAY_RATE:g} req/s (the smoke's choice, not a measured rate), "
+        f"SLO {WORKLOAD_SLOS['sharegpt']}")
+
+    # (a) fault-free virtual-clock replay
+    reset()
+    a, _, ma, secs_a, rec_a = _replay(cfg, params, torch.float32)
+    la = counters()
+    for name in ("flash_attention", "paged_decode_attention",
+                 "bullet_attention_paged"):
+        check(la[name] > 0, f"replay (a): {name} never launched")
+    first_fused = next((i for i, r in enumerate(rec_a) if r["fused"]), None)
+    check(first_fused is not None, "replay (a): no fused cycle")
+    log(f"replay (a) virtual clock, fp32: {ma.row()}")
+    log(f"  {len(rec_a)} cycles in {secs_a:.1f} s wall, stats "
+        f"{vars(a.stats)}, launches {la}, first fused cycle {first_fused}, "
+        f"decode-only cycle {_decode_only_ms(rec_a):.1f} ms wall (paged)  "
+        f"[{card}]")
+
+    # (b) the same trace under a fault plan: two failed fused dispatches
+    # (fused→serial), then two failed prefill dispatches of the serial path
+    # (paged→dense); the guard's cooldown probes back to paged, then fused
+    n_a = len(rec_a)
+    start = first_fused + 8
+    check(start + 2 < n_a // 2, f"replay (a) too short ({n_a} cycles)")
+    plan = FaultPlan(seed=0, specs=[
+        FaultSpec("dispatch", start=first_fused, end=first_fused + 2,
+                  target="fused", count=2),
+        FaultSpec("dispatch", start=start, end=n_a // 2, target="prefill",
+                  count=2)])
+    dense = {"iters": 0, "short": 0, "last": 0}
+
+    def audit(srv):
+        srv.check_invariants()
+        n = DA.launches - dense["last"]
+        dense["last"] = DA.launches
+        if not srv.paged and srv.last_decode is not None:
+            dense["iters"] += 1
+            dense["short"] += n < cfg.n_layers
+    reset()
+    b, guard, mb, secs_b, rec_b = _replay(cfg, params, torch.float32,
+                                          plan=plan, audit=audit)
+    lb = counters()
+    kinds = [t["transition"] for t in guard.transitions]
+    check(guard.recovered, f"replay (b): guard not recovered: {kinds}")
+    check("degrade:paged" in kinds and "restore:paged" in kinds
+          and "degrade:fused" in kinds and "restore:fused" in kinds,
+          f"replay (b): transitions {kinds}")
+    check(b.paged and b.fused, "replay (b) did not end on the fast path")
+    check(dense["iters"] > 0 and dense["short"] == 0,
+          f"replay (b): {dense['iters']} dense decode iterations, "
+          f"{dense['short']} with fewer decode_attention launches than "
+          "layers")
+    for name in ("flash_attention", "paged_decode_attention",
+                 "bullet_attention_paged", "decode_attention"):
+        check(lb[name] > 0, f"replay (b): {name} never launched")
+    for r in trace:
+        check(b.outputs[r.rid] == a.outputs[r.rid],
+              f"replay (b): request {r.rid}'s stream differs from (a)'s")
+    log(f"replay (b) chaos, fp32: {mb.row()}")
+    log(f"  transitions {' '.join(kinds)}; {len(rec_b)} cycles in "
+        f"{secs_b:.1f} s wall, faults {b.faults.injected}, stats "
+        f"{vars(b.stats)}, launches {lb}, {dense['iters']} dense decode "
+        f"iterations with {cfg.n_layers} decode_attention launches each or "
+        f"more; streams identical to (a); invariants held every cycle; KV "
+        f"pool clean  [{card}]")
+
+    # (c) the dense slot cache serving the same requests (serial)
+    reset()
+    c, _, mc, secs_c, rec_c = _replay(cfg, params, torch.float32,
+                                      paged=False)
+    lc = counters()
+    check(lc["decode_attention"] > 0 and lc["paged_decode_attention"] == 0,
+          f"replay (c): launches {lc}")
+    for r in trace:
+        check(c.outputs[r.rid] == a.outputs[r.rid],
+              f"replay (c): request {r.rid}'s stream differs from (a)'s")
+    log(f"replay (c) dense cache, serial, fp32: {mc.row()}")
+    log(f"  {len(rec_c)} cycles in {secs_c:.1f} s wall, launches {lc}, "
+        f"decode-only cycle {_decode_only_ms(rec_c):.1f} ms wall (dense); "
+        f"streams identical to (a)  [{card}]")
+    del a, b, c
+
+    # (d) wall-clock replay in bf16 after a warm-up pass
+    params = {k: (tuple({n: t.to(torch.bfloat16) for n, t in blk.items()}
+                        for blk in v) if k == "blocks"
+                  else v.to(torch.bfloat16)) for k, v in params.items()}
+    torch.cuda.empty_cache()
+    _replay(cfg, params, torch.bfloat16, wall=True, n_requests=2)
+    d, _, md, secs_d, rec_d = _replay(cfg, params, torch.bfloat16,
+                                      wall=True)
+    log(f"replay (d) wall clock, bf16: {md.row()}  [{card}]")
+    log(f"  {len(rec_d)} cycles in {secs_d:.1f} s, stats {vars(d.stats)}, "
+        f"decode-only cycle {_decode_only_ms(rec_d):.1f} ms wall  [{card}]")
+    return lb
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -588,13 +998,31 @@ def main() -> int:
              "CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s "
+            f"(total {time.perf_counter() - t0:.1f} s)")
+        return out
+
     card = phase_card()
-    phase_build()
-    rows = phase_kernels(Timer())
+    timed("build", phase_build)
+    timer = Timer()
+    rows = timed("kernels", phase_kernels, timer)
+    colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
-    phase_reference()
-    launches, _ = phase_serve(card)
+    timed("reference", phase_reference)
+    launches = timed("serve", phase_serve, card)[0]
+    replay = timed("replay", phase_replay, card)
+    # each kernel's launches on its own path: the serve phase's fused run
+    # (the paged fused path), the chaos replay (dense decode) and the
+    # colocated sweep (the dense fused kernel, which no serving path runs)
+    launches = {**replay, **launches,
+                "decode_attention": replay["decode_attention"],
+                "bullet_attention": colocated}
     for r in rows:
         r["launches"] = launches[r["name"]]
     log(f"{card}")

@@ -6,10 +6,12 @@ A copy of the JAX package's ``ServerConfig``:
     server = BulletServer(cfg, params, config=ServerConfig(
         slo=SLO(3.0, 150.0), max_slots=8), device="cuda")
 
-The port serves the block-paged, tile-granular path. Fields that select
-a path of a later slice of the port raise ``NotImplementedError`` at
-construction, naming the ROADMAP item that brings them. ``launch/serve.py``
-builds the config from CLI flags in one place (``build_server_config``).
+The port serves the tile-granular path over the block-paged pool or the
+dense slot cache, with the observability, fault-injection and SLO-guard
+seams. Fields that select a path of a later slice of the port raise
+``NotImplementedError`` at construction, naming the ROADMAP item that
+brings them. ``launch/serve.py`` builds the config from CLI flags in one
+place (``build_server_config``).
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.serving.request import SLO
 
 _LATER = {
-    "dense": "ROADMAP port item 'dense fallback, obs/faults/guard, "
-             "OnlineFrontend replay'",
+    "tenancy": "ROADMAP port item 'tenancy'",
     "share_prefix": "ROADMAP port item 'shared-prefix reuse'",
     "chip": "ROADMAP port item 'chip granularity'",
 }
@@ -36,8 +37,8 @@ def _later(what: str, item: str) -> NotImplementedError:
 @dataclass(frozen=True)
 class CacheConfig:
     """KV cache layout and reuse knobs (docs/KV_SHARING.md)."""
-    #: paged pool (None = engine default: paged; False is the dense
-    #: fallback of a later slice)
+    #: paged pool (None = engine default: paged; False = the dense
+    #: fixed-slot cache)
     paged: Optional[bool] = None
     #: tokens per KV page
     page_size: int = 16
@@ -45,8 +46,6 @@ class CacheConfig:
     share_prefix: bool = False
 
     def __post_init__(self):
-        if self.paged is False:
-            raise _later("the dense slot cache (paged=False)", "dense")
         if self.share_prefix:
             raise _later("share_prefix", "share_prefix")
 
@@ -94,25 +93,27 @@ class ServerConfig:
     cache: CacheConfig = field(default_factory=CacheConfig)
     execution: ExecConfig = field(default_factory=ExecConfig)
     control: ControlConfig = field(default_factory=ControlConfig)
-    obs: Any = None                      # Observability seam (later slice)
-    faults: Any = None                   # FaultInjector seam (later slice)
-    guard: Any = None                    # SLOGuard seam (later slice)
+    obs: Any = None                      # Observability seam
+    faults: Any = None                   # FaultInjector seam
+    guard: Any = None                    # SLOGuard seam
     tenancy: Any = None                  # TenancyController (later slice)
 
     def __post_init__(self):
-        for name in ("obs", "faults", "guard", "tenancy"):
-            if getattr(self, name) is not None:
-                raise _later(f"ServerConfig.{name}", "dense")
+        if self.tenancy is not None:
+            raise _later("ServerConfig.tenancy", "tenancy")
 
 
-def build_server_config(args, *, slo=None, est=None,
+def build_server_config(args, *, slo=None, est=None, obs=None,
+                        faults=None, guard=None,
                         refit: Any = None) -> ServerConfig:
     """The one place launch/serve.py turns CLI flags into a ServerConfig.
 
     ``args`` is the serve argparse namespace; objects the launcher
-    constructs itself (SLO, estimator) are passed explicitly."""
+    constructs itself (SLO choice differs per mode, estimator, obs,
+    resilience seams) are passed explicitly."""
     return ServerConfig(
         slo=slo, est=est,
         max_slots=args.slots, max_len=args.max_len,
         cache=CacheConfig(page_size=args.page_size),
-        control=ControlConfig(refit=refit))
+        control=ControlConfig(refit=refit),
+        obs=obs, faults=faults, guard=guard)

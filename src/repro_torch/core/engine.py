@@ -1,5 +1,5 @@
-"""Concurrent execution engine (paper §3.5) on PyTorch: the paged,
-tile-granular Bullet path.
+"""Concurrent execution engine (paper §3.5) on PyTorch: the tile-granular
+Bullet path.
 
 Two engine roles (prefill, decode) share a MetadataBuffer and one block-
 paged KV pool ((R, pages+1, ps, K, D) per pattern position) driven by
@@ -19,9 +19,16 @@ paged KV pool ((R, pages+1, ps, K, D) per pattern position) driven by
   ``decode_share``.
 
 Preempt / resume / migrate move block ownership in the table; pages never
-move on the device. The module-level step functions are the torch
-counterparts of the JAX package's jitted helpers; where those donated the
-page pool, these write it in place.
+move on the device. The dense fixed-slot cache ((R, slots, S, K, D), one
+``max_len`` row per slot) is the reference layout the SLO guard's
+paged→dense rung falls back to (``set_cache_mode``): prefill fills a
+per-batch cache and migration copies each request's row into its slot,
+and decode reads the rows through the dense decode kernel. The
+observability (``obs``), fault-injection (``faults``) and SLO-guard
+(``guard``) seams are the JAX engine's, gated the same way. The
+module-level step functions are the torch counterparts of the JAX
+package's jitted helpers; where those donated a cache, these write it in
+place, so every fault seam fires before its cycle's first in-place write.
 """
 
 from __future__ import annotations
@@ -43,7 +50,10 @@ from repro_torch.core.metadata import MetadataBuffer
 from repro_torch.core.resource import ResourceManager
 from repro_torch.core.scheduler import SchedulerConfig, SLOScheduler
 from repro_torch.kvcache.paged import PagedKVPool
+from repro_torch.launch.submesh import HandoffPolicy
 from repro_torch.models import transformer as T
+from repro_torch.obs import NULL_OBS, CycleEvent
+from repro_torch.resilience.faults import NULL_FAULTS, DispatchError
 from repro_torch.serving.request import Phase, Request, SLO
 
 
@@ -51,12 +61,13 @@ from repro_torch.serving.request import Phase, Request, SLO
 # step functions (the JAX package's jitted helpers)
 # ---------------------------------------------------------------------------
 
-def _decode_iteration(params, cache, tokens, pos, active, block_tables, *,
-                      cfg: ModelConfig):
+def _decode_iteration(params, cache, tokens, pos, active, block_tables=None,
+                      *, cfg: ModelConfig):
     """One continuous-batching decode iteration over all slots; inactive
-    slots are masked out of the sampled tokens. ``block_tables`` (B, n_b)'s
-    (bucketed) width is how many table columns the paged kernel may walk.
-    The page pool is updated in place."""
+    slots are masked out of the sampled tokens. ``block_tables`` (B, n_b)
+    selects the block-paged cache, its (bucketed) width how many table
+    columns the paged kernel may walk; without it ``cache`` is the dense
+    slot cache. The cache is updated in place."""
     logits, _ = T.decode_step(params, cache, tokens, pos, cfg,
                               block_tables=block_tables)
     next_tokens = logits.argmax(dim=-1).to(torch.int32)
@@ -67,6 +78,23 @@ def _final_tokens(params, x, lengths, *, cfg: ModelConfig):
     """Greedy first token of each prompt in a finished prefill batch."""
     logits = T.last_token_logits(params, x, lengths, cfg)
     return logits.argmax(dim=-1).to(torch.int32)
+
+
+def _prefill_group(params, x, positions, tmp_cache, lengths, *,
+                   cfg: ModelConfig, rep: int):
+    """Dense path: pattern-repeat group ``rep`` over the prompt batch; each
+    layer's KV is padded to the cache row length and written into repeat
+    ``rep`` of the batch's own cache ``tmp_cache`` (R, B, S, K, D), in
+    place. Returns the activations."""
+    x, entries = T.prefill_group(params, x, positions, rep, cfg)
+    for j, (blk, (k, v)) in enumerate(zip(cfg.pattern, entries)):
+        leaf = tmp_cache["blocks"][j]
+        tpl = {"k": leaf["k"][rep], "v": leaf["v"][rep]}
+        entry = T._prefill_cache_entry({"k": k, "v": v}, blk, cfg, lengths,
+                                       tpl, False)
+        tpl["k"].copy_(entry["k"])
+        tpl["v"].copy_(entry["v"])
+    return x
 
 
 def _scatter_group_pages(cache, entries, page_map, rep: int) -> None:
@@ -118,8 +146,15 @@ class EngineStats:
     #: OnlineRefitter rejected on its hysteresis margin
     refits: int = 0
     refits_rejected: int = 0
-    #: explicit / deadline cancels
+    #: resilience counters (docs/RESILIENCE.md): deadline/explicit
+    #: cancels, backpressure sheds, unwound prefill batches, dispatch
+    #: failures absorbed, and guard lattice transitions
     cancelled: int = 0
+    shed: int = 0
+    prefill_aborts: int = 0
+    dispatch_failures: int = 0
+    degrades: int = 0
+    restores: int = 0
     #: tokens the prefill engine computed
     prefill_tokens: int = 0
 
@@ -128,10 +163,11 @@ class DecodeWork(NamedTuple):
     """What the most recent decode iteration actually executed — consumed
     by estimator feedback so the work charged is the work that ran.
 
-    ``streamed`` is each running slot's share of the KV tokens the bucketed
-    table spans: ``max_slots × bucket·ps`` apportioned over the ``batch``
-    slots that ran, as in the JAX engine (the CUDA kernel itself reads
-    only live pages)."""
+    ``streamed`` is each running slot's share of the KV tokens the cache
+    stream spans: ``max_slots × bucket·ps`` (paged, the bucketed table) or
+    ``max_slots × max_len`` (dense, every slot's row), apportioned over the
+    ``batch`` slots that ran, as in the JAX engine (the CUDA kernels
+    themselves read only attended rows)."""
     batch: int
     mean_context: int
     contexts: Tuple[int, ...]             # live context per slot that ran
@@ -143,13 +179,16 @@ class PrefillTask:
     """Resumable prefill state for one prompt batch (paper §3.5): the
     activations after ``rep`` groups, persisted between layer-group
     launches so decode iterations — and new admissions — run between
-    groups. KV is scattered into pooled pages as each group finishes
-    (``page_map`` routes prompt blocks to physical pages)."""
+    groups. Paged: KV is scattered into pooled pages as each group
+    finishes (``page_map`` routes prompt blocks to physical pages). Dense:
+    each group's KV lands in the batch's own ``tmp_cache``, copied row by
+    row into the decode slots at migration."""
     batch: List[Request]
     x: torch.Tensor                       # activations after `rep` groups
     positions: torch.Tensor
     lengths: torch.Tensor
-    page_map: torch.Tensor                # (B, blocks) physical pages
+    page_map: Optional[torch.Tensor]      # (B, blocks) physical pages
+    tmp_cache: Optional[dict] = None      # dense: (R, B, max_len, K, D)
     n_tokens: int = 0                     # total prompt tokens in the batch
     rep: int = 0                          # next pattern-repeat group to run
 
@@ -171,8 +210,9 @@ class BulletServer:
                             "config=ServerConfig(slo=SLO(...))")
         if not T.supports_paged_cache(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: pattern {cfg.pattern} needs the dense slot "
-                "cache, which comes with a later slice of the port")
+                f"{cfg.name}: pattern {cfg.pattern}: the port serves pure "
+                "full-attention stacks; other mixers come with a later "
+                "slice (ROADMAP)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -185,6 +225,7 @@ class BulletServer:
         slo: SLO = config.slo
         sched = config.control.sched or SchedulerConfig()
         dtype = config.dtype if config.dtype is not None else torch.float32
+        paged = config.cache.paged
         fused = config.execution.fused
         refit = config.control.refit
         self.cfg = cfg
@@ -196,14 +237,40 @@ class BulletServer:
         self.max_len = config.max_len
         self.max_prefill_batch = config.max_prefill_batch
         self.stats = EngineStats()
+        #: observability sink (docs/OBSERVABILITY.md); NULL_OBS (disabled)
+        #: by default: every hook is gated on ``self.obs.enabled``
+        self.obs = config.obs if config.obs is not None else NULL_OBS
+        #: fault-injection seam (docs/RESILIENCE.md); NULL_FAULTS by
+        #: default, every seam gated on ``self.faults.enabled``
+        self.faults = config.faults if config.faults is not None \
+            else NULL_FAULTS
+        #: retry policy for cross-mesh handoffs; an attached SLOGuard
+        #: installs its own (the port has no chip granularity yet, so
+        #: nothing hands off)
+        self.handoff_policy = HandoffPolicy()
+        #: the cycle event awaiting its measured duration
+        self._open_cycle: Optional[CycleEvent] = None
         self.page_size = config.cache.page_size
         self.pool = PagedKVPool(self.max_slots * self.max_len,
                                 block_size=self.page_size)
-        # fused spatial prefill+decode execution (§3.5) by default; the
-        # serial path stays as numerics reference
-        self.fused = True if fused is None else fused
+        #: block-paged pool (default) or the dense fixed-slot cache
+        self.paged = True if paged is None else paged
+        # fused spatial prefill+decode execution (§3.5) by default wherever
+        # the cache is paged; the serial path stays as numerics reference
+        if fused is None:
+            fused = self.paged
+        elif fused and not self.paged:
+            raise ValueError(
+                f"{cfg.name}: fused spatial execution streams decode KV "
+                "from the block-paged pool; needs paged=True")
+        self.fused = fused
+        #: partition granularity; only "tile" is ported (the guard reads
+        #: and restores it)
+        self.partition = "tile"
+        self._chip_enabled = False
         sched = replace(sched, fused=self.fused)
         self.scheduler = SLOScheduler(cfg, self.est, slo, sched)
+        self.scheduler.obs = self.obs
         # pre-build one fused launcher per tile partition (§3.4.2) so
         # _switch selects among real execution states, not just numbers;
         # built even when serial so set_fused(True) can switch at once
@@ -228,18 +295,8 @@ class BulletServer:
             maxlen=1 << 17)
         #: observation indices at which a refit was applied
         self.refit_log: List[int] = []
-        # unified device page pool: PagedKVPool block ids address these
-        # pages directly; the trailing trash page absorbs masked writes
-        self.cache = T.init_paged_cache(cfg, self.pool.n_blocks,
-                                        self.page_size, dtype, self.device)
-        self.max_blocks = self.pool.blocks_for(self.max_len)
-        self._trash_page = self.pool.n_blocks
-        self._host_tables = np.full((self.max_slots, self.max_blocks),
-                                    self._trash_page, np.int32)
-        self._tables_dirty = False
-        #: device copies of the (sliced) host table, keyed by bucket width
-        #: — re-uploaded only when ownership changes
-        self._dev_tables: Dict[int, torch.Tensor] = {}
+        self.dtype = dtype
+        self._alloc_cache()
         # slot bookkeeping on the host; uploaded per iteration
         self.slot_req: List[Optional[Request]] = [None] * self.max_slots
         self.tokens = np.zeros((self.max_slots, 1), np.int32)
@@ -259,6 +316,32 @@ class BulletServer:
         self.last_fused: bool = False
         #: config_id of the pre-built executable the last fused cycle ran
         self.last_fused_exec: Optional[int] = None
+        #: SLO watchdog (resilience.guard.SLOGuard), consulted in step();
+        #: None runs ungoverned
+        self.guard = config.guard
+        if self.guard is not None:
+            self.guard.attach(self)
+
+    def _alloc_cache(self) -> None:
+        """Allocate the device cache of the current layout. Paged: the
+        unified page pool, whose PagedKVPool block ids address the pages
+        directly (the trailing trash page absorbs masked writes), and the
+        host block tables. Dense: one ``max_len`` row per slot."""
+        if self.paged:
+            self.cache = T.init_paged_cache(self.cfg, self.pool.n_blocks,
+                                            self.page_size, self.dtype,
+                                            self.device)
+            self.max_blocks = self.pool.blocks_for(self.max_len)
+            self._trash_page = self.pool.n_blocks
+            self._host_tables = np.full((self.max_slots, self.max_blocks),
+                                        self._trash_page, np.int32)
+            self._tables_dirty = False
+            #: device copies of the (sliced) host table, keyed by bucket
+            #: width — re-uploaded only when ownership changes
+            self._dev_tables: Dict[int, torch.Tensor] = {}
+        else:
+            self.cache = T.init_cache(self.cfg, self.max_slots, self.max_len,
+                                      self.dtype, self.device)
 
     def _build_fused_executable(self, part) -> FusedExecutable:
         """ResourceManager builder: one fused-step launcher per quantized
@@ -314,6 +397,11 @@ class BulletServer:
         req.phase = Phase.QUEUED
         req._prompt = np.asarray(prompt_tokens, np.int32)   # type: ignore
         self.pending.append(req)
+        if self.obs.enabled:
+            self.obs.requests_submitted.inc()
+            self.obs.spans.mark(req.rid, "submit", req.arrival,
+                                prompt_len=req.prompt_len,
+                                output_len=req.output_len)
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slot_req):
@@ -388,18 +476,11 @@ class BulletServer:
         if not victims:
             return False
         victim = max(victims, key=lambda r: r.arrival)
-        slot = victim._slot                                 # type: ignore
-        self.pool.preempt(victim.rid)
-        self._tables_dirty = True        # ownership moved back to the pool
-        self.active[slot] = False
-        self.slot_req[slot] = None
-        victim.phase = Phase.QUEUED
-        self.pending.append(victim)
+        self._unwind_request(victim, now, "preempt",
+                             generated=float(victim.generated))
+        if self.paged:
+            self._tables_dirty = True    # ownership moved back to the pool
         self.stats.preempted += 1
-        D = self.buffer.state.decode
-        if victim.rid in D.batch:
-            D.batch.remove(victim.rid)
-        self._drop_request_meta(victim.rid)
         return True
 
     def _admit_prefill(self, now: float) -> bool:
@@ -446,6 +527,13 @@ class BulletServer:
             self.slot_req[slot] = r
             r._slot = slot                                  # type: ignore
             self.buffer.state.prefill.queue_wait[r.rid] = now - r.arrival
+            if self.obs.enabled:
+                # a request with a generated prefix re-enters after a
+                # preemption: its span resumes instead of re-admitting
+                self.obs.spans.mark(
+                    r.rid,
+                    "resume" if self.outputs.get(r.rid) else "admit",
+                    now, queue_s=max(0.0, now - r.arrival))
         if not batch:
             return False
 
@@ -456,18 +544,25 @@ class BulletServer:
             toks[i, :lens[i]] = self._seq_tokens(r)
         x = T.embed_tokens(self.params, self._dev(toks), self.cfg)
         positions = torch.arange(plen, device=self.device)[None, :]
-        # route each request's prompt blocks to its pooled pages so layer
-        # groups scatter KV in place (no handoff copy)
-        self._tables_dirty = True
-        ps = self.page_size
-        page_map = np.full((len(batch), -(-plen // ps)), self._trash_page,
-                           np.int32)
-        for i, r in enumerate(batch):
-            blocks = self.pool.table(r.rid).blocks[:-(-lens[i] // ps)]
-            page_map[i, :len(blocks)] = blocks
+        page_map = tmp_cache = None
+        if self.paged:
+            # route each request's prompt blocks to its pooled pages so
+            # layer groups scatter KV in place (no handoff copy)
+            self._tables_dirty = True
+            ps = self.page_size
+            pm = np.full((len(batch), -(-plen // ps)), self._trash_page,
+                         np.int32)
+            for i, r in enumerate(batch):
+                blocks = self.pool.table(r.rid).blocks[:-(-lens[i] // ps)]
+                pm[i, :len(blocks)] = blocks
+            page_map = self._dev(pm)
+        else:
+            # temporary per-batch cache (copied slot-wise at migration)
+            tmp_cache = T.init_cache(self.cfg, len(batch), self.max_len,
+                                     self.dtype, self.device)
         self.ptask = PrefillTask(
             batch, x, positions, self._dev(np.asarray(lens, np.int32)),
-            self._dev(page_map), n_tokens=int(sum(lens)))
+            page_map, tmp_cache, n_tokens=int(sum(lens)))
         self.stats.prefill_tokens += self.ptask.n_tokens
         P = self.buffer.state.prefill
         P.active_rid = batch[0].rid
@@ -496,9 +591,18 @@ class BulletServer:
         """Launch ONE pattern-repeat group of ``task`` (serial dispatch —
         the fused cycle launches its group inside the fused step instead)
         and migrate to decode when the last group completes."""
-        task.x, entries = T.prefill_group(self.params, task.x,
-                                          task.positions, task.rep, self.cfg)
-        _scatter_group_pages(self.cache, entries, task.page_map, task.rep)
+        if self.faults.enabled:
+            self.faults.dispatch("prefill")
+        if self.paged:
+            task.x, entries = T.prefill_group(self.params, task.x,
+                                              task.positions, task.rep,
+                                              self.cfg)
+            _scatter_group_pages(self.cache, entries, task.page_map,
+                                 task.rep)
+        else:
+            task.x = _prefill_group(self.params, task.x, task.positions,
+                                    task.tmp_cache, task.lengths,
+                                    cfg=self.cfg, rep=task.rep)
         self._prefill_group_done(task, now)
 
     def _prefill_group_done(self, task: PrefillTask, now: float) -> None:
@@ -512,22 +616,27 @@ class BulletServer:
         P.layers_done = task.rep * len(self.cfg.pattern)
         for r in task.batch:
             r.prefill_done_layers = P.layers_done
+            if self.obs.enabled:
+                self.obs.spans.mark(r.rid, "prefill_group", now,
+                                    rep=float(task.rep - 1))
         if task.rep >= self.cfg.n_pattern_repeats:
             self._finish_prefill(task, now)
             self.ptask = None
 
     def _finish_prefill(self, task: PrefillTask, now: float) -> None:
-        """Migrate the finished batch to decode: the KV already sits in
-        pooled pages, so the handoff is pure block-table ownership
-        (pool.migrate) — no device copy. Requests cancelled mid-prefill
-        (``cancel_reason`` set) are finalized here instead: pages freed,
-        no token emitted."""
+        """Migrate the finished batch to decode. Paged: the KV already
+        sits in pooled pages, so the handoff is pure block-table ownership
+        (pool.migrate) — no device copy. Dense: copy each request's
+        ``max_len`` row of the batch cache into its decode slot, in place.
+        Requests cancelled mid-prefill (``cancel_reason`` set) are
+        finalized here instead: pages freed, no token emitted."""
         first_tokens = _final_tokens(self.params, task.x, task.lengths,
                                      cfg=self.cfg).cpu().numpy()
         P = self.buffer.state.prefill
-        # migrated slots flip PREFILL->DECODE: re-map their pages into the
-        # device tables before the next decode iteration
-        self._tables_dirty = True
+        if self.paged:
+            # migrated slots flip PREFILL->DECODE: re-map their pages into
+            # the device tables before the next decode iteration
+            self._tables_dirty = True
         for i, r in enumerate(task.batch):
             slot = r._slot                                  # type: ignore
             if r.cancel_reason is not None:
@@ -535,6 +644,11 @@ class BulletServer:
                 self.slot_req[slot] = None
                 self._cancelled(r, now, r.cancel_reason)
                 continue
+            if not self.paged:
+                for leaf, src in zip(self.cache["blocks"],
+                                     task.tmp_cache["blocks"]):
+                    for key in leaf:
+                        leaf[key][:, slot].copy_(src[key][:, i])
             tok = int(first_tokens[i])
             prefix = self.outputs.get(r.rid)
             if prefix is None:
@@ -550,6 +664,10 @@ class BulletServer:
             self.active[slot] = True
             self.pool.migrate(r.rid)
             self.stats.migrated += 1
+            if self.obs.enabled:
+                self.obs.spans.mark(r.rid, "migrate", now)
+                if prefix is None:
+                    self.obs.spans.mark(r.rid, "first_token", now)
             self.buffer.write(lambda s, rid=r.rid: s.ready_for_decode.append(
                 (rid, self.outputs[rid][-1])))
             if self.on_token is not None:
@@ -566,8 +684,13 @@ class BulletServer:
         r.phase = Phase.FINISHED
         r.finish_time = now
         self.finished.append(r)
+        if self.obs.enabled:
+            self.obs.requests_finished.inc()
+            self.obs.spans.mark(r.rid, "finish", now,
+                                generated=float(r.generated))
         self.pool.free(r.rid)
-        self._tables_dirty = True
+        if self.paged:
+            self._tables_dirty = True
         self.slot_req[slot] = None
         self.active[slot] = False
         self._drop_request_meta(r.rid)
@@ -599,7 +722,8 @@ class BulletServer:
         else:                                   # DECODE: live slot
             slot = r._slot                                  # type: ignore
             self.pool.free(r.rid)
-            self._tables_dirty = True
+            if self.paged:
+                self._tables_dirty = True
             self.slot_req[slot] = None
             self.active[slot] = False
             D = self.buffer.state.decode
@@ -608,33 +732,114 @@ class BulletServer:
         self._cancelled(r, now, why)
 
     def _cancelled(self, r: Request, now: float, why: str) -> None:
+        """Terminal cancel bookkeeping shared by the immediate and the
+        deferred (mid-prefill) paths."""
         r.phase = Phase.CANCELLED
         r.cancel_reason = why
         r.finish_time = now
         self.stats.cancelled += 1
+        if self.obs.enabled:
+            self.obs.requests_cancelled.labels(why=why).inc()
+            self.obs.spans.mark(r.rid, "cancel", now, why=why)
         self._drop_request_meta(r.rid)
 
+    def _unwind_request(self, r: Request, now: float, event: str,
+                        **span) -> None:
+        """Return a live request to the pending queue: its pool blocks go
+        back to the allocator (it re-prefills from scratch, generated
+        prefix included), its slot empties."""
+        self.pool.preempt(r.rid)
+        slot = r._slot                                      # type: ignore
+        self.slot_req[slot] = None
+        self.active[slot] = False
+        r.phase = Phase.QUEUED
+        self.pending.append(r)
+        if self.obs.enabled:
+            self.obs.spans.mark(r.rid, event, now, **span)
+        D = self.buffer.state.decode
+        if r.rid in D.batch:
+            D.batch.remove(r.rid)
+        self._drop_request_meta(r.rid)
+
+    def _abort_prefill_task(self, task: PrefillTask, now: float) -> None:
+        """Unwind an in-flight prefill batch without migrating: release
+        every request's pages and requeue the survivors (they re-prefill
+        from scratch deterministically, like a preemption); requests
+        already marked for cancellation end here. The caller clears
+        ``self.ptask``."""
+        for r in task.batch:
+            if r.cancel_reason is not None:
+                slot = r._slot                              # type: ignore
+                self.slot_req[slot] = None
+                self.active[slot] = False
+                self.pool.free(r.rid)
+                self._cancelled(r, now, r.cancel_reason)
+                continue
+            self._unwind_request(r, now, "abort", rep=float(task.rep))
+        self.stats.prefill_aborts += 1
+        if self.paged:
+            self._tables_dirty = True
+        P = self.buffer.state.prefill
+        P.active_rid = None
+        P.layers_done = 0
+        P.n_tokens = 0
+
     def set_fused(self, flag: bool) -> None:
-        """Flip fused spatial co-execution on/off at a cycle boundary. The
-        scheduler's contention model follows the execution mode."""
+        """Flip fused spatial co-execution on/off at a cycle boundary (the
+        guard's fused→serial rung). The scheduler's contention model
+        follows the execution mode."""
         if flag == self.fused:
             return
+        if flag and not self.paged:
+            raise ValueError("fused execution needs the paged cache")
         self.fused = flag
         self.scheduler.sc = replace(self.scheduler.sc, fused=flag)
 
+    def set_cache_mode(self, paged: bool, now: float) -> None:
+        """Swap between the block-paged pool and the dense fixed-slot
+        layout (the guard's paged→dense rung, and its restore). The two
+        layouts share no device state, so all in-flight work is unwound
+        first: the prefill batch aborts back to the queue and every decode
+        slot is preempted with its generated prefix; both re-enter through
+        normal admission and re-prefill deterministically. The old cache is
+        released before the new one is allocated, so the two never sit on
+        the card at once."""
+        if paged == self.paged:
+            return
+        assert not self.fused, "degrade fused→serial before paged→dense"
+        if self.ptask is not None:
+            self._abort_prefill_task(self.ptask, now)
+            self.ptask = None
+        for r in self.slot_req:
+            if r is None:
+                continue
+            self._unwind_request(r, now, "preempt",
+                                 generated=float(r.generated))
+            self.stats.preempted += 1
+        self.paged = paged
+        self.cache = None
+        self._dev_tables = {}
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self._alloc_cache()
+
     def check_invariants(self) -> None:
-        """Crash-on-corruption audit: pool block ownership is a partition
-        of allocated pages; every pool owner is a live request; slot
-        bookkeeping agrees with request phases."""
+        """Crash-on-corruption audit, run by chaos replays after every
+        cycle: pool block ownership is a partition of allocated pages;
+        every pool owner is a live request (fault-injected pool-squeeze
+        phantoms are accounted); slot bookkeeping agrees with request
+        phases; live spans are well-ordered."""
         self.pool.check_invariants()
         owners = set(self.pool.owners())
         holders = {r.rid for r in self.slot_req if r is not None}
         if self.ptask is not None:
             holders |= {r.rid for r in self.ptask.batch}
-        leaked = owners - holders
+        phantoms = self.faults.phantom_rids() if self.faults.enabled \
+            else set()
+        leaked = owners - holders - phantoms
         assert not leaked, (
             f"pool pages leaked: rids {sorted(leaked)} own blocks but are "
-            f"neither in a slot nor in the prefill batch")
+            f"neither in a slot, the prefill batch, nor fault phantoms")
         for slot, r in enumerate(self.slot_req):
             if r is None:
                 assert not bool(self.active[slot]), \
@@ -649,20 +854,29 @@ class BulletServer:
             assert bool(self.active[slot]) == (r.phase == Phase.DECODE), (
                 f"slot {slot} rid {r.rid}: active={bool(self.active[slot])}"
                 f" but phase={r.phase}")
+        if self.obs.enabled:
+            self.obs.spans.check_invariants()
 
     # -- decode engine ----------------------------------------------------
     def _decode_inputs(self):
-        """(ctxs_ran, n_b, streamed, device tensors) for one iteration."""
+        """(ctxs_ran, streamed, device tensors) for one iteration: the live
+        context of each slot that runs, the KV tokens charged to each, and
+        tokens, pos, active and (paged) the bucketed block tables — None
+        for the dense cache."""
         ctxs_ran = tuple(int(p) + 1 for p, a in zip(self.pos, self.active)
                          if a)
         n_ran = len(ctxs_ran)
-        if self._tables_dirty:
-            self._sync_tables()
-        n_b = self._decode_block_bucket(ctxs_ran)
-        streamed = (n_b * self.page_size * self.max_slots
-                    // max(n_ran, 1),) * n_ran
+        if self.paged:
+            if self._tables_dirty:
+                self._sync_tables()
+            n_b = self._decode_block_bucket(ctxs_ran)
+            span = n_b * self.page_size
+            bt = self._device_tables(n_b)
+        else:
+            span, bt = self.max_len, None
+        streamed = (span * self.max_slots // max(n_ran, 1),) * n_ran
         dev = (self._dev(self.tokens), self._dev(self.pos),
-               self._dev(self.active), self._device_tables(n_b))
+               self._dev(self.active), bt)
         return ctxs_ran, streamed, dev
 
     def _decode_cycle(self, now: float) -> bool:
@@ -677,6 +891,8 @@ class BulletServer:
             return False
         self.buffer.state.decode.paused = False
         self._switch(decision.resources)
+        if self.faults.enabled:
+            self.faults.dispatch("decode")
         act_np = self.active.copy()
         ctxs_ran, streamed, (tokens, pos, active, bt) = self._decode_inputs()
         next_tokens = _decode_iteration(self.params, self.cache, tokens, pos,
@@ -740,6 +956,8 @@ class BulletServer:
             return True
         self.buffer.state.decode.paused = False
         ex = self.rm.executable()
+        if self.faults.enabled:
+            self.faults.dispatch("fused")
         act_np = self.active.copy()
         ctxs_ran, streamed, (tokens, pos, active, bt) = self._decode_inputs()
         task.x, next_tokens = ex.fn(
@@ -785,6 +1003,11 @@ class BulletServer:
             return
         pred = predict_cycle(self.est, self.cfg, obs)
         self.pred_actual.append((obs.kind, pred, actual_s))
+        if self.guard is not None:
+            self.guard.on_cycle_actual(self, obs.kind, pred, actual_s)
+        if self.obs.enabled and self._open_cycle is not None:
+            self.obs.complete_cycle(self._open_cycle, actual_s)
+            self._open_cycle = None
         if self.refitter is not None:
             self.refitter.observe(obs, actual_s)
             self._obs_since_refit += 1
@@ -805,6 +1028,37 @@ class BulletServer:
             self.stats.refits += 1
             self.refit_log.append(len(self.pred_actual))
 
+    # -- observability (docs/OBSERVABILITY.md) ----------------------------
+    def _record_cycle_event(self, now: float) -> None:
+        """Append the cycle that step() just executed to the structured
+        trace: kind, the partition that ran, predicted duration (the
+        actual arrives via record_cycle_actual), KV-pool occupancy and
+        the scheduler's rationale. No-op when the step ran no device
+        work."""
+        self._open_cycle = None
+        rec = self.last_cycle_observation()
+        if rec is None:
+            return
+        R = self.buffer.state.resources
+        d = self.scheduler.last_decision
+        ev = CycleEvent(
+            t=now, kind=rec.kind,
+            predicted_s=predict_cycle(self.est, self.cfg, rec),
+            config_id=R.config_id, granularity=R.granularity,
+            prefill_units=R.prefill_units, decode_units=R.decode_units,
+            prefill_chips=R.prefill_chips, decode_chips=R.decode_chips,
+            prefill_tokens=self.last_prefill_tokens,
+            decode_batch=(self.last_decode.batch
+                          if self.last_decode is not None else 0),
+            kv_used_blocks=self.pool.allocated_blocks,
+            kv_total_blocks=self.pool.n_blocks,
+            kv_occupancy=self.pool.occupancy(),
+            kv_fragmentation=self.pool.fragmentation(),
+            paused=self.buffer.state.decode.paused,
+            reason=d.reason if d is not None else "")
+        self.obs.record_cycle(ev)
+        self._open_cycle = ev
+
     # -- main loop --------------------------------------------------------
     def step(self, now: float) -> bool:
         """One engine cycle at time ``now``: admit newly-pending prompts,
@@ -812,7 +1066,26 @@ class BulletServer:
         single fused cycle when both phases are co-resident (and the
         engine runs fused), as serial back-to-back launches otherwise.
         Returns True if any engine did work."""
+        if self.guard is not None:
+            self.guard.before_step(self, now)
+        try:
+            did = self._step_inner(now)
+        except DispatchError as e:
+            if self.guard is None:
+                raise
+            # the cycle's work is lost, but the seam raised before the
+            # cycle's first launch or in-place write of that kind; the
+            # guard counts the failure and degrades once failures persist
+            self.guard.on_dispatch_failure(self, e, now)
+            did = True
+        if self.obs.enabled:
+            self._record_cycle_event(now)
+        return did
+
+    def _step_inner(self, now: float) -> bool:
         self._maybe_refit()
+        if self.faults.enabled:
+            self.faults.begin_cycle(self)
         self.last_prefill_tokens = 0
         self.last_decode = None
         self.last_fused = False

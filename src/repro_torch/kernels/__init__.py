@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for the attention of the Bullet serving path
-(prefill flash attention, paged decode attention, and the fused bullet
-launch that splits the SMs between them), with their wrappers, launch
-counters and plain PyTorch versions. ``build.py`` compiles ``csrc/`` with
-``nvcc`` on first use; nothing here builds or imports CUDA at import."""
+(prefill flash attention, decode attention over the page pool and over a
+dense per-slot cache, and the fused bullet launches that split the SMs
+between prefill and either decode), with their wrappers, launch counters
+and plain PyTorch versions. ``build.py`` compiles ``csrc/`` with ``nvcc``
+on first use; nothing here builds or imports CUDA at import."""

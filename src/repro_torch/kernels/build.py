@@ -36,7 +36,9 @@ SIGNATURES = {
     "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6
                                   + [_I] * 9 + [_P],
-    "bullet_ctas_per_sm": [_I] * 4 + [ctypes.POINTER(_I)],
+    "decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_P],
+    "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 8 + [_P],
+    "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
 }
 
 

@@ -28,6 +28,21 @@
 //   neighbouring threads on neighbouring addresses, and packs the G query
 //   heads of a kv head into one CTA so a page is read once for all of them.
 //
+// decode_attention_fwd
+//   Replaces src/repro/kernels/decode_attention.py:62 `decode_attention`
+//   (pl.pallas_call at :82). One-token GQA decode over a dense per-slot
+//   cache (B, S, K, D), masked by kv_positions (B, S): row j of slot b is
+//   attended when 0 <= kv_positions[b, j] <= pos[b], so ring caches (any
+//   order of positions, holes of -1) work; any S works (the tail tile is
+//   masked, not padded). One CTA per (slot, kv head) walks the slot's rows
+//   in tiles of DECODE_TILE = 16 rows, reads each tile's positions first
+//   and skips a tile none of whose rows is attended: the decision is taken
+//   from the positions, never from the tile's index. Bound: bytes (the K/V
+//   rows of attended positions, as for paged decode); the design reads
+//   only tiles that hold an attended row, once, for all G query heads. With
+//   linear positions it walks paged_decode_fwd's rows in the same 16-row
+//   tiles with the same arithmetic, so the two agree bit for bit.
+//
 // bullet_attention_paged_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:260
 //   `bullet_attention_paged` (pl.pallas_call at :305). One persistent
@@ -45,8 +60,16 @@
 //   standalone flash kernel's CTAs per SM. Its per-item bodies are the
 //   standalone kernels' device functions at the same block size, so its
 //   outputs equal flash_attention_fwd + paged_decode_fwd bit for bit.
+//
+// bullet_attention_fwd
+//   Replaces src/repro/kernels/bullet_attention.py:361 `bullet_attention`
+//   (pl.pallas_call at :400): the same persistent launch with the dense
+//   decode body (decode_item) in place of the paged one, so its outputs
+//   equal flash_attention_fwd + decode_attention_fwd bit for bit at every
+//   decode_share. Bound: as bullet_attention_paged_fwd.
 
 #include <cmath>
+#include <type_traits>
 
 #include "attention.cuh"
 
@@ -70,13 +93,25 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-    bullet_kernel(FlashArgs fa, DecodeArgs da, int n_dec) {
+    decode_kernel(DenseDecodeArgs a) {
+  extern __shared__ float smem[];
+  decode_item<T, D>(a, blockIdx.x, smem);
+}
+
+// DA = DecodeArgs (paged cache) or DenseDecodeArgs (dense cache)
+template <typename T, int D, typename DA>
+__global__ void __launch_bounds__(THREADS)
+    bullet_kernel(FlashArgs fa, DA da, int n_dec) {
   extern __shared__ float smem[];
   const int cta = blockIdx.x;
   if (cta < n_dec) {
     const int n_items = da.b * da.kh;
-    for (int item = cta; item < n_items; item += n_dec)
-      paged_decode_item<T, D>(da, item, smem);
+    for (int item = cta; item < n_items; item += n_dec) {
+      if constexpr (std::is_same<DA, DecodeArgs>::value)
+        paged_decode_item<T, D>(da, item, smem);
+      else
+        decode_item<T, D>(da, item, smem);
+    }
   } else {
     const int n_pre = gridDim.x - n_dec;
     const int n_items = fa.bh * flash_q_tiles(fa.sq);
@@ -114,27 +149,41 @@ int launch_decode(const DecodeArgs &a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-inline size_t bullet_smem(int g, int ps, int d) {
-  const size_t f = sizeof(float) * flash_smem_floats(d);
-  const size_t dd = sizeof(float) * decode_smem_floats(g, ps, d);
-  return f > dd ? f : dd;
-}
-
 template <typename T, int D>
-int launch_bullet(const FlashArgs &fa, const DecodeArgs &da, int n_dec,
-                  int n_ctas, cudaStream_t s) {
-  const size_t smem = bullet_smem(da.g, da.ps, D);
-  auto kern = bullet_kernel<T, D>;
+int launch_dense_decode(const DenseDecodeArgs &a, cudaStream_t s) {
+  const size_t smem = sizeof(float) * decode_smem_floats(a.g, DECODE_TILE, D);
+  auto kern = decode_kernel<T, D>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  bullet_kernel<T, D><<<n_ctas, THREADS, smem, s>>>(fa, da, n_dec);
+  decode_kernel<T, D><<<a.b * a.kh, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int bullet_occupancy(int g, int ps, int *ctas_per_sm) {
-  const size_t smem = bullet_smem(g, ps, D);
-  auto kern = bullet_kernel<T, D>;
+// rows of one decode tile: a page (paged cache) or DECODE_TILE (dense)
+inline int tile_rows(const DecodeArgs &a) { return a.ps; }
+inline int tile_rows(const DenseDecodeArgs &) { return DECODE_TILE; }
+
+inline size_t bullet_smem(int g, int rows, int d) {
+  const size_t f = sizeof(float) * flash_smem_floats(d);
+  const size_t dd = sizeof(float) * decode_smem_floats(g, rows, d);
+  return f > dd ? f : dd;
+}
+
+template <typename T, int D, typename DA>
+int launch_bullet(const FlashArgs &fa, const DA &da, int n_dec, int n_ctas,
+                  cudaStream_t s) {
+  const size_t smem = bullet_smem(da.g, tile_rows(da), D);
+  auto kern = bullet_kernel<T, D, DA>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  bullet_kernel<T, D, DA><<<n_ctas, THREADS, smem, s>>>(fa, da, n_dec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, typename DA>
+int bullet_occupancy(int g, int rows, int *ctas_per_sm) {
+  const size_t smem = bullet_smem(g, rows, D);
+  auto kern = bullet_kernel<T, D, DA>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -196,10 +245,41 @@ int bullet_attention_paged_fwd(
   DISPATCH(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
 }
 
-// CTAs of bullet_kernel one SM holds at once (the persistent grid is this
-// times the SM count), for the current device
-int bullet_ctas_per_sm(int d, int dtype, int g, int ps, int *ctas_per_sm) {
-  DISPATCH(d, dtype, (bullet_occupancy<T, D>(g, ps, ctas_per_sm)));
+int decode_attention_fwd(const void *q, const void *k, const void *v,
+                         const int *kv_positions, const int *pos, void *o,
+                         int b, int kh, int g, int d, int s_len, int dtype,
+                         void *stream) {
+  DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
+                    1.0f / sqrtf((float)d)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(d, dtype, (launch_dense_decode<T, D>(a, s)));
+}
+
+int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
+                         void *op, int bh, int sp, int group, int causal,
+                         int window, const void *qd, const void *kd,
+                         const void *vd, const int *kv_positions,
+                         const int *pos, void *od, int b, int kh, int g,
+                         int s_len, int d, int dtype, int n_dec, int n_ctas,
+                         void *stream) {
+  const float scale = 1.0f / sqrtf((float)d);
+  FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
+  DenseDecodeArgs da{qd, kd, vd, kv_positions, pos, od, b, kh, g, s_len,
+                     scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
+}
+
+// CTAs of the bullet kernel one SM holds at once (the persistent grid is
+// this times the SM count), for the current device: the paged variant
+// (dense = 0, tiles of ps rows) or the dense one (dense = 1)
+int bullet_ctas_per_sm(int d, int dtype, int g, int ps, int dense,
+                       int *ctas_per_sm) {
+  if (dense)
+    DISPATCH(d, dtype, (bullet_occupancy<T, D, DenseDecodeArgs>(
+                           g, DECODE_TILE, ctas_per_sm)));
+  DISPATCH(d, dtype,
+           (bullet_occupancy<T, D, DecodeArgs>(g, ps, ctas_per_sm)));
 }
 
 const char *attention_error_string(int code) {

@@ -1,19 +1,21 @@
-// Device bodies shared by the three attention kernels of attention.cu.
+// Device bodies shared by the five attention kernels of attention.cu.
 //
 // Each body computes ONE work item with the whole CTA (THREADS threads):
 //   flash_item        one (batch*head, query tile) of causal / windowed
 //                     prefill attention, online softmax over KV tiles;
 //   paged_decode_item one (slot, kv head) of single-token GQA decode over
-//                     the shared page pool, online softmax over pages.
-// The standalone kernels run one item per CTA; the fused bullet kernel
-// loops its CTAs over items of either kind. Because the fused kernel
-// calls these same bodies with the same block size, its outputs equal the
-// standalone kernels' bit for bit.
+//                     the shared page pool, online softmax over pages;
+//   decode_item       the same over a dense per-slot cache, masked by
+//                     kv_positions (ring caches included).
+// The standalone kernels run one item per CTA; the fused bullet
+// kernels loop their CTAs over items of either kind. Because the fused
+// kernels call these same bodies with the same block size, their outputs
+// equal the standalone kernels' bit for bit.
 //
 // Numerics follow the TPU kernels they replace: q is scaled by D^-0.5 in
 // fp32, logits, softmax statistics and accumulators stay fp32, masked
 // logits are -1e30, out = acc / max(l, 1e-30). A decode slot with pos < 0
-// walks no page and returns zeros.
+// (or, dense, no attended row) walks no tile and returns zeros.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -176,10 +178,10 @@ __device__ void flash_item(const FlashArgs &a, int item, float *smem) {
 }
 
 // -------------------------------------------------------------------------
-// Decode: one token per slot over the page pool (P+1, ps, K, D).
+// Decode: one token per slot, over the page pool or over a per-slot cache.
 // -------------------------------------------------------------------------
 
-struct DecodeArgs {
+struct DecodeArgs {              // the paged cache
   const void *q;                 // (B, K, G, D)
   const void *kp, *vp;           // (P+1, ps, K, D)
   const int *bt;                 // (B, n_b) physical page per block
@@ -189,10 +191,26 @@ struct DecodeArgs {
   float scale;
 };
 
-// shared floats: q [G][D], K page [ps][D], V page [ps][D], scores [G][ps],
-// acc [G][D], m / l / alpha [G]
-__host__ __device__ inline int decode_smem_floats(int g, int ps, int d) {
-  return 2 * g * d + 2 * ps * d + g * ps + 3 * g;
+struct DenseDecodeArgs {         // the dense per-slot cache
+  const void *q;                 // (B, K, G, D)
+  const void *k, *v;             // (B, S, K, D)
+  const int *kvpos;              // (B, S) absolute position per row, <0 empty
+  const int *pos;                // (B,) position of the new token
+  void *o;                       // (B, K, G, D)
+  int b, kh, g, s;
+  float scale;
+};
+
+// rows per tile of the dense cache: the paged pool's page size, so that with
+// linear positions dense and paged decode walk the same rows in the same
+// tiles
+constexpr int DECODE_TILE = 16;
+
+// shared floats: q [G][D], K tile [rows][D], V tile [rows][D], scores
+// [G][rows], acc [G][D], m / l / alpha [G], then (dense) one int per tile
+// row: the row is attended
+__host__ __device__ inline int decode_smem_floats(int g, int rows, int d) {
+  return 2 * g * d + 2 * rows * d + g * rows + 3 * g + rows;
 }
 
 // One (slot, kv head) item: the G query heads of that kv head share the
@@ -290,6 +308,123 @@ __device__ void paged_decode_item(const DecodeArgs &a, int item,
   __syncthreads();
   for (int e = tid; e < G * D; e += THREADS)
     o[qo + e] = from_f<T>(acc[e] / fmaxf(ls[e / D], 1e-30f));
+}
+
+// One (slot b, kv head h) item over the dense per-slot cache: the G query
+// heads of that kv head share the CTA and walk the slot's S rows in tiles of
+// DECODE_TILE rows with an online softmax. Row j is attended when
+// 0 <= kv_positions[b, j] <= pos; the tail tile is masked, so any S works.
+// A tile none of whose rows is attended is skipped whole (it would leave m,
+// l and acc unchanged exactly); that is decided from the positions, never
+// from the tile's index, since a ring cache's rows are not ordered by
+// position. A slot with no attended row returns zeros. Products and sums
+// are spelled with the round-to-nearest intrinsics in the order of the
+// paged body's compiled arithmetic, so with linear positions the two agree
+// bit for bit (tests/port/test_torch_kernels_cuda.py checks it on the card).
+template <typename T, int D>
+__device__ void decode_item(const DenseDecodeArgs &a, int item,
+                            float *smem) {
+  constexpr int R = DECODE_TILE;
+  const T *q = static_cast<const T *>(a.q);
+  const T *kc = static_cast<const T *>(a.k);
+  const T *vc = static_cast<const T *>(a.v);
+  T *o = static_cast<T *>(a.o);
+  const int G = a.g;
+  float *qs = smem;
+  float *ks = qs + G * D;
+  float *vs = ks + R * D;
+  float *sc = vs + R * D;
+  float *acc = sc + G * R;
+  float *ms = acc + G * D;
+  float *ls = ms + G;
+  float *al = ls + G;
+  int *ok = reinterpret_cast<int *>(al + G);
+
+  const int b = item / a.kh, h = item % a.kh;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int pos = a.pos[b];
+  const int n_tiles = pos < 0 ? 0 : (a.s + R - 1) / R;
+  const size_t qo = ((size_t)b * a.kh + h) * G * D;
+
+  __syncthreads();  // smem may still be read by the previous item
+  for (int e = tid; e < G * D; e += THREADS) {
+    qs[e] = __fmul_rn(to_f(q[qo + e]), a.scale);
+    acc[e] = 0.f;
+  }
+  for (int e = tid; e < G; e += THREADS) {
+    ms[e] = NEG_INF;
+    ls[e] = 0.f;
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncthreads();  // previous tile fully consumed
+    int any = 0;
+    for (int t = tid; t < R; t += THREADS) {
+      const int j = i * R + t;                // row of the slot
+      const int p = j < a.s ? a.kvpos[(size_t)b * a.s + j] : -1;
+      ok[t] = p >= 0 && p <= pos;
+      any |= ok[t];
+    }
+    if (!__syncthreads_or(any)) continue;   // uniform across the CTA
+    const size_t row0 = (size_t)b * a.s + (size_t)i * R;  // the tile's row 0
+    const int live = min(R, a.s - i * R);                 // rows that exist
+    for (int e = tid; e < R * D; e += THREADS) {
+      const int t = e / D, d = e % D;
+      const size_t gi = ((row0 + t) * a.kh + h) * D + d;
+      ks[e] = t < live ? to_f(kc[gi]) : 0.f;
+      vs[e] = t < live ? to_f(vc[gi]) : 0.f;
+    }
+    __syncthreads();
+    // scores: one warp per (g, t), lanes split the head dim
+    for (int s = warp; s < G * R; s += WARPS) {
+      const int gg = s / R, t = s % R;
+      float part = 0.f;
+      for (int d = lane; d < D; d += 32)
+        part = __fmaf_rn(qs[gg * D + d], ks[t * D + d], part);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
+      if (lane == 0) sc[s] = ok[t] ? part : NEG_INF;
+    }
+    __syncthreads();
+    // online softmax: one warp per query head g
+    for (int gg = warp; gg < G; gg += WARPS) {
+      float tmax = NEG_INF;
+      for (int t = lane; t < R; t += 32) tmax = fmaxf(tmax, sc[gg * R + t]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_old = ms[gg];
+      const float m_new = fmaxf(m_old, tmax);
+      float psum = 0.f;
+      for (int t = lane; t < R; t += 32) {
+        const float p = ok[t] ? expf(__fsub_rn(sc[gg * R + t], m_new)) : 0.f;
+        sc[gg * R + t] = p;
+        psum = __fadd_rn(psum, p);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, off));
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(__fsub_rn(m_old, m_new));
+        al[gg] = alpha;
+        ls[gg] = __fmaf_rn(ls[gg], alpha, psum);
+        ms[gg] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < G * D; e += THREADS) {
+      const int gg = e / D, d = e % D;
+      float x = __fmul_rn(acc[e], al[gg]);
+      for (int t = 0; t < R; ++t)
+        x = __fmaf_rn(sc[gg * R + t], vs[t * D + d], x);
+      acc[e] = x;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += THREADS)
+    o[qo + e] = from_f<T>(__fdiv_rn(acc[e], fmaxf(ls[e / D], 1e-30f)));
 }
 
 }  // namespace bullet

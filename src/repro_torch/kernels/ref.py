@@ -13,12 +13,14 @@ port's CPU engine reproduces the JAX engine token for token:
 
 The oracles of the JAX package's ``kernels/ref.py`` are adapters of that
 math to the kernel layouts (``flash_attention_ref``,
-``paged_decode_attention_ref``, ``bullet_attention_paged_ref``); the
-dense-cache and scan oracles come with their kernels in a later slice.
+``decode_attention_ref``, ``paged_decode_attention_ref``,
+``bullet_attention_ref``, ``bullet_attention_paged_ref``); the scan
+oracles come with their kernels in a later slice.
 
-An inactive decode slot (pos < 0) masks every key: here, as in the JAX
-reference, its softmax is uniform and returns the mean of V, where the
-kernels return zeros. The engine discards those rows either way.
+A decode slot with no attended key (pos < 0, or, dense, no kv position in
+[0, pos]) masks every key: here, as in the JAX reference, its softmax is
+uniform and returns the mean of V, where the kernels return zeros. The
+engine discards those rows either way.
 """
 
 from __future__ import annotations
@@ -150,6 +152,15 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.transpose(1, 2).reshape(bh, sq, d)
 
 
+def decode_attention_ref(q, k_cache, v_cache, kv_positions, pos):
+    """q: (B, K, G, D); caches: (B, S, K, D); kv_positions: (B, S); pos:
+    (B,). Returns (B, K, G, D)."""
+    b, kh, g, d = q.shape
+    o = decode_attention(q.reshape(b, 1, kh * g, d), k_cache, v_cache,
+                         kv_positions, pos)
+    return o.reshape(b, kh, g, d)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos):
     """q: (B, K, G, D); pages: (P+1, ps, K, D); block_tables: (B, n_b);
     pos: (B,). Returns (B, K, G, D)."""
@@ -157,6 +168,15 @@ def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos):
     o = paged_decode_ref(q.reshape(b, 1, kh * g, d), k_pages, v_pages,
                          block_tables, pos)
     return o.reshape(b, kh, g, d)
+
+
+def bullet_attention_ref(qp, kp, vp, qd, k_cache, v_cache, kv_positions,
+                         pos, *, causal=True, window=0, group=1):
+    """Fused hybrid batch = prefill flash + dense decode, back to back."""
+    out_p = flash_attention_ref(qp, kp, vp, causal=causal, window=window,
+                                group=group)
+    out_d = decode_attention_ref(qd, k_cache, v_cache, kv_positions, pos)
+    return out_p, out_d
 
 
 def bullet_attention_paged_ref(qp, kp, vp, qd, k_pages, v_pages,

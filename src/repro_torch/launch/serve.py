@@ -1,13 +1,20 @@
 """Serving launcher of the PyTorch port.
 
-Mode ``host`` (the only one ported so far): run the Bullet runtime
-(paged KV pool, fused prefill+decode cycles, SLO scheduler) over a
-reduced model variant with seeded random weights, on one CUDA card by
-default or on the CPU with ``--device cpu``.
+Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
+
+- host (default): run the Bullet runtime (paged KV pool, fused
+  prefill+decode cycles, SLO scheduler) over a reduced model variant with
+  seeded random weights on a batch of requests.
+- replay: online trace replay through the ``OnlineFrontend``: a
+  ``generate_trace`` workload (capped at ``--requests``, lengths fitted to
+  ``--max-len``) is released into the engine by arrival time on a
+  deterministic virtual clock or the (scaled) wall clock, scored against
+  the dataset's Table-2 SLO; ``--fault-plan`` and the deadline/queue flags
+  attach seeded fault injection and the SLO guard.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode host
-  PYTHONPATH=src python -m repro_torch.launch.serve --mode host \
-      --device cpu --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
+      --device cpu --dataset sharegpt --rate 8 --duration 5 --requests 8
 """
 
 from __future__ import annotations
@@ -16,21 +23,70 @@ import argparse
 import sys
 
 
-def _host(args) -> str:
-    import numpy as np
+def _resilience(args):
+    """The faults= / guard= seams from the CLI flags (None when no flag
+    asks for them, so the engine keeps NULL_FAULTS and runs unguarded)."""
+    faults = guard = None
+    if args.fault_plan:
+        from repro_torch.resilience import FaultInjector, FaultPlan
+        faults = FaultInjector(FaultPlan.from_json(args.fault_plan))
+    if (args.fault_plan or args.deadline_ttft is not None
+            or args.deadline_total is not None or args.max_queue is not None):
+        from repro_torch.resilience import GuardConfig, SLOGuard
+        gkw = {}
+        if args.deadline_ttft is not None:
+            gkw["deadline_ttft_s"] = args.deadline_ttft
+        if args.deadline_total is not None:
+            gkw["deadline_total_s"] = args.deadline_total
+        if args.max_queue is not None:
+            gkw["max_queue"] = args.max_queue
+        guard = SLOGuard(GuardConfig(**gkw))
+    return faults, guard
+
+
+def _write_obs_outputs(args, server) -> None:
+    """Shared --trace-out / --metrics-out export for host and replay."""
+    if args.trace_out:
+        server.obs.write_trace(args.trace_out)
+        print(f"wrote Chrome trace ({len(server.obs.trace)} cycles) to "
+              f"{args.trace_out}")
+    if args.metrics_out:
+        server.obs.write_metrics(args.metrics_out, server=server)
+        print(f"wrote metrics snapshot to {args.metrics_out}")
+
+
+def model_config(arch: str):
+    """The reduced variant both modes serve, at the head dim the CUDA
+    kernels are built for (``kernels/build.py`` ``HEAD_DIMS``), so the
+    default ``cuda`` device runs the kernels."""
+    from repro_torch.configs import get_config
+    return get_config(arch).reduced(head_dim=128)
+
+
+def _model(args):
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = model_config(args.arch)
+    return cfg, init_params(cfg, seed=0, dtype=torch.float32,
+                            device=args.device)
+
+
+def _host(args) -> None:
+    import numpy as np
+
     from repro_torch.core.config import build_server_config
     from repro_torch.core.engine import BulletServer
-    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import Observability
+    from repro_torch.obs.report import run_report
     from repro_torch.serving.request import SLO, Request
 
-    cfg = get_config(args.arch).reduced()
-    params = init_params(cfg, seed=0, dtype=torch.float32,
-                         device=args.device)
+    cfg, params = _model(args)
+    faults, guard = _resilience(args)
     server = BulletServer(cfg, params, config=build_server_config(
-        args, slo=SLO(args.slo_ttft, args.slo_tpot)), device=args.device)
+        args, slo=SLO(args.slo_ttft, args.slo_tpot), obs=Observability(),
+        faults=faults, guard=guard), device=args.device)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         plen = int(rng.integers(4, args.max_len // 3))
@@ -39,17 +95,67 @@ def _host(args) -> str:
         server.submit(r, rng.integers(0, cfg.vocab_size, plen))
     outputs = server.run()
     done = sum(len(v) for v in outputs.values())
-    stats = " ".join(f"{k}={v}" for k, v in vars(server.stats).items())
-    clean = server.pool.available_blocks == server.pool.n_blocks
-    return "\n".join([
-        f"served {len(outputs)} requests, {done} tokens total",
-        f"stats: {stats}",
-        f"KV pool clean: {clean}"])
+    print(run_report(server, header=(
+        f"served {len(outputs)} requests, {done} tokens total")))
+    _write_obs_outputs(args, server)
+
+
+def _replay(args) -> None:
+    from repro_torch.core.config import build_server_config
+    from repro_torch.core.engine import BulletServer
+    from repro_torch.core.estimator import PerfEstimator
+    from repro_torch.core.profiler import SurrogateMachine
+    from repro_torch.obs import Observability
+    from repro_torch.obs.report import run_report
+    from repro_torch.serving.frontend import (OnlineFrontend, VirtualClock,
+                                              WallClock, estimator_cycle_cost,
+                                              oracle_cycle_cost)
+    from repro_torch.serving.request import WORKLOAD_SLOS
+    from repro_torch.serving.workload import (fit_trace_to_context,
+                                              generate_trace)
+
+    cfg, params = _model(args)
+    # replay scores against the dataset's Table-2 SLO (--slo-* applies to
+    # host mode); the estimator prices cycles on the H100 spec
+    slo = WORKLOAD_SLOS[args.dataset]
+    est = PerfEstimator()
+    faults, guard = _resilience(args)
+    server = BulletServer(cfg, params, config=build_server_config(
+        args, slo=slo, est=est, refit=not args.no_refit,
+        obs=Observability(), faults=faults, guard=guard), device=args.device)
+    trace = fit_trace_to_context(
+        generate_trace(args.dataset, args.rate, args.duration,
+                       seed=args.seed, max_requests=args.requests),
+        args.max_len)
+    if args.clock == "virtual":
+        # --oracle charges the surrogate machine's hidden-truth timings
+        # instead of the engine's own estimate, so the refit loop has
+        # something to close
+        cost = (oracle_cycle_cost(SurrogateMachine(est.hw, seed=args.seed))
+                if args.oracle else estimator_cycle_cost)
+        fe = OnlineFrontend(server, VirtualClock(), cycle_cost=cost)
+    else:
+        fe = OnlineFrontend(server, WallClock(speed=args.time_scale))
+    if args.stream:
+        fe.on_token = lambda r, tok, t: print(
+            f"  [{t:8.3f}s] rid={r.rid} tok#{r.generated}={tok}")
+    fe.submit_trace(trace, cfg.vocab_size, seed=args.seed)
+    m = fe.run()
+    if fe.truncated:
+        print("WARNING: replay hit max_cycles with unfinished requests; "
+              "metrics cover the completed subset only")
+    print(run_report(server, metrics=m, header=(
+        f"replay({args.clock}) {args.dataset} rate={args.rate}/s "
+        f"dur={args.duration}s -> {len(trace)} requests")))
+    if guard is not None and guard.transitions:
+        print("guard transitions: " + " ".join(
+            t["transition"] for t in guard.transitions))
+    _write_obs_outputs(args, server)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=("host",), default="host")
+    ap.add_argument("--mode", choices=("host", "replay"), default="host")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--requests", type=int, default=8)
@@ -59,8 +165,52 @@ def main(argv=None) -> int:
     ap.add_argument("--slo-ttft", type=float, default=3.0)
     ap.add_argument("--slo-tpot", type=float, default=150.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dataset", default="sharegpt",
+                    choices=("sharegpt", "azure-code", "arxiv-summary"))
+    ap.add_argument("--rate", type=float, default=40.0,
+                    help="replay arrival rate (requests per trace second)")
+    ap.add_argument("--duration", type=float, default=30.0,
+                    help="replay trace length in trace seconds")
+    ap.add_argument("--clock", choices=("virtual", "wall"), default="virtual",
+                    help="replay clock: deterministic virtual time or "
+                         "(scaled) wall time")
+    ap.add_argument("--time-scale", type=float, default=1.0,
+                    help="wall-clock replay speedup (trace seconds per "
+                         "wall second)")
+    ap.add_argument("--oracle", action="store_true",
+                    help="virtual replay advances on the surrogate "
+                         "machine's timings instead of the engine's own "
+                         "estimate")
+    ap.add_argument("--no-refit", action="store_true",
+                    help="pin the estimator's offline params")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they stream back (replay mode)")
+    ap.add_argument("--fault-plan", default=None, metavar="JSON",
+                    help="inject a seeded fault plan (a JSON file path or "
+                         "inline JSON object, docs/RESILIENCE.md) under the "
+                         "SLO guard")
+    ap.add_argument("--deadline-ttft", type=float, default=None,
+                    metavar="SECONDS",
+                    help="cancel a request whose first token has not "
+                         "streamed by this trace-time age (SLO guard)")
+    ap.add_argument("--deadline-total", type=float, default=None,
+                    metavar="SECONDS",
+                    help="cancel a request still unfinished at this "
+                         "trace-time age")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound the pending queue; the frontend retries "
+                         "rejected submissions, then sheds")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the per-cycle Chrome trace-event JSON here")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a Prometheus-style metrics snapshot here")
     args = ap.parse_args(argv)
-    print(_host(args))
+    if args.oracle and args.clock != "virtual":
+        ap.error("--oracle needs --clock virtual")
+    if args.mode == "replay":
+        _replay(args)
+    else:
+        _host(args)
     return 0
 
 

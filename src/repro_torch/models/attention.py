@@ -4,12 +4,15 @@ The plain attention math (``flash_ref_attention``, ``decode_attention``,
 ``gather_pages``, ``paged_decode_ref``, ``NEG_INF``) lives once, in
 ``repro_torch.kernels.ref``, next to the kernels it is the plain version
 of; it is re-exported here under the JAX package's names. This module adds
-``write_paged_kv`` and the model's entry points, the dispatchers at the
-end, which reach the kernels through ``repro_torch.kernels.ops``: a CUDA
-tensor launches the CUDA kernel, a CPU tensor runs the plain version.
+the in-place cache writes (``write_paged_kv``, ``write_cache_slot``) and
+the model's entry points, the dispatchers at the end, which reach the
+kernels through ``repro_torch.kernels.ops``: a CUDA tensor launches the
+CUDA kernel, a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import (NEG_INF, decode_attention,  # noqa: F401
@@ -39,6 +42,17 @@ def write_paged_kv(k_pages, v_pages, k_new, v_new, block_tables, pos):
     return k_pages, v_pages
 
 
+def write_cache_slot(cache, new, slot):
+    """Write ``new`` (B, 1, K, D) into the dense cache (B, S, K, D) at per-row
+    index ``slot`` (B,), in place (the JAX version is a vmapped
+    ``dynamic_update_slice``, which clamps the index into range; so does
+    this). Returns the (same) cache."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    idx = slot.long().clamp(0, cache.shape[1] - 1)
+    cache[rows, idx] = new[:, 0].to(cache.dtype)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Model-level dispatchers: every call reaches a kernel wrapper, which
 # launches the CUDA kernel for CUDA tensors and runs the plain version for
@@ -48,6 +62,15 @@ def write_paged_kv(k_pages, v_pages, k_new, v_new, block_tables, pos):
 def attention_prefill(q, k, v, *, causal=True, window=0):
     """Prefill attention (model layout): q (B,S,H,D), k/v (B,S,K,D)."""
     return ops.flash_attention_op(q, k, v, causal=causal, window=window)
+
+
+def attention_decode(q, k_cache, v_cache, kv_positions, pos):
+    """Decode attention over a dense per-slot cache (model layout): q (B, 1,
+    H, D), caches (B, S, K, D), kv_positions (B, S) int32 absolute position
+    of each row (-1 = empty), pos (B,) int32. Every cache length goes to
+    the kernel: it masks the tail, where the JAX dispatcher sent only
+    ``S % 128 == 0`` to its TPU kernel."""
+    return ops.decode_attention_op(q, k_cache, v_cache, kv_positions, pos)
 
 
 def attention_decode_paged(q, k_pages, v_pages, block_tables, pos):

@@ -1,11 +1,15 @@
-"""The transformer of the paged Bullet path: init, page pool, prefill,
-paged decode and the fused prefill-group + decode cycle.
+"""The transformer of the Bullet serving path: init, page pool, dense slot
+cache, prefill, paged and dense decode, and the fused prefill-group +
+decode cycle.
 
-This slice covers homogeneous full-attention stacks (``supports_paged_cache``):
+The port covers homogeneous full-attention stacks (``supports_paged_cache``):
 ``n_pattern_repeats`` repeats of ``cfg.pattern``, with per-pattern
 parameters stacked along a leading repeat axis R, as in the JAX package.
 Python loops over the repeats take the place of ``lax.scan``. Page pools
-are updated in place where the JAX package donated its buffers.
+and slot caches are updated in place where the JAX package donated its
+buffers. The dense slot cache keeps the JAX package's ring semantics
+(``long_context``: a full-attention cache shorter than the context holds
+the latest positions, addressed through ``_kv_positions``).
 """
 
 from __future__ import annotations
@@ -126,6 +130,86 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
         for _ in cfg.pattern)}
 
 
+# ---------------------------------------------------------------------------
+# Dense slot cache
+# ---------------------------------------------------------------------------
+
+def _cache_len(cfg: ModelConfig, blk: BlockSpec, max_len: int,
+               long_context: bool) -> int:
+    if blk.mixer == ATTN and long_context:
+        return min(cfg.long_context_window, max_len)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda", *,
+               long_context: bool = False):
+    """Stacked dense decode cache: per pattern position ``{"k", "v"}`` of
+    shape (R, batch, S, K, D), one fixed row of S positions per slot.
+    ``long_context`` switches full-attention blocks to their ring-window
+    variant (S = the long-context window). Other mixers raise, as
+    ``_block_defs`` does."""
+    r = cfg.n_pattern_repeats
+    blocks = []
+    for blk in cfg.pattern:
+        if blk.mixer != ATTN or cfg.pattern_tail or cfg.cross_attention:
+            raise NotImplementedError(
+                f"block {blk}: the port's dense cache holds full-attention "
+                "entries; other mixers come with a later slice (ROADMAP)")
+        s = _cache_len(cfg, blk, max_len, long_context)
+        shape = (r, batch, s, cfg.n_kv_heads, cfg.head_dim)
+        blocks.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return {"blocks": tuple(blocks)}
+
+
+def _window_gather(full_k, full_v, lengths, wsize: int):
+    """Collapse prefill K/V (B,S,K,D) into ring-window caches (B,W,K,D).
+
+    Slot s holds position p*(s) = len-1 - ((len-1-s) mod W) (the latest
+    position congruent to s); invalid slots (p* < 0) are zeroed."""
+    s_full = full_k.shape[1]
+    slots = torch.arange(wsize, device=full_k.device)[None, :]
+    last = lengths.long()[:, None] - 1
+    pstar = last - torch.remainder(last - slots, wsize)
+    valid = (pstar >= 0)[:, :, None, None]
+    idx = pstar.clamp(0, s_full - 1)[:, :, None, None].expand(
+        -1, -1, *full_k.shape[2:])
+    gk = torch.where(valid, torch.gather(full_k, 1, idx), 0)
+    gv = torch.where(valid, torch.gather(full_v, 1, idx), 0)
+    return gk, gv
+
+
+def _prefill_cache_entry(entry, blk: BlockSpec, cfg: ModelConfig, lengths,
+                         cache_tpl, long_context: bool):
+    """Convert a full-sequence cache entry into the decode cache layout of
+    ``cache_tpl`` (pad full KV to the cache length, or gather into the
+    ring window)."""
+    tgt = cache_tpl["k"].shape[1]                     # (B, S_cache, K, D)
+    k, v = entry["k"], entry["v"]
+    s = k.shape[1]
+    if long_context and tgt < s:
+        k, v = _window_gather(k, v, lengths, tgt)
+    elif s < tgt:
+        pad = (0, 0, 0, 0, 0, tgt - s)
+        k = torch.nn.functional.pad(k, pad)
+        v = torch.nn.functional.pad(v, pad)
+    else:
+        k, v = k[:, :tgt], v[:, :tgt]
+    return {"k": k.to(cache_tpl["k"].dtype), "v": v.to(cache_tpl["v"].dtype)}
+
+
+def _kv_positions(pos, s_cache: int, window_like: bool):
+    """(B, S_cache) int32 absolute position per cache row given the current
+    pos (B,): row j for a linear cache; for a ring, the latest position
+    congruent to j that is <= pos, or -1 when there is none."""
+    slots = torch.arange(s_cache, dtype=torch.int32, device=pos.device)[None]
+    if not window_like:
+        return slots.expand(pos.shape[0], s_cache).contiguous()
+    p = pos[:, None] - torch.remainder(pos[:, None] - slots, s_cache)
+    return torch.where(p >= 0, p, -1).to(torch.int32)
+
+
 def params_at(params_j: Dict[str, torch.Tensor], r: int):
     """One repeat's slice of a stacked per-pattern param dict (views)."""
     return {name: leaf[r] for name, leaf in params_j.items()}
@@ -178,16 +262,33 @@ def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions):
 
 
 def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
-                        pos, block_tables):
-    """Single-token block application over one layer's page pool
-    ``cache_entry`` {(P+1, ps, K, D)}: the new token's K/V is written into
-    its slot's current page (in place) and attention reads only the pages
-    the table names. x: (B,1,D)."""
+                        pos, block_tables=None, *, long_context: bool = False,
+                        kv_positions=None):
+    """Single-token block application, x: (B,1,D). The new token's K/V is
+    written into the cache in place, then attention reads it.
+
+    With ``block_tables`` (B, n_b) the entry is one layer's page pool
+    {(P+1, ps, K, D)}: the token lands in its slot's current page and
+    attention reads only the pages the table names. Without, it is the
+    dense slot cache {(B, S, K, D)}: the token lands in row ``pos`` (ring:
+    ``pos mod S`` under ``long_context``) and attention masks the rows by
+    ``kv_positions`` (B, S), which :func:`decode_step` computes once for
+    every layer."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     q, k_new, v_new = _project_qkv(h, p, cfg, pos[:, None])
-    kp, vp = attn_ops.write_paged_kv(cache_entry["k"], cache_entry["v"],
-                                     k_new, v_new, block_tables, pos)
-    o = attn_ops.attention_decode_paged(q, kp, vp, block_tables, pos)
+    if block_tables is not None:
+        kp, vp = attn_ops.write_paged_kv(cache_entry["k"], cache_entry["v"],
+                                         k_new, v_new, block_tables, pos)
+        o = attn_ops.attention_decode_paged(q, kp, vp, block_tables, pos)
+    else:
+        kc, vc = cache_entry["k"], cache_entry["v"]
+        s_cache = kc.shape[1]
+        # a full-attention cache is a ring only in the long-context window
+        slot = (torch.remainder(pos, s_cache) if long_context
+                else pos.clamp(max=s_cache - 1))
+        attn_ops.write_cache_slot(kc, k_new, slot)
+        attn_ops.write_cache_slot(vc, v_new, slot)
+        o = attn_ops.attention_decode(q, kc, vc, kv_positions, pos)
     x = x + _merge_heads(o) @ p["wo"]
     return x + _ff(x, p, blk, cfg)
 
@@ -338,17 +439,27 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
-                block_tables):
-    """One decode iteration over the block-paged cache.
+                block_tables=None, long_context: bool = False):
+    """One decode iteration.
 
-    tokens: (B, 1) int; pos: (B,) int32 absolute position of the new token;
-    block_tables: (B, n_b) int32, shared across layers. Returns
-    (logits (B, V), cache), the cache updated in place."""
+    tokens: (B, 1) int; pos: (B,) int32 absolute position of the new token.
+    ``block_tables`` (B, n_b) int32, shared across layers, selects the
+    block-paged cache of :func:`init_paged_cache`; without it ``cache`` is
+    the dense slot cache of :func:`init_cache` (built with the same
+    ``long_context``). Returns (logits (B, V), cache), the cache updated in
+    place."""
     x = embed_tokens(params, tokens, cfg)
+    kvpos = None
+    if block_tables is None:
+        # one (B, S) position map serves every layer: all ATTN caches share
+        # one length
+        kvpos = _kv_positions(pos, cache["blocks"][0]["k"].shape[2],
+                              long_context)
     for r in range(cfg.n_pattern_repeats):
         for j, blk in enumerate(cfg.pattern):
             x = _apply_block_decode(
                 x, params_at(params["blocks"][j], r), blk, cfg,
-                params_at(cache["blocks"][j], r), pos, block_tables)
+                params_at(cache["blocks"][j], r), pos, block_tables,
+                long_context=long_context, kv_positions=kvpos)
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     return lm_logits(params, x, cfg)[:, 0], cache

@@ -32,6 +32,7 @@ from repro_torch.core.engine import BulletServer
 from repro_torch.core.estimator import HardwareSpec, PerfEstimator
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.kvcache.paged import PagedKVPool
+from repro_torch.serving.frontend import OnlineFrontend, VirtualClock
 from repro_torch.serving.request import SLO, Phase, Request
 
 #: a small partition table keeps the JAX engine's per-decode_share
@@ -223,12 +224,14 @@ def test_record_cycle_actual_logs_prediction(model):
     assert kind == "serial" and pred > 0 and actual == 1e-3
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="dense"):
-        CacheConfig(paged=False)
+def test_later_slices_raise_not_implemented(model):
     with pytest.raises(NotImplementedError, match="shared-prefix"):
         CacheConfig(share_prefix=True)
     with pytest.raises(NotImplementedError, match="chip"):
         ExecConfig(partition="chip")
-    with pytest.raises(NotImplementedError):
-        ServerConfig(slo=SLO(3.0, 150.0), obs=object())
+    with pytest.raises(NotImplementedError, match="tenancy"):
+        ServerConfig(slo=SLO(3.0, 150.0), tenancy=object())
+    _, ts = _servers(model)
+    fe = OnlineFrontend(ts, VirtualClock())
+    with pytest.raises(NotImplementedError, match="tenancy"):
+        fe.submit_interactions([], model[1].vocab_size)

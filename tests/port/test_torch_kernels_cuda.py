@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bullet_attention as TB
+from repro_torch.kernels import decode_attention as TD
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import paged_decode_attention as TP
 
@@ -79,6 +80,66 @@ def test_bullet_kernel_bit_equal_to_standalone(gen, share):
     assert torch.equal(od, TP.paged_decode_attention(qd, kp, vp, bt, pos))
 
 
+def _dense_case(gen, dtype, ring, kh=2, g=2, d=128, s=72):
+    """A dense per-slot cache: linear positions, or a scrambled ring with
+    holes (tests/test_kernels.py), S = 72 so the last 16-row tile is a
+    tail; every slot attends at least one row."""
+    b = 3
+    base = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    kvpos = (torch.where(base % 5 == 0, -1, (base * 13) % 80) if ring
+             else base).to(torch.int32).contiguous()
+    pos = torch.tensor([40, 71, 3], dtype=torch.int32)
+    q = torch.randn(b, kh, g, d, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+    return q, kc, vc, kvpos.cuda(), pos.cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ring", [False, True], ids=["linear", "ring"])
+def test_dense_decode_kernel_matches_plain(gen, dtype, ring):
+    q, kc, vc, kvpos, pos = _dense_case(gen, dtype, ring)
+    before = TD.launches
+    out = TD.decode_attention(q, kc, vc, kvpos, pos)
+    ref = TD.decode_attention_plain(q, kc, vc, kvpos, pos)
+    assert TD.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+    # a slot with no attended row returns zeros, as the TPU kernel does
+    none = torch.full_like(kvpos, -1)
+    assert bool((TD.decode_attention(q, kc, vc, none, pos) == 0).all())
+
+
+def test_dense_decode_equals_paged_decode_bit_for_bit(gen):
+    """With linear positions the dense kernel walks the same 16-row tiles
+    as the paged kernel over 16-row pages."""
+    q, kp, vp, bt, pos = _decode_case(gen, torch.float32)
+    act = pos >= 0
+    b, n_b = bt.shape
+    kc = kp[bt.long()].reshape(b, -1, *kp.shape[2:]).contiguous()
+    vc = vp[bt.long()].reshape(b, -1, *vp.shape[2:]).contiguous()
+    kvpos = torch.arange(kc.shape[1], dtype=torch.int32,
+                         device="cuda")[None].expand(b, -1).contiguous()
+    dense = TD.decode_attention(q, kc, vc, kvpos, pos)
+    paged = TP.paged_decode_attention(q, kp, vp, bt, pos)
+    assert torch.equal(dense[act], paged[act])
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("ring", [False, True], ids=["linear", "ring"])
+def test_dense_bullet_kernel_bit_equal_to_standalone(gen, share, ring):
+    q = torch.randn(8, 100, 128, generator=gen, device="cuda")
+    k = torch.randn(4, 100, 128, generator=gen, device="cuda")
+    v = torch.randn(4, 100, 128, generator=gen, device="cuda")
+    qd, kc, vc, kvpos, pos = _dense_case(gen, torch.float32, ring)
+    before = TB.dense_launches
+    op, od = TB.bullet_attention(q, k, v, qd, kc, vc, kvpos, pos,
+                                 decode_share=share, group=2)
+    assert TB.dense_launches == before + 1
+    assert torch.equal(op, TF.flash_attention(q, k, v, group=2))
+    assert torch.equal(od, TD.decode_attention(qd, kc, vc, kvpos, pos))
+
+
 def test_wrappers_reject_bad_inputs(gen):
     q = torch.randn(8, 32, 128, generator=gen, device="cuda")
     k = torch.randn(4, 32, 128, generator=gen, device="cuda")
@@ -92,3 +153,8 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="head dim"):
         TF.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
                            k[..., :64].contiguous(), group=2)
+    qd, kc, vc, kvpos, pos = _dense_case(gen, torch.float32, False)
+    with pytest.raises(TypeError, match="int32"):
+        TD.decode_attention(qd, kc, vc, kvpos.long(), pos)
+    with pytest.raises(ValueError):
+        TD.decode_attention(qd, kc, vc, kvpos[:, :-1].contiguous(), pos)

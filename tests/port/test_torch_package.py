@@ -1,7 +1,8 @@
 """The port as a package: it imports neither JAX nor the JAX package, its
 serve launcher drains on the CPU, and its copies of the control plane
-(``PagedKVPool``, ``SLOScheduler``) behave exactly like the JAX package's
-on the same seeded operation sequences."""
+(``PagedKVPool``, ``SLOScheduler``, the profiler's surrogate machine and
+the workload generators) behave exactly like the JAX package's on the
+same seeded operation sequences."""
 
 import ast
 import pathlib
@@ -11,6 +12,7 @@ import pytest
 
 from repro.configs import get_config as jax_config
 from repro.core import metadata as JM
+from repro.core import profiler as JP
 from repro.core.estimator import HardwareSpec as JHardwareSpec
 from repro.core.estimator import PerfEstimator as JPerfEstimator
 from repro.core.resource import ResourceManager as JResourceManager
@@ -18,14 +20,17 @@ from repro.core.scheduler import SchedulerConfig as JSchedulerConfig
 from repro.core.scheduler import SLOScheduler as JScheduler
 from repro.kvcache.paged import OutOfBlocks as JOutOfBlocks
 from repro.kvcache.paged import PagedKVPool as JPool
+from repro.serving import workload as JW
 from repro.serving.request import SLO as JSLO
 from repro_torch.configs import get_config
 from repro_torch.core import metadata as TM
+from repro_torch.core import profiler as TP
 from repro_torch.core.estimator import HardwareSpec, PerfEstimator
 from repro_torch.core.resource import ResourceManager
 from repro_torch.core.scheduler import SchedulerConfig, SLOScheduler
 from repro_torch.kvcache.paged import OutOfBlocks, PagedKVPool
 from repro_torch.launch import serve
+from repro_torch.serving import workload as TW
 from repro_torch.serving.request import SLO
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -171,3 +176,47 @@ def test_scheduler_copy_matches_jax(fused):
             jd.pause_decode, jd.reorder, jd.reason), step
         assert ts.reorder_pending(tstate, now, pending) == \
             js.reorder_pending(jstate, now, pending)
+
+
+def test_profiler_copy_matches_jax():
+    """The surrogate machine the virtual replay's oracle charges, and the
+    profiling sweep over it: same samples, same noise, same HardwareSpec
+    fields."""
+    hw = dict(name="h100-sxm", n_chips=1, peak_flops=989e12,
+              hbm_bw=3.35e12, ici_bw=450e9, units_per_chip=132,
+              grid_slots=132)
+    cfg, jcfg = get_config("qwen3-1.7b"), jax_config("qwen3-1.7b")
+    kw = dict(max_sl=2048, max_bs=16, max_cl=2048, unit_step=12, seed=4)
+    js = JP.run_profiling(jcfg, JHardwareSpec(**hw), **kw)
+    ts = TP.run_profiling(cfg, HardwareSpec(**hw), **kw)
+    assert [tuple(vars(x).values()) for x in ts] == \
+        [tuple(vars(x).values()) for x in js]
+    jm = JP.SurrogateMachine(JHardwareSpec(**hw), seed=2)
+    tm = TP.SurrogateMachine(HardwareSpec(**hw), seed=2)
+    for sl, bs, cl, u in ((512, 4, 900, 60), (37, 1, 17, 2)):
+        assert tm.measure_prefill(cfg, sl, u, colocated=True) == \
+            jm.measure_prefill(jcfg, sl, u, colocated=True)
+        assert tm.measure_decode(cfg, bs, cl, u, colocated=False) == \
+            jm.measure_decode(jcfg, bs, cl, u, colocated=False)
+
+
+@pytest.mark.parametrize("dataset", ["sharegpt", "azure-code",
+                                     "arxiv-summary"])
+def test_workload_copy_matches_jax(dataset):
+    def rows(trace):
+        return [(r.rid, r.arrival, r.prompt_len, r.output_len)
+                for r in trace]
+    for seed in (0, 5):
+        jt = JW.generate_trace(dataset, 40.0, 3.0, seed=seed,
+                               max_requests=50)
+        tt = TW.generate_trace(dataset, 40.0, 3.0, seed=seed,
+                               max_requests=50)
+        assert rows(tt) == rows(jt)
+        assert rows(TW.fit_trace_to_context(tt, 1000)) == \
+            rows(JW.fit_trace_to_context(jt, 1000))
+    assert [(s.session_id, s.arrival, [tuple(vars(t).values())
+                                       for t in s.turns])
+            for s in TW.generate_interactions(6, 3.0, seed=1)] == \
+        [(s.session_id, s.arrival, [tuple(vars(t).values())
+                                    for t in s.turns])
+         for s in JW.generate_interactions(6, 3.0, seed=1)]
