@@ -34,7 +34,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    virtual-clock replay; (b) the same under a fault plan that walks the
    SLO guard fused→serial→dense and back, invariants audited every cycle,
    streams equal to (a)'s; (c) the dense slot cache serving the same
-   requests, streams equal to (a)'s; (d) a wall-clock replay in bf16.
+   requests, streams equal to (a)'s; (d) a wall-clock replay in bf16;
+8. Mamba-2 (the SSD chunk scan kernel, checked in phase 3 at Mamba-2-2.7B's
+   shapes: H=80, P=64, N=128, chunk 256, B in {1, 4}, S in {1000, 200}):
+   (a) reference: a 2-layer cut at full width, fp32, dense prefill + decode
+   on the card against the CPU, greedy tokens equal; (b) replay of the
+   ShareGPT-shaped trace at full width and depth (64 layers, d_model 2560,
+   vocab 50280, seeded random weights, 8 slots, max_prefill_batch 4, so
+   prefill batches mix prompt lengths), on the virtual clock in fp32 with
+   the ssd_scan launches counted, then on the wall clock in bf16; (c) the
+   length-correct state: 4 trace prompts prefilled as one padded batch and
+   each alone, fp32, every layer's conv and ssm state of every request
+   equal within 1e-3 of its scale (cuBLAS may pick another GEMM for
+   another batch shape, so states, not argmax streams, are compared; the
+   CPU tests hold the streams exactly); torch.profiler windows over 10
+   prefill and 10 decode cycles of the wall-clock run's warm-up.
 
 The second-last line is the kernel table as JSON, the last line the
 device summary as JSON.
@@ -66,6 +80,13 @@ H, K, G, D, PS = 16, 8, 2, 128, 16
 #: the replay phase's context window, and so the dense cache's rows: not a
 #: multiple of 128 (nor of the kernel's 16-row tile), so the tail path runs
 MAX_LEN = 1000
+#: Mamba-2-2.7B's SSD sizes: heads, head dim, state, chunk
+SSD_H, SSD_P, SSD_N, SSD_Q = 80, 64, 128, 256
+#: SSD kernel vs plain: error over the output's scale max(1, max|plain|);
+#: bf16 y is rounded to bf16 (one ulp is 2^-8 of the scale), the fp32
+#: state is not
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_STATE_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -205,6 +226,46 @@ def flash_cost(bp, s, dtype):
     n_bytes = (2 * bp * H * s * D + 2 * bp * K * s * D) * esize(dtype)
     n_ops = 4 * D * bp * H * s * (s + 1) / 2          # causal pairs
     return n_bytes, n_ops
+
+
+def ssd_inputs(gen, b, s, dtype):
+    """The SSD kernel's inputs as the model's prefill makes them (through
+    ``ops.ssd_chunk_inputs``): x, B, C ~ N(0, 1) in ``dtype``, dt the
+    softplus of N(0, 1), A = -exp(A_log) with A_log the "lru" init, S
+    padded to the chunk with dt = 0."""
+    from repro_torch.kernels import ops
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = rn(b, s, SSD_H, SSD_P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(b, s, SSD_H))
+    u = torch.rand(SSD_H, generator=gen, device="cuda") * 0.8 + 0.1
+    A = -torch.exp(torch.log(u / (1 - u)))
+    return ops.ssd_chunk_inputs(x, dt, A, rn(b, s, SSD_N).to(dtype),
+                                rn(b, s, SSD_N).to(dtype), chunk=SSD_Q)
+
+
+def ssd_cost(xw, dtype):
+    """What the scan needs for these inputs: xw read and y written at the
+    dtype, cum in fp32, B and C at the dtype, the final state in fp32; C Bᵀ
+    (2·Q²·N) once per row and chunk, shared by the heads, and per head and
+    chunk the masked product with xw (2·Q²·P), the inter-chunk term and the
+    state update (2·Q·N·P each)."""
+    b, nc, q, h, p = xw.shape
+    n, e = SSD_N, esize(dtype)
+    rows = b * nc * q
+    n_bytes = (2 * rows * h * p + 2 * rows * n) * e + 4 * rows * h \
+        + 4 * b * h * p * n
+    n_ops = b * nc * 2 * q * q * n \
+        + b * h * nc * (2 * q * q * p + 4 * q * n * p)
+    return n_bytes, n_ops
+
+
+def rel_err(out, ref) -> float:
+    """max|out - ref| over the reference's scale max(1, max|ref|)."""
+    ref = ref.float()
+    return ((out.float() - ref).abs().max()
+            / ref.abs().max().clamp(min=1.0)).item()
 
 
 def decode_cost(q, pos, dtype):
@@ -483,6 +544,56 @@ def phase_kernels(timer: Timer):
     return rows
 
 
+def phase_ssd(timer: Timer) -> dict:
+    """The SSD chunk scan kernel against its plain version at Mamba-2-2.7B's
+    shapes, fp32 and bf16, one prompt (B=1) and a full prefill batch
+    (B=4), S=1000 (four chunks, the last padded) and S=200 (one chunk of
+    Q=S rows): y and the final state. Timed at B=1, S=1000, bf16."""
+    from repro_torch.kernels import ssd_scan as SK
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 4):
+            for s in (1000, 200):
+                xw, cum, bm, cm = ssd_inputs(gen, b, s, dtype)
+                y, st = SK.ssd_scan(xw, cum, bm, cm)
+                ry, rst = SK.ssd_scan_plain(xw, cum, bm, cm)
+                torch.cuda.synchronize()
+                check(y.dtype == dtype and st.dtype == torch.float32,
+                      f"ssd_scan {dtype}: output dtypes {y.dtype}/{st.dtype}")
+                ey, es = rel_err(y, ry), rel_err(st, rst)
+                check(math.isfinite(ey) and ey <= SSD_TOL[dtype]
+                      and math.isfinite(es) and es <= SSD_STATE_TOL,
+                      f"ssd_scan {dtype} B={b} S={s}: y err {ey}, state "
+                      f"err {es}")
+                ea = (y.float() - ry.float()).abs().max().item()
+                worst[dtype] = max(worst.get(dtype, 0.0), ea)
+                log(f"ssd_scan {str(dtype)[6:]} B={b} S={s} (NC="
+                    f"{xw.shape[1]} Q={xw.shape[2]}): max|kernel-plain|/"
+                    f"scale y {ey:.3e}, state {es:.3e}; max|kernel-plain| "
+                    f"y {ea:.3e} (scale {ry.float().abs().max().item():.1f})")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, dtype)
+        nb, no = ssd_cost(xw, dtype)
+        bms, bby = bound_ms(nb, no, torch.bfloat16)
+        ms = timer(lambda: SK.ssd_scan(xw, cum, bm, cm))
+        plain = timer(lambda: SK.ssd_scan_plain(xw, cum, bm, cm))
+        log(f"ssd_scan {str(dtype)[6:]} B=1 S=1000: {ms:.4f} ms (plain "
+            f"{plain:.4f}, library none, bound {bms:.4f} ms by {bby}: "
+            f"{nb / 1e6:.1f} MB, {no / 1e9:.2f} GFLOP)")
+        rows.append(dict(
+            name="ssd_scan", route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:66",
+            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
+            library_ms=None, max_abs_err=worst[dtype],
+            shape=f"B=1 S=1000 (NC=4 Q=256) H={SSD_H} P={SSD_P} N={SSD_N} "
+                  f"{str(dtype)[6:]}"))
+    return rows[0]
+
+
 def phase_colocated(timer: Timer) -> int:
     """The counterpart of examples/colocated_attention.py on the card: one
     dense fused launch computes a prefill batch's attention and a decode
@@ -551,7 +662,6 @@ def phase_reference():
     n_pages = -(-(s + n_dec) // PS)
     page_map = torch.arange(-(-s // PS), dtype=torch.int32)[None]
     bt = torch.arange(n_pages, dtype=torch.int32)[None]
-    worst = 0.0
     outs = {}
     for dev, p in (("cuda", params), ("cpu", cpu)):
         cache = T.init_paged_cache(cfg, n_pages, PS, torch.float32, dev)
@@ -567,20 +677,31 @@ def phase_reference():
             seq.append(logits.float().cpu())
             tok = logits.argmax(-1)
         outs[dev] = seq
-    for a, b in zip(outs["cuda"], outs["cpu"]):
-        a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]   # real vocab
-        check(bool(torch.isfinite(a).all()), "non-finite logits on the card")
-        e = (a - b).abs().max().item()
-        scale = max(1.0, b.abs().max().item())
-        check(e <= 1e-3 * scale, f"card vs CPU logits differ by {e}")
-        check(bool((a.argmax(-1) == b.argmax(-1)).all()), "argmax differs")
-        worst = max(worst, e / scale)
+    worst = _card_vs_cpu(outs, cfg)
     log(f"reference: 2-layer full-width Qwen3-1.7B fp32, prefill S={s} + "
         f"{n_dec} decode steps, card vs CPU max rel logit err {worst:.2e}")
 
 
+def _card_vs_cpu(outs, cfg) -> float:
+    """Each step's logits on the card against the CPU's, over the real
+    vocab: finite, within 1e-3 of their scale, the same greedy token.
+    Returns the worst error over the scale."""
+    worst = 0.0
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
+        check(bool(torch.isfinite(a).all()), "non-finite logits on the card")
+        e = (a - b).abs().max().item()
+        scale = max(1.0, b.abs().max().item())
+        check(e <= 1e-3 * scale, f"{cfg.name}: card vs CPU logits differ "
+              f"by {e}")
+        check(bool((a.argmax(-1) == b.argmax(-1)).all()),
+              f"{cfg.name}: argmax differs")
+        worst = max(worst, e / scale)
+    return worst
+
+
 def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
-           profile=None, default_sched: bool = False):
+           audit=None, default_sched: bool = False):
     """Serve the requests, each released when the virtual clock reaches its
     arrival. The clock advances by the H100 estimator's price of each cycle
     (as the JAX package's virtual replay does), so the scheduler's
@@ -596,9 +717,8 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
     scheduler's defaults instead (pause on, up to 4 prompts per prefill
     batch), to show how often the default configuration fuses.
 
-    ``profile=(first, n)`` traces cycles [first, first + n) with
-    torch.profiler and returns the profiler and the window's wall time
-    in place of the cycle count."""
+    ``audit(server)`` runs after every cycle (e.g. a
+    :class:`ProfileCycles`)."""
     from repro_torch.core.config import ControlConfig, ExecConfig, ServerConfig
     from repro_torch.core.engine import BulletServer
     from repro_torch.core.estimator import predict_cycle
@@ -621,7 +741,6 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     now, cycles = 0.0, 0
-    prof, window = None, None
     while queue or not server.idle:
         check(cycles < 20_000, "serve did not drain")
         while queue and queue[0][0] <= now:
@@ -632,27 +751,14 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
         if server.idle:
             now = queue[0][0]
             continue
-        if profile and cycles == profile[0]:
-            torch.cuda.synchronize()
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            prof.__enter__()
-            tw = time.perf_counter()
         server.step(now)
         server.check_invariants()
         obs = server.last_cycle_observation()
         now += predict_cycle(server.est, server.cfg, obs) if obs else 1e-4
         cycles += 1
-        if prof is not None and window is None \
-                and cycles == profile[0] + profile[1]:
-            torch.cuda.synchronize()
-            window = time.perf_counter() - tw
-            prof.__exit__(None, None, None)
+        if audit is not None:
+            audit(server)
     torch.cuda.synchronize()
-    if profile:
-        check(window is not None, "the serve ended before the profile window")
-        return server, prof, window
     return server, time.perf_counter() - t0, cycles
 
 
@@ -660,17 +766,43 @@ def _kernel_kind(name: str) -> str:
     if any(k in name for k in ("flash_kernel", "paged_decode_kernel",
                                "bullet_kernel")):
         return "attention (this port's kernels)"
+    if "ssd_scan_kernel" in name:
+        return "SSD scan (this port's kernel)"
     if any(k in name.lower() for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "GEMM (cuBLAS)"
     return "other (elementwise, norms, copies, index ops)"
 
 
-def phase_profile(cfg, params, prompts, outs, arrivals, card: str):
-    """Where the time goes in steady fused serving: device time by kernel
-    kind over 30 cycles of the serve workload, and the device's busy share
-    of that window's wall time."""
-    server, prof, wall = _serve(cfg, params, prompts, outs, arrivals,
-                                fused=True, profile=(150, 30))
+class ProfileCycles:
+    """A per-cycle audit hook (serve or replay) that runs torch.profiler
+    over cycles [first, first + n), times that window on the host clock
+    and counts the window's cycles that ran a prefill group."""
+
+    def __init__(self, first: int, n: int):
+        self.first, self.n, self.cycle = first, n, 0
+        self.prof = self.wall = None
+        self.t0, self.prefills = 0.0, 0
+
+    def __call__(self, srv) -> None:
+        self.cycle += 1
+        if self.first < self.cycle <= self.first + self.n:
+            self.prefills += bool(srv.last_prefill_tokens)
+        if self.cycle == self.first:
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif self.cycle == self.first + self.n:
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.__exit__(None, None, None)
+
+
+def _profile_report(prof, wall: float, what: str, card: str) -> None:
+    """Device time by kernel kind over a profiled window, and the device's
+    busy share of that window's wall time."""
     kinds, names = {}, []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): the operators that
@@ -684,7 +816,7 @@ def phase_profile(cfg, params, prompts, outs, arrivals, card: str):
         names.append((t, e.count, e.key))
     busy = sum(kinds.values()) / 1e3
     check(busy > 0, "the profiler saw no device time")
-    log(f"profile: 30 fused-serving cycles, wall {wall * 1e3:.1f} ms, "
+    log(f"profile: {what}, wall {wall * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)  "
         f"[{card}]")
     for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
@@ -692,6 +824,16 @@ def phase_profile(cfg, params, prompts, outs, arrivals, card: str):
             f"device time)")
     for t, count, name in sorted(names, reverse=True)[:8]:
         log(f"  {t / 1e3:8.2f} ms {count:6d}x {name[:90]}")
+
+
+def phase_profile(cfg, params, prompts, outs, arrivals, card: str):
+    """Where the time goes in steady fused serving: device time by kernel
+    kind over 30 cycles of the serve workload, and the device's busy share
+    of that window's wall time."""
+    prof = ProfileCycles(150, 30)
+    _serve(cfg, params, prompts, outs, arrivals, fused=True, audit=prof)
+    check(prof.wall is not None, "the serve ended before the profile window")
+    _profile_report(prof.prof, prof.wall, "30 fused-serving cycles", card)
 
 
 def phase_serve(card: str):
@@ -784,13 +926,14 @@ def _replay_trace(n: int = REPLAY_REQUESTS):
 
 
 def _replay(cfg, params, dtype, *, paged=True, plan=None, wall=False,
-            n_requests=REPLAY_REQUESTS, audit=None):
+            n_requests=REPLAY_REQUESTS, audit=None, max_prefill_batch=1):
     """One OnlineFrontend replay of the trace through BulletServer with
     observability on: the virtual clock priced by the H100 estimator, or
     the wall clock. The scheduler runs as in the serve phase's main path
-    (one prompt per prefill batch, no §3.3.3 decode pause), so every
-    request's prefill shapes, and so its numerics, do not depend on which
-    requests happen to be admitted together. ``plan`` attaches a fault
+    (one prompt per prefill batch unless ``max_prefill_batch`` says
+    otherwise, no §3.3.3 decode pause), so every request's prefill shapes,
+    and so its numerics, do not depend on which requests happen to be
+    admitted together. ``paged=None`` lets the engine choose. ``plan`` attaches a fault
     injector and the SLO guard. ``audit(server)`` runs after every cycle.
     Returns (server, guard, metrics, wall seconds, per-cycle records)."""
     from repro_torch.core.config import (CacheConfig, ControlConfig,
@@ -806,7 +949,8 @@ def _replay(cfg, params, dtype, *, paged=True, plan=None, wall=False,
     guard = SLOGuard() if plan is not None else None
     server = BulletServer(cfg, params, config=ServerConfig(
         slo=WORKLOAD_SLOS["sharegpt"], max_slots=8, max_len=MAX_LEN,
-        max_prefill_batch=1, dtype=dtype, cache=CacheConfig(paged=paged),
+        max_prefill_batch=max_prefill_batch, dtype=dtype,
+        cache=CacheConfig(paged=paged),
         control=ControlConfig(sched=SchedulerConfig(
             max_decode_pause_cycles=0)),
         obs=Observability(), guard=guard,
@@ -988,6 +1132,163 @@ def phase_replay(card: str) -> dict:
     return lb
 
 
+def phase_mamba_reference():
+    """Full-width Mamba-2-2.7B cut to 2 layers, fp32: dense prefill of a
+    300-token prompt (two chunks, the second padded) + 4 decode steps on
+    the card (the SSD kernel) against the CPU (its plain version)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SK
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), n_layers=2)
+    params = T.init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    cpu = {k: (tuple({n: t.cpu() for n, t in b.items()} for b in v)
+               if k == "blocks" else v.cpu()) for k, v in params.items()}
+    s, n_dec = 300, 4
+    toks = torch.randint(0, cfg.vocab_size, (1, s),
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    before = SK.launches
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        cache = T.init_cache(cfg, 1, s + n_dec, torch.float32, dev)
+        logits, _ = T.prefill(p, toks.to(dev), torch.tensor([s]).to(dev),
+                              cache, None, cfg)
+        seq = [logits.float().cpu()]
+        tok = logits.argmax(-1)
+        for i in range(n_dec):
+            logits, _ = T.decode_step(
+                p, cache, tok[:, None].to(torch.int32),
+                torch.tensor([s + i], dtype=torch.int32, device=dev), cfg)
+            seq.append(logits.float().cpu())
+            tok = logits.argmax(-1)
+        outs[dev] = seq
+    check(SK.launches - before == cfg.n_layers,
+          f"mamba reference: {SK.launches - before} ssd_scan launches on "
+          f"the card, want {cfg.n_layers}")
+    worst = _card_vs_cpu(outs, cfg)
+    log(f"mamba reference: 2-layer full-width Mamba-2-2.7B fp32, prefill "
+        f"S={s} + {n_dec} decode steps, card vs CPU max rel logit err "
+        f"{worst:.2e}, greedy tokens equal")
+
+
+#: the Mamba-2 replay's requests (the trace's first ones): fewer than the
+#: Qwen3 replay's, as each of its 64-layer decode cycles costs the host
+#: about twice as many launches
+MAMBA_REQUESTS = 8
+
+
+def _percentiles(server):
+    """TTFT (ms) and TPOT (ms) p50 and p90 over the finished requests."""
+    from repro_torch.serving.request import percentile
+    done = server.finished
+    ttft = [1e3 * r.ttft for r in done]
+    tpot = [r.tpot_ms for r in done]
+    return (percentile(ttft, 50), percentile(ttft, 90),
+            percentile(tpot, 50), percentile(tpot, 90))
+
+
+def phase_mamba(card: str) -> int:
+    """Mamba-2-2.7B at full width and depth through the OnlineFrontend on
+    the dense slot cache (serial): the trace replay on the virtual clock
+    in fp32 (ssd_scan launches counted: one per prefill group), the
+    length-correct state check in fp32, then the wall-clock replay in
+    bf16. Returns the ssd_scan launches of the virtual replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as SK
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mamba2-2.7b")
+    check(cfg.n_layers == 64 and cfg.d_model == 2560
+          and cfg.vocab_size == 50280 and cfg.ssm_n_heads == SSD_H
+          and cfg.ssm_head_dim == SSD_P and cfg.ssm_state == SSD_N,
+          "not the full Mamba-2-2.7B config")
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    trace = _replay_trace(MAMBA_REQUESTS)
+    log(f"mamba replay: mamba2-2.7b full width/depth, {len(trace)} "
+        f"ShareGPT-shaped requests (prompts {[r.prompt_len for r in trace]}"
+        f", outputs {[r.output_len for r in trace]}), 8 slots, "
+        f"max_prefill_batch 4, dense slot cache, serial")
+
+    # (b) virtual clock, fp32
+    SK.launches = 0
+    srv, _, m, secs, rec = _replay(cfg, params, torch.float32, paged=None,
+                                   max_prefill_batch=4,
+                                   n_requests=MAMBA_REQUESTS)
+    launches = SK.launches
+    check(not srv.paged and not srv.fused, "mamba: not dense and serial")
+    check(launches > 0 and launches == srv.stats.prefill_cycles,
+          f"mamba replay: {launches} ssd_scan launches for "
+          f"{srv.stats.prefill_cycles} prefill groups")
+    p = _percentiles(srv)
+    log(f"mamba replay virtual clock, fp32: {m.row()}")
+    log(f"  TTFT p50/p90 {p[0]:.1f}/{p[1]:.1f} ms, TPOT p50/p90 "
+        f"{p[2]:.1f}/{p[3]:.1f} ms, {m.throughput_tok_s:.0f} tok/s, goodput "
+        f"{100 * m.goodput:.1f}%; {len(rec)} cycles in {secs:.1f} s wall "
+        f"({1e3 * secs / len(rec):.1f} ms per cycle), decode-only cycle "
+        f"{_decode_only_ms(rec):.1f} ms, stats {vars(srv.stats)}, ssd_scan "
+        f"launches {launches}  [{card}]")
+    del srv
+
+    # (c) the length-correct state: a mixed-length batch against each
+    # prompt alone
+    rng = np.random.default_rng(0)
+    lens = [r.prompt_len for r in trace[:4]]
+    check(len(set(lens)) > 1, f"state check: prompts of one length {lens}")
+    toks = np.zeros((4, max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    batch = T.init_cache(cfg, 4, MAX_LEN, torch.float32, "cuda")
+    T.prefill(params, torch.from_numpy(toks).cuda(),
+              torch.tensor(lens).cuda(), batch, None, cfg)
+    worst = 0.0
+    for i, n in enumerate(lens):
+        solo = T.init_cache(cfg, 1, MAX_LEN, torch.float32, "cuda")
+        T.prefill(params, torch.from_numpy(toks[i:i + 1, :n]).cuda(),
+                  torch.tensor([n]).cuda(), solo, None, cfg)
+        for key in ("conv", "ssm"):
+            a, b = batch["blocks"][0][key][:, i], solo["blocks"][0][key][:, 0]
+            for layer in range(cfg.n_layers):
+                e = rel_err(a[layer], b[layer])
+                check(math.isfinite(e) and e <= 1e-3,
+                      f"state check: request {i} (length {n}) layer {layer}"
+                      f" {key} differs from its solo prefill by {e}")
+                worst = max(worst, e)
+    torch.cuda.synchronize()
+    log(f"mamba state: batch of prompts {lens} (padded to {max(lens)}) vs "
+        f"each alone, fp32, all {cfg.n_layers} layers' conv and ssm states:"
+        f" max|batch-solo|/scale {worst:.2e} (tolerance 1e-3)  [{card}]")
+    del batch, solo, params
+    torch.cuda.empty_cache()
+
+    # (d) wall clock, bf16, after a warm-up pass of 2 requests (one prefill
+    # batch, then decode) in which two 10-cycle windows are profiled: one
+    # inside the prefill, one of decode iterations alone
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    windows = (ProfileCycles(10, 10), ProfileCycles(100, 10))
+    _replay(cfg, params, torch.bfloat16, paged=None, max_prefill_batch=4,
+            wall=True, n_requests=2,
+            audit=lambda srv: [w(srv) for w in windows])
+    for w in windows:
+        check(w.wall is not None, "mamba: the warm-up ended before its "
+              "profile window")
+        _profile_report(w.prof, w.wall, f"cycles {w.first + 1}-"
+                        f"{w.first + w.n} of Mamba-2 serving ({w.prefills} "
+                        f"with a prefill group), bf16, wall clock", card)
+    srv, _, m, secs, rec = _replay(cfg, params, torch.bfloat16, paged=None,
+                                   max_prefill_batch=4, wall=True,
+                                   n_requests=MAMBA_REQUESTS)
+    p = _percentiles(srv)
+    log(f"mamba replay wall clock, bf16: {m.row()}  [{card}]")
+    log(f"  TTFT p50/p90 {p[0]:.1f}/{p[1]:.1f} ms, TPOT p50/p90 "
+        f"{p[2]:.1f}/{p[3]:.1f} ms, {m.throughput_tok_s:.0f} tok/s, goodput "
+        f"{100 * m.goodput:.1f}%; {len(rec)} cycles in {secs:.1f} s "
+        f"({1e3 * secs / len(rec):.1f} ms per cycle), decode-only cycle "
+        f"{_decode_only_ms(rec):.1f} ms, stats {vars(srv.stats)}  [{card}]")
+    del srv, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1011,18 +1312,22 @@ def main() -> int:
     timed("build", phase_build)
     timer = Timer()
     rows = timed("kernels", phase_kernels, timer)
+    rows.append(timed("ssd kernel", phase_ssd, timer))
     colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
     timed("reference", phase_reference)
+    timed("mamba reference", phase_mamba_reference)
     launches = timed("serve", phase_serve, card)[0]
     replay = timed("replay", phase_replay, card)
+    ssd = timed("mamba", phase_mamba, card)
     # each kernel's launches on its own path: the serve phase's fused run
-    # (the paged fused path), the chaos replay (dense decode) and the
+    # (the paged fused path), the chaos replay (dense decode), the
     # colocated sweep (the dense fused kernel, which no serving path runs)
+    # and the Mamba-2 virtual-clock replay (the SSD scan)
     launches = {**replay, **launches,
                 "decode_attention": replay["decode_attention"],
-                "bullet_attention": colocated}
+                "bullet_attention": colocated, "ssd_scan": ssd}
     for r in rows:
         r["launches"] = launches[r["name"]]
     log(f"{card}")

@@ -1,6 +1,8 @@
 """Model registry of the PyTorch port: the ``ModelConfig`` system copied
-from the JAX package, with the dense pure-attention models the paged
-Bullet path serves registered (``qwen3-1.7b``, ``llama3.1-8b``)."""
+from the JAX package, with the models the port serves registered: the
+dense pure-attention ones of the paged Bullet path (``qwen3-1.7b``,
+``llama3.1-8b``) and the attention-free ``mamba2-2.7b`` on the dense slot
+cache."""
 
 from repro_torch.configs.base import (
     ATTN, SWA, RGLRU, SSD, MLP, MOE,

@@ -291,5 +291,7 @@ def _ensure_loaded():
         return
     _LOADED = True
     # import all config modules for registration side effects; the port
-    # registers only the dense pure-attention models its paged path serves
-    from repro_torch.configs import qwen3_1p7b, llama31_8b  # noqa: F401
+    # registers the models it serves: the pure-attention ones of the paged
+    # path and Mamba-2 on the dense slot cache
+    from repro_torch.configs import (  # noqa: F401
+        qwen3_1p7b, llama31_8b, mamba2_2p7b)

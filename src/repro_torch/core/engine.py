@@ -23,7 +23,11 @@ move on the device. The dense fixed-slot cache ((R, slots, S, K, D), one
 ``max_len`` row per slot) is the reference layout the SLO guard's
 paged→dense rung falls back to (``set_cache_mode``): prefill fills a
 per-batch cache and migration copies each request's row into its slot,
-and decode reads the rows through the dense decode kernel. The
+and decode reads the rows through the dense decode kernel. It is also the
+only layout of a model with recurrent blocks (Mamba-2): there a slot holds
+each SSD layer's conv window and state, which prefill computes at every
+request's own length, and the engine runs serial (``paged=None`` and
+``fused=None`` resolve to False, as in the JAX engine). The
 observability (``obs``), fault-injection (``faults``) and SLO-guard
 (``guard``) seams are the JAX engine's, gated the same way. The
 module-level step functions are the torch counterparts of the JAX
@@ -42,7 +46,7 @@ from typing import Callable, Deque, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MOE, ModelConfig
 from repro_torch.core.config import ServerConfig
 from repro_torch.core.estimator import (CycleObservation, OnlineRefitter,
                                         PerfEstimator, predict_cycle)
@@ -83,26 +87,13 @@ def _final_tokens(params, x, lengths, *, cfg: ModelConfig):
 def _prefill_group(params, x, positions, tmp_cache, lengths, *,
                    cfg: ModelConfig, rep: int):
     """Dense path: pattern-repeat group ``rep`` over the prompt batch; each
-    layer's KV is padded to the cache row length and written into repeat
-    ``rep`` of the batch's own cache ``tmp_cache`` (R, B, S, K, D), in
-    place. Returns the activations."""
-    x, entries = T.prefill_group(params, x, positions, rep, cfg)
-    for j, (blk, (k, v)) in enumerate(zip(cfg.pattern, entries)):
-        leaf = tmp_cache["blocks"][j]
-        tpl = {"k": leaf["k"][rep], "v": leaf["v"][rep]}
-        entry = T._prefill_cache_entry({"k": k, "v": v}, blk, cfg, lengths,
-                                       tpl, False)
-        tpl["k"].copy_(entry["k"])
-        tpl["v"].copy_(entry["v"])
+    layer's entry (KV padded to the cache row length, or an SSD block's
+    conv window and state at each request's own length) is written into
+    repeat ``rep`` of the batch's own cache ``tmp_cache``, in place.
+    Returns the activations."""
+    x, entries = T.prefill_group(params, x, positions, rep, cfg, lengths)
+    T.write_dense_entries(tmp_cache, entries, cfg, lengths, rep)
     return x
-
-
-def _scatter_group_pages(cache, entries, page_map, rep: int) -> None:
-    """Scatter one layer group's prefill K/V into the pooled pages of
-    repeat ``rep``, in place."""
-    for j, (k_e, v_e) in enumerate(entries):
-        T.scatter_prefill_pages(cache["blocks"][j]["k"], k_e, page_map, rep)
-        T.scatter_prefill_pages(cache["blocks"][j]["v"], v_e, page_map, rep)
 
 
 def _fused_step(params, cache, x, positions, page_map, tokens, pos, active,
@@ -208,11 +199,15 @@ class BulletServer:
         if config.slo is None:
             raise TypeError("an SLO is required: pass "
                             "config=ServerConfig(slo=SLO(...))")
-        if not T.supports_paged_cache(cfg):
+        if cfg.pattern_tail or cfg.cross_attention:
             raise NotImplementedError(
-                f"{cfg.name}: pattern {cfg.pattern}: the port serves pure "
-                "full-attention stacks; other mixers come with a later "
-                "slice (ROADMAP)")
+                f"{cfg.name}: BulletServer's layer-group loop does not "
+                "handle pattern_tail or cross-attention configs; use a "
+                "homogeneous-pattern model")
+        if any(blk.ff == MOE for blk in cfg.pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE blocks come with a later slice (ROADMAP "
+                "§1, item 4)")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -253,8 +248,14 @@ class BulletServer:
         self.page_size = config.cache.page_size
         self.pool = PagedKVPool(self.max_slots * self.max_len,
                                 block_size=self.page_size)
-        #: block-paged pool (default) or the dense fixed-slot cache
-        self.paged = True if paged is None else paged
+        #: block-paged pool (default wherever the model can use it) or the
+        #: dense fixed-slot cache
+        if paged is None:
+            paged = T.supports_paged_cache(cfg)
+        elif paged and not T.supports_paged_cache(cfg):
+            raise ValueError(f"{cfg.name}: pattern {cfg.pattern} cannot use "
+                             "the block-paged cache (needs pure ATTN)")
+        self.paged = paged
         # fused spatial prefill+decode execution (§3.5) by default wherever
         # the cache is paged; the serial path stays as numerics reference
         if fused is None:
@@ -597,8 +598,8 @@ class BulletServer:
             task.x, entries = T.prefill_group(self.params, task.x,
                                               task.positions, task.rep,
                                               self.cfg)
-            _scatter_group_pages(self.cache, entries, task.page_map,
-                                 task.rep)
+            T.scatter_group_pages(self.cache, entries, task.page_map,
+                                  task.rep)
         else:
             task.x = _prefill_group(self.params, task.x, task.positions,
                                     task.tmp_cache, task.lengths,
@@ -807,6 +808,9 @@ class BulletServer:
         if paged == self.paged:
             return
         assert not self.fused, "degrade fused→serial before paged→dense"
+        if paged and not T.supports_paged_cache(self.cfg):
+            raise ValueError(f"{self.cfg.name}: cannot restore the paged "
+                             "cache (pattern needs pure ATTN)")
         if self.ptask is not None:
             self._abort_prefill_task(self.ptask, now)
             self.ptask = None

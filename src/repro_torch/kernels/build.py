@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
 The sources have a plain C interface: ``nvcc`` compiles them for
-``sm_90a`` into a shared library under ``build/repro_torch_kernels/`` at
+``sm_90a`` into one shared library under ``build/repro_torch_kernels/`` at
 the root of the checkout, named by a digest of the sources so an edit
-rebuilds, and ``ctypes`` loads it. Nothing here runs at import: the first
-wrapper that launches a kernel builds the library, and the CPU tests,
-which never launch one, need no compiler.
+rebuilds, and ``ctypes`` loads it. ``attention.cu`` holds the attention
+kernels, ``ssd_scan.cu`` the Mamba-2 SSD chunk scan. Nothing here runs at
+import: the first wrapper that launches a kernel builds the library, and
+the CPU tests, which never launch one, need no compiler.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention.cu",)
+SOURCES = ("attention.cu", "ssd_scan.cu")
 HEADERS = ("attention.cuh",)
 #: build/ at the root of the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -39,6 +40,7 @@ SIGNATURES = {
     "decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 8 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
+    "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -67,7 +69,7 @@ def _digest() -> str:
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"libattention_{_digest()}.so"
+    return BUILD_DIR / f"librepro_kernels_{_digest()}.so"
 
 
 def build() -> Build:
@@ -128,12 +130,15 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 HEAD_DIMS = (128,)
 
 
-def check_inputs(kernel: str, floats, ints=()) -> int:
+def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
+                 head_dim: bool = True) -> int:
     """Validate what a launch receives before any pointer crosses into C:
     every tensor on one CUDA device and contiguous, the float tensors of
-    one supported dtype, the index tensors int32. Returns the dtype code."""
+    one supported dtype, the ``fp32`` tensors float32, the index tensors
+    int32, and (attention kernels, ``head_dim``) the last dim of the first
+    tensor one of ``HEAD_DIMS``. Returns the dtype code."""
     first = floats[0]
-    for t in (*floats, *ints):
+    for t in (*floats, *ints, *fp32):
         if not t.is_cuda or t.device != first.device:
             raise ValueError(f"{kernel}: every tensor must be on "
                              f"{first.device} (a CUDA device), got {t.device}")
@@ -147,7 +152,11 @@ def check_inputs(kernel: str, floats, ints=()) -> int:
         if str(t.dtype) != "torch.int32":
             raise TypeError(f"{kernel}: index tensors must be int32, "
                             f"got {t.dtype}")
+    for t in fp32:
+        if str(t.dtype) != "torch.float32":
+            raise TypeError(f"{kernel}: {tuple(t.shape)} must be float32, "
+                            f"got {t.dtype}")
     d = first.shape[-1]
-    if d not in HEAD_DIMS:
+    if head_dim and d not in HEAD_DIMS:
         raise ValueError(f"{kernel}: head dim {d} not in {HEAD_DIMS}")
     return code

@@ -1,4 +1,4 @@
-"""Model-layout wrappers around the attention kernels.
+"""Model-layout wrappers around the attention kernels and the SSD scan.
 
 These adapt model-layout tensors ((B, S, H, D) etc.) to the kernel
 layouts, as the JAX package's ``kernels/ops.py`` does for its Pallas
@@ -9,10 +9,14 @@ version for CPU tensors.
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from repro_torch.kernels import bullet_attention as _bullet
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _heads_major(x):
@@ -90,3 +94,48 @@ def bullet_attention_paged_op(qp, kp, vp, qd, k_pages, v_pages, block_tables,
         decode_share=decode_share, causal=causal, window=window,
         group=h // kh)
     return op.reshape(bp, h, sp, d).transpose(1, 2), od.reshape(bd, 1, h, d)
+
+
+def ssd_chunk_inputs(x, dt, A, B_, C, *, chunk=256):
+    """The SSD kernel's inputs from the model layout: the sequence padded to
+    a multiple of the chunk ``q = min(chunk, S)`` with dt = 0 steps (decay
+    e^0 = 1, zero input: the state passes through unchanged), ``xw = x·dt``
+    in x's dtype and the within-chunk cumulative log decay in fp32. Returns
+    (xw (B,NC,Q,H,P), cum (B,NC,Q,H), B (B,NC,Q,N), C (B,NC,Q,N))."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    q = min(chunk, s)
+    pad = (q - s % q) % q
+    dtf = dt.float()
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = (s + pad) // q
+    cum = torch.cumsum((dtf * A.float()).reshape(b, nc, q, h), dim=2)
+    xw = (x.float() * dtf[..., None]).to(x.dtype)
+    return (xw.reshape(b, nc, q, h, p).contiguous(), cum.contiguous(),
+            B_.to(x.dtype).reshape(b, nc, q, n).contiguous(),
+            C.to(x.dtype).reshape(b, nc, q, n).contiguous())
+
+
+def ssd_scan_op(x, dt, A, B_, C, D, *, chunk=256, state0=None):
+    """Model layout (the contract of ``repro_torch.models.ssm.ssd_chunked``):
+
+    x (B,S,H,P), dt (B,S,H) softplus'd fp32, A (H,) negative, B_/C (B,S,N),
+    D (H,). Returns (y (B,S,H,P) in x's dtype, final_state (B,H,P,N) fp32).
+
+    The kernel's inputs come from :func:`ssd_chunk_inputs`, the ``D`` skip
+    is added after the scan, and the final state is the one the kernel
+    writes. A starting state (chunked prefill) is not taken yet:
+    ``state0`` raises."""
+    if state0 is not None:
+        raise NotImplementedError(
+            "ssd_scan_op: a starting state (chunked prefill) comes with a "
+            "later slice (ROADMAP)")
+    b, s, h, p = x.shape
+    y, state = _ssd.ssd_scan(*ssd_chunk_inputs(x, dt, A, B_, C, chunk=chunk))
+    y = y.reshape(b, -1, h, p)[:, :s].float() \
+        + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), state

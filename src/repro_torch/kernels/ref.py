@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels: the one implementation
+"""Plain PyTorch versions of the attention kernels, and the sequential SSD
+oracle: the one implementation
 that the kernel wrappers run for CPU tensors, that the CUDA kernels are
 held against on the card, and that ``repro_torch.models.attention``
 exports to the model.
@@ -14,8 +15,11 @@ port's CPU engine reproduces the JAX engine token for token:
 The oracles of the JAX package's ``kernels/ref.py`` are adapters of that
 math to the kernel layouts (``flash_attention_ref``,
 ``decode_attention_ref``, ``paged_decode_attention_ref``,
-``bullet_attention_ref``, ``bullet_attention_paged_ref``); the scan
-oracles come with their kernels in a later slice.
+``bullet_attention_ref``, ``bullet_attention_paged_ref``).
+``ssd_scan_ref`` is the JAX package's sequential SSD oracle, one step per
+position; the chunked plain version the SSD kernel is held against lives
+beside its wrapper (``kernels/ssd_scan.py``). The RG-LRU oracle comes with
+its kernel in a later slice.
 
 A decode slot with no attended key (pos < 0, or, dense, no kv position in
 [0, pos]) masks every key: here, as in the JAX reference, its softmax is
@@ -188,3 +192,24 @@ def bullet_attention_paged_ref(qp, kp, vp, qd, k_pages, v_pages,
     out_d = paged_decode_attention_ref(qd, k_pages, v_pages, block_tables,
                                        pos)
     return out_p, out_d
+
+
+def ssd_scan_ref(xw, da_cumsum, B_, C, state0=None):
+    """Sequential SSD oracle in cumulative-decay form.
+
+    xw: (B, S, H, P) inputs already scaled by dt;
+    da_cumsum: (B, S, H) cumulative sum of dt*A (log decay);
+    B_, C: (B, S, N). Returns (y (B,S,H,P), final_state (B,H,P,N) fp32)."""
+    bsz, s, h, p = xw.shape
+    n = B_.shape[-1]
+    da = torch.diff(da_cumsum.float(), dim=1,
+                    prepend=da_cumsum.new_zeros((bsz, 1, h)).float())
+    st = (xw.new_zeros((bsz, h, p, n), dtype=torch.float32)
+          if state0 is None else state0.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(da[:, t])                       # (B,H)
+        st = st * decay[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", xw[:, t].float(), B_[:, t].float())
+        ys.append(torch.einsum("bhpn,bn->bhp", st, C[:, t].float()))
+    return torch.stack(ys, dim=1).to(xw.dtype), st

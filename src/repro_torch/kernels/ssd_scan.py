@@ -1,0 +1,91 @@
+"""Mamba-2 SSD chunk scan: the wrapper of the CUDA kernel ``ssd_scan_fwd``
+(``csrc/ssd_scan.cu``), its launch counter and its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py:66`` (``ssd_scan``).
+Per (batch row, head) the scan walks the chunks in order, carrying the
+recurrent state (P×N, fp32); per chunk, with ``cum`` the within-chunk
+cumulative log decay:
+
+    y_intra = (C Bᵀ ⊙ L) xw,          L_ij = e^{cum_i − cum_j} for j <= i
+    y_inter = (C ⊙ e^{cum}) state
+    state   = e^{cum_last} state + Bᵀ (xw ⊙ e^{cum_last − cum})
+
+The kernel writes ``y`` and the final state (from shared memory), where the
+TPU kernel left its state in scratch and ``ops.ssd_scan_op`` recovered it
+analytically. It takes a chunk of up to 256 rows and a state of up to 128;
+P and H are free. Bound on the card: bytes, narrowly over operations; the
+kernel is limited by its fp32 arithmetic (see the source's header note).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+#: kernel launches since the counter was last reset (plain integer)
+launches = 0
+
+#: the largest chunk and state size the kernel's shared buffers hold
+MAX_CHUNK, MAX_STATE = 256, 128
+
+
+def ssd_scan_plain(xw, cum, B_, C):
+    """The chunk scan in plain PyTorch: the TPU kernel's per-chunk algebra,
+    looped over the chunks, in fp32. Same contract as :func:`ssd_scan`."""
+    b, nc, q, h, p = xw.shape
+    n = B_.shape[-1]
+    causal = torch.ones(q, q, dtype=torch.bool, device=xw.device).tril()
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=xw.device)
+    ys = []
+    for ci in range(nc):
+        x_c = xw[:, ci].float()                             # (B,Q,H,P)
+        cum_c = cum[:, ci].float()                          # (B,Q,H)
+        b_c, c_c = B_[:, ci].float(), C[:, ci].float()      # (B,Q,N)
+        seg = cum_c[:, :, None, :] - cum_c[:, None, :, :]   # (B,Q,Q,H)
+        L = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                  float("-inf")))
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)         # (B,Q,Q)
+        y_intra = torch.einsum("bij,bijh,bjhp->bihp", cb, L, x_c)
+        y_inter = torch.einsum("bin,bih,bhpn->bihp", c_c, torch.exp(cum_c),
+                               state)
+        d_end = torch.exp(cum_c[:, -1:, :] - cum_c)         # (B,Q,H)
+        state = (state * torch.exp(cum_c[:, -1, :])[..., None, None]
+                 + torch.einsum("bjn,bjh,bjhp->bhpn", b_c, d_end, x_c))
+        ys.append(y_intra + y_inter)
+    return torch.stack(ys, dim=1).to(xw.dtype), state
+
+
+def ssd_scan(xw, cum, B_, C):
+    """xw: (B, NC, Q, H, P) dt-scaled inputs per chunk; cum: (B, NC, Q, H)
+    fp32 within-chunk cumulative log decay; B_, C: (B, NC, Q, N) in xw's
+    dtype. Returns (y (B, NC, Q, H, P) in xw's dtype, final state (B, H,
+    P, N) fp32).
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    if xw.device.type == "cpu":
+        return ssd_scan_plain(xw, cum, B_, C)
+    code = build.check_inputs("ssd_scan", (xw, B_, C), fp32=(cum,),
+                              head_dim=False)
+    b, nc, q, h, p = xw.shape
+    n = B_.shape[-1]
+    if (tuple(cum.shape) != (b, nc, q, h) or B_.shape != C.shape
+            or tuple(B_.shape) != (b, nc, q, n)):
+        raise ValueError(f"ssd_scan: xw {tuple(xw.shape)}, cum "
+                         f"{tuple(cum.shape)}, B {tuple(B_.shape)}, C "
+                         f"{tuple(C.shape)}")
+    if q > MAX_CHUNK or n > MAX_STATE:
+        raise ValueError(f"ssd_scan: chunk {q} (at most {MAX_CHUNK}) and "
+                         f"state {n} (at most {MAX_STATE})")
+    y = torch.empty_like(xw)
+    state = torch.empty(b, h, p, n, dtype=torch.float32, device=xw.device)
+    if y.numel() == 0:
+        return y, state.zero_()
+    rc = build.library().ssd_scan_fwd(
+        xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
+        y.data_ptr(), state.data_ptr(), b, nc, q, h, p, n, code,
+        build.stream_of(xw))
+    build.check(rc, "ssd_scan")
+    global launches
+    launches += 1
+    return y, state

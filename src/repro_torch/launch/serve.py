@@ -3,8 +3,9 @@
 Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
 
 - host (default): run the Bullet runtime (paged KV pool, fused
-  prefill+decode cycles, SLO scheduler) over a reduced model variant with
-  seeded random weights on a batch of requests.
+  prefill+decode cycles, SLO scheduler; the dense slot cache, serial, for
+  ``--arch mamba2-2.7b``) over a reduced model variant with seeded random
+  weights on a batch of requests.
 - replay: online trace replay through the ``OnlineFrontend``: a
   ``generate_trace`` workload (capped at ``--requests``, lengths fitted to
   ``--max-len``) is released into the engine by arrival time on a
@@ -15,6 +16,8 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode host
   PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
       --device cpu --dataset sharegpt --rate 8 --duration 5 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --mode replay --requests 8
 """
 
 from __future__ import annotations
@@ -57,8 +60,10 @@ def _write_obs_outputs(args, server) -> None:
 
 def model_config(arch: str):
     """The reduced variant both modes serve, at the head dim the CUDA
-    kernels are built for (``kernels/build.py`` ``HEAD_DIMS``), so the
-    default ``cuda`` device runs the kernels."""
+    attention kernels are built for (``kernels/build.py`` ``HEAD_DIMS``),
+    so the default ``cuda`` device runs the kernels. For an attention-free
+    model (``mamba2-2.7b``) the head-dim override is moot: its SSD kernel
+    takes any head dim, and the reduced config's SSD sizes stand."""
     from repro_torch.configs import get_config
     return get_config(arch).reduced(head_dim=128)
 

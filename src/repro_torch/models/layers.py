@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, gated MLP, initializers.
+"""Shared building blocks: norms, RoPE, gated MLP, causal conv,
+initializers.
 
 Numerics follow the JAX package's ``models/layers.py`` op for op: RMSNorm
 scales by ``(1 + scale)`` in fp32, RoPE rotates split halves in fp32."""
@@ -51,6 +52,24 @@ def gated_mlp(x: torch.Tensor, wi: torch.Tensor,
     h = x @ wi
     gate, up = h.chunk(2, dim=-1)
     return (F.silu(gate) * up) @ wo
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv followed by SiLU.
+
+    x: (B, S, C), w: (K, C). If ``state`` (B, K-1, C) is given, it is the
+    left context (decode); returns (y, new_state), ``new_state`` the last
+    K-1 rows of the left context and ``x``."""
+    k, s = w.shape[0], x.shape[1]
+    if state is None:
+        state = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([state, x], dim=1)                    # (B, S+K-1, C)
+    y = torch.zeros_like(x)
+    for i in range(k):
+        y = y + xp[:, i:i + s] * w[i]
+    new_state = xp[:, s:] if k > 1 else state
+    return F.silu(y), new_state
 
 
 # ---------------------------------------------------------------------------

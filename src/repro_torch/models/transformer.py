@@ -2,14 +2,18 @@
 cache, prefill, paged and dense decode, and the fused prefill-group +
 decode cycle.
 
-The port covers homogeneous full-attention stacks (``supports_paged_cache``):
-``n_pattern_repeats`` repeats of ``cfg.pattern``, with per-pattern
-parameters stacked along a leading repeat axis R, as in the JAX package.
-Python loops over the repeats take the place of ``lax.scan``. Page pools
-and slot caches are updated in place where the JAX package donated its
-buffers. The dense slot cache keeps the JAX package's ring semantics
-(``long_context``: a full-attention cache shorter than the context holds
-the latest positions, addressed through ``_kv_positions``).
+The port covers homogeneous stacks of full-attention blocks with an MLP
+(the paged path, ``supports_paged_cache``) and of Mamba-2 SSD blocks (the
+dense slot cache only): ``n_pattern_repeats`` repeats of ``cfg.pattern``,
+with per-pattern parameters stacked along a leading repeat axis R, as in
+the JAX package. Python loops over the repeats take the place of
+``lax.scan``. Page pools and slot caches are updated in place where the
+JAX package donated its buffers. The dense slot cache keeps the JAX
+package's ring semantics (``long_context``: a full-attention cache shorter
+than the context holds the latest positions, addressed through
+``_kv_positions``); an SSD block's entry is its conv window and recurrent
+state. Sliding-window, RG-LRU, MoE, cross-attention and ``pattern_tail``
+stacks raise (ROADMAP).
 """
 
 from __future__ import annotations
@@ -18,11 +22,19 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLP, BlockSpec, ModelConfig
+from repro_torch.configs.base import ATTN, MLP, SSD, BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_ops
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import SSDState, ssd_block
 
 Params = Dict[str, Any]
+
+#: leaves kept in fp32 whatever the serving dtype: Mamba-2's ``A_log``
+#: (the decay exp(dt·A) compounds its rounding along the sequence) and the
+#: SSD recurrent state, which the JAX cache keeps in fp32 too. The bridge
+#: (``repro_torch/bridge.py``) follows the same rule.
+FP32_PARAMS = frozenset({"A_log"})
+FP32_CACHE = frozenset({"ssm"})
 
 
 # ---------------------------------------------------------------------------
@@ -47,14 +59,32 @@ def _attn_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
     return defs
 
 
+def _ssd_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
+    d, di, n, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_n_heads
+    kw = cfg.rglru_conv_width
+    return {
+        "in_proj": ((d, 2 * di + 2 * n + h), "dense"),
+        "conv": ((kw, di + 2 * n), "dense"),
+        "A_log": ((h,), "lru"),
+        "D": ((h,), "ones"),
+        "dt_bias": ((h,), "zeros"),
+        "norm": ((di,), "zeros"),
+        "out_proj": ((di, d), "dense"),
+    }
+
+
 def _block_defs(cfg: ModelConfig, blk: BlockSpec):
-    if blk.mixer != ATTN or blk.ff not in (MLP, "none"):
+    if (blk.mixer not in (ATTN, SSD) or blk.ff not in (MLP, "none")
+            or cfg.pattern_tail or cfg.cross_attention
+            or cfg.n_encoder_layers):
         raise NotImplementedError(
-            f"block {blk}: the port serves dense full-attention stacks; "
-            "other mixers and MoE come with a later slice (ROADMAP)")
+            f"{cfg.name} block {blk}: the port serves full-attention and "
+            "Mamba-2 SSD stacks; sliding-window, RG-LRU, MoE, cross-"
+            "attention and pattern_tail stacks come with later slices "
+            "(ROADMAP)")
     d = cfg.d_model
     defs = {"ln1": ((d,), "zeros")}
-    defs.update(_attn_defs(cfg))
+    defs.update(_attn_defs(cfg) if blk.mixer == ATTN else _ssd_defs(cfg))
     if blk.ff == MLP:
         defs["ln2"] = ((d,), "zeros")
         defs["wi"] = ((d, 2 * cfg.d_ff), "dense")
@@ -78,6 +108,12 @@ def _init_one(gen, shape, init, dtype, *, lead=(), fan_in=None):
         return L.embed_init(gen, full, dtype)
     if init == "zeros":
         return torch.zeros(full, dtype=dtype, device=gen.device)
+    if init == "ones":
+        return torch.ones(full, dtype=dtype, device=gen.device)
+    if init == "lru":   # Griffin Lambda / mamba A_log init
+        u = torch.rand(full, generator=gen, dtype=torch.float32,
+                       device=gen.device) * 0.8 + 0.1
+        return torch.log(u / (1 - u)).to(dtype)
     raise ValueError(init)
 
 
@@ -86,10 +122,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Seeded random params with the JAX package's tree, shapes and
     distributions (no bit parity with jax.random): ``{"embed",
     "final_norm", ["lm_head"], "blocks": (per pattern position {name:
-    (R, ...)})}``, vocab padded to a multiple of 256."""
-    if not supports_paged_cache(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves pure full-attention stacks")
+    (R, ...)})}``, vocab padded to a multiple of 256. Leaves in
+    ``FP32_PARAMS`` stay fp32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params: Params = {}
@@ -97,7 +131,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         params[name] = _init_one(gen, shape, init, dtype)
     r = cfg.n_pattern_repeats
     params["blocks"] = tuple(
-        {name: _init_one(gen, shape, init, dtype, lead=(r,))
+        {name: _init_one(gen, shape, init,
+                         torch.float32 if name in FP32_PARAMS else dtype,
+                         lead=(r,))
          for name, (shape, init) in sorted(_block_defs(cfg, blk).items())}
         for blk in cfg.pattern)
     return params
@@ -144,18 +180,24 @@ def _cache_len(cfg: ModelConfig, blk: BlockSpec, max_len: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda", *,
                long_context: bool = False):
-    """Stacked dense decode cache: per pattern position ``{"k", "v"}`` of
-    shape (R, batch, S, K, D), one fixed row of S positions per slot.
-    ``long_context`` switches full-attention blocks to their ring-window
-    variant (S = the long-context window). Other mixers raise, as
-    ``_block_defs`` does."""
+    """Stacked dense decode cache, one entry per pattern position with a
+    leading repeat axis R: full attention ``{"k", "v"}`` of shape (R, batch,
+    S, K, D), one fixed row of S positions per slot (``long_context``
+    switches them to their ring-window variant, S = the long-context
+    window); SSD ``{"conv": (R, batch, K-1, di+2N), "ssm": (R, batch, H, P,
+    N) fp32}``. Other mixers raise, as ``_block_defs`` does."""
     r = cfg.n_pattern_repeats
     blocks = []
     for blk in cfg.pattern:
-        if blk.mixer != ATTN or cfg.pattern_tail or cfg.cross_attention:
-            raise NotImplementedError(
-                f"block {blk}: the port's dense cache holds full-attention "
-                "entries; other mixers come with a later slice (ROADMAP)")
+        _block_defs(cfg, blk)           # raises for blocks not served
+        if blk.mixer == SSD:
+            kw, ch = cfg.rglru_conv_width, cfg.ssm_d_inner + 2 * cfg.ssm_state
+            st = (r, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state)
+            blocks.append({
+                "conv": torch.zeros((r, batch, kw - 1, ch), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros(st, dtype=torch.float32, device=device)})
+            continue
         s = _cache_len(cfg, blk, max_len, long_context)
         shape = (r, batch, s, cfg.n_kv_heads, cfg.head_dim)
         blocks.append({"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -184,7 +226,9 @@ def _prefill_cache_entry(entry, blk: BlockSpec, cfg: ModelConfig, lengths,
                          cache_tpl, long_context: bool):
     """Convert a full-sequence cache entry into the decode cache layout of
     ``cache_tpl`` (pad full KV to the cache length, or gather into the
-    ring window)."""
+    ring window; recurrent states are cast to the template's dtypes)."""
+    if blk.mixer != ATTN:
+        return {key: entry[key].to(cache_tpl[key].dtype) for key in cache_tpl}
     tgt = cache_tpl["k"].shape[1]                     # (B, S_cache, K, D)
     k, v = entry["k"], entry["v"]
     s = k.shape[1]
@@ -250,15 +294,24 @@ def _merge_heads(o):
     return o.reshape(*o.shape[:2], -1)
 
 
-def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions):
-    """Prefill block application over a full sequence. Returns
-    (x, {"k", "v"}) with this layer's full-sequence KV."""
+def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
+                      lengths=None):
+    """Prefill block application over a full sequence. Returns (x, entry):
+    this layer's full-sequence KV ``{"k", "v"}``, or an SSD block's state
+    ``{"conv", "ssm"}`` after each row's ``lengths[b]`` tokens (after all
+    of them without ``lengths``)."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
-    q, k, v = _project_qkv(h, p, cfg, positions)
-    o = attn_ops.attention_prefill(q, k, v, causal=True, window=0)
-    x = x + _merge_heads(o) @ p["wo"]
+    if blk.mixer == SSD:
+        y, st = ssd_block(h, p, cfg, lengths=lengths)
+        entry = {"conv": st.conv, "ssm": st.ssm}
+    else:
+        q, k, v = _project_qkv(h, p, cfg, positions)
+        o = attn_ops.attention_prefill(q, k, v, causal=True, window=0)
+        y = _merge_heads(o) @ p["wo"]
+        entry = {"k": k, "v": v}
+    x = x + y
     x = x + _ff(x, p, blk, cfg)
-    return x, {"k": k, "v": v}
+    return x, entry
 
 
 def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
@@ -273,8 +326,16 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
     dense slot cache {(B, S, K, D)}: the token lands in row ``pos`` (ring:
     ``pos mod S`` under ``long_context``) and attention masks the rows by
     ``kv_positions`` (B, S), which :func:`decode_step` computes once for
-    every layer."""
+    every layer. An SSD block steps its recurrence and writes its new conv
+    window and state into the entry in place."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
+    if blk.mixer == SSD:
+        y, st = ssd_block(h, p, cfg, decode=True, state=SSDState(
+            cache_entry["conv"], cache_entry["ssm"]))
+        cache_entry["conv"].copy_(st.conv)
+        cache_entry["ssm"].copy_(st.ssm)
+        x = x + y
+        return x + _ff(x, p, blk, cfg)
     q, k_new, v_new = _project_qkv(h, p, cfg, pos[:, None])
     if block_tables is not None:
         kp, vp = attn_ops.write_paged_kv(cache_entry["k"], cache_entry["v"],
@@ -342,15 +403,17 @@ def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
     return x_p, x_d
 
 
-def prefill_group(params, x, positions, rep: int, cfg: ModelConfig):
-    """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [(k,
-    v) per pattern position]) — the raw full-sequence KV the caller
-    scatters into pooled pages."""
+def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
+                  lengths=None):
+    """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [entry
+    per pattern position]) — the raw full-sequence KV ``{"k", "v"}`` the
+    caller scatters into pooled pages or pads into slot rows, or an SSD
+    block's ``{"conv", "ssm"}`` at each row's ``lengths``."""
     entries = []
     for j, blk in enumerate(cfg.pattern):
         x, entry = _apply_block_full(x, params_at(params["blocks"][j], rep),
-                                     blk, cfg, positions)
-        entries.append((entry["k"], entry["v"]))
+                                     blk, cfg, positions, lengths)
+        entries.append(entry)
     return x, entries
 
 
@@ -421,20 +484,44 @@ def last_token_logits(params, x, lengths, cfg: ModelConfig):
 # Top level: prefill / decode
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
-    """Process a prompt batch and scatter its KV into the page pool.
+def scatter_group_pages(cache, entries, page_map, rep: int) -> None:
+    """Scatter one layer group's prefill K/V (:func:`prefill_group`) into
+    the pooled pages of repeat ``rep``, in place."""
+    for leaf, entry in zip(cache["blocks"], entries):
+        for key in ("k", "v"):
+            scatter_prefill_pages(leaf[key], entry[key], page_map, rep)
 
-    tokens: (B, S) with ``lengths`` (B,) valid tokens each; ``page_map``
-    (B, ceil(S/ps)) names each prompt block's physical page (the trash page
-    past a request's length). Returns (last_logits (B, V), cache), the
+
+def write_dense_entries(cache, entries, cfg: ModelConfig, lengths,
+                        rep: int) -> None:
+    """Write one layer group's prefill entries (:func:`prefill_group`)
+    into repeat ``rep`` of a dense slot cache of :func:`init_cache` whose
+    batch rows are the prompt batch's, in place."""
+    for blk, entry, leaf in zip(cfg.pattern, entries, cache["blocks"]):
+        tpl = {key: t[rep] for key, t in leaf.items()}
+        new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, False)
+        for key, t in tpl.items():
+            t.copy_(new[key])
+
+
+def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
+    """Process a prompt batch and write its cache entries.
+
+    tokens: (B, S) with ``lengths`` (B,) valid tokens each. With
+    ``page_map`` (B, ceil(S/ps)), naming each prompt block's physical page
+    (the trash page past a request's length), the KV is scattered into the
+    page pool; with ``page_map=None`` ``cache`` is a dense slot cache of
+    :func:`init_cache` with B rows, which takes each row's KV, or SSD
+    state at its own length. Returns (last_logits (B, V), cache), the
     cache updated in place."""
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for r in range(cfg.n_pattern_repeats):
-        x, entries = prefill_group(params, x, positions, r, cfg)
-        for j, (k, v) in enumerate(entries):
-            scatter_prefill_pages(cache["blocks"][j]["k"], k, page_map, r)
-            scatter_prefill_pages(cache["blocks"][j]["v"], v, page_map, r)
+        x, entries = prefill_group(params, x, positions, r, cfg, lengths)
+        if page_map is None:
+            write_dense_entries(cache, entries, cfg, lengths, r)
+        else:
+            scatter_group_pages(cache, entries, page_map, r)
     return last_token_logits(params, x, lengths, cfg), cache
 
 
@@ -450,10 +537,11 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     place."""
     x = embed_tokens(params, tokens, cfg)
     kvpos = None
-    if block_tables is None:
+    attn = [j for j, blk in enumerate(cfg.pattern) if blk.mixer == ATTN]
+    if block_tables is None and attn:
         # one (B, S) position map serves every layer: all ATTN caches share
         # one length
-        kvpos = _kv_positions(pos, cache["blocks"][0]["k"].shape[2],
+        kvpos = _kv_positions(pos, cache["blocks"][attn[0]]["k"].shape[2],
                               long_context)
     for r in range(cfg.n_pattern_repeats):
         for j, blk in enumerate(cfg.pattern):

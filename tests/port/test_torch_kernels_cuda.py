@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m pytest -q -m cuda tests/port
 
 Tolerances: fp32 atol 1e-4 (kernel sums in another order), bf16 atol 2e-2
-(the plain version rounds probabilities to bf16, the kernel keeps fp32)."""
+(the plain version rounds probabilities to bf16, the kernel keeps fp32).
+The SSD scan is compared over its output's scale max(1, max|plain|): fp32
+1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4."""
 
 import pytest
 import torch
@@ -12,7 +14,9 @@ import torch
 from repro_torch.kernels import bullet_attention as TB
 from repro_torch.kernels import decode_attention as TD
 from repro_torch.kernels import flash_attention as TF
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as TP
+from repro_torch.kernels import ssd_scan as TS
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 pytestmark = pytest.mark.cuda
@@ -158,3 +162,44 @@ def test_wrappers_reject_bad_inputs(gen):
         TD.decode_attention(qd, kc, vc, kvpos.long(), pos)
     with pytest.raises(ValueError):
         TD.decode_attention(qd, kc, vc, kvpos[:, :-1].contiguous(), pos)
+
+
+def _scaled_err(out, ref):
+    ref = ref.float()
+    return ((out.float() - ref).abs().max()
+            / ref.abs().max().clamp(min=1.0)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 48, 3, 8, 4, 16), (1, 200, 4, 64, 128, 256),
+    (2, 300, 3, 40, 16, 128), (1, 70, 2, 32, 16, 64)])
+def test_ssd_kernel_matches_plain(gen, dtype, b, s, h, p, n, chunk):
+    """Runtime Q (a chunk of S rows when S < chunk, a padded tail chunk),
+    P not a multiple of the kernel's 32-column slice, N below 128."""
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn(h, generator=gen, device="cuda"))
+    B_ = torch.randn(b, s, n, generator=gen, device="cuda").to(dtype)
+    C = torch.randn(b, s, n, generator=gen, device="cuda").to(dtype)
+    xw, cum, bc, cc = ops.ssd_chunk_inputs(x, dt, A, B_, C, chunk=chunk)
+    before = TS.launches
+    y, st = TS.ssd_scan(xw, cum, bc, cc)
+    assert TS.launches == before + 1
+    ry, rst = TS.ssd_scan_plain(xw, cum, bc, cc)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert _scaled_err(y, ry) <= (1e-4 if dtype == torch.float32 else 1e-2)
+    assert _scaled_err(st, rst) <= 1e-4
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_hold(gen):
+    xw = torch.randn(1, 1, 300, 2, 8, generator=gen, device="cuda")
+    cum = torch.zeros(1, 1, 300, 2, device="cuda")
+    bc = torch.randn(1, 1, 300, 16, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="chunk"):
+        TS.ssd_scan(xw, cum, bc, bc)
+    with pytest.raises(TypeError, match="float32"):
+        TS.ssd_scan(xw[:, :, :200].contiguous(),
+                    cum[:, :, :200].contiguous().double(),
+                    bc[:, :, :200].contiguous(), bc[:, :, :200].contiguous())

@@ -22,7 +22,7 @@ from repro.kvcache.paged import OutOfBlocks as JOutOfBlocks
 from repro.kvcache.paged import PagedKVPool as JPool
 from repro.serving import workload as JW
 from repro.serving.request import SLO as JSLO
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_configs
 from repro_torch.core import metadata as TM
 from repro_torch.core import profiler as TP
 from repro_torch.core.estimator import HardwareSpec, PerfEstimator
@@ -68,6 +68,26 @@ def test_serve_host_on_cpu_drains(capsys):
 def test_registry_holds_the_paged_models():
     for name in ("qwen3-1.7b", "llama3.1-8b"):
         assert get_config(name) == _as_port(jax_config(name))
+
+
+def test_registry_holds_mamba2():
+    assert get_config("mamba2-2.7b") == _as_port(jax_config("mamba2-2.7b"))
+    assert sorted(list_configs()) == ["llama3.1-8b", "mamba2-2.7b",
+                                      "qwen3-1.7b"]
+
+
+def test_kernel_library_builds_every_source_under_a_neutral_name():
+    """One library holds every kernel of csrc/: its name names no kernel
+    family, every source and header is part of its digest, and every C
+    entry point the loader declares is defined in one of the sources."""
+    from repro_torch.kernels import build
+    assert build.library_path().name.startswith("librepro_kernels_")
+    assert set(build.SOURCES) == {p.name for p in build.CSRC.glob("*.cu")}
+    assert set(build.HEADERS) == {p.name for p in build.CSRC.glob("*.cuh")}
+    text = "".join((build.CSRC / n).read_text() for n in build.SOURCES)
+    for name in build.SIGNATURES:
+        assert f"int {name}(" in text, name
+    assert "ssd_scan_fwd" in build.SIGNATURES
 
 
 def _as_port(jcfg):

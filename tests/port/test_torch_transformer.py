@@ -148,10 +148,10 @@ def test_fused_group_decode_equals_serial(model, rep):
     s_cache = cache_from_jax(pool)
     sx, entries = T.prefill_group(params, torch.from_numpy(x_p),
                                   torch.from_numpy(positions), rep, cfg)
-    for j, (k, v) in enumerate(entries):
-        T.scatter_prefill_pages(s_cache["blocks"][j]["k"], k,
+    for j, entry in enumerate(entries):
+        T.scatter_prefill_pages(s_cache["blocks"][j]["k"], entry["k"],
                                 torch.from_numpy(page_map), rep)
-        T.scatter_prefill_pages(s_cache["blocks"][j]["v"], v,
+        T.scatter_prefill_pages(s_cache["blocks"][j]["v"], entry["v"],
                                 torch.from_numpy(page_map), rep)
     slogits, _ = T.decode_step(params, s_cache, torch.from_numpy(tokens),
                                torch.from_numpy(pos), cfg,
