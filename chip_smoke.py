@@ -7,7 +7,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. the card: name and power limit as nvidia-smi reports them;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-   for sm_90a;
+   for sm_90a, one nvcc per source in parallel; ptxas's registers and
+   spills per kernel;
 3. kernels, at the main-path shapes of Qwen3-1.7B (H=16, K=8, G=2, D=128,
    page size 16, dense cache rows of the replay's max_len = 1000, which is
    not a multiple of 128): each kernel against its plain PyTorch version
@@ -16,7 +17,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bullet kernels bit-equal to flash + their decode kernel at every
    decode_share of the tile table; median times over CUDA events (L2
    flushed before each launch) beside each kernel's bound and the library
-   yardstick;
+   yardstick; then the SSD scan (phase 8's shapes), the RG-LRU scan at
+   RecurrentGemma-2B's width W=2560 (B in {1, 4}, S in {3000, 200}, from
+   zeros and from h0, fp32 and bf16: y and the fp32 h_T), and flash
+   prefill and dense decode at the RecurrentGemma phase's shapes (H=10 on
+   K=1, D=256: 4 rows of S=3000 with the 2048 window, decode over 4 slots
+   of a 2048-row ring that has wrapped; bf16 also within 4 bf16 ulps of
+   each output row's scale);
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py):
    its error against flash + dense decode and its time per share;
@@ -48,7 +55,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    equal within 1e-3 of its scale (cuBLAS may pick another GEMM for
    another batch shape, so states, not argmax streams, are compared; the
    CPU tests hold the streams exactly); torch.profiler windows over 10
-   prefill and 10 decode cycles of the wall-clock run's warm-up.
+   prefill and 10 decode cycles of the wall-clock run's warm-up;
+9. RecurrentGemma-2B through the models-level ``prefill`` /
+   ``decode_step`` (its only route: ``BulletServer`` refuses its
+   ``pattern_tail``): (a) reference: a 5-layer cut at full width, one
+   (R, R, L) period and the (R, R) tail, fp32, prompts of 2100 (past the
+   window) and 600 tokens as one padded batch + 8 greedy decode steps on
+   the card against the CPU, logits within 1e-4 of their scale, tokens
+   equal, launches counted; (b) at full width and depth (26 layers,
+   vocab 256000, seeded random weights): each request's RG-LRU conv and
+   hidden state and SWA ring after a padded batch prefill of prompts of
+   3000, 2300, 1200 and 300 tokens against its solo prefill, fp32, every
+   layer within 1e-3 of scale; then in bf16 the same batch and 64 greedy
+   decode steps, timed, with 18 rglru_scan and 8 flash launches per
+   prefill and 8 decode_attention per step; torch.profiler windows over
+   one prefill call and 10 decode steps.
 
 The second-last line is the kernel table as JSON, the last line the
 device summary as JSON.
@@ -61,6 +82,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -87,6 +109,21 @@ SSD_H, SSD_P, SSD_N, SSD_Q = 80, 64, 128, 256
 #: state is not
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_STATE_TOL = 1e-4
+#: RecurrentGemma-2B's sizes: RG-LRU width, attention heads (10 query heads
+#: on one kv head), head dim, sliding window
+RG_W, RG_H, RG_K, RG_D, RG_WINDOW = 2560, 10, 1, 256, 2048
+#: RG-LRU kernel vs plain, over the output's scale max(1, max|plain|): fp32
+#: y and h_T 1e-5; bf16 y one bf16 ulp of the scale (2^-8), h_T (fp32) 1e-5
+RG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+RG_STATE_TOL = 1e-5
+#: flash and dense decode at D=256 in bf16 vs plain: besides TOL's
+#: absolute limit, max|kernel - plain| over each output row within this
+#: many bf16 ulps of the row's own scale max|plain_row|. The kernel rounds
+#: its output once; the plain version rounds each 1024-key block's PV
+#: product and then its output, so the two differ by up to about 2 ulps
+#: where the window spans 3 blocks; the phase prints what a result one key
+#: short reads in the same units, well above this
+RG_ATTN_ULPS = 4
 
 
 def fail(msg: str) -> None:
@@ -300,14 +337,40 @@ def phase_card() -> str:
     return card
 
 
+def ptxas_report(text: str):
+    """(kernel, registers, spill stores, spill loads, shared bytes) per
+    kernel entry, from ``nvcc -Xptxas -v``'s report."""
+    rows, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1), "spill_st": 0, "spill_ld": 0,
+                   "smem": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_st"], cur["spill_ld"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return rows
+
+
 def phase_build():
     from repro_torch.kernels import build
     b = build.build()
-    lines = [ln.strip() for ln in b.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"build: {b.seconds:.1f} s -> {os.path.relpath(b.path, ROOT)}")
-    for ln in lines:
-        log(f"  ptxas {ln}")
+    log(f"build: {b.seconds:.1f} s (one nvcc per source, in parallel) -> "
+        f"{os.path.relpath(b.path, ROOT)}")
+    for r in ptxas_report(b.log):
+        log(f"  ptxas {r['kernel']}: {r.get('regs')} registers, "
+            f"{r['spill_st']} B spill stores, {r['spill_ld']} B spill loads, "
+            f"{r['smem']} B static smem")
     build.library()
     return b
 
@@ -594,6 +657,198 @@ def phase_ssd(timer: Timer) -> dict:
     return rows[0]
 
 
+def rglru_cost(a, dtype):
+    """What the recurrence from zeros needs: a and b read and y written at
+    the dtype, h_T written in fp32; one multiply and one add per
+    element."""
+    n = a.numel()
+    return 3 * n * esize(dtype) + 4 * a.shape[0] * a.shape[2], 2 * n
+
+
+def phase_rglru(timer: Timer) -> dict:
+    """The RG-LRU scan kernel against its plain version at RecurrentGemma's
+    width W = 2560: one prompt (B=1) and a prefill batch (B=4), S=3000 and
+    S=200, from zeros and from a given h0, fp32 and bf16 inputs: y and h_T.
+    Timed at B=4, S=3000 in fp32, the dtype the model's gates hand it."""
+    from repro_torch.kernels import rglru_scan as RK
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 4):
+            for s in (3000, 200):
+                for with_h0 in (False, True):
+                    a = torch.sigmoid(torch.randn(
+                        b, s, RG_W, generator=gen, device="cuda")).to(dtype)
+                    bb = torch.randn(b, s, RG_W, generator=gen,
+                                     device="cuda").to(dtype)
+                    h0 = (torch.randn(b, RG_W, generator=gen, device="cuda")
+                          if with_h0 else None)
+                    y, h = RK.rglru_scan(a, bb, h0)
+                    ry, rh = RK.rglru_scan_plain(a, bb, h0)
+                    torch.cuda.synchronize()
+                    check(y.dtype == dtype and h.dtype == torch.float32,
+                          f"rglru_scan {dtype}: output dtypes {y.dtype}/"
+                          f"{h.dtype}")
+                    ey, eh = rel_err(y, ry), rel_err(h, rh)
+                    check(math.isfinite(ey) and ey <= RG_TOL[dtype]
+                          and math.isfinite(eh) and eh <= RG_STATE_TOL,
+                          f"rglru_scan {dtype} B={b} S={s} h0={with_h0}: y "
+                          f"err {ey}, h_T err {eh}")
+                    ea = (y.float() - ry.float()).abs().max().item()
+                    worst[dtype] = max(worst.get(dtype, 0.0), ea)
+                    log(f"rglru_scan {str(dtype)[6:]} B={b} S={s} W={RG_W} "
+                        f"h0={'given' if with_h0 else 'zeros'}: "
+                        f"max|kernel-plain|/scale y {ey:.3e}, h_T {eh:.3e}; "
+                        f"bit-equal {torch.equal(y, ry) and torch.equal(h, rh)}")
+    dtype = torch.float32
+    a = torch.sigmoid(torch.randn(4, 3000, RG_W, generator=gen,
+                                  device="cuda"))
+    bb = torch.randn(4, 3000, RG_W, generator=gen, device="cuda")
+    nb, no = rglru_cost(a, dtype)
+    bms, bby = bound_ms(nb, no, dtype)
+    ms = timer(lambda: RK.rglru_scan(a, bb))
+    plain = timer(lambda: RK.rglru_scan_plain(a, bb))
+    log(f"rglru_scan fp32 B=4 S=3000 W={RG_W}: {ms:.4f} ms (plain "
+        f"{plain:.4f}, library none, bound {bms:.4f} ms by {bby}: "
+        f"{nb / 1e6:.1f} MB)")
+    return dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:37",
+        ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby, library_ms=None,
+        max_abs_err=max(worst.values()),
+        shape=f"B=4 S=3000 W={RG_W} fp32 (the model's gates are fp32)")
+
+
+def row_ulps(out, ref) -> float:
+    """max|out - ref| over each row (the last dim), in bf16 ulps of the
+    row's own scale max|ref_row| (an ulp of x is 2^(floor(log2 x) - 7));
+    the largest over the rows."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    scale = ref.abs().amax(-1).clamp(min=2.0 ** -100)
+    return (err / torch.exp2(torch.floor(torch.log2(scale)) - 7)).max().item()
+
+
+def phase_attention_d256(timer: Timer) -> list:
+    """Kernels 1 and 4 at the RecurrentGemma phase's shapes (H=10 on K=1,
+    so G=10, D=256): flash prefill over a padded batch of 4 rows of
+    S=3000 (q (40, 3000, 256), k/v (4, 3000, 256), so every row reaches
+    its own kv head) with the 2048-token window, causal, and dense decode
+    over 4 slots of the 2048-row ring, which has wrapped for the slots past
+    position 2047 and still holds holes (-1) for the others. Against the
+    plain versions within TOL, and in bf16 also within RG_ATTN_ULPS bf16
+    ulps of each output row's scale; each bf16 check also prints what a wrong
+    result reads in those units (flash with the window one key short,
+    decode without the newest key). Timed in bf16 at the same shapes,
+    beside SDPA."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.transformer import _kv_positions
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bp, s, g = 4, 3000, RG_H // RG_K
+    #: decode positions after prefills of 3000, 2300, 1200, 300 tokens and
+    #: 40 decode steps: two rings wrapped, two with holes
+    dpos = torch.tensor([3039, 2339, 1239, 339], dtype=torch.int32,
+                        device="cuda")
+    kvpos = _kv_positions(dpos, RG_WINDOW, True)     # the model's ring map
+    att = (kvpos >= 0) & (kvpos <= dpos[:, None])
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        q, k, v = (rn(bp * RG_H, s, RG_D), rn(bp * RG_K, s, RG_D),
+                   rn(bp * RG_K, s, RG_D))
+        out = FA.flash_attention(q, k, v, causal=True, window=RG_WINDOW,
+                                 group=g)
+        ref = FA.flash_attention_plain(q, k, v, causal=True, window=RG_WINDOW,
+                                       group=g)
+        qd, kc, vc = (rn(bp, RG_K, g, RG_D), rn(bp, RG_WINDOW, RG_K, RG_D),
+                      rn(bp, RG_WINDOW, RG_K, RG_D))
+        od = DA.decode_attention(qd, kc, vc, kvpos, dpos)
+        rd = DA.decode_attention_plain(qd, kc, vc, kvpos, dpos)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        ed = (od.float() - rd.float()).abs().max().item()
+        err[("flash", dtype)], err[("decode", dtype)] = e, ed
+        check(math.isfinite(e) and e <= TOL[dtype],
+              f"flash D=256 {dtype}: err {e}")
+        check(math.isfinite(ed) and ed <= TOL[dtype],
+              f"dense decode D=256 {dtype}: err {ed}")
+        how = (f"max|kernel-plain| {e:.3e} / {ed:.3e} (tolerance "
+               f"{TOL[dtype]:g})")
+        if dtype == torch.bfloat16:
+            u, ud = row_ulps(out, ref), row_ulps(od, rd)
+            check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+                  f"flash D=256 {dtype}: {u} ulps of the row scale")
+            check(math.isfinite(ud) and ud <= RG_ATTN_ULPS,
+                  f"dense decode D=256 {dtype}: {ud} ulps of the row scale")
+            wu = row_ulps(FA.flash_attention_plain(
+                q, k, v, causal=True, window=RG_WINDOW - 1, group=g), ref)
+            newest = torch.where(kvpos == dpos[:, None], -1, kvpos)
+            wud = row_ulps(DA.decode_attention_plain(qd, kc, vc, newest, dpos),
+                           rd)
+            how += (f", in bf16 ulps of the row scale {u:.2f} / {ud:.2f} "
+                    f"(tolerance {RG_ATTN_ULPS}); a wrong result reads "
+                    f"{wu:.2f} (window one key short) / {wud:.2f} (newest "
+                    f"key left out)")
+        log(f"D=256 {str(dtype)[6:]}: flash {bp} rows H={RG_H} K={RG_K} "
+            f"S={s} window {RG_WINDOW} causal / dense decode G={g} over a "
+            f"{RG_WINDOW}-row ring at pos {dpos.tolist()}: {how}")
+
+    dt = torch.bfloat16
+    pairs = bp * sum(min(i + 1, RG_WINDOW) for i in range(s))
+    nb = (2 * q.numel() + 2 * k.numel()) * esize(dt)
+    bms, bby = bound_ms(nb, 4 * RG_D * g * pairs, dt)
+    qs = q.reshape(bp, RG_H, s, RG_D)
+    ks = k.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
+    vs = v.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
+    i = torch.arange(s, device="cuda")
+    wmask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - RG_WINDOW)
+    rows = [dict(
+        name="flash_attention_d256", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77",
+        ms=timer(lambda: FA.flash_attention(q, k, v, window=RG_WINDOW,
+                                            group=g)),
+        plain_ms=timer(lambda: FA.flash_attention_plain(
+            q, k, v, window=RG_WINDOW, group=g)),
+        bound_ms=bms, bound_by=bby,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=wmask)),
+        max_abs_err=err[("flash", dt)],
+        shape=f"Bp={bp} S={s} H={RG_H} K={RG_K} D={RG_D} window {RG_WINDOW} "
+              f"causal bf16")]
+    n_rows = int(att.sum())
+    nb = (2 * n_rows * RG_K * RG_D + 2 * qd.numel()) * esize(dt) \
+        + 4 * (kvpos.numel() + bp)
+    bms, bby = bound_ms(nb, 4 * g * RG_D * RG_K * n_rows, dt)
+    kx = kc.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+    vx = vc.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+    qx = qd.reshape(bp, RG_H, 1, RG_D)
+    rows.append(dict(
+        name="decode_attention_d256", route="cuda",
+        source="src/repro_torch/kernels/csrc/attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:62",
+        ms=timer(lambda: DA.decode_attention(qd, kc, vc, kvpos, dpos)),
+        plain_ms=timer(lambda: DA.decode_attention_plain(
+            qd, kc, vc, kvpos, dpos)),
+        bound_ms=bms, bound_by=bby,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(
+            qx, kx, vx, attn_mask=att[:, None, None, :])),
+        max_abs_err=err[("decode", dt)],
+        shape=f"{bp} slots x {RG_WINDOW}-row ring, pos {dpos.tolist()} "
+              f"({n_rows} attended rows), G={g} D={RG_D} bf16"))
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}) at {r['shape']}")
+    return rows
+
+
 def phase_colocated(timer: Timer) -> int:
     """The counterpart of examples/colocated_attention.py on the card: one
     dense fused launch computes a prefill batch's attention and a decode
@@ -682,9 +937,9 @@ def phase_reference():
         f"{n_dec} decode steps, card vs CPU max rel logit err {worst:.2e}")
 
 
-def _card_vs_cpu(outs, cfg) -> float:
+def _card_vs_cpu(outs, cfg, tol: float = 1e-3) -> float:
     """Each step's logits on the card against the CPU's, over the real
-    vocab: finite, within 1e-3 of their scale, the same greedy token.
+    vocab: finite, within ``tol`` of their scale, the same greedy token.
     Returns the worst error over the scale."""
     worst = 0.0
     for a, b in zip(outs["cuda"], outs["cpu"]):
@@ -692,7 +947,7 @@ def _card_vs_cpu(outs, cfg) -> float:
         check(bool(torch.isfinite(a).all()), "non-finite logits on the card")
         e = (a - b).abs().max().item()
         scale = max(1.0, b.abs().max().item())
-        check(e <= 1e-3 * scale, f"{cfg.name}: card vs CPU logits differ "
+        check(e <= tol * scale, f"{cfg.name}: card vs CPU logits differ "
               f"by {e}")
         check(bool((a.argmax(-1) == b.argmax(-1)).all()),
               f"{cfg.name}: argmax differs")
@@ -763,11 +1018,14 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
 
 
 def _kernel_kind(name: str) -> str:
-    if any(k in name for k in ("flash_kernel", "paged_decode_kernel",
+    # "decode_kernel" matches the paged and the dense decode kernels
+    if any(k in name for k in ("flash_kernel", "decode_kernel",
                                "bullet_kernel")):
         return "attention (this port's kernels)"
     if "ssd_scan_kernel" in name:
         return "SSD scan (this port's kernel)"
+    if "rglru_scan_kernel" in name:
+        return "RG-LRU scan (this port's kernel)"
     if any(k in name.lower() for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "GEMM (cuBLAS)"
     return "other (elementwise, norms, copies, index ops)"
@@ -1289,6 +1547,248 @@ def phase_mamba(card: str) -> int:
     return launches
 
 
+def _leaves(tree):
+    """The tensors of a nested dict / tuple tree."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def _rg_launches():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RK
+    return {"rglru_scan": RK.launches, "flash_attention": FA.launches,
+            "decode_attention": DA.launches}
+
+
+def _rg_reset() -> None:
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RK
+    RK.launches = FA.launches = DA.launches = 0
+
+
+def _prompt_batch(cfg, lens, seed: int):
+    """(B, max(lens)) int32 prompts of seeded random tokens, right-padded
+    with zeros, and their lengths."""
+    rng = np.random.default_rng(seed)
+    toks = np.zeros((len(lens), max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    return torch.from_numpy(toks), torch.tensor(lens, dtype=torch.int32)
+
+
+def _greedy(params, cfg, toks, lens, cache, n_dec: int):
+    """The models-level path: ``prefill`` of the padded batch, then
+    ``n_dec`` greedy ``decode_step``s. Returns the logits of every step
+    (on the CPU) and the greedy tokens."""
+    from repro_torch.models import decode_step, prefill
+    dev = params["embed"].device
+    logits, _ = prefill(params, toks.to(dev), lens.to(dev), cache, None, cfg)
+    seq, tokens = [logits.float().cpu()], []
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = lens.to(dev)
+    for _ in range(n_dec):
+        tokens.append(tok.cpu())
+        logits, _ = decode_step(params, cache, tok[:, None], pos, cfg)
+        seq.append(logits.float().cpu())
+        tok, pos = logits.argmax(-1).to(torch.int32), pos + 1
+    return seq, tokens
+
+
+def phase_rg_reference():
+    """RecurrentGemma-2B at full width cut to 5 layers, one (R, R, L)
+    period and the (R, R) tail, fp32: two prompts (2100 tokens, past the
+    2048 window, and 600) as one padded batch, prefill + 8 greedy decode
+    steps on the card (kernels) against the CPU (plain versions): logits
+    within 1e-4 of their scale, the same greedy tokens, and the card's
+    launches: 4 rglru_scan (one per RG-LRU layer), 1 flash_attention, 8
+    decode_attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), n_layers=5)
+    check(cfg.n_pattern_repeats == 1 and len(cfg.pattern_tail) == 2,
+          "not one (R, R, L) period and the (R, R) tail")
+    params = init_params(cfg, seed=1, dtype=torch.float32, device="cuda")
+    cpu = {k: (tuple({n: t.cpu() for n, t in b.items()} for b in v)
+               if isinstance(v, tuple) else v.cpu())
+           for k, v in params.items()}
+    toks, lens = _prompt_batch(cfg, [2100, 600], seed=1)
+    n_dec = 8
+    outs = {}
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        _rg_reset()
+        t = time.perf_counter()
+        cache = init_cache(cfg, 2, 2100 + n_dec, torch.float32, dev)
+        outs[dev] = _greedy(p, cfg, toks, lens, cache, n_dec)[0]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _rg_launches()
+        log(f"rg reference on {dev}: {time.perf_counter() - t:.1f} s")
+    want = {"rglru_scan": 4, "flash_attention": 1, "decode_attention": 8}
+    check(launches == want, f"rg reference: launches {launches}, want {want}")
+    worst = _card_vs_cpu(outs, cfg, tol=1e-4)
+    log(f"rg reference: 5-layer full-width RecurrentGemma-2B fp32, prompts "
+        f"{lens.tolist()} as one padded batch + {n_dec} decode steps, card vs "
+        f"CPU max rel logit err {worst:.2e} (tolerance 1e-4), greedy tokens "
+        f"equal, launches {launches}")
+
+
+#: the RecurrentGemma phase's prompts (one padded batch) and decode steps
+RG_PROMPTS, RG_DECODE = (3000, 2300, 1200, 300), 64
+
+
+def _rg_state_check(cfg, card: str) -> None:
+    """Each request's recurrent and ring state after the padded batch
+    prefill against the same prompt prefilled alone, fp32, every layer:
+    RG-LRU ``conv`` and ``hidden``, the SWA ring's ``k`` and ``v``, within
+    1e-3 of the solo state's scale. States, not streams: cuBLAS may pick
+    another GEMM for another batch shape."""
+    from repro_torch.models import init_cache, init_params, prefill
+
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    max_len = max(RG_PROMPTS) + RG_DECODE
+    toks, lens = _prompt_batch(cfg, RG_PROMPTS, seed=2)
+    batch = init_cache(cfg, len(RG_PROMPTS), max_len, torch.float32, "cuda")
+    prefill(params, toks.cuda(), lens.cuda(), batch, None, cfg)
+    worst = 0.0
+    for i, n in enumerate(RG_PROMPTS):
+        solo = init_cache(cfg, 1, max_len, torch.float32, "cuda")
+        prefill(params, toks[i:i + 1, :n].cuda(), lens[i:i + 1].cuda(), solo,
+                None, cfg)
+        for part in ("blocks", "tail"):
+            stacked = part == "blocks"
+            for j, (bl, sl) in enumerate(zip(batch[part], solo[part])):
+                for key in bl:
+                    a = bl[key][:, i] if stacked else bl[key][i:i + 1]
+                    b = sl[key][:, 0] if stacked else sl[key]
+                    for r in range(a.shape[0] if stacked else 1):
+                        ar, br = (a[r], b[r]) if stacked else (a, b)
+                        e = rel_err(ar, br)
+                        check(math.isfinite(e) and e <= 1e-3,
+                              f"rg state: request {i} (length {n}) {part}"
+                              f"[{j}] repeat {r} {key} differs from its "
+                              f"solo prefill by {e}")
+                        worst = max(worst, e)
+    torch.cuda.synchronize()
+    log(f"rg state: batch of prompts {list(RG_PROMPTS)} (padded to "
+        f"{max(RG_PROMPTS)}) vs each alone, fp32, all {cfg.n_layers} layers' "
+        f"RG-LRU conv/hidden and SWA rings: max|batch-solo|/scale "
+        f"{worst:.2e} (tolerance 1e-3)  [{card}]")
+
+
+def phase_recurrentgemma(card: str) -> dict:
+    """RecurrentGemma-2B at full width and depth (26 layers, d_model 2560,
+    vocab 256000, seeded random weights) through the models-level
+    ``prefill`` / ``decode_step`` on the dense slot cache: the state check
+    in fp32, then in bf16 four prompts as one padded batch and 64 greedy
+    decode steps, timed, with the launches counted around that run, and a
+    torch.profiler window over one prefill call and one over 10 decode
+    steps. Returns the launches of the bf16 run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.models import prefill
+
+    cfg = get_config("recurrentgemma-2b")
+    check(cfg.n_layers == 26 and cfg.d_model == RG_W and cfg.n_heads == RG_H
+          and cfg.n_kv_heads == RG_K and cfg.head_dim == RG_D
+          and cfg.sliding_window == RG_WINDOW and cfg.vocab_size == 256000
+          and cfg.lru_width == RG_W, "not the full RecurrentGemma-2B config")
+    n_rg = sum(b.mixer == "rglru" for b in cfg.all_blocks)
+    n_swa = sum(b.mixer == "swa" for b in cfg.all_blocks)
+    _rg_state_check(cfg, card)
+    torch.cuda.empty_cache()
+
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    max_len = max(RG_PROMPTS) + RG_DECODE
+    b = len(RG_PROMPTS)
+    toks, lens = _prompt_batch(cfg, RG_PROMPTS, seed=3)
+    toks, lens = toks.cuda(), lens.cuda()
+    log(f"recurrentgemma: full width/depth bf16, {n_params / 1e9:.2f} B "
+        f"params ({n_rg} RG-LRU, {n_swa} SWA layers), prompts "
+        f"{list(RG_PROMPTS)} as one padded batch, dense cache of {max_len} "
+        f"rows (SWA rings of {min(RG_WINDOW, max_len)}), {RG_DECODE} greedy "
+        f"decode steps")
+    # warm-up: cuBLAS handles and kernel modules load outside the timing
+    w = min(RG_PROMPTS)
+    _greedy(params, cfg, toks[:, :w].cpu(), torch.full((b,), w,
+            dtype=torch.int32), init_cache(cfg, b, w + 2, torch.bfloat16,
+                                           "cuda"), 2)
+
+    _rg_reset()
+    cache = init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, toks, lens, cache, None, cfg)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre = _rg_launches()
+    check(pre == {"rglru_scan": n_rg, "flash_attention": n_swa,
+                  "decode_attention": 0},
+          f"recurrentgemma prefill: launches {pre}, want {n_rg} rglru_scan "
+          f"and {n_swa} flash_attention")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "recurrentgemma: non-finite prefill logits")
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = lens.clone()
+    out = []
+    t0 = time.perf_counter()
+    for _ in range(RG_DECODE):
+        logits, _ = decode_step(params, cache, tok[:, None], pos, cfg)
+        tok, pos = logits.argmax(-1).to(torch.int32), pos + 1
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = _rg_launches()
+    check(launches["decode_attention"] == n_swa * RG_DECODE
+          and launches["rglru_scan"] == n_rg
+          and launches["flash_attention"] == n_swa,
+          f"recurrentgemma: launches {launches} after {RG_DECODE} decode "
+          f"steps, want {n_swa} decode_attention per step")
+    toks_out = torch.stack(out, 1).cpu()
+    check(bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()),
+          "recurrentgemma: token out of vocab")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "recurrentgemma: non-finite decode logits")
+    log(f"recurrentgemma bf16: prefill of {int(lens.sum())} prompt tokens "
+        f"(padded {b}x{max(RG_PROMPTS)}) {1e3 * t_pre:.1f} ms, decode "
+        f"{1e3 * t_dec / RG_DECODE:.2f} ms per step ({b} slots), "
+        f"{b * RG_DECODE / t_dec:.1f} output tok/s; launches {launches}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  "
+        f"[{card}]")
+
+    # profiles: one prefill call, and 10 decode steps
+    cache = init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
+    for what, steps in (("one prefill call (4 prompts, padded to "
+                         f"{max(RG_PROMPTS)})", 0),
+                        ("10 decode steps (4 slots)", 10)):
+        if steps:
+            tok = logits.argmax(-1).to(torch.int32)
+            pos = lens.clone()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if not steps:
+                logits, _ = prefill(params, toks, lens, cache, None, cfg)
+            for _ in range(steps):
+                lg, _ = decode_step(params, cache, tok[:, None], pos, cfg)
+                tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _profile_report(prof, wall, f"RecurrentGemma-2B bf16, {what}", card)
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1313,21 +1813,29 @@ def main() -> int:
     timer = Timer()
     rows = timed("kernels", phase_kernels, timer)
     rows.append(timed("ssd kernel", phase_ssd, timer))
+    rows.append(timed("rglru kernel", phase_rglru, timer))
+    rows += timed("attention D=256", phase_attention_d256, timer)
     colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
     timed("reference", phase_reference)
     timed("mamba reference", phase_mamba_reference)
+    timed("recurrentgemma reference", phase_rg_reference)
     launches = timed("serve", phase_serve, card)[0]
     replay = timed("replay", phase_replay, card)
     ssd = timed("mamba", phase_mamba, card)
+    rg = timed("recurrentgemma", phase_recurrentgemma, card)
     # each kernel's launches on its own path: the serve phase's fused run
     # (the paged fused path), the chaos replay (dense decode), the
-    # colocated sweep (the dense fused kernel, which no serving path runs)
-    # and the Mamba-2 virtual-clock replay (the SSD scan)
+    # colocated sweep (the dense fused kernel, which no serving path runs),
+    # the Mamba-2 virtual-clock replay (the SSD scan) and the
+    # RecurrentGemma run (the RG-LRU scan, and kernels 1 and 4 at D = 256)
     launches = {**replay, **launches,
                 "decode_attention": replay["decode_attention"],
-                "bullet_attention": colocated, "ssd_scan": ssd}
+                "bullet_attention": colocated, "ssd_scan": ssd,
+                "rglru_scan": rg["rglru_scan"],
+                "flash_attention_d256": rg["flash_attention"],
+                "decode_attention_d256": rg["decode_attention"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
     log(f"{card}")

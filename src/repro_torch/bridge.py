@@ -1,14 +1,18 @@
 """Bridge the JAX package's parameter and cache trees into the port.
 
 Both sides use the same tree: ``{"embed", "final_norm", ["lm_head"],
-"blocks": ({name: (R, ...)}, ...)}`` for params, ``{"blocks": ({"k",
-"v"}: (R, P+1, ps, K, D), ...)}`` for the page pool and ``{"blocks":
-({"k", "v"}: (R, B, S, K, D) | {"conv", "ssm"}, ...)}`` for the dense slot
-cache. The caller converts the JAX tree to numpy first
+"blocks": ({name: (R, ...)}, ...), ["tail_blocks": ({name: (...)}, ...)]}``
+for params, ``{"blocks": ({"k", "v"}: (R, P+1, ps, K, D), ...)}`` for the
+page pool and ``{"blocks": ({"k", "v"}: (R, B, S, K, D) | {"conv", "ssm"}
+| {"conv", "hidden"}, ...), ["tail": (... without R)]}`` for the dense
+slot cache. The caller converts the JAX tree to numpy first
 (``jax.tree.map(np.asarray, tree)``), so this module imports no JAX;
 nesting and the stacked repeat axis R are kept. Each leaf gets the dtype
 the port's ``init_params`` / ``init_cache`` give it: ``dtype``, or fp32
-for the leaves named in ``FP32_PARAMS`` / ``FP32_CACHE``.
+for the leaves named in ``FP32_PARAMS`` / ``FP32_CACHE``: Mamba-2's
+``A_log`` and RG-LRU's ``lambda``, whose decays compound their rounding
+along the sequence (the gates read both in fp32), and the recurrent
+states ``ssm`` and ``hidden``, which the JAX cache holds in fp32 too.
 """
 
 from __future__ import annotations

@@ -292,6 +292,7 @@ def _ensure_loaded():
     _LOADED = True
     # import all config modules for registration side effects; the port
     # registers the models it serves: the pure-attention ones of the paged
-    # path and Mamba-2 on the dense slot cache
+    # path, Mamba-2 on the dense slot cache, and RecurrentGemma through the
+    # models-level prefill / decode_step
     from repro_torch.configs import (  # noqa: F401
-        qwen3_1p7b, llama31_8b, mamba2_2p7b)
+        qwen3_1p7b, llama31_8b, mamba2_2p7b, recurrentgemma_2b)

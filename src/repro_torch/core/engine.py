@@ -207,7 +207,7 @@ class BulletServer:
         if any(blk.ff == MOE for blk in cfg.pattern):
             raise NotImplementedError(
                 f"{cfg.name}: MoE blocks come with a later slice (ROADMAP "
-                "§1, item 4)")
+                "port item 'the other architectures')")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the attention of the Bullet serving path
 (prefill flash attention, decode attention over the page pool and over a
 dense per-slot cache, and the fused bullet launches that split the SMs
-between prefill and either decode), with their wrappers, launch counters
-and plain PyTorch versions. ``build.py`` compiles ``csrc/`` with ``nvcc``
+between prefill and either decode) and for the recurrent scans (Mamba-2's
+SSD chunk scan, the RG-LRU linear recurrence), with their wrappers, launch
+counters and plain PyTorch versions. ``build.py`` compiles ``csrc/`` with ``nvcc``
 on first use; nothing here builds or imports CUDA at import."""

@@ -1,10 +1,13 @@
 """Build and load the hand-written CUDA kernels (``csrc/``).
 
-The sources have a plain C interface: ``nvcc`` compiles them for
-``sm_90a`` into one shared library under ``build/repro_torch_kernels/`` at
-the root of the checkout, named by a digest of the sources so an edit
-rebuilds, and ``ctypes`` loads it. ``attention.cu`` holds the attention
-kernels, ``ssd_scan.cu`` the Mamba-2 SSD chunk scan. Nothing here runs at
+The sources have a plain C interface: ``nvcc`` compiles each of them for
+``sm_90a`` into an object file, all at once in parallel, and links them
+into one shared library under ``build/repro_torch_kernels/`` at the root
+of the checkout, named by a digest of the sources so an edit rebuilds;
+``ctypes`` loads it. ``attention.cu`` holds the attention kernels (flash
+prefill and dense decode at head dims 128 and 256, paged decode and the
+fused launches at 128), ``ssd_scan.cu`` the Mamba-2 SSD chunk scan and
+``rglru_scan.cu`` the RG-LRU linear recurrence. Nothing here runs at
 import: the first wrapper that launches a kernel builds the library, and
 the CPU tests, which never launch one, need no compiler.
 """
@@ -23,7 +26,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention.cu", "ssd_scan.cu")
+SOURCES = ("attention.cu", "ssd_scan.cu", "rglru_scan.cu")
 HEADERS = ("attention.cuh",)
 #: build/ at the root of the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -41,6 +44,7 @@ SIGNATURES = {
     "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 8 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
     "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
@@ -73,29 +77,42 @@ def library_path() -> Path:
 
 
 def build() -> Build:
-    """Compile the sources unless this digest is already built. The output
-    is written to a temporary name and renamed into place, so concurrent
-    builders never load a half-written library."""
+    """Compile the sources unless this digest is already built: one
+    ``nvcc -c`` per source, all started together, then one link. The
+    library is written to a temporary name and renamed into place, so
+    concurrent builders never load a half-written library."""
     out = library_path()
     if out.is_file():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler",
+                 "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, str(CSRC / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, proc in procs:
+            text = proc.communicate()[0]
+            logs.append(f"== {src}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-gencode", ARCH, "-shared", "-o", lib,
+                              *objs], capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return Build(out, time.perf_counter() - t0, res.stdout + res.stderr)
+        os.replace(lib, out)
+    return Build(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.lru_cache(maxsize=1)
@@ -126,17 +143,23 @@ def stream_of(t) -> ctypes.c_void_p:
 
 #: dtype codes of the C interface
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
-#: head dims the library is instantiated for (HEAD_DIM in attention.cu)
-HEAD_DIMS = (128,)
+#: head dims the flash prefill and dense decode kernels are instantiated
+#: for (DISPATCH in attention.cu): the D = 128 of Qwen3 and Llama, the
+#: D = 256 of RecurrentGemma
+HEAD_DIMS = (128, 256)
+#: head dims of the paged decode and the two fused kernels
+#: (DISPATCH_PAGED in attention.cu): only the paged path runs them, and it
+#: serves D = 128 models
+PAGED_HEAD_DIMS = (128,)
 
 
 def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
-                 head_dim: bool = True) -> int:
+                 head_dim: bool = True, head_dims=HEAD_DIMS) -> int:
     """Validate what a launch receives before any pointer crosses into C:
     every tensor on one CUDA device and contiguous, the float tensors of
     one supported dtype, the ``fp32`` tensors float32, the index tensors
     int32, and (attention kernels, ``head_dim``) the last dim of the first
-    tensor one of ``HEAD_DIMS``. Returns the dtype code."""
+    tensor one of ``head_dims``. Returns the dtype code."""
     first = floats[0]
     for t in (*floats, *ints, *fp32):
         if not t.is_cuda or t.device != first.device:
@@ -157,6 +180,6 @@ def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
             raise TypeError(f"{kernel}: {tuple(t.shape)} must be float32, "
                             f"got {t.dtype}")
     d = first.shape[-1]
-    if head_dim and d not in HEAD_DIMS:
-        raise ValueError(f"{kernel}: head dim {d} not in {HEAD_DIMS}")
+    if head_dim and d not in head_dims:
+        raise ValueError(f"{kernel}: head dim {d} not in {head_dims}")
     return code

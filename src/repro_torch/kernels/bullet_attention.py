@@ -21,7 +21,8 @@ the standalone kernels' device functions, so the outputs equal
 bit for bit. The dense variant has no serving path (the engine runs fused
 cycles on the paged pool only, as the JAX engine does); ``chip_smoke.py``'s
 colocated phase drives it, as ``examples/colocated_attention.py`` drives
-the TPU kernel.
+the TPU kernel. Both are built for head dim 128 only
+(``build.PAGED_HEAD_DIMS``): the paged path serves D = 128 models.
 """
 
 from __future__ import annotations
@@ -93,7 +94,8 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
             causal=causal, window=window, group=group)
     code = build.check_inputs("bullet_attention_paged",
                               (qp, kp, vp, qd, k_pages, v_pages),
-                              (block_tables, pos))
+                              (block_tables, pos),
+                              head_dims=build.PAGED_HEAD_DIMS)
     bh, sp, d = qp.shape
     if (kp.shape != vp.shape or kp.shape[0] * group != bh
             or kp.shape[1] != sp or kp.shape[2] != d):
@@ -140,7 +142,8 @@ def bullet_attention(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos, *,
             causal=causal, window=window, group=group)
     code = build.check_inputs("bullet_attention",
                               (qp, kp, vp, qd, k_cache, v_cache),
-                              (kv_positions, pos))
+                              (kv_positions, pos),
+                              head_dims=build.PAGED_HEAD_DIMS)
     bh, sp, d = qp.shape
     if (kp.shape != vp.shape or kp.shape[0] * group != bh
             or kp.shape[1] != sp or kp.shape[2] != d):

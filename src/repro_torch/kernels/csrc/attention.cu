@@ -2,8 +2,11 @@
 // behind one plain C interface loaded with ctypes
 // (repro_torch/kernels/build.py). Every entry point launches on the stream
 // it is given, allocates nothing, and returns cudaGetLastError() after the
-// launch (or cudaErrorInvalidValue for a head dim other than HEAD_DIM, the
-// one head dim of the models this library serves).
+// launch (or cudaErrorInvalidValue for a head dim it is not built for).
+// flash_attention_fwd and decode_attention_fwd are built for D = 128 (Qwen3,
+// Llama) and D = 256 (RecurrentGemma's sliding-window layers: 10 query heads
+// on one kv head, window 2048); paged_decode_fwd and the two fused kernels
+// for D = 128 only, the head dim of the paged path's models.
 //
 // flash_attention_fwd
 //   Replaces src/repro/kernels/flash_attention.py:77 `flash_attention`
@@ -190,13 +193,10 @@ int bullet_occupancy(int g, int rows, int *ctas_per_sm) {
       ctas_per_sm, kern, THREADS, smem);
 }
 
-// the head dim the library is built for (every model of the serving path
-// has D = 128); dtype 0 = float32, 1 = bfloat16
-constexpr int HEAD_DIM = 128;
-#define DISPATCH(D_, DT_, CALL)                                   \
+// dtype 0 = float32, 1 = bfloat16: CALL instantiated for T and head dim D
+#define DISPATCH_DTYPE(D_, DT_, CALL)                             \
   do {                                                            \
-    if ((D_) != HEAD_DIM) return (int)cudaErrorInvalidValue;      \
-    constexpr int D = HEAD_DIM;                                   \
+    constexpr int D = (D_);                                       \
     if ((DT_) == 0) {                                             \
       using T = float;                                            \
       return CALL;                                                \
@@ -205,6 +205,24 @@ constexpr int HEAD_DIM = 128;
       using T = __nv_bfloat16;                                    \
       return CALL;                                                \
     }                                                             \
+    return (int)cudaErrorInvalidValue;                            \
+  } while (0)
+
+// flash prefill and dense decode: D = 128 (Qwen3, Llama) or 256
+// (RecurrentGemma). At D = 256 flash_item's tiles take ~140 KB of shared
+// memory (one CTA per SM, through set_smem's opt-in) and each thread keeps
+// D / 4 = 64 accumulators.
+#define DISPATCH(D_, DT_, CALL)                                   \
+  do {                                                            \
+    if ((D_) == 128) DISPATCH_DTYPE(128, DT_, CALL);              \
+    if ((D_) == 256) DISPATCH_DTYPE(256, DT_, CALL);              \
+    return (int)cudaErrorInvalidValue;                            \
+  } while (0)
+
+// paged decode and the fused kernels: D = 128 only
+#define DISPATCH_PAGED(D_, DT_, CALL)                             \
+  do {                                                            \
+    if ((D_) == 128) DISPATCH_DTYPE(128, DT_, CALL);              \
     return (int)cudaErrorInvalidValue;                            \
   } while (0)
 
@@ -228,7 +246,7 @@ int paged_decode_fwd(const void *q, const void *k_pages, const void *v_pages,
   DecodeArgs a{q, k_pages, v_pages, block_tables, pos, o, b, kh, g, ps, n_b,
                1.0f / sqrtf((float)d)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_decode<T, D>(a, s)));
+  DISPATCH_PAGED(d, dtype, (launch_decode<T, D>(a, s)));
 }
 
 int bullet_attention_paged_fwd(
@@ -242,7 +260,7 @@ int bullet_attention_paged_fwd(
   DecodeArgs da{qd, k_pages, v_pages, block_tables, pos, od, b, kh, g, ps,
                 n_b, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
+  DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
 }
 
 int decode_attention_fwd(const void *q, const void *k, const void *v,
@@ -267,7 +285,7 @@ int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
   DenseDecodeArgs da{qd, kd, vd, kv_positions, pos, od, b, kh, g, s_len,
                      scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
+  DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
 }
 
 // CTAs of the bullet kernel one SM holds at once (the persistent grid is
@@ -276,10 +294,10 @@ int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
 int bullet_ctas_per_sm(int d, int dtype, int g, int ps, int dense,
                        int *ctas_per_sm) {
   if (dense)
-    DISPATCH(d, dtype, (bullet_occupancy<T, D, DenseDecodeArgs>(
-                           g, DECODE_TILE, ctas_per_sm)));
-  DISPATCH(d, dtype,
-           (bullet_occupancy<T, D, DecodeArgs>(g, ps, ctas_per_sm)));
+    DISPATCH_PAGED(d, dtype, (bullet_occupancy<T, D, DenseDecodeArgs>(
+                                 g, DECODE_TILE, ctas_per_sm)));
+  DISPATCH_PAGED(d, dtype,
+                 (bullet_occupancy<T, D, DecodeArgs>(g, ps, ctas_per_sm)));
 }
 
 const char *attention_error_string(int code) {

@@ -1,4 +1,5 @@
-"""Model-layout wrappers around the attention kernels and the SSD scan.
+"""Model-layout wrappers around the attention kernels and the SSD and RG-LRU
+scans.
 
 These adapt model-layout tensors ((B, S, H, D) etc.) to the kernel
 layouts, as the JAX package's ``kernels/ops.py`` does for its Pallas
@@ -16,6 +17,7 @@ from repro_torch.kernels import bullet_attention as _bullet
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode_attention as _paged
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -139,3 +141,13 @@ def ssd_scan_op(x, dt, A, B_, C, D, *, chunk=256, state0=None):
     y = y.reshape(b, -1, h, p)[:, :s].float() \
         + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), state
+
+
+def rglru_scan_op(a, b, h0=None):
+    """a, b: (B,S,W) (the contract of ``src/repro/kernels/ops.py``'s
+    ``rglru_scan_op``), h0: (B,W) or None. Returns (y (B,S,W) in a's
+    dtype, h_T (B,W) fp32). h_T is the state the kernel carried in fp32,
+    where the JAX op rounds ``y[:, -1]`` to y's dtype first."""
+    return _rglru.rglru_scan(a.contiguous(), b.contiguous(),
+                             None if h0 is None
+                             else h0.float().contiguous())

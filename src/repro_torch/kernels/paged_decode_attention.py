@@ -12,7 +12,8 @@ covers absolute positions ``[i·ps, (i+1)·ps)``. A slot attends positions
 Inactive slots (``pos < 0``): the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``paged_decode_ref`` and
 returns the mean of V. Compare the two on active slots only. Bound on the
-card: bytes (see the source's header note).
+card: bytes (see the source's header note). Built for head dim 128 only
+(``build.PAGED_HEAD_DIMS``): the paged path serves D = 128 models.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos):
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, pos)
     code = build.check_inputs("paged_decode_attention", (q, k_pages, v_pages),
-                              (block_tables, pos))
+                              (block_tables, pos),
+                              head_dims=build.PAGED_HEAD_DIMS)
     _check_decode("paged_decode_attention", q, k_pages, v_pages,
                   block_tables, pos)
     b, kh, g, d = q.shape

@@ -16,10 +16,10 @@ The oracles of the JAX package's ``kernels/ref.py`` are adapters of that
 math to the kernel layouts (``flash_attention_ref``,
 ``decode_attention_ref``, ``paged_decode_attention_ref``,
 ``bullet_attention_ref``, ``bullet_attention_paged_ref``).
-``ssd_scan_ref`` is the JAX package's sequential SSD oracle, one step per
-position; the chunked plain version the SSD kernel is held against lives
-beside its wrapper (``kernels/ssd_scan.py``). The RG-LRU oracle comes with
-its kernel in a later slice.
+``ssd_scan_ref`` and ``rglru_scan_ref`` are the JAX package's sequential
+SSD and RG-LRU oracles, one step per position; the plain versions the
+kernels are held against live beside their wrappers
+(``kernels/ssd_scan.py``, ``kernels/rglru_scan.py``).
 
 A decode slot with no attended key (pos < 0, or, dense, no kv position in
 [0, pos]) masks every key: here, as in the JAX reference, its softmax is
@@ -213,3 +213,16 @@ def ssd_scan_ref(xw, da_cumsum, B_, C, state0=None):
             "bhp,bn->bhpn", xw[:, t].float(), B_[:, t].float())
         ys.append(torch.einsum("bhpn,bn->bhp", st, C[:, t].float()))
     return torch.stack(ys, dim=1).to(xw.dtype), st
+
+
+def rglru_scan_ref(a, b, h0=None):
+    """Sequential linear recurrence h_t = a_t * h_{t-1} + b_t.
+
+    a, b: (B, S, W) fp32; h0: (B, W). Returns (h (B,S,W), h_T)."""
+    bsz, s, w = a.shape
+    h = a.new_zeros((bsz, w), dtype=torch.float32) if h0 is None else h0
+    hs = []
+    for t in range(s):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, RoPE, gated MLP, causal conv,
-initializers.
+"""Shared building blocks: norms, RoPE, gated MLP, causal conv and the conv
+state at each row's length, initializers.
 
 Numerics follow the JAX package's ``models/layers.py`` op for op: RMSNorm
 scales by ``(1 + scale)`` in fp32, RoPE rotates split halves in fp32."""
@@ -70,6 +70,20 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
         y = y + xp[:, i:i + s] * w[i]
     new_state = xp[:, s:] if k > 1 else state
     return F.silu(y), new_state
+
+
+def conv_state_at(x: torch.Tensor, lengths: torch.Tensor, k: int,
+                  state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, K-1, C): the K-1 conv inputs ending at each row's last token
+    (position ``lengths[b] - 1`` of ``x`` (B, S, C)), with ``state`` (B,
+    K-1, C) as the left context before position 0 (zeros without it): the
+    conv state of a padded prefill batch, row by row at its own length
+    (shared by the SSD and RG-LRU blocks)."""
+    if state is None:
+        state = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)        # (B, K-1+S, C)
+    idx = lengths.long()[:, None] + torch.arange(k - 1, device=x.device)
+    return torch.gather(xp, 1, idx[..., None].expand(-1, -1, x.shape[2]))
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_scan_op
-from repro_torch.models.layers import causal_conv1d
+from repro_torch.models.layers import causal_conv1d, conv_state_at
 
 
 class SSDState(NamedTuple):
@@ -56,14 +56,6 @@ def ssd_decode_step(x, dt, A, B_, C, D, state):
     y = torch.einsum("bhpn,bn->bhp", new_state, C[:, 0].float())
     y = y + x[:, 0].float() * D[None, :, None]
     return y[:, None].to(x.dtype), new_state
-
-
-def _conv_state_at(xbc, lengths, k: int):
-    """(B, K-1, C): the K-1 conv inputs ending at each row's last token
-    (position ``lengths[b] - 1``), zeros where the row is shorter."""
-    xp = F.pad(xbc, (0, 0, k - 1, 0))                        # (B, K-1+S, C)
-    idx = lengths.long()[:, None] + torch.arange(k - 1, device=xbc.device)
-    return torch.gather(xp, 1, idx[..., None].expand(-1, -1, xbc.shape[2]))
 
 
 def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
@@ -107,8 +99,8 @@ def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
             valid = (torch.arange(s, device=x.device)[None, :]
                      < lengths.to(x.device)[:, None])
             dt = torch.where(valid[..., None], dt, 0.0)
-            new_conv = _conv_state_at(xbc_in, lengths.to(x.device),
-                                      params["conv"].shape[0])
+            new_conv = conv_state_at(xbc_in, lengths.to(x.device),
+                                     params["conv"].shape[0])
         y, new_ssm = ssd_chunked(xs, dt, A, B_, C, D, chunk=cfg.ssm_chunk)
 
     y = y.reshape(b, s, di)

@@ -2,18 +2,20 @@
 cache, prefill, paged and dense decode, and the fused prefill-group +
 decode cycle.
 
-The port covers homogeneous stacks of full-attention blocks with an MLP
-(the paged path, ``supports_paged_cache``) and of Mamba-2 SSD blocks (the
-dense slot cache only): ``n_pattern_repeats`` repeats of ``cfg.pattern``,
-with per-pattern parameters stacked along a leading repeat axis R, as in
-the JAX package. Python loops over the repeats take the place of
-``lax.scan``. Page pools and slot caches are updated in place where the
-JAX package donated its buffers. The dense slot cache keeps the JAX
-package's ring semantics (``long_context``: a full-attention cache shorter
-than the context holds the latest positions, addressed through
-``_kv_positions``); an SSD block's entry is its conv window and recurrent
-state. Sliding-window, RG-LRU, MoE, cross-attention and ``pattern_tail``
-stacks raise (ROADMAP).
+The port covers stacks of full-attention blocks with an MLP (the paged
+path, ``supports_paged_cache``), of Mamba-2 SSD blocks, and of RG-LRU and
+sliding-window attention blocks (RecurrentGemma), the last two on the dense
+slot cache only: ``n_pattern_repeats`` repeats of ``cfg.pattern``, with
+per-pattern parameters stacked along a leading repeat axis R, then the
+unstacked ``cfg.pattern_tail`` blocks (``params["tail_blocks"]``,
+``cache["tail"]``), as in the JAX package. Python loops over the repeats
+take the place of ``lax.scan``. Page pools and slot caches are updated in
+place where the JAX package donated its buffers. The dense slot cache
+keeps the JAX package's ring semantics, addressed through
+``_kv_positions``: a sliding-window block's cache of ``min(window,
+max_len)`` rows is always a ring, a full-attention cache only under
+``long_context``; an SSD or RG-LRU block's entry is its conv window and
+recurrent state. MoE and cross-attention stacks raise (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,19 +24,22 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ATTN, MLP, SSD, BlockSpec, ModelConfig
+from repro_torch.configs.base import (ATTN, MLP, RGLRU, SSD, SWA, BlockSpec,
+                                      ModelConfig)
 from repro_torch.models import attention as attn_ops
 from repro_torch.models import layers as L
+from repro_torch.models.rglru import RGLRUState, rglru_block
 from repro_torch.models.ssm import SSDState, ssd_block
 
 Params = Dict[str, Any]
 
-#: leaves kept in fp32 whatever the serving dtype: Mamba-2's ``A_log``
-#: (the decay exp(dt·A) compounds its rounding along the sequence) and the
-#: SSD recurrent state, which the JAX cache keeps in fp32 too. The bridge
+#: leaves kept in fp32 whatever the serving dtype: Mamba-2's ``A_log`` and
+#: RG-LRU's ``lambda`` (both set a decay that compounds its rounding along
+#: the sequence; the gates read them in fp32 anyway) and the SSD and RG-LRU
+#: recurrent states, which the JAX cache keeps in fp32 too. The bridge
 #: (``repro_torch/bridge.py``) follows the same rule.
-FP32_PARAMS = frozenset({"A_log"})
-FP32_CACHE = frozenset({"ssm"})
+FP32_PARAMS = frozenset({"A_log", "lambda"})
+FP32_CACHE = frozenset({"ssm", "hidden"})
 
 
 # ---------------------------------------------------------------------------
@@ -73,18 +78,36 @@ def _ssd_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
     }
 
 
+def _rglru_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
+    d, w = cfg.d_model, cfg.lru_width
+    kw = cfg.rglru_conv_width
+    return {
+        "w_in": ((d, 2 * w), "dense"),
+        "conv": ((kw, w), "dense"),
+        "w_a": ((w, w), "dense"),
+        "w_x": ((w, w), "dense"),
+        "b_a": ((w,), "zeros"),
+        "b_x": ((w,), "zeros"),
+        "lambda": ((w,), "lru"),
+        "w_out": ((w, d), "dense"),
+    }
+
+
+_MIXER_DEFS = {ATTN: _attn_defs, SWA: _attn_defs, SSD: _ssd_defs,
+               RGLRU: _rglru_defs}
+
+
 def _block_defs(cfg: ModelConfig, blk: BlockSpec):
-    if (blk.mixer not in (ATTN, SSD) or blk.ff not in (MLP, "none")
-            or cfg.pattern_tail or cfg.cross_attention
-            or cfg.n_encoder_layers):
+    if (blk.mixer not in _MIXER_DEFS or blk.ff not in (MLP, "none")
+            or cfg.cross_attention or cfg.n_encoder_layers):
         raise NotImplementedError(
-            f"{cfg.name} block {blk}: the port serves full-attention and "
-            "Mamba-2 SSD stacks; sliding-window, RG-LRU, MoE, cross-"
-            "attention and pattern_tail stacks come with later slices "
-            "(ROADMAP)")
+            f"{cfg.name} block {blk}: the port serves full-attention, "
+            "sliding-window, Mamba-2 SSD and RG-LRU blocks with an MLP or "
+            "none; MoE and cross-attention come with a later slice "
+            "(ROADMAP port item 'the other architectures')")
     d = cfg.d_model
     defs = {"ln1": ((d,), "zeros")}
-    defs.update(_attn_defs(cfg) if blk.mixer == ATTN else _ssd_defs(cfg))
+    defs.update(_MIXER_DEFS[blk.mixer](cfg))
     if blk.ff == MLP:
         defs["ln2"] = ((d,), "zeros")
         defs["wi"] = ((d, 2 * cfg.d_ff), "dense")
@@ -122,20 +145,26 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Seeded random params with the JAX package's tree, shapes and
     distributions (no bit parity with jax.random): ``{"embed",
     "final_norm", ["lm_head"], "blocks": (per pattern position {name:
-    (R, ...)})}``, vocab padded to a multiple of 256. Leaves in
-    ``FP32_PARAMS`` stay fp32."""
+    (R, ...)}), ["tail_blocks": (per tail block {name: (...)})]}``, vocab
+    padded to a multiple of 256. Leaves in ``FP32_PARAMS`` stay fp32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params: Params = {}
     for name, (shape, init) in sorted(_top_defs(cfg).items()):
         params[name] = _init_one(gen, shape, init, dtype)
-    r = cfg.n_pattern_repeats
-    params["blocks"] = tuple(
-        {name: _init_one(gen, shape, init,
-                         torch.float32 if name in FP32_PARAMS else dtype,
-                         lead=(r,))
-         for name, (shape, init) in sorted(_block_defs(cfg, blk).items())}
-        for blk in cfg.pattern)
+
+    def block(blk, lead):
+        return {name: _init_one(gen, shape, init,
+                                torch.float32 if name in FP32_PARAMS
+                                else dtype, lead=lead)
+                for name, (shape, init)
+                in sorted(_block_defs(cfg, blk).items())}
+
+    params["blocks"] = tuple(block(blk, (cfg.n_pattern_repeats,))
+                             for blk in cfg.pattern)
+    if cfg.pattern_tail:
+        params["tail_blocks"] = tuple(block(blk, ())
+                                      for blk in cfg.pattern_tail)
     return params
 
 
@@ -174,35 +203,57 @@ def _cache_len(cfg: ModelConfig, blk: BlockSpec, max_len: int,
                long_context: bool) -> int:
     if blk.mixer == ATTN and long_context:
         return min(cfg.long_context_window, max_len)
+    if blk.mixer == SWA:
+        return min(cfg.sliding_window, max_len)
     return max_len
+
+
+def _is_ring(blk: BlockSpec, long_context: bool) -> bool:
+    """A cache is a ring iff positions can pass its length: a sliding-window
+    block's always, a full-attention block's only in the long-context
+    window."""
+    return blk.mixer == SWA or (blk.mixer == ATTN and long_context)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda", *,
                long_context: bool = False):
-    """Stacked dense decode cache, one entry per pattern position with a
-    leading repeat axis R: full attention ``{"k", "v"}`` of shape (R, batch,
-    S, K, D), one fixed row of S positions per slot (``long_context``
-    switches them to their ring-window variant, S = the long-context
-    window); SSD ``{"conv": (R, batch, K-1, di+2N), "ssm": (R, batch, H, P,
-    N) fp32}``. Other mixers raise, as ``_block_defs`` does."""
-    r = cfg.n_pattern_repeats
-    blocks = []
-    for blk in cfg.pattern:
+    """Dense decode cache, one entry per pattern position with a leading
+    repeat axis R (``"blocks"``), and one per tail block without it
+    (``"tail"``, when ``cfg.pattern_tail``): attention ``{"k", "v"}`` of
+    shape (R, batch, S, K, D), one fixed row of S positions per slot (S =
+    ``max_len``; a sliding-window block's ring holds ``min(window,
+    max_len)`` rows, and ``long_context`` switches full attention to its
+    ring of the long-context window); SSD ``{"conv": (R, batch, K-1,
+    di+2N), "ssm": (R, batch, H, P, N) fp32}``; RG-LRU ``{"conv": (R, batch,
+    K-1, W), "hidden": (R, batch, W) fp32}``. Other blocks raise, as
+    ``_block_defs`` does."""
+    kw = cfg.rglru_conv_width
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def entry(blk, lead):
         _block_defs(cfg, blk)           # raises for blocks not served
         if blk.mixer == SSD:
-            kw, ch = cfg.rglru_conv_width, cfg.ssm_d_inner + 2 * cfg.ssm_state
-            st = (r, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state)
-            blocks.append({
-                "conv": torch.zeros((r, batch, kw - 1, ch), dtype=dtype,
-                                    device=device),
-                "ssm": torch.zeros(st, dtype=torch.float32, device=device)})
-            continue
+            ch = cfg.ssm_d_inner + 2 * cfg.ssm_state
+            return {"conv": zeros(lead + (batch, kw - 1, ch)),
+                    "ssm": zeros(lead + (batch, cfg.ssm_n_heads,
+                                         cfg.ssm_head_dim, cfg.ssm_state),
+                                 torch.float32)}
+        if blk.mixer == RGLRU:
+            w = cfg.lru_width
+            return {"conv": zeros(lead + (batch, kw - 1, w)),
+                    "hidden": zeros(lead + (batch, w), torch.float32)}
         s = _cache_len(cfg, blk, max_len, long_context)
-        shape = (r, batch, s, cfg.n_kv_heads, cfg.head_dim)
-        blocks.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
-    return {"blocks": tuple(blocks)}
+        shape = lead + (batch, s, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(shape), "v": zeros(shape)}
+
+    cache = {"blocks": tuple(entry(blk, (cfg.n_pattern_repeats,))
+                             for blk in cfg.pattern)}
+    if cfg.pattern_tail:
+        cache["tail"] = tuple(entry(blk, ()) for blk in cfg.pattern_tail)
+    return cache
 
 
 def _window_gather(full_k, full_v, lengths, wsize: int):
@@ -226,13 +277,14 @@ def _prefill_cache_entry(entry, blk: BlockSpec, cfg: ModelConfig, lengths,
                          cache_tpl, long_context: bool):
     """Convert a full-sequence cache entry into the decode cache layout of
     ``cache_tpl`` (pad full KV to the cache length, or gather into the
-    ring window; recurrent states are cast to the template's dtypes)."""
-    if blk.mixer != ATTN:
+    ring window: always for a sliding-window block; recurrent states are
+    cast to the template's dtypes)."""
+    if blk.mixer not in (ATTN, SWA):
         return {key: entry[key].to(cache_tpl[key].dtype) for key in cache_tpl}
     tgt = cache_tpl["k"].shape[1]                     # (B, S_cache, K, D)
     k, v = entry["k"], entry["v"]
     s = k.shape[1]
-    if long_context and tgt < s:
+    if blk.mixer == SWA or (long_context and tgt < s):
         k, v = _window_gather(k, v, lengths, tgt)
     elif s < tgt:
         pad = (0, 0, 0, 0, 0, tgt - s)
@@ -297,16 +349,21 @@ def _merge_heads(o):
 def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
                       lengths=None):
     """Prefill block application over a full sequence. Returns (x, entry):
-    this layer's full-sequence KV ``{"k", "v"}``, or an SSD block's state
-    ``{"conv", "ssm"}`` after each row's ``lengths[b]`` tokens (after all
-    of them without ``lengths``)."""
+    this layer's full-sequence KV ``{"k", "v"}`` (a sliding-window block
+    attends over its window), or an SSD block's state ``{"conv", "ssm"}``
+    or an RG-LRU block's ``{"conv", "hidden"}`` after each row's
+    ``lengths[b]`` tokens (after all of them without ``lengths``)."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     if blk.mixer == SSD:
         y, st = ssd_block(h, p, cfg, lengths=lengths)
         entry = {"conv": st.conv, "ssm": st.ssm}
+    elif blk.mixer == RGLRU:
+        y, st = rglru_block(h, p, cfg, lengths=lengths)
+        entry = {"conv": st.conv, "hidden": st.hidden}
     else:
         q, k, v = _project_qkv(h, p, cfg, positions)
-        o = attn_ops.attention_prefill(q, k, v, causal=True, window=0)
+        window = cfg.sliding_window if blk.mixer == SWA else 0
+        o = attn_ops.attention_prefill(q, k, v, causal=True, window=window)
         y = _merge_heads(o) @ p["wo"]
         entry = {"k": k, "v": v}
     x = x + y
@@ -324,16 +381,24 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
     {(P+1, ps, K, D)}: the token lands in its slot's current page and
     attention reads only the pages the table names. Without, it is the
     dense slot cache {(B, S, K, D)}: the token lands in row ``pos`` (ring:
-    ``pos mod S`` under ``long_context``) and attention masks the rows by
-    ``kv_positions`` (B, S), which :func:`decode_step` computes once for
-    every layer. An SSD block steps its recurrence and writes its new conv
-    window and state into the entry in place."""
+    ``pos mod S`` for a sliding-window block, and for full attention under
+    ``long_context``) and attention masks the rows by the (B, S) map
+    ``kv_positions[(S, ring)]``, which :func:`decode_step` computes once
+    for all the layers that share that cache length and ring. An SSD or
+    RG-LRU block steps its recurrence and writes its new conv window and
+    state into the entry in place."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
-    if blk.mixer == SSD:
-        y, st = ssd_block(h, p, cfg, decode=True, state=SSDState(
-            cache_entry["conv"], cache_entry["ssm"]))
-        cache_entry["conv"].copy_(st.conv)
-        cache_entry["ssm"].copy_(st.ssm)
+    if blk.mixer in (SSD, RGLRU):
+        if blk.mixer == SSD:
+            y, st = ssd_block(h, p, cfg, decode=True, state=SSDState(
+                cache_entry["conv"], cache_entry["ssm"]))
+            new = {"conv": st.conv, "ssm": st.ssm}
+        else:
+            y, st = rglru_block(h, p, cfg, decode=True, state=RGLRUState(
+                cache_entry["conv"], cache_entry["hidden"]))
+            new = {"conv": st.conv, "hidden": st.hidden}
+        for key, t in new.items():
+            cache_entry[key].copy_(t)
         x = x + y
         return x + _ff(x, p, blk, cfg)
     q, k_new, v_new = _project_qkv(h, p, cfg, pos[:, None])
@@ -344,12 +409,13 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
     else:
         kc, vc = cache_entry["k"], cache_entry["v"]
         s_cache = kc.shape[1]
-        # a full-attention cache is a ring only in the long-context window
-        slot = (torch.remainder(pos, s_cache) if long_context
+        ring = _is_ring(blk, long_context)
+        slot = (torch.remainder(pos, s_cache) if ring
                 else pos.clamp(max=s_cache - 1))
         attn_ops.write_cache_slot(kc, k_new, slot)
         attn_ops.write_cache_slot(vc, v_new, slot)
-        o = attn_ops.attention_decode(q, kc, vc, kv_positions, pos)
+        o = attn_ops.attention_decode(q, kc, vc,
+                                      kv_positions[(s_cache, ring)], pos)
     x = x + _merge_heads(o) @ p["wo"]
     return x + _ff(x, p, blk, cfg)
 
@@ -407,8 +473,8 @@ def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
                   lengths=None):
     """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [entry
     per pattern position]) — the raw full-sequence KV ``{"k", "v"}`` the
-    caller scatters into pooled pages or pads into slot rows, or an SSD
-    block's ``{"conv", "ssm"}`` at each row's ``lengths``."""
+    caller scatters into pooled pages or writes into slot rows, or an SSD
+    or RG-LRU block's recurrent state at each row's ``lengths``."""
     entries = []
     for j, blk in enumerate(cfg.pattern):
         x, entry = _apply_block_full(x, params_at(params["blocks"][j], rep),
@@ -492,16 +558,23 @@ def scatter_group_pages(cache, entries, page_map, rep: int) -> None:
             scatter_prefill_pages(leaf[key], entry[key], page_map, rep)
 
 
+def _write_entry(tpl, entry, blk: BlockSpec, cfg: ModelConfig,
+                 lengths) -> None:
+    """Write one layer's prefill entry into its dense cache leaves ``tpl``
+    (the prompt batch's rows), in place."""
+    new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, False)
+    for key, t in tpl.items():
+        t.copy_(new[key])
+
+
 def write_dense_entries(cache, entries, cfg: ModelConfig, lengths,
                         rep: int) -> None:
     """Write one layer group's prefill entries (:func:`prefill_group`)
     into repeat ``rep`` of a dense slot cache of :func:`init_cache` whose
     batch rows are the prompt batch's, in place."""
     for blk, entry, leaf in zip(cfg.pattern, entries, cache["blocks"]):
-        tpl = {key: t[rep] for key, t in leaf.items()}
-        new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, False)
-        for key, t in tpl.items():
-            t.copy_(new[key])
+        _write_entry({key: t[rep] for key, t in leaf.items()}, entry, blk,
+                     cfg, lengths)
 
 
 def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
@@ -511,9 +584,11 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
     ``page_map`` (B, ceil(S/ps)), naming each prompt block's physical page
     (the trash page past a request's length), the KV is scattered into the
     page pool; with ``page_map=None`` ``cache`` is a dense slot cache of
-    :func:`init_cache` with B rows, which takes each row's KV, or SSD
-    state at its own length. Returns (last_logits (B, V), cache), the
-    cache updated in place."""
+    :func:`init_cache` with B rows, which takes each row's KV (a
+    sliding-window block's gathered into its ring), or recurrent state at
+    its own length. The ``pattern_tail`` blocks run after the repeats and
+    fill ``cache["tail"]``. Returns (last_logits (B, V), cache), the cache
+    updated in place."""
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for r in range(cfg.n_pattern_repeats):
@@ -522,7 +597,26 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
             write_dense_entries(cache, entries, cfg, lengths, r)
         else:
             scatter_group_pages(cache, entries, page_map, r)
+    for j, blk in enumerate(cfg.pattern_tail):
+        x, entry = _apply_block_full(x, params["tail_blocks"][j], blk, cfg,
+                                     positions, lengths)
+        _write_entry(cache["tail"][j], entry, blk, cfg, lengths)
     return last_token_logits(params, x, lengths, cfg), cache
+
+
+def _position_maps(cfg: ModelConfig, cache, pos, long_context: bool):
+    """The (B, S) ``_kv_positions`` map of every distinct (cache length,
+    ring) pair among the dense cache's attention entries, computed once
+    for all the layers that share it."""
+    maps = {}
+    entries = list(zip(cfg.pattern, cache["blocks"]))
+    entries += list(zip(cfg.pattern_tail, cache.get("tail", ())))
+    for blk, leaf in entries:
+        if blk.mixer in (ATTN, SWA):
+            key = (leaf["k"].shape[-3], _is_ring(blk, long_context))
+            if key not in maps:
+                maps[key] = _kv_positions(pos, *key)
+    return maps
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
@@ -533,21 +627,22 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     ``block_tables`` (B, n_b) int32, shared across layers, selects the
     block-paged cache of :func:`init_paged_cache`; without it ``cache`` is
     the dense slot cache of :func:`init_cache` (built with the same
-    ``long_context``). Returns (logits (B, V), cache), the cache updated in
-    place."""
+    ``long_context``), whose attention entries are masked by one
+    ``_kv_positions`` map per distinct (cache length, ring) pair, and whose
+    ``pattern_tail`` blocks run after the repeats. Returns (logits (B, V),
+    cache), the cache updated in place."""
     x = embed_tokens(params, tokens, cfg)
-    kvpos = None
-    attn = [j for j, blk in enumerate(cfg.pattern) if blk.mixer == ATTN]
-    if block_tables is None and attn:
-        # one (B, S) position map serves every layer: all ATTN caches share
-        # one length
-        kvpos = _kv_positions(pos, cache["blocks"][attn[0]]["k"].shape[2],
-                              long_context)
+    kvpos = (None if block_tables is not None
+             else _position_maps(cfg, cache, pos, long_context))
     for r in range(cfg.n_pattern_repeats):
         for j, blk in enumerate(cfg.pattern):
             x = _apply_block_decode(
                 x, params_at(params["blocks"][j], r), blk, cfg,
                 params_at(cache["blocks"][j], r), pos, block_tables,
                 long_context=long_context, kv_positions=kvpos)
+    for j, blk in enumerate(cfg.pattern_tail):
+        x = _apply_block_decode(
+            x, params["tail_blocks"][j], blk, cfg, cache["tail"][j], pos,
+            long_context=long_context, kv_positions=kvpos)
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     return lm_logits(params, x, cfg)[:, 0], cache

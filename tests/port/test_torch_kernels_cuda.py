@@ -6,7 +6,9 @@
 Tolerances: fp32 atol 1e-4 (kernel sums in another order), bf16 atol 2e-2
 (the plain version rounds probabilities to bf16, the kernel keeps fp32).
 The SSD scan is compared over its output's scale max(1, max|plain|): fp32
-1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4."""
+1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4. The RG-LRU
+scan runs the plain version's arithmetic in the same order: equal to it
+bit for bit."""
 
 import pytest
 import torch
@@ -16,6 +18,7 @@ from repro_torch.kernels import decode_attention as TD
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as TP
+from repro_torch.kernels import rglru_scan as TR
 from repro_torch.kernels import ssd_scan as TS
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -203,3 +206,87 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_hold(gen):
         TS.ssd_scan(xw[:, :, :200].contiguous(),
                     cum[:, :, :200].contiguous().double(),
                     bc[:, :, :200].contiguous(), bc[:, :, :200].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU scan, and the attention kernels at RecurrentGemma's head dim
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+@pytest.mark.parametrize("b,s,w", [(1, 1, 1), (3, 37, 130), (2, 300, 257),
+                                   (5, 16, 64)])
+def test_rglru_kernel_matches_plain(gen, dtype, with_h0, b, s, w):
+    """Ragged B, S (not a multiple of the 16-step unroll, or below it) and
+    W (CTAs of 128 channels spanning two rows of B)."""
+    a = torch.sigmoid(torch.randn(b, s, w, generator=gen,
+                                  device="cuda")).to(dtype)
+    bb = torch.randn(b, s, w, generator=gen, device="cuda").to(dtype)
+    h0 = (torch.randn(b, w, generator=gen, device="cuda") if with_h0
+          else None)
+    before = TR.launches
+    y, h = TR.rglru_scan(a, bb, h0)
+    assert TR.launches == before + 1
+    ry, rh = TR.rglru_scan_plain(a, bb, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert torch.equal(y, ry) and torch.equal(h, rh)
+
+
+def test_rglru_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    a = torch.rand(2, 8, 16, generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        TR.rglru_scan(a, a[:, :4].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        TR.rglru_scan(a, a, torch.zeros(2, 16, device="cuda").double())
+    with pytest.raises(ValueError):
+        TR.rglru_scan(a, a, torch.zeros(2, 8, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(100, 0), (300, 64), (300, 0)])
+def test_flash_kernel_at_head_dim_256(gen, dtype, s, window):
+    """RecurrentGemma's heads: 10 query heads on one kv head (G = 10),
+    D = 256, causal, with and without a window shorter than S."""
+    q = torch.randn(2 * 10, s, 256, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, s, 256, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(2, s, 256, generator=gen, device="cuda").to(dtype)
+    before = TF.launches
+    out = TF.flash_attention(q, k, v, window=window, group=10)
+    ref = TF.flash_attention_plain(q, k, v, window=window, group=10)
+    assert TF.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_kernel_at_head_dim_256_over_a_wrapped_ring(gen, dtype):
+    """A 64-row ring that has wrapped (positions pos-63..pos in ring
+    order), one that has not (holes of -1), G = 10, D = 256."""
+    s = 64
+    pos = torch.tensor([200, 30, 63], dtype=torch.int32)
+    slots = torch.arange(s)[None]
+    p = pos[:, None] - torch.remainder(pos[:, None] - slots, s)
+    kvpos = torch.where(p >= 0, p, -1).to(torch.int32).cuda()
+    q = torch.randn(3, 1, 10, 256, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(3, s, 1, 256, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(3, s, 1, 256, generator=gen, device="cuda").to(dtype)
+    before = TD.launches
+    out = TD.decode_attention(q, kc, vc, kvpos, pos.cuda())
+    ref = TD.decode_attention_plain(q, kc, vc, kvpos, pos.cuda())
+    assert TD.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+def test_paged_and_fused_kernels_refuse_head_dim_256(gen):
+    """Only flash prefill and dense decode are built at D = 256."""
+    qd = torch.randn(2, 1, 2, 256, generator=gen, device="cuda")
+    kp = torch.randn(3, 16, 1, 256, generator=gen, device="cuda")
+    bt = torch.zeros(2, 1, dtype=torch.int32, device="cuda")
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        TP.paged_decode_attention(qd, kp, kp, bt, pos)
+    q = torch.randn(4, 16, 256, generator=gen, device="cuda")
+    k = torch.randn(2, 16, 256, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        TB.bullet_attention_paged(q, k, k, qd, kp, kp, bt, pos, group=2)

@@ -73,7 +73,13 @@ def test_registry_holds_the_paged_models():
 def test_registry_holds_mamba2():
     assert get_config("mamba2-2.7b") == _as_port(jax_config("mamba2-2.7b"))
     assert sorted(list_configs()) == ["llama3.1-8b", "mamba2-2.7b",
-                                      "qwen3-1.7b"]
+                                      "qwen3-1.7b", "recurrentgemma-2b"]
+
+
+def test_registry_holds_recurrentgemma():
+    cfg = get_config("recurrentgemma-2b")
+    assert cfg == _as_port(jax_config("recurrentgemma-2b"))
+    assert cfg.n_layers == 26 and cfg.head_dim == 256 and cfg.pattern_tail
 
 
 def test_kernel_library_builds_every_source_under_a_neutral_name():
@@ -88,6 +94,8 @@ def test_kernel_library_builds_every_source_under_a_neutral_name():
     for name in build.SIGNATURES:
         assert f"int {name}(" in text, name
     assert "ssd_scan_fwd" in build.SIGNATURES
+    assert "rglru_scan_fwd" in build.SIGNATURES
+    assert build.HEAD_DIMS == (128, 256) and build.PAGED_HEAD_DIMS == (128,)
 
 
 def _as_port(jcfg):
