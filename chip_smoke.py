@@ -12,12 +12,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernels, at the main-path shapes of Qwen3-1.7B (H=16, K=8, G=2, D=128,
    page size 16, dense cache rows of the replay's max_len = 1000, which is
    not a multiple of 128): each kernel against its plain PyTorch version
-   on the card, fp32 (atol 1e-4) and bf16 (atol 2e-2), dense decode with
+   on the card, fp32 (atol 1e-4) and bf16 (atol 2e-2; bf16 flash and dense
+   decode also within 4 bf16 ulps of each output row's scale, beside what
+   a result one key short reads), dense decode with
    linear positions and with a scrambled ring with holes; both fused
    bullet kernels bit-equal to flash + their decode kernel at every
-   decode_share of the tile table; median times over CUDA events (L2
-   flushed before each launch) beside each kernel's bound and the library
-   yardstick; then the SSD scan (phase 8's shapes), the RG-LRU scan at
+   decode_share of the tile table, fp32 and bf16 (flash's bf16 body runs
+   on the tensor cores, dense decode's bf16 body is split across CTAs);
+   median times over CUDA events (L2 flushed before each launch), in bf16
+   and, for the kernels whose fp32 body differs, in fp32 (rows named
+   ``*_fp32``), beside each kernel's bound and the library yardstick (for
+   decode the faster of masked SDPA on K/V expanded to every query head
+   and SDPA with enable_gqa on the cache as it is), flash's achieved
+   TFLOP/s, and bf16 dense decode timed at forced piece counts beside
+   split_count's pick; then the SSD scan (phase 8's shapes), the RG-LRU
+   scan at
    RecurrentGemma-2B's width W=2560 (B in {1, 4}, S in {3000, 200}, from
    zeros and from h0, fp32 and bf16: y and the fp32 h_T), and flash
    prefill and dense decode at the RecurrentGemma phase's shapes (H=10 on
@@ -25,8 +34,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    of a 2048-row ring that has wrapped; bf16 also within 4 bf16 ulps of
    each output row's scale);
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
-   0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py):
-   its error against flash + dense decode and its time per share;
+   0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
+   fp32 and bf16: bit-equal to flash + dense decode, and its time per
+   share;
 5. reference: a 2-layer cut of Qwen3-1.7B at full width, fp32, prefill +
    decode on the card (kernels) against the same on the CPU (plain
    versions);
@@ -34,7 +44,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    weights, 12 requests through BulletServer fused (the default) with the
    launch counters read around that run, then serial: identical streams;
    then the same requests under the scheduler's defaults (its fused
-   share); then a torch.profiler window over 30 fused cycles (device time
+   share); then 4 of them on the dense slot cache in bf16 (the bf16 dense
+   decode kernel's launches); then a torch.profiler window over 30 fused cycles (device time
    by kernel kind, device busy share);
 7. replay: Qwen3-1.7B at full width and depth through the OnlineFrontend
    on a ShareGPT-shaped trace, with observability: (a) a fault-free
@@ -71,8 +82,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    prefill and 8 decode_attention per step; torch.profiler windows over
    one prefill call and 10 decode steps.
 
-The second-last line is the kernel table as JSON, the last line the
-device summary as JSON.
+The second-last line is the kernel table as JSON (each row's launches
+read from a run of the row's dtype, so they count the body it times), the
+last line the device summary as JSON.
 """
 
 from __future__ import annotations
@@ -116,12 +128,12 @@ RG_W, RG_H, RG_K, RG_D, RG_WINDOW = 2560, 10, 1, 256, 2048
 #: y and h_T 1e-5; bf16 y one bf16 ulp of the scale (2^-8), h_T (fp32) 1e-5
 RG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
 RG_STATE_TOL = 1e-5
-#: flash and dense decode at D=256 in bf16 vs plain: besides TOL's
-#: absolute limit, max|kernel - plain| over each output row within this
-#: many bf16 ulps of the row's own scale max|plain_row|. The kernel rounds
-#: its output once; the plain version rounds each 1024-key block's PV
-#: product and then its output, so the two differ by up to about 2 ulps
-#: where the window spans 3 blocks; the phase prints what a result one key
+#: flash and dense decode in bf16 vs plain, at D=256 and at D=128: besides
+#: TOL's absolute limit, max|kernel - plain| over each output row within
+#: this many bf16 ulps of the row's own scale max|plain_row|. The kernel
+#: rounds its output once; the plain version rounds each 1024-key block's
+#: PV product and then its output, so the two differ by up to about 2 ulps
+#: where the window spans 3 blocks; each phase prints what a result one key
 #: short reads in the same units, well above this
 RG_ATTN_ULPS = 4
 
@@ -173,6 +185,57 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
     t_b = n_bytes / HBM_BW * 1e3
     t_o = n_ops / PEAK_OPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def with_tflops(row: dict, n_ops: float) -> dict:
+    """A flash row with the TFLOP/s its kernel achieved in this run."""
+    row["tflops"] = n_ops / row["ms"] / 1e9
+    return row
+
+
+def log_row(r: dict) -> None:
+    extra = ""
+    if "library_gqa_ms" in r:
+        extra += (f"; SDPA expanded {r['library_expanded_ms']:.4f}, "
+                  f"enable_gqa {r['library_gqa_ms']:.4f}")
+    if "tflops" in r:
+        extra += f"; {r['tflops']:.1f} TFLOP/s achieved"
+    log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+        f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}{extra}) at {r['shape']}")
+
+
+def split_sweep(timer, args, what: str) -> None:
+    """The bf16 dense decode timed at forced piece counts (the wrapper's
+    split_count replaced for the sweep), beside the count it picks: the
+    evidence for split_count's choice."""
+    from repro_torch.kernels import decode_attention as DA
+    pick = DA.split_count
+    chosen = DA.n_split(args[0], args[1].shape[1])
+    times = []
+    try:
+        for n in (1, 2, 4, 8, 16, 32, 64):
+            DA.split_count = lambda *a, n=n: n
+            times.append(f"{n}: {timer(lambda: DA.decode_attention(*args)):.4f}")
+    finally:
+        DA.split_count = pick
+    log(f"dense decode {what}, ms by pieces per (slot, kv head) "
+        f"(split_count picks {chosen}): {', '.join(times)}")
+
+
+def sdpa_yardsticks(timer, q, k, v, mask, g):
+    """Masked SDPA over a decode batch two ways: on K/V expanded to every
+    query head with repeat_interleave (G times the kernel's bytes) and on
+    the unexpanded cache with enable_gqa. q (B, H, 1, D), k/v (B, K, S, D)
+    contiguous. Returns (expanded ms, gqa ms): the faster is library_ms."""
+    F = torch.nn.functional
+    kx = k.repeat_interleave(g, 1).contiguous()
+    vx = v.repeat_interleave(g, 1).contiguous()
+    exp_ms = timer(lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                          attn_mask=mask))
+    gqa_ms = timer(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    return exp_ms, gqa_ms
 
 
 def esize(dtype) -> int:
@@ -386,10 +449,15 @@ def phase_kernels(timer: Timer):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    err = {"flash": 0.0, "decode": 0.0, "bullet": 0.0, "dense": 0.0,
-           "bullet_dense": 0.0}
+    err = {}
 
-    # -- flash: S in {128, 200, 1000}, Bp in {1, 4}, plus a window case
+    def worst(key, e):
+        err[key] = max(err.get(key, 0.0), e)
+
+    # -- flash: S in {128, 200, 1000}, Bp in {1, 4}, plus a window case; in
+    # bf16 also per output row within RG_ATTN_ULPS, beside what the plain
+    # version reads with the window one key short (for window 0, the last
+    # row's oldest key left out)
     for dtype in (torch.float32, torch.bfloat16):
         for bp in (1, 4):
             for s, window in ((128, 0), (200, 0), (1000, 0), (200, 17)):
@@ -402,10 +470,21 @@ def phase_kernels(timer: Timer):
                 e = (out.float() - ref.float()).abs().max().item()
                 check(math.isfinite(e) and e <= TOL[dtype],
                       f"flash {dtype} Bp={bp} S={s} w={window}: err {e}")
+                worst(("flash", dtype), e)
+                how = ""
                 if dtype == torch.bfloat16:
-                    err["flash"] = max(err["flash"], e)
+                    u = row_ulps(out, ref)
+                    check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+                          f"flash {dtype} Bp={bp} S={s} w={window}: {u} ulps "
+                          "of the row scale")
+                    wu = row_ulps(FA.flash_attention_plain(
+                        q, k, v, causal=True, window=(window or s) - 1,
+                        group=G), ref)
+                    how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
+                           f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} "
+                           f"(one key short)")
                 log(f"flash {str(dtype)[6:]} Bp={bp} S={s} window={window}: "
-                    f"max|kernel-plain| = {e:.3e}")
+                    f"max|kernel-plain| = {e:.3e}{how}")
 
     # -- paged decode: 8 slots, mixed contexts, inactive slot, trash page
     for dtype in (torch.float32, torch.bfloat16):
@@ -418,13 +497,14 @@ def phase_kernels(timer: Timer):
         check(math.isfinite(e) and e <= TOL[dtype],
               f"paged decode {dtype}: err {e}")
         check(bool((out[~act] == 0).all()), "inactive slot not zero")
-        if dtype == torch.bfloat16:
-            err["decode"] = max(err["decode"], e)
+        worst(("decode", dtype), e)
         log(f"paged decode {str(dtype)[6:]} contexts {CONTEXTS} n_b "
             f"{bt.shape[1]}: max|kernel-plain| (active) = {e:.3e}, "
             f"inactive slot zeros")
 
-    # -- dense decode: 8 slots over MAX_LEN rows, linear and ring positions
+    # -- dense decode: 8 slots over MAX_LEN rows, linear and ring positions;
+    # in bf16 also per output row within RG_ATTN_ULPS, beside what the plain
+    # version reads with each slot's newest key left out
     for dtype in (torch.float32, torch.bfloat16):
         for ring in (False, True):
             q, kc, vc, kvpos, pos = dense_inputs(gen, dtype, ring)
@@ -438,11 +518,22 @@ def phase_kernels(timer: Timer):
                   f"dense decode {dtype} {kind}: err {e}")
             check(bool((out[~act] == 0).all()),
                   "dense slot with no attended row not zero")
+            worst(("dense", dtype), e)
+            how = ""
             if dtype == torch.bfloat16:
-                err["dense"] = max(err["dense"], e)
+                u = row_ulps(out[act], ref[act])
+                check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+                      f"dense decode {dtype} {kind}: {u} ulps of the row "
+                      "scale")
+                newest = torch.where(kvpos == pos[:, None], -1, kvpos)
+                wu = row_ulps(DA.decode_attention_plain(
+                    q, kc, vc, newest, pos)[act], ref[act])
+                how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
+                       f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} "
+                       f"(newest key left out)")
             log(f"dense decode {str(dtype)[6:]} S={MAX_LEN} {kind}: "
                 f"max|kernel-plain| ({int(act.sum())} slots with an attended "
-                f"row) = {e:.3e}; {int((~act).sum())} slots without one "
+                f"row) = {e:.3e}{how}; {int((~act).sum())} slots without one "
                 f"return zeros")
 
     # -- bullet: every decode_share of the tile table, bit-equal
@@ -467,8 +558,7 @@ def phase_kernels(timer: Timer):
         e = max((op.float() - rp.float()).abs().max().item(),
                 (od[act].float() - rd[act].float()).abs().max().item())
         check(math.isfinite(e) and e <= TOL[dtype], f"bullet {dtype}: {e}")
-        if dtype == torch.bfloat16:
-            err["bullet"] = e
+        err[("bullet", dtype)] = e
         log(f"bullet {str(dtype)[6:]}: bit-equal to flash + paged decode at "
             f"all {len(shares)} tile-table shares; max|kernel-plain| = "
             f"{e:.3e}")
@@ -492,118 +582,136 @@ def phase_kernels(timer: Timer):
                 (od[act].float() - rd[act].float()).abs().max().item())
         check(math.isfinite(e) and e <= TOL[dtype],
               f"dense bullet {dtype}: {e}")
-        if dtype == torch.bfloat16:
-            err["bullet_dense"] = e
+        err[("bullet_dense", dtype)] = e
         log(f"dense bullet {str(dtype)[6:]}: bit-equal to flash + dense decode "
             f"at all {len(shares)} tile-table shares, linear and ring; "
             f"max|kernel-plain| = {e:.3e}")
 
-    # -- timings at the serving shapes (bf16): the longest prompt of the
-    # serve phase, its 8-slot decode batch, and the two fused
-    dt = torch.bfloat16
+    # -- timings at the serving shapes: bf16 (the bodies the served model
+    # runs) and fp32 (the first CUDA-core bodies, which the fp32 replays
+    # and references run); the paged decode kernel has one body for both
     rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        rows += _timed_d128(timer, gen, dt, err, rm)
+    for r in rows:
+        log_row(r)
+    return rows
+
+
+def _timed_d128(timer, gen, dt, err, rm) -> list:
+    """Kernels 1-5 timed at D=128 in ``dt``: the longest prompt of the serve
+    phase, its 8-slot decode batch, and the two fused. The fp32 rows are
+    named with a ``_fp32`` suffix; kernel 2 is timed in bf16 only."""
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+
     F = torch.nn.functional
+    bf16 = dt == torch.bfloat16
+    sfx, tag = ("", "bf16") if bf16 else ("_fp32", "fp32")
+    src = "src/repro_torch/kernels/csrc/attention.cu"
+    rows = []
 
     q, k, v = flash_inputs(gen, 1, 1000, dt)
     qs, ks, vs = (t.reshape(1, -1, 1000, D) for t in (q, k, v))
     ks, vs = ks.repeat_interleave(G, 1), vs.repeat_interleave(G, 1)
     nb, no = flash_cost(1, 1000, dt)
     bms, bby = bound_ms(nb, no, dt)
-    f_ms = timer(lambda: FA.flash_attention(q, k, v, group=G))
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
+    rows.append(with_tflops(dict(
+        name="flash_attention" + sfx, route="cuda", source=src,
         replaces="src/repro/kernels/flash_attention.py:77",
-        ms=f_ms,
+        ms=timer(lambda: FA.flash_attention(q, k, v, group=G)),
         plain_ms=timer(lambda: FA.flash_attention_plain(q, k, v, group=G)),
         bound_ms=bms, bound_by=bby,
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True)),
-        max_abs_err=err["flash"], shape="Bp=1 S=1000 H=16 K=8 D=128 bf16"))
+        max_abs_err=err[("flash", dt)],
+        shape=f"Bp=1 S=1000 H=16 K=8 D=128 {tag}"), no))
 
     qd, kpg, vpg, bt, pos = decode_inputs(gen, dt)
     nb_d, no_d = decode_cost(qd, pos, dt)
-    bms, bby = bound_ms(nb_d, no_d, dt)
-    b = qd.shape[0]
-    kd = kpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2) \
-        .repeat_interleave(G, 1).contiguous()
-    vd = vpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2) \
-        .repeat_interleave(G, 1).contiguous()
-    kvpos = torch.arange(kd.shape[2], device="cuda")
-    mask = (kvpos[None, :] <= pos[:, None])[:, None, None, :]
-    qsd = qd.reshape(b, H, 1, D)
-    rows.append(dict(
-        name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
-        replaces="src/repro/kernels/paged_decode_attention.py:73",
-        ms=timer(lambda: PD.paged_decode_attention(qd, kpg, vpg, bt, pos)),
-        plain_ms=timer(lambda: PD.paged_decode_attention_plain(
-            qd, kpg, vpg, bt, pos)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qsd, kd, vd, attn_mask=mask)),
-        max_abs_err=err["decode"],
-        shape=f"8 slots contexts {CONTEXTS} n_b={bt.shape[1]} bf16"))
+    if bf16:
+        bms, bby = bound_ms(nb_d, no_d, dt)
+        b = qd.shape[0]
+        kd = kpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
+        vd = vpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
+        kvpos = torch.arange(kd.shape[2], device="cuda")
+        mask = (kvpos[None, :] <= pos[:, None])[:, None, None, :]
+        qsd = qd.reshape(b, H, 1, D)
+        exp_ms, gqa_ms = sdpa_yardsticks(timer, qsd, kd, vd, mask, G)
+        rows.append(dict(
+            name="paged_decode_attention", route="cuda", source=src,
+            replaces="src/repro/kernels/paged_decode_attention.py:73",
+            ms=timer(lambda: PD.paged_decode_attention(qd, kpg, vpg, bt,
+                                                       pos)),
+            plain_ms=timer(lambda: PD.paged_decode_attention_plain(
+                qd, kpg, vpg, bt, pos)),
+            bound_ms=bms, bound_by=bby,
+            library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
+            library_gqa_ms=gqa_ms,
+            max_abs_err=err[("decode", dt)],
+            shape=f"8 slots contexts {CONTEXTS} n_b={bt.shape[1]} {tag}"))
 
     qdd, kc, vc, kvpos, posd = dense_inputs(gen, dt, False)
     nb_dd, no_dd = dense_cost(qdd, kvpos, posd, dt)
     bms, bby = bound_ms(nb_dd, no_dd, dt)
-    kx = kc.transpose(1, 2).repeat_interleave(G, 1).contiguous()
-    vx = vc.transpose(1, 2).repeat_interleave(G, 1).contiguous()
     dmask = ((kvpos >= 0) & (kvpos <= posd[:, None]))[:, None, None, :]
     qsdd = qdd.reshape(qdd.shape[0], H, 1, D)
+    exp_ms, gqa_ms = sdpa_yardsticks(
+        timer, qsdd, kc.transpose(1, 2).contiguous(),
+        vc.transpose(1, 2).contiguous(), dmask, G)
+    if bf16:
+        split_sweep(timer, (qdd, kc, vc, kvpos, posd), f"D={D} 8 slots")
+        body = f"{DA.n_split(qdd, MAX_LEN)} pieces per (slot, kv head)"
+    else:
+        body = "one CTA per (slot, kv head)"
     rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
+        name="decode_attention" + sfx, route="cuda", source=src,
         replaces="src/repro/kernels/decode_attention.py:62",
         ms=timer(lambda: DA.decode_attention(qdd, kc, vc, kvpos, posd)),
         plain_ms=timer(lambda: DA.decode_attention_plain(
             qdd, kc, vc, kvpos, posd)),
         bound_ms=bms, bound_by=bby,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qsdd, kx, vx, attn_mask=dmask)),
-        max_abs_err=err["dense"],
+        library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
+        library_gqa_ms=gqa_ms,
+        max_abs_err=err[("dense", dt)],
         shape=f"8 slots x S={MAX_LEN} rows, contexts {CONTEXTS} clipped to "
-              f"the row, linear positions, bf16"))
+              f"the row, linear positions, {tag}, {body}"))
 
     share = round(rm.current.decode_share, 6)
+    code = 1 if bf16 else 0
     # one function over both phases' inputs: max(sum of bytes / rate,
     # sum of operations / peak)
     bms, bby = bound_ms(nb + nb_d, no + no_d, dt)
-    n_ctas = BA.grid_ctas(torch.cuda.current_device(), 1, D, G, PS)
+    n_ctas = BA.grid_ctas(torch.cuda.current_device(), code, D, G, PS)
     n_dec = BA.decode_ctas(share, n_ctas, True, True)
     rows.append(dict(
-        name="bullet_attention_paged", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
+        name="bullet_attention_paged" + sfx, route="cuda", source=src,
         replaces="src/repro/kernels/bullet_attention.py:260",
         ms=timer(lambda: BA.bullet_attention_paged(
             q, k, v, qd, kpg, vpg, bt, pos, decode_share=share, group=G)),
         plain_ms=timer(lambda: BA.bullet_attention_paged_plain(
             q, k, v, qd, kpg, vpg, bt, pos, group=G)),
         bound_ms=bms, bound_by=bby, library_ms=None,
-        max_abs_err=err["bullet"],
+        max_abs_err=err[("bullet", dt)],
         shape=f"flash Bp=1 S=1000 + decode as above, decode_share={share}: "
-              f"{n_dec} of {n_ctas} CTAs decode"))
+              f"{n_dec} of {n_ctas} CTAs decode, {tag}"))
     bms, bby = bound_ms(nb + nb_dd, no + no_dd, dt)
-    n_ctas = BA.grid_ctas(torch.cuda.current_device(), 1, D, G, PS,
+    n_ctas = BA.grid_ctas(torch.cuda.current_device(), code, D, G, PS,
                           dense=True)
     n_dec = BA.decode_ctas(share, n_ctas, True, True)
     rows.append(dict(
-        name="bullet_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
+        name="bullet_attention" + sfx, route="cuda", source=src,
         replaces="src/repro/kernels/bullet_attention.py:361",
         ms=timer(lambda: BA.bullet_attention(
             q, k, v, qdd, kc, vc, kvpos, posd, decode_share=share, group=G)),
         plain_ms=timer(lambda: BA.bullet_attention_plain(
             q, k, v, qdd, kc, vc, kvpos, posd, group=G)),
         bound_ms=bms, bound_by=bby, library_ms=None,
-        max_abs_err=err["bullet_dense"],
+        max_abs_err=err[("bullet_dense", dt)],
         shape=f"flash Bp=1 S=1000 + dense decode as above, decode_share="
-              f"{share}: {n_dec} of {n_ctas} CTAs decode"))
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}) at {r['shape']}")
+              f"{share}: {n_dec} of {n_ctas} CTAs decode, {tag}"))
     return rows
 
 
@@ -756,7 +864,7 @@ def phase_attention_d256(timer: Timer) -> list:
                         device="cuda")
     kvpos = _kv_positions(dpos, RG_WINDOW, True)     # the model's ring map
     att = (kvpos >= 0) & (kvpos <= dpos[:, None])
-    err = {}
+    err, inputs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -770,6 +878,7 @@ def phase_attention_d256(timer: Timer) -> list:
                       rn(bp, RG_WINDOW, RG_K, RG_D))
         od = DA.decode_attention(qd, kc, vc, kvpos, dpos)
         rd = DA.decode_attention_plain(qd, kc, vc, kvpos, dpos)
+        inputs[dtype] = (q, k, v, qd, kc, vc)
         torch.cuda.synchronize()
         e = (out.float() - ref.float()).abs().max().item()
         ed = (od.float() - rd.float()).abs().max().item()
@@ -799,62 +908,73 @@ def phase_attention_d256(timer: Timer) -> list:
             f"S={s} window {RG_WINDOW} causal / dense decode G={g} over a "
             f"{RG_WINDOW}-row ring at pos {dpos.tolist()}: {how}")
 
-    dt = torch.bfloat16
+    # timed in bf16 (the served model's bodies) and fp32 (the first
+    # CUDA-core bodies, which the fp32 reference runs)
     pairs = bp * sum(min(i + 1, RG_WINDOW) for i in range(s))
-    nb = (2 * q.numel() + 2 * k.numel()) * esize(dt)
-    bms, bby = bound_ms(nb, 4 * RG_D * g * pairs, dt)
-    qs = q.reshape(bp, RG_H, s, RG_D)
-    ks = k.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
-    vs = v.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
     i = torch.arange(s, device="cuda")
     wmask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - RG_WINDOW)
-    rows = [dict(
-        name="flash_attention_d256", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:77",
-        ms=timer(lambda: FA.flash_attention(q, k, v, window=RG_WINDOW,
-                                            group=g)),
-        plain_ms=timer(lambda: FA.flash_attention_plain(
-            q, k, v, window=RG_WINDOW, group=g)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=wmask)),
-        max_abs_err=err[("flash", dt)],
-        shape=f"Bp={bp} S={s} H={RG_H} K={RG_K} D={RG_D} window {RG_WINDOW} "
-              f"causal bf16")]
     n_rows = int(att.sum())
-    nb = (2 * n_rows * RG_K * RG_D + 2 * qd.numel()) * esize(dt) \
-        + 4 * (kvpos.numel() + bp)
-    bms, bby = bound_ms(nb, 4 * g * RG_D * RG_K * n_rows, dt)
-    kx = kc.transpose(1, 2).repeat_interleave(g, 1).contiguous()
-    vx = vc.transpose(1, 2).repeat_interleave(g, 1).contiguous()
-    qx = qd.reshape(bp, RG_H, 1, RG_D)
-    rows.append(dict(
-        name="decode_attention_d256", route="cuda",
-        source="src/repro_torch/kernels/csrc/attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:62",
-        ms=timer(lambda: DA.decode_attention(qd, kc, vc, kvpos, dpos)),
-        plain_ms=timer(lambda: DA.decode_attention_plain(
-            qd, kc, vc, kvpos, dpos)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qx, kx, vx, attn_mask=att[:, None, None, :])),
-        max_abs_err=err[("decode", dt)],
-        shape=f"{bp} slots x {RG_WINDOW}-row ring, pos {dpos.tolist()} "
-              f"({n_rows} attended rows), G={g} D={RG_D} bf16"))
+    src = "src/repro_torch/kernels/csrc/attention.cu"
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, qd, kc, vc = inputs[dt]
+        sfx, tag = ("", "bf16") if dt == torch.bfloat16 else ("_fp32", "fp32")
+        nb = (2 * q.numel() + 2 * k.numel()) * esize(dt)
+        n_ops = 4 * RG_D * g * pairs
+        bms, bby = bound_ms(nb, n_ops, dt)
+        qs = q.reshape(bp, RG_H, s, RG_D)
+        ks = k.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
+        vs = v.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
+        rows.append(with_tflops(dict(
+            name="flash_attention_d256" + sfx, route="cuda", source=src,
+            replaces="src/repro/kernels/flash_attention.py:77",
+            ms=timer(lambda: FA.flash_attention(q, k, v, window=RG_WINDOW,
+                                                group=g)),
+            plain_ms=timer(lambda: FA.flash_attention_plain(
+                q, k, v, window=RG_WINDOW, group=g)),
+            bound_ms=bms, bound_by=bby,
+            library_ms=timer(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=wmask)),
+            max_abs_err=err[("flash", dt)],
+            shape=f"Bp={bp} S={s} H={RG_H} K={RG_K} D={RG_D} window "
+                  f"{RG_WINDOW} causal {tag}"), n_ops))
+        nb = (2 * n_rows * RG_K * RG_D + 2 * qd.numel()) * esize(dt) \
+            + 4 * (kvpos.numel() + bp)
+        bms, bby = bound_ms(nb, 4 * g * RG_D * RG_K * n_rows, dt)
+        qx = qd.reshape(bp, RG_H, 1, RG_D)
+        exp_ms, gqa_ms = sdpa_yardsticks(
+            timer, qx, kc.transpose(1, 2).contiguous(),
+            vc.transpose(1, 2).contiguous(), att[:, None, None, :], g)
+        if dt == torch.bfloat16:
+            split_sweep(timer, (qd, kc, vc, kvpos, dpos),
+                        f"D={RG_D} {bp} slots")
+            body = f"{DA.n_split(qd, RG_WINDOW)} pieces per (slot, kv head)"
+        else:
+            body = "one CTA per (slot, kv head)"
+        rows.append(dict(
+            name="decode_attention_d256" + sfx, route="cuda", source=src,
+            replaces="src/repro/kernels/decode_attention.py:62",
+            ms=timer(lambda: DA.decode_attention(qd, kc, vc, kvpos, dpos)),
+            plain_ms=timer(lambda: DA.decode_attention_plain(
+                qd, kc, vc, kvpos, dpos)),
+            bound_ms=bms, bound_by=bby,
+            library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
+            library_gqa_ms=gqa_ms,
+            max_abs_err=err[("decode", dt)],
+            shape=f"{bp} slots x {RG_WINDOW}-row ring, pos {dpos.tolist()} "
+                  f"({n_rows} attended rows), G={g} D={RG_D} {tag}, {body}"))
     for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}) at {r['shape']}")
+        log_row(r)
     return rows
 
 
-def phase_colocated(timer: Timer) -> int:
+def phase_colocated(timer: Timer) -> dict:
     """The counterpart of examples/colocated_attention.py on the card: one
     dense fused launch computes a prefill batch's attention and a decode
-    batch's over dense caches, swept over decode_share; every share must
-    equal flash + dense decode run apart. Returns the fused kernel's
-    launches in the sweep."""
+    batch's over dense caches, swept over decode_share, in fp32 and in
+    bf16 (each dtype runs its own bodies); every share must equal flash +
+    dense decode run apart bit for bit. Returns the fused kernel's launches
+    in each dtype's sweep."""
     from repro_torch.kernels import bullet_attention as BA
     from repro_torch.kernels import ops
 
@@ -862,42 +982,43 @@ def phase_colocated(timer: Timer) -> int:
     # caches (the example's shapes at the served model's heads, D=128)
     bp, sp, bd, sk = 2, 256, 8, 512
     gen = torch.Generator(device="cuda").manual_seed(3)
-    qp = torch.randn(bp, sp, H, D, generator=gen, device="cuda")
-    kp = torch.randn(bp, sp, K, D, generator=gen, device="cuda")
-    vp = torch.randn(bp, sp, K, D, generator=gen, device="cuda")
-    qd = torch.randn(bd, 1, H, D, generator=gen, device="cuda")
-    kd = torch.randn(bd, sk, K, D, generator=gen, device="cuda")
-    vd = torch.randn(bd, sk, K, D, generator=gen, device="cuda")
-    kvpos = torch.arange(sk, dtype=torch.int32,
-                         device="cuda")[None].expand(bd, sk).contiguous()
-    pos = torch.from_numpy(np.random.default_rng(0).integers(
-        64, sk, bd).astype(np.int32)).cuda()
-    ref_p = ops.flash_attention_op(qp, kp, vp)
-    ref_d = ops.decode_attention_op(qd, kd, vd, kvpos, pos)
-    n_ctas = BA.grid_ctas(torch.cuda.current_device(), 0, D, G, PS,
-                          dense=True)
-    BA.dense_launches = 0
-    outs = {}
-    for share in (0.0, 0.25, 0.5, 0.75, 1.0):
-        outs[share] = ops.bullet_attention_op(qp, kp, vp, qd, kd, vd, kvpos,
-                                              pos, decode_share=share)
-    launches = BA.dense_launches
-    check(launches == 5, f"colocated: {launches} fused launches, want 5")
-    for share, (op, od) in outs.items():
-        ep = (op - ref_p).abs().max().item()
-        ed = (od - ref_d).abs().max().item()
-        check(ep == 0.0 and ed == 0.0,
-              f"colocated share {share}: prefill err {ep}, decode err {ed}")
-        ms = timer(lambda: ops.bullet_attention_op(
-            qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share))
-        n_dec = BA.decode_ctas(share, n_ctas, True, True)
-        log(f"colocated fp32 decode_share={share:4.2f}: {n_dec:3d} of "
-            f"{n_ctas} CTAs decode, {ms:.4f} ms, prefill err {ep:.1e}, "
-            f"decode err {ed:.1e}")
-    apart = timer(lambda: (ops.flash_attention_op(qp, kp, vp),
-                           ops.decode_attention_op(qd, kd, vd, kvpos, pos)))
-    log(f"colocated: flash + dense decode launched apart {apart:.4f} ms; "
-        "every share equals them bit for bit")
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        qp, kp, vp = rn(bp, sp, H, D), rn(bp, sp, K, D), rn(bp, sp, K, D)
+        qd, kd, vd = rn(bd, 1, H, D), rn(bd, sk, K, D), rn(bd, sk, K, D)
+        kvpos = torch.arange(sk, dtype=torch.int32,
+                             device="cuda")[None].expand(bd, sk).contiguous()
+        pos = torch.from_numpy(np.random.default_rng(0).integers(
+            64, sk, bd).astype(np.int32)).cuda()
+        ref_p = ops.flash_attention_op(qp, kp, vp)
+        ref_d = ops.decode_attention_op(qd, kd, vd, kvpos, pos)
+        n_ctas = BA.grid_ctas(torch.cuda.current_device(),
+                              int(dtype == torch.bfloat16), D, G, PS,
+                              dense=True)
+        BA.dense_launches = 0
+        outs = {}
+        for share in (0.0, 0.25, 0.5, 0.75, 1.0):
+            outs[share] = ops.bullet_attention_op(
+                qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share)
+        n = launches[dtype] = BA.dense_launches
+        check(n == 5, f"colocated {dtype}: {n} fused launches, want 5")
+        for share, (op, od) in outs.items():
+            check(torch.equal(op, ref_p) and torch.equal(od, ref_d),
+                  f"colocated {dtype} share {share}: not bit-equal to flash "
+                  "+ dense decode")
+            ms = timer(lambda: ops.bullet_attention_op(
+                qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share))
+            n_dec = BA.decode_ctas(share, n_ctas, True, True)
+            log(f"colocated {str(dtype)[6:]} decode_share={share:4.2f}: "
+                f"{n_dec:3d} of {n_ctas} CTAs decode, {ms:.4f} ms, bit-equal "
+                f"to flash + dense decode")
+        apart = timer(lambda: (ops.flash_attention_op(qp, kp, vp),
+                               ops.decode_attention_op(qd, kd, vd, kvpos,
+                                                       pos)))
+        log(f"colocated {str(dtype)[6:]}: flash + dense decode launched "
+            f"apart {apart:.4f} ms")
     return launches
 
 
@@ -956,7 +1077,7 @@ def _card_vs_cpu(outs, cfg, tol: float = 1e-3) -> float:
 
 
 def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
-           audit=None, default_sched: bool = False):
+           audit=None, default_sched: bool = False, paged: bool = True):
     """Serve the requests, each released when the virtual clock reaches its
     arrival. The clock advances by the H100 estimator's price of each cycle
     (as the JAX package's virtual replay does), so the scheduler's
@@ -973,8 +1094,10 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
     batch), to show how often the default configuration fuses.
 
     ``audit(server)`` runs after every cycle (e.g. a
-    :class:`ProfileCycles`)."""
-    from repro_torch.core.config import ControlConfig, ExecConfig, ServerConfig
+    :class:`ProfileCycles`). ``paged=False`` serves on the dense slot
+    cache (serial)."""
+    from repro_torch.core.config import (CacheConfig, ControlConfig,
+                                         ExecConfig, ServerConfig)
     from repro_torch.core.engine import BulletServer
     from repro_torch.core.estimator import predict_cycle
     from repro_torch.core.scheduler import SchedulerConfig
@@ -988,7 +1111,7 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
         config = ServerConfig(
             slo=SLO(3.0, 150.0), max_slots=8, max_len=1152,
             max_prefill_batch=1, dtype=torch.bfloat16,
-            execution=ExecConfig(fused=fused),
+            cache=CacheConfig(paged=paged), execution=ExecConfig(fused=fused),
             control=ControlConfig(
                 sched=SchedulerConfig(max_decode_pause_cycles=0)))
     server = BulletServer(cfg, params, config=config, device="cuda")
@@ -1018,9 +1141,11 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
 
 
 def _kernel_kind(name: str) -> str:
-    # "decode_kernel" matches the paged and the dense decode kernels
+    # "decode_kernel" matches the paged, the dense and the split dense
+    # decode kernels; the fused kernels are "bullet_kernel" (fp32) and
+    # "bullet_tc_kernel" (bf16)
     if any(k in name for k in ("flash_kernel", "decode_kernel",
-                               "bullet_kernel")):
+                               "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
     if "ssd_scan_kernel" in name:
         return "SSD scan (this port's kernel)"
@@ -1097,6 +1222,7 @@ def phase_profile(cfg, params, prompts, outs, arrivals, card: str):
 def phase_serve(card: str):
     from repro_torch.configs import get_config
     from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
     from repro_torch.models import transformer as T
@@ -1153,6 +1279,22 @@ def phase_serve(card: str):
               f"request {rid}: fused and serial token streams differ")
     log(f"serve serial: {n_tok / s_secs:.1f} tok/s, {s_cycles} cycles; "
         f"token streams identical to fused  [{card}]")
+
+    # the dense slot cache in bf16, on 4 of the requests: the path of the
+    # bf16 dense decode kernel (the split body) at D=128
+    DA.launches = 0
+    nd = 4
+    dense, _, _ = _serve(cfg, params, prompts[:nd], out_lens[:nd].tolist(),
+                         arrivals[:nd], fused=False, paged=False)
+    launches["decode_attention"] = DA.launches
+    for rid, o in enumerate(out_lens[:nd].tolist()):
+        got = dense.outputs.get(rid, [])
+        check(len(got) == o and all(0 <= t < cfg.vocab_size for t in got),
+              f"serve dense: request {rid}: {len(got)} tokens, want {o}")
+    check(DA.launches >= cfg.n_layers * (max(out_lens[:nd]) - 1),
+          f"serve dense: {DA.launches} decode_attention launches")
+    log(f"serve dense cache, serial, bf16: {nd} requests finished, "
+        f"{DA.launches} decode_attention launches  [{card}]")
 
     # the scheduler's defaults on the same requests: how often they fuse
     BA.launches = 0
@@ -1606,7 +1748,7 @@ def phase_rg_reference():
     steps on the card (kernels) against the CPU (plain versions): logits
     within 1e-4 of their scale, the same greedy tokens, and the card's
     launches: 4 rglru_scan (one per RG-LRU layer), 1 flash_attention, 8
-    decode_attention."""
+    decode_attention. Returns those launches (of the fp32 bodies)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_params
 
@@ -1636,6 +1778,7 @@ def phase_rg_reference():
         f"{lens.tolist()} as one padded batch + {n_dec} decode steps, card vs "
         f"CPU max rel logit err {worst:.2e} (tolerance 1e-4), greedy tokens "
         f"equal, launches {launches}")
+    return launches
 
 
 #: the RecurrentGemma phase's prompts (one padded batch) and decode steps
@@ -1820,24 +1963,33 @@ def main() -> int:
         return 0
     timed("reference", phase_reference)
     timed("mamba reference", phase_mamba_reference)
-    timed("recurrentgemma reference", phase_rg_reference)
+    rg_ref = timed("recurrentgemma reference", phase_rg_reference)
     launches = timed("serve", phase_serve, card)[0]
     replay = timed("replay", phase_replay, card)
     ssd = timed("mamba", phase_mamba, card)
     rg = timed("recurrentgemma", phase_recurrentgemma, card)
-    # each kernel's launches on its own path: the serve phase's fused run
-    # (the paged fused path), the chaos replay (dense decode), the
-    # colocated sweep (the dense fused kernel, which no serving path runs),
-    # the Mamba-2 virtual-clock replay (the SSD scan) and the
-    # RecurrentGemma run (the RG-LRU scan, and kernels 1 and 4 at D = 256)
-    launches = {**replay, **launches,
-                "decode_attention": replay["decode_attention"],
-                "bullet_attention": colocated, "ssd_scan": ssd,
-                "rglru_scan": rg["rglru_scan"],
+    # each kernel's launches on a path that runs its body: in bf16 the serve
+    # phase's fused run (flash, paged decode, the paged fused kernel) and
+    # its dense-cache run (dense decode), the bf16 colocated sweep (the
+    # dense fused kernel, which no serving path runs) and the RecurrentGemma
+    # run (the RG-LRU scan, and kernels 1 and 4 at D = 256); in fp32 the
+    # chaos replay (flash, dense decode, the paged fused kernel), the fp32
+    # colocated sweep and the RecurrentGemma reference (kernels 1 and 4 at
+    # D = 256); the SSD scan from the Mamba-2 virtual-clock replay (fp32)
+    launches = {**launches, "bullet_attention": colocated[torch.bfloat16],
+                "ssd_scan": ssd, "rglru_scan": rg["rglru_scan"],
                 "flash_attention_d256": rg["flash_attention"],
-                "decode_attention_d256": rg["decode_attention"]}
+                "decode_attention_d256": rg["decode_attention"],
+                "flash_attention_fp32": replay["flash_attention"],
+                "decode_attention_fp32": replay["decode_attention"],
+                "bullet_attention_paged_fp32":
+                    replay["bullet_attention_paged"],
+                "bullet_attention_fp32": colocated[torch.float32],
+                "flash_attention_d256_fp32": rg_ref["flash_attention"],
+                "decode_attention_d256_fp32": rg_ref["decode_attention"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} never launched on its path")
     log(f"{card}")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ into one shared library under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a digest of the sources so an edit rebuilds;
 ``ctypes`` loads it. ``attention.cu`` holds the attention kernels (flash
 prefill and dense decode at head dims 128 and 256, paged decode and the
-fused launches at 128), ``ssd_scan.cu`` the Mamba-2 SSD chunk scan and
+fused launches at 128; in bf16 the flash body runs on the tensor cores
+through wgmma and TMA, so ``sm_90a``'s ``a`` is needed), ``ssd_scan.cu`` the Mamba-2 SSD chunk scan and
 ``rglru_scan.cu`` the RG-LRU linear recurrence. Nothing here runs at
 import: the first wrapper that launches a kernel builds the library, and
 the CPU tests, which never launch one, need no compiler.
@@ -41,8 +42,10 @@ SIGNATURES = {
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6
                                   + [_I] * 9 + [_P],
     "decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_P],
-    "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6 + [_I] * 8 + [_P],
+    "decode_attention_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9 + [_I] * 9 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
+    "split_decode_ctas_per_sm": [_I, ctypes.POINTER(_I)],
     "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
@@ -183,3 +186,12 @@ def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
     if head_dim and d not in head_dims:
         raise ValueError(f"{kernel}: head dim {d} not in {head_dims}")
     return code
+
+
+def check_aligned(kernel: str, tensors) -> None:
+    """The bf16 attention bodies read through TMA maps and 16-byte
+    ``cp.async`` copies: each tensor must start 16-byte aligned."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: bfloat16 tensors must start "
+                             f"16-byte aligned")

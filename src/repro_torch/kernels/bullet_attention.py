@@ -18,7 +18,9 @@ the decode CTAs to particular SMs, so it is the paper's SM partition only
 as far as every SM holds the same number of CTAs. The per-item bodies are
 the standalone kernels' device functions, so the outputs equal
 ``flash_attention`` + ``paged_decode_attention`` (or + ``decode_attention``)
-bit for bit. The dense variant has no serving path (the engine runs fused
+bit for bit: in bf16 the dense variant's decode CTAs loop over the same
+(slot, kv head, piece) items as the standalone split launch
+(``decode_attention.split_count``). The dense variant has no serving path (the engine runs fused
 cycles on the paged pool only, as the JAX engine does); ``chip_smoke.py``'s
 colocated phase drives it, as ``examples/colocated_attention.py`` drives
 the TPU kernel. Both are built for head dim 128 only
@@ -35,7 +37,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import _check_dense
+from repro_torch.kernels.decode_attention import (_check_dense,
+                                                  split_workspace)
 from repro_torch.kernels.paged_decode_attention import _check_decode
 
 #: launches of the paged / the dense fused kernel since the counters were
@@ -109,6 +112,8 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
     out_d = torch.empty_like(qd)
     if out_p.numel() == 0 and out_d.numel() == 0:
         return out_p, out_d
+    if code == build.DTYPE_CODES["torch.bfloat16"]:
+        build.check_aligned("bullet_attention_paged", (qp, kp, vp))
     n_ctas = grid_ctas(qp.device.index if qp.device.index is not None
                        else torch.cuda.current_device(), code, d, g,
                        k_pages.shape[1])
@@ -152,10 +157,17 @@ def bullet_attention(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos, *,
                          f"group {group}")
     _check_dense("bullet_attention", qd, k_cache, v_cache, kv_positions, pos)
     b, kh, g, _ = qd.shape
+    s = k_cache.shape[1]
     out_p = torch.empty_like(qp)
     out_d = torch.empty_like(qd)
     if out_p.numel() == 0 and out_d.numel() == 0:
         return out_p, out_d
+    n_split, ws = 1, (None, None, None)
+    if code == build.DTYPE_CODES["torch.bfloat16"]:
+        build.check_aligned("bullet_attention",
+                            (qp, kp, vp, qd, k_cache, v_cache))
+        # the standalone dense decode's pieces, so the outputs stay equal
+        n_split, *ws = split_workspace(qd, s)
     n_ctas = grid_ctas(qp.device.index if qp.device.index is not None
                        else torch.cuda.current_device(), code, d, g, 0,
                        dense=True)
@@ -166,7 +178,8 @@ def bullet_attention(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos, *,
         bh, sp, group, int(causal), int(window),
         qd.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_positions.data_ptr(), pos.data_ptr(), out_d.data_ptr(),
-        b, kh, g, k_cache.shape[1], d, code, n_dec, n_ctas,
+        *(None if t is None else t.data_ptr() for t in ws),
+        b, kh, g, s, d, code, n_split, n_dec, n_ctas,
         build.stream_of(qp))
     build.check(rc, "bullet_attention")
     global dense_launches

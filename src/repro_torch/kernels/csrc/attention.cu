@@ -11,14 +11,22 @@
 // flash_attention_fwd
 //   Replaces src/repro/kernels/flash_attention.py:77 `flash_attention`
 //   (pl.pallas_call at :95). Causal / sliding-window prefill attention,
-//   one CTA per (batch*head, 64-row query tile), an online softmax over
-//   32-key tiles, GQA kv head = bh / group. Tails are masked, so any S
-//   works. Bound on an H100: operations (4·S²·H·D/2 causal FLOPs per
-//   sequence against ~S·(H+2K)·D·2 bytes), i.e. tensor-core rate. This
-//   first version runs on the CUDA cores in fp32 (no wgmma yet): it keeps
-//   the score and probability tiles in shared memory so no S×S matrix
-//   reaches HBM, and skips KV tiles that the causal or window mask removes
-//   whole, which halves the work of a causal prompt.
+//   GQA kv head = bh / group. Tails are masked, so any S works. Bound on an
+//   H100: operations (4·S²·H·D/2 causal FLOPs per sequence against
+//   ~S·(H+2K)·D·2 bytes), i.e. tensor-core rate. Two bodies, by dtype:
+//   - bf16 (flash_tc_item, the design for that bound): one CTA per
+//     (batch*head, 128-row query tile), one warpgroup per 64 query rows;
+//     S = Q K^T and O += P V on the tensor cores with wgmma (bf16 operands,
+//     fp32 accumulators, P rounded to bf16 in registers), K/V tiles of 64
+//     keys brought by TMA (128-byte swizzle, zero fill past S) into a
+//     2-stage ring behind mbarriers, the online softmax in fp32 registers.
+//     The TMA maps are encoded here, on the host, through the runtime's
+//     driver entry point (no -lcuda).
+//   - fp32 (flash_item, the first port's body, kept so every fp32 gate
+//     stays exact): one CTA per 64-row query tile on the CUDA cores, 32-key
+//     tiles in shared memory.
+//   Both keep the score tiles on chip, so no S×S matrix reaches HBM, and
+//   skip the KV tiles that the causal or window mask removes whole.
 //
 // paged_decode_fwd
 //   Replaces src/repro/kernels/paged_decode_attention.py:73
@@ -31,20 +39,34 @@
 //   neighbouring threads on neighbouring addresses, and packs the G query
 //   heads of a kv head into one CTA so a page is read once for all of them.
 //
-// decode_attention_fwd
-//   Replaces src/repro/kernels/decode_attention.py:62 `decode_attention`
+// decode_attention_fwd, decode_attention_split_fwd
+//   Replace src/repro/kernels/decode_attention.py:62 `decode_attention`
 //   (pl.pallas_call at :82). One-token GQA decode over a dense per-slot
 //   cache (B, S, K, D), masked by kv_positions (B, S): row j of slot b is
 //   attended when 0 <= kv_positions[b, j] <= pos[b], so ring caches (any
 //   order of positions, holes of -1) work; any S works (the tail tile is
-//   masked, not padded). One CTA per (slot, kv head) walks the slot's rows
-//   in tiles of DECODE_TILE = 16 rows, reads each tile's positions first
-//   and skips a tile none of whose rows is attended: the decision is taken
-//   from the positions, never from the tile's index. Bound: bytes (the K/V
-//   rows of attended positions, as for paged decode); the design reads
-//   only tiles that hold an attended row, once, for all G query heads. With
-//   linear positions it walks paged_decode_fwd's rows in the same 16-row
-//   tiles with the same arithmetic, so the two agree bit for bit.
+//   masked, not padded). Bound: bytes (the K/V rows of attended positions,
+//   read once for all G query heads). Two bodies, by dtype:
+//   - bf16 (split_decode_item, flash-decoding): each (slot, kv head)'s
+//     64-row tiles are split into n_split pieces, one CTA each, so a batch
+//     of few slots (MQA: B CTAs) still fills the card; a piece reads only
+//     its attended rows, 16 bytes a thread, double-buffered, computes both
+//     products on the tensor cores (mma.sync, the G <= 16 query heads of a
+//     kv head as one 16-row operand), and the last piece of a (slot, kv
+//     head) to finish merges the partials in piece order, so the result
+//     does not depend on the order the CTAs ran in. Its entry is
+//     decode_attention_split_fwd, which takes n_split, the workspace and
+//     the counters from the wrapper (no workspace for n_split = 1) and
+//     checks the wrapper's tile against SPLIT_TILE;
+//     split_decode_ctas_per_sm gives the CTAs an SM holds, which the
+//     wrapper's split count sizes its wave with. decode_attention_fwd is
+//     the fp32 entry (in bf16 it runs the split body with one piece).
+//   - fp32 (decode_item, the first port's body, unsplit): one CTA per
+//     (slot, kv head) walks the rows in tiles of DECODE_TILE = 16 and skips
+//     a tile none of whose rows is attended (decided from the positions,
+//     never from the tile's index). With linear positions it walks
+//     paged_decode_fwd's rows in the same 16-row tiles with the same
+//     arithmetic, so the two agree bit for bit.
 //
 // bullet_attention_paged_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:260
@@ -67,9 +89,11 @@
 // bullet_attention_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:361 `bullet_attention`
 //   (pl.pallas_call at :400): the same persistent launch with the dense
-//   decode body (decode_item) in place of the paged one, so its outputs
-//   equal flash_attention_fwd + decode_attention_fwd bit for bit at every
-//   decode_share. Bound: as bullet_attention_paged_fwd.
+//   decode body in place of the paged one; its decode CTAs loop over the
+//   same (slot, kv head, piece) items as the standalone split launch, so
+//   its outputs equal flash_attention_fwd + the dense decode wrapper's
+//   launch bit for bit at every decode_share. Bound: as
+//   bullet_attention_paged_fwd.
 
 #include <cmath>
 #include <type_traits>
@@ -80,48 +104,182 @@ using namespace bullet;
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+template <typename T> constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+// The per-item bodies by dtype: the fp32 CUDA-core bodies for float, the
+// tensor-core flash body and the split dense decode body for bfloat16.
+template <typename T, int D>
+__device__ __forceinline__ void flash_body(const FlashArgs &a, int item,
+                                           unsigned char *smem) {
+  if constexpr (is_bf16<T>)
+    flash_tc_item<D>(a, item, smem);
+  else
+    flash_item<T, D>(a, item, reinterpret_cast<float *>(smem));
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void dense_decode_body(const DenseDecodeArgs &a,
+                                                  int item,
+                                                  unsigned char *smem) {
+  if constexpr (is_bf16<T>)
+    split_decode_item<D>(a, item, smem);
+  else
+    decode_item<T, D>(a, item, reinterpret_cast<float *>(smem));
+}
+
+// work items of a decode launch: (slot, kv head), times the pieces of the
+// bf16 split body over the dense cache
+template <typename T>
+__host__ __device__ inline int decode_items(const DecodeArgs &a) {
+  return a.b * a.kh;
+}
+template <typename T>
+__host__ __device__ inline int decode_items(const DenseDecodeArgs &a) {
+  return a.b * a.kh * (is_bf16<T> ? a.n_split : 1);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-    flash_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
-  flash_item<T, D>(a, blockIdx.x, smem);
+    flash_kernel(const __grid_constant__ FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  flash_body<T, D>(a, blockIdx.x, smem);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     paged_decode_kernel(DecodeArgs a) {
-  extern __shared__ float smem[];
-  paged_decode_item<T, D>(a, blockIdx.x, smem);
+  extern __shared__ __align__(16) unsigned char smem[];
+  paged_decode_item<T, D>(a, blockIdx.x, reinterpret_cast<float *>(smem));
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
     decode_kernel(DenseDecodeArgs a) {
-  extern __shared__ float smem[];
-  decode_item<T, D>(a, blockIdx.x, smem);
+  extern __shared__ __align__(16) unsigned char smem[];
+  decode_item<T, D>(a, blockIdx.x, reinterpret_cast<float *>(smem));
+}
+
+// the bf16 split body: at most 128 registers a thread, two CTAs an SM
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
+    split_decode_kernel(DenseDecodeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  split_decode_item<D>(a, blockIdx.x, smem);
 }
 
 // DA = DecodeArgs (paged cache) or DenseDecodeArgs (dense cache)
 template <typename T, int D, typename DA>
-__global__ void __launch_bounds__(THREADS)
-    bullet_kernel(FlashArgs fa, DA da, int n_dec) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void bullet_body(const FlashArgs &fa, const DA &da,
+                                            int n_dec, unsigned char *smem) {
   const int cta = blockIdx.x;
   if (cta < n_dec) {
-    const int n_items = da.b * da.kh;
+    const int n_items = decode_items<T>(da);
     for (int item = cta; item < n_items; item += n_dec) {
       if constexpr (std::is_same<DA, DecodeArgs>::value)
-        paged_decode_item<T, D>(da, item, smem);
+        paged_decode_item<T, D>(da, item, reinterpret_cast<float *>(smem));
       else
-        decode_item<T, D>(da, item, smem);
+        dense_decode_body<T, D>(da, item, smem);
     }
   } else {
     const int n_pre = gridDim.x - n_dec;
-    const int n_items = fa.bh * flash_q_tiles(fa.sq);
+    const int n_items = fa.bh * flash_q_tiles<T>(fa.sq);
     for (int item = cta - n_dec; item < n_items; item += n_pre)
-      flash_item<T, D>(fa, item, smem);
+      flash_body<T, D>(fa, item, smem);
   }
 }
+
+template <typename T, int D, typename DA>
+__global__ void __launch_bounds__(THREADS)
+    bullet_kernel(const __grid_constant__ FlashArgs fa, DA da, int n_dec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bullet_body<T, D, DA>(fa, da, n_dec, smem);
+}
+
+// bf16: at most 128 registers a thread, so two CTAs share an SM as the
+// standalone bf16 flash kernel's do
+template <int D, typename DA>
+__global__ void __launch_bounds__(THREADS, 2)
+    bullet_tc_kernel(const __grid_constant__ FlashArgs fa, DA da, int n_dec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bullet_body<bf16, D, DA>(fa, da, n_dec, smem);
+}
+
+// the kernel of a dtype: the fp32 ones keep the first port's launch bounds
+template <typename T, int D> auto dense_decode_fn() {
+  if constexpr (is_bf16<T>)
+    return split_decode_kernel<D>;
+  else
+    return decode_kernel<T, D>;
+}
+template <typename T, int D, typename DA> auto bullet_fn() {
+  if constexpr (is_bf16<T>)
+    return bullet_tc_kernel<D, DA>;
+  else
+    return bullet_kernel<T, D, DA>;
+}
+
+// ---- TMA maps of the bf16 flash body, encoded on the host -----------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap *, CUtensorMapDataType,
+                                 cuuint32_t, void *, const cuuint64_t *,
+                                 const cuuint64_t *, const cuuint32_t *,
+                                 const cuuint32_t *, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void *p = nullptr;
+    cudaDriverEntryPointQueryResult got = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (heads, rows, d) bf16 tensor as the 3-D map (d, rows, heads), boxes of
+// 64 columns (128 bytes, the swizzle's width) x box_rows rows x 1 head; rows
+// past the end of a head are zero-filled
+bool encode_heads(CUtensorMap *map, const void *ptr, int d, int rows,
+                  int heads, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void *>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the maps flash_tc_item reads (a no-op for fp32); false if one cannot be
+// encoded (a base address that is not 16-byte aligned)
+template <typename T> bool encode_flash(FlashArgs &a, int d) {
+  if constexpr (is_bf16<T>) {
+    if (!encode_heads(&a.tq, a.q, d, a.sq, a.bh, TC_BQ)) return false;
+    if (a.sk == 0) return true;
+    const int kvh = a.bh / a.group;
+    return encode_heads(&a.tk, a.k, d, a.sk, kvh, TC_BK) &&
+           encode_heads(&a.tv, a.v, d, a.sk, kvh, TC_BK);
+  }
+  return true;
+}
+
+// ---- launches ---------------------------------------------------------------
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
@@ -131,13 +289,23 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <typename T> size_t flash_smem(int d) {
+  return is_bf16<T> ? (size_t)flash_tc_smem_bytes(d)
+                    : sizeof(float) * flash_smem_floats(d);
+}
+template <typename T> size_t dense_decode_smem(int g, int d) {
+  return is_bf16<T> ? split_smem_bytes(d)
+                    : sizeof(float) * decode_smem_floats(g, DECODE_TILE, d);
+}
+
 template <typename T, int D>
-int launch_flash(const FlashArgs &a, cudaStream_t s) {
-  const size_t smem = sizeof(float) * flash_smem_floats(D);
+int launch_flash(FlashArgs a, cudaStream_t s) {
+  if (!encode_flash<T>(a, D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = flash_smem<T>(D);
   auto kern = flash_kernel<T, D>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  const int grid = a.bh * flash_q_tiles(a.sq);
+  const int grid = a.bh * flash_q_tiles<T>(a.sq);
   flash_kernel<T, D><<<grid, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
@@ -154,39 +322,56 @@ int launch_decode(const DecodeArgs &a, cudaStream_t s) {
 
 template <typename T, int D>
 int launch_dense_decode(const DenseDecodeArgs &a, cudaStream_t s) {
-  const size_t smem = sizeof(float) * decode_smem_floats(a.g, DECODE_TILE, D);
-  auto kern = decode_kernel<T, D>;
+  if (is_bf16<T> && (a.n_split < 1 || a.n_split > MAX_SPLIT || a.g > SPLIT_G))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = dense_decode_smem<T>(a.g, D);
+  auto kern = dense_decode_fn<T, D>();
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  decode_kernel<T, D><<<a.b * a.kh, THREADS, smem, s>>>(a);
+  kern<<<decode_items<T>(a), THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// rows of one decode tile: a page (paged cache) or DECODE_TILE (dense)
-inline int tile_rows(const DecodeArgs &a) { return a.ps; }
-inline int tile_rows(const DenseDecodeArgs &) { return DECODE_TILE; }
-
-inline size_t bullet_smem(int g, int rows, int d) {
-  const size_t f = sizeof(float) * flash_smem_floats(d);
-  const size_t dd = sizeof(float) * decode_smem_floats(g, rows, d);
+// shared memory of a fused launch: the larger of its two bodies'
+template <typename T> size_t bullet_smem(const DecodeArgs &a, int d) {
+  const size_t f = flash_smem<T>(d);
+  const size_t dd = sizeof(float) * decode_smem_floats(a.g, a.ps, d);
+  return f > dd ? f : dd;
+}
+template <typename T> size_t bullet_smem(const DenseDecodeArgs &a, int d) {
+  const size_t f = flash_smem<T>(d), dd = dense_decode_smem<T>(a.g, d);
   return f > dd ? f : dd;
 }
 
 template <typename T, int D, typename DA>
-int launch_bullet(const FlashArgs &fa, const DA &da, int n_dec, int n_ctas,
+int launch_bullet(FlashArgs fa, const DA &da, int n_dec, int n_ctas,
                   cudaStream_t s) {
-  const size_t smem = bullet_smem(da.g, tile_rows(da), D);
-  auto kern = bullet_kernel<T, D, DA>;
+  if (!encode_flash<T>(fa, D)) return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<DA, DenseDecodeArgs>::value)
+    if (is_bf16<T> &&
+        (da.n_split < 1 || da.n_split > MAX_SPLIT || da.g > SPLIT_G))
+      return (int)cudaErrorInvalidValue;
+  const size_t smem = bullet_smem<T>(da, D);
+  auto kern = bullet_fn<T, D, DA>();
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  bullet_kernel<T, D, DA><<<n_ctas, THREADS, smem, s>>>(fa, da, n_dec);
+  kern<<<n_ctas, THREADS, smem, s>>>(fa, da, n_dec);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, typename DA>
-int bullet_occupancy(int g, int rows, int *ctas_per_sm) {
-  const size_t smem = bullet_smem(g, rows, D);
-  auto kern = bullet_kernel<T, D, DA>;
+int bullet_occupancy(const DA &da, int *ctas_per_sm) {
+  const size_t smem = bullet_smem<T>(da, D);
+  auto kern = bullet_fn<T, D, DA>();
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, kern, THREADS, smem);
+}
+
+template <int D> int split_occupancy(int *ctas_per_sm) {
+  const size_t smem = split_smem_bytes(D);
+  auto kern = split_decode_kernel<D>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -209,9 +394,10 @@ int bullet_occupancy(int g, int rows, int *ctas_per_sm) {
   } while (0)
 
 // flash prefill and dense decode: D = 128 (Qwen3, Llama) or 256
-// (RecurrentGemma). At D = 256 flash_item's tiles take ~140 KB of shared
-// memory (one CTA per SM, through set_smem's opt-in) and each thread keeps
-// D / 4 = 64 accumulators.
+// (RecurrentGemma). At D = 256 the fp32 flash_item's tiles take ~140 KB of
+// shared memory and the bf16 flash_tc_item's ~193 KB (one CTA per SM,
+// through set_smem's opt-in); flash_tc_item keeps 128 fp32 accumulators a
+// thread for its 64 x 256 output rows.
 #define DISPATCH(D_, DT_, CALL)                                   \
   do {                                                            \
     if ((D_) == 128) DISPATCH_DTYPE(128, DT_, CALL);              \
@@ -263,12 +449,34 @@ int bullet_attention_paged_fwd(
   DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
 }
 
+// one item per (slot, kv head) (in bf16 the split body with one piece)
 int decode_attention_fwd(const void *q, const void *k, const void *v,
                          const int *kv_positions, const int *pos, void *o,
                          int b, int kh, int g, int d, int s_len, int dtype,
                          void *stream) {
   DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
-                    1.0f / sqrtf((float)d)};
+                    1.0f / sqrtf((float)d), 1, nullptr, nullptr, nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH(d, dtype, (launch_dense_decode<T, D>(a, s)));
+}
+
+// bf16 only: n_split pieces per (slot, kv head) over row tiles of `tile`
+// rows (the wrapper's constant, which must equal SPLIT_TILE); for
+// n_split > 1 the partials go to ws_acc / ws_ml and the arrival counters
+// in counts (zero at launch, left zero), for n_split = 1 all three may be
+// null
+int decode_attention_split_fwd(const void *q, const void *k, const void *v,
+                               const int *kv_positions, const int *pos,
+                               void *o, float *ws_acc, float *ws_ml,
+                               int *counts, int b, int kh, int g, int d,
+                               int s_len, int n_split, int tile, int dtype,
+                               void *stream) {
+  if (dtype != 1 || tile != SPLIT_TILE ||
+      (n_split > 1 && (ws_acc == nullptr || ws_ml == nullptr ||
+                       counts == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
+                    1.0f / sqrtf((float)d), n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH(d, dtype, (launch_dense_decode<T, D>(a, s)));
 }
@@ -277,13 +485,14 @@ int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
                          void *op, int bh, int sp, int group, int causal,
                          int window, const void *qd, const void *kd,
                          const void *vd, const int *kv_positions,
-                         const int *pos, void *od, int b, int kh, int g,
-                         int s_len, int d, int dtype, int n_dec, int n_ctas,
-                         void *stream) {
+                         const int *pos, void *od, float *ws_acc,
+                         float *ws_ml, int *counts, int b, int kh, int g,
+                         int s_len, int d, int dtype, int n_split, int n_dec,
+                         int n_ctas, void *stream) {
   const float scale = 1.0f / sqrtf((float)d);
   FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
   DenseDecodeArgs da{qd, kd, vd, kv_positions, pos, od, b, kh, g, s_len,
-                     scale};
+                     scale, n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
 }
@@ -293,11 +502,22 @@ int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
 // (dense = 0, tiles of ps rows) or the dense one (dense = 1)
 int bullet_ctas_per_sm(int d, int dtype, int g, int ps, int dense,
                        int *ctas_per_sm) {
-  if (dense)
-    DISPATCH_PAGED(d, dtype, (bullet_occupancy<T, D, DenseDecodeArgs>(
-                                 g, DECODE_TILE, ctas_per_sm)));
-  DISPATCH_PAGED(d, dtype,
-                 (bullet_occupancy<T, D, DecodeArgs>(g, ps, ctas_per_sm)));
+  if (dense) {
+    DenseDecodeArgs da{};
+    da.g = g;
+    DISPATCH_PAGED(d, dtype, (bullet_occupancy<T, D>(da, ctas_per_sm)));
+  }
+  DecodeArgs da{};
+  da.g = g;
+  da.ps = ps;
+  DISPATCH_PAGED(d, dtype, (bullet_occupancy<T, D>(da, ctas_per_sm)));
+}
+
+// CTAs of the bf16 split decode kernel one SM holds at once at head dim d,
+// for the current device (two at D = 128, one at D = 256 by its shared
+// memory)
+int split_decode_ctas_per_sm(int d, int *ctas_per_sm) {
+  DISPATCH(d, 1, (split_occupancy<D>(ctas_per_sm)));
 }
 
 const char *attention_error_string(int code) {

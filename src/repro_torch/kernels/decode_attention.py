@@ -1,6 +1,7 @@
 """Single-token GQA decode attention over a dense per-slot cache: the
-wrapper of the CUDA kernel ``decode_attention_fwd`` (``csrc/attention.cu``),
-its launch counter and its plain PyTorch version.
+wrapper of the CUDA kernels behind ``decode_attention_fwd`` (fp32) and
+``decode_attention_split_fwd`` (bf16) in ``csrc/attention.cu``, its launch
+counter and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py:62``
 (``decode_attention``). Each slot owns a contiguous cache row ``(S, K, D)``
@@ -10,6 +11,12 @@ cache (positions in any order, holes of -1) is masked by position, not by
 index. Any ``S`` works: the kernel masks the tail tile where the TPU
 dispatcher only took ``S % 128 == 0``.
 
+In bf16 the kernel splits each (slot, kv head)'s rows into
+``split_count(B, K, S, SMs, CTAs per SM)`` pieces, one CTA each, computes
+both products on the tensor cores (G <= 16 query heads per kv head) and
+the last piece to finish merges the partial softmaxes in piece order (flash-decoding; the
+workspace is allocated here); in fp32 it runs one CTA per (slot, kv head).
+
 A slot with no attended row: the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``decode_attention``
 and returns the mean of V. Compare the two on slots with an attended row.
@@ -17,6 +24,9 @@ Bound on the card: bytes (see the source's header note).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -28,6 +38,89 @@ launches = 0
 
 #: the plain version: ``decode_attention`` on the kernel layout (ref.py)
 decode_attention_plain = ref.decode_attention_ref
+
+#: rows per tile of the bf16 split body (the C entry checks it against
+#: SPLIT_TILE in csrc/attention.cuh)
+SPLIT_TILE = 64
+#: pieces per (slot, kv head) at most (MAX_SPLIT in csrc/attention.cuh)
+MAX_SPLIT = 64
+#: query heads per kv head the bf16 body takes (one 16-row tensor-core
+#: operand; SPLIT_G in csrc/attention.cuh)
+SPLIT_G = 16
+#: row tiles a piece takes at least, where there are enough: a piece's
+#: fixed cost (its first loads, its partial's write and share of the merge)
+#: outweighs a tile's
+MIN_TILES = 2
+
+
+def split_count(b: int, kh: int, s: int, n_sm: int, ctas_per_sm: int) -> int:
+    """Pieces the bf16 kernel splits each (slot, kv head)'s ``s`` rows
+    into: as many as keep the launch's ``b·kh·n`` CTAs within one wave of
+    ``n_sm`` SMs that hold ``ctas_per_sm`` split CTAs each, but at least
+    ``MIN_TILES`` row tiles a piece; at least 1, at most the row tiles (and
+    ``MAX_SPLIT``). The dense fused kernel takes the same count, so its
+    decode CTAs run the same items."""
+    tiles = max(1, -(-s // SPLIT_TILE))
+    want = max(1, ctas_per_sm) * n_sm // max(1, b * kh)
+    return max(1, min(tiles // MIN_TILES, want, MAX_SPLIT))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def split_ctas_per_sm(device_index: int, d: int) -> int:
+    """CTAs of the bf16 split kernel at head dim ``d`` one SM of the device
+    holds at once (by its registers and shared memory)."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = build.library().split_decode_ctas_per_sm(d, ctypes.byref(per_sm))
+    build.check(rc, "decode_attention")
+    return per_sm.value
+
+
+def n_split(q, s: int) -> int:
+    """Pieces per (slot, kv head) of a bf16 dense decode over ``s`` rows
+    for the CUDA tensor ``q`` (B, K, G, D) on its device."""
+    b, kh, _, d = q.shape
+    dev = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    return split_count(b, kh, s, sm_count(dev), split_ctas_per_sm(dev, d))
+
+
+#: arrival counters of the split launches, per (device, stream): zero
+#: between launches (the merging CTA resets its own)
+_COUNTS: dict = {}
+
+
+def _counts(device: torch.device, n: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    cnt = _COUNTS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTS[key] = cnt
+    return cnt
+
+
+def split_workspace(q, s: int):
+    """(n_split, ws_acc, ws_ml, counts) of a bf16 dense decode over ``s``
+    rows for ``q`` (B, K, G, D): the partial accumulators and (m, l) of
+    every piece, and the arrival counters. With one piece no workspace is
+    needed (``None``s)."""
+    b, kh, g, d = q.shape
+    if g > SPLIT_G:
+        raise ValueError(f"decode_attention: bfloat16 takes at most "
+                         f"{SPLIT_G} query heads per kv head, got {g}")
+    dev = q.device
+    n = n_split(q, s)
+    if n == 1:
+        return 1, None, None, None
+    ws_acc = torch.empty(b * kh * n * g * d, dtype=torch.float32, device=dev)
+    ws_ml = torch.empty(b * kh * n * g * 2, dtype=torch.float32, device=dev)
+    return n, ws_acc, ws_ml, _counts(dev, b * kh)
 
 
 def _check_dense(name, q, k_cache, v_cache, kv_positions, pos):
@@ -54,13 +147,23 @@ def decode_attention(q, k_cache, v_cache, kv_positions, pos):
                               (kv_positions, pos))
     _check_dense("decode_attention", q, k_cache, v_cache, kv_positions, pos)
     b, kh, g, d = q.shape
+    s = k_cache.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = build.library().decode_attention_fwd(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, kh, g, d, k_cache.shape[1], code, build.stream_of(q))
+    if code == build.DTYPE_CODES["torch.bfloat16"]:
+        build.check_aligned("decode_attention", (q, k_cache, v_cache))
+        n, *ws = split_workspace(q, s)
+        rc = build.library().decode_attention_split_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in ws),
+            b, kh, g, d, s, n, SPLIT_TILE, code, build.stream_of(q))
+    else:
+        rc = build.library().decode_attention_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            b, kh, g, d, s, code, build.stream_of(q))
     build.check(rc, "decode_attention")
     global launches
     launches += 1

@@ -6,8 +6,11 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py:77``
 (``flash_attention``). Layout as there: q (BH, Sq, D), k/v (BH/group, Sk,
 D), kv head = bh // group; softmax scale D^-0.5 applied inside; query and
 key positions both start at 0. Unlike the TPU kernel it masks ragged tails,
-so any Sq and Sk work. Bound on the card: operations (see the source's
-header note for what the design does about it).
+so any Sq and Sk work. In bf16 the kernel computes both products on the
+tensor cores (wgmma, fp32 accumulators, probabilities rounded to bf16),
+with K/V tiles brought by TMA; in fp32 it runs its CUDA-core body. Bound on
+the card: operations (see the source's header note for what the design
+does about it).
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bh, sq, d = q.shape
     sk = k.shape[1]
     code = build.check_inputs("flash_attention", (q, k, v))
+    if code == build.DTYPE_CODES["torch.bfloat16"]:
+        build.check_aligned("flash_attention", (q, k, v))
     if (k.shape != v.shape or k.shape[0] * group != bh
             or k.shape[2] != d):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "

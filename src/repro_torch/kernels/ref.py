@@ -15,7 +15,9 @@ port's CPU engine reproduces the JAX engine token for token:
 The oracles of the JAX package's ``kernels/ref.py`` are adapters of that
 math to the kernel layouts (``flash_attention_ref``,
 ``decode_attention_ref``, ``paged_decode_attention_ref``,
-``bullet_attention_ref``, ``bullet_attention_paged_ref``).
+``bullet_attention_ref``, ``bullet_attention_paged_ref``);
+``decode_attention_split_ref`` is the bf16 dense decode kernel's split
+and merge spelled out, for the card tests.
 ``ssd_scan_ref`` and ``rglru_scan_ref`` are the JAX package's sequential
 SSD and RG-LRU oracles, one step per position; the plain versions the
 kernels are held against live beside their wrappers
@@ -163,6 +165,43 @@ def decode_attention_ref(q, k_cache, v_cache, kv_positions, pos):
     o = decode_attention(q.reshape(b, 1, kh * g, d), k_cache, v_cache,
                          kv_positions, pos)
     return o.reshape(b, kh, g, d)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, kv_positions, pos,
+                               n_split: int, tile: int = 64):
+    """The bf16 dense decode kernel's split and merge, plainly, in fp32
+    (flash-decoding): the S rows are cut into ``ceil(S / tile)`` tiles,
+    piece ``p`` of ``n_split`` takes tiles ``[p·T/n, (p+1)·T/n)``, each
+    piece keeps its own (m, l, acc) over its attended rows, and the
+    pieces merge in order, weighted by ``exp(m_p - max m)`` (0 for a piece
+    with no attended row). Shapes as ``decode_attention_ref``; returns
+    (B, K, G, D) in q's dtype. Unlike ``decode_attention_ref`` a slot with
+    no attended row returns zeros, the kernels' contract."""
+    b, kh, g, d = q.shape
+    s = k_cache.shape[1]
+    n_t = -(-s // tile)
+    qf = q.float() * d ** -0.5
+    valid = (kv_positions >= 0) & (kv_positions <= pos[:, None])   # (B, S)
+    logits = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    logits = torch.where(valid[:, None, None, :], logits, -1e30)
+    vf = v_cache.float()
+    ms, ls, accs = [], [], []
+    for p in range(n_split):
+        lo = min(s, p * n_t // n_split * tile)
+        hi = min(s, (p + 1) * n_t // n_split * tile)
+        m = logits.new_full((b, kh, g), -1e30)
+        if hi > lo:
+            m = torch.maximum(m, logits[..., lo:hi].amax(-1))
+        e = torch.where(valid[:, None, None, lo:hi],
+                        torch.exp(logits[..., lo:hi] - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(e.sum(-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", e, vf[:, lo:hi]))
+    m_all = torch.stack(ms)
+    w = torch.where(m_all == -1e30, 0.0, torch.exp(m_all - m_all.amax(0)))
+    l_all = (w * torch.stack(ls)).sum(0)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    return (acc / l_all.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos):

@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m pytest -q -m cuda tests/port
 
 Tolerances: fp32 atol 1e-4 (kernel sums in another order), bf16 atol 2e-2
-(the plain version rounds probabilities to bf16, the kernel keeps fp32).
+(kernel and plain version round the probabilities at different maxima),
+and bf16 flash and dense decode also within ULPS bf16 ulps of each output
+row's own scale.
 The SSD scan is compared over its output's scale max(1, max|plain|): fp32
 1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4. The RG-LRU
 scan runs the plain version's arithmetic in the same order: equal to it
@@ -22,7 +24,27 @@ from repro_torch.kernels import rglru_scan as TR
 from repro_torch.kernels import ssd_scan as TS
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the bf16 flash and split dense decode bodies also hold each output row
+#: within this many bf16 ulps of the row's own scale max|plain_row| (as
+#: chip_smoke.py's RG_ATTN_ULPS); a result one key short reads far more
+ULPS = 4
 pytestmark = pytest.mark.cuda
+
+
+def row_ulps(out, ref) -> float:
+    """max|out - ref| over each row (the last dim), in bf16 ulps of the
+    row's scale max|ref_row|; the largest over the rows."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    scale = ref.abs().amax(-1).clamp(min=2.0 ** -100)
+    return (err / torch.exp2(torch.floor(torch.log2(scale)) - 7)).max().item()
+
+
+def assert_bf16_close(out, ref):
+    """TOL's absolute limit and ULPS per output row."""
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+    assert row_ulps(out, ref) <= ULPS
 
 
 @pytest.fixture
@@ -62,6 +84,8 @@ def test_flash_kernel_matches_plain(gen, dtype, s, window):
     assert TF.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+    if dtype == torch.bfloat16:
+        assert row_ulps(out, ref) <= ULPS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -112,6 +136,8 @@ def test_dense_decode_kernel_matches_plain(gen, dtype, ring):
     assert TD.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+    if dtype == torch.bfloat16:
+        assert row_ulps(out, ref) <= ULPS
     # a slot with no attended row returns zeros, as the TPU kernel does
     none = torch.full_like(kvpos, -1)
     assert bool((TD.decode_attention(q, kc, vc, none, pos) == 0).all())
@@ -256,6 +282,8 @@ def test_flash_kernel_at_head_dim_256(gen, dtype, s, window):
     assert TF.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+    if dtype == torch.bfloat16:
+        assert row_ulps(out, ref) <= ULPS
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -276,6 +304,8 @@ def test_dense_decode_kernel_at_head_dim_256_over_a_wrapped_ring(gen, dtype):
     assert TD.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+    if dtype == torch.bfloat16:
+        assert row_ulps(out, ref) <= ULPS
 
 
 def test_paged_and_fused_kernels_refuse_head_dim_256(gen):
@@ -290,3 +320,130 @@ def test_paged_and_fused_kernels_refuse_head_dim_256(gen):
     k = torch.randn(2, 16, 256, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         TB.bullet_attention_paged(q, k, k, qd, kp, kp, bt, pos, group=2)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 bodies: flash on the tensor cores, dense decode split across CTAs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("s", [64, 127, 128, 129, 383])
+def test_flash_tensor_core_body_at_tile_edges(gen, d, s):
+    """S below, at and off a multiple of the 128-row query tile and the
+    64-key K/V tile (a query tile whose second warpgroup has no row at
+    S = 64), causal, G = 2."""
+    q = torch.randn(4, s, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, s, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(2, s, d, generator=gen, device="cuda").bfloat16()
+    out = TF.flash_attention(q, k, v, group=2)
+    ref = TF.flash_attention_plain(q, k, v, group=2)
+    assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("window", [1, 17, 63])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_window_shorter_than_a_tile(gen, window, causal):
+    """Windows shorter than one 64-key tile: every tile crosses an edge
+    of some row's window, and a row's first tiles are masked whole."""
+    q = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, 300, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(2, 300, 128, generator=gen, device="cuda").bfloat16()
+    out = TF.flash_attention(q, k, v, causal=causal, window=window, group=2)
+    ref = TF.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   group=2)
+    assert_bf16_close(out, ref)
+
+
+def test_flash_tensor_core_recurrentgemma_heads(gen):
+    """G = 10 query heads on one kv head, D = 256, Bp = 4 rows, the
+    window shorter than S: RecurrentGemma's launches at a reduced S."""
+    q = torch.randn(40, 700, 256, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(4, 700, 256, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(4, 700, 256, generator=gen, device="cuda").bfloat16()
+    out = TF.flash_attention(q, k, v, window=300, group=10)
+    ref = TF.flash_attention_plain(q, k, v, window=300, group=10)
+    assert_bf16_close(out, ref)
+
+
+def _split_case(gen, d, s=200, kh=2, g=3):
+    """tests/port/test_torch_split_decode.py's five slots: linear rows
+    past pos, a wrapped ring, holes in the first 128 rows (the first
+    pieces attend no row), no attended row (pos -1), one attended row."""
+    j = torch.arange(s)
+    pos = torch.tensor([150, 450, 199, -1, 0], dtype=torch.int32)
+    kvpos = torch.stack([
+        j, pos[1] - torch.remainder(pos[1] - j, s), torch.where(j < 128, -1, j),
+        j, torch.where(j == 7, 0, torch.where(j % 3 == 0, -1, 300 + j))])
+    q = torch.randn(5, kh, g, d, generator=gen, device="cuda").bfloat16()
+    kc = torch.randn(5, s, kh, d, generator=gen, device="cuda").bfloat16()
+    vc = torch.randn(5, s, kh, d, generator=gen, device="cuda").bfloat16()
+    return q, kc, vc, kvpos.to(torch.int32).cuda(), pos.cuda()
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("n_split", [None, 1, 2, 3, 7])
+def test_split_dense_decode_kernel(gen, monkeypatch, d, n_split):
+    """The bf16 split kernel against its plain mirror at the same split
+    and against the plain version on the slots with an attended row, each
+    within TOL and ULPS per output row; the slot with none returns zeros.
+    ``None`` keeps the wrapper's own split_count; 7 is more pieces than
+    the 4 row tiles."""
+    if n_split is not None:
+        monkeypatch.setattr(TD, "split_count", lambda *a: n_split)
+    q, kc, vc, kvpos, pos = _split_case(gen, d)
+    n = TD.n_split(q, 200)
+    before = TD.launches
+    out = TD.decode_attention(q, kc, vc, kvpos, pos)
+    assert TD.launches == before + 1
+    act = torch.tensor([True, True, True, False, True], device="cuda")
+    mirror = ref_split(q, kc, vc, kvpos, pos, n)
+    assert_bf16_close(out[act], mirror[act])
+    plain = TD.decode_attention_plain(q, kc, vc, kvpos, pos)
+    assert_bf16_close(out[act], plain[act])
+    assert bool((out[3] == 0).all())
+    # run to run, whatever order the pieces finish in
+    assert torch.equal(out, TD.decode_attention(q, kc, vc, kvpos, pos))
+
+
+def ref_split(q, kc, vc, kvpos, pos, n):
+    from repro_torch.kernels import ref
+    return ref.decode_attention_split_ref(q, kc, vc, kvpos, pos, n)
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+def test_bullet_kernel_bit_equal_to_standalone_bf16(gen, share):
+    """The paged fused kernel's prefill items run the tensor-core body."""
+    q = torch.randn(8, 300, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
+    qd, kp, vp, bt, pos = _decode_case(gen, torch.bfloat16)
+    op, od = TB.bullet_attention_paged(q, k, v, qd, kp, vp, bt, pos,
+                                       decode_share=share, group=2)
+    assert torch.equal(op, TF.flash_attention(q, k, v, group=2))
+    assert torch.equal(od, TP.paged_decode_attention(qd, kp, vp, bt, pos))
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("ring", [False, True], ids=["linear", "ring"])
+def test_dense_bullet_kernel_bit_equal_to_standalone_bf16(gen, share, ring):
+    """The dense fused kernel's decode CTAs run the split items of the
+    standalone launch (the same split_count), its prefill items the
+    tensor-core body."""
+    q = torch.randn(8, 300, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
+    qd, kc, vc, kvpos, pos = _dense_case(gen, torch.bfloat16, ring)
+    op, od = TB.bullet_attention(q, k, v, qd, kc, vc, kvpos, pos,
+                                 decode_share=share, group=2)
+    assert torch.equal(op, TF.flash_attention(q, k, v, group=2))
+    assert torch.equal(od, TD.decode_attention(qd, kc, vc, kvpos, pos))
+
+
+def test_split_dense_decode_refuses_more_than_16_query_heads(gen):
+    """The bf16 body takes a kv head's query heads as one 16-row operand."""
+    q = torch.randn(1, 1, 17, 128, generator=gen, device="cuda").bfloat16()
+    kc = torch.randn(1, 64, 1, 128, generator=gen, device="cuda").bfloat16()
+    kvpos = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+    pos = torch.tensor([63], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="query heads"):
+        TD.decode_attention(q, kc, kc, kvpos, pos)

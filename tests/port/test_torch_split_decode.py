@@ -1,0 +1,118 @@
+"""The bf16 dense decode kernel's split across CTAs, on the CPU: the
+``split_count`` function that sizes it (shared by the standalone and the
+fused dense kernel), and the plain split-and-merge mirror
+``decode_attention_split_ref`` against the JAX package's Pallas
+``decode_attention`` in interpret mode (fp32, atol 2e-5): linear rows, a
+wrapped ring, holes, a piece with no attended row, a slot with none
+(zeros, as the kernel returns) and more pieces than tiles."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro_torch.kernels import bullet_attention as TB
+from repro_torch.kernels import decode_attention as TD
+from repro_torch.kernels import ref
+
+ATOL = 2e-5
+
+
+@pytest.mark.parametrize("b,kh,s,n_sm,per_sm", [
+    (4, 1, 2048, 132, 1),    # RecurrentGemma: 4 slots, MQA, 2048-row ring
+    (8, 8, 1000, 132, 2),    # Qwen3-1.7B: 8 slots x 8 kv heads, 1000 rows
+    (2, 8, 1000, 132, 2),    # 16 (slot, kv head) pairs: 8 pieces of 2 tiles
+    (1, 1, 64, 132, 2),      # one tile: one piece
+    (1, 1, 100000, 132, 2),  # long rows: capped at MAX_SPLIT
+    (64, 8, 4096, 132, 2),   # B*K fills the card: one piece
+    (3, 2, 1, 8, 2),         # a single row
+    (0, 8, 1000, 132, 2),    # no slot
+    (5, 3, 700, 1, 2),       # one SM
+    (80, 1, 4096, 132, 1),   # D=256, one CTA an SM: 80 items, one piece
+    (40, 1, 4096, 132, 1),   # D=256: 3 pieces of 40 fill one wave of 132
+])
+def test_split_count_bounds(b, kh, s, n_sm, per_sm):
+    n = TD.split_count(b, kh, s, n_sm, per_sm)
+    tiles = -(-s // TD.SPLIT_TILE)
+    assert 1 <= n <= min(tiles, TD.MAX_SPLIT)
+    # two row tiles a piece at least, where there are two
+    assert n == 1 or tiles // n >= TD.MIN_TILES
+    # one wave of CTAs, as full as the rows allow
+    if b * kh and n > 1:
+        assert b * kh * n <= per_sm * n_sm
+    if b * kh and n < min(tiles // TD.MIN_TILES, TD.MAX_SPLIT):
+        assert b * kh * (n + 1) > per_sm * n_sm
+    assert n == TD.split_count(b, kh, s, n_sm, per_sm)    # a pure function
+
+
+def test_split_count_fills_recurrentgemma_decode():
+    """One CTA a slot would run 4 CTAs for RecurrentGemma's 4-slot MQA
+    decode; the split runs 16 pieces of 2 row tiles for each of the 4
+    slots (the D=256 split kernel's shared memory fits one CTA an SM)."""
+    n = TD.split_count(4, 1, 2048, 132, 1)
+    assert n == 16 and 4 * n > 4
+
+
+def test_split_count_keeps_one_wave_at_one_cta_per_sm():
+    """At D=256 an SM holds one split CTA: 100 (slot, kv head) items take
+    one piece each, where two CTAs an SM would have given two (200 CTAs,
+    two waves of 132)."""
+    assert TD.split_count(100, 1, 4096, 132, 1) == 1
+    assert TD.split_count(100, 1, 4096, 132, 2) == 2
+
+
+def test_fused_dense_kernel_takes_the_same_split():
+    """Kernel 5's decode CTAs loop over kernel 4's (slot, head, piece)
+    items: both wrappers size the split with the one function."""
+    assert TB.split_workspace is TD.split_workspace
+    q = torch.zeros(4, 1, 10, 256)
+    # on the CPU only the count is computed (no card, no workspace)
+    assert TD.split_count(*q.shape[:2], 2048, 132, 1) == 16
+
+
+def _cases(seed, b=5, kh=2, g=3, s=200, d=32):
+    """Five slots over S = 200 rows (tiles of 64: three full and a tail):
+    linear positions with rows past pos; a ring that has wrapped
+    (positions pos-199 .. pos in ring order); holes in the first 128 rows
+    (so the first pieces attend no row); no attended row at all (pos -1);
+    a ring whose only attended row is its newest."""
+    rng = np.random.default_rng(seed)
+    j = np.arange(s)
+    pos = np.array([150, 450, 199, -1, 0], np.int32)
+    kvpos = np.stack([
+        j,
+        pos[1] - np.remainder(pos[1] - j, s),
+        np.where(j < 128, -1, j),
+        j,
+        np.where(j == 7, 0, np.where(j % 3 == 0, -1, 300 + j)),
+    ]).astype(np.int32)
+    q = rng.normal(size=(b, kh, g, d)).astype(np.float32)
+    kc = rng.normal(size=(b, s, kh, d)).astype(np.float32)
+    vc = rng.normal(size=(b, s, kh, d)).astype(np.float32)
+    return q, kc, vc, kvpos, pos
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 7])
+def test_split_mirror_matches_pallas(n_split):
+    """n_split = 7 is more pieces than the 4 tiles: three pieces are
+    empty and weigh 0."""
+    q, kc, vc, kvpos, pos = _cases(n_split)
+    got = ref.decode_attention_split_ref(
+        *map(torch.from_numpy, (q, kc, vc, kvpos, pos)), n_split).numpy()
+    want = np.asarray(jax_decode(*map(jnp.asarray, (q, kc, vc, kvpos, pos)),
+                                 block_s=64, interpret=True), np.float32)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert (got[3] == 0).all()            # no attended row: zeros
+
+
+@pytest.mark.parametrize("n_split", [2, 7])
+def test_split_mirror_matches_plain_where_a_row_is_attended(n_split):
+    """Against the port's own plain version (the XLA reference), which
+    returns the mean of V for the slot with no attended row instead."""
+    q, kc, vc, kvpos, pos = _cases(10 + n_split)
+    args = [torch.from_numpy(x) for x in (q, kc, vc, kvpos, pos)]
+    got = ref.decode_attention_split_ref(*args, n_split)
+    want = TD.decode_attention_plain(*args)
+    act = torch.tensor([True, True, True, False, True])
+    torch.testing.assert_close(got[act], want[act], atol=ATOL, rtol=0)
