@@ -8,27 +8,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. the card: name and power limit as nvidia-smi reports them;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source in parallel; ptxas's registers and
-   spills per kernel;
+   spills per kernel (the bf16 paged fused kernel must not spill);
 3. kernels, at the main-path shapes of Qwen3-1.7B (H=16, K=8, G=2, D=128,
    page size 16, dense cache rows of the replay's max_len = 1000, which is
    not a multiple of 128): each kernel against its plain PyTorch version
-   on the card, fp32 (atol 1e-4) and bf16 (atol 2e-2; bf16 flash and dense
-   decode also within 4 bf16 ulps of each output row's scale, beside what
-   a result one key short reads), dense decode with
+   on the card, fp32 (atol 1e-4) and bf16 (atol 2e-2; bf16 flash, paged
+   and dense decode also within 4 bf16 ulps of each output row's scale,
+   beside what a result one key short reads), paged decode in bf16 also
+   at page sizes 8 and 32, dense decode with
    linear positions and with a scrambled ring with holes; both fused
    bullet kernels bit-equal to flash + their decode kernel at every
    decode_share of the tile table, fp32 and bf16 (flash's bf16 body runs
-   on the tensor cores, dense decode's bf16 body is split across CTAs);
+   on the tensor cores, both decode kernels' bf16 body is split across
+   CTAs);
    median times over CUDA events (L2 flushed before each launch), in bf16
    and, for the kernels whose fp32 body differs, in fp32 (rows named
    ``*_fp32``), beside each kernel's bound and the library yardstick (for
    decode the faster of masked SDPA on K/V expanded to every query head
    and SDPA with enable_gqa on the cache as it is), flash's achieved
-   TFLOP/s, and bf16 dense decode timed at forced piece counts beside
-   split_count's pick; then the SSD scan (phase 8's shapes), the RG-LRU
-   scan at
-   RecurrentGemma-2B's width W=2560 (B in {1, 4}, S in {3000, 200}, from
-   zeros and from h0, fp32 and bf16: y and the fp32 h_T), and flash
+   TFLOP/s, and bf16 paged and dense decode timed at forced piece counts
+   beside split_count's pick; then the SSD scan (phase 8's shapes), the
+   RG-LRU scan at RecurrentGemma-2B's width W=2560 (B in {1, 4}, S in
+   {3000, 200}, from zeros and from h0, fp32 and bf16: y and the fp32
+   h_T), and flash
    prefill and dense decode at the RecurrentGemma phase's shapes (H=10 on
    K=1, D=256: 4 rows of S=3000 with the 2048 window, decode over 4 slots
    of a 2048-row ring that has wrapped; bf16 also within 4 bf16 ulps of
@@ -95,6 +97,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -205,22 +208,22 @@ def log_row(r: dict) -> None:
         f"{r['bound_by']}{extra}) at {r['shape']}")
 
 
-def split_sweep(timer, args, what: str) -> None:
-    """The bf16 dense decode timed at forced piece counts (the wrapper's
-    split_count replaced for the sweep), beside the count it picks: the
-    evidence for split_count's choice."""
+def split_sweep(timer, fn, chosen: int, what: str) -> None:
+    """A bf16 split decode launch ``fn`` (dense or paged) timed at forced
+    piece counts (the wrappers' split_count replaced for the sweep), beside
+    the count split_count picks (``chosen``): the evidence for its
+    choice."""
     from repro_torch.kernels import decode_attention as DA
     pick = DA.split_count
-    chosen = DA.n_split(args[0], args[1].shape[1])
     times = []
     try:
         for n in (1, 2, 4, 8, 16, 32, 64):
             DA.split_count = lambda *a, n=n: n
-            times.append(f"{n}: {timer(lambda: DA.decode_attention(*args)):.4f}")
+            times.append(f"{n}: {timer(fn):.4f}")
     finally:
         DA.split_count = pick
-    log(f"dense decode {what}, ms by pieces per (slot, kv head) "
-        f"(split_count picks {chosen}): {', '.join(times)}")
+    log(f"{what}, ms by pieces per (slot, kv head) (split_count picks "
+        f"{chosen}): {', '.join(times)}")
 
 
 def sdpa_yardsticks(timer, q, k, v, mask, g):
@@ -257,18 +260,18 @@ def flash_inputs(gen, bp, s, dtype):
 CONTEXTS = (1, 15, 16, 17, 257, 500, 1000, 0)
 
 
-def decode_inputs(gen, dtype):
-    """8 slots over a page pool: mixed contexts, page-edge cases, one
-    inactive slot (pos = -1), the table bucketed to a power of two with the
-    trash page past each slot's live pages; the trash page holds large
-    garbage so any read of it would show."""
+def decode_inputs(gen, dtype, ps: int = PS):
+    """8 slots over a pool of ``ps``-row pages: mixed contexts, page-edge
+    cases, one inactive slot (pos = -1), the table bucketed to a power of
+    two with the trash page past each slot's live pages; the trash page
+    holds large garbage so any read of it would show."""
     b = len(CONTEXTS)
-    need = [-(-c // PS) for c in CONTEXTS]
+    need = [-(-c // ps) for c in CONTEXTS]
     n_b = 1 << (max(need) - 1).bit_length()
     n_pages = sum(need) + 8
     trash = n_pages
-    kp = torch.randn(n_pages + 1, PS, K, D, generator=gen, device="cuda")
-    vp = torch.randn(n_pages + 1, PS, K, D, generator=gen, device="cuda")
+    kp = torch.randn(n_pages + 1, ps, K, D, generator=gen, device="cuda")
+    vp = torch.randn(n_pages + 1, ps, K, D, generator=gen, device="cuda")
     kp[trash] = 1e4
     vp[trash] = -1e4
     perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
@@ -425,15 +428,36 @@ def ptxas_report(text: str):
     return rows
 
 
+def demangled(names):
+    """The kernels' C++ names through c++filt where the toolkit's host has
+    it (a report nicety: the mangled names name the same kernels)."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return list(names)
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) \
+        else list(names)
+
+
 def phase_build():
     from repro_torch.kernels import build
     b = build.build()
     log(f"build: {b.seconds:.1f} s (one nvcc per source, in parallel) -> "
         f"{os.path.relpath(b.path, ROOT)}")
-    for r in ptxas_report(b.log):
-        log(f"  ptxas {r['kernel']}: {r.get('regs')} registers, "
+    report = ptxas_report(b.log)
+    for r, name in zip(report, demangled([r["kernel"] for r in report])):
+        log(f"  ptxas {name}: {r.get('regs')} registers, "
             f"{r['spill_st']} B spill stores, {r['spill_ld']} B spill loads, "
             f"{r['smem']} B static smem")
+    # the bf16 paged fused kernel runs the split body at two CTAs an SM:
+    # it must fit its 128 registers without spilling
+    fused = [r for r in report if "bullet_tc_kernel" in r["kernel"]
+             and "10DecodeArgs" in r["kernel"]]
+    check(len(fused) == 1 and fused[0]["spill_st"] == 0
+          and fused[0]["spill_ld"] == 0,
+          f"bullet_tc_kernel<128, DecodeArgs> spills: {fused}")
     build.library()
     return b
 
@@ -486,20 +510,37 @@ def phase_kernels(timer: Timer):
                 log(f"flash {str(dtype)[6:]} Bp={bp} S={s} window={window}: "
                     f"max|kernel-plain| = {e:.3e}{how}")
 
-    # -- paged decode: 8 slots, mixed contexts, inactive slot, trash page
-    for dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp, bt, pos = decode_inputs(gen, dtype)
+    # -- paged decode: 8 slots, mixed contexts, inactive slot, trash page;
+    # in bf16 (the split body) also per output row within RG_ATTN_ULPS,
+    # beside what the plain version reads with each slot's newest key left
+    # out, and at page sizes 8 and 32 besides the served 16
+    for dtype, ps in ((torch.float32, PS), (torch.bfloat16, PS),
+                      (torch.bfloat16, 8), (torch.bfloat16, 32)):
+        q, kp, vp, bt, pos = decode_inputs(gen, dtype, ps)
         out = PD.paged_decode_attention(q, kp, vp, bt, pos)
         ref = PD.paged_decode_attention_plain(q, kp, vp, bt, pos)
         torch.cuda.synchronize()
         act = pos >= 0
         e = (out[act].float() - ref[act].float()).abs().max().item()
         check(math.isfinite(e) and e <= TOL[dtype],
-              f"paged decode {dtype}: err {e}")
+              f"paged decode {dtype} ps={ps}: err {e}")
         check(bool((out[~act] == 0).all()), "inactive slot not zero")
         worst(("decode", dtype), e)
-        log(f"paged decode {str(dtype)[6:]} contexts {CONTEXTS} n_b "
-            f"{bt.shape[1]}: max|kernel-plain| (active) = {e:.3e}, "
+        how = ""
+        if dtype == torch.bfloat16:
+            u = row_ulps(out[act], ref[act])
+            check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+                  f"paged decode {dtype} ps={ps}: {u} ulps of the row scale")
+            # the slots with a key left after the newest is dropped
+            two = pos >= 1
+            wu = row_ulps(PD.paged_decode_attention_plain(
+                q, kp, vp, bt, pos - 1)[two], ref[two])
+            n = DA.n_split(q, bt.shape[1] * ps, paged=True)
+            how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
+                   f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (newest "
+                   f"key left out); {n} pieces per (slot, kv head)")
+        log(f"paged decode {str(dtype)[6:]} contexts {CONTEXTS} ps {ps} n_b "
+            f"{bt.shape[1]}: max|kernel-plain| (active) = {e:.3e}{how}, "
             f"inactive slot zeros")
 
     # -- dense decode: 8 slots over MAX_LEN rows, linear and ring positions;
@@ -589,7 +630,7 @@ def phase_kernels(timer: Timer):
 
     # -- timings at the serving shapes: bf16 (the bodies the served model
     # runs) and fp32 (the first CUDA-core bodies, which the fp32 replays
-    # and references run); the paged decode kernel has one body for both
+    # and references run)
     rows = []
     for dt in (torch.bfloat16, torch.float32):
         rows += _timed_d128(timer, gen, dt, err, rm)
@@ -601,7 +642,7 @@ def phase_kernels(timer: Timer):
 def _timed_d128(timer, gen, dt, err, rm) -> list:
     """Kernels 1-5 timed at D=128 in ``dt``: the longest prompt of the serve
     phase, its 8-slot decode batch, and the two fused. The fp32 rows are
-    named with a ``_fp32`` suffix; kernel 2 is timed in bf16 only."""
+    named with a ``_fp32`` suffix."""
     from repro_torch.kernels import bullet_attention as BA
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
@@ -631,27 +672,33 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
 
     qd, kpg, vpg, bt, pos = decode_inputs(gen, dt)
     nb_d, no_d = decode_cost(qd, pos, dt)
+    bms, bby = bound_ms(nb_d, no_d, dt)
+    b = qd.shape[0]
+    kd = kpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
+    vd = vpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
+    kvpos = torch.arange(kd.shape[2], device="cuda")
+    mask = (kvpos[None, :] <= pos[:, None])[:, None, None, :]
+    qsd = qd.reshape(b, H, 1, D)
+    exp_ms, gqa_ms = sdpa_yardsticks(timer, qsd, kd, vd, mask, G)
     if bf16:
-        bms, bby = bound_ms(nb_d, no_d, dt)
-        b = qd.shape[0]
-        kd = kpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
-        vd = vpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
-        kvpos = torch.arange(kd.shape[2], device="cuda")
-        mask = (kvpos[None, :] <= pos[:, None])[:, None, None, :]
-        qsd = qd.reshape(b, H, 1, D)
-        exp_ms, gqa_ms = sdpa_yardsticks(timer, qsd, kd, vd, mask, G)
-        rows.append(dict(
-            name="paged_decode_attention", route="cuda", source=src,
-            replaces="src/repro/kernels/paged_decode_attention.py:73",
-            ms=timer(lambda: PD.paged_decode_attention(qd, kpg, vpg, bt,
-                                                       pos)),
-            plain_ms=timer(lambda: PD.paged_decode_attention_plain(
-                qd, kpg, vpg, bt, pos)),
-            bound_ms=bms, bound_by=bby,
-            library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
-            library_gqa_ms=gqa_ms,
-            max_abs_err=err[("decode", dt)],
-            shape=f"8 slots contexts {CONTEXTS} n_b={bt.shape[1]} {tag}"))
+        n = DA.n_split(qd, bt.shape[1] * PS, paged=True)
+        split_sweep(timer, lambda: PD.paged_decode_attention(
+            qd, kpg, vpg, bt, pos), n, f"paged decode D={D} 8 slots")
+        body = f"{n} pieces per (slot, kv head)"
+    else:
+        body = "one CTA per (slot, kv head)"
+    rows.append(dict(
+        name="paged_decode_attention" + sfx, route="cuda", source=src,
+        replaces="src/repro/kernels/paged_decode_attention.py:73",
+        ms=timer(lambda: PD.paged_decode_attention(qd, kpg, vpg, bt, pos)),
+        plain_ms=timer(lambda: PD.paged_decode_attention_plain(
+            qd, kpg, vpg, bt, pos)),
+        bound_ms=bms, bound_by=bby,
+        library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
+        library_gqa_ms=gqa_ms,
+        max_abs_err=err[("decode", dt)],
+        shape=f"8 slots contexts {CONTEXTS} n_b={bt.shape[1]} ps={PS} "
+              f"{tag}, {body}"))
 
     qdd, kc, vc, kvpos, posd = dense_inputs(gen, dt, False)
     nb_dd, no_dd = dense_cost(qdd, kvpos, posd, dt)
@@ -662,8 +709,10 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
         timer, qsdd, kc.transpose(1, 2).contiguous(),
         vc.transpose(1, 2).contiguous(), dmask, G)
     if bf16:
-        split_sweep(timer, (qdd, kc, vc, kvpos, posd), f"D={D} 8 slots")
-        body = f"{DA.n_split(qdd, MAX_LEN)} pieces per (slot, kv head)"
+        n = DA.n_split(qdd, MAX_LEN)
+        split_sweep(timer, lambda: DA.decode_attention(
+            qdd, kc, vc, kvpos, posd), n, f"dense decode D={D} 8 slots")
+        body = f"{n} pieces per (slot, kv head)"
     else:
         body = "one CTA per (slot, kv head)"
     rows.append(dict(
@@ -946,9 +995,11 @@ def phase_attention_d256(timer: Timer) -> list:
             timer, qx, kc.transpose(1, 2).contiguous(),
             vc.transpose(1, 2).contiguous(), att[:, None, None, :], g)
         if dt == torch.bfloat16:
-            split_sweep(timer, (qd, kc, vc, kvpos, dpos),
-                        f"D={RG_D} {bp} slots")
-            body = f"{DA.n_split(qd, RG_WINDOW)} pieces per (slot, kv head)"
+            n = DA.n_split(qd, RG_WINDOW)
+            split_sweep(timer, lambda: DA.decode_attention(
+                qd, kc, vc, kvpos, dpos), n, f"dense decode D={RG_D} {bp} "
+                "slots")
+            body = f"{n} pieces per (slot, kv head)"
         else:
             body = "one CTA per (slot, kv head)"
         rows.append(dict(
@@ -1141,9 +1192,11 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
 
 
 def _kernel_kind(name: str) -> str:
-    # "decode_kernel" matches the paged, the dense and the split dense
-    # decode kernels; the fused kernels are "bullet_kernel" (fp32) and
-    # "bullet_tc_kernel" (bf16)
+    # "decode_kernel" matches the fp32 decode kernels (decode_kernel<float,
+    # 128, DecodeArgs> over the page pool, <..., DenseDecodeArgs> over the
+    # dense cache) and the bf16 split kernels over either
+    # (split_decode_kernel<128, DecodeArgs>, ...); the fused kernels are
+    # "bullet_kernel" (fp32) and "bullet_tc_kernel" (bf16)
     if any(k in name for k in ("flash_kernel", "decode_kernel",
                                "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
@@ -1982,6 +2035,8 @@ def main() -> int:
                 "decode_attention_d256": rg["decode_attention"],
                 "flash_attention_fp32": replay["flash_attention"],
                 "decode_attention_fp32": replay["decode_attention"],
+                "paged_decode_attention_fp32":
+                    replay["paged_decode_attention"],
                 "bullet_attention_paged_fp32":
                     replay["bullet_attention_paged"],
                 "bullet_attention_fp32": colocated[torch.float32],

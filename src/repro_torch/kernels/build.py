@@ -8,9 +8,11 @@ of the checkout, named by a digest of the sources so an edit rebuilds;
 prefill and dense decode at head dims 128 and 256, paged decode and the
 fused launches at 128; in bf16 the flash body runs on the tensor cores
 through wgmma and TMA, so ``sm_90a``'s ``a`` is needed), ``ssd_scan.cu`` the Mamba-2 SSD chunk scan and
-``rglru_scan.cu`` the RG-LRU linear recurrence. Nothing here runs at
-import: the first wrapper that launches a kernel builds the library, and
-the CPU tests, which never launch one, need no compiler.
+``rglru_scan.cu`` the RG-LRU linear recurrence. The split decode bodies'
+geometry (``geometry.DEFINES``) reaches every source as ``-D`` defines and
+is part of the digest. Nothing here runs at import: the first wrapper that
+launches a kernel builds the library, and the CPU tests, which never
+launch one, need no compiler.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from repro_torch.kernels.geometry import DEFINES
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("attention.cu", "ssd_scan.cu", "rglru_scan.cu")
 HEADERS = ("attention.cuh",)
@@ -39,13 +43,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
     "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
-    "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 6
-                                  + [_I] * 9 + [_P],
+    "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
+                                  + [_I] * 10 + [_P],
     "decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "decode_attention_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9 + [_I] * 9 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
-    "split_decode_ctas_per_sm": [_I, ctypes.POINTER(_I)],
+    "split_decode_ctas_per_sm": [_I, _I, ctypes.POINTER(_I)],
     "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
@@ -72,7 +77,17 @@ def _digest() -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
+    h.update(repr(sorted(DEFINES.items())).encode())
     return h.hexdigest()[:16]
+
+
+def compile_command(nvcc: str, src: str, obj: str) -> list:
+    """The ``nvcc -c`` of one source: sm_90a, the geometry's defines,
+    ptxas's register and spill report."""
+    return [nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
+            *(f"-D{k}={v}" for k, v in sorted(DEFINES.items())),
+            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", obj,
+            str(CSRC / src)]
 
 
 def library_path() -> Path:
@@ -83,10 +98,12 @@ def build() -> Build:
     """Compile the sources unless this digest is already built: one
     ``nvcc -c`` per source, all started together, then one link. The
     library is written to a temporary name and renamed into place, so
-    concurrent builders never load a half-written library."""
+    concurrent builders never load a half-written library; nvcc's report
+    is kept beside it (``.log``) for a later caller."""
     out = library_path()
     if out.is_file():
-        return Build(out, 0.0, "")
+        log = out.with_suffix(".log")
+        return Build(out, 0.0, log.read_text() if log.is_file() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -96,10 +113,8 @@ def build() -> Build:
             obj = os.path.join(tmp, src + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler",
-                 "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, str(CSRC / src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+                compile_command(nvcc, src, obj), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for src, proc in procs:
             text = proc.communicate()[0]
@@ -114,6 +129,7 @@ def build() -> Build:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
         os.replace(lib, out)
     return Build(out, time.perf_counter() - t0, "".join(logs))
 

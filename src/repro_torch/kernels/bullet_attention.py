@@ -18,9 +18,9 @@ the decode CTAs to particular SMs, so it is the paper's SM partition only
 as far as every SM holds the same number of CTAs. The per-item bodies are
 the standalone kernels' device functions, so the outputs equal
 ``flash_attention`` + ``paged_decode_attention`` (or + ``decode_attention``)
-bit for bit: in bf16 the dense variant's decode CTAs loop over the same
-(slot, kv head, piece) items as the standalone split launch
-(``decode_attention.split_count``). The dense variant has no serving path (the engine runs fused
+bit for bit: in bf16 either variant's decode CTAs loop over the same
+(slot, kv head, piece) items as the standalone split launch (both size it
+with ``decode_attention.split_workspace``). The dense variant has no serving path (the engine runs fused
 cycles on the paged pool only, as the JAX engine does); ``chip_smoke.py``'s
 colocated phase drives it, as ``examples/colocated_attention.py`` drives
 the TPU kernel. Both are built for head dim 128 only
@@ -108,15 +108,19 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
     _check_decode("bullet_attention_paged", qd, k_pages, v_pages,
                   block_tables, pos)
     b, kh, g, _ = qd.shape
+    ps, n_b = k_pages.shape[1], block_tables.shape[1]
     out_p = torch.empty_like(qp)
     out_d = torch.empty_like(qd)
     if out_p.numel() == 0 and out_d.numel() == 0:
         return out_p, out_d
+    n_split, ws = 1, (None, None, None)
     if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("bullet_attention_paged", (qp, kp, vp))
+        build.check_aligned("bullet_attention_paged",
+                            (qp, kp, vp, qd, k_pages, v_pages))
+        # the standalone paged decode's pieces, so the outputs stay equal
+        n_split, *ws = split_workspace(qd, n_b * ps, paged=True)
     n_ctas = grid_ctas(qp.device.index if qp.device.index is not None
-                       else torch.cuda.current_device(), code, d, g,
-                       k_pages.shape[1])
+                       else torch.cuda.current_device(), code, d, g, ps)
     n_dec = decode_ctas(decode_share, n_ctas, out_p.numel() > 0,
                         out_d.numel() > 0)
     rc = build.library().bullet_attention_paged_fwd(
@@ -124,8 +128,9 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
         bh, sp, group, int(causal), int(window),
         qd.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), pos.data_ptr(), out_d.data_ptr(),
-        b, kh, g, k_pages.shape[1], block_tables.shape[1], d, code,
-        n_dec, n_ctas, build.stream_of(qp))
+        *(None if t is None else t.data_ptr() for t in ws),
+        b, kh, g, ps, n_b, d, code, n_split, n_dec, n_ctas,
+        build.stream_of(qp))
     build.check(rc, "bullet_attention_paged")
     global launches
     launches += 1

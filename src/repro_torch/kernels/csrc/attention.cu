@@ -28,16 +28,29 @@
 //   Both keep the score tiles on chip, so no S×S matrix reaches HBM, and
 //   skip the KV tiles that the causal or window mask removes whole.
 //
-// paged_decode_fwd
-//   Replaces src/repro/kernels/paged_decode_attention.py:73
+// paged_decode_fwd, paged_decode_split_fwd
+//   Replace src/repro/kernels/paged_decode_attention.py:73
 //   `paged_decode_attention` (pl.pallas_call at :106). One-token GQA
-//   decode over the shared page pool; one CTA per (slot, kv head) reads
-//   its page ids from the block table itself and walks only the pages that
-//   hold positions <= pos (any n_b). Bound: bytes (every live K/V page is
-//   read once; 4·G·D FLOPs per 2·D·2 bytes of KV is far below the card's
-//   ~295 FLOP/byte ridge). The design reads each live page once, with
-//   neighbouring threads on neighbouring addresses, and packs the G query
-//   heads of a kv head into one CTA so a page is read once for all of them.
+//   decode over the shared page pool: a slot attends its positions <= pos,
+//   row r at page bt[b, r / ps], row r % ps (any n_b). Bound: bytes (every
+//   live K/V row is read once for all G query heads; 4·G·D FLOPs per 2·D·2
+//   bytes of KV is far below the card's ~295 FLOP/byte ridge). Two bodies,
+//   by dtype:
+//   - bf16 (split_decode_item over the PagedRows source: dense decode's
+//     split body, so the two caches share one bf16 decode path): each
+//     (slot, kv head)'s n_b·ps table rows are cut into 64-row tiles and
+//     split into n_split pieces, one CTA each (the count from the shapes
+//     alone, decode_attention.split_count, so the host never reads pos);
+//     a tile's attended rows are its first min(64, pos + 1 - 64·ti), their
+//     page ids read by warp 0 one tile ahead, their K/V through cp.async,
+//     both products on mma.sync; a piece past a short slot's live rows
+//     walks no tile and weighs 0 in the piece-order merge. Its entry is
+//     paged_decode_split_fwd (n_split, workspace and counters from the
+//     wrapper, as decode_attention_split_fwd); paged_decode_fwd in bf16
+//     runs the same body with one piece.
+//   - fp32 (paged_decode_item, the first port's body): one CTA per (slot,
+//     kv head) walks the live pages one at a time on the CUDA cores. Kept
+//     so fp32 paged decode stays bit-equal to fp32 dense decode.
 //
 // decode_attention_fwd, decode_attention_split_fwd
 //   Replace src/repro/kernels/decode_attention.py:62 `decode_attention`
@@ -66,7 +79,8 @@
 //     a tile none of whose rows is attended (decided from the positions,
 //     never from the tile's index). With linear positions it walks
 //     paged_decode_fwd's rows in the same 16-row tiles with the same
-//     arithmetic, so the two agree bit for bit.
+//     arithmetic, so the two agree bit for bit; in bf16 both caches run
+//     split_decode_item, which lists the same rows in the same tiles.
 //
 // bullet_attention_paged_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:260
@@ -83,8 +97,11 @@
 //   disjoint CTAs, so the fused launch can beat the two launches' bounds
 //   added. Sizing the grid by the occupancy keeps prefill items at the
 //   standalone flash kernel's CTAs per SM. Its per-item bodies are the
-//   standalone kernels' device functions at the same block size, so its
-//   outputs equal flash_attention_fwd + paged_decode_fwd bit for bit.
+//   standalone kernels' device functions at the same block size; in bf16
+//   its decode CTAs loop over the same (slot, kv head, piece) items as the
+//   standalone split launch (the wrapper sizes both with one call), so its
+//   outputs equal flash_attention_fwd + the paged decode wrapper's launch
+//   bit for bit at every decode_share.
 //
 // bullet_attention_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:361 `bullet_attention`
@@ -108,7 +125,8 @@ using bf16 = __nv_bfloat16;
 template <typename T> constexpr bool is_bf16 = std::is_same<T, bf16>::value;
 
 // The per-item bodies by dtype: the fp32 CUDA-core bodies for float, the
-// tensor-core flash body and the split dense decode body for bfloat16.
+// tensor-core flash body and the split decode body (over either cache) for
+// bfloat16.
 template <typename T, int D>
 __device__ __forceinline__ void flash_body(const FlashArgs &a, int item,
                                            unsigned char *smem) {
@@ -118,24 +136,22 @@ __device__ __forceinline__ void flash_body(const FlashArgs &a, int item,
     flash_item<T, D>(a, item, reinterpret_cast<float *>(smem));
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void dense_decode_body(const DenseDecodeArgs &a,
-                                                  int item,
-                                                  unsigned char *smem) {
+// DA = DecodeArgs (paged cache) or DenseDecodeArgs (dense cache)
+template <typename T, int D, typename DA>
+__device__ __forceinline__ void decode_body(const DA &a, int item,
+                                            unsigned char *smem) {
   if constexpr (is_bf16<T>)
     split_decode_item<D>(a, item, smem);
+  else if constexpr (std::is_same<DA, DecodeArgs>::value)
+    paged_decode_item<T, D>(a, item, reinterpret_cast<float *>(smem));
   else
     decode_item<T, D>(a, item, reinterpret_cast<float *>(smem));
 }
 
 // work items of a decode launch: (slot, kv head), times the pieces of the
-// bf16 split body over the dense cache
-template <typename T>
-__host__ __device__ inline int decode_items(const DecodeArgs &a) {
-  return a.b * a.kh;
-}
-template <typename T>
-__host__ __device__ inline int decode_items(const DenseDecodeArgs &a) {
+// bf16 split body
+template <typename T, typename DA>
+__host__ __device__ inline int decode_items(const DA &a) {
   return a.b * a.kh * (is_bf16<T> ? a.n_split : 1);
 }
 
@@ -146,41 +162,31 @@ __global__ void __launch_bounds__(THREADS)
   flash_body<T, D>(a, blockIdx.x, smem);
 }
 
-template <typename T, int D>
+// the fp32 decode bodies, one CTA per (slot, kv head)
+template <typename T, int D, typename DA>
 __global__ void __launch_bounds__(THREADS)
-    paged_decode_kernel(DecodeArgs a) {
+    decode_kernel(DA a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  paged_decode_item<T, D>(a, blockIdx.x, reinterpret_cast<float *>(smem));
+  decode_body<T, D>(a, blockIdx.x, smem);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    decode_kernel(DenseDecodeArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  decode_item<T, D>(a, blockIdx.x, reinterpret_cast<float *>(smem));
-}
-
-// the bf16 split body: at most 128 registers a thread, two CTAs an SM
-template <int D>
+// the bf16 split body over either cache: at most 128 registers a thread,
+// two CTAs an SM
+template <int D, typename DA>
 __global__ void __launch_bounds__(THREADS, 2)
-    split_decode_kernel(DenseDecodeArgs a) {
+    split_decode_kernel(DA a) {
   extern __shared__ __align__(16) unsigned char smem[];
   split_decode_item<D>(a, blockIdx.x, smem);
 }
 
-// DA = DecodeArgs (paged cache) or DenseDecodeArgs (dense cache)
 template <typename T, int D, typename DA>
 __device__ __forceinline__ void bullet_body(const FlashArgs &fa, const DA &da,
                                             int n_dec, unsigned char *smem) {
   const int cta = blockIdx.x;
   if (cta < n_dec) {
     const int n_items = decode_items<T>(da);
-    for (int item = cta; item < n_items; item += n_dec) {
-      if constexpr (std::is_same<DA, DecodeArgs>::value)
-        paged_decode_item<T, D>(da, item, reinterpret_cast<float *>(smem));
-      else
-        dense_decode_body<T, D>(da, item, smem);
-    }
+    for (int item = cta; item < n_items; item += n_dec)
+      decode_body<T, D>(da, item, smem);
   } else {
     const int n_pre = gridDim.x - n_dec;
     const int n_items = fa.bh * flash_q_tiles<T>(fa.sq);
@@ -197,20 +203,23 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // bf16: at most 128 registers a thread, so two CTAs share an SM as the
-// standalone bf16 flash kernel's do
+// standalone bf16 flash kernel's do. The decode arguments stay in
+// parameter space too (__grid_constant__), so the split body reads them
+// where they lie and the kernel fits 128 registers without spilling
 template <int D, typename DA>
 __global__ void __launch_bounds__(THREADS, 2)
-    bullet_tc_kernel(const __grid_constant__ FlashArgs fa, DA da, int n_dec) {
+    bullet_tc_kernel(const __grid_constant__ FlashArgs fa,
+                     const __grid_constant__ DA da, int n_dec) {
   extern __shared__ __align__(16) unsigned char smem[];
   bullet_body<bf16, D, DA>(fa, da, n_dec, smem);
 }
 
 // the kernel of a dtype: the fp32 ones keep the first port's launch bounds
-template <typename T, int D> auto dense_decode_fn() {
+template <typename T, int D, typename DA> auto decode_fn() {
   if constexpr (is_bf16<T>)
-    return split_decode_kernel<D>;
+    return split_decode_kernel<D, DA>;
   else
-    return decode_kernel<T, D>;
+    return decode_kernel<T, D, DA>;
 }
 template <typename T, int D, typename DA> auto bullet_fn() {
   if constexpr (is_bf16<T>)
@@ -293,9 +302,25 @@ template <typename T> size_t flash_smem(int d) {
   return is_bf16<T> ? (size_t)flash_tc_smem_bytes(d)
                     : sizeof(float) * flash_smem_floats(d);
 }
-template <typename T> size_t dense_decode_smem(int g, int d) {
+// shared memory of a decode body: the split body's in bf16, else the fp32
+// body's tiles (the paged one's are pages of ps rows)
+template <typename T> size_t decode_smem(const DecodeArgs &a, int d) {
   return is_bf16<T> ? split_smem_bytes(d)
-                    : sizeof(float) * decode_smem_floats(g, DECODE_TILE, d);
+                    : sizeof(float) * decode_smem_floats(a.g, a.ps, d);
+}
+template <typename T> size_t decode_smem(const DenseDecodeArgs &a, int d) {
+  return is_bf16<T> ? split_smem_bytes(d)
+                    : sizeof(float) * decode_smem_floats(a.g, DECODE_TILE, d);
+}
+
+// the bf16 split body's launch conditions: a piece count it takes, at most
+// SPLIT_G query heads, and for more than one piece the workspace and the
+// arrival counters
+template <typename T, typename DA> bool split_ok(const DA &a) {
+  return !is_bf16<T> ||
+         (a.n_split >= 1 && a.n_split <= MAX_SPLIT && a.g <= SPLIT_G &&
+          (a.n_split == 1 || (a.ws_acc != nullptr && a.ws_ml != nullptr &&
+                              a.counts != nullptr)));
 }
 
 template <typename T, int D>
@@ -310,22 +335,11 @@ int launch_flash(FlashArgs a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_decode(const DecodeArgs &a, cudaStream_t s) {
-  const size_t smem = sizeof(float) * decode_smem_floats(a.g, a.ps, D);
-  auto kern = paged_decode_kernel<T, D>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  paged_decode_kernel<T, D><<<a.b * a.kh, THREADS, smem, s>>>(a);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_dense_decode(const DenseDecodeArgs &a, cudaStream_t s) {
-  if (is_bf16<T> && (a.n_split < 1 || a.n_split > MAX_SPLIT || a.g > SPLIT_G))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = dense_decode_smem<T>(a.g, D);
-  auto kern = dense_decode_fn<T, D>();
+template <typename T, int D, typename DA>
+int launch_decode(const DA &a, cudaStream_t s) {
+  if (!split_ok<T>(a)) return (int)cudaErrorInvalidValue;
+  const size_t smem = decode_smem<T>(a, D);
+  auto kern = decode_fn<T, D, DA>();
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   kern<<<decode_items<T>(a), THREADS, smem, s>>>(a);
@@ -333,24 +347,16 @@ int launch_dense_decode(const DenseDecodeArgs &a, cudaStream_t s) {
 }
 
 // shared memory of a fused launch: the larger of its two bodies'
-template <typename T> size_t bullet_smem(const DecodeArgs &a, int d) {
-  const size_t f = flash_smem<T>(d);
-  const size_t dd = sizeof(float) * decode_smem_floats(a.g, a.ps, d);
-  return f > dd ? f : dd;
-}
-template <typename T> size_t bullet_smem(const DenseDecodeArgs &a, int d) {
-  const size_t f = flash_smem<T>(d), dd = dense_decode_smem<T>(a.g, d);
+template <typename T, typename DA> size_t bullet_smem(const DA &a, int d) {
+  const size_t f = flash_smem<T>(d), dd = decode_smem<T>(a, d);
   return f > dd ? f : dd;
 }
 
 template <typename T, int D, typename DA>
 int launch_bullet(FlashArgs fa, const DA &da, int n_dec, int n_ctas,
                   cudaStream_t s) {
-  if (!encode_flash<T>(fa, D)) return (int)cudaErrorInvalidValue;
-  if constexpr (std::is_same<DA, DenseDecodeArgs>::value)
-    if (is_bf16<T> &&
-        (da.n_split < 1 || da.n_split > MAX_SPLIT || da.g > SPLIT_G))
-      return (int)cudaErrorInvalidValue;
+  if (!encode_flash<T>(fa, D) || !split_ok<T>(da))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = bullet_smem<T>(da, D);
   auto kern = bullet_fn<T, D, DA>();
   cudaError_t e = set_smem(kern, smem);
@@ -369,9 +375,9 @@ int bullet_occupancy(const DA &da, int *ctas_per_sm) {
       ctas_per_sm, kern, THREADS, smem);
 }
 
-template <int D> int split_occupancy(int *ctas_per_sm) {
+template <int D, typename DA> int split_occupancy(int *ctas_per_sm) {
   const size_t smem = split_smem_bytes(D);
-  auto kern = split_decode_kernel<D>;
+  auto kern = split_decode_kernel<D, DA>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -425,26 +431,50 @@ int flash_attention_fwd(const void *q, const void *k, const void *v, void *o,
   DISPATCH(d, dtype, (launch_flash<T, D>(a, s)));
 }
 
+// one item per (slot, kv head) (in bf16 the split body with one piece)
 int paged_decode_fwd(const void *q, const void *k_pages, const void *v_pages,
                      const int *block_tables, const int *pos, void *o, int b,
                      int kh, int g, int d, int ps, int n_b, int dtype,
                      void *stream) {
+  if (ps < 1) return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, k_pages, v_pages, block_tables, pos, o, b, kh, g, ps, n_b,
-               1.0f / sqrtf((float)d)};
+               1.0f / sqrtf((float)d), 1, nullptr, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH_PAGED(d, dtype, (launch_decode<T, D>(a, s)));
 }
 
+// bf16 only: n_split pieces per (slot, kv head) over the n_b * ps rows of
+// the block table in tiles of `tile` rows (the wrapper's constant, which
+// must equal SPLIT_TILE); workspace and counters as
+// decode_attention_split_fwd
+int paged_decode_split_fwd(const void *q, const void *k_pages,
+                           const void *v_pages, const int *block_tables,
+                           const int *pos, void *o, float *ws_acc,
+                           float *ws_ml, int *counts, int b, int kh, int g,
+                           int d, int ps, int n_b, int n_split, int tile,
+                           int dtype, void *stream) {
+  if (dtype != 1 || tile != SPLIT_TILE || ps < 1)
+    return (int)cudaErrorInvalidValue;
+  DecodeArgs a{q, k_pages, v_pages, block_tables, pos, o, b, kh, g, ps, n_b,
+               1.0f / sqrtf((float)d), n_split, ws_acc, ws_ml, counts};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DISPATCH_PAGED(d, dtype, (launch_decode<T, D>(a, s)));
+}
+
+// bf16: the decode items are the paged split launch's, n_split pieces per
+// (slot, kv head) with its workspace (null for one piece)
 int bullet_attention_paged_fwd(
     const void *qp, const void *kp, const void *vp, void *op, int bh, int sp,
     int group, int causal, int window, const void *qd, const void *k_pages,
     const void *v_pages, const int *block_tables, const int *pos, void *od,
-    int b, int kh, int g, int ps, int n_b, int d, int dtype, int n_dec,
-    int n_ctas, void *stream) {
+    float *ws_acc, float *ws_ml, int *counts, int b, int kh, int g, int ps,
+    int n_b, int d, int dtype, int n_split, int n_dec, int n_ctas,
+    void *stream) {
+  if (ps < 1) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)d);
   FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
   DecodeArgs da{qd, k_pages, v_pages, block_tables, pos, od, b, kh, g, ps,
-                n_b, scale};
+                n_b, scale, n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
 }
@@ -457,7 +487,7 @@ int decode_attention_fwd(const void *q, const void *k, const void *v,
   DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
                     1.0f / sqrtf((float)d), 1, nullptr, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_dense_decode<T, D>(a, s)));
+  DISPATCH(d, dtype, (launch_decode<T, D>(a, s)));
 }
 
 // bf16 only: n_split pieces per (slot, kv head) over row tiles of `tile`
@@ -471,14 +501,11 @@ int decode_attention_split_fwd(const void *q, const void *k, const void *v,
                                int *counts, int b, int kh, int g, int d,
                                int s_len, int n_split, int tile, int dtype,
                                void *stream) {
-  if (dtype != 1 || tile != SPLIT_TILE ||
-      (n_split > 1 && (ws_acc == nullptr || ws_ml == nullptr ||
-                       counts == nullptr)))
-    return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || tile != SPLIT_TILE) return (int)cudaErrorInvalidValue;
   DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
                     1.0f / sqrtf((float)d), n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_dense_decode<T, D>(a, s)));
+  DISPATCH(d, dtype, (launch_decode<T, D>(a, s)));
 }
 
 int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
@@ -514,10 +541,13 @@ int bullet_ctas_per_sm(int d, int dtype, int g, int ps, int dense,
 }
 
 // CTAs of the bf16 split decode kernel one SM holds at once at head dim d,
-// for the current device (two at D = 128, one at D = 256 by its shared
-// memory)
-int split_decode_ctas_per_sm(int d, int *ctas_per_sm) {
-  DISPATCH(d, 1, (split_occupancy<D>(ctas_per_sm)));
+// for the current device: over the dense cache (paged = 0; two at D = 128,
+// one at D = 256 by its shared memory) or the page pool (paged = 1, D =
+// 128 only)
+int split_decode_ctas_per_sm(int d, int paged, int *ctas_per_sm) {
+  if (paged)
+    DISPATCH_PAGED(d, 1, (split_occupancy<D, DecodeArgs>(ctas_per_sm)));
+  DISPATCH(d, 1, (split_occupancy<D, DenseDecodeArgs>(ctas_per_sm)));
 }
 
 const char *attention_error_string(int code) {

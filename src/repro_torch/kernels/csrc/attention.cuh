@@ -7,18 +7,25 @@
 //                     cores (wgmma, bf16 operands, fp32 accumulators), K/V
 //                     tiles through TMA: the bf16 body;
 //   paged_decode_item one (slot, kv head) of single-token GQA decode over
-//                     the shared page pool, online softmax over pages;
+//                     the shared page pool, online softmax over pages: the
+//                     fp32 body;
 //   decode_item       the same over a dense per-slot cache, masked by
 //                     kv_positions (ring caches included): the fp32 body;
-//   split_decode_item one piece of a (slot, kv head)'s rows of the dense
-//                     cache; the last piece to finish merges them all: the
-//                     bf16 body (flash-decoding).
+//   split_decode_item one piece of a (slot, kv head)'s rows, of the dense
+//                     cache or of the page pool (a row-source policy says
+//                     where a tile's rows live); the last piece to finish
+//                     merges them all: the bf16 body of both caches
+//                     (flash-decoding).
 // The standalone kernels run one item per CTA; the fused bullet kernels
 // loop their CTAs over items of either kind. Because the fused kernels
 // call these same bodies with the same block size, their outputs equal
 // the standalone kernels' bit for bit. The type decides the body: float
-// runs flash_item and decode_item, bfloat16 flash_tc_item and
-// split_decode_item, so each dtype's arithmetic is fixed.
+// runs flash_item, paged_decode_item and decode_item, bfloat16
+// flash_tc_item and split_decode_item, so each dtype's arithmetic is fixed.
+//
+// The split's geometry (SPLIT_TILE, MAX_SPLIT, SPLIT_G) is not stated
+// here: the build passes it as -D defines from the one Python module that
+// the wrappers read too (repro_torch/kernels/geometry.py).
 //
 // Numerics follow the TPU kernels they replace: softmax statistics and
 // accumulators stay fp32, masked logits are -1e30, out = acc / max(l,
@@ -34,6 +41,10 @@
 #include <cuda.h>  // CUtensorMap (the maps are encoded through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#if !defined(SPLIT_TILE) || !defined(MAX_SPLIT) || !defined(SPLIT_G)
+#error "SPLIT_TILE, MAX_SPLIT, SPLIT_G come from the build (geometry.py)"
+#endif
 
 namespace bullet {
 
@@ -213,6 +224,11 @@ struct DecodeArgs {              // the paged cache
   void *o;                       // (B, K, G, D)
   int b, kh, g, ps, n_b;
   float scale;
+  // bf16 only (split_decode_item), as DenseDecodeArgs
+  int n_split;
+  float *ws_acc;                 // (B*K, n_split, G, D) partial accumulators
+  float *ws_ml;                  // (B*K, n_split, G, 2) partial (m, l)
+  int *counts;                   // (B*K,) zero at launch; reset by the merger
 };
 
 struct DenseDecodeArgs {         // the dense per-slot cache
@@ -874,12 +890,10 @@ __device__ void flash_tc_item(const FlashArgs &a, int item,
 }
 
 // -------------------------------------------------------------------------
-// Dense decode split across CTAs (bf16): split_decode_item.
+// Decode split across CTAs (bf16), over either cache: split_decode_item.
+// SPLIT_TILE rows per tile, MAX_SPLIT pieces per (slot, kv head) at most,
+// SPLIT_G query heads of a kv head at most (one m16 operand): -D defines.
 // -------------------------------------------------------------------------
-
-constexpr int SPLIT_TILE = 64;  // rows per tile
-constexpr int MAX_SPLIT = 64;   // pieces per (slot, kv head) at most
-constexpr int SPLIT_G = 16;     // query heads of a kv head at most (one m16)
 
 // dynamic shared memory of split_decode_item: two buffers of K and V tiles
 // in bf16, q in bf16 with its rows padded to SPLIT_G, the probabilities in
@@ -929,14 +943,112 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Where a tile's rows come from: the row-source policies of
+// split_decode_item, stateless (they read the launch's arguments where
+// they lie, as the item does, so they hold no registers of their own).
+// Warp 0 holds what a tile's row list needs (r0 for rows lane, r1 for
+// rows lane + 32), read one tile ahead of the copies:
+//   rows(a)                    the rows the pieces split (S, or n_b * ps);
+//   tiles_end(a, pos, t_lo, t_end)  the end of the tiles a piece walks;
+//   fetch(a, b, ti, lane, r0, r1)   read what tile ti's list needs;
+//   list(a, pos, ti, r0, r1, lane, idx)  write the numbers of tile ti's
+//                              attended rows, in order, to idx and return
+//                              their count;
+//   base(a, b, ti)             what idx counts from: attended row j of
+//                              tile ti lives at ((base + idx[j]) K + h) D;
+//   k(a), v(a)                 the caches.
+// With linear positions both list the same rows in the same order, so
+// dense and paged decode agree bit for bit over the gathered rows.
+template <typename A> struct RowSource;
+
+// The dense cache: row j of slot b is attended when 0 <= kv_positions[b,
+// j] <= pos; a ring's rows are unordered, so the positions decide, never
+// the index. Warp 0 holds a tile's positions.
+template <> struct RowSource<DenseDecodeArgs> {
+  using A = DenseDecodeArgs;
+  __device__ static int rows(const A &a) { return a.s; }
+  __device__ static int tiles_end(const A &, int pos, int t_lo, int t_end) {
+    return pos < 0 ? t_lo : t_end;
+  }
+  __device__ static void fetch(const A &a, int b, int ti, int lane, int &r0,
+                               int &r1) {
+    const int *kvp = a.kvpos + (size_t)b * a.s;
+    const int j = ti * SPLIT_TILE + lane;
+    r0 = j < a.s ? kvp[j] : -1;
+    r1 = j + 32 < a.s ? kvp[j + 32] : -1;
+  }
+  __device__ static int list(const A &, int pos, int, int r0, int r1,
+                             int lane, int *idx) {
+    const bool ok0 = r0 >= 0 && r0 <= pos, ok1 = r1 >= 0 && r1 <= pos;
+    const unsigned m0 = __ballot_sync(0xffffffffu, ok0);
+    const unsigned m1 = __ballot_sync(0xffffffffu, ok1);
+    const unsigned below = (1u << lane) - 1u;
+    if (ok0) idx[__popc(m0 & below)] = lane;
+    if (ok1) idx[__popc(m0) + __popc(m1 & below)] = 32 + lane;
+    return __popc(m0) + __popc(m1);
+  }
+  __device__ static size_t base(const A &a, int b, int ti) {
+    return (size_t)b * a.s + (size_t)ti * SPLIT_TILE;
+  }
+  __device__ static const __nv_bfloat16 *k(const A &a) {
+    return static_cast<const __nv_bfloat16 *>(a.k);
+  }
+  __device__ static const __nv_bfloat16 *v(const A &a) {
+    return static_cast<const __nv_bfloat16 *>(a.v);
+  }
+};
+
+// The page pool: positions are linear, so the slot's attended rows are its
+// first live = min(pos + 1, n_b ps) (none for pos < 0) and tile ti's are
+// its first min(64, live - 64 ti); no position is read, and a piece walks
+// no tile past live. Row r of the slot lives at pool row bt[b, r / ps] ps
+// + r % ps, so warp 0 holds each row's page id (the lanes of one page
+// read one table entry together); any page size works. Only listed rows
+// are copied, so a page past live (the trash page) is never read.
+template <> struct RowSource<DecodeArgs> {
+  using A = DecodeArgs;
+  __device__ static int live(const A &a, int pos) {
+    return pos < 0 ? 0 : min(pos + 1, a.n_b * a.ps);
+  }
+  __device__ static int rows(const A &a) { return a.n_b * a.ps; }
+  __device__ static int tiles_end(const A &a, int pos, int t_lo, int t_end) {
+    return max(t_lo, min(t_end, (live(a, pos) + SPLIT_TILE - 1) / SPLIT_TILE));
+  }
+  // the table's entries whatever pos is, so the first read need not wait
+  // for it (entries are valid page ids; pages are read only once listed)
+  __device__ static void fetch(const A &a, int b, int ti, int lane, int &r0,
+                               int &r1) {
+    const int *bt = a.bt + (size_t)b * a.n_b;
+    const int j = ti * SPLIT_TILE + lane, n = a.n_b * a.ps;
+    r0 = j < n ? bt[j / a.ps] : 0;
+    r1 = j + 32 < n ? bt[(j + 32) / a.ps] : 0;
+  }
+  __device__ static int list(const A &a, int pos, int ti, int r0, int r1,
+                             int lane, int *idx) {
+    const int j = ti * SPLIT_TILE + lane;
+    const int n = min(SPLIT_TILE, live(a, pos) - ti * SPLIT_TILE);
+    if (lane < n) idx[lane] = r0 * a.ps + j % a.ps;
+    if (lane + 32 < n) idx[lane + 32] = r1 * a.ps + (j + 32) % a.ps;
+    return n;
+  }
+  __device__ static size_t base(const A &, int, int) { return 0; }
+  __device__ static const __nv_bfloat16 *k(const A &a) {
+    return static_cast<const __nv_bfloat16 *>(a.kp);
+  }
+  __device__ static const __nv_bfloat16 *v(const A &a) {
+    return static_cast<const __nv_bfloat16 *>(a.vp);
+  }
+};
+
 // Item = (slot b, kv head h, piece p) with item = (b*K + h)*n_split + p:
-// piece p walks tiles [p*T/n, (p+1)*T/n) of the slot's T = ceil(S / 64)
-// row tiles. Per tile one warp lists the attended rows (0 <= kv_positions
-// <= pos; a ring's rows are unordered, so the positions decide, never the
-// index) and only those rows' K and V are read, 16 bytes a thread with
-// neighbouring threads on neighbouring addresses, through cp.async into
-// two shared buffers: the next tile's rows (and the positions of the one
-// after) are in flight while this tile computes. Both products run on the
+// piece p walks tiles [p*T/n, (p+1)*T/n) of the slot's T = ceil(rows / 64)
+// row tiles (A = DenseDecodeArgs: the dense cache's S rows;
+// A = DecodeArgs: the n_b * ps rows of the slot's block table). Per tile
+// warp 0 lists the attended rows (the row source above) and only those
+// rows' K and V are read, 16 bytes a thread with neighbouring threads on
+// neighbouring addresses, through cp.async into two shared buffers: the
+// next tile's rows (and what the list of the one after needs) are in
+// flight while this tile computes. Both products run on the
 // tensor cores with mma.sync m16n8k16 (bf16 operands, fp32 accumulators):
 // the G query heads, padded to 16 rows, times the tile's rows for the
 // scores (warp w takes rows 8w..8w+7), one warp per query head for the
@@ -949,16 +1061,13 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 // same whatever the arrival order), weighting each by exp(m_i - max m) (0
 // for a piece with no attended row), writes the output and resets the
 // counter. A slot with no attended row returns zeros.
-template <int D>
-__device__ void split_decode_item(const DenseDecodeArgs &a, int item,
-                                  unsigned char *smem) {
+template <int D, typename A>
+__device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
   using bf16 = __nv_bfloat16;
   constexpr int R = SPLIT_TILE, GP = SPLIT_G;
   constexpr int RS = D + 8, PS_ = R + 8;   // row strides (elements)
   constexpr int NB = D / 64;               // 8-column blocks of a warp's PV
   const bf16 *q = static_cast<const bf16 *>(a.q);
-  const bf16 *kc = static_cast<const bf16 *>(a.k);
-  const bf16 *vc = static_cast<const bf16 *>(a.v);
   bf16 *o = static_cast<bf16 *>(a.o);
   const int G = a.g, ns = a.n_split;
   bf16 *kv = reinterpret_cast<bf16 *>(smem);  // [2 buffers][K, V][R][RS]
@@ -974,22 +1083,17 @@ __device__ void split_decode_item(const DenseDecodeArgs &a, int item,
   const int bkh = item / ns, piece = item % ns;
   const int b = bkh / a.kh, h = bkh % a.kh;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int n_t = (a.s + R - 1) / R;
+  const size_t qo = (size_t)bkh * G * D;
+
+  // the first loads leave together: pos, what the first tile's list needs
+  // (warp 0 holds it one tile ahead: rows lane, lane + 32) and q (cp.async)
+  using Rows = RowSource<A>;
+  const int pos = a.pos[b];
+  const int n_t = (Rows::rows(a) + R - 1) / R;
   const int t_lo = (int)((long long)piece * n_t / ns);
   const int t_end = (int)((long long)(piece + 1) * n_t / ns);
-  const size_t qo = (size_t)bkh * G * D;
-  const int *kvp = a.kvpos + (size_t)b * a.s;
-
-  // the first loads leave together: pos, the first tile's positions
-  // (warp 0 holds a tile's positions one tile ahead: rows lane, lane + 32)
-  // and q (cp.async)
-  const int pos = a.pos[b];
-  int p0 = -1, p1 = -1;
-  if (warp == 0 && t_lo < t_end) {
-    const int j = t_lo * R + lane;
-    p0 = j < a.s ? kvp[j] : -1;
-    p1 = j + 32 < a.s ? kvp[j + 32] : -1;
-  }
+  int r0 = -1, r1 = -1;
+  if (warp == 0 && t_lo < t_end) Rows::fetch(a, b, t_lo, lane, r0, r1);
   __syncthreads();  // smem may still be read by the previous item
   for (int e = tid; e < G * (D / 8); e += THREADS) {
     const int g = e / (D / 8), c = (e % (D / 8)) * 8;
@@ -1004,22 +1108,15 @@ __device__ void split_decode_item(const DenseDecodeArgs &a, int item,
     ls[e] = 0.f;
     al[e] = 1.f;
   }
-  const int t_hi = pos < 0 ? t_lo : t_end;
+  const int t_hi = Rows::tiles_end(a, pos, t_lo, t_end);
 
-  // warp 0: list the attended rows of the positions held (p0, p1) into
-  // buffer bf, then read the positions of tile ti
+  // warp 0: list tile ti - 1's attended rows from what it holds (r0, r1)
+  // into buffer bf, then read what tile ti's list needs
 #define SPLIT_LIST_ROWS(bf, ti)                                              \
   do {                                                                       \
-    const bool ok0 = p0 >= 0 && p0 <= pos, ok1 = p1 >= 0 && p1 <= pos;       \
-    const unsigned m0 = __ballot_sync(0xffffffffu, ok0);                     \
-    const unsigned m1 = __ballot_sync(0xffffffffu, ok1);                     \
-    const unsigned below = (1u << lane) - 1u;                                \
-    if (ok0) idx[(bf) * R + __popc(m0 & below)] = lane;                      \
-    if (ok1) idx[(bf) * R + __popc(m0) + __popc(m1 & below)] = 32 + lane;    \
-    if (lane == 0) flag[bf] = __popc(m0) + __popc(m1);                       \
-    const int j_ = (ti) * R + lane;                                          \
-    p0 = (ti) < t_hi && j_ < a.s ? kvp[j_] : -1;                             \
-    p1 = (ti) < t_hi && j_ + 32 < a.s ? kvp[j_ + 32] : -1;                   \
+    const int n_ = Rows::list(a, pos, (ti)-1, r0, r1, lane, idx + (bf)*R);   \
+    if (lane == 0) flag[bf] = n_;                                            \
+    if ((ti) < t_hi) Rows::fetch(a, b, (ti), lane, r0, r1);                  \
   } while (0)
   // all threads: copy the listed rows of tile ti into buffer bf, and zero
   // the V rows up to the next multiple of 16 (the last PV step reads them,
@@ -1027,13 +1124,13 @@ __device__ void split_decode_item(const DenseDecodeArgs &a, int item,
 #define SPLIT_COPY_ROWS(ti, bf)                                              \
   do {                                                                       \
     const int n_ok_ = flag[bf];                                              \
-    const size_t row0_ = (size_t)b * a.s + (size_t)(ti) * R;                 \
+    const size_t row0_ = Rows::base(a, b, (ti));                             \
     bf16 *kb_ = kv + 2 * (bf) * R * RS, *vb_ = kb_ + R * RS;                 \
     for (int e = tid; e < n_ok_ * (D / 8); e += THREADS) {                   \
       const int j = e / (D / 8), c = (e % (D / 8)) * 8;                      \
       const size_t gi = ((row0_ + idx[(bf) * R + j]) * a.kh + h) * D + c;    \
-      cp_async16(smem_u32(kb_ + j * RS + c), kc + gi);                       \
-      cp_async16(smem_u32(vb_ + j * RS + c), vc + gi);                       \
+      cp_async16(smem_u32(kb_ + j * RS + c), Rows::k(a) + gi);               \
+      cp_async16(smem_u32(vb_ + j * RS + c), Rows::v(a) + gi);               \
     }                                                                        \
     cp_async_commit();                                                       \
     const int pad_ = ((n_ok_ + 15) / 16) * 16;                               \

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.geometry import MAX_SPLIT, SPLIT_G, SPLIT_TILE
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
@@ -39,14 +40,10 @@ launches = 0
 #: the plain version: ``decode_attention`` on the kernel layout (ref.py)
 decode_attention_plain = ref.decode_attention_ref
 
-#: rows per tile of the bf16 split body (the C entry checks it against
-#: SPLIT_TILE in csrc/attention.cuh)
-SPLIT_TILE = 64
-#: pieces per (slot, kv head) at most (MAX_SPLIT in csrc/attention.cuh)
-MAX_SPLIT = 64
-#: query heads per kv head the bf16 body takes (one 16-row tensor-core
-#: operand; SPLIT_G in csrc/attention.cuh)
-SPLIT_G = 16
+# SPLIT_TILE (rows per tile of the bf16 split body), MAX_SPLIT (pieces per
+# (slot, kv head) at most) and SPLIT_G (query heads per kv head at most)
+# come from geometry.py, which the build passes to nvcc as well
+
 #: row tiles a piece takes at least, where there are enough: a piece's
 #: fixed cost (its first loads, its partial's write and share of the merge)
 #: outweighs a tile's
@@ -58,8 +55,8 @@ def split_count(b: int, kh: int, s: int, n_sm: int, ctas_per_sm: int) -> int:
     into: as many as keep the launch's ``b·kh·n`` CTAs within one wave of
     ``n_sm`` SMs that hold ``ctas_per_sm`` split CTAs each, but at least
     ``MIN_TILES`` row tiles a piece; at least 1, at most the row tiles (and
-    ``MAX_SPLIT``). The dense fused kernel takes the same count, so its
-    decode CTAs run the same items."""
+    ``MAX_SPLIT``). The fused kernels and the paged decode kernel take the
+    same count, so the fused kernels' decode CTAs run the same items."""
     tiles = max(1, -(-s // SPLIT_TILE))
     want = max(1, ctas_per_sm) * n_sm // max(1, b * kh)
     return max(1, min(tiles // MIN_TILES, want, MAX_SPLIT))
@@ -72,23 +69,28 @@ def sm_count(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def split_ctas_per_sm(device_index: int, d: int) -> int:
+def split_ctas_per_sm(device_index: int, d: int, paged: bool = False) -> int:
     """CTAs of the bf16 split kernel at head dim ``d`` one SM of the device
-    holds at once (by its registers and shared memory)."""
+    holds at once (by its registers and shared memory), over the dense
+    cache or (``paged``) the page pool."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = build.library().split_decode_ctas_per_sm(d, ctypes.byref(per_sm))
+        rc = build.library().split_decode_ctas_per_sm(d, int(paged),
+                                                      ctypes.byref(per_sm))
     build.check(rc, "decode_attention")
     return per_sm.value
 
 
-def n_split(q, s: int) -> int:
-    """Pieces per (slot, kv head) of a bf16 dense decode over ``s`` rows
-    for the CUDA tensor ``q`` (B, K, G, D) on its device."""
+def n_split(q, s: int, *, paged: bool = False) -> int:
+    """Pieces per (slot, kv head) of a bf16 decode over ``s`` rows (the
+    dense cache's S, or ``paged``: the block table's n_b·ps) for the CUDA
+    tensor ``q`` (B, K, G, D) on its device. Shapes only: ``pos`` is never
+    read on the host."""
     b, kh, _, d = q.shape
     dev = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
-    return split_count(b, kh, s, sm_count(dev), split_ctas_per_sm(dev, d))
+    return split_count(b, kh, s, sm_count(dev),
+                       split_ctas_per_sm(dev, d, paged))
 
 
 #: arrival counters of the split launches, per (device, stream): zero
@@ -105,17 +107,20 @@ def _counts(device: torch.device, n: int) -> torch.Tensor:
     return cnt
 
 
-def split_workspace(q, s: int):
-    """(n_split, ws_acc, ws_ml, counts) of a bf16 dense decode over ``s``
-    rows for ``q`` (B, K, G, D): the partial accumulators and (m, l) of
-    every piece, and the arrival counters. With one piece no workspace is
-    needed (``None``s)."""
+def split_workspace(q, s: int, *, paged: bool = False):
+    """(n_split, ws_acc, ws_ml, counts) of a bf16 decode over ``s`` rows
+    (``paged``: over the page pool, ``s`` = n_b·ps) for ``q`` (B, K, G,
+    D): the partial accumulators and (m, l) of every piece, and the
+    arrival counters. With one piece no workspace is needed (``None``s).
+    The paged and the dense kernels, and each fused kernel, size their
+    splits here."""
     b, kh, g, d = q.shape
     if g > SPLIT_G:
-        raise ValueError(f"decode_attention: bfloat16 takes at most "
-                         f"{SPLIT_G} query heads per kv head, got {g}")
+        name = "paged_decode_attention" if paged else "decode_attention"
+        raise ValueError(f"{name}: bfloat16 takes at most {SPLIT_G} query "
+                         f"heads per kv head, got {g}")
     dev = q.device
-    n = n_split(q, s)
+    n = n_split(q, s, paged=paged) if b * kh else 1
     if n == 1:
         return 1, None, None, None
     ws_acc = torch.empty(b * kh * n * g * d, dtype=torch.float32, device=dev)

@@ -1,6 +1,7 @@
 """Block-paged single-token GQA decode attention: the wrapper of the CUDA
-kernel ``paged_decode_fwd`` (``csrc/attention.cu``), its launch counter and
-its plain PyTorch version.
+kernels behind ``paged_decode_fwd`` (fp32) and ``paged_decode_split_fwd``
+(bf16) in ``csrc/attention.cu``, its launch counter and its plain PyTorch
+version.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_decode_attention.py:73``
 (``paged_decode_attention``). The KV cache lives in a shared page pool
@@ -8,6 +9,16 @@ Replaces the TPU kernel ``src/repro/kernels/paged_decode_attention.py:73``
 owns the pages its row of ``block_tables`` (B, n_b) names, and page ``i``
 covers absolute positions ``[i·ps, (i+1)·ps)``. A slot attends positions
 ``<= pos``; any ``n_b`` works (the engine buckets it to powers of two).
+
+In bf16 the kernel is the dense decode kernel's split body over the page
+pool: each (slot, kv head)'s ``n_b·ps`` table rows are split into
+``decode_attention.split_count`` pieces (from the shapes alone), one CTA
+each, both products on the tensor cores (G <= 16 query heads per kv head),
+the last piece to finish merging the partials in piece order; the
+workspace comes from ``decode_attention.split_workspace``. A piece past a
+short slot's live rows reads nothing and weighs 0. In fp32 it runs one CTA
+per (slot, kv head) walking the live pages (the first port's body, which
+stays bit-equal to fp32 dense decode).
 
 Inactive slots (``pos < 0``): the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``paged_decode_ref`` and
@@ -22,6 +33,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import split_workspace
+from repro_torch.kernels.geometry import SPLIT_TILE
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
@@ -58,14 +71,23 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos):
     _check_decode("paged_decode_attention", q, k_pages, v_pages,
                   block_tables, pos)
     b, kh, g, d = q.shape
+    ps, n_b = k_pages.shape[1], block_tables.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = build.library().paged_decode_fwd(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, kh, g, d, k_pages.shape[1], block_tables.shape[1], code,
-        build.stream_of(q))
+    if code == build.DTYPE_CODES["torch.bfloat16"]:
+        build.check_aligned("paged_decode_attention", (q, k_pages, v_pages))
+        n, *ws = split_workspace(q, n_b * ps, paged=True)
+        rc = build.library().paged_decode_split_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in ws),
+            b, kh, g, d, ps, n_b, n, SPLIT_TILE, code, build.stream_of(q))
+    else:
+        rc = build.library().paged_decode_fwd(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            b, kh, g, d, ps, n_b, code, build.stream_of(q))
     build.check(rc, "paged_decode_attention")
     global launches
     launches += 1

@@ -17,7 +17,9 @@ math to the kernel layouts (``flash_attention_ref``,
 ``decode_attention_ref``, ``paged_decode_attention_ref``,
 ``bullet_attention_ref``, ``bullet_attention_paged_ref``);
 ``decode_attention_split_ref`` is the bf16 dense decode kernel's split
-and merge spelled out, for the card tests.
+and merge spelled out, for the card tests, and
+``paged_decode_attention_split_ref`` the same over a slot's gathered
+pages (the bf16 paged kernel runs the dense kernel's body).
 ``ssd_scan_ref`` and ``rglru_scan_ref`` are the JAX package's sequential
 SSD and RG-LRU oracles, one step per position; the plain versions the
 kernels are held against live beside their wrappers
@@ -202,6 +204,22 @@ def decode_attention_split_ref(q, k_cache, v_cache, kv_positions, pos,
     l_all = (w * torch.stack(ls)).sum(0)
     acc = (w[..., None] * torch.stack(accs)).sum(0)
     return (acc / l_all.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables, pos,
+                                     n_split: int, tile: int = 64):
+    """The bf16 paged decode kernel's split and merge, plainly: each
+    slot's table gathered into ``n_b·ps`` rows with linear positions, then
+    ``decode_attention_split_ref``. No arithmetic of its own: it states
+    that the paged body is the dense body over the gathered rows. Shapes
+    as ``paged_decode_attention_ref``; an inactive slot returns zeros."""
+    b, n_b = block_tables.shape
+    rows = n_b * k_pages.shape[1]
+    kvpos = torch.arange(rows, dtype=torch.int32,
+                         device=q.device)[None].expand(b, rows)
+    return decode_attention_split_ref(
+        q, gather_pages(k_pages, block_tables),
+        gather_pages(v_pages, block_tables), kvpos, pos, n_split, tile)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos):

@@ -5,8 +5,8 @@
 
 Tolerances: fp32 atol 1e-4 (kernel sums in another order), bf16 atol 2e-2
 (kernel and plain version round the probabilities at different maxima),
-and bf16 flash and dense decode also within ULPS bf16 ulps of each output
-row's own scale.
+and bf16 flash, dense decode and paged decode also within ULPS bf16 ulps
+of each output row's own scale.
 The SSD scan is compared over its output's scale max(1, max|plain|): fp32
 1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4. The RG-LRU
 scan runs the plain version's arithmetic in the same order: equal to it
@@ -20,11 +20,12 @@ from repro_torch.kernels import decode_attention as TD
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode_attention as TP
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rglru_scan as TR
 from repro_torch.kernels import ssd_scan as TS
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-#: the bf16 flash and split dense decode bodies also hold each output row
+#: the bf16 flash and split decode bodies also hold each output row
 #: within this many bf16 ulps of the row's own scale max|plain_row| (as
 #: chip_smoke.py's RG_ATTN_ULPS); a result one key short reads far more
 ULPS = 4
@@ -96,6 +97,8 @@ def test_paged_decode_kernel_matches_plain(gen, dtype):
     act = pos >= 0
     torch.testing.assert_close(out[act].float(), ref[act].float(),
                                atol=TOL[dtype], rtol=0)
+    if dtype == torch.bfloat16:
+        assert row_ulps(out[act], ref[act]) <= ULPS
     assert bool((out[~act] == 0).all())
 
 
@@ -143,16 +146,28 @@ def test_dense_decode_kernel_matches_plain(gen, dtype, ring):
     assert bool((TD.decode_attention(q, kc, vc, none, pos) == 0).all())
 
 
-def test_dense_decode_equals_paged_decode_bit_for_bit(gen):
-    """With linear positions the dense kernel walks the same 16-row tiles
-    as the paged kernel over 16-row pages."""
-    q, kp, vp, bt, pos = _decode_case(gen, torch.float32)
+@pytest.mark.parametrize("dtype,ps,n_split", [
+    (torch.float32, 16, None), (torch.bfloat16, 8, None),
+    (torch.bfloat16, 16, None), (torch.bfloat16, 32, None),
+    (torch.bfloat16, 16, 3), (torch.bfloat16, 16, 7)])
+def test_dense_decode_equals_paged_decode_bit_for_bit(gen, monkeypatch,
+                                                       dtype, ps, n_split):
+    """With linear positions over the gathered rows the dense kernel walks
+    the paged kernel's rows in the same tiles: fp32 in 16-row tiles over
+    16-row pages, bf16 in the split body's 64-row tiles over any page size,
+    with S = n_b·ps giving both the same pieces (None: each wrapper's own
+    count; else forced)."""
+    if n_split is not None:
+        monkeypatch.setattr(TD, "split_count", lambda *a: n_split)
+    q, kp, vp, bt, pos = _paged_split_case(gen, dtype, ps)
     act = pos >= 0
     b, n_b = bt.shape
     kc = kp[bt.long()].reshape(b, -1, *kp.shape[2:]).contiguous()
     vc = vp[bt.long()].reshape(b, -1, *vp.shape[2:]).contiguous()
     kvpos = torch.arange(kc.shape[1], dtype=torch.int32,
                          device="cuda")[None].expand(b, -1).contiguous()
+    if dtype == torch.bfloat16:
+        assert TD.n_split(q, n_b * ps) == TD.n_split(q, n_b * ps, paged=True)
     dense = TD.decode_attention(q, kc, vc, kvpos, pos)
     paged = TP.paged_decode_attention(q, kp, vp, bt, pos)
     assert torch.equal(dense[act], paged[act])
@@ -406,17 +421,23 @@ def test_split_dense_decode_kernel(gen, monkeypatch, d, n_split):
 
 
 def ref_split(q, kc, vc, kvpos, pos, n):
-    from repro_torch.kernels import ref
-    return ref.decode_attention_split_ref(q, kc, vc, kvpos, pos, n)
+    return kref.decode_attention_split_ref(q, kc, vc, kvpos, pos, n)
 
 
+@pytest.mark.parametrize("n_split", [None, 1, 3, 7])
 @pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
-def test_bullet_kernel_bit_equal_to_standalone_bf16(gen, share):
-    """The paged fused kernel's prefill items run the tensor-core body."""
+def test_bullet_kernel_bit_equal_to_standalone_bf16(gen, monkeypatch, share,
+                                                    n_split):
+    """The paged fused kernel's prefill items run the tensor-core body, its
+    decode CTAs the split items of the standalone paged launch (the same
+    split_count; None: its own, else forced; 7 is more pieces than the 4
+    row tiles)."""
+    if n_split is not None:
+        monkeypatch.setattr(TD, "split_count", lambda *a: n_split)
     q = torch.randn(8, 300, 128, generator=gen, device="cuda").bfloat16()
     k = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
     v = torch.randn(4, 300, 128, generator=gen, device="cuda").bfloat16()
-    qd, kp, vp, bt, pos = _decode_case(gen, torch.bfloat16)
+    qd, kp, vp, bt, pos = _paged_split_case(gen, torch.bfloat16, 16)
     op, od = TB.bullet_attention_paged(q, k, v, qd, kp, vp, bt, pos,
                                        decode_share=share, group=2)
     assert torch.equal(op, TF.flash_attention(q, k, v, group=2))
@@ -447,3 +468,73 @@ def test_split_dense_decode_refuses_more_than_16_query_heads(gen):
     pos = torch.tensor([63], dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="query heads"):
         TD.decode_attention(q, kc, kc, kvpos, pos)
+
+
+def _paged_split_case(gen, dtype, ps, kh=2, g=3, d=128, rows=256):
+    """tests/port/test_torch_split_decode.py's paged slots: tables of 256
+    rows (4 tiles of 64) over ``ps``-row pages, contexts 1, 64 (a tile's
+    edge), 65, 150 and an inactive slot, pages shuffled; past each slot's
+    live pages the table points at the trash page (the pool's last), which
+    holds large garbage."""
+    contexts = (1, 64, 65, 150, 0)
+    b, n_b = len(contexts), rows // ps
+    need = [-(-c // ps) for c in contexts]
+    n_pages = sum(need) + 3
+    kp = torch.randn(n_pages + 1, ps, kh, d, generator=gen, device="cuda")
+    vp = torch.randn(n_pages + 1, ps, kh, d, generator=gen, device="cuda")
+    kp[n_pages] = 1e4
+    vp[n_pages] = -1e4
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
+    bt = torch.full((b, n_b), n_pages, dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[used:used + n]
+        used += n
+    pos = torch.tensor([c - 1 for c in contexts], dtype=torch.int32)
+    q = torch.randn(b, kh, g, d, generator=gen, device="cuda")
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype), bt.cuda(), pos.cuda())
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("n_split", [None, 1, 2, 3, 7])
+def test_split_paged_decode_kernel(gen, monkeypatch, ps, n_split):
+    """The bf16 paged kernel (the split body over the page pool) against
+    its plain mirror at the same split and against the plain version on
+    the active slots, each within TOL and ULPS per output row; the
+    inactive slot returns zeros; two launches agree bit for bit whatever
+    order the pieces finish in; and NaN in the trash page changes nothing,
+    so it is never read. ``None`` keeps the wrapper's own split_count; 7 is
+    more pieces than the 4 row tiles."""
+    if n_split is not None:
+        monkeypatch.setattr(TD, "split_count", lambda *a: n_split)
+    q, kp, vp, bt, pos = _paged_split_case(gen, torch.bfloat16, ps)
+    n = TD.n_split(q, bt.shape[1] * ps, paged=True)
+    before = TP.launches
+    out = TP.paged_decode_attention(q, kp, vp, bt, pos)
+    assert TP.launches == before + 1
+    act = pos >= 0
+    mirror = kref.paged_decode_attention_split_ref(q, kp, vp, bt, pos, n)
+    assert_bf16_close(out[act], mirror[act])
+    plain = TP.paged_decode_attention_plain(q, kp, vp, bt, pos)
+    assert_bf16_close(out[act], plain[act])
+    assert bool((out[~act] == 0).all())
+    assert torch.equal(out, TP.paged_decode_attention(q, kp, vp, bt, pos))
+    kn, vn = kp.clone(), vp.clone()
+    kn[-1] = float("nan")
+    vn[-1] = float("nan")
+    assert torch.equal(out, TP.paged_decode_attention(q, kn, vn, bt, pos))
+
+
+def test_split_paged_decode_refuses_more_than_16_query_heads(gen):
+    """The bf16 body takes a kv head's query heads as one 16-row operand,
+    in the standalone and the fused paged kernel alike."""
+    q = torch.randn(1, 1, 17, 128, generator=gen, device="cuda").bfloat16()
+    kp = torch.randn(5, 16, 1, 128, generator=gen, device="cuda").bfloat16()
+    bt = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    pos = torch.tensor([63], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="query heads"):
+        TP.paged_decode_attention(q, kp, kp, bt, pos)
+    qp = torch.randn(4, 16, 128, generator=gen, device="cuda").bfloat16()
+    kpp = torch.randn(2, 16, 128, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="query heads"):
+        TB.bullet_attention_paged(qp, kpp, kpp, q, kp, kp, bt, pos, group=2)

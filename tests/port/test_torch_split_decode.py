@@ -1,10 +1,17 @@
-"""The bf16 dense decode kernel's split across CTAs, on the CPU: the
-``split_count`` function that sizes it (shared by the standalone and the
-fused dense kernel), and the plain split-and-merge mirror
+"""The bf16 decode kernels' split across CTAs, on the CPU: the
+``split_count`` function that sizes it (shared by the dense and the paged
+kernel and by both fused kernels), the plain split-and-merge mirror
 ``decode_attention_split_ref`` against the JAX package's Pallas
 ``decode_attention`` in interpret mode (fp32, atol 2e-5): linear rows, a
 wrapped ring, holes, a piece with no attended row, a slot with none
-(zeros, as the kernel returns) and more pieces than tiles."""
+(zeros, as the kernel returns) and more pieces than tiles; the paged
+mirror ``paged_decode_attention_split_ref`` against the Pallas
+``paged_decode_attention`` (same tolerance) at page sizes 8, 16 and 32,
+with the trash page full of large garbage; and the split's geometry,
+stated once in ``geometry.py`` and passed to nvcc."""
+
+import functools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +19,13 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.paged_decode_attention import \
+    paged_decode_attention as jax_paged
+from repro_torch.kernels import build
 from repro_torch.kernels import bullet_attention as TB
 from repro_torch.kernels import decode_attention as TD
+from repro_torch.kernels import geometry
+from repro_torch.kernels import paged_decode_attention as TP
 from repro_torch.kernels import ref
 
 ATOL = 2e-5
@@ -116,3 +128,116 @@ def test_split_mirror_matches_plain_where_a_row_is_attended(n_split):
     want = TD.decode_attention_plain(*args)
     act = torch.tensor([True, True, True, False, True])
     torch.testing.assert_close(got[act], want[act], atol=ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel: the same split over a slot's block-table rows
+# ---------------------------------------------------------------------------
+
+PAGED_CONTEXTS = (1, 64, 65, 150, 0)
+
+
+def _paged_cases(ps, seed=0, kh=2, g=3, d=32, rows=256):
+    """Five slots over a pool of ``ps``-row pages, tables of ``rows`` =
+    256 rows (4 tiles of 64): contexts 1, 64 (a tile's edge), 65, 150 and
+    an inactive slot (pos -1), the pages in shuffled order; past each
+    slot's live pages its table points at the trash page, which holds
+    large garbage, so a read of it would show."""
+    rng = np.random.default_rng(seed)
+    b, n_b = len(PAGED_CONTEXTS), rows // ps
+    need = [-(-c // ps) for c in PAGED_CONTEXTS]
+    n_pages = sum(need) + 3
+    trash = n_pages
+    kp = rng.normal(size=(n_pages + 1, ps, kh, d)).astype(np.float32)
+    vp = rng.normal(size=(n_pages + 1, ps, kh, d)).astype(np.float32)
+    kp[trash] = 1e4
+    vp[trash] = -1e4
+    perm = rng.permutation(n_pages)
+    bt = np.full((b, n_b), trash, np.int32)
+    used = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[used:used + n]
+        used += n
+    pos = np.array([c - 1 for c in PAGED_CONTEXTS], np.int32)
+    q = rng.normal(size=(b, kh, g, d)).astype(np.float32)
+    return q, kp, vp, bt, pos
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_paged(ps):
+    """The Pallas paged decode on ``_paged_cases(ps)`` (interpret mode);
+    the split does not enter it, so one call serves every piece count."""
+    return np.asarray(jax_paged(*map(jnp.asarray, _paged_cases(ps)),
+                                interpret=True), np.float32)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+def test_paged_split_mirror_matches_pallas(ps, n_split):
+    """n_split = 7 is more pieces than the 4 tiles; the slot of context 1
+    leaves every piece but the first without a row, the inactive slot
+    every piece (zeros, as the Pallas kernel returns)."""
+    args = [torch.from_numpy(x) for x in _paged_cases(ps)]
+    got = ref.paged_decode_attention_split_ref(*args, n_split).numpy()
+    np.testing.assert_allclose(got, _pallas_paged(ps), atol=ATOL)
+    assert (got[4] == 0).all()
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_paged_split_mirror_matches_plain_on_active_slots(ps):
+    """Against the port's plain version (through the wrapper on CPU
+    tensors), which returns the mean of V for the inactive slot."""
+    args = [torch.from_numpy(x) for x in _paged_cases(ps, seed=1)]
+    got = ref.paged_decode_attention_split_ref(*args, 3)
+    want = TP.paged_decode_attention(*args)
+    act = args[4] >= 0
+    torch.testing.assert_close(got[act], want[act], atol=ATOL, rtol=0)
+
+
+def test_paged_kernels_take_the_same_split():
+    """Kernel 3's decode CTAs loop over kernel 2's (slot, head, piece)
+    items: both wrappers size the split with the one function, over the
+    table's n_b·ps rows."""
+    assert TP.split_workspace is TD.split_workspace
+    assert TB.split_workspace is TD.split_workspace
+    # Qwen3's serve batch: 8 slots x 8 kv heads over 64 pages of 16 rows,
+    # two split CTAs an SM of 132 (on the CPU only the count is computed)
+    assert TD.split_count(8, 8, 64 * 16, 132, 2) == 4
+
+
+def test_paged_split_workspace_refuses_17_heads_and_needs_none_empty():
+    """G > 16 is refused before anything reaches the card; a launch with
+    no slot needs no workspace (one piece)."""
+    with pytest.raises(ValueError, match="paged_decode_attention.*query "
+                                         "heads"):
+        TD.split_workspace(torch.zeros(1, 1, 17, 128), 64, paged=True)
+    assert TD.split_workspace(torch.zeros(0, 8, 2, 128), 1024,
+                              paged=True) == (1, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the split's geometry: stated once, in geometry.py
+# ---------------------------------------------------------------------------
+
+def test_split_geometry_is_stated_once():
+    """The CUDA sources state no value of SPLIT_TILE, MAX_SPLIT or SPLIT_G
+    (attention.cuh refuses to compile without them), the nvcc command
+    carries them as defines, and the wrappers read the same module."""
+    text = "".join((build.CSRC / n).read_text()
+                   for n in build.SOURCES + build.HEADERS)
+    header = (build.CSRC / "attention.cuh").read_text()
+    cmd = build.compile_command("nvcc", "attention.cu", "attention.o")
+    for name, value in geometry.DEFINES.items():
+        assert not re.search(rf"#\s*define\s+{name}\b", text), name
+        assert not re.search(rf"\b{name}\s*=\s*\d", text), name
+        assert f"!defined({name})" in header, name
+        assert f"-D{name}={value}" in cmd, name
+        assert getattr(TD, name) == value == getattr(geometry, name)
+    assert "#error" in header
+
+
+def test_split_geometry_is_part_of_the_digest(monkeypatch):
+    """Changing a define names another library, so it rebuilds."""
+    before = build.library_path()
+    monkeypatch.setitem(geometry.DEFINES, "MAX_SPLIT", 32)
+    assert build.library_path() != before
