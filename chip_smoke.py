@@ -8,7 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. the card: name and power limit as nvidia-smi reports them;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source in parallel; ptxas's registers and
-   spills per kernel (the bf16 paged fused kernel must not spill);
+   spills per kernel (the bf16 paged fused kernel and every SSD kernel
+   must not spill);
 3. kernels, at the main-path shapes of Qwen3-1.7B (H=16, K=8, G=2, D=128,
    page size 16, dense cache rows of the replay's max_len = 1000, which is
    not a multiple of 128): each kernel against its plain PyTorch version
@@ -27,7 +28,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    decode the faster of masked SDPA on K/V expanded to every query head
    and SDPA with enable_gqa on the cache as it is), flash's achieved
    TFLOP/s, and bf16 paged and dense decode timed at forced piece counts
-   beside split_count's pick; then the SSD scan (phase 8's shapes), the
+   beside split_count's pick; then the SSD scan (phase 8's shapes; the
+   bf16 body also against its plain mirror ``ref.ssd_scan_tc_ref`` within
+   2^-7 (y) and 1e-5 (state), timed in both dtypes and in bf16 at each P
+   slice of its output kernel), the
    RG-LRU scan at RecurrentGemma-2B's width W=2560 (B in {1, 4}, S in
    {3000, 200}, from zeros and from h0, fp32 and bf16: y and the fp32
    h_T), and flash
@@ -62,7 +66,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ShareGPT-shaped trace at full width and depth (64 layers, d_model 2560,
    vocab 50280, seeded random weights, 8 slots, max_prefill_batch 4, so
    prefill batches mix prompt lengths), on the virtual clock in fp32 with
-   the ssd_scan launches counted, then on the wall clock in bf16; (c) the
+   the ssd_scan launches counted, then on the wall clock in bf16 (counted
+   again: the bf16 row's launches); (c) the
    length-correct state: 4 trace prompts prefilled as one padded batch and
    each alone, fp32, every layer's conv and ssm state of every request
    equal within 1e-3 of its scale (cuBLAS may pick another GEMM for
@@ -124,6 +129,15 @@ SSD_H, SSD_P, SSD_N, SSD_Q = 80, 64, 128, 256
 #: state is not
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_STATE_TOL = 1e-4
+#: the bf16 SSD kernel against its plain mirror ref.ssd_scan_tc_ref (the
+#: same roundings in another summation order), tighter: y one bf16 ulp of
+#: the scale's binade (the two round y apart at most once), the state 1e-5
+SSD_TC_TOL, SSD_TC_STATE_TOL = 2.0 ** -7, 1e-5
+#: the SSD scan's kernels: the fp32 body, and the bf16 body's three
+#: launches (C Bᵀ with the chunk states, the pass over the chunks, the
+#: outputs)
+SSD_KERNELS = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_pass_kernel",
+               "ssd_out_kernel")
 #: RecurrentGemma-2B's sizes: RG-LRU width, attention heads (10 query heads
 #: on one kv head), head dim, sliding window
 RG_W, RG_H, RG_K, RG_D, RG_WINDOW = 2560, 10, 1, 256, 2048
@@ -458,6 +472,13 @@ def phase_build():
     check(len(fused) == 1 and fused[0]["spill_st"] == 0
           and fused[0]["spill_ld"] == 0,
           f"bullet_tc_kernel<128, DecodeArgs> spills: {fused}")
+    # no SSD kernel may spill: the bf16 body keeps its accumulators in
+    # registers across each product
+    ssd = [r for r in report if any(k in r["kernel"] for k in SSD_KERNELS)]
+    check(all(any(k in r["kernel"] for r in ssd) for k in SSD_KERNELS),
+          f"SSD kernels missing from ptxas's report: {ssd}")
+    spilled = [r for r in ssd if r["spill_st"] or r["spill_ld"]]
+    check(not spilled, f"SSD kernels spill: {spilled}")
     build.library()
     return b
 
@@ -764,11 +785,15 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
     return rows
 
 
-def phase_ssd(timer: Timer) -> dict:
+def phase_ssd(timer: Timer) -> list:
     """The SSD chunk scan kernel against its plain version at Mamba-2-2.7B's
     shapes, fp32 and bf16, one prompt (B=1) and a full prefill batch
     (B=4), S=1000 (four chunks, the last padded) and S=200 (one chunk of
-    Q=S rows): y and the final state. Timed at B=1, S=1000, bf16."""
+    Q=S rows): y and the final state; the bf16 body also against its plain
+    mirror. Timed at B=1, S=1000 in both dtypes (rows ``ssd_scan`` and
+    ``ssd_scan_fp32``), and in bf16 at each P slice of the output kernel."""
+    from repro_torch.kernels import geometry
+    from repro_torch.kernels import ref as KR
     from repro_torch.kernels import ssd_scan as SK
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -789,29 +814,48 @@ def phase_ssd(timer: Timer) -> dict:
                       f"err {es}")
                 ea = (y.float() - ry.float()).abs().max().item()
                 worst[dtype] = max(worst.get(dtype, 0.0), ea)
+                mirror = ""
+                if dtype == torch.bfloat16:
+                    my, mst = KR.ssd_scan_tc_ref(xw, cum, bm, cm)
+                    my_e, ms_e = rel_err(y, my), rel_err(st, mst)
+                    check(my_e <= SSD_TC_TOL and ms_e <= SSD_TC_STATE_TOL,
+                          f"ssd_scan bf16 B={b} S={s} against its mirror: "
+                          f"y err {my_e}, state err {ms_e}")
+                    mirror = (f"; against the mirror y {my_e:.3e}, state "
+                              f"{ms_e:.3e}")
                 log(f"ssd_scan {str(dtype)[6:]} B={b} S={s} (NC="
                     f"{xw.shape[1]} Q={xw.shape[2]}): max|kernel-plain|/"
                     f"scale y {ey:.3e}, state {es:.3e}; max|kernel-plain| "
-                    f"y {ea:.3e} (scale {ry.float().abs().max().item():.1f})")
+                    f"y {ea:.3e} (scale {ry.float().abs().max().item():.1f})"
+                    f"{mirror}")
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, dtype)
         nb, no = ssd_cost(xw, dtype)
-        bms, bby = bound_ms(nb, no, torch.bfloat16)
+        bms, bby = bound_ms(nb, no, dtype)
         ms = timer(lambda: SK.ssd_scan(xw, cum, bm, cm))
         plain = timer(lambda: SK.ssd_scan_plain(xw, cum, bm, cm))
-        log(f"ssd_scan {str(dtype)[6:]} B=1 S=1000: {ms:.4f} ms (plain "
-            f"{plain:.4f}, library none, bound {bms:.4f} ms by {bby}: "
-            f"{nb / 1e6:.1f} MB, {no / 1e9:.2f} GFLOP)")
+        tag = str(dtype)[6:]
+        log(f"ssd_scan {tag} B=1 S=1000: {ms:.4f} ms (plain {plain:.4f}, "
+            f"library none, bound {bms:.4f} ms by {bby}: {nb / 1e6:.1f} MB, "
+            f"{no / 1e9:.2f} GFLOP)")
+        if dtype == torch.bfloat16:
+            sweep = ", ".join(
+                f"{w}: " + format(timer(lambda w=w: SK.ssd_scan(
+                    xw, cum, bm, cm, p_slice=w)), ".4f")
+                for w in geometry.SSD_P_SLICES)
+            log(f"ssd_scan bf16 B=1 S=1000, ms by P slice of the output "
+                f"kernel (the build's SSD_P_SLICE is "
+                f"{geometry.SSD_P_SLICE}): {sweep}")
         rows.append(dict(
-            name="ssd_scan", route="cuda",
-            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            name="ssd_scan" if dtype == torch.bfloat16 else "ssd_scan_fp32",
+            route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd_scan.py:66",
             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
             library_ms=None, max_abs_err=worst[dtype],
             shape=f"B=1 S=1000 (NC=4 Q=256) H={SSD_H} P={SSD_P} N={SSD_N} "
-                  f"{str(dtype)[6:]}"))
-    return rows[0]
+                  f"{tag}"))
+    return rows
 
 
 def rglru_cost(a, dtype):
@@ -1200,7 +1244,7 @@ def _kernel_kind(name: str) -> str:
     if any(k in name for k in ("flash_kernel", "decode_kernel",
                                "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
-    if "ssd_scan_kernel" in name:
+    if any(k in name for k in SSD_KERNELS):
         return "SSD scan (this port's kernel)"
     if "rglru_scan_kernel" in name:
         return "RG-LRU scan (this port's kernel)"
@@ -1640,12 +1684,13 @@ def _percentiles(server):
             percentile(tpot, 50), percentile(tpot, 90))
 
 
-def phase_mamba(card: str) -> int:
+def phase_mamba(card: str) -> dict:
     """Mamba-2-2.7B at full width and depth through the OnlineFrontend on
     the dense slot cache (serial): the trace replay on the virtual clock
     in fp32 (ssd_scan launches counted: one per prefill group), the
     length-correct state check in fp32, then the wall-clock replay in
-    bf16. Returns the ssd_scan launches of the virtual replay."""
+    bf16. Returns the ssd_scan launches of each: {"fp32": the virtual
+    replay's, "bf16": the wall-clock replay's}, one per prefill group."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan as SK
     from repro_torch.models import transformer as T
@@ -1727,19 +1772,26 @@ def phase_mamba(card: str) -> int:
         _profile_report(w.prof, w.wall, f"cycles {w.first + 1}-"
                         f"{w.first + w.n} of Mamba-2 serving ({w.prefills} "
                         f"with a prefill group), bf16, wall clock", card)
+    SK.launches = 0
     srv, _, m, secs, rec = _replay(cfg, params, torch.bfloat16, paged=None,
                                    max_prefill_batch=4, wall=True,
                                    n_requests=MAMBA_REQUESTS)
+    launches_bf16 = SK.launches
+    check(launches_bf16 > 0
+          and launches_bf16 == srv.stats.prefill_cycles,
+          f"mamba wall-clock replay: {launches_bf16} ssd_scan launches for "
+          f"{srv.stats.prefill_cycles} prefill groups")
     p = _percentiles(srv)
     log(f"mamba replay wall clock, bf16: {m.row()}  [{card}]")
     log(f"  TTFT p50/p90 {p[0]:.1f}/{p[1]:.1f} ms, TPOT p50/p90 "
         f"{p[2]:.1f}/{p[3]:.1f} ms, {m.throughput_tok_s:.0f} tok/s, goodput "
         f"{100 * m.goodput:.1f}%; {len(rec)} cycles in {secs:.1f} s "
         f"({1e3 * secs / len(rec):.1f} ms per cycle), decode-only cycle "
-        f"{_decode_only_ms(rec):.1f} ms, stats {vars(srv.stats)}  [{card}]")
+        f"{_decode_only_ms(rec):.1f} ms, stats {vars(srv.stats)}, ssd_scan "
+        f"launches {launches_bf16}  [{card}]")
     del srv, params
     torch.cuda.empty_cache()
-    return launches
+    return {"fp32": launches, "bf16": launches_bf16}
 
 
 def _leaves(tree):
@@ -2008,7 +2060,7 @@ def main() -> int:
     timed("build", phase_build)
     timer = Timer()
     rows = timed("kernels", phase_kernels, timer)
-    rows.append(timed("ssd kernel", phase_ssd, timer))
+    rows += timed("ssd kernel", phase_ssd, timer)
     rows.append(timed("rglru kernel", phase_rglru, timer))
     rows += timed("attention D=256", phase_attention_d256, timer)
     colocated = timed("colocated", phase_colocated, timer)
@@ -2028,9 +2080,11 @@ def main() -> int:
     # run (the RG-LRU scan, and kernels 1 and 4 at D = 256); in fp32 the
     # chaos replay (flash, dense decode, the paged fused kernel), the fp32
     # colocated sweep and the RecurrentGemma reference (kernels 1 and 4 at
-    # D = 256); the SSD scan from the Mamba-2 virtual-clock replay (fp32)
+    # D = 256); the SSD scan from the Mamba-2 replays, the wall-clock one
+    # in bf16 and the virtual-clock one in fp32
     launches = {**launches, "bullet_attention": colocated[torch.bfloat16],
-                "ssd_scan": ssd, "rglru_scan": rg["rglru_scan"],
+                "ssd_scan": ssd["bf16"], "ssd_scan_fp32": ssd["fp32"],
+                "rglru_scan": rg["rglru_scan"],
                 "flash_attention_d256": rg["flash_attention"],
                 "decode_attention_d256": rg["decode_attention"],
                 "flash_attention_fp32": replay["flash_attention"],

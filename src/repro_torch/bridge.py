@@ -36,12 +36,14 @@ def _tree_to_torch(tree, device, dtype, fp32_keys, key=None):
                 dtype=torch.float32 if key in fp32_keys else dtype)
 
 
-def params_from_jax(np_tree, device="cpu", dtype=torch.float32):
-    """The JAX param tree (numpy leaves) as the port's params."""
+def params_from_jax(np_tree, device="cuda", dtype=torch.float32):
+    """The JAX param tree (numpy leaves) as the port's params, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return _tree_to_torch(np_tree, device, dtype, FP32_PARAMS)
 
 
-def cache_from_jax(np_tree, device="cpu", dtype=torch.float32):
+def cache_from_jax(np_tree, device="cuda", dtype=torch.float32):
     """A JAX cache tree (numpy leaves), the block-paged pool or the dense
-    slot cache, as the port's."""
+    slot cache, as the port's, on ``device`` (the card unless the caller
+    asks for the CPU)."""
     return _tree_to_torch(np_tree, device, dtype, FP32_CACHE)

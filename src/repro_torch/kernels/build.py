@@ -7,12 +7,16 @@ of the checkout, named by a digest of the sources so an edit rebuilds;
 ``ctypes`` loads it. ``attention.cu`` holds the attention kernels (flash
 prefill and dense decode at head dims 128 and 256, paged decode and the
 fused launches at 128; in bf16 the flash body runs on the tensor cores
-through wgmma and TMA, so ``sm_90a``'s ``a`` is needed), ``ssd_scan.cu`` the Mamba-2 SSD chunk scan and
-``rglru_scan.cu`` the RG-LRU linear recurrence. The split decode bodies'
-geometry (``geometry.DEFINES``) reaches every source as ``-D`` defines and
-is part of the digest. Nothing here runs at import: the first wrapper that
-launches a kernel builds the library, and the CPU tests, which never
-launch one, need no compiler.
+through wgmma and TMA, so ``sm_90a``'s ``a`` is needed), ``ssd_scan.cu``
+the Mamba-2 SSD chunk scan (in bf16 C Bᵀ once per row and chunk, the
+chunk states, a pass over the chunks and the outputs, on the tensor cores
+through ``mma.sync``) and
+``rglru_scan.cu`` the RG-LRU linear recurrence. The geometry of the split
+decode bodies and of the bf16 SSD scan (``geometry.all_defines()``)
+reaches every source as ``-D`` defines and is part of the digest.
+Nothing here runs at import: the first wrapper that launches a kernel
+builds the library, and the CPU tests, which never launch one, need no
+compiler.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-from repro_torch.kernels.geometry import DEFINES
+from repro_torch.kernels.geometry import all_defines
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("attention.cu", "ssd_scan.cu", "rglru_scan.cu")
@@ -51,7 +55,7 @@ SIGNATURES = {
     "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9 + [_I] * 9 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
     "split_decode_ctas_per_sm": [_I, _I, ctypes.POINTER(_I)],
-    "ssd_scan_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    "ssd_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
 
@@ -77,7 +81,7 @@ def _digest() -> str:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
-    h.update(repr(sorted(DEFINES.items())).encode())
+    h.update(repr(sorted(all_defines().items())).encode())
     return h.hexdigest()[:16]
 
 
@@ -85,7 +89,7 @@ def compile_command(nvcc: str, src: str, obj: str) -> list:
     """The ``nvcc -c`` of one source: sm_90a, the geometry's defines,
     ptxas's register and spill report."""
     return [nvcc, "-gencode", ARCH, "-std=c++17", "-O3",
-            *(f"-D{k}={v}" for k, v in sorted(DEFINES.items())),
+            *(f"-D{k}={v}" for k, v in sorted(all_defines().items())),
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", obj,
             str(CSRC / src)]
 

@@ -1,10 +1,11 @@
-"""The split decode bodies' geometry, stated once.
+"""The geometry of the split decode bodies and of the bf16 SSD scan,
+stated once.
 
 ``build.py`` passes these to ``nvcc`` as ``-D`` defines, and
-``csrc/attention.cuh`` takes them from there (it refuses to compile
-without them); the wrappers size their launches and workspaces with the
-same values. The module imports nothing, so ``build.py`` reads it without
-importing a wrapper.
+``csrc/attention.cuh`` and ``csrc/ssd_scan.cu`` take them from there (they
+refuse to compile without them); the wrappers size their launches and
+workspaces with the same values. The module imports nothing, so
+``build.py`` reads it without importing a wrapper.
 """
 
 #: rows per tile of the bf16 split decode body (dense rows or paged rows)
@@ -15,6 +16,22 @@ MAX_SPLIT = 64
 #: operand)
 SPLIT_G = 16
 
-#: the defines the CUDA sources are compiled with, by name
+#: rows and columns per tile of C Bᵀ in the bf16 SSD scan; its workspace
+#: holds each chunk's Q rows rounded up to a whole tile
+SSD_TILE = 64
+#: columns of P per CTA of the bf16 SSD chunk walk (one of SSD_P_SLICES,
+#: all three compiled; the default when the caller names none)
+SSD_P_SLICE = 64
+SSD_P_SLICES = (16, 32, 64)
+
+#: the split decode's defines (``csrc/attention.cuh``), by name
 DEFINES = {"SPLIT_TILE": SPLIT_TILE, "MAX_SPLIT": MAX_SPLIT,
            "SPLIT_G": SPLIT_G}
+#: the bf16 SSD scan's defines (``csrc/ssd_scan.cu``), by name
+SSD_DEFINES = {"SSD_TILE": SSD_TILE, "SSD_P_SLICE": SSD_P_SLICE}
+
+
+def all_defines() -> dict:
+    """Every define the CUDA sources are compiled with (read at call time,
+    so a changed value names another library)."""
+    return {**DEFINES, **SSD_DEFINES}

@@ -272,6 +272,51 @@ def ssd_scan_ref(xw, da_cumsum, B_, C, state0=None):
     return torch.stack(ys, dim=1).to(xw.dtype), st
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and back to fp32."""
+    return t.to(torch.bfloat16).float()
+
+
+def ssd_scan_tc_ref(xw, cum, B_, C):
+    """The bf16 SSD chunk scan kernel's numerics, plainly, in fp32 (the
+    kernel's arithmetic in another summation order). Per row and chunk
+    C Bᵀ is computed once, in fp32 (C and B are exact in bf16); per head:
+
+    - intra: (C Bᵀ ⊙ L) rounded to bf16, times xw (exact in bf16);
+    - inter: e^{cum} ⊙ (C S₁₆), with S₁₆ the state rounded to bf16;
+    - state: S ← e^{total} S + Bᵀ V_hi + Bᵀ V_lo, where V = xw ⊙
+      e^{total − cum} is split into V_hi = bf16(V) and V_lo = bf16(V −
+      V_hi), so V is carried to about 2⁻¹⁷ of itself.
+
+    Shapes and returns as ``kernels/ssd_scan.py``'s ``ssd_scan``: y in
+    xw's dtype, the final state (B, H, P, N) fp32."""
+    b, nc, q, h, p = xw.shape
+    n = B_.shape[-1]
+    causal = torch.ones(q, q, dtype=torch.bool, device=xw.device).tril()
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=xw.device)
+    ys = []
+    for ci in range(nc):
+        x_c = xw[:, ci].float()                             # (B,Q,H,P)
+        cum_c = cum[:, ci].float()                          # (B,Q,H)
+        b_c, c_c = B_[:, ci].float(), C[:, ci].float()      # (B,Q,N)
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)         # once per chunk
+        seg = cum_c[:, :, None, :] - cum_c[:, None, :, :]   # (B,Q,Q,H)
+        L = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                  float("-inf")))
+        y_intra = torch.einsum("bijh,bjhp->bihp", _bf16(cb[..., None] * L),
+                               x_c)
+        y_inter = torch.einsum("bin,bhpn->bihp", c_c, _bf16(state)) \
+            * torch.exp(cum_c)[..., None]
+        v = x_c * torch.exp(cum_c[:, -1:, :] - cum_c)[..., None]
+        v_hi = _bf16(v)
+        v_lo = _bf16(v - v_hi)
+        state = (state * torch.exp(cum_c[:, -1, :])[..., None, None]
+                 + torch.einsum("bjn,bjhp->bhpn", b_c, v_hi)
+                 + torch.einsum("bjn,bjhp->bhpn", b_c, v_lo))
+        ys.append(y_intra + y_inter)
+    return torch.stack(ys, dim=1).to(xw.dtype), state
+
+
 def rglru_scan_ref(a, b, h0=None):
     """Sequential linear recurrence h_t = a_t * h_{t-1} + b_t.
 

@@ -13,8 +13,15 @@ cumulative log decay:
 The kernel writes ``y`` and the final state (from shared memory), where the
 TPU kernel left its state in scratch and ``ops.ssd_scan_op`` recovered it
 analytically. It takes a chunk of up to 256 rows and a state of up to 128;
-P and H are free. Bound on the card: bytes, narrowly over operations; the
-kernel is limited by its fp32 arithmetic (see the source's header note).
+P and H are free. Bound on the card: bytes, narrowly over operations.
+
+The dtype picks the body. fp32 runs the first body, on the CUDA cores. bf16
+makes three CUDA launches behind the one C entry, every product on the
+tensor cores: C Bᵀ once per row and chunk and each chunk's own state
+(into workspaces this wrapper allocates), a pass over the chunks, then
+every chunk's outputs at once; ``kernels/ref.py``'s ``ssd_scan_tc_ref``
+states its roundings plainly. ``launches`` counts one per call either
+way.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.geometry import SSD_P_SLICES, SSD_TILE
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
@@ -56,13 +64,16 @@ def ssd_scan_plain(xw, cum, B_, C):
     return torch.stack(ys, dim=1).to(xw.dtype), state
 
 
-def ssd_scan(xw, cum, B_, C):
+def ssd_scan(xw, cum, B_, C, *, p_slice: int = 0):
     """xw: (B, NC, Q, H, P) dt-scaled inputs per chunk; cum: (B, NC, Q, H)
     fp32 within-chunk cumulative log decay; B_, C: (B, NC, Q, N) in xw's
     dtype. Returns (y (B, NC, Q, H, P) in xw's dtype, final state (B, H,
     P, N) fp32).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel; CPU tensors run the plain version.
+    ``p_slice`` (bf16 only) names the columns of P per CTA of the output
+    kernel, one of ``geometry.SSD_P_SLICES``; 0 takes the build's
+    ``SSD_P_SLICE``."""
     if xw.device.type == "cpu":
         return ssd_scan_plain(xw, cum, B_, C)
     code = build.check_inputs("ssd_scan", (xw, B_, C), fp32=(cum,),
@@ -77,14 +88,29 @@ def ssd_scan(xw, cum, B_, C):
     if q > MAX_CHUNK or n > MAX_STATE:
         raise ValueError(f"ssd_scan: chunk {q} (at most {MAX_CHUNK}) and "
                          f"state {n} (at most {MAX_STATE})")
+    if p_slice and p_slice not in SSD_P_SLICES:
+        raise ValueError(f"ssd_scan: P slice {p_slice} not in "
+                         f"{SSD_P_SLICES}")
     y = torch.empty_like(xw)
     state = torch.empty(b, h, p, n, dtype=torch.float32, device=xw.device)
     if y.numel() == 0:
         return y, state.zero_()
+    work = (None, None, None)
+    if xw.dtype == torch.bfloat16:
+        # C Bᵀ per row and chunk (each chunk's rows rounded up to a tile),
+        # each chunk's own state (fp32) and the state entering it (bf16)
+        qp = -(-q // SSD_TILE) * SSD_TILE
+        work = (torch.empty(b, nc, qp, qp, dtype=torch.float32,
+                            device=xw.device),
+                torch.empty(b, nc, h, p, n, dtype=torch.float32,
+                            device=xw.device),
+                torch.empty(b, nc, h, p, n, dtype=torch.bfloat16,
+                            device=xw.device))
     rc = build.library().ssd_scan_fwd(
         xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(), b, nc, q, h, p, n, code,
-        build.stream_of(xw))
+        y.data_ptr(), state.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in work),
+        b, nc, q, h, p, n, p_slice, code, build.stream_of(xw))
     build.check(rc, "ssd_scan")
     global launches
     launches += 1

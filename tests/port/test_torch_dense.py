@@ -141,7 +141,7 @@ def model():
     jcfg = jax_config("qwen3-1.7b").reduced(n_layers=2)
     cfg = get_config("qwen3-1.7b").reduced(n_layers=2)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
 
 
@@ -217,7 +217,7 @@ def test_ring_cache_matches_jax(model):
         jcache.append({k: jnp.stack([e[k] for e in reps_j])
                        for k in ("k", "v")})
     jcache = {"blocks": tuple(jcache)}
-    tcache = cache_from_jax(jax.tree.map(np.asarray, jcache))
+    tcache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu")
     pos = lens.copy()
     tok = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
     for _ in range(3):

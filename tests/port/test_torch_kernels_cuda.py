@@ -8,9 +8,12 @@ Tolerances: fp32 atol 1e-4 (kernel sums in another order), bf16 atol 2e-2
 and bf16 flash, dense decode and paged decode also within ULPS bf16 ulps
 of each output row's own scale.
 The SSD scan is compared over its output's scale max(1, max|plain|): fp32
-1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4. The RG-LRU
-scan runs the plain version's arithmetic in the same order: equal to it
-bit for bit."""
+1e-4, bf16 y 1e-2 (y is rounded to bf16), the fp32 state 1e-4; the bf16
+body also against its plain mirror ``ref.ssd_scan_tc_ref`` (the same
+roundings, another summation order), tighter: y 2^-7 (one bf16 ulp of the
+scale's binade: the two round y apart at most once), the state 1e-5.
+The RG-LRU scan runs the plain version's arithmetic in the same order:
+equal to it bit for bit."""
 
 import pytest
 import torch
@@ -235,6 +238,50 @@ def test_ssd_kernel_matches_plain(gen, dtype, b, s, h, p, n, chunk):
     assert y.dtype == dtype and st.dtype == torch.float32
     assert _scaled_err(y, ry) <= (1e-4 if dtype == torch.float32 else 1e-2)
     assert _scaled_err(st, rst) <= 1e-4
+
+
+#: the bf16 SSD body against its mirror, over the mirror's scale: y within
+#: one bf16 ulp of the scale's binade, the fp32 state within 1e-5 (the plain
+#: version's limits are 1e-2 and 1e-4)
+SSD_TC_Y_TOL = 2.0 ** -7
+SSD_TC_STATE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("p_slice", [16, 32, 64])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,decay", [
+    (2, 40, 3, 16, 32, 64, 1.0), (2, 45, 3, 16, 16, 16, 1.0),
+    (1, 64, 2, 16, 16, 32, 40.0), (1, 128, 2, 32, 8, 64, 1.0),
+    (2, 96, 2, 40, 16, 32, 1.0), (1, 48, 2, 4, 4, 16, 1.0),
+    (1, 1000, 4, 64, 128, 256, 1.0), (4, 200, 4, 64, 128, 256, 1.0)])
+def test_ssd_bf16_kernel_matches_its_mirror(gen, p_slice, b, s, h, p, n,
+                                            chunk, decay):
+    """The bf16 body at every P slice: one chunk (Q = S), a padded tail,
+    strong decay (A scaled by 40), N < 128, P not a multiple of the slice,
+    P = N = 4, and Mamba-2-2.7B's P, N and chunk; one count per call for
+    its two CUDA launches."""
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda").bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device="cuda"))
+    A = -decay * torch.exp(torch.randn(h, generator=gen, device="cuda"))
+    B_ = torch.randn(b, s, n, generator=gen, device="cuda").bfloat16()
+    C = torch.randn(b, s, n, generator=gen, device="cuda").bfloat16()
+    xw, cum, bc, cc = ops.ssd_chunk_inputs(x, dt, A, B_, C, chunk=chunk)
+    before = TS.launches
+    y, st = TS.ssd_scan(xw, cum, bc, cc, p_slice=p_slice)
+    assert TS.launches == before + 1
+    my, mst = kref.ssd_scan_tc_ref(xw, cum, bc, cc)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    assert _scaled_err(y, my) <= SSD_TC_Y_TOL
+    assert _scaled_err(st, mst) <= SSD_TC_STATE_TOL
+
+
+def test_ssd_wrapper_rejects_a_p_slice_it_has_no_body_for(gen):
+    xw = torch.randn(1, 1, 16, 2, 8, generator=gen, device="cuda").bfloat16()
+    cum = torch.zeros(1, 1, 16, 2, device="cuda")
+    bc = torch.randn(1, 1, 16, 16, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="P slice"):
+        TS.ssd_scan(xw, cum, bc, bc, p_slice=8)
 
 
 def test_ssd_wrapper_rejects_what_the_kernel_does_not_hold(gen):

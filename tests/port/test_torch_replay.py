@@ -61,7 +61,7 @@ def model():
     jcfg = jax_config("qwen3-1.7b").reduced(n_layers=2)
     cfg = get_config("qwen3-1.7b").reduced(n_layers=2)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
 
 

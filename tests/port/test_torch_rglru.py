@@ -129,7 +129,7 @@ def model():
     jcfg = jax_config(ARCH).reduced()
     cfg = get_config(ARCH).reduced()
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
 
 
@@ -294,7 +294,7 @@ def swa_model():
     cfg = get_config(ARCH).reduced(**kw)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(2), jnp.float32)
     return jcfg, cfg, jparams, params_from_jax(
-        jax.tree.map(np.asarray, jparams))
+        jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def test_swa_prefill_and_ring_decode_through_many_wraps(swa_model):
@@ -360,7 +360,8 @@ def test_bridge_keeps_the_port_dtypes_per_leaf(model):
     init_params and init_cache give them."""
     jcfg, cfg, jparams, _ = model
     bf = torch.bfloat16
-    bridged = params_from_jax(jax.tree.map(np.asarray, jparams), dtype=bf)
+    bridged = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu", dtype=bf)
     ours = T.init_params(cfg, seed=0, dtype=bf, device="cpu")
     dt = lambda tree: jax.tree.map(lambda t: t.dtype, tree)   # noqa: E731
     shp = lambda tree: jax.tree.map(lambda t: tuple(t.shape), tree)  # noqa
@@ -370,7 +371,8 @@ def test_bridge_keeps_the_port_dtypes_per_leaf(model):
         assert blk["lambda"].dtype == torch.float32
         assert blk["w_a"].dtype == bf
     jcache = jax_init_cache(jcfg, 2, 80, jnp.bfloat16)
-    cache = cache_from_jax(jax.tree.map(np.asarray, jcache), dtype=bf)
+    cache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu",
+                           dtype=bf)
     tcache = T.init_cache(cfg, 2, 80, bf, "cpu")
     assert dt(cache) == dt(tcache) and shp(cache) == shp(tcache)
     assert cache["tail"][0]["hidden"].dtype == torch.float32

@@ -166,7 +166,7 @@ def model():
     jcfg = jax_config(ARCH).reduced(n_layers=2)
     cfg = get_config(ARCH).reduced(n_layers=2)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
 
 
@@ -293,14 +293,16 @@ def test_bridge_keeps_the_port_dtypes_per_leaf(model):
     leaf as the port's init_params and init_cache give them."""
     jcfg, cfg, jparams, _ = model
     bf = torch.bfloat16
-    bridged = params_from_jax(jax.tree.map(np.asarray, jparams), dtype=bf)
+    bridged = params_from_jax(jax.tree.map(np.asarray, jparams),
+                              device="cpu", dtype=bf)
     ours = T.init_params(cfg, seed=0, dtype=bf, device="cpu")
     dt = lambda tree: jax.tree.map(lambda t: t.dtype, tree)   # noqa: E731
     assert dt(bridged) == dt(ours)
     assert ours["blocks"][0]["A_log"].dtype == torch.float32
     assert ours["blocks"][0]["in_proj"].dtype == bf
     jcache = jax_init_cache(jcfg, 2, 16, jnp.bfloat16)
-    cache = cache_from_jax(jax.tree.map(np.asarray, jcache), dtype=bf)
+    cache = cache_from_jax(jax.tree.map(np.asarray, jcache), device="cpu",
+                           dtype=bf)
     assert dt(cache) == dt(T.init_cache(cfg, 2, 16, bf, "cpu"))
     assert cache["blocks"][0]["ssm"].dtype == torch.float32
     assert cache["blocks"][0]["conv"].dtype == bf
@@ -479,7 +481,8 @@ def test_reference_split_is_pinned(model):
         _submit(js, probe, JRequest, lens=(5, 13, 9))
         outs[mpb] = _drive(js)
         ts = BulletServer(get_config(ARCH).reduced(),
-                          params_from_jax(jax.tree.map(np.asarray, pparams)),
+                          params_from_jax(jax.tree.map(np.asarray, pparams),
+                                          device="cpu"),
                           config=ServerConfig(**_config(mpb)), device="cpu")
         _submit(ts, cfg, Request, lens=(5, 13, 9))
         touts[mpb] = _drive(ts)

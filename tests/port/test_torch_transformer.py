@@ -28,7 +28,7 @@ def model(request):
     jcfg = jax_config(name).reduced(n_layers=2)
     cfg = get_config(name).reduced(n_layers=2)
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
 
 
@@ -110,7 +110,7 @@ def test_decode_step_paged_matches_jax(model):
     jlogits, jcache = JT.decode_step(
         jparams, jax.tree.map(jnp.asarray, pool), jnp.asarray(tokens),
         jnp.asarray(pos), jcfg, block_tables=jnp.asarray(bt))
-    cache = cache_from_jax(pool)
+    cache = cache_from_jax(pool, device="cpu")
     logits, cache = T.decode_step(params, cache, torch.from_numpy(tokens),
                                   torch.from_numpy(pos), cfg,
                                   block_tables=torch.from_numpy(bt))
@@ -138,14 +138,14 @@ def test_fused_group_decode_equals_serial(model, rep):
     positions = np.arange(11)[None, :]
     args = dict(rep=rep, decode_share=0.25)
 
-    f_cache = cache_from_jax(pool)
+    f_cache = cache_from_jax(pool, device="cpu")
     fx, flogits = T.fused_group_decode(
         params, f_cache, torch.from_numpy(x_p), torch.from_numpy(positions),
         torch.from_numpy(page_map), torch.from_numpy(tokens),
         torch.from_numpy(pos), cfg, block_tables=torch.from_numpy(bt),
         **args)
 
-    s_cache = cache_from_jax(pool)
+    s_cache = cache_from_jax(pool, device="cpu")
     sx, entries = T.prefill_group(params, torch.from_numpy(x_p),
                                   torch.from_numpy(positions), rep, cfg)
     for j, entry in enumerate(entries):
