@@ -21,14 +21,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bullet kernels bit-equal to flash + their decode kernel at every
    decode_share of the tile table, fp32 and bf16 (flash's bf16 body runs
    on the tensor cores, both decode kernels' bf16 body is split across
-   CTAs);
+   CTAs); both fused kernels' SM partition read from the launch's record
+   at the serving shape, fp32 and bf16, decode_share in {0, 0.25, 0.5,
+   0.75, 1}: every item ran once, the SMs that took decode items from
+   their own queue are at most n_dec_sm, all of rank below it, and none
+   of them took prefill items from its own queue;
    median times over CUDA events (L2 flushed before each launch), in bf16
    and, for the kernels whose fp32 body differs, in fp32 (rows named
    ``*_fp32``), beside each kernel's bound and the library yardstick (for
    decode the faster of masked SDPA on K/V expanded to every query head
    and SDPA with enable_gqa on the cache as it is), flash's achieved
-   TFLOP/s, and bf16 paged and dense decode timed at forced piece counts
-   beside split_count's pick; then the SSD scan (phase 8's shapes; the
+   TFLOP/s, bf16 paged and dense decode timed at forced piece counts
+   beside split_count's pick, and the paged fused kernel timed (card time
+   alone, the timer's ``hold``) at the serving shape at each decode_share
+   of SWEEP_SHARES beside flash + paged decode launched apart; then the SSD scan (phase 8's shapes; the
    bf16 body also against its plain mirror ``ref.ssd_scan_tc_ref`` within
    2^-7 (y) and 1e-5 (state), timed in both dtypes and in bf16 at each P
    slice of its output kernel), the
@@ -42,21 +48,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
-   share;
+   share, each at most COLOCATED_LIMIT times flash + dense decode launched
+   apart (both card time alone, the timer's ``hold``);
 5. reference: a 2-layer cut of Qwen3-1.7B at full width, fp32, prefill +
    decode on the card (kernels) against the same on the CPU (plain
    versions);
 6. serve: Qwen3-1.7B at full width and depth, bf16, seeded random
    weights, 12 requests through BulletServer fused (the default) with the
-   launch counters read around that run, then serial: identical streams;
+   launch counters read around that run and the decode_share of each
+   fused cycle counted, then serial: identical streams;
    then the same requests under the scheduler's defaults (its fused
    share); then 4 of them on the dense slot cache in bf16 (the bf16 dense
    decode kernel's launches); then a torch.profiler window over 30 fused cycles (device time
    by kernel kind, device busy share);
 7. replay: Qwen3-1.7B at full width and depth through the OnlineFrontend
-   on a ShareGPT-shaped trace, with observability: (a) a fault-free
-   virtual-clock replay; (b) the same under a fault plan that walks the
-   SLO guard fused→serial→dense and back, invariants audited every cycle,
+   on a ShareGPT-shaped trace, with observability (the decode_share of
+   each fused cycle counted): (a) a fault-free virtual-clock replay; (b)
+   the same under a fault plan that walks the SLO guard
+   fused→serial→dense and back, invariants audited every cycle,
    streams equal to (a)'s; (c) the dense slot cache serving the same
    requests, streams equal to (a)'s; (d) a wall-clock replay in bf16;
 8. Mamba-2 (the SSD chunk scan kernel, checked in phase 3 at Mamba-2-2.7B's
@@ -97,6 +106,7 @@ last line the device summary as JSON.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -153,6 +163,14 @@ RG_STATE_TOL = 1e-5
 #: where the window spans 3 blocks; each phase prints what a result one key
 #: short reads in the same units, well above this
 RG_ATTN_ULPS = 4
+#: decode_share values of the paged fused kernel's sweep at the serving
+#: shape
+SWEEP_SHARES = (0.0, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
+#: the colocated gate: the dense fused launch at any share within this
+#: many times flash + dense decode launched apart (both the timer's
+#: medians of card time; the margin covers the swing of rows under 0.1 ms between runs,
+#: up to 61%)
+COLOCATED_LIMIT = 3.0
 
 
 def fail(msg: str) -> None:
@@ -173,21 +191,32 @@ def log(msg: str) -> None:
 # timing
 # ---------------------------------------------------------------------------
 
+#: cycles (about 0.5 ms) a held timing keeps the stream busy before the
+#: call, longer than any wrapper here takes to enqueue its launches
+HOLD_CYCLES = 1_000_000
+
+
 class Timer:
     """Median milliseconds of one call over CUDA events; a 256 MiB buffer
     is rewritten before every timed call so each starts with a cold L2,
-    as a layer's attention does in the model."""
+    as a layer's attention does in the model. The events bracket the time
+    the host takes to enqueue the call as well as the card's work, unless
+    the call is timed with ``hold``: then the stream is held busy
+    (``torch.cuda._sleep``) while the host enqueues the events and the
+    call, so they bracket the card's work alone."""
 
     def __init__(self, reps: int = 15):
         self.reps = reps
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, hold: bool = False) -> float:
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
+            if hold:
+                torch.cuda._sleep(HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -257,6 +286,57 @@ def sdpa_yardsticks(timer, q, k, v, mask, g):
 
 def esize(dtype) -> int:
     return torch.tensor([], dtype=dtype).element_size()
+
+
+def schedule_gate(sched, what: str) -> str:
+    """Fails unless one fused launch's record (a bullet_attention.Schedule)
+    shows the SM partition: every item ran exactly once, each SM id had one
+    rank, the SMs that took decode items from their own queue are at most
+    n_dec_sm and all of rank below it, and the SMs that took prefill items
+    from their own queue are all of rank n_dec_sm or more. Returns what the
+    record shows."""
+    rec = sched.record.cpu()
+    n_dec = sched.n_dec
+    check(bool((rec[:, 0] == 1).all()), f"{what}: an item ran other than "
+          "once")
+    rank_of = {}
+    for smid, rank in rec[:, 2:4].tolist():
+        check(rank_of.setdefault(smid, rank) == rank,
+              f"{what}: SM {smid} has two ranks")
+    own = rec[:, 4] == 1
+    dec_own = {int(x) for x in rec[:n_dec, 2][own[:n_dec]]}
+    pre_own = {int(x) for x in rec[n_dec:, 2][own[n_dec:]]}
+    check(len(dec_own) <= sched.n_dec_sm
+          and all(rank_of[x] < sched.n_dec_sm for x in dec_own),
+          f"{what}: decode items from the decode queue on {len(dec_own)} "
+          f"SMs, n_dec_sm {sched.n_dec_sm}")
+    check(all(rank_of[x] >= sched.n_dec_sm for x in pre_own),
+          f"{what}: a decode SM took prefill items from its own queue")
+    return (f"{len(dec_own)} SMs took decode items from their own queue "
+            f"(n_dec_sm {sched.n_dec_sm} of {sched.n_sm}), {len(pre_own)} "
+            f"prefill; {int((~own[:n_dec]).sum())} of {n_dec} decode and "
+            f"{int((~own[n_dec:]).sum())} of {len(rec) - n_dec} prefill "
+            f"items taken from the other queue; {len(rank_of)} SMs ran items")
+
+
+def share_histogram(shares) -> str:
+    """decode_share: number of fused cycles, over the shares of a run's
+    fused cycles."""
+    counts = collections.Counter(round(x, 4) for x in shares)
+    return ", ".join(f"{k:.4f}: {n}" for k, n in sorted(counts.items())) \
+        or "none"
+
+
+class FusedShares:
+    """A serve audit: the decode_share of each fused cycle."""
+
+    def __init__(self):
+        self.shares, self.seen = [], 0
+
+    def __call__(self, srv) -> None:
+        if srv.stats.fused_cycles > self.seen:
+            self.seen = srv.stats.fused_cycles
+            self.shares.append(srv.rm.executable().decode_share)
 
 
 # ---------------------------------------------------------------------------
@@ -649,6 +729,29 @@ def phase_kernels(timer: Timer):
             f"at all {len(shares)} tile-table shares, linear and ring; "
             f"max|kernel-plain| = {e:.3e}")
 
+    # -- the SM partition of both fused kernels, from the launch's record,
+    # at the serving shape: the longest prompt and the 8-slot decode batch
+    for dtype in (torch.float32, torch.bfloat16):
+        qp, kpp, vpp = flash_inputs(gen, 1, MAX_LEN, dtype)
+        fo = FA.flash_attention(qp, kpp, vpp, group=G)
+        dec = {"paged": decode_inputs(gen, dtype),
+               "dense": dense_inputs(gen, dtype, False)}
+        for kind, args in dec.items():
+            fused = (BA.bullet_attention_paged if kind == "paged"
+                     else BA.bullet_attention)
+            do = (PD.paged_decode_attention(*args) if kind == "paged"
+                  else DA.decode_attention(*args))
+            for share in (0.0, 0.25, 0.5, 0.75, 1.0):
+                op, od, sched = fused(qp, kpp, vpp, *args,
+                                      decode_share=share, group=G,
+                                      record=True)
+                torch.cuda.synchronize()
+                what = f"{kind} bullet {str(dtype)[6:]} share {share}"
+                check(torch.equal(op, fo) and torch.equal(od, do),
+                      f"{what}: not bit-equal to flash + decode")
+                log(f"{what} at the serving shape: "
+                    f"{schedule_gate(sched, what)}")
+
     # -- timings at the serving shapes: bf16 (the bodies the served model
     # runs) and fp32 (the first CUDA-core bodies, which the fp32 replays
     # and references run)
@@ -754,8 +857,21 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
     # one function over both phases' inputs: max(sum of bytes / rate,
     # sum of operations / peak)
     bms, bby = bound_ms(nb + nb_d, no + no_d, dt)
+    n_sm = DA.sm_count(torch.cuda.current_device())
+    n_dec_sm = BA.decode_sms(share, n_sm, True, True)
     n_ctas = BA.grid_ctas(torch.cuda.current_device(), code, D, G, PS)
-    n_dec = BA.decode_ctas(share, n_ctas, True, True)
+    apart = timer(lambda: (FA.flash_attention(q, k, v, group=G),
+                           PD.paged_decode_attention(qd, kpg, vpg, bt, pos)),
+                  hold=True)
+
+    def fused_at(x):
+        return timer(lambda: BA.bullet_attention_paged(
+            q, k, v, qd, kpg, vpg, bt, pos, decode_share=x, group=G),
+            hold=True)
+    sweep = ", ".join(f"{x}: {fused_at(x):.4f}" for x in SWEEP_SHARES)
+    log(f"bullet_attention_paged{sfx} at the serving shape, card ms by "
+        f"decode_share: {sweep}; flash + paged decode launched apart "
+        f"{apart:.4f}")
     rows.append(dict(
         name="bullet_attention_paged" + sfx, route="cuda", source=src,
         replaces="src/repro/kernels/bullet_attention.py:260",
@@ -766,11 +882,10 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
         bound_ms=bms, bound_by=bby, library_ms=None,
         max_abs_err=err[("bullet", dt)],
         shape=f"flash Bp=1 S=1000 + decode as above, decode_share={share}: "
-              f"{n_dec} of {n_ctas} CTAs decode, {tag}"))
+              f"{n_dec_sm} of {n_sm} SMs decode first, {n_ctas} CTAs, {tag}"))
     bms, bby = bound_ms(nb + nb_dd, no + no_dd, dt)
     n_ctas = BA.grid_ctas(torch.cuda.current_device(), code, D, G, PS,
                           dense=True)
-    n_dec = BA.decode_ctas(share, n_ctas, True, True)
     rows.append(dict(
         name="bullet_attention" + sfx, route="cuda", source=src,
         replaces="src/repro/kernels/bullet_attention.py:361",
@@ -781,7 +896,8 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
         bound_ms=bms, bound_by=bby, library_ms=None,
         max_abs_err=err[("bullet_dense", dt)],
         shape=f"flash Bp=1 S=1000 + dense decode as above, decode_share="
-              f"{share}: {n_dec} of {n_ctas} CTAs decode, {tag}"))
+              f"{share}: {n_dec_sm} of {n_sm} SMs decode first, {n_ctas} "
+              f"CTAs, {tag}"))
     return rows
 
 
@@ -1092,6 +1208,7 @@ def phase_colocated(timer: Timer) -> dict:
         n_ctas = BA.grid_ctas(torch.cuda.current_device(),
                               int(dtype == torch.bfloat16), D, G, PS,
                               dense=True)
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
         BA.dense_launches = 0
         outs = {}
         for share in (0.0, 0.25, 0.5, 0.75, 1.0):
@@ -1099,21 +1216,29 @@ def phase_colocated(timer: Timer) -> dict:
                 qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share)
         n = launches[dtype] = BA.dense_launches
         check(n == 5, f"colocated {dtype}: {n} fused launches, want 5")
+        # card time (held), so the gate compares kernels and not the
+        # wrappers' Python, which the host's shared cores stretch at random
+        apart = timer(lambda: (ops.flash_attention_op(qp, kp, vp),
+                               ops.decode_attention_op(qd, kd, vd, kvpos,
+                                                       pos)), hold=True)
+        log(f"colocated {str(dtype)[6:]}: flash + dense decode launched "
+            f"apart {apart:.4f} ms of card time; {n_ctas} CTAs on {n_sm} "
+            f"SMs fused")
         for share, (op, od) in outs.items():
             check(torch.equal(op, ref_p) and torch.equal(od, ref_d),
                   f"colocated {dtype} share {share}: not bit-equal to flash "
                   "+ dense decode")
             ms = timer(lambda: ops.bullet_attention_op(
-                qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share))
-            n_dec = BA.decode_ctas(share, n_ctas, True, True)
+                qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share),
+                hold=True)
+            n_dec_sm = BA.decode_sms(share, n_sm, True, True)
             log(f"colocated {str(dtype)[6:]} decode_share={share:4.2f}: "
-                f"{n_dec:3d} of {n_ctas} CTAs decode, {ms:.4f} ms, bit-equal "
-                f"to flash + dense decode")
-        apart = timer(lambda: (ops.flash_attention_op(qp, kp, vp),
-                               ops.decode_attention_op(qd, kd, vd, kvpos,
-                                                       pos)))
-        log(f"colocated {str(dtype)[6:]}: flash + dense decode launched "
-            f"apart {apart:.4f} ms")
+                f"{n_dec_sm:3d} of {n_sm} SMs decode first, {ms:.4f} ms "
+                f"({ms / apart:.2f}x apart), bit-equal to flash + dense "
+                f"decode")
+            check(ms <= COLOCATED_LIMIT * apart,
+                  f"colocated {dtype} share {share}: {ms:.4f} ms, more than "
+                  f"{COLOCATED_LIMIT:g}x the {apart:.4f} ms launched apart")
     return launches
 
 
@@ -1346,8 +1471,9 @@ def phase_serve(card: str):
     _serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
 
     FA.launches = PD.launches = BA.launches = 0
+    fused_shares = FusedShares()
     server, secs, cycles = _serve(cfg, params, prompts, out_lens.tolist(),
-                                  arrivals, fused=True)
+                                  arrivals, fused=True, audit=fused_shares)
     launches = {"flash_attention": FA.launches,
                 "paged_decode_attention": PD.launches,
                 "bullet_attention_paged": BA.launches}
@@ -1366,6 +1492,8 @@ def phase_serve(card: str):
     log(f"serve fused: {n_tok} tokens in {secs:.3f} s = "
         f"{n_tok / secs:.1f} tok/s, {cycles} cycles, stats {vars(st)}, "
         f"launches {launches}, KV pool clean: True  [{card}]")
+    log(f"serve fused: decode_share of the fused cycles: "
+        f"{share_histogram(fused_shares.shares)}")
 
     serial, s_secs, s_cycles = _serve(cfg, params, prompts,
                                       out_lens.tolist(), arrivals,
@@ -1460,6 +1588,8 @@ def _replay(cfg, params, dtype, *, paged=True, plan=None, wall=False,
         t = time.perf_counter()
         check(len(records) < 50_000, "replay did not drain")
         records.append(dict(fused=srv.last_fused,
+                            share=(srv.rm.executable().decode_share
+                                   if srv.last_fused else None),
                             prefill=srv.last_prefill_tokens,
                             decode=srv.last_decode is not None,
                             wall=t - last[0]))
@@ -1550,6 +1680,8 @@ def phase_replay(card: str) -> dict:
         f"{vars(a.stats)}, launches {la}, first fused cycle {first_fused}, "
         f"decode-only cycle {_decode_only_ms(rec_a):.1f} ms wall (paged)  "
         f"[{card}]")
+    log(f"  decode_share of the fused cycles: "
+        f"{share_histogram(r['share'] for r in rec_a if r['fused'])}")
 
     # (b) the same trace under a fault plan: two failed fused dispatches
     # (fused→serial), then two failed prefill dispatches of the serial path
@@ -1626,6 +1758,8 @@ def phase_replay(card: str) -> dict:
     log(f"replay (d) wall clock, bf16: {md.row()}  [{card}]")
     log(f"  {len(rec_d)} cycles in {secs_d:.1f} s, stats {vars(d.stats)}, "
         f"decode-only cycle {_decode_only_ms(rec_d):.1f} ms wall  [{card}]")
+    log(f"  decode_share of the fused cycles: "
+        f"{share_histogram(r['share'] for r in rec_d if r['fused'])}")
     return lb
 
 

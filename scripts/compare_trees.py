@@ -5,37 +5,70 @@
 Runs, in the order other, this, this, other: ``chip_smoke.py
 --kernels-only`` of each checkout (each builds its own kernels under its
 own ``build/``), then a dump of the SSD scan's outputs on seeded inputs at
-Mamba-2-2.7B's shapes (fp32 and bf16; B in {1, 4}, S in {1000, 200})
-through that checkout's wrapper. Prints every kernel row's time per turn;
-for each SSD case whether y and the final state are bit-equal between the
-checkouts and between the two turns of each; and which kernels' machine
-code (``cuobjdump -sass`` of the two built libraries) differs. Logs go to
-``chiprun_out/compare/``, the dumps to ``build/compare/``.
+Mamba-2-2.7B's shapes (fp32 and bf16; B in {1, 4}, S in {1000, 200}) and
+of flash prefill at the serving shape (S=1000, 16 heads on 8, both
+dtypes) through that checkout's wrappers, then the fused kernels 3 and 5
+through that checkout's wrappers, timed by the same code for both
+(``fused``), in bf16 and fp32: at the serving shape (``chip_smoke.py``'s
+flash Bp=1 S=1000 with its 8-slot paged and dense decode batches,
+decode_share 0.5) beside flash + paged decode launched apart, each as the
+card's time alone (this checkout's ``chip_smoke.Timer`` with ``hold``:
+the stream is held busy while the host enqueues, so the events bracket
+the kernel and not the wrapper's Python),
+torch.profiler's device µs per launch, and the wrapper's host µs per
+call (``host_us``); the paged one at the serving shape over ``SHARES``;
+the dense one over the colocated shape's shares beside its two kernels
+launched apart; and, where the wrapper records its launch, item spans of
+recorded launches (``spans``). Prints every kernel row's time
+per turn; for each SSD and flash case whether the outputs are bit-equal
+between the checkouts and between the two turns of each; the fused
+timings per turn; and which kernels' machine code (``cuobjdump -sass`` of
+the two built libraries) differs. Logs go to ``OUT`` (a ``compare/``
+folder in the checkout's output directory), the dumps to
+``build/compare/``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "chiprun_out", "compare")
 DUMPS = os.path.join(ROOT, "build", "compare")
 CASES = ((1, 1000), (4, 1000), (4, 200), (1, 200))
+#: decode_share values of the paged fused kernel's sweep at the serving
+#: shape: chip_smoke.py's SWEEP_SHARES and the shares (of 132 SMs) at which
+#: its serve and replay (a) ran their fused cycles most often
+SHARES = (0.0, 0.0606, 0.0909, 0.1, 0.1212, 0.25, 0.3182, 0.4697, 0.5,
+          0.6515, 0.75, 0.9, 1.0)
+#: recorded launches whose spans' medians ``fused`` reports
+RECORDED = 5
 
 
 def dump(tree: str, path: str) -> None:
-    """Seeded SSD scan outputs of ``tree``'s wrapper, saved to ``path``
-    (run in a process of its own, with ``tree/src`` first on the path)."""
+    """Seeded SSD scan and flash prefill outputs of ``tree``'s wrappers,
+    saved to ``path`` (run in a process of its own, with ``tree/src``
+    first on the path)."""
     import torch
     sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as SK
     assert SK.__file__.startswith(tree), SK.__file__
     out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v = (torch.randn(n, 1000, 128, generator=gen,
+                               device="cuda").to(dtype) for n in (16, 8, 8))
+        out[f"flash {str(dtype)[6:]} S=1000"] = (
+            FA.flash_attention(q, k, v, group=2).cpu(),)
     for dtype in (torch.float32, torch.bfloat16):
         for b, s in CASES:
             gen = torch.Generator(device="cuda").manual_seed(1000 * b + s)
@@ -51,8 +84,148 @@ def dump(tree: str, path: str) -> None:
                 chunk=256)
             y, st = SK.ssd_scan(xw, cum, bm, cm)
             torch.cuda.synchronize()
-            out[f"{str(dtype)[6:]} B={b} S={s}"] = (y.cpu(), st.cpu())
+            out[f"ssd_scan {str(dtype)[6:]} B={b} S={s}"] = (y.cpu(),
+                                                              st.cpu())
     torch.save(out, path)
+
+
+def smoke_timer():
+    """This checkout's ``chip_smoke.Timer``, loaded from its file under
+    another name, so the same timing code serves both checkouts: call it
+    before the other checkout's modules are imported and put on the path
+    (chip_smoke.py puts its own ``src`` first on the path)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "compare_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.Timer()
+
+
+def profiled_us(fn, key: str, n: int = 20) -> float:
+    """Device µs per launch of the kernels whose name holds ``key``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    tot = 0.0
+    for ev in prof.key_averages():
+        if key in ev.key:
+            tot += getattr(ev, "device_time_total", None) or \
+                ev.cuda_time_total
+    return tot / n
+
+
+def host_us(fn, n: int = 20, batches: int = 25) -> float:
+    """The wrapper's host µs per call: the least over ``batches`` of n
+    calls enqueued back to back, each batch started on an idle card (the
+    least, since the host's cores are shared and a batch the OS
+    interrupts reads long)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return min(times)
+
+
+def spans(sched) -> dict:
+    """µs from the first item's start, read from one recorded launch's
+    %globaltimer stamps: its span, the end of its last decode item, and
+    its longest prefill item."""
+    rec = sched.record.cpu().long()
+    t0 = int(rec[:, 5].min())
+    start = (rec[:, 5] - t0) % (1 << 32)
+    end = (rec[:, 6] - t0) % (1 << 32)
+    pre = slice(sched.n_dec, len(rec))
+    return {"span": int(end.max()) / 1e3,
+            "decode end": int(end[:sched.n_dec].max()) / 1e3,
+            "longest prefill item": int((end[pre] - start[pre]).max()) / 1e3}
+
+
+def fused(tree: str, path: str) -> None:
+    """The fused kernels of ``tree``'s wrappers, timed by the same code
+    for both checkouts (``smoke_timer``, ``profiled_us``, ``host_us``; run
+    in a process of its own, with ``tree`` and its ``src`` first on the
+    path), saved to ``path`` as JSON. Where the checkout's wrapper
+    records its launch, also the medians of ``spans`` over RECORDED
+    launches at the serving shape, bf16, share 0.5."""
+    import torch
+    timer = smoke_timer()
+    sys.path.insert(0, tree)
+    import chip_smoke as CS
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    assert BA.__file__.startswith(tree) and CS.__file__.startswith(tree)
+
+    def device_ms(fn):
+        return timer(fn, hold=True)
+    G, h, kh, d = CS.G, CS.H, CS.K, CS.D
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt)[6:]
+        gen = torch.Generator(device="cuda").manual_seed(18)
+        q, k, v = CS.flash_inputs(gen, 1, CS.MAX_LEN, dt)
+        dec = CS.decode_inputs(gen, dt)
+        dense = CS.dense_inputs(gen, dt, False)
+        for name, fn, key in (
+                ("bullet_attention_paged", lambda: BA.bullet_attention_paged(
+                    q, k, v, *dec, decode_share=0.5, group=G), "bullet"),
+                ("bullet_attention", lambda: BA.bullet_attention(
+                    q, k, v, *dense, decode_share=0.5, group=G), "bullet"),
+                ("flash + paged decode apart", lambda: (
+                    FA.flash_attention(q, k, v, group=G),
+                    PD.paged_decode_attention(*dec)), "kernel")):
+            what = f"{name} {tag}, serving shape, share 0.5"
+            out[f"{what}: device ms"] = device_ms(fn)
+            out[f"{what}: profiled us"] = profiled_us(fn, key)
+            out[f"{what}: host us"] = host_us(fn)
+        for x in SHARES:
+            out[f"bullet_attention_paged {tag}, serving shape, share {x}: "
+                "device ms"] = device_ms(
+                lambda: BA.bullet_attention_paged(
+                    q, k, v, *dec, decode_share=x, group=G))
+        if dt == torch.bfloat16 and hasattr(BA, "Schedule"):
+            got = []
+            for _ in range(RECORDED):
+                *_, sched = BA.bullet_attention_paged(
+                    q, k, v, *dec, decode_share=0.5, group=G, record=True)
+                torch.cuda.synchronize()
+                got.append(spans(sched))
+            for key in got[0]:
+                out[f"recorded launch {tag}, serving shape, share 0.5: "
+                    f"{key} us"] = statistics.median(g[key] for g in got)
+        qc = torch.randn(2 * h, 256, d, generator=gen, device="cuda").to(dt)
+        kc = torch.randn(2 * kh, 256, d, generator=gen, device="cuda").to(dt)
+        vc = torch.randn(2 * kh, 256, d, generator=gen, device="cuda").to(dt)
+        qd = torch.randn(8, kh, G, d, generator=gen, device="cuda").to(dt)
+        kd = torch.randn(8, 512, kh, d, generator=gen, device="cuda").to(dt)
+        vd = torch.randn(8, 512, kh, d, generator=gen, device="cuda").to(dt)
+        kvpos = torch.arange(512, dtype=torch.int32,
+                             device="cuda")[None].expand(8, 512).contiguous()
+        pos = torch.randint(64, 512, (8,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        out[f"colocated {tag}, apart: device ms"] = device_ms(lambda: (
+            FA.flash_attention(qc, kc, vc, group=G),
+            DA.decode_attention(qd, kd, vd, kvpos, pos)))
+        for x in (0.0, 0.25, 0.5, 0.75, 1.0):
+            out[f"colocated {tag}, share {x}: device ms"] = device_ms(
+                lambda: BA.bullet_attention(
+                    qc, kc, vc, qd, kd, vd, kvpos, pos, decode_share=x,
+                    group=G))
+    with open(path, "w") as f:
+        json.dump(out, f)
 
 
 def rows(log: str) -> dict:
@@ -70,7 +243,9 @@ def rows(log: str) -> dict:
 def sass(tree: str) -> dict:
     """Kernel -> its SASS, from the library ``tree`` built; the hash nvcc
     gives each source's anonymous namespace, which names the checkout's
-    path, is dropped."""
+    path, is dropped, and runs of blanks are one (cuobjdump pads every
+    line to the longest in the library, so a kernel added elsewhere would
+    shift the columns of all the others)."""
     lib_dir = os.path.join(tree, "build", "repro_torch_kernels")
     lib = [f for f in os.listdir(lib_dir) if f.endswith(".so")]
     assert len(lib) == 1, lib
@@ -85,7 +260,7 @@ def sass(tree: str) -> dict:
             name = m.group(1)
             out[name] = []
         elif name is not None:
-            out[name].append(ln)
+            out[name].append(" ".join(ln.split()))
     return out
 
 
@@ -93,13 +268,16 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--dump":
         dump(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--fused":
+        fused(os.path.abspath(sys.argv[2]), sys.argv[3])
+        return 0
     import torch
     other = os.path.abspath(sys.argv[1])
     os.makedirs(OUT, exist_ok=True)
     os.makedirs(DUMPS, exist_ok=True)
     turns = [("other", other), ("this", ROOT), ("this", ROOT),
              ("other", other)]
-    logs, dumps = [], []
+    logs, dumps, timings = [], [], []
     for i, (tag, tree) in enumerate(turns):
         log = os.path.join(OUT, f"{i}_{tag}.log")
         with open(log, "w") as f:
@@ -114,11 +292,19 @@ def main() -> int:
                         tree, path], check=True)
         logs.append(rows(log))
         dumps.append(torch.load(path))
+        path = os.path.join(DUMPS, f"{i}_{tag}_fused.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--fused", tree, path], check=True)
+        with open(path) as f:
+            timings.append(json.load(f))
     print("row (ms): " + " / ".join(f"{i} {t}" for i, (t, _) in
                                     enumerate(turns)))
     for name in logs[1]:
         print(f"{name}: " + " / ".join(
             f"{r[name]:.4f}" if name in r else "-" for r in logs))
+    for key in timings[1]:
+        print(f"{key}: " + " / ".join(
+            f"{t[key]:.4f}" if key in t else "-" for t in timings))
     a, b = sass(other), sass(ROOT)
     common = sorted(set(a) & set(b))
     differ = [k for k in common if a[k] != b[k]]
@@ -129,7 +315,7 @@ def main() -> int:
         same = [all(torch.equal(a, b) for a, b in zip(dumps[i][key],
                                                       dumps[j][key]))
                 for i, j in ((0, 1), (1, 2), (0, 3))]
-        print(f"ssd_scan {key}: y and state bit-equal other/this {same[0]}, "
+        print(f"{key}: outputs bit-equal other/this {same[0]}, "
               f"this/this {same[1]}, other/other {same[2]}")
     return 0
 

@@ -7,8 +7,9 @@ Eq. 2 (partitioned, co-located execution):
 
 On the H100 the partitionable unit is the paper's own: one SM, so
 ``units_per_chip`` is the card's SM count. The fused kernel gives the
-share ``decode_share`` of the CTAs of one persistent launch (SMs × CTAs
-per SM) to decode and the rest to prefill; CTAs are not pinned to SMs. The decay factors d_c(u), d_b(u) model the sub/super-linear scaling
+share ``decode_share`` of the SMs of one persistent launch to decode and
+the rest to prefill: each CTA reads its SM's id, and an SM's CTAs take
+their own phase's items first and the other's once those run out. The decay factors d_c(u), d_b(u) model the sub/super-linear scaling
 of compute and bandwidth with the partition fraction u = m/M (paper Fig. 7),
 and p_c, p_b model co-location contention. All four are fitted from
 profiles (offline profiling, §3.2.2); until the port runs that sweep on the

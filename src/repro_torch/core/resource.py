@@ -5,9 +5,9 @@ among them in ~4 µs. The port keeps a table of *pre-configured
 execution states* at two granularities:
 
 - **tile granularity**: one fused-step launcher per quantized
-  ``decode_share`` — the share of the fused attention kernel's CTAs, one
-  per SM, that take decode work (both phases co-resident on the card,
-  Eq. 2 contention applies);
+  ``decode_share`` — the share of the SMs whose CTAs in the fused
+  attention kernel take decode work first (both phases co-resident on
+  the card, Eq. 2 contention applies);
 - **chip granularity**: one pjit executable pair per (prefill sub-mesh,
   decode sub-mesh) split of the device group (launch/submesh.py) — the
   phases run on disjoint chips with no co-location contention, and a

@@ -49,10 +49,11 @@ SIGNATURES = {
     "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
-                                  + [_I] * 10 + [_P],
+                                  + [_I] * 9 + [_P, _P] + [_I] * 2 + [_P],
     "decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "decode_attention_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
-    "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9 + [_I] * 9 + [_P],
+    "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9 + [_I] * 8
+                            + [_P, _P] + [_I] * 2 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
     "split_decode_ctas_per_sm": [_I, _I, ctypes.POINTER(_I)],
     "ssd_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],

@@ -85,32 +85,49 @@
 // bullet_attention_paged_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:260
 //   `bullet_attention_paged` (pl.pallas_call at :305). One persistent
-//   launch of n_ctas CTAs, as many as the card holds at once
-//   (n_SM x bullet_ctas_per_sm): CTAs [0, n_dec) loop over the decode items
-//   and CTAs [n_dec, n_ctas) over the prefill items, so decode_share is a
-//   share of the launch's CTAs, n_dec / n_ctas. The hardware places CTAs on
-//   SMs itself: nothing pins the decode CTAs to particular SMs (libsmctrl
-//   or a %smid check would), so this is the paper's SM partition only
-//   while every SM holds the same number of CTAs. Bound: one function over
-//   both phases' inputs, max(sum of bytes / HBM rate, sum of operations /
-//   peak rate): decode's bytes and prefill's operations can overlap on
-//   disjoint CTAs, so the fused launch can beat the two launches' bounds
-//   added. Sizing the grid by the occupancy keeps prefill items at the
-//   standalone flash kernel's CTAs per SM. Its per-item bodies are the
-//   standalone kernels' device functions at the same block size; in bf16
-//   its decode CTAs loop over the same (slot, kv head, piece) items as the
-//   standalone split launch (the wrapper sizes both with one call), so its
-//   outputs equal flash_attention_fwd + the paged decode wrapper's launch
-//   bit for bit at every decode_share.
+//   launch partitioned by SM, not by CTA index: each CTA reads %smid, the
+//   first CTA to arrive on an SM gives it a dense rank through a table
+//   indexed by %smid (SM ids need not be contiguous, so a threshold on
+//   %smid itself would miscount), and the SMs of rank < n_dec_sm are
+//   decode SMs, the rest prefill SMs, so decode_share is a share of the
+//   SMs, n_dec_sm / n_SM. Work comes from two queues, one atomic ticket
+//   counter per phase. A CTA of a decode SM takes decode items until that
+//   queue is empty and leaves; a CTA of a prefill SM takes prefill items,
+//   then decode leftovers. The grid holds as many CTAs as the card runs at
+//   once (n_SM x bullet_ctas_per_sm) and, while both phases have work, as
+//   many more as the decode SMs hold: these start in the slots the
+//   leaving decode CTAs free and take the prefill leftovers. So a decode
+//   item never waits behind a prefill item on a decode SM, and no slot
+//   idles while an item is queued (work-conserving, as the TPU kernel's
+//   schedule appends the leftovers of either stream). Prefill tickets walk
+//   the query tiles heaviest first (by the key tiles each attends; heads
+//   inner), and the CTAs on an SM take that queue's heavy and light end in
+//   turn: the longest causal tiles start first, and not two on one SM
+//   (two CTAs share an SM). The tickets, the rank
+//   table and a count of the CTAs that have left live in a workspace the
+//   wrapper keeps per (device, stream); it is zero at launch and the last
+//   CTA to leave zeroes it again, so no launch needs a memset. Where the
+//   caller passes a record, each ticket writes what ran it (see Sched).
+//   Bound: one function over both phases' inputs, max(sum of bytes / HBM
+//   rate, sum of operations / peak rate): decode's bytes and prefill's
+//   operations can overlap on disjoint SMs, so the fused launch can beat
+//   the two launches' bounds added. Its per-item bodies are the standalone
+//   kernels' device functions at the same block size; in bf16 also at the
+//   same CTAs per SM (two, as flash_kernel's), while the fp32 kernel's
+//   schedule raises its registers above flash_kernel's (two CTAs an SM
+//   where the standalone fp32 flash kernel runs three); in bf16 its decode
+//   items are the same (slot, kv head, piece) items as the
+//   standalone split launch's (the wrapper sizes both with one call), so
+//   its outputs equal flash_attention_fwd + the paged decode wrapper's
+//   launch bit for bit at every decode_share, whichever CTA ran an item.
 //
 // bullet_attention_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:361 `bullet_attention`
-//   (pl.pallas_call at :400): the same persistent launch with the dense
-//   decode body in place of the paged one; its decode CTAs loop over the
-//   same (slot, kv head, piece) items as the standalone split launch, so
-//   its outputs equal flash_attention_fwd + the dense decode wrapper's
-//   launch bit for bit at every decode_share. Bound: as
-//   bullet_attention_paged_fwd.
+//   (pl.pallas_call at :400): the same persistent launch and schedule with
+//   the dense decode body in place of the paged one; its decode items are
+//   the standalone split launch's, so its outputs equal
+//   flash_attention_fwd + the dense decode wrapper's launch bit for bit at
+//   every decode_share. Bound: as bullet_attention_paged_fwd.
 
 #include <cmath>
 #include <type_traits>
@@ -179,27 +196,237 @@ __global__ void __launch_bounds__(THREADS, 2)
   split_decode_item<D>(a, blockIdx.x, smem);
 }
 
-template <typename T, int D, typename DA>
-__device__ __forceinline__ void bullet_body(const FlashArgs &fa, const DA &da,
-                                            int n_dec, unsigned char *smem) {
-  const int cta = blockIdx.x;
-  if (cta < n_dec) {
-    const int n_items = decode_items<T>(da);
-    for (int item = cta; item < n_items; item += n_dec)
-      decode_body<T, D>(da, item, smem);
+// ---- the fused launches' schedule ------------------------------------------
+
+#if !defined(SCHED_SMS)
+#error "SCHED_SMS comes from the build (geometry.py)"
+#endif
+
+// words of the schedule workspace (SCHED_WORDS in geometry.py): zero at
+// launch, zeroed again by the last CTA to leave
+constexpr int WS_DEC = 0;       // decode tickets taken
+constexpr int WS_PRE = 2;       // prefill tickets taken (64 bits, aligned)
+constexpr int WS_LEFT = 4;      // CTAs that have left
+constexpr int WS_RANKS = 5;     // SMs ranked
+constexpr int WS_ARRIVED = 8;   // per SM id slot: CTAs arrived
+constexpr int WS_RANK = 8 + SCHED_SMS;  // per SM id slot: its rank + 1
+constexpr int REC = 7;          // ints a record holds per ticket
+
+// A fused launch's schedule. Decode tickets are decode items in order;
+// prefill ticket t is query tile j of head t % bh with j = t / bh taken
+// from the base order (causal: the last tile first; else the first
+// first) with its first tile moved to place `lift`, so the tickets attend
+// non-increasing numbers of key tiles (the wrapper's prefill_order
+// computes lift and mirrors this map). With a record, ticket t of the
+// decode queue (t) or the prefill queue (n_dec + t) writes REC ints: how
+// often it was taken, the body's item, the %smid that ran it, that SM's
+// rank, 1 if it came from the CTA's own queue, and the low 32 bits of
+// %globaltimer (ns) when it was taken and when its CTA asked for the next.
+struct Sched {
+  int *ws;       // the workspace, SCHED_WORDS ints
+  int *record;   // null in serving
+  int n_dec_sm;  // SMs of rank < n_dec_sm are decode SMs
+  int n_dec, n_pre;  // items of each queue
+  int lift;
+};
+
+__device__ __forceinline__ int sm_id() {
+  int v;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(v));
+  return v;
+}
+__device__ __forceinline__ int n_sm_ids() {
+  int v;
+  asm volatile("mov.u32 %0, %%nsmid;" : "=r"(v));
+  return v;
+}
+// whether this is thread 0, read afresh: the compiler cannot merge this
+// read with the bodies' own reads of threadIdx.x, so the thread index is
+// not held in a register across a body (the bf16 bodies fill the kernel's
+// 128 registers)
+__device__ __forceinline__ bool thread0() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v == 0;
+}
+__device__ __forceinline__ int now_ns() {
+  unsigned long long v;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
+  return (int)(v & 0xffffffffu);
+}
+
+// Thread 0's schedule state, in shared memory. sched_enter copies what the
+// loops need from the launch's parameters; inside the loops thread 0 reads
+// only this copy, which the compiler cannot hoist across the loops'
+// barriers, so no address or count of the schedule is held in a register
+// across a body (the bf16 bodies fill the kernel's 128 registers).
+struct SchedState {
+  int *ws, *record;
+  int n_dec, n_pre, bh, n_qt, lift, causal;
+  int item;   // the body's item to run; -1: the queue is empty
+  int own;    // the SM's own phase: 0 decode, 1 prefill
+  int dec_left;  // 1: decode tickets were left when the CTA arrived
+  int back;   // 1: the CTA takes the prefill queue's light end
+  int smid, rank;
+  int last;   // the record entry of the CTA's last item; -1: none
+};
+
+// thread 0, once per CTA: rank this CTA's SM (the first CTA to arrive on
+// it takes the next rank, a later one waits for it: both are resident on
+// that SM, so the wait is short), pick its own phase, copy the schedule
+template <typename T>
+__device__ void sched_enter(const FlashArgs &fa, const Sched &sc,
+                            SchedState &st) {
+  const int smid = sm_id(), slot = smid % SCHED_SMS;
+  int rank;
+  const int arrived = atomicAdd(sc.ws + WS_ARRIVED + slot, 1);
+  if (arrived == 0) {
+    rank = atomicAdd(sc.ws + WS_RANKS, 1);
+    atomicExch(sc.ws + WS_RANK + slot, rank + 1);
   } else {
-    const int n_pre = gridDim.x - n_dec;
-    const int n_items = fa.bh * flash_q_tiles<T>(fa.sq);
-    for (int item = cta - n_dec; item < n_items; item += n_pre)
+    int v;
+    while ((v = atomicAdd(sc.ws + WS_RANK + slot, 0)) == 0) __nanosleep(64);
+    rank = v - 1;
+  }
+  st.ws = sc.ws;
+  st.record = sc.record;
+  st.n_dec = sc.n_dec;
+  st.n_pre = sc.n_pre;
+  st.bh = fa.bh;
+  st.n_qt = flash_q_tiles<T>(fa.sq);
+  st.lift = sc.lift;
+  st.causal = fa.causal;
+  st.own = rank < sc.n_dec_sm ? 0 : 1;
+  st.dec_left = atomicAdd(sc.ws + WS_DEC, 0) < sc.n_dec;
+  // prefill from both ends: the CTAs arriving on an SM take the heaviest
+  // ticket left and the lightest in turn (first heavy, second light), so
+  // two heavy tiles do not share an SM's tensor cores
+  st.back = arrived & 1;
+  st.smid = smid;
+  st.rank = rank;
+  st.last = -1;
+}
+
+// thread 0: a ticket of `phase`'s queue, or -1 once it is empty. The
+// prefill counter's low word counts tickets taken from the heavy end, its
+// high word those from the light end; a take is good while the two
+// together stay below the queue's length
+__device__ __forceinline__ int take(const SchedState &st, int phase) {
+  if (phase == 0) {
+    const int t = atomicAdd(st.ws + WS_DEC, 1);
+    return t < st.n_dec ? t : -1;
+  }
+  const unsigned long long got = atomicAdd(
+      reinterpret_cast<unsigned long long *>(st.ws + WS_PRE),
+      st.back ? 1ull << 32 : 1ull);
+  const int front = (int)(got & 0xffffffffu), back = (int)(got >> 32);
+  if (front + back >= st.n_pre) return -1;
+  return st.back ? st.n_pre - 1 - back : front;
+}
+
+// the body's item of prefill ticket t: query tile j of head t % bh, j =
+// t / bh in the base order with its first tile lifted (see Sched); the
+// fp32 body takes item bh * n_qt + qt, the bf16 one bh * n_qt + (n_qt - 1
+// - qt)
+template <typename T>
+__device__ __forceinline__ int prefill_item(const SchedState &st, int t) {
+  const int r = t / st.bh, h = t % st.bh;
+  const int j = r < st.lift ? r + 1 : (r == st.lift ? 0 : r);
+  const int qt = st.causal ? st.n_qt - 1 - j : j;
+  return h * st.n_qt + (is_bf16<T> ? st.n_qt - 1 - qt : qt);
+}
+
+// thread 0: the next item of `phase`'s queue into st.item (-1 if it is
+// empty), written to the record with the end of the CTA's last item
+template <typename T>
+__device__ void sched_next(SchedState &st, int phase) {
+  if (st.record != nullptr && st.last >= 0)
+    st.record[REC * st.last + 6] = now_ns();
+  const int t = take(st, phase);
+  st.last = -1;
+  st.item = t < 0 ? -1 : phase == 0 ? t : prefill_item<T>(st, t);
+  if (t >= 0 && st.record != nullptr) {
+    st.last = phase == 0 ? t : st.n_dec + t;
+    int *e = st.record + REC * st.last;
+    atomicAdd(e, 1);
+    e[1] = st.item;
+    e[2] = st.smid;
+    e[3] = st.rank;
+    e[4] = phase == st.own;
+    e[5] = now_ns();
+  }
+}
+
+// thread 0, once per CTA: the last CTA to leave zeroes the workspace for
+// the next launch (every other CTA has taken its last ticket by then)
+__device__ void sched_leave(const Sched &sc) {
+  __threadfence();
+  if (atomicAdd(sc.ws + WS_LEFT, 1) != (int)gridDim.x - 1) return;
+  __threadfence();
+  const int n = min(n_sm_ids(), SCHED_SMS);
+  for (int i = 0; i < n; ++i) {
+    sc.ws[WS_ARRIVED + i] = 0;
+    sc.ws[WS_RANK + i] = 0;
+  }
+  for (int i = 0; i < WS_ARRIVED; ++i) sc.ws[i] = 0;
+}
+
+// One CTA's items of PHASE's queue until it is empty, in the shared memory
+// every item of the CTA uses. Before each item every thread fences its
+// generic-proxy accesses to shared memory against the async proxy, so a
+// flash_tc_item's TMA writes and mbarriers never race the split decode
+// body's stores to the same bytes (and the reverse); each body starts
+// with a barrier and flash_tc_item initialises its mbarriers per item.
+template <int PHASE, typename T, int D, typename DA>
+__device__ __forceinline__ void drain(const FlashArgs &fa, const DA &da,
+                                      SchedState &st, unsigned char *smem) {
+  for (;;) {
+    if (thread0()) sched_next<T>(st, PHASE);
+    __syncthreads();
+    const int item = st.item;
+    __syncthreads();  // read by all before thread 0 writes the next
+    if (item < 0) return;
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    if constexpr (PHASE == 0)
+      decode_body<T, D>(da, item, smem);
+    else
       flash_body<T, D>(fa, item, smem);
   }
 }
 
+// One CTA of a fused launch. A CTA of a decode SM that finds decode
+// tickets left takes decode items until that queue is empty, and leaves;
+// every other CTA takes prefill items until that queue is empty, then
+// decode items. A CTA thus never runs a prefill body after a decode body:
+// the bf16 prefill body needs 127 of the kernel's 128 registers, and
+// whatever the compiler carries from a decode loop into a prefill loop
+// spills. The work still moves: the launch holds, beyond the CTAs the card
+// runs at once, as many again as the decode SMs hold (the wrapper sizes
+// the grid), and those start in the slots the leaving decode CTAs free,
+// find the decode queue empty, and take the prefill leftovers. Each queue
+// is empty for good once a take fails.
+template <typename T, int D, typename DA>
+__device__ __forceinline__ void bullet_body(const FlashArgs &fa, const DA &da,
+                                            const Sched &sc,
+                                            unsigned char *smem) {
+  __shared__ SchedState st;
+  if (thread0()) sched_enter<T>(fa, sc, st);
+  __syncthreads();
+  if (st.own == 0 && st.dec_left) {
+    drain<0, T, D>(fa, da, st, smem);
+  } else {
+    drain<1, T, D>(fa, da, st, smem);
+    drain<0, T, D>(fa, da, st, smem);
+  }
+  if (thread0()) sched_leave(sc);
+}
+
 template <typename T, int D, typename DA>
 __global__ void __launch_bounds__(THREADS)
-    bullet_kernel(const __grid_constant__ FlashArgs fa, DA da, int n_dec) {
+    bullet_kernel(const __grid_constant__ FlashArgs fa, DA da,
+                  const __grid_constant__ Sched sc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bullet_body<T, D, DA>(fa, da, n_dec, smem);
+  bullet_body<T, D, DA>(fa, da, sc, smem);
 }
 
 // bf16: at most 128 registers a thread, so two CTAs share an SM as the
@@ -209,9 +436,10 @@ __global__ void __launch_bounds__(THREADS)
 template <int D, typename DA>
 __global__ void __launch_bounds__(THREADS, 2)
     bullet_tc_kernel(const __grid_constant__ FlashArgs fa,
-                     const __grid_constant__ DA da, int n_dec) {
+                     const __grid_constant__ DA da,
+                     const __grid_constant__ Sched sc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bullet_body<bf16, D, DA>(fa, da, n_dec, smem);
+  bullet_body<bf16, D, DA>(fa, da, sc, smem);
 }
 
 // the kernel of a dtype: the fp32 ones keep the first port's launch bounds
@@ -352,16 +580,27 @@ template <typename T, typename DA> size_t bullet_smem(const DA &a, int d) {
   return f > dd ? f : dd;
 }
 
+// the schedule of a fused launch: its queues' lengths from the shapes
+template <typename T, typename DA>
+Sched make_sched(const FlashArgs &fa, const DA &da, int *ws, int *record,
+                 int n_dec_sm, int lift) {
+  return Sched{ws, record, n_dec_sm, decode_items<T>(da),
+               fa.bh * flash_q_tiles<T>(fa.sq), lift};
+}
+
 template <typename T, int D, typename DA>
-int launch_bullet(FlashArgs fa, const DA &da, int n_dec, int n_ctas,
+int launch_bullet(FlashArgs fa, const DA &da, const Sched &sc, int n_ctas,
                   cudaStream_t s) {
-  if (!encode_flash<T>(fa, D) || !split_ok<T>(da))
+  const int n_qt = flash_q_tiles<T>(fa.sq);
+  if (!encode_flash<T>(fa, D) || !split_ok<T>(da) || sc.ws == nullptr ||
+      reinterpret_cast<uintptr_t>(sc.ws) % 8 != 0 || sc.lift < 0 ||
+      (n_qt > 0 && sc.lift >= n_qt))
     return (int)cudaErrorInvalidValue;
   const size_t smem = bullet_smem<T>(da, D);
   auto kern = bullet_fn<T, D, DA>();
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<n_ctas, THREADS, smem, s>>>(fa, da, n_dec);
+  kern<<<n_ctas, THREADS, smem, s>>>(fa, da, sc);
   return (int)cudaGetLastError();
 }
 
@@ -462,21 +701,27 @@ int paged_decode_split_fwd(const void *q, const void *k_pages,
 }
 
 // bf16: the decode items are the paged split launch's, n_split pieces per
-// (slot, kv head) with its workspace (null for one piece)
+// (slot, kv head) with its workspace (null for one piece). The schedule:
+// the workspace `sched` (SCHED_WORDS ints, 8-byte aligned, zero at launch
+// and left zero), the decode SMs n_dec_sm, the prefill order's lift and
+// `record` (null, or REC ints per ticket, zero at launch)
 int bullet_attention_paged_fwd(
     const void *qp, const void *kp, const void *vp, void *op, int bh, int sp,
     int group, int causal, int window, const void *qd, const void *k_pages,
     const void *v_pages, const int *block_tables, const int *pos, void *od,
     float *ws_acc, float *ws_ml, int *counts, int b, int kh, int g, int ps,
-    int n_b, int d, int dtype, int n_split, int n_dec, int n_ctas,
-    void *stream) {
+    int n_b, int d, int dtype, int n_split, int n_ctas, int *sched,
+    int *record, int n_dec_sm, int lift, void *stream) {
   if (ps < 1) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)d);
   FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
   DecodeArgs da{qd, k_pages, v_pages, block_tables, pos, od, b, kh, g, ps,
                 n_b, scale, n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
+  DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(
+      fa, da,
+      make_sched<T>(fa, da, sched, record, n_dec_sm, lift),
+      n_ctas, s)));
 }
 
 // one item per (slot, kv head) (in bf16 the split body with one piece)
@@ -508,20 +753,26 @@ int decode_attention_split_fwd(const void *q, const void *k, const void *v,
   DISPATCH(d, dtype, (launch_decode<T, D>(a, s)));
 }
 
+// the paged fused launch over the dense cache (schedule arguments as
+// bullet_attention_paged_fwd)
 int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
                          void *op, int bh, int sp, int group, int causal,
                          int window, const void *qd, const void *kd,
                          const void *vd, const int *kv_positions,
                          const int *pos, void *od, float *ws_acc,
                          float *ws_ml, int *counts, int b, int kh, int g,
-                         int s_len, int d, int dtype, int n_split, int n_dec,
-                         int n_ctas, void *stream) {
+                         int s_len, int d, int dtype, int n_split,
+                         int n_ctas, int *sched, int *record, int n_dec_sm,
+                         int lift, void *stream) {
   const float scale = 1.0f / sqrtf((float)d);
   FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
   DenseDecodeArgs da{qd, kd, vd, kv_positions, pos, od, b, kh, g, s_len,
                      scale, n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(fa, da, n_dec, n_ctas, s)));
+  DISPATCH_PAGED(d, dtype, (launch_bullet<T, D>(
+      fa, da,
+      make_sched<T>(fa, da, sched, record, n_dec_sm, lift),
+      n_ctas, s)));
 }
 
 // CTAs of the bullet kernel one SM holds at once (the persistent grid is

@@ -1,5 +1,5 @@
-"""The geometry of the split decode bodies and of the bf16 SSD scan,
-stated once.
+"""The geometry of the split decode bodies, of the fused launches'
+schedule and of the bf16 SSD scan, stated once.
 
 ``build.py`` passes these to ``nvcc`` as ``-D`` defines, and
 ``csrc/attention.cuh`` and ``csrc/ssd_scan.cu`` take them from there (they
@@ -16,6 +16,14 @@ MAX_SPLIT = 64
 #: operand)
 SPLIT_G = 16
 
+#: SM ids the fused launches' schedule workspace holds a slot for (the
+#: CTAs arrived and the rank of each SM id ``%smid`` below it; an id at or
+#: above it shares the slot of its remainder)
+SCHED_SMS = 1024
+#: words of that workspace: the two queues' tickets, the CTAs that have
+#: left and the SMs ranked, then the two per-SM tables
+SCHED_WORDS = 8 + 2 * SCHED_SMS
+
 #: rows and columns per tile of C Bᵀ in the bf16 SSD scan; its workspace
 #: holds each chunk's Q rows rounded up to a whole tile
 SSD_TILE = 64
@@ -27,6 +35,8 @@ SSD_P_SLICES = (16, 32, 64)
 #: the split decode's defines (``csrc/attention.cuh``), by name
 DEFINES = {"SPLIT_TILE": SPLIT_TILE, "MAX_SPLIT": MAX_SPLIT,
            "SPLIT_G": SPLIT_G}
+#: the fused launches' schedule's define (``csrc/attention.cu``), by name
+SCHED_DEFINES = {"SCHED_SMS": SCHED_SMS}
 #: the bf16 SSD scan's defines (``csrc/ssd_scan.cu``), by name
 SSD_DEFINES = {"SSD_TILE": SSD_TILE, "SSD_P_SLICE": SSD_P_SLICE}
 
@@ -34,4 +44,4 @@ SSD_DEFINES = {"SSD_TILE": SSD_TILE, "SSD_P_SLICE": SSD_P_SLICE}
 def all_defines() -> dict:
     """Every define the CUDA sources are compiled with (read at call time,
     so a changed value names another library)."""
-    return {**DEFINES, **SSD_DEFINES}
+    return {**DEFINES, **SCHED_DEFINES, **SSD_DEFINES}

@@ -90,7 +90,7 @@ def attention_fused_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
                           causal: bool = True, window: int = 0):
     """Fused prefill+decode attention (model layout): a prefill batch's
     attention (qp/kp/vp, (Bp,Sp,·,D)) AND a decode iteration's paged
-    attention (qd (Bd,1,H,D) over the page pool) in one launch whose CTAs
+    attention (qd (Bd,1,H,D) over the page pool) in one launch whose SMs
     split by ``decode_share``. Outputs equal ``attention_prefill`` +
     ``attention_decode_paged`` exactly, so fused and serial engines are
     token-identical."""

@@ -176,15 +176,16 @@ def test_bullet_paged_matches_pallas_and_xla(share):
 
 
 def test_decode_ctas_split_the_sms():
-    """The fused kernel's CTA split: round(share·n_ctas), each phase with
-    work keeping at least one CTA, a phase without work none; at two CTAs
-    per SM a tile-table share of m SMs gets 2·m CTAs."""
-    assert TB.decode_ctas(0.5, 132, True, True) == 66
-    assert TB.decode_ctas(20 / 132, 264, True, True) == 40
-    assert TB.decode_ctas(0.0, 132, True, True) == 1
-    assert TB.decode_ctas(1.0, 132, True, True) == 131
-    assert TB.decode_ctas(0.3, 132, False, True) == 132
-    assert TB.decode_ctas(0.3, 132, True, False) == 0
+    """The fused kernel's SM split (``decode_sms``): round(share·n_SM),
+    each phase with work keeping at least one SM, a phase without work
+    none; a tile-table share of m of the 132 SMs gets those m SMs, whatever
+    CTAs each SM holds."""
+    assert TB.decode_sms(0.5, 132, True, True) == 66
+    assert TB.decode_sms(20 / 132, 132, True, True) == 20
+    assert TB.decode_sms(0.0, 132, True, True) == 1
+    assert TB.decode_sms(1.0, 132, True, True) == 131
+    assert TB.decode_sms(0.3, 132, False, True) == 132
+    assert TB.decode_sms(0.3, 132, True, False) == 0
 
 
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():

@@ -585,3 +585,90 @@ def test_split_paged_decode_refuses_more_than_16_query_heads(gen):
     kpp = torch.randn(2, 16, 128, generator=gen, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="query heads"):
         TB.bullet_attention_paged(qp, kpp, kpp, q, kp, kp, bt, pos, group=2)
+
+
+# -- the fused launches' schedule: the SM partition by %smid, two queues --
+
+def _many_slots(gen, dtype, paged, b=132, ctx=256, kh=8, g=2, ps=16):
+    """A decode batch of ``b`` slots of ``ctx`` rows each on 8 kv heads:
+    b·kh = 1056 decode items (one piece each), four times the decode CTAs
+    of a 131-SM share, so every decode CTA takes its first item from its
+    own queue. Paged: each slot's pages in order; dense: linear
+    positions."""
+    q = torch.randn(b, kh, g, 128, generator=gen, device="cuda").to(dtype)
+    pos = torch.full((b,), ctx - 1, dtype=torch.int32, device="cuda")
+    if paged:
+        n_b = ctx // ps
+        kp = torch.randn(b * n_b + 1, ps, kh, 128, generator=gen,
+                         device="cuda").to(dtype)
+        vp = torch.randn(b * n_b + 1, ps, kh, 128, generator=gen,
+                         device="cuda").to(dtype)
+        bt = torch.arange(b * n_b, dtype=torch.int32,
+                          device="cuda").reshape(b, n_b)
+        return q, kp, vp, bt, pos
+    kc = torch.randn(b, ctx, kh, 128, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(b, ctx, kh, 128, generator=gen, device="cuda").to(dtype)
+    kvpos = torch.arange(ctx, dtype=torch.int32,
+                         device="cuda")[None].expand(b, ctx).contiguous()
+    return q, kc, vc, kvpos, pos
+
+
+def _fused(gen, dtype, paged, share, record=True):
+    q = torch.randn(16, 1000, 128, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(8, 1000, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(8, 1000, 128, generator=gen, device="cuda").to(dtype)
+    dec = _many_slots(gen, dtype, paged)
+    fn = TB.bullet_attention_paged if paged else TB.bullet_attention
+    return fn(q, k, v, *dec, decode_share=share, group=2, record=record)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("share", [0.0, 0.25, 0.5, 0.75, 1.0])
+def test_fused_schedule_partitions_the_sms(gen, dtype, paged, share):
+    """From the launch's record: every item ran exactly once, the prefill
+    tickets in prefill_order's order; the SMs that took decode items from
+    their own queue are n_dec_sm SMs of rank below n_dec_sm, disjoint from
+    those that took prefill items from theirs."""
+    _, _, sched = _fused(gen, dtype, paged, share)
+    torch.cuda.synchronize()
+    rec = sched.record.cpu()
+    n_dec, code = sched.n_dec, int(dtype == torch.bfloat16)
+    assert n_dec == 132 * 8
+    assert bool((rec[:, 0] == 1).all()), "an item ran other than once"
+    assert rec[:n_dec, 1].tolist() == list(range(n_dec))
+    n_qt = -(-1000 // TB.FLASH_TILES[code][0])
+    want = [h * n_qt + (n_qt - 1 - qt if code else qt)
+            for h, qt in TB.prefill_order(16, 1000, True, 0, code)]
+    assert rec[n_dec:, 1].tolist() == want
+    rank_of = {}
+    for smid, rank in rec[:, 2:4].tolist():
+        assert rank_of.setdefault(smid, rank) == rank
+    assert len(set(rank_of.values())) == len(rank_of)
+    own = rec[:, 4] == 1
+    dec_own = {int(s) for s in rec[:n_dec, 2][own[:n_dec]]}
+    pre_own = {int(s) for s in rec[n_dec:, 2][own[n_dec:]]}
+    assert len(dec_own) == sched.n_dec_sm == TB.decode_sms(
+        share, sched.n_sm, True, True)
+    assert all(rank_of[s] < sched.n_dec_sm for s in dec_own)
+    assert all(rank_of[s] >= sched.n_dec_sm for s in pre_own)
+    assert pre_own and not dec_own & pre_own
+
+
+def test_fused_schedule_workspace_reads_zero_after_launches(gen):
+    """The tickets, the SM table and the leaving count are zero again after
+    launches on two streams (each stream has its own workspace), with and
+    without a record; no memset between them."""
+    side = torch.cuda.Stream()
+    outs = [_fused(gen, torch.bfloat16, True, 0.5, record=False)]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs.append(_fused(gen, torch.bfloat16, False, 0.25))
+        outs.append(_fused(gen, torch.float32, True, 1.0, record=False))
+    outs.append(_fused(gen, torch.float32, False, 0.0))
+    torch.cuda.synchronize()
+    keys = {k for k in TB._SCHED if k[1] in (
+        side.cuda_stream, torch.cuda.current_stream().cuda_stream)}
+    assert len(keys) == 2
+    for k in keys:
+        assert not bool(TB._SCHED[k].any()), k
