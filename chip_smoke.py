@@ -26,14 +26,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0.75, 1}: every item ran once, the SMs that took decode items from
    their own queue are at most n_dec_sm, all of rank below it, and none
    of them took prefill items from its own queue;
-   median times over CUDA events (L2 flushed before each launch), in bf16
+   median times over CUDA events of the card's work alone (the stream
+   held busy while the host enqueues; L2 flushed before each launch), in bf16
    and, for the kernels whose fp32 body differs, in fp32 (rows named
    ``*_fp32``), beside each kernel's bound and the library yardstick (for
    decode the faster of masked SDPA on K/V expanded to every query head
    and SDPA with enable_gqa on the cache as it is), flash's achieved
    TFLOP/s, bf16 paged and dense decode timed at forced piece counts
-   beside split_count's pick, and the paged fused kernel timed (card time
-   alone, the timer's ``hold``) at the serving shape at each decode_share
+   beside split_count's pick, and the paged fused kernel timed at the
+   serving shape at each decode_share
    of SWEEP_SHARES beside flash + paged decode launched apart; then the SSD scan (phase 8's shapes; the
    bf16 body also against its plain mirror ``ref.ssd_scan_tc_ref`` within
    2^-7 (y) and 1e-5 (state), timed in both dtypes and in bf16 at each P
@@ -49,7 +50,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
    share, each at most COLOCATED_LIMIT times flash + dense decode launched
-   apart (both card time alone, the timer's ``hold``);
+   apart;
 5. reference: a 2-layer cut of Qwen3-1.7B at full width, fp32, prefill +
    decode on the card (kernels) against the same on the CPU (plain
    versions);
@@ -59,8 +60,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fused cycle counted, then serial: identical streams;
    then the same requests under the scheduler's defaults (its fused
    share); then 4 of them on the dense slot cache in bf16 (the bf16 dense
-   decode kernel's launches); then a torch.profiler window over 30 fused cycles (device time
-   by kernel kind, device busy share);
+   decode kernel's launches); then a decode-heavy serve under the
+   scheduler's defaults (8 requests of 64 + 128 tokens) with a
+   torch.profiler window over 30 serial decode cycles, and one over 30
+   fused cycles (device time by kernel kind, device busy share, wall per
+   cycle, tok/s); every server's decode graphs (one CUDA graph per table
+   bucket or for the dense cache, replayed on every serial decode
+   iteration) printed with their capture seconds;
+   graphs: the decode graphs against the eager step (the module-level
+   step function called directly) on two copies of one cache, bf16, full
+   width and depth: Qwen3-1.7B's engine iteration on the paged cache at
+   every table bucket the serve reached (tables changed between
+   replays) and on the dense cache, Mamba-2-2.7B's, RecurrentGemma-2B's
+   ``decode_step`` (``GraphedDecode``) after a prefill; tokens equal,
+   logits and caches bit-equal after every step, and after n steps of a
+   key every launch counter moved n times one eager step's;
 7. replay: Qwen3-1.7B at full width and depth through the OnlineFrontend
    on a ShareGPT-shaped trace, with observability (the decode_share of
    each fused cycle counted): (a) a fault-free virtual-clock replay; (b)
@@ -94,9 +108,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    hidden state and SWA ring after a padded batch prefill of prompts of
    3000, 2300, 1200 and 300 tokens against its solo prefill, fp32, every
    layer within 1e-3 of scale; then in bf16 the same batch and 64 greedy
-   decode steps, timed, with 18 rglru_scan and 8 flash launches per
-   prefill and 8 decode_attention per step; torch.profiler windows over
-   one prefill call and 10 decode steps.
+   decode steps through ``GraphedDecode`` (the first captures, the rest
+   replay: ms per step over the replays), with 18 rglru_scan and 8 flash
+   launches per prefill and 8 decode_attention per step; torch.profiler
+   windows over one prefill call and 10 decode steps (replays). The
+   reference phase (a) decodes through ``GraphedDecode`` too.
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -108,6 +124,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -191,7 +208,7 @@ def log(msg: str) -> None:
 # timing
 # ---------------------------------------------------------------------------
 
-#: cycles (about 0.5 ms) a held timing keeps the stream busy before the
+#: cycles (about 0.5 ms) the timer keeps the stream busy before each timed
 #: call, longer than any wrapper here takes to enqueue its launches
 HOLD_CYCLES = 1_000_000
 
@@ -199,24 +216,22 @@ HOLD_CYCLES = 1_000_000
 class Timer:
     """Median milliseconds of one call over CUDA events; a 256 MiB buffer
     is rewritten before every timed call so each starts with a cold L2,
-    as a layer's attention does in the model. The events bracket the time
-    the host takes to enqueue the call as well as the card's work, unless
-    the call is timed with ``hold``: then the stream is held busy
+    as a layer's attention does in the model. The stream is held busy
     (``torch.cuda._sleep``) while the host enqueues the events and the
-    call, so they bracket the card's work alone."""
+    call, so they bracket the card's work alone and not the time the
+    wrapper's Python takes (which rows under ~0.1 ms would read)."""
 
     def __init__(self, reps: int = 15):
         self.reps = reps
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
-    def __call__(self, fn, hold: bool = False) -> float:
+    def __call__(self, fn) -> float:
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
-            if hold:
-                torch.cuda._sleep(HOLD_CYCLES)
+            torch.cuda._sleep(HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -861,13 +876,11 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
     n_dec_sm = BA.decode_sms(share, n_sm, True, True)
     n_ctas = BA.grid_ctas(torch.cuda.current_device(), code, D, G, PS)
     apart = timer(lambda: (FA.flash_attention(q, k, v, group=G),
-                           PD.paged_decode_attention(qd, kpg, vpg, bt, pos)),
-                  hold=True)
+                           PD.paged_decode_attention(qd, kpg, vpg, bt, pos)))
 
     def fused_at(x):
         return timer(lambda: BA.bullet_attention_paged(
-            q, k, v, qd, kpg, vpg, bt, pos, decode_share=x, group=G),
-            hold=True)
+            q, k, v, qd, kpg, vpg, bt, pos, decode_share=x, group=G))
     sweep = ", ".join(f"{x}: {fused_at(x):.4f}" for x in SWEEP_SHARES)
     log(f"bullet_attention_paged{sfx} at the serving shape, card ms by "
         f"decode_share: {sweep}; flash + paged decode launched apart "
@@ -1216,11 +1229,11 @@ def phase_colocated(timer: Timer) -> dict:
                 qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share)
         n = launches[dtype] = BA.dense_launches
         check(n == 5, f"colocated {dtype}: {n} fused launches, want 5")
-        # card time (held), so the gate compares kernels and not the
-        # wrappers' Python, which the host's shared cores stretch at random
+        # card time (the timer holds the stream), so the gate compares
+        # kernels and not the wrappers' Python
         apart = timer(lambda: (ops.flash_attention_op(qp, kp, vp),
                                ops.decode_attention_op(qd, kd, vd, kvpos,
-                                                       pos)), hold=True)
+                                                       pos)))
         log(f"colocated {str(dtype)[6:]}: flash + dense decode launched "
             f"apart {apart:.4f} ms of card time; {n_ctas} CTAs on {n_sm} "
             f"SMs fused")
@@ -1229,8 +1242,7 @@ def phase_colocated(timer: Timer) -> dict:
                   f"colocated {dtype} share {share}: not bit-equal to flash "
                   "+ dense decode")
             ms = timer(lambda: ops.bullet_attention_op(
-                qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share),
-                hold=True)
+                qp, kp, vp, qd, kd, vd, kvpos, pos, decode_share=share))
             n_dec_sm = BA.decode_sms(share, n_sm, True, True)
             log(f"colocated {str(dtype)[6:]} decode_share={share:4.2f}: "
                 f"{n_dec_sm:3d} of {n_sm} SMs decode first, {ms:.4f} ms "
@@ -1380,34 +1392,64 @@ def _kernel_kind(name: str) -> str:
 
 class ProfileCycles:
     """A per-cycle audit hook (serve or replay) that runs torch.profiler
-    over cycles [first, first + n), times that window on the host clock
-    and counts the window's cycles that ran a prefill group."""
+    over the ``n`` cycles after cycle ``first`` (or, with ``when``, after
+    the first cycle from ``first`` on after which ``when(server)`` holds),
+    times that window on the host clock and counts the window's cycles
+    that ran a prefill group and the tokens its decode iterations
+    emitted, and the decode graphs captured in it."""
 
-    def __init__(self, first: int, n: int):
-        self.first, self.n, self.cycle = first, n, 0
+    def __init__(self, first: int, n: int, when=None):
+        self.first, self.n, self.when, self.cycle = first, n, when, 0
+        self.start = None
         self.prof = self.wall = None
-        self.t0, self.prefills = 0.0, 0
+        self.t0, self.prefills, self.tokens, self.captured = 0.0, 0, 0, 0
+
+    @staticmethod
+    def _captures(srv) -> int:
+        return len(getattr(getattr(srv, "graphs", None), "captures", ()))
 
     def __call__(self, srv) -> None:
         self.cycle += 1
-        if self.first < self.cycle <= self.first + self.n:
+        if self.start is None:
+            if self.cycle >= self.first and (self.when is None
+                                             or self.when(srv)):
+                self.start = self.cycle
+                self.captured = -self._captures(srv)
+                torch.cuda.synchronize()
+                self.prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            return
+        if self.cycle <= self.start + self.n:
             self.prefills += bool(srv.last_prefill_tokens)
-        if self.cycle == self.first:
-            torch.cuda.synchronize()
-            self.prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
-            self.prof.__enter__()
-            self.t0 = time.perf_counter()
-        elif self.cycle == self.first + self.n:
+            if srv.last_decode is not None:
+                self.tokens += srv.last_decode.batch
+        if self.cycle == self.start + self.n:
             torch.cuda.synchronize()
             self.wall = time.perf_counter() - self.t0
             self.prof.__exit__(None, None, None)
+            self.captured += self._captures(srv)
+
+    def report(self, what: str, card: str) -> dict:
+        """``_profile_report`` of the window, with its tok/s and wall per
+        cycle."""
+        check(self.wall is not None, f"{what}: the run ended before its "
+              "profile window")
+        out = _profile_report(self.prof, self.wall, what, card,
+                              cycles=self.n, tokens=self.tokens)
+        out["captures"] = self.captured
+        log(f"  decode graphs captured in the window: {self.captured}")
+        return out
 
 
-def _profile_report(prof, wall: float, what: str, card: str) -> None:
+def _profile_report(prof, wall: float, what: str, card: str,
+                    cycles: int = 0, tokens: int = 0) -> dict:
     """Device time by kernel kind over a profiled window, and the device's
-    busy share of that window's wall time."""
+    busy share of that window's wall time; with ``cycles`` (engine cycles
+    or decode steps) also the wall per cycle, with ``tokens`` the output
+    tok/s. Returns those numbers."""
     kinds, names = {}, []
     for e in prof.key_averages():
         # device-side events only (kernels, copies): the operators that
@@ -1421,24 +1463,401 @@ def _profile_report(prof, wall: float, what: str, card: str) -> None:
         names.append((t, e.count, e.key))
     busy = sum(kinds.values()) / 1e3
     check(busy > 0, "the profiler saw no device time")
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy,
+           "busy_share": busy / (wall * 1e3)}
+    extra = ""
+    if cycles:
+        out["ms_per_cycle"] = wall * 1e3 / cycles
+        extra += f", {out['ms_per_cycle']:.2f} ms wall per cycle"
+    if tokens:
+        out["tok_s"] = tokens / wall
+        extra += f", {tokens} tokens = {out['tok_s']:.1f} tok/s"
     log(f"profile: {what}, wall {wall * 1e3:.1f} ms, "
-        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)  "
-        f"[{card}]")
+        f"device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%)"
+        f"{extra}  [{card}]")
     for kind, t in sorted(kinds.items(), key=lambda kv: -kv[1]):
         log(f"  {kind}: {t / 1e3:.2f} ms ({100 * t / 1e3 / busy:.1f}% of "
             f"device time)")
     for t, count, name in sorted(names, reverse=True)[:8]:
         log(f"  {t / 1e3:8.2f} ms {count:6d}x {name[:90]}")
+    return out
 
 
-def phase_profile(cfg, params, prompts, outs, arrivals, card: str):
+class HostSplit:
+    """A serve audit that, from its first call on, times on the host clock
+    what each engine cycle spends where: the scheduler, staging the decode
+    inputs, the call into the decode graphs (the replay's enqueue; the
+    device's work is then waited for apart, where the engine's read-back
+    would wait for it anyway), the read-back and bookkeeping of the
+    sampled tokens (in a fused cycle the wait for its device work too),
+    the rest of a fused cycle, a prefill group's launch; each part
+    exclusive of the parts it calls. The rest of the cycle's wall is the
+    engine's and the serve loop's other work. Cycles are split by kind:
+    a decode iteration alone, fused, or other."""
+
+    #: (part, owner, method) of the timed calls; owner "" is the server
+    PARTS = (("schedule", "scheduler", "schedule"),
+             ("stage inputs", "", "_decode_inputs"),
+             ("read back, bookkeeping", "", "_finish_decode_iteration"),
+             ("rest of the fused cycle", "", "_fused_cycle"),
+             ("prefill group launch", "", "_launch_prefill_group"))
+
+    def __init__(self):
+        self.last = None
+        self.cur = collections.defaultdict(float)
+        self.cycles = collections.defaultdict(list)
+        #: per timed call in progress, the time its timed callees took
+        self.stack = []
+
+    def _add(self, part: str, elapsed: float, callees: float = 0.0) -> None:
+        self.cur[part] += elapsed - callees
+        if self.stack:
+            self.stack[-1] += elapsed
+
+    def _timed(self, fn, part):
+        def timed(*a, **k):
+            self.stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                elapsed = time.perf_counter() - t0
+                self._add(part, elapsed, self.stack.pop())
+        return timed
+
+    def _graphs(self, graphs):
+        split = self
+
+        class Timed:
+            def __call__(self, *a):
+                t0 = time.perf_counter()
+                out = graphs(*a)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                split._add("graph call (host)", t1 - t0)
+                split._add("device wait", time.perf_counter() - t1)
+                return out
+
+            def __getattr__(self, name):
+                return getattr(graphs, name)
+        return Timed()
+
+    def __call__(self, srv) -> None:
+        now = time.perf_counter()
+        if self.last is None:
+            for part, owner, name in self.PARTS:
+                obj = getattr(srv, owner) if owner else srv
+                setattr(obj, name, self._timed(getattr(obj, name), part))
+            if hasattr(srv, "graphs"):          # a checkout without graphs
+                srv.graphs = self._graphs(srv.graphs)
+        else:
+            kind = ("fused" if srv.last_fused else "decode"
+                    if srv.last_decode is not None
+                    and not srv.last_prefill_tokens else "other")
+            self.cycles[kind].append((now - self.last, dict(self.cur)))
+        self.cur.clear()
+        self.last = now
+
+    def report(self, kind: str) -> dict:
+        """Mean ms per cycle of ``kind``: its wall, each part, the rest."""
+        got = self.cycles[kind]
+        check(bool(got), f"host split: no {kind} cycle")
+        out = {"cycles": len(got),
+               "wall": 1e3 * statistics.mean(w for w, _ in got)}
+        parts = sorted({p for _, d in got for p in d})
+        for p in parts:
+            out[p] = 1e3 * sum(d.get(p, 0.0) for _, d in got) / len(got)
+        out["other"] = out["wall"] - sum(out[p] for p in parts)
+        return out
+
+
+def host_split_line(split: HostSplit, kind: str) -> str:
+    r = split.report(kind)
+    return (f"{r['cycles']} {kind} cycles, {r['wall']:.2f} ms wall each: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in r.items()
+                        if k not in ("cycles", "wall")) + " ms")
+
+
+def phase_profile(cfg, params, prompts, outs, arrivals, card: str) -> dict:
     """Where the time goes in steady fused serving: device time by kernel
     kind over 30 cycles of the serve workload, and the device's busy share
     of that window's wall time."""
     prof = ProfileCycles(150, 30)
     _serve(cfg, params, prompts, outs, arrivals, fused=True, audit=prof)
-    check(prof.wall is not None, "the serve ended before the profile window")
-    _profile_report(prof.prof, prof.wall, "30 fused-serving cycles", card)
+    return prof.report("30 fused-serving cycles", card)
+
+
+#: the decode-heavy serve: requests, prompt and output tokens each (so
+#: every decode iteration's table fits 16 pages of 16 rows: one graph),
+#: and the cycles of its profile window
+DECODE_SERVE = dict(n=8, prompt=128, output=128, cycles=30)
+
+
+def decode_serve(cfg, params, card: str) -> dict:
+    """The scheduler's defaults serving 8 requests of 128 prompt and 128
+    output tokens, all arriving at once: after the two prefill batches
+    every cycle is a serial decode iteration of 8 slots. A torch.profiler
+    window over the 30 cycles after the last prefill group (fatal if one
+    of them ran a prefill group), then the same serve unprofiled with its
+    host time split by part (``HostSplit``). Returns the window's numbers
+    and the serve's tok/s."""
+    d = DECODE_SERVE
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, d["prompt"]).astype(np.int32)
+               for _ in range(d["n"])]
+    outs = [d["output"]] * d["n"]
+    # the window opens once every prompt's prefill groups have run
+    prof = ProfileCycles(1, d["cycles"], when=lambda srv: (
+        srv.ptask is None and not srv.pending))
+    server, secs, cycles = _serve(cfg, params, prompts, outs, [0.0] * d["n"],
+                                  fused=True, default_sched=True, audit=prof)
+    check(prof.prefills == 0, f"decode serve: {prof.prefills} cycles of the "
+          "window ran a prefill group")
+    out = prof.report(f"{d['cycles']} serial decode cycles of the "
+                      "default-scheduler serve (8 slots)", card)
+    out["serve_tok_s"] = d["n"] * d["output"] / secs
+    log(f"decode serve (default scheduler, {d['n']} x {d['prompt']} prompt "
+        f"+ {d['output']} output tokens): {out['serve_tok_s']:.1f} tok/s, "
+        f"{cycles} cycles, {server.stats.fused_cycles} fused; "
+        f"{captures(server)}  [{card}]")
+    # the same serve again, unprofiled, with its host time split by part
+    split = HostSplit()
+    _serve(cfg, params, prompts, outs, [0.0] * d["n"], fused=True,
+           default_sched=True, audit=split)
+    log(f"decode serve host split: {host_split_line(split, 'decode')}  "
+        f"[{card}]")
+    return out
+
+
+def captures(server) -> str:
+    """The decode graphs a server captured, each with its capture seconds
+    (a server of a checkout without graphs: none)."""
+    graphs = getattr(server, "graphs", None)
+    if graphs is None:
+        return "no decode graphs"
+    return (f"{len(graphs.captures)} decode graphs captured: " + ", ".join(
+        f"{k}: {t:.3f} s" for k, t in graphs.captures))
+
+
+# ---------------------------------------------------------------------------
+# the decode graphs against the eager step
+# ---------------------------------------------------------------------------
+
+#: decode steps of each graphs-against-eager check on one key (the first is
+#: the capture's miss)
+GRAPH_STEPS = 4
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone()
+
+
+def _counter_names():
+    from repro_torch.core.graphs import COUNTERS
+    return [f"{m.__name__.rsplit('.', 1)[-1]}.{a}" for m, a in COUNTERS]
+
+
+def graph_vs_eager(what, steps, eager, graphed, cache_e, cache_g, tok,
+                   card: str) -> None:
+    """Decode steps through the graphs against the module-level step called
+    directly, on two copies of one cache: ``steps`` is (key, feed) per
+    step, ``eager(tok, feed)`` and ``graphed(key, tok, feed)`` return (next
+    tokens (B, 1), logits (B, V)). Fatal unless after every step the
+    tokens are equal and the logits and every cache leaf bit-equal, and
+    unless after n steps of a key the launch counters moved by exactly n
+    times what one eager step moves them."""
+    from repro_torch.core.graphs import launch_counts
+    tok_e, tok_g = tok.clone(), tok.clone()
+    per = {}
+    leaves_e, leaves_g = _leaves(cache_e), _leaves(cache_g)
+    for key, feed in steps:
+        c0 = launch_counts()
+        nt_e, lg_e = eager(tok_e, feed)
+        c1 = launch_counts()
+        nt_g, lg_g = graphed(key, tok_g, feed)
+        c2 = launch_counts()
+        check(torch.equal(nt_g, nt_e), f"graphs {what} {key}: tokens differ")
+        check(torch.equal(lg_g, lg_e), f"graphs {what} {key}: logits differ")
+        for i, (a, b) in enumerate(zip(leaves_g, leaves_e)):
+            check(torch.equal(a, b), f"graphs {what} {key}: cache leaf {i} "
+                  "differs")
+        d_e = tuple(y - x for x, y in zip(c0, c1))
+        d_g = tuple(y - x for x, y in zip(c1, c2))
+        rec = per.setdefault(key, {"n": 0, "eager": d_e,
+                                   "graphed": (0,) * len(d_e)})
+        check(d_e == rec["eager"], f"graphs {what} {key}: eager steps moved "
+              f"the counters by {rec['eager']} and {d_e}")
+        rec["n"] += 1
+        rec["graphed"] = tuple(a + b for a, b in zip(rec["graphed"], d_g))
+        tok_e, tok_g = nt_e.clone(), nt_g.clone()
+    names = _counter_names()
+    for key, rec in per.items():
+        check(rec["graphed"] == tuple(rec["n"] * d for d in rec["eager"]),
+              f"graphs {what} {key}: {rec['n']} graphed steps moved the "
+              f"counters by {rec['graphed']}, one eager step by "
+              f"{rec['eager']}")
+    one = {k: {n: d for n, d in zip(names, r["eager"]) if d}
+           for k, r in per.items()}
+    log(f"graphs {what}: {len(steps)} steps over {len(per)} keys, tokens "
+        f"equal, logits and caches bit-equal to the eager step; launches "
+        f"of one step by key {one}, n graphed steps of a key n times those "
+        f" [{card}]")
+
+
+def engine_graphs_check(what, cfg, params, cache, steps, card: str) -> None:
+    """``graph_vs_eager`` for the engine's decode iteration
+    (``engine._decode_iteration``) over ``cache`` and its copy, each step's
+    feed its pos, active and (paged) block tables, through a StepGraphs
+    keyed as the engine keys it."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.graphs import StepGraphs
+    twin = _clone_tree(cache)
+    graphs = StepGraphs()
+
+    def args(feed):
+        return [feed["pos"], feed["active"]] + (
+            [feed["bt"]] if "bt" in feed else [])
+
+    def eager(tok, feed):
+        return E._decode_iteration(params, twin, tok, *args(feed), cfg=cfg)
+
+    def graphed(key, tok, feed):
+        return graphs(key, lambda *a: E._decode_iteration(
+            params, cache, *a, cfg=cfg), tok, *args(feed))
+    b = steps[0][1]["pos"].shape[0]
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            4), device="cuda")
+    graph_vs_eager(what, steps, eager, graphed, twin, cache, tok, card)
+    log(f"graphs {what}: " + ", ".join(f"{k}: captured in {t:.3f} s"
+                                       for k, t in graphs.captures))
+    graphs.drop()
+
+
+def _fill_random(cache, seed: int) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in _leaves(cache):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+
+
+def paged_graph_steps(buckets, slots: int, max_blocks: int, seed: int):
+    """(key, feed) per step: 3 steps per table bucket, block tables drawn
+    anew before every step (the ownership changing between replays), the
+    longest slot's live pages past half the bucket (the width the engine
+    would pick), one slot inactive on the trash page ``slots·max_blocks``."""
+    rng = np.random.default_rng(seed)
+    n_pages = slots * max_blocks
+    steps = []
+    for n_b in buckets:
+        for _ in range(3):
+            perm = rng.permutation(n_pages)
+            bt = np.full((slots, n_b), n_pages, np.int32)
+            need = rng.integers(1, n_b + 1, slots)
+            need[0] = max(need[0], n_b // 2 + 1)
+            pos = (need - 1) * PS + rng.integers(0, PS, slots)
+            pos[-1] = rng.integers(0, n_b * PS)
+            for i in range(slots - 1):
+                bt[i, :need[i]] = perm[i * max_blocks:i * max_blocks + need[i]]
+            active = np.arange(slots) < slots - 1
+            steps.append((("paged", n_b), {
+                "pos": torch.from_numpy(pos.astype(np.int32)).cuda(),
+                "active": torch.from_numpy(active).cuda(),
+                "bt": torch.from_numpy(bt).cuda()}))
+    return steps
+
+
+def dense_graph_steps(slots: int, max_pos: int, seed: int):
+    """(("dense",), feed) for GRAPH_STEPS steps from random positions below
+    ``max_pos``, every slot but the last active."""
+    pos = np.random.default_rng(seed).integers(0, max_pos - GRAPH_STEPS,
+                                               slots).astype(np.int32)
+    active = torch.from_numpy(np.arange(slots) < slots - 1).cuda()
+    return [(("dense",), {"pos": torch.from_numpy(pos + i).cuda(),
+                          "active": active}) for i in range(GRAPH_STEPS)]
+
+
+def phase_graphs(card: str, buckets) -> None:
+    """The decode graphs against the eager step (the module-level step
+    function called directly) on two copies of one cache, at full width
+    and depth, bf16: Qwen3-1.7B's engine iteration on the paged cache at
+    every table bucket the serve reached (8 slots of 1152 rows, the tables
+    changed between replays) and on the dense cache, Mamba-2-2.7B's on its
+    dense cache (conv windows and SSD states), both drawn at random, and
+    RecurrentGemma-2B's ``decode_step`` through ``GraphedDecode`` after the
+    padded prefill of its phase's prompts. Tokens equal, logits and caches
+    bit-equal after every step, launches as ``graph_vs_eager`` holds them;
+    each check prints its keys' capture seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import GraphedDecode
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3-1.7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    max_blocks = -(-1152 // PS)
+    cache = T.init_paged_cache(cfg, 8 * max_blocks, PS, torch.bfloat16,
+                               "cuda")
+    _fill_random(cache, 6)
+    engine_graphs_check("qwen3-1.7b paged", cfg, params, cache,
+                        paged_graph_steps(buckets, 8, max_blocks, 7), card)
+    cache = T.init_cache(cfg, 8, 1152, torch.bfloat16, "cuda")
+    _fill_random(cache, 8)
+    engine_graphs_check("qwen3-1.7b dense", cfg, params, cache,
+                        dense_graph_steps(8, 1152, 9), card)
+    del cache, params
+
+    cfg = get_config("mamba2-2.7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    cache = T.init_cache(cfg, 8, MAX_LEN, torch.bfloat16, "cuda")
+    _fill_random(cache, 10)
+    engine_graphs_check("mamba2-2.7b dense", cfg, params, cache,
+                        dense_graph_steps(8, MAX_LEN, 11), card)
+    del cache, params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("recurrentgemma-2b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    b = len(RG_PROMPTS)
+    toks, lens = _prompt_batch(cfg, RG_PROMPTS, seed=3)
+    toks, lens = toks.cuda(), lens.cuda()
+    cache = T.init_cache(cfg, b, max(RG_PROMPTS) + RG_DECODE,
+                         torch.bfloat16, "cuda")
+    logits, _ = T.prefill(params, toks, lens, cache, None, cfg)
+    twin = _clone_tree(cache)
+    dec = GraphedDecode(params, cache, cfg)
+
+    def eager(tok, feed):
+        lg, _ = T.decode_step(params, twin, tok, feed["pos"], cfg)
+        return lg.argmax(-1).to(torch.int32)[:, None], lg
+
+    def graphed(key, tok, feed):
+        lg = dec(tok, feed["pos"])
+        return lg.argmax(-1).to(torch.int32)[:, None], lg
+    graph_vs_eager("recurrentgemma-2b", [(("rg", b), {"pos": lens + i})
+                                         for i in range(GRAPH_STEPS)],
+                   eager, graphed, twin, cache,
+                   logits.argmax(-1).to(torch.int32)[:, None], card)
+    log(f"graphs recurrentgemma-2b: {captures(dec)}")
+    del twin, dec, cache, params
+    torch.cuda.empty_cache()
+
+
+def serve_workload(cfg):
+    """The serve phase's 12 requests: prompts of 64-1024 and outputs of
+    16-64 seeded tokens, Poisson arrivals 20 ms apart on average on the
+    virtual clock (a choice of this smoke test that keeps prefill and
+    decode co-resident, not a rate measured from any trace)."""
+    rng = np.random.default_rng(0)
+    n = 12
+    prompt_lens = rng.integers(64, 1025, n)
+    out_lens = rng.integers(16, 65, n)
+    prompts = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
+               for L in prompt_lens]
+    arrivals = np.cumsum(rng.exponential(0.02, n)).tolist()
+    return prompts, out_lens.tolist(), arrivals
 
 
 def phase_serve(card: str):
@@ -1454,31 +1873,25 @@ def phase_serve(card: str):
           and cfg.n_kv_heads == 8 and cfg.vocab_size == 151936,
           "not the full Qwen3-1.7B config")
     params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    rng = np.random.default_rng(0)
-    n = 12
-    prompt_lens = rng.integers(64, 1025, n)
-    out_lens = rng.integers(16, 65, n)
-    prompts = [rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32)
-               for L in prompt_lens]
-    # Poisson arrivals, 20 ms apart on average on the virtual clock: a
-    # choice of this smoke test that keeps prefill and decode co-resident,
-    # not a rate measured from any trace
-    arrivals = np.cumsum(rng.exponential(0.02, n)).tolist()
+    prompts, out_lens, arrivals = serve_workload(cfg)
+    n = len(prompts)
     log(f"serve: qwen3-1.7b full width/depth bf16, {n} requests, prompts "
-        f"{prompt_lens.tolist()}, outputs {out_lens.tolist()}, arrivals "
+        f"{[len(p) for p in prompts]}, outputs {out_lens}, arrivals "
         f"every {arrivals[-1] / n * 1e3:.1f} ms on average (virtual clock)")
     # warm-up: cuBLAS handles and kernel modules load outside the timing
     _serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
 
     FA.launches = PD.launches = BA.launches = 0
     fused_shares = FusedShares()
-    server, secs, cycles = _serve(cfg, params, prompts, out_lens.tolist(),
-                                  arrivals, fused=True, audit=fused_shares)
+    split = HostSplit()
+    server, secs, cycles = _serve(
+        cfg, params, prompts, out_lens, arrivals, fused=True,
+        audit=lambda srv: (fused_shares(srv), split(srv)))
     launches = {"flash_attention": FA.launches,
                 "paged_decode_attention": PD.launches,
                 "bullet_attention_paged": BA.launches}
     st = server.stats
-    for rid, o in enumerate(out_lens.tolist()):
+    for rid, o in enumerate(out_lens):
         got = server.outputs.get(rid, [])
         check(len(got) == o, f"request {rid}: {len(got)} tokens, want {o}")
         check(all(0 <= t < cfg.vocab_size for t in got),
@@ -1491,48 +1904,57 @@ def phase_serve(card: str):
     n_tok = int(sum(out_lens))
     log(f"serve fused: {n_tok} tokens in {secs:.3f} s = "
         f"{n_tok / secs:.1f} tok/s, {cycles} cycles, stats {vars(st)}, "
-        f"launches {launches}, KV pool clean: True  [{card}]")
+        f"launches {launches}, KV pool clean: True; {captures(server)}  "
+        f"[{card}]")
     log(f"serve fused: decode_share of the fused cycles: "
         f"{share_histogram(fused_shares.shares)}")
+    for kind in ("fused", "decode", "other"):
+        log(f"serve fused host split: {host_split_line(split, kind)}")
 
-    serial, s_secs, s_cycles = _serve(cfg, params, prompts,
-                                      out_lens.tolist(), arrivals,
-                                      fused=False)
+    serial, s_secs, s_cycles = _serve(cfg, params, prompts, out_lens,
+                                      arrivals, fused=False)
     check(serial.stats.fused_cycles == 0, "serial run fused")
     for rid in range(n):
         check(serial.outputs[rid] == server.outputs[rid],
               f"request {rid}: fused and serial token streams differ")
     log(f"serve serial: {n_tok / s_secs:.1f} tok/s, {s_cycles} cycles; "
-        f"token streams identical to fused  [{card}]")
+        f"token streams identical to fused; {captures(serial)}  [{card}]")
 
     # the dense slot cache in bf16, on 4 of the requests: the path of the
     # bf16 dense decode kernel (the split body) at D=128
     DA.launches = 0
     nd = 4
-    dense, _, _ = _serve(cfg, params, prompts[:nd], out_lens[:nd].tolist(),
+    dense, _, _ = _serve(cfg, params, prompts[:nd], out_lens[:nd],
                          arrivals[:nd], fused=False, paged=False)
     launches["decode_attention"] = DA.launches
-    for rid, o in enumerate(out_lens[:nd].tolist()):
+    for rid, o in enumerate(out_lens[:nd]):
         got = dense.outputs.get(rid, [])
         check(len(got) == o and all(0 <= t < cfg.vocab_size for t in got),
               f"serve dense: request {rid}: {len(got)} tokens, want {o}")
     check(DA.launches >= cfg.n_layers * (max(out_lens[:nd]) - 1),
           f"serve dense: {DA.launches} decode_attention launches")
     log(f"serve dense cache, serial, bf16: {nd} requests finished, "
-        f"{DA.launches} decode_attention launches  [{card}]")
+        f"{DA.launches} decode_attention launches; {captures(dense)}  "
+        f"[{card}]")
 
     # the scheduler's defaults on the same requests: how often they fuse
     BA.launches = 0
-    dflt, d_secs, d_cycles = _serve(cfg, params, prompts, out_lens.tolist(),
+    dflt, d_secs, d_cycles = _serve(cfg, params, prompts, out_lens,
                                     arrivals, fused=True, default_sched=True)
-    for rid, o in enumerate(out_lens.tolist()):
+    for rid, o in enumerate(out_lens):
         check(len(dflt.outputs.get(rid, [])) == o,
               f"default scheduler: request {rid} unfinished")
     log(f"serve default scheduler (pause on, max_prefill_batch 4): "
         f"{n_tok / d_secs:.1f} tok/s, {dflt.stats.fused_cycles} of "
-        f"{d_cycles} cycles fused, bullet launches {BA.launches}  [{card}]")
-    phase_profile(cfg, params, prompts, out_lens.tolist(), arrivals, card)
-    return launches, n_tok / secs
+        f"{d_cycles} cycles fused, bullet launches {BA.launches}; "
+        f"{captures(dflt)}  [{card}]")
+    decode_serve(cfg, params, card)
+    phase_profile(cfg, params, prompts, out_lens, arrivals, card)
+    # the table buckets the serial serve's decode graphs were captured for
+    buckets = sorted({k[1] for k, _ in serial.graphs.captures})
+    del server, serial, dense, dflt, params
+    torch.cuda.empty_cache()
+    return launches, n_tok / secs, buckets
 
 
 #: the replay trace: ShareGPT-shaped lengths fitted to MAX_LEN, Poisson
@@ -1678,8 +2100,8 @@ def phase_replay(card: str) -> dict:
     log(f"replay (a) virtual clock, fp32: {ma.row()}")
     log(f"  {len(rec_a)} cycles in {secs_a:.1f} s wall, stats "
         f"{vars(a.stats)}, launches {la}, first fused cycle {first_fused}, "
-        f"decode-only cycle {_decode_only_ms(rec_a):.1f} ms wall (paged)  "
-        f"[{card}]")
+        f"decode-only cycle {_decode_only_ms(rec_a):.1f} ms wall (paged); "
+        f"{captures(a)}  [{card}]")
     log(f"  decode_share of the fused cycles: "
         f"{share_histogram(r['share'] for r in rec_a if r['fused'])}")
 
@@ -1729,7 +2151,7 @@ def phase_replay(card: str) -> dict:
         f"{vars(b.stats)}, launches {lb}, {dense['iters']} dense decode "
         f"iterations with {cfg.n_layers} decode_attention launches each or "
         f"more; streams identical to (a); invariants held every cycle; KV "
-        f"pool clean  [{card}]")
+        f"pool clean; {captures(b)}  [{card}]")
 
     # (c) the dense slot cache serving the same requests (serial)
     reset()
@@ -1744,7 +2166,7 @@ def phase_replay(card: str) -> dict:
     log(f"replay (c) dense cache, serial, fp32: {mc.row()}")
     log(f"  {len(rec_c)} cycles in {secs_c:.1f} s wall, launches {lc}, "
         f"decode-only cycle {_decode_only_ms(rec_c):.1f} ms wall (dense); "
-        f"streams identical to (a)  [{card}]")
+        f"streams identical to (a); {captures(c)}  [{card}]")
     del a, b, c
 
     # (d) wall-clock replay in bf16 after a warm-up pass
@@ -1757,7 +2179,8 @@ def phase_replay(card: str) -> dict:
                                       wall=True)
     log(f"replay (d) wall clock, bf16: {md.row()}  [{card}]")
     log(f"  {len(rec_d)} cycles in {secs_d:.1f} s, stats {vars(d.stats)}, "
-        f"decode-only cycle {_decode_only_ms(rec_d):.1f} ms wall  [{card}]")
+        f"decode-only cycle {_decode_only_ms(rec_d):.1f} ms wall; "
+        f"{captures(d)}  [{card}]")
     log(f"  decode_share of the fused cycles: "
         f"{share_histogram(r['share'] for r in rec_d if r['fused'])}")
     return lb
@@ -1858,7 +2281,7 @@ def phase_mamba(card: str) -> dict:
         f"{100 * m.goodput:.1f}%; {len(rec)} cycles in {secs:.1f} s wall "
         f"({1e3 * secs / len(rec):.1f} ms per cycle), decode-only cycle "
         f"{_decode_only_ms(rec):.1f} ms, stats {vars(srv.stats)}, ssd_scan "
-        f"launches {launches}  [{card}]")
+        f"launches {launches}; {captures(srv)}  [{card}]")
     del srv
 
     # (c) the length-correct state: a mixed-length batch against each
@@ -1901,11 +2324,9 @@ def phase_mamba(card: str) -> dict:
             wall=True, n_requests=2,
             audit=lambda srv: [w(srv) for w in windows])
     for w in windows:
-        check(w.wall is not None, "mamba: the warm-up ended before its "
-              "profile window")
-        _profile_report(w.prof, w.wall, f"cycles {w.first + 1}-"
-                        f"{w.first + w.n} of Mamba-2 serving ({w.prefills} "
-                        f"with a prefill group), bf16, wall clock", card)
+        w.report(f"cycles {w.start + 1}-{w.start + w.n} of Mamba-2 serving "
+                 f"({w.prefills} with a prefill group), bf16, wall clock",
+                 card)
     SK.launches = 0
     srv, _, m, secs, rec = _replay(cfg, params, torch.bfloat16, paged=None,
                                    max_prefill_batch=4, wall=True,
@@ -1922,7 +2343,7 @@ def phase_mamba(card: str) -> dict:
         f"{100 * m.goodput:.1f}%; {len(rec)} cycles in {secs:.1f} s "
         f"({1e3 * secs / len(rec):.1f} ms per cycle), decode-only cycle "
         f"{_decode_only_ms(rec):.1f} ms, stats {vars(srv.stats)}, ssd_scan "
-        f"launches {launches_bf16}  [{card}]")
+        f"launches {launches_bf16}; {captures(srv)}  [{card}]")
     del srv, params
     torch.cuda.empty_cache()
     return {"fp32": launches, "bf16": launches_bf16}
@@ -1964,17 +2385,20 @@ def _prompt_batch(cfg, lens, seed: int):
 
 def _greedy(params, cfg, toks, lens, cache, n_dec: int):
     """The models-level path: ``prefill`` of the padded batch, then
-    ``n_dec`` greedy ``decode_step``s. Returns the logits of every step
-    (on the CPU) and the greedy tokens."""
-    from repro_torch.models import decode_step, prefill
+    ``n_dec`` greedy ``decode_step``s through ``GraphedDecode`` (replayed
+    as a CUDA graph on the card, eager on the CPU). Returns the logits of
+    every step (on the CPU) and the greedy tokens."""
+    from repro_torch.core.graphs import GraphedDecode
+    from repro_torch.models import prefill
     dev = params["embed"].device
     logits, _ = prefill(params, toks.to(dev), lens.to(dev), cache, None, cfg)
+    step = GraphedDecode(params, cache, cfg)
     seq, tokens = [logits.float().cpu()], []
     tok = logits.argmax(-1).to(torch.int32)
     pos = lens.to(dev)
     for _ in range(n_dec):
         tokens.append(tok.cpu())
-        logits, _ = decode_step(params, cache, tok[:, None], pos, cfg)
+        logits = step(tok[:, None], pos)
         seq.append(logits.float().cpu())
         tok, pos = logits.argmax(-1).to(torch.int32), pos + 1
     return seq, tokens
@@ -2068,12 +2492,13 @@ def phase_recurrentgemma(card: str) -> dict:
     vocab 256000, seeded random weights) through the models-level
     ``prefill`` / ``decode_step`` on the dense slot cache: the state check
     in fp32, then in bf16 four prompts as one padded batch and 64 greedy
-    decode steps, timed, with the launches counted around that run, and a
-    torch.profiler window over one prefill call and one over 10 decode
-    steps. Returns the launches of the bf16 run."""
+    decode steps through ``GraphedDecode``, timed, with the launches
+    counted around that run, and a torch.profiler window over one prefill
+    call and one over 10 decode steps. Returns the launches of the bf16
+    run."""
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_cache, init_params
-    from repro_torch.models import prefill
+    from repro_torch.core.graphs import GraphedDecode
+    from repro_torch.models import init_cache, init_params, prefill
 
     cfg = get_config("recurrentgemma-2b")
     check(cfg.n_layers == 26 and cfg.d_model == RG_W and cfg.n_heads == RG_H
@@ -2117,17 +2542,27 @@ def phase_recurrentgemma(card: str) -> dict:
           f"and {n_swa} flash_attention")
     check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
           "recurrentgemma: non-finite prefill logits")
+    # the timed decode: the first step captures (an eager step, then the
+    # capture), the other RG_DECODE - 1 replay
+    _rg_reset()
+    dec = GraphedDecode(params, cache, cfg)
     tok = logits.argmax(-1).to(torch.int32)
     pos = lens.clone()
     out = []
     t0 = time.perf_counter()
-    for _ in range(RG_DECODE):
-        logits, _ = decode_step(params, cache, tok[:, None], pos, cfg)
-        tok, pos = logits.argmax(-1).to(torch.int32), pos + 1
+    for i in range(RG_DECODE):
+        lg = dec(tok[:, None], pos)
+        tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
         out.append(tok)
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
     torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
+    t_first, t_dec = t1 - t0, time.perf_counter() - t1
+    n_rep = RG_DECODE - 1
     launches = _rg_launches()
+    launches["rglru_scan"] += pre["rglru_scan"]
+    launches["flash_attention"] += pre["flash_attention"]
     check(launches["decode_attention"] == n_swa * RG_DECODE
           and launches["rglru_scan"] == n_rg
           and launches["flash_attention"] == n_swa,
@@ -2136,37 +2571,46 @@ def phase_recurrentgemma(card: str) -> dict:
     toks_out = torch.stack(out, 1).cpu()
     check(bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()),
           "recurrentgemma: token out of vocab")
-    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+    check(bool(torch.isfinite(lg[:, :cfg.vocab_size]).all()),
           "recurrentgemma: non-finite decode logits")
     log(f"recurrentgemma bf16: prefill of {int(lens.sum())} prompt tokens "
         f"(padded {b}x{max(RG_PROMPTS)}) {1e3 * t_pre:.1f} ms, decode "
-        f"{1e3 * t_dec / RG_DECODE:.2f} ms per step ({b} slots), "
-        f"{b * RG_DECODE / t_dec:.1f} output tok/s; launches {launches}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  "
-        f"[{card}]")
+        f"{1e3 * t_dec / n_rep:.2f} ms per step over {n_rep} graph replays "
+        f"({b} slots, {b * n_rep / t_dec:.1f} output tok/s), the first step "
+        f"(eager, then the capture) {1e3 * t_first:.1f} ms; launches "
+        f"{launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  [{card}]")
 
-    # profiles: one prefill call, and 10 decode steps
+    # profiles: one prefill call, and 10 decode steps (graph replays)
     cache = init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
-    for what, steps in (("one prefill call (4 prompts, padded to "
-                         f"{max(RG_PROMPTS)})", 0),
-                        ("10 decode steps (4 slots)", 10)):
-        if steps:
-            tok = logits.argmax(-1).to(torch.int32)
-            pos = lens.clone()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, toks, lens, cache, None, cfg)
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if not steps:
-                logits, _ = prefill(params, toks, lens, cache, None, cfg)
-            for _ in range(steps):
-                lg, _ = decode_step(params, cache, tok[:, None], pos, cfg)
-                tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        _profile_report(prof, wall, f"RecurrentGemma-2B bf16, {what}", card)
-    del params, cache
+        wall = time.perf_counter() - t0
+    _profile_report(prof, wall, "RecurrentGemma-2B bf16, one prefill call "
+                    f"(4 prompts, padded to {max(RG_PROMPTS)})", card)
+    dec = GraphedDecode(params, cache, cfg)
+    tok = logits.argmax(-1).to(torch.int32)
+    lg = dec(tok[:, None], lens)
+    tok, pos = lg.argmax(-1).to(torch.int32), lens + 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            lg = dec(tok[:, None], pos)
+            tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_report(prof, wall, "RecurrentGemma-2B bf16, 10 decode steps "
+                    "(4 slots, graph replays)", card, cycles=10,
+                    tokens=10 * b)
+    del params, cache, dec
     torch.cuda.empty_cache()
     return launches
 
@@ -2186,8 +2630,14 @@ def main() -> int:
     def timed(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
+        # servers sit in reference cycles: collect them, so that each
+        # phase starts with only what the script still holds on the card
+        gc.collect()
+        torch.cuda.empty_cache()
         log(f"phase {name}: {time.perf_counter() - t:.1f} s "
-            f"(total {time.perf_counter() - t0:.1f} s)")
+            f"(total {time.perf_counter() - t0:.1f} s), "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB left "
+            "allocated")
         return out
 
     card = phase_card()
@@ -2203,7 +2653,8 @@ def main() -> int:
     timed("reference", phase_reference)
     timed("mamba reference", phase_mamba_reference)
     rg_ref = timed("recurrentgemma reference", phase_rg_reference)
-    launches = timed("serve", phase_serve, card)[0]
+    launches, _, buckets = timed("serve", phase_serve, card)
+    timed("graphs", phase_graphs, card, buckets)
     replay = timed("replay", phase_replay, card)
     ssd = timed("mamba", phase_mamba, card)
     rg = timed("recurrentgemma", phase_recurrentgemma, card)

@@ -1,6 +1,12 @@
 """Compare two checkouts of the port on one CUDA card, in turns.
 
     python3 scripts/compare_trees.py OTHER_CHECKOUT
+    python3 scripts/compare_trees.py OTHER_CHECKOUT --windows
+
+``--windows`` runs only ``windows`` (the serve, Mamba-2 and
+RecurrentGemma decode paths with their profile windows, see there) of
+each checkout, in the order other, this, this, other, and prints every
+number per turn. Without it:
 
 Runs, in the order other, this, this, other: ``chip_smoke.py
 --kernels-only`` of each checkout (each builds its own kernels under its
@@ -12,11 +18,12 @@ through that checkout's wrappers, timed by the same code for both
 (``fused``), in bf16 and fp32: at the serving shape (``chip_smoke.py``'s
 flash Bp=1 S=1000 with its 8-slot paged and dense decode batches,
 decode_share 0.5) beside flash + paged decode launched apart, each as the
-card's time alone (this checkout's ``chip_smoke.Timer`` with ``hold``:
-the stream is held busy while the host enqueues, so the events bracket
-the kernel and not the wrapper's Python),
+card's time alone (this checkout's ``chip_smoke.Timer``, which holds
+the stream busy while the host enqueues, so the events bracket the
+kernel and not the wrapper's Python),
 torch.profiler's device µs per launch, and the wrapper's host µs per
-call (``host_us``); the paged one at the serving shape over ``SHARES``;
+call (``host_us``), as are flash, paged decode and dense decode alone at
+that shape; the paged one at the serving shape over ``SHARES``;
 the dense one over the colocated shape's shares beside its two kernels
 launched apart; and, where the wrapper records its launch, item spans of
 recorded launches (``spans``). Prints every kernel row's time
@@ -89,17 +96,22 @@ def dump(tree: str, path: str) -> None:
     torch.save(out, path)
 
 
-def smoke_timer():
-    """This checkout's ``chip_smoke.Timer``, loaded from its file under
-    another name, so the same timing code serves both checkouts: call it
-    before the other checkout's modules are imported and put on the path
-    (chip_smoke.py puts its own ``src`` first on the path)."""
+def smoke_module():
+    """This checkout's ``chip_smoke.py``, loaded from its file under another
+    name, so the same timing and driving code serves both checkouts: call
+    it before the other checkout's modules are imported and put on the
+    path (chip_smoke.py puts its own ``src`` first on the path)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "compare_smoke", os.path.join(ROOT, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.Timer()
+    return mod
+
+
+def smoke_timer():
+    """This checkout's ``chip_smoke.Timer`` (see ``smoke_module``)."""
+    return smoke_module().Timer()
 
 
 def profiled_us(fn, key: str, n: int = 20) -> float:
@@ -170,7 +182,7 @@ def fused(tree: str, path: str) -> None:
     assert BA.__file__.startswith(tree) and CS.__file__.startswith(tree)
 
     def device_ms(fn):
-        return timer(fn, hold=True)
+        return timer(fn)
     G, h, kh, d = CS.G, CS.H, CS.K, CS.D
     out = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -190,6 +202,15 @@ def fused(tree: str, path: str) -> None:
             what = f"{name} {tag}, serving shape, share 0.5"
             out[f"{what}: device ms"] = device_ms(fn)
             out[f"{what}: profiled us"] = profiled_us(fn, key)
+            out[f"{what}: host us"] = host_us(fn)
+        for name, fn in (
+                ("flash_attention", lambda: FA.flash_attention(q, k, v,
+                                                               group=G)),
+                ("paged_decode_attention",
+                 lambda: PD.paged_decode_attention(*dec)),
+                ("decode_attention", lambda: DA.decode_attention(*dense))):
+            what = f"{name} {tag}, serving shape"
+            out[f"{what}: device ms"] = device_ms(fn)
             out[f"{what}: host us"] = host_us(fn)
         for x in SHARES:
             out[f"bullet_attention_paged {tag}, serving shape, share {x}: "
@@ -224,6 +245,104 @@ def fused(tree: str, path: str) -> None:
                 lambda: BA.bullet_attention(
                     qc, kc, vc, qd, kd, vd, kvpos, pos, decode_share=x,
                     group=G))
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _prefixed(what: str, numbers: dict) -> dict:
+    return {f"{what}: {k}": v for k, v in numbers.items()}
+
+
+def windows(tree: str, path: str) -> None:
+    """The decode path of ``tree``, driven, timed and profiled by this
+    checkout's ``chip_smoke.py`` functions (the same code for both
+    checkouts; run in a process of its own, ``tree``'s ``src`` first on
+    the path), saved to ``path`` as JSON: Qwen3-1.7B bf16 served fused,
+    serial and under the scheduler's defaults (tok/s), the decode-heavy
+    default-scheduler serve (tok/s, and its window of 30 serial decode
+    cycles) and the window of 30 fused cycles; Mamba-2-2.7B's wall-clock
+    warm-up windows (cycles 11-20, a prefill group in each, and 101-110,
+    decode); RecurrentGemma-2B's decode of the padded 4-prompt batch
+    (ms per step over 63 steps after the first, through ``GraphedDecode``
+    where the checkout has it, else ``decode_step``) and its window of 10
+    decode steps. Each window: wall ms, device busy ms and share, ms per
+    cycle, tok/s."""
+    import importlib.util
+    import torch
+    cs = smoke_module()
+    sys.path.insert(0, os.path.join(tree, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    assert T.__file__.startswith(tree), T.__file__
+    card = cs.phase_card()
+    out = {}
+
+    cfg = get_config("qwen3-1.7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    prompts, outs, arrivals = cs.serve_workload(cfg)
+    cs._serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
+    for name, kw in (("fused", dict(fused=True)),
+                     ("serial", dict(fused=False)),
+                     ("default scheduler", dict(fused=True,
+                                                default_sched=True))):
+        _, secs, _ = cs._serve(cfg, params, prompts, outs, arrivals, **kw)
+        out[f"qwen3 serve {name}: tok/s"] = sum(outs) / secs
+    out.update(_prefixed("qwen3 decode serve",
+                         cs.decode_serve(cfg, params, card)))
+    out.update(_prefixed("qwen3 30 fused cycles", cs.phase_profile(
+        cfg, params, prompts, outs, arrivals, card)))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-2.7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    wins = (cs.ProfileCycles(10, 10), cs.ProfileCycles(100, 10))
+    cs._replay(cfg, params, torch.bfloat16, paged=None, max_prefill_batch=4,
+               wall=True, n_requests=2,
+               audit=lambda srv: [w(srv) for w in wins])
+    for w in wins:
+        what = f"mamba2 cycles {w.start + 1}-{w.start + w.n}"
+        out.update(_prefixed(what, w.report(
+            f"{what} ({w.prefills} with a prefill group)", card)))
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("recurrentgemma-2b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    b = len(cs.RG_PROMPTS)
+    toks, lens = cs._prompt_batch(cfg, cs.RG_PROMPTS, seed=3)
+    toks, lens = toks.cuda(), lens.cuda()
+    cache = T.init_cache(cfg, b, max(cs.RG_PROMPTS) + cs.RG_DECODE,
+                         torch.bfloat16, "cuda")
+    logits, _ = T.prefill(params, toks, lens, cache, None, cfg)
+    if importlib.util.find_spec("repro_torch.core.graphs") is not None:
+        from repro_torch.core.graphs import GraphedDecode
+        step = GraphedDecode(params, cache, cfg)
+    else:
+        def step(tok, pos):
+            return T.decode_step(params, cache, tok, pos, cfg)[0]
+    tok, pos = logits.argmax(-1).to(torch.int32), lens.clone()
+
+    def run(n):
+        nonlocal tok, pos
+        t0 = time.perf_counter()
+        for _ in range(n):
+            lg = step(tok[:, None], pos)
+            tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    run(1)                                  # the first step (captures)
+    n = cs.RG_DECODE - 1
+    wall = run(n)
+    out["recurrentgemma decode: ms per step"] = wall * 1e3 / n
+    out["recurrentgemma decode: tok/s"] = b * n / wall
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall = run(10)
+    what = "recurrentgemma 10 decode steps"
+    out.update(_prefixed(what, cs._profile_report(
+        prof, wall, what, card, cycles=10, tokens=b * 10)))
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -271,12 +390,35 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--fused":
         fused(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--window":
+        windows(os.path.abspath(sys.argv[2]), sys.argv[3])
+        return 0
     import torch
     other = os.path.abspath(sys.argv[1])
     os.makedirs(OUT, exist_ok=True)
     os.makedirs(DUMPS, exist_ok=True)
     turns = [("other", other), ("this", ROOT), ("this", ROOT),
              ("other", other)]
+    if sys.argv[2:] == ["--windows"]:
+        got = []
+        for i, (tag, tree) in enumerate(turns):
+            path = os.path.join(DUMPS, f"{i}_{tag}_windows.json")
+            with open(os.path.join(OUT, f"{i}_{tag}_windows.log"), "w") as f:
+                rc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__), "--window",
+                     tree, path], stdout=f, stderr=subprocess.STDOUT,
+                    cwd=tree).returncode
+            print(f"turn {i} ({tag}): windows rc={rc}")
+            if rc:
+                return rc
+            with open(path) as f:
+                got.append(json.load(f))
+        print("window (turns): " + " / ".join(f"{i} {t}" for i, (t, _) in
+                                              enumerate(turns)))
+        for key in got[1]:
+            print(f"{key}: " + " / ".join(
+                f"{g[key]:.4f}" if key in g else "-" for g in got))
+        return 0
     logs, dumps, timings = [], [], []
     for i, (tag, tree) in enumerate(turns):
         log = os.path.join(OUT, f"{i}_{tag}.log")

@@ -33,6 +33,16 @@ observability (``obs``), fault-injection (``faults``) and SLO-guard
 module-level step functions are the torch counterparts of the JAX
 package's jitted helpers; where those donated a cache, these write it in
 place, so every fault seam fires before its cycle's first in-place write.
+
+On the card the serial decode iteration replays as a CUDA graph
+(``core/graphs.py``), one per static shape: ``("paged", n_b)`` per table
+bucket, ``("dense",)`` for the slot cache. Its inputs are staged in
+persistent buffers (tokens, pos, active, and one block table per bucket,
+copied again whenever ownership changes), and the graphs are dropped
+before their cache is. The fused cycle, the prefill groups and
+``_final_tokens`` stay eager: their shapes follow each prompt's padded
+length and the layer group ``rep`` (28 groups per prompt on Qwen3-1.7B),
+too many to capture whole. CPU tensors run every step eagerly.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from repro_torch.configs.base import MOE, ModelConfig
 from repro_torch.core.config import ServerConfig
 from repro_torch.core.estimator import (CycleObservation, OnlineRefitter,
                                         PerfEstimator, predict_cycle)
+from repro_torch.core.graphs import StepGraphs
 from repro_torch.core.metadata import MetadataBuffer
 from repro_torch.core.resource import ResourceManager
 from repro_torch.core.scheduler import SchedulerConfig, SLOScheduler
@@ -71,11 +82,12 @@ def _decode_iteration(params, cache, tokens, pos, active, block_tables=None,
     slots are masked out of the sampled tokens. ``block_tables`` (B, n_b)
     selects the block-paged cache, its (bucketed) width how many table
     columns the paged kernel may walk; without it ``cache`` is the dense
-    slot cache. The cache is updated in place."""
+    slot cache. The cache is updated in place. Returns (next tokens (B,
+    1), logits (B, V))."""
     logits, _ = T.decode_step(params, cache, tokens, pos, cfg,
                               block_tables=block_tables)
     next_tokens = logits.argmax(dim=-1).to(torch.int32)
-    return torch.where(active, next_tokens, 0)[:, None]
+    return torch.where(active, next_tokens, 0)[:, None], logits
 
 
 def _final_tokens(params, x, lengths, *, cfg: ModelConfig):
@@ -297,12 +309,21 @@ class BulletServer:
         #: observation indices at which a refit was applied
         self.refit_log: List[int] = []
         self.dtype = dtype
+        #: the decode iteration's CUDA graphs, by static shape
+        self.graphs = StepGraphs()
         self._alloc_cache()
-        # slot bookkeeping on the host; uploaded per iteration
+        # slot bookkeeping on the host; staged into persistent device
+        # buffers per iteration
         self.slot_req: List[Optional[Request]] = [None] * self.max_slots
         self.tokens = np.zeros((self.max_slots, 1), np.int32)
         self.pos = np.zeros((self.max_slots,), np.int32)
         self.active = np.zeros((self.max_slots,), bool)
+        self._dev_tokens = torch.zeros((self.max_slots, 1), dtype=torch.int32,
+                                       device=self.device)
+        self._dev_pos = torch.zeros((self.max_slots,), dtype=torch.int32,
+                                    device=self.device)
+        self._dev_active = torch.zeros((self.max_slots,), dtype=torch.bool,
+                                       device=self.device)
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         self.outputs: Dict[int, List[int]] = {}
@@ -327,7 +348,9 @@ class BulletServer:
         """Allocate the device cache of the current layout. Paged: the
         unified page pool, whose PagedKVPool block ids address the pages
         directly (the trailing trash page absorbs masked writes), and the
-        host block tables. Dense: one ``max_len`` row per slot."""
+        host block tables. Dense: one ``max_len`` row per slot. The graphs
+        of the old cache go first."""
+        self.graphs.drop()
         if self.paged:
             self.cache = T.init_paged_cache(self.cfg, self.pool.n_blocks,
                                             self.page_size, self.dtype,
@@ -337,8 +360,8 @@ class BulletServer:
             self._host_tables = np.full((self.max_slots, self.max_blocks),
                                         self._trash_page, np.int32)
             self._tables_dirty = False
-            #: device copies of the (sliced) host table, keyed by bucket
-            #: width — re-uploaded only when ownership changes
+            #: persistent device copies of the (sliced) host table, one per
+            #: bucket width in use; copied again when ownership changes
             self._dev_tables: Dict[int, torch.Tensor] = {}
         else:
             self.cache = T.init_cache(self.cfg, self.max_slots, self.max_len,
@@ -365,12 +388,14 @@ class BulletServer:
             [r.rid if r is not None and r.phase == Phase.DECODE else None
              for r in self.slot_req],
             self.max_blocks, fill=self._trash_page)
-        self._dev_tables.clear()
+        for n_b, bt in self._dev_tables.items():
+            bt.copy_(torch.from_numpy(self._host_tables[:, :n_b]))
         self._tables_dirty = False
 
     def _device_tables(self, n_b: int) -> torch.Tensor:
-        """The first ``n_b`` table columns on device, uploaded lazily and
-        reused across iterations until ownership changes."""
+        """The persistent device buffer of the first ``n_b`` table
+        columns (a graph of bucket ``n_b`` reads it), made on first use;
+        ``_sync_tables`` keeps every one current."""
         bt = self._dev_tables.get(n_b)
         if bt is None:
             bt = self._dev(np.ascontiguousarray(self._host_tables[:, :n_b]))
@@ -821,6 +846,7 @@ class BulletServer:
                                  generated=float(r.generated))
             self.stats.preempted += 1
         self.paged = paged
+        self.graphs.drop()
         self.cache = None
         self._dev_tables = {}
         if self.device.type == "cuda":
@@ -866,7 +892,7 @@ class BulletServer:
         """(ctxs_ran, streamed, device tensors) for one iteration: the live
         context of each slot that runs, the KV tokens charged to each, and
         tokens, pos, active and (paged) the bucketed block tables — None
-        for the dense cache."""
+        for the dense cache — staged in the persistent buffers."""
         ctxs_ran = tuple(int(p) + 1 for p, a in zip(self.pos, self.active)
                          if a)
         n_ran = len(ctxs_ran)
@@ -879,8 +905,10 @@ class BulletServer:
         else:
             span, bt = self.max_len, None
         streamed = (span * self.max_slots // max(n_ran, 1),) * n_ran
-        dev = (self._dev(self.tokens), self._dev(self.pos),
-               self._dev(self.active), bt)
+        self._dev_tokens.copy_(torch.from_numpy(self.tokens))
+        self._dev_pos.copy_(torch.from_numpy(self.pos))
+        self._dev_active.copy_(torch.from_numpy(self.active))
+        dev = (self._dev_tokens, self._dev_pos, self._dev_active, bt)
         return ctxs_ran, streamed, dev
 
     def _decode_cycle(self, now: float) -> bool:
@@ -899,11 +927,22 @@ class BulletServer:
             self.faults.dispatch("decode")
         act_np = self.active.copy()
         ctxs_ran, streamed, (tokens, pos, active, bt) = self._decode_inputs()
-        next_tokens = _decode_iteration(self.params, self.cache, tokens, pos,
-                                        active, bt, cfg=self.cfg)
+        if bt is None:
+            next_tokens, _ = self.graphs(("dense",), self._decode_step,
+                                         tokens, pos, active)
+        else:
+            next_tokens, _ = self.graphs(("paged", bt.shape[1]),
+                                         self._decode_step, tokens, pos,
+                                         active, bt)
         self._finish_decode_iteration(next_tokens, act_np, ctxs_ran,
                                       streamed, now)
         return True
+
+    def _decode_step(self, tokens, pos, active, block_tables=None):
+        """``_decode_iteration`` on the current params and cache: the step
+        the server's graphs capture."""
+        return _decode_iteration(self.params, self.cache, tokens, pos, active,
+                                 block_tables, cfg=self.cfg)
 
     def _finish_decode_iteration(self, next_tokens, act_np, ctxs_ran,
                                  streamed, now: float) -> None:

@@ -1,0 +1,153 @@
+"""CUDA graphs of the decode steps: the port's counterpart of the JAX
+package's jitted steps, "compiled once, reused — §3.4.2 pre-configured
+states" (``src/repro/core/engine.py:80-100``, ``_decode_iteration``, and
+the sub-mesh pairs at ``:628-631``), where the port otherwise runs every
+op eagerly, one Python launch each.
+
+:class:`StepGraphs` keeps one ``torch.cuda.CUDAGraph`` per static shape key
+of a step (the engine's ``("paged", n_b)`` per table bucket and
+``("dense",)``; :class:`GraphedDecode`'s ``("rg", B)``). Each entry owns
+its static inputs, its outputs and the kernel launches its capture
+recorded; all entries share one memory pool, which is safe because every
+replay runs on the caller's stream, one after another. On a miss the step
+runs once, eagerly, on the side stream the capture will use, and that run
+is the call's result: it builds the kernel library, fills the cached
+occupancy queries and creates the split decode's and the fused launch's
+per-stream workspaces before capture, so none of them comes from the
+graph's pool. It is the only eager run: a second would advance a
+recurrent state (Mamba-2, RG-LRU) twice. The capture itself executes
+nothing. A hit copies the inputs into the static buffers and replays.
+
+A replay calls no kernel wrapper, so each entry adds to the wrappers'
+launch counters exactly what its capture's calls added to them, and the
+counters read the same as an eager run's. CPU tensors never reach a graph:
+the step runs eagerly, as every kernel wrapper dispatches by device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Hashable, List, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.kernels import bullet_attention as _BA
+from repro_torch.kernels import decode_attention as _DA
+from repro_torch.kernels import flash_attention as _FA
+from repro_torch.kernels import paged_decode_attention as _PD
+from repro_torch.kernels import rglru_scan as _RK
+from repro_torch.kernels import ssd_scan as _SK
+from repro_torch.models import transformer as T
+
+#: every kernel wrapper's launch counter, (module, attribute)
+COUNTERS = ((_FA, "launches"), (_PD, "launches"), (_DA, "launches"),
+            (_BA, "launches"), (_BA, "dense_launches"), (_SK, "launches"),
+            (_RK, "launches"))
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """The wrappers' launch counters, in ``COUNTERS`` order."""
+    return tuple(getattr(m, a) for m, a in COUNTERS)
+
+
+def _set_counts(values) -> None:
+    for (m, a), v in zip(COUNTERS, values):
+        setattr(m, a, v)
+
+
+def _tensors(out) -> List[torch.Tensor]:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+class _Entry(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    inputs: Tuple[torch.Tensor, ...]
+    output: object
+    launches: Tuple[int, ...]
+
+
+class StepGraphs:
+    """A cache of CUDA graphs of one step function, by static shape key."""
+
+    def __init__(self):
+        self._entries: Dict[Hashable, _Entry] = {}
+        self._pool = None
+        self._stream = None
+        #: (key, capture seconds) of every capture, in order (drops kept)
+        self.captures: List[Tuple[Hashable, float]] = []
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __call__(self, key: Hashable, fn: Callable, *inputs: torch.Tensor):
+        """``fn(*inputs)`` (a tensor or a tuple of tensors): eagerly for
+        CPU tensors, else through the graph captured for ``key``. The
+        result of a replay is the entry's static output, overwritten by
+        the key's next replay."""
+        if inputs[0].device.type != "cuda":
+            return fn(*inputs)
+        e = self._entries.get(key)
+        if e is None:
+            return self._capture(key, fn, inputs)
+        for static, x in zip(e.inputs, inputs):
+            static.copy_(x)
+        e.graph.replay()
+        _set_counts(c + d for c, d in zip(launch_counts(), e.launches))
+        return e.output
+
+    def _capture(self, key, fn, inputs):
+        dev = inputs[0].device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        caller, side = torch.cuda.current_stream(dev), self._stream
+        static = tuple(x.clone() for x in inputs)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            out = fn(*inputs)
+        t0 = time.perf_counter()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            static_out = fn(*static)
+        after = launch_counts()
+        _set_counts(before)
+        caller.wait_stream(side)
+        for t in _tensors(out):
+            t.record_stream(caller)
+        self._entries[key] = _Entry(graph, static, static_out, tuple(
+            a - b for a, b in zip(after, before)))
+        self.captures.append((key, time.perf_counter() - t0))
+        return out
+
+    def drop(self) -> None:
+        """Release every graph and the pool they share (the caching
+        allocator returns the pool's memory at its next ``empty_cache``)."""
+        for e in self._entries.values():
+            e.graph.reset()
+        self._entries.clear()
+        self._pool = None
+
+
+class GraphedDecode:
+    """``transformer.decode_step``'s logits over a dense slot cache,
+    through :class:`StepGraphs` keyed ``("rg", B)``: the models-level
+    decode that RecurrentGemma runs (both engines refuse its
+    ``pattern_tail``), built from ``(params, cache, cfg)`` and called with
+    ``(tokens (B, 1) int32, pos (B,) int32)``. The cache is updated in
+    place; on the card the logits are the graph's static output, valid
+    until the next call with the same B."""
+
+    def __init__(self, params, cache, cfg):
+        self.params, self.cache, self.cfg = params, cache, cfg
+        self.graphs = StepGraphs()
+
+    def _step(self, tokens, pos):
+        return T.decode_step(self.params, self.cache, tokens, pos,
+                             self.cfg)[0]
+
+    def __call__(self, tokens, pos):
+        return self.graphs(("rg", tokens.shape[0]), self._step, tokens, pos)

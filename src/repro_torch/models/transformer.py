@@ -20,6 +20,7 @@ recurrent state. MoE and cross-attention stacks raise (ROADMAP).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -516,12 +517,19 @@ def fused_group_decode(params, cache, x_p, positions, page_map, tokens, pos,
 # Embeddings / head
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype`` first, as in JAX, as a Python
+    float: a tensor times it rounds as the tensor times the rounded 0-dim
+    tensor does (both in opmath, the scale exact there), with no
+    host-to-device copy (illegal while a CUDA graph captures)."""
+    return float(torch.tensor(d_model ** 0.5, dtype=dtype))
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig):
     x = params["embed"][tokens.long()]
     if cfg.tie_embeddings:
-        # the scale is rounded to the activation dtype first, as in JAX
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
 
 

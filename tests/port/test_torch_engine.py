@@ -41,8 +41,7 @@ HW = dict(name="h100-sxm", n_chips=1, peak_flops=989e12, hbm_bw=3.35e12,
           ici_bw=450e9, units_per_chip=8, grid_slots=8)
 
 
-@pytest.fixture(scope="module")
-def model():
+def _model():
     # 2 pattern repeats -> 2 layer-group launches per prefill, so decode
     # iterations (and fused cycles) interleave with in-flight prefills
     jcfg = jax_config("qwen3-1.7b").reduced(n_layers=2)
@@ -50,6 +49,11 @@ def model():
     jparams = jax_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model()
 
 
 def _servers(model, **kw):
