@@ -56,25 +56,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    versions);
 6. serve: Qwen3-1.7B at full width and depth, bf16, seeded random
    weights, 12 requests through BulletServer fused (the default) with the
-   launch counters read around that run and the decode_share of each
-   fused cycle counted, then serial: identical streams;
+   launch counters read around that run, the decode_share of each fused
+   cycle counted and the prompt tokens against the padded length buckets
+   they ran at, then serial: identical streams;
    then the same requests under the scheduler's defaults (its fused
    share); then 4 of them on the dense slot cache in bf16 (the bf16 dense
    decode kernel's launches); then a decode-heavy serve under the
-   scheduler's defaults (8 requests of 64 + 128 tokens) with a
+   scheduler's defaults (8 requests of 128 + 128 tokens) with a
    torch.profiler window over 30 serial decode cycles, and one over 30
    fused cycles (device time by kernel kind, device busy share, wall per
-   cycle, tok/s); every server's decode graphs (one CUDA graph per table
-   bucket or for the dense cache, replayed on every serial decode
-   iteration) printed with their capture seconds;
-   graphs: the decode graphs against the eager step (the module-level
+   cycle, tok/s); the host time per cycle by part (``HostSplit``) of the
+   fused, serial, default-scheduler and decode-heavy serves, cycles that
+   captured a graph apart; every server's CUDA graphs (serial decode per
+   table bucket or for the dense cache, the fused cycle's segments, the
+   paged prefill groups and first tokens) counted by kind with their
+   capture seconds, and the graph pool's peak;
+   graphs: the engine's graphs against the eager step (the module-level
    step function called directly) on two copies of one cache, bf16, full
    width and depth: Qwen3-1.7B's engine iteration on the paged cache at
    every table bucket the serve reached (tables changed between
-   replays) and on the dense cache, Mamba-2-2.7B's, RecurrentGemma-2B's
+   replays), its fused step in segments against ``fused_group_decode``
+   (rep 0, 13 and 27, two table buckets, two decode shares: prompt
+   activations, tokens, logits and page pool), its prefill groups and
+   first tokens (Bp 1 and 4, padded lengths 128 and 1024, two batches
+   each: activations, page pool but the trash page, first tokens), and
+   its iteration on the dense cache, Mamba-2-2.7B's, RecurrentGemma-2B's
    ``decode_step`` (``GraphedDecode``) after a prefill; tokens equal,
-   logits and caches bit-equal after every step, and after n steps of a
-   key every launch counter moved n times one eager step's;
+   logits and caches bit-equal after every step, and the launch counters
+   moved by every graphed step as by the eager one;
 7. replay: Qwen3-1.7B at full width and depth through the OnlineFrontend
    on a ShareGPT-shaped trace, with observability (the decode_share of
    each fused cycle counted): (a) a fault-free virtual-clock replay; (b)
@@ -124,6 +133,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -352,6 +362,28 @@ class FusedShares:
         if srv.stats.fused_cycles > self.seen:
             self.seen = srv.stats.fused_cycles
             self.shares.append(srv.rm.executable().decode_share)
+
+
+class PaddedShare:
+    """A serve audit: each prefill batch's real prompt tokens against the
+    tokens it was padded to (B x padded length), read from the in-flight
+    task after every cycle."""
+
+    def __init__(self):
+        self.real = self.padded = 0
+        self.task = None
+
+    def __call__(self, srv) -> None:
+        task = srv.ptask
+        if task is not None and task is not self.task:
+            self.task = task
+            self.real += task.n_tokens
+            self.padded += task.x.shape[0] * task.x.shape[1]
+
+    def line(self) -> str:
+        share = 1 - self.real / max(self.padded, 1)
+        return (f"{self.real} prompt tokens padded to {self.padded} "
+                f"({100 * share:.1f}% padding)")
 
 
 # ---------------------------------------------------------------------------
@@ -1396,7 +1428,7 @@ class ProfileCycles:
     the first cycle from ``first`` on after which ``when(server)`` holds),
     times that window on the host clock and counts the window's cycles
     that ran a prefill group and the tokens its decode iterations
-    emitted, and the decode graphs captured in it."""
+    emitted, and the graphs captured in it."""
 
     def __init__(self, first: int, n: int, when=None):
         self.first, self.n, self.when, self.cycle = first, n, when, 0
@@ -1440,7 +1472,7 @@ class ProfileCycles:
         out = _profile_report(self.prof, self.wall, what, card,
                               cycles=self.n, tokens=self.tokens)
         out["captures"] = self.captured
-        log(f"  decode graphs captured in the window: {self.captured}")
+        log(f"  graphs captured in the window: {self.captured}")
         return out
 
 
@@ -1486,19 +1518,25 @@ def _profile_report(prof, wall: float, what: str, card: str,
 class HostSplit:
     """A serve audit that, from its first call on, times on the host clock
     what each engine cycle spends where: the scheduler, staging the decode
-    inputs, the call into the decode graphs (the replay's enqueue; the
-    device's work is then waited for apart, where the engine's read-back
-    would wait for it anyway), the read-back and bookkeeping of the
-    sampled tokens (in a fused cycle the wait for its device work too),
-    the rest of a fused cycle, a prefill group's launch; each part
-    exclusive of the parts it calls. The rest of the cycle's wall is the
-    engine's and the serve loop's other work. Cycles are split by kind:
-    a decode iteration alone, fused, or other."""
+    inputs, the call into the serial decode graph (the replay's enqueue;
+    the device's work is then waited for apart, where the engine's
+    read-back would wait for it anyway), the fused cycle's decode graph
+    replays and its eager fused repeat (host time only: their device work
+    runs on while the host goes on), the prefill graphs' replays, graph
+    captures (the miss's eager run and the capture), the read-back and
+    bookkeeping of the sampled tokens (in a fused cycle the wait for its
+    device work too), the rest of a fused cycle, a prefill group's launch;
+    each part exclusive of the parts it calls. The rest of the cycle's wall
+    is the engine's and the serve loop's other work. Cycles are split by
+    kind: a decode iteration alone, fused, or other, and apart from each a
+    cycle of that kind that captured a graph ("fused (capturing)"). A part
+    whose method a checkout lacks is left out."""
 
     #: (part, owner, method) of the timed calls; owner "" is the server
     PARTS = (("schedule", "scheduler", "schedule"),
              ("stage inputs", "", "_decode_inputs"),
              ("read back, bookkeeping", "", "_finish_decode_iteration"),
+             ("eager fused repeat", "", "_fused_repeat"),
              ("rest of the fused cycle", "", "_fused_cycle"),
              ("prefill group launch", "", "_launch_prefill_group"))
 
@@ -1508,6 +1546,8 @@ class HostSplit:
         self.cycles = collections.defaultdict(list)
         #: per timed call in progress, the time its timed callees took
         self.stack = []
+        #: whether the cycle in progress captured a graph
+        self.capturing = False
 
     def _add(self, part: str, elapsed: float, callees: float = 0.0) -> None:
         self.cur[part] += elapsed - callees
@@ -1529,13 +1569,22 @@ class HostSplit:
         split = self
 
         class Timed:
-            def __call__(self, *a):
+            def __call__(self, key, *a):
+                n = len(graphs.captures)
                 t0 = time.perf_counter()
-                out = graphs(*a)
+                out = graphs(key, *a)
                 t1 = time.perf_counter()
-                torch.cuda.synchronize()
-                split._add("graph call (host)", t1 - t0)
-                split._add("device wait", time.perf_counter() - t1)
+                if len(graphs.captures) != n:
+                    split._add("captures", t1 - t0)
+                    split.capturing = True
+                elif key[0] in ("paged", "dense"):
+                    torch.cuda.synchronize()
+                    split._add("graph call (host)", t1 - t0)
+                    split._add("device wait", time.perf_counter() - t1)
+                elif key[0].startswith("d_"):
+                    split._add("decode replays (host)", t1 - t0)
+                else:
+                    split._add("prefill replays (host)", t1 - t0)
                 return out
 
             def __getattr__(self, name):
@@ -1547,15 +1596,19 @@ class HostSplit:
         if self.last is None:
             for part, owner, name in self.PARTS:
                 obj = getattr(srv, owner) if owner else srv
-                setattr(obj, name, self._timed(getattr(obj, name), part))
+                if hasattr(obj, name):
+                    setattr(obj, name, self._timed(getattr(obj, name), part))
             if hasattr(srv, "graphs"):          # a checkout without graphs
                 srv.graphs = self._graphs(srv.graphs)
         else:
             kind = ("fused" if srv.last_fused else "decode"
                     if srv.last_decode is not None
                     and not srv.last_prefill_tokens else "other")
+            if self.capturing:
+                kind += " (capturing)"
             self.cycles[kind].append((now - self.last, dict(self.cur)))
         self.cur.clear()
+        self.capturing = False
         self.last = now
 
     def report(self, kind: str) -> dict:
@@ -1630,13 +1683,22 @@ def decode_serve(cfg, params, card: str) -> dict:
 
 
 def captures(server) -> str:
-    """The decode graphs a server captured, each with its capture seconds
-    (a server of a checkout without graphs: none)."""
-    graphs = getattr(server, "graphs", None)
-    if graphs is None:
-        return "no decode graphs"
-    return (f"{len(graphs.captures)} decode graphs captured: " + ", ".join(
-        f"{k}: {t:.3f} s" for k, t in graphs.captures))
+    """The graphs a server (or a ``GraphedDecode``, or a ``StepGraphs``)
+    captured, by kind (the key's first element): how many, their capture
+    seconds in all and at most, and the peak of the graphs' shared pool (a
+    server of a checkout without graphs: none)."""
+    graphs = getattr(server, "graphs", server)
+    if not hasattr(graphs, "captures"):
+        return "no graphs"
+    kinds = collections.defaultdict(list)
+    for k, t in graphs.captures:
+        kinds[k[0]].append(t)
+    pool = graphs.pool_bytes() if hasattr(graphs, "pool_bytes") else None
+    return (f"{len(graphs.captures)} graphs captured: " + ", ".join(
+        f"{k} {len(ts)} in {sum(ts):.3f} s (at most {max(ts):.3f})"
+        for k, ts in sorted(kinds.items()))
+        + "; graph pool peak " + ("not measured" if pool is None
+                                  else f"{pool / 2**20:.1f} MiB"))
 
 
 # ---------------------------------------------------------------------------
@@ -1744,29 +1806,37 @@ def _fill_random(cache, seed: int) -> None:
         t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
 
 
-def paged_graph_steps(buckets, slots: int, max_blocks: int, seed: int):
-    """(key, feed) per step: 3 steps per table bucket, block tables drawn
-    anew before every step (the ownership changing between replays), the
-    longest slot's live pages past half the bucket (the width the engine
-    would pick), one slot inactive on the trash page ``slots·max_blocks``."""
-    rng = np.random.default_rng(seed)
+def _decode_feed(rng, n_b: int, slots: int, max_blocks: int):
+    """(pos, active, block tables) of one paged decode step, as device
+    tensors, and the pages no table names (numpy): the tables drawn from a
+    fresh permutation of the ``slots·max_blocks`` pages (the ownership
+    changing between steps), the longest slot's live pages past half the
+    bucket (the width the engine would pick), the last slot inactive on
+    the trash page ``slots·max_blocks``."""
     n_pages = slots * max_blocks
+    perm = rng.permutation(n_pages)
+    bt = np.full((slots, n_b), n_pages, np.int32)
+    need = rng.integers(1, n_b + 1, slots)
+    need[0] = max(need[0], n_b // 2 + 1)
+    pos = (need - 1) * PS + rng.integers(0, PS, slots)
+    pos[-1] = rng.integers(0, n_b * PS)
+    for i in range(slots - 1):
+        bt[i, :need[i]] = perm[i * max_blocks:i * max_blocks + need[i]]
+    active = np.arange(slots) < slots - 1
+    return (torch.from_numpy(pos.astype(np.int32)).cuda(),
+            torch.from_numpy(active).cuda(), torch.from_numpy(bt).cuda(),
+            perm[(slots - 1) * max_blocks:])
+
+
+def paged_graph_steps(buckets, slots: int, max_blocks: int, seed: int):
+    """(key, feed) per step: 3 steps per table bucket (``_decode_feed``)."""
+    rng = np.random.default_rng(seed)
     steps = []
     for n_b in buckets:
         for _ in range(3):
-            perm = rng.permutation(n_pages)
-            bt = np.full((slots, n_b), n_pages, np.int32)
-            need = rng.integers(1, n_b + 1, slots)
-            need[0] = max(need[0], n_b // 2 + 1)
-            pos = (need - 1) * PS + rng.integers(0, PS, slots)
-            pos[-1] = rng.integers(0, n_b * PS)
-            for i in range(slots - 1):
-                bt[i, :need[i]] = perm[i * max_blocks:i * max_blocks + need[i]]
-            active = np.arange(slots) < slots - 1
-            steps.append((("paged", n_b), {
-                "pos": torch.from_numpy(pos.astype(np.int32)).cuda(),
-                "active": torch.from_numpy(active).cuda(),
-                "bt": torch.from_numpy(bt).cuda()}))
+            pos, active, bt, _ = _decode_feed(rng, n_b, slots, max_blocks)
+            steps.append((("paged", n_b), {"pos": pos, "active": active,
+                                           "bt": bt}))
     return steps
 
 
@@ -1780,13 +1850,175 @@ def dense_graph_steps(slots: int, max_pos: int, seed: int):
                           "active": active}) for i in range(GRAPH_STEPS)]
 
 
+#: the fused graphs check: the fused repeats it runs, each at two decode
+#: shares (8 and 62 of the card's 132 SMs, the serve's smallest and largest
+#: common ones) and at two table buckets, with a prompt of FUSED_SP tokens
+FUSED_REPS, FUSED_SHARES, FUSED_SP = (0, 13, 27), (8 / 132, 62 / 132), 256
+#: the prefill graphs check: batch sizes and padded lengths (buckets)
+PREFILL_BPS, PREFILL_LENS = (1, 4), (128, 1024)
+
+
+def _moved(c0, c1) -> tuple:
+    return tuple(b - a for a, b in zip(c0, c1))
+
+
+def fused_graphs_check(cfg, params, cache, buckets, card: str) -> None:
+    """The fused cycle in segments through a StepGraphs
+    (``engine._fused_step``: the embedding, each decode repeat but the
+    fused one and the head replayed, the fused repeat eager) against
+    ``T.fused_group_decode`` called directly on a copy of the page pool,
+    bf16, full width and depth: at the smallest and largest table bucket
+    the serve reached, the fused repeat ``rep`` in FUSED_REPS, each at both
+    FUSED_SHARES, decode tables and the prompt drawn anew every step. Fatal
+    unless after every step the prompt activations, the tokens, the logits
+    and the page pool are bit-equal and the launch counters moved alike."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.graphs import StepGraphs, launch_counts
+    from repro_torch.models import transformer as T
+    slots, max_blocks = 8, -(-1152 // PS)
+    twin = _clone_tree(cache)
+    graphs = StepGraphs()
+    x_d = torch.zeros((slots, 1, cfg.d_model), dtype=torch.bfloat16,
+                      device="cuda")
+    graphs.keep(x_d)
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    positions = torch.arange(FUSED_SP, device="cuda")[None, :]
+    tok = torch.randint(0, cfg.vocab_size, (slots, 1), dtype=torch.int32,
+                        generator=gen, device="cuda")
+    tok_e, n, per_step = tok.clone(), 0, set()
+    widths = sorted({buckets[0], buckets[-1]})
+    for n_b in widths:
+        for rep in FUSED_REPS:
+            for share in FUSED_SHARES:
+                pos, active, bt, spare = _decode_feed(rng, n_b, slots,
+                                                      max_blocks)
+                page_map = torch.from_numpy(
+                    spare[:FUSED_SP // PS][None].astype(np.int32)).cuda()
+                x_p = torch.randn((1, FUSED_SP, cfg.d_model), generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                c0 = launch_counts()
+                x_e, lg_e = T.fused_group_decode(
+                    params, twin, x_p.clone(), positions, page_map, tok_e,
+                    pos, cfg, rep=rep, decode_share=share, block_tables=bt)
+                nt_e = torch.where(active, lg_e.argmax(-1).to(torch.int32),
+                                   0)[:, None]
+                c1 = launch_counts()
+                nt_g, lg_g = E._fused_step(
+                    graphs, params, cache, x_p, positions, page_map, x_d, tok,
+                    pos, active, bt, cfg=cfg, rep=rep, decode_share=share)
+                c2 = launch_counts()
+                what = (f"graphs qwen3-1.7b fused, rep {rep}, n_b {n_b}, "
+                        f"share {share:.4f}")
+                check(torch.equal(x_p, x_e), f"{what}: x_p differs")
+                check(torch.equal(nt_g, nt_e), f"{what}: tokens differ")
+                check(torch.equal(lg_g, lg_e), f"{what}: logits differ")
+                for i, (a, b) in enumerate(zip(_leaves(cache),
+                                               _leaves(twin))):
+                    check(torch.equal(a, b), f"{what}: pool leaf {i} differs")
+                d_e, d_g = _moved(c0, c1), _moved(c1, c2)
+                check(d_e == d_g, f"{what}: the eager step moved the "
+                      f"counters by {d_e}, the graphed one by {d_g}")
+                per_step.add(d_e)
+                tok, tok_e, n = nt_g.clone(), nt_e.clone(), n + 1
+    check(len(per_step) == 1, f"fused steps moved the counters unalike: "
+          f"{per_step}")
+    one = {k: d for k, d in zip(_counter_names(), per_step.pop()) if d}
+    log(f"graphs qwen3-1.7b fused: {n} fused steps (rep {FUSED_REPS}, "
+        f"table buckets {widths}, shares "
+        f"{[round(x, 4) for x in FUSED_SHARES]}), prompt activations, "
+        f"tokens, logits and page pool bit-equal to T.fused_group_decode; "
+        f"launches of each step {one}, graphed as eager; {captures(graphs)}"
+        f"  [{card}]")
+    graphs.drop()
+
+
+def prefill_graphs_check(cfg, params, cache, card: str) -> None:
+    """The paged prefill groups (``engine._prefill_group_paged``) and the
+    prompts' first tokens (``engine._final_tokens``) through a StepGraphs
+    keyed ``("p_group", rep, Bp, S)`` and ``("p_final", Bp, S)`` against
+    the same functions called directly on a copy of the page pool, bf16,
+    full width and depth: for each Bp in PREFILL_BPS and padded length S
+    in PREFILL_LENS two prompt batches, one after the other, in one set of
+    persistent buffers (the first captures, the second replays; pages and
+    lengths drawn anew). Fatal unless after every group the activations,
+    after every batch the page pool (but the trash page, which the padded
+    rows reach in no set order) and the first tokens are bit-equal and the
+    launch counters moved alike."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.graphs import StepGraphs, launch_counts
+    from repro_torch.models import transformer as T
+    n_pages = 8 * -(-1152 // PS)
+    twin = _clone_tree(cache)
+    graphs = StepGraphs()
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    groups = 0
+    for bp in PREFILL_BPS:
+        for s in PREFILL_LENS:
+            bufs = (torch.empty((bp, s, cfg.d_model), dtype=torch.bfloat16,
+                                device="cuda"),
+                    torch.arange(s, device="cuda")[None, :],
+                    torch.empty((bp,), dtype=torch.int32, device="cuda"),
+                    torch.empty((bp, s // PS), dtype=torch.int32,
+                                device="cuda"))
+            graphs.keep(*bufs)
+            for _ in range(2):
+                lens = rng.integers(s // 2 + 1, s + 1, bp).astype(np.int32)
+                perm = rng.permutation(n_pages)
+                pm = np.full((bp, s // PS), n_pages, np.int32)
+                for i, n in enumerate(lens):
+                    need = -(-int(n) // PS)
+                    pm[i, :need] = perm[i * (s // PS):i * (s // PS) + need]
+                x_e = torch.randn((bp, s, cfg.d_model), generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                bufs[0].copy_(x_e)
+                bufs[2].copy_(torch.from_numpy(lens))
+                bufs[3].copy_(torch.from_numpy(pm))
+                what = f"graphs qwen3-1.7b prefill, Bp {bp}, S {s}"
+                for rep in range(cfg.n_pattern_repeats):
+                    c0 = launch_counts()
+                    x_e = E._prefill_group_paged(params, twin, x_e.clone(),
+                                                 bufs[1], bufs[3], cfg=cfg,
+                                                 rep=rep)
+                    c1 = launch_counts()
+                    graphs(("p_group", rep, bp, s), functools.partial(
+                        E._prefill_group_paged, params, cache, cfg=cfg,
+                        rep=rep), bufs[0], bufs[1], bufs[3])
+                    c2 = launch_counts()
+                    check(torch.equal(bufs[0], x_e),
+                          f"{what}: activations after rep {rep} differ")
+                    check(_moved(c0, c1) == _moved(c1, c2),
+                          f"{what}, rep {rep}: launches {_moved(c0, c1)} "
+                          f"eager, {_moved(c1, c2)} graphed")
+                    groups += 1
+                # every page but the trash page, which takes the padded
+                # rows of every prompt in no set order
+                for i, (a, b) in enumerate(zip(_leaves(cache),
+                                               _leaves(twin))):
+                    check(torch.equal(a[:, :n_pages], b[:, :n_pages]),
+                          f"{what}: pool leaf {i} differs")
+                ft_e = E._final_tokens(params, x_e, bufs[2], cfg=cfg)
+                ft_g = graphs(("p_final", bp, s), functools.partial(
+                    E._final_tokens, params, cfg=cfg), bufs[0], bufs[2])
+                check(torch.equal(ft_g, ft_e), f"{what}: first tokens differ")
+    log(f"graphs qwen3-1.7b prefill: {groups} groups over Bp {PREFILL_BPS} "
+        f"x S {PREFILL_LENS}, two batches each (capture, replay): "
+        f"activations, page pool and first tokens bit-equal to the eager "
+        f"functions, launches graphed as eager; {captures(graphs)}  [{card}]")
+    graphs.drop()
+
+
 def phase_graphs(card: str, buckets) -> None:
-    """The decode graphs against the eager step (the module-level step
+    """The engine's graphs against the eager step (the module-level step
     function called directly) on two copies of one cache, at full width
     and depth, bf16: Qwen3-1.7B's engine iteration on the paged cache at
     every table bucket the serve reached (8 slots of 1152 rows, the tables
-    changed between replays) and on the dense cache, Mamba-2-2.7B's on its
-    dense cache (conv windows and SSD states), both drawn at random, and
+    changed between replays), its fused cycle in segments
+    (``fused_graphs_check``) and its prefill groups and first tokens
+    (``prefill_graphs_check``) on the same pool, and on the dense cache,
+    Mamba-2-2.7B's on its dense cache (conv windows and SSD states), both
+    drawn at random, and
     RecurrentGemma-2B's ``decode_step`` through ``GraphedDecode`` after the
     padded prefill of its phase's prompts. Tokens equal, logits and caches
     bit-equal after every step, launches as ``graph_vs_eager`` holds them;
@@ -1803,6 +2035,8 @@ def phase_graphs(card: str, buckets) -> None:
     _fill_random(cache, 6)
     engine_graphs_check("qwen3-1.7b paged", cfg, params, cache,
                         paged_graph_steps(buckets, 8, max_blocks, 7), card)
+    fused_graphs_check(cfg, params, cache, buckets, card)
+    prefill_graphs_check(cfg, params, cache, card)
     cache = T.init_cache(cfg, 8, 1152, torch.bfloat16, "cuda")
     _fill_random(cache, 8)
     engine_graphs_check("qwen3-1.7b dense", cfg, params, cache,
@@ -1884,9 +2118,10 @@ def phase_serve(card: str):
     FA.launches = PD.launches = BA.launches = 0
     fused_shares = FusedShares()
     split = HostSplit()
+    padded = PaddedShare()
     server, secs, cycles = _serve(
         cfg, params, prompts, out_lens, arrivals, fused=True,
-        audit=lambda srv: (fused_shares(srv), split(srv)))
+        audit=lambda srv: (fused_shares(srv), split(srv), padded(srv)))
     launches = {"flash_attention": FA.launches,
                 "paged_decode_attention": PD.launches,
                 "bullet_attention_paged": BA.launches}
@@ -1908,17 +2143,21 @@ def phase_serve(card: str):
         f"[{card}]")
     log(f"serve fused: decode_share of the fused cycles: "
         f"{share_histogram(fused_shares.shares)}")
-    for kind in ("fused", "decode", "other"):
+    log(f"serve fused: prefill batches: {padded.line()}")
+    for kind in sorted(split.cycles):
         log(f"serve fused host split: {host_split_line(split, kind)}")
 
+    s_split = HostSplit()
     serial, s_secs, s_cycles = _serve(cfg, params, prompts, out_lens,
-                                      arrivals, fused=False)
+                                      arrivals, fused=False, audit=s_split)
     check(serial.stats.fused_cycles == 0, "serial run fused")
     for rid in range(n):
         check(serial.outputs[rid] == server.outputs[rid],
               f"request {rid}: fused and serial token streams differ")
     log(f"serve serial: {n_tok / s_secs:.1f} tok/s, {s_cycles} cycles; "
         f"token streams identical to fused; {captures(serial)}  [{card}]")
+    for kind in sorted(s_split.cycles):
+        log(f"serve serial host split: {host_split_line(s_split, kind)}")
 
     # the dense slot cache in bf16, on 4 of the requests: the path of the
     # bf16 dense decode kernel (the split body) at D=128
@@ -1939,8 +2178,10 @@ def phase_serve(card: str):
 
     # the scheduler's defaults on the same requests: how often they fuse
     BA.launches = 0
+    d_split = HostSplit()
     dflt, d_secs, d_cycles = _serve(cfg, params, prompts, out_lens,
-                                    arrivals, fused=True, default_sched=True)
+                                    arrivals, fused=True, default_sched=True,
+                                    audit=d_split)
     for rid, o in enumerate(out_lens):
         check(len(dflt.outputs.get(rid, [])) == o,
               f"default scheduler: request {rid} unfinished")
@@ -1948,10 +2189,14 @@ def phase_serve(card: str):
         f"{n_tok / d_secs:.1f} tok/s, {dflt.stats.fused_cycles} of "
         f"{d_cycles} cycles fused, bullet launches {BA.launches}; "
         f"{captures(dflt)}  [{card}]")
+    for kind in sorted(d_split.cycles):
+        log(f"serve default scheduler host split: "
+            f"{host_split_line(d_split, kind)}")
     decode_serve(cfg, params, card)
     phase_profile(cfg, params, prompts, out_lens, arrivals, card)
     # the table buckets the serial serve's decode graphs were captured for
-    buckets = sorted({k[1] for k, _ in serial.graphs.captures})
+    buckets = sorted({k[1] for k, _ in serial.graphs.captures
+                      if k[0] == "paged"})
     del server, serial, dense, dflt, params
     torch.cuda.empty_cache()
     return launches, n_tok / secs, buckets

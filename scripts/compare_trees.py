@@ -258,7 +258,8 @@ def windows(tree: str, path: str) -> None:
     checkout's ``chip_smoke.py`` functions (the same code for both
     checkouts; run in a process of its own, ``tree``'s ``src`` first on
     the path), saved to ``path`` as JSON: Qwen3-1.7B bf16 served fused,
-    serial and under the scheduler's defaults (tok/s), the decode-heavy
+    serial and under the scheduler's defaults (tok/s), the fused serve's
+    host time per fused cycle by part (``HostSplit``), the decode-heavy
     default-scheduler serve (tok/s, and its window of 30 serial decode
     cycles) and the window of 30 fused cycles; Mamba-2-2.7B's wall-clock
     warm-up windows (cycles 11-20, a prefill group in each, and 101-110,
@@ -287,6 +288,10 @@ def windows(tree: str, path: str) -> None:
                                                 default_sched=True))):
         _, secs, _ = cs._serve(cfg, params, prompts, outs, arrivals, **kw)
         out[f"qwen3 serve {name}: tok/s"] = sum(outs) / secs
+    split = cs.HostSplit()
+    cs._serve(cfg, params, prompts, outs, arrivals, fused=True, audit=split)
+    out.update(_prefixed("qwen3 serve fused cycles: ms",
+                         split.report("fused")))
     out.update(_prefixed("qwen3 decode serve",
                          cs.decode_serve(cfg, params, card)))
     out.update(_prefixed("qwen3 30 fused cycles", cs.phase_profile(

@@ -34,15 +34,32 @@ module-level step functions are the torch counterparts of the JAX
 package's jitted helpers; where those donated a cache, these write it in
 place, so every fault seam fires before its cycle's first in-place write.
 
-On the card the serial decode iteration replays as a CUDA graph
-(``core/graphs.py``), one per static shape: ``("paged", n_b)`` per table
-bucket, ``("dense",)`` for the slot cache. Its inputs are staged in
-persistent buffers (tokens, pos, active, and one block table per bucket,
-copied again whenever ownership changes), and the graphs are dropped
-before their cache is. The fused cycle, the prefill groups and
-``_final_tokens`` stay eager: their shapes follow each prompt's padded
-length and the layer group ``rep`` (28 groups per prompt on Qwen3-1.7B),
-too many to capture whole. CPU tensors run every step eagerly.
+On the card the engine's steps replay as CUDA graphs (``core/graphs.py``),
+one per static shape, all in one ``StepGraphs`` and its shared pool:
+
+- the serial decode iteration, ``("paged", n_b)`` per table bucket and
+  ``("dense",)`` for the slot cache;
+- the fused cycle in segments whose keys repeat on every cycle: the
+  decode tokens' embedding ``("d_embed",)``, each decode pattern repeat
+  but the fused one ``("d_rep", r, n_b)``, and the head ``("d_head",)``
+  (final norm, logits, argmax, the active mask). The fused repeat ``rep``
+  runs eagerly between them: its shapes follow the prompt and its launch
+  bakes the partition's ``decode_share``, so it is the one part of the
+  step the pre-built ``FusedExecutable`` of a partition binds; the graphs
+  bake no share and serve every partition;
+- the paged prefill groups ``("p_group", rep, Bp, Sp)`` and the prompts'
+  first tokens ``("p_final", Bp, Sp)``, ``Sp`` the batch's padded length:
+  a prompt batch is padded to a length bucket (``prefill_bucket``), so
+  the keys repeat across prompts.
+
+Inputs live in persistent buffers the graphs read in place (tokens, pos,
+active, one block table per bucket copied again whenever ownership
+changes, the decode activations ``x_d``, and per (Bp, Sp) the prefill
+activations, positions, lengths and page map, written at each
+admission); the segments write their results into those buffers. The
+graphs are dropped before their cache is. The dense path's prefill
+groups stay eager (each batch fills a cache of its own). CPU tensors run
+every step eagerly, through the same calls.
 """
 
 from __future__ import annotations
@@ -108,25 +125,110 @@ def _prefill_group(params, x, positions, tmp_cache, lengths, *,
     return x
 
 
-def _fused_step(params, cache, x, positions, page_map, tokens, pos, active,
-                block_tables, *, cfg: ModelConfig, rep: int,
-                decode_share: float):
+def _prefill_group_paged(params, cache, x, positions, page_map, *,
+                         cfg: ModelConfig, rep: int):
+    """Paged path: pattern-repeat group ``rep`` over the prompt batch
+    ``x`` (Bp, Sp, D), its K/V scattered into the pooled pages that
+    ``page_map`` names; the activations are written back into ``x`` in
+    place (the step a ``("p_group", rep, Bp, Sp)`` graph replays)."""
+    y, entries = T.prefill_group(params, x, positions, rep, cfg)
+    T.scatter_group_pages(cache, entries, page_map, rep)
+    x.copy_(y)
+    return x
+
+
+#: prompt-length buckets: a prefill batch is padded to the next multiple of
+#: PREFILL_STEP tokens up to PREFILL_LINEAR, past it to the next power of
+#: two, and never past ``max_len`` rounded up to the page size
+PREFILL_STEP, PREFILL_LINEAR = 128, 1024
+
+
+def prefill_bucket(n: int, max_len: int, page_size: int) -> int:
+    """The padded length of a prefill batch whose longest sequence has
+    ``n`` tokens: at most 8 buckets up to 1024 and one per power of two
+    beyond, so the prefill graphs' keys repeat across prompts. A multiple
+    of the page size; padded rows' K/V go to the trash page."""
+    if n <= PREFILL_LINEAR:
+        b = -(-n // PREFILL_STEP) * PREFILL_STEP
+    else:
+        b = 1 << (n - 1).bit_length()
+    b = min(b, -(-max_len // page_size) * page_size)
+    return max(page_size, -(-b // page_size) * page_size)
+
+
+def _embed_into(params, tokens, x_d, *, cfg: ModelConfig):
+    """The decode tokens' embedding, written into ``x_d`` (B, 1, D) in
+    place (the ``("d_embed",)`` segment of a fused cycle)."""
+    x_d.copy_(T.embed_tokens(params, tokens, cfg))
+    return x_d
+
+
+def _decode_repeat_into(params, cache, x_d, pos, block_tables, *,
+                        cfg: ModelConfig, rep: int):
+    """Decode pattern repeat ``rep`` over the page pool, ``x_d`` updated
+    in place (the ``("d_rep", rep, n_b)`` segment)."""
+    x_d.copy_(T.decode_repeat(params, cache, x_d, pos, rep, cfg,
+                              block_tables))
+    return x_d
+
+
+def _decode_head(params, x_d, active, *, cfg: ModelConfig):
+    """Final norm, logits, greedy tokens with inactive slots masked, as in
+    ``_decode_iteration`` (the ``("d_head",)`` segment). Returns (next
+    tokens (B, 1), logits (B, V))."""
+    logits = T.decode_logits(params, x_d, cfg)
+    next_tokens = logits.argmax(dim=-1).to(torch.int32)
+    return torch.where(active, next_tokens, 0)[:, None], logits
+
+
+def _fused_repeat(params, cache, x_p, positions, page_map, x_d, pos,
+                  block_tables, *, cfg: ModelConfig, rep: int,
+                  decode_share: float) -> None:
+    """The fused repeat of a fused cycle, eagerly: prefill group ``rep``
+    and the decode pass's repeat ``rep``, each layer's attention one fused
+    launch split by ``decode_share``; ``x_p`` and ``x_d`` updated in
+    place."""
+    y_p, y_d = T.fused_repeat(params, cache, x_p, x_d, positions, page_map,
+                              pos, rep, cfg, decode_share=decode_share,
+                              block_tables=block_tables)
+    x_p.copy_(y_p)
+    x_d.copy_(y_d)
+
+
+def _fused_step(graphs: StepGraphs, params, cache, x_p, positions, page_map,
+                x_d, tokens, pos, active, block_tables, *, cfg: ModelConfig,
+                rep: int, decode_share: float, fused_repeat=_fused_repeat):
     """One spatially-fused engine cycle (§3.5 co-execution): pattern-repeat
     group ``rep`` of the in-flight prefill AND one continuous-batching
-    decode iteration. At repeat ``rep`` each layer's prefill and decode
-    attention share one fused launch whose CTAs split the SMs by
-    ``decode_share`` (the partition's ``m_i/M``). Inactive slots' sampled
-    tokens are masked exactly like ``_decode_iteration``."""
-    x_p, logits = T.fused_group_decode(
-        params, cache, x, positions, page_map, tokens, pos, cfg,
-        rep=rep, decode_share=decode_share, block_tables=block_tables)
-    next_tokens = logits.argmax(dim=-1).to(torch.int32)
-    return x_p, torch.where(active, next_tokens, 0)[:, None]
+    decode iteration, op for op ``T.fused_group_decode``. At repeat ``rep``
+    each layer's prefill and decode attention share one fused launch whose
+    CTAs split the SMs by ``decode_share`` (the partition's ``m_i/M``);
+    inactive slots' sampled tokens are masked exactly like
+    ``_decode_iteration``. In segments: the embedding, every other decode
+    repeat and the head through ``graphs`` (replays on the card), the
+    fused repeat eagerly (``fused_repeat``). ``x_p`` (the prefill
+    activations) and ``x_d`` (B, 1, D) are updated in place. Returns (next
+    tokens (B, 1), logits (B, V))."""
+    n_b = block_tables.shape[1]
+    graphs(("d_embed",), functools.partial(_embed_into, params, cfg=cfg),
+           tokens, x_d)
+    for r in range(cfg.n_pattern_repeats):
+        if r == rep:
+            fused_repeat(params, cache, x_p, positions, page_map, x_d, pos,
+                         block_tables, cfg=cfg, rep=rep,
+                         decode_share=decode_share)
+        else:
+            graphs(("d_rep", r, n_b), functools.partial(
+                _decode_repeat_into, params, cache, cfg=cfg, rep=r),
+                x_d, pos, block_tables)
+    return graphs(("d_head",), functools.partial(_decode_head, params,
+                                                 cfg=cfg), x_d, active)
 
 
 class FusedExecutable(NamedTuple):
     """One pre-built execution state of the resource manager's table
-    (§3.4.2): the fused step with a PartitionConfig's decode_share bound.
+    (§3.4.2): the fused step with a PartitionConfig's decode_share bound
+    (it reaches the one eager repeat; the graphs serve every partition).
     ``ResourceManager.switch`` selecting a different entry is the
     libsmctrl stream-swap analogue — a dict lookup, never a rebuild."""
     config_id: int
@@ -179,25 +281,39 @@ class DecodeWork(NamedTuple):
 
 @dataclass
 class PrefillTask:
-    """Resumable prefill state for one prompt batch (paper §3.5): the
-    activations after ``rep`` groups, persisted between layer-group
-    launches so decode iterations — and new admissions — run between
-    groups. Paged: KV is scattered into pooled pages as each group
-    finishes (``page_map`` routes prompt blocks to physical pages). Dense:
-    each group's KV lands in the batch's own ``tmp_cache``, copied row by
-    row into the decode slots at migration."""
+    """Resumable prefill state for one prompt batch (paper §3.5), padded
+    to its length bucket: the activations after ``rep`` groups, persisted
+    between layer-group launches so decode iterations — and new
+    admissions — run between groups. Paged: KV is scattered into pooled
+    pages as each group finishes (``page_map`` routes prompt blocks to
+    physical pages). Dense: each group's KV lands in the batch's own
+    ``tmp_cache``, copied row by row into the decode slots at migration."""
     batch: List[Request]
     x: torch.Tensor                       # activations after `rep` groups
     positions: torch.Tensor
     lengths: torch.Tensor
     page_map: Optional[torch.Tensor]      # (B, blocks) physical pages
+    # x, positions, lengths and page_map are the persistent buffers of the
+    # batch's (B, padded length): see BulletServer._prefill_buffers
     tmp_cache: Optional[dict] = None      # dense: (R, B, max_len, K, D)
     n_tokens: int = 0                     # total prompt tokens in the batch
     rep: int = 0                          # next pattern-repeat group to run
 
 
+class PrefillBuffers(NamedTuple):
+    """The persistent inputs of a prompt batch of one (B, padded length)."""
+    x: torch.Tensor                       # (B, S, D) activations
+    positions: torch.Tensor               # (1, S) int64
+    lengths: torch.Tensor                 # (B,) int32 tokens per prompt
+    page_map: torch.Tensor                # (B, S / ps) int32 pages
+
+
 class BulletServer:
     """Single-host Bullet serving runtime over a PyTorch model."""
+
+    #: the eager fused repeat of a fused cycle (an attribute, so that an
+    #: audit can time it apart)
+    _fused_repeat = staticmethod(_fused_repeat)
 
     def __init__(self, cfg: ModelConfig, params, *,
                  config: Optional[ServerConfig] = None,
@@ -309,9 +425,16 @@ class BulletServer:
         #: observation indices at which a refit was applied
         self.refit_log: List[int] = []
         self.dtype = dtype
-        #: the decode iteration's CUDA graphs, by static shape
+        #: the engine steps' CUDA graphs, by static shape
         self.graphs = StepGraphs()
         self._alloc_cache()
+        #: the activations' dtype (the params'; ``dtype`` is the cache's)
+        self._act_dtype = params["embed"].dtype
+        #: the fused cycle's decode activations, updated in place
+        self._x_d = torch.zeros((self.max_slots, 1, cfg.d_model),
+                                dtype=self._act_dtype, device=self.device)
+        #: the prefill inputs' persistent buffers, per (B, padded length)
+        self._pbufs: Dict[Tuple[int, int], PrefillBuffers] = {}
         # slot bookkeeping on the host; staged into persistent device
         # buffers per iteration
         self.slot_req: List[Optional[Request]] = [None] * self.max_slots
@@ -324,6 +447,8 @@ class BulletServer:
                                     device=self.device)
         self._dev_active = torch.zeros((self.max_slots,), dtype=torch.bool,
                                        device=self.device)
+        self.graphs.keep(self._dev_tokens, self._dev_pos, self._dev_active,
+                         self._x_d)
         self.pending: List[Request] = []
         self.finished: List[Request] = []
         self.outputs: Dict[int, List[int]] = {}
@@ -400,7 +525,27 @@ class BulletServer:
         if bt is None:
             bt = self._dev(np.ascontiguousarray(self._host_tables[:, :n_b]))
             self._dev_tables[n_b] = bt
+            self.graphs.keep(bt)
         return bt
+
+    def _prefill_buffers(self, b: int, s: int) -> PrefillBuffers:
+        """The persistent prefill buffers of a batch of ``b`` prompts
+        padded to ``s`` tokens, made on first use: the graphs of that shape
+        read them in place, and each admission of that shape writes them
+        anew (the page map from the batch's own block tables)."""
+        bufs = self._pbufs.get((b, s))
+        if bufs is None:
+            dev = self.device
+            bufs = PrefillBuffers(
+                torch.zeros((b, s, self.cfg.d_model), dtype=self._act_dtype,
+                            device=dev),
+                torch.arange(s, device=dev)[None, :],
+                torch.zeros((b,), dtype=torch.int32, device=dev),
+                torch.zeros((b, -(-s // self.page_size)), dtype=torch.int32,
+                            device=dev))
+            self._pbufs[(b, s)] = bufs
+            self.graphs.keep(*bufs)
+        return bufs
 
     def _decode_block_bucket(self, ctxs_ran: Tuple[int, ...]) -> int:
         """Max live page count across the slots that run, rounded up to a
@@ -564,31 +709,33 @@ class BulletServer:
             return False
 
         lens = [self._resume_len(r) for r in batch]
-        plen = max(lens)
+        plen = prefill_bucket(max(lens), self.max_len, self.page_size)
         toks = np.zeros((len(batch), plen), np.int32)
         for i, r in enumerate(batch):
             toks[i, :lens[i]] = self._seq_tokens(r)
-        x = T.embed_tokens(self.params, self._dev(toks), self.cfg)
-        positions = torch.arange(plen, device=self.device)[None, :]
+        bufs = self._prefill_buffers(len(batch), plen)
+        bufs.x.copy_(T.embed_tokens(self.params, self._dev(toks), self.cfg))
+        bufs.lengths.copy_(torch.from_numpy(np.asarray(lens, np.int32)))
         page_map = tmp_cache = None
         if self.paged:
             # route each request's prompt blocks to its pooled pages so
             # layer groups scatter KV in place (no handoff copy)
             self._tables_dirty = True
             ps = self.page_size
-            pm = np.full((len(batch), -(-plen // ps)), self._trash_page,
+            pm = np.full(tuple(bufs.page_map.shape), self._trash_page,
                          np.int32)
             for i, r in enumerate(batch):
                 blocks = self.pool.table(r.rid).blocks[:-(-lens[i] // ps)]
                 pm[i, :len(blocks)] = blocks
-            page_map = self._dev(pm)
+            page_map = bufs.page_map
+            page_map.copy_(torch.from_numpy(pm))
         else:
             # temporary per-batch cache (copied slot-wise at migration)
             tmp_cache = T.init_cache(self.cfg, len(batch), self.max_len,
                                      self.dtype, self.device)
         self.ptask = PrefillTask(
-            batch, x, positions, self._dev(np.asarray(lens, np.int32)),
-            page_map, tmp_cache, n_tokens=int(sum(lens)))
+            batch, bufs.x, bufs.positions, bufs.lengths, page_map, tmp_cache,
+            n_tokens=int(sum(lens)))
         self.stats.prefill_tokens += self.ptask.n_tokens
         P = self.buffer.state.prefill
         P.active_rid = batch[0].rid
@@ -620,15 +767,14 @@ class BulletServer:
         if self.faults.enabled:
             self.faults.dispatch("prefill")
         if self.paged:
-            task.x, entries = T.prefill_group(self.params, task.x,
-                                              task.positions, task.rep,
-                                              self.cfg)
-            T.scatter_group_pages(self.cache, entries, task.page_map,
-                                  task.rep)
+            b, s = task.x.shape[:2]
+            self.graphs(("p_group", task.rep, b, s), functools.partial(
+                _prefill_group_paged, self.params, self.cache, cfg=self.cfg,
+                rep=task.rep), task.x, task.positions, task.page_map)
         else:
-            task.x = _prefill_group(self.params, task.x, task.positions,
-                                    task.tmp_cache, task.lengths,
-                                    cfg=self.cfg, rep=task.rep)
+            task.x.copy_(_prefill_group(self.params, task.x, task.positions,
+                                        task.tmp_cache, task.lengths,
+                                        cfg=self.cfg, rep=task.rep))
         self._prefill_group_done(task, now)
 
     def _prefill_group_done(self, task: PrefillTask, now: float) -> None:
@@ -656,8 +802,11 @@ class BulletServer:
         ``max_len`` row of the batch cache into its decode slot, in place.
         Requests cancelled mid-prefill (``cancel_reason`` set) are
         finalized here instead: pages freed, no token emitted."""
-        first_tokens = _final_tokens(self.params, task.x, task.lengths,
-                                     cfg=self.cfg).cpu().numpy()
+        b, s = task.x.shape[:2]
+        first_tokens = self.graphs(
+            ("p_final", b, s), functools.partial(_final_tokens, self.params,
+                                                 cfg=self.cfg),
+            task.x, task.lengths).cpu().numpy()
         P = self.buffer.state.prefill
         if self.paged:
             # migrated slots flip PREFILL->DECODE: re-map their pages into
@@ -1003,9 +1152,10 @@ class BulletServer:
             self.faults.dispatch("fused")
         act_np = self.active.copy()
         ctxs_ran, streamed, (tokens, pos, active, bt) = self._decode_inputs()
-        task.x, next_tokens = ex.fn(
-            self.params, self.cache, task.x, task.positions, task.page_map,
-            tokens, pos, active, bt, rep=task.rep)
+        next_tokens, _ = ex.fn(
+            self.graphs, self.params, self.cache, task.x, task.positions,
+            task.page_map, self._x_d, tokens, pos, active, bt, rep=task.rep,
+            fused_repeat=self._fused_repeat)
         self.last_fused = True
         self.last_fused_exec = ex.config_id
         self.stats.fused_cycles += 1

@@ -484,33 +484,60 @@ def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
     return x, entries
 
 
+def decode_repeat(params, cache, x, pos, rep: int, cfg: ModelConfig,
+                  block_tables=None, *, long_context: bool = False,
+                  kv_positions=None):
+    """Pattern repeat ``rep`` of a decode pass: one
+    :func:`_apply_block_decode` per pattern position, in order (the
+    segment a decode graph of the fused cycle replays). Returns x."""
+    for j, blk in enumerate(cfg.pattern):
+        x = _apply_block_decode(
+            x, params_at(params["blocks"][j], rep), blk, cfg,
+            params_at(cache["blocks"][j], rep), pos, block_tables,
+            long_context=long_context, kv_positions=kv_positions)
+    return x
+
+
+def fused_repeat(params, cache, x_p, x_d, positions, page_map, pos,
+                 rep: int, cfg: ModelConfig, *, decode_share: float,
+                 block_tables):
+    """Pattern repeat ``rep`` of a fused cycle: one
+    :func:`_apply_block_fused` per pattern position, prefill group ``rep``
+    and the decode pass's repeat ``rep`` sharing each attention launch.
+    Returns (x_p, x_d)."""
+    for j, blk in enumerate(cfg.pattern):
+        x_p, x_d = _apply_block_fused(
+            x_p, x_d, params_at(params["blocks"][j], rep), blk, cfg,
+            positions, pos, params_at(cache["blocks"][j], rep),
+            block_tables, page_map, decode_share)
+    return x_p, x_d
+
+
 def fused_group_decode(params, cache, x_p, positions, page_map, tokens, pos,
                        cfg: ModelConfig, *, rep: int, decode_share: float,
                        block_tables):
     """One fused engine cycle: pattern-repeat group ``rep`` of an in-flight
     prefill AND a full continuous-batching decode iteration.
 
-    The decode pass walks every layer; at repeat ``rep`` each layer fuses
-    with the matching prefill layer via :func:`_apply_block_fused`,
-    scattering the group's prompt KV into pooled pages as it goes. Layer
-    math is op-for-op the serial path's, so token streams are identical.
-    Returns (x_p, decode_logits (B, V)); ``cache`` is updated in place.
+    The decode pass walks every repeat (:func:`decode_repeat`); at repeat
+    ``rep`` each layer fuses with the matching prefill layer
+    (:func:`fused_repeat`), scattering the group's prompt KV into pooled
+    pages as it goes. Layer math is op-for-op the serial path's, so token
+    streams are identical. Returns (x_p, decode_logits (B, V)); ``cache``
+    is updated in place.
     """
     assert supports_paged_cache(cfg), cfg.pattern
     x_d = embed_tokens(params, tokens, cfg)
     for r in range(cfg.n_pattern_repeats):
-        for j, blk in enumerate(cfg.pattern):
-            p_rj = params_at(params["blocks"][j], r)
-            entry_rj = params_at(cache["blocks"][j], r)
-            if r == rep:
-                x_p, x_d = _apply_block_fused(
-                    x_p, x_d, p_rj, blk, cfg, positions, pos, entry_rj,
-                    block_tables, page_map, decode_share)
-            else:
-                x_d = _apply_block_decode(x_d, p_rj, blk, cfg, entry_rj, pos,
-                                          block_tables)
-    x_d = L.rms_norm(x_d, params["final_norm"], cfg.rmsnorm_eps)
-    return x_p, lm_logits(params, x_d, cfg)[:, 0]
+        if r == rep:
+            x_p, x_d = fused_repeat(params, cache, x_p, x_d, positions,
+                                    page_map, pos, r, cfg,
+                                    decode_share=decode_share,
+                                    block_tables=block_tables)
+        else:
+            x_d = decode_repeat(params, cache, x_d, pos, r, cfg,
+                                block_tables)
+    return x_p, decode_logits(params, x_d, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +571,13 @@ def lm_logits(params, x, cfg: ModelConfig):
         idx = torch.arange(cfg.vocab_padded, device=logits.device)
         logits = torch.where(idx < cfg.vocab_size, logits, -1e30)
     return logits
+
+
+def decode_logits(params, x, cfg: ModelConfig):
+    """Final norm, then the logits of a decode pass's activations (B, 1,
+    D): (B, V)."""
+    x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
+    return lm_logits(params, x, cfg)[:, 0]
 
 
 def last_token_logits(params, x, lengths, cfg: ModelConfig):
@@ -643,14 +677,10 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     kvpos = (None if block_tables is not None
              else _position_maps(cfg, cache, pos, long_context))
     for r in range(cfg.n_pattern_repeats):
-        for j, blk in enumerate(cfg.pattern):
-            x = _apply_block_decode(
-                x, params_at(params["blocks"][j], r), blk, cfg,
-                params_at(cache["blocks"][j], r), pos, block_tables,
-                long_context=long_context, kv_positions=kvpos)
+        x = decode_repeat(params, cache, x, pos, r, cfg, block_tables,
+                          long_context=long_context, kv_positions=kvpos)
     for j, blk in enumerate(cfg.pattern_tail):
         x = _apply_block_decode(
             x, params["tail_blocks"][j], blk, cfg, cache["tail"][j], pos,
             long_context=long_context, kv_positions=kvpos)
-    x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
-    return lm_logits(params, x, cfg)[:, 0], cache
+    return decode_logits(params, x, cfg), cache
