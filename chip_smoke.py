@@ -121,7 +121,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    replay: ms per step over the replays), with 18 rglru_scan and 8 flash
    launches per prefill and 8 decode_attention per step; torch.profiler
    windows over one prefill call and 10 decode steps (replays). The
-   reference phase (a) decodes through ``GraphedDecode`` too.
+   reference phase (a) decodes through ``GraphedDecode`` too;
+10. sharing: closed-loop multi-turn sessions (``generate_interactions``:
+   8 sessions of 2-4 turns, 96-288 fresh tokens and 24-72 output tokens a
+   turn) through ``OnlineFrontend.submit_interactions`` at full
+   Qwen3-1.7B width and depth, paged, page size 16, 8 slots, max_len
+   2048, on the virtual clock: fp32 with sharing off, fp32 with
+   ``share_prefix`` (streams identical, tokens reused, fewer prefilled,
+   invariants every cycle, the pool clean, each hit request's
+   first-token logits within 1e-3 of scale of its unshared run's with
+   the same argmax), bf16 with sharing on (tok/s, COW copies, the host ms
+   of shared and miss prefill-group cycles, flash, paged decode and the
+   paged fused kernel launched); ``prefix_suffix_attention`` (plain
+   PyTorch) timed at the bf16 run's largest suffix batch beside its
+   bound and masked SDPA;
+11. tenants: ``generate_tenant_interactions`` over 4 apps (app 0
+   flooding), bf16, sharing on: no tenant controller, a permissive one
+   (streams and admission order identical), the full stack (credit, 2
+   new interactions per second per app: ``check_oit``, every request
+   finished or shed); Jain's index over per-tenant goodput.
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -2860,6 +2878,344 @@ def phase_recurrentgemma(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# multi-turn sessions: shared-prefix reuse and the tenant layer
+# ---------------------------------------------------------------------------
+
+#: the sharing phase's sessions (generate_interactions): 8 sessions of 2-4
+#: turns, each turn 96-288 fresh tokens and 24-72 output tokens, arriving
+#: at 16 sessions per trace second: a choice of this smoke test that keeps
+#: turns of several sessions in flight, not a rate measured from a trace
+SHARING = dict(n_sessions=8, rate_s=16.0, turns=4, new_tokens=192,
+               output_tokens=48, seed=0)
+#: the tenants phase's sessions (generate_tenant_interactions over
+#: make_apps(4)): app 0 floods with 20x its Zipf share
+TENANTS = dict(n_sessions=12, rate_s=32.0, turns=3, new_tokens=128,
+               output_tokens=32, seed=0, rate_skew={0: 20.0})
+SESSION_LEN = 2048
+
+
+def _sessions(cfg, params, dtype, sessions, *, share: bool, tenancy=None,
+              first_logits=None):
+    """Replay closed-loop multi-turn ``sessions`` through the
+    OnlineFrontend's ``submit_interactions`` on the virtual clock priced by
+    the estimator (so every decision, and each turn's prompt, follows the
+    engine's outputs and not the host's speed): Qwen3 paged, page size 16,
+    8 slots, max_len SESSION_LEN, up to 4 prompts per prefill batch, the
+    §3.3.3 pause off (so miss batches fuse with decode), ``share`` the
+    shared-prefix reuse, ``tenancy`` a TenancyController or None. The
+    engine's invariants are audited after every cycle. ``first_logits``
+    (a dict) collects each request's first-token logits (fp32, on the
+    host), keyed (session, turn), with whether its batch hit the prefix
+    index. Returns (server, frontend, metrics, wall s, cycle records)."""
+    from repro_torch.core.config import (CacheConfig, ControlConfig,
+                                         ServerConfig)
+    from repro_torch.core.engine import BulletServer
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.frontend import (OnlineFrontend, VirtualClock,
+                                              estimator_cycle_cost)
+    from repro_torch.serving.request import WORKLOAD_SLOS
+
+    server = BulletServer(cfg, params, config=ServerConfig(
+        slo=WORKLOAD_SLOS["sharegpt"], max_slots=8, max_len=SESSION_LEN,
+        dtype=dtype, cache=CacheConfig(page_size=PS, share_prefix=share),
+        control=ControlConfig(sched=SchedulerConfig(
+            max_decode_pause_cycles=0)),
+        tenancy=tenancy), device="cuda")
+    if first_logits is not None:
+        finish = server._finish_prefill
+
+        def hooked(task, now):
+            logits = T.last_token_logits(server.params, task.x, task.lengths,
+                                         cfg).float().cpu()
+            for i, r in enumerate(task.batch):
+                first_logits.setdefault(
+                    (r.session_id, r.turn_index),
+                    (logits[i], task.prefix_map is not None))
+            return finish(task, now)
+        server._finish_prefill = hooked
+    records = []
+    last = [0.0]
+
+    def on_cycle(srv, now):
+        t = time.perf_counter()
+        check(len(records) < 50_000, "session replay did not drain")
+        srv.check_invariants()
+        task = srv.ptask
+        shape = None
+        if task is not None and task.prefix_map is not None \
+                and task.rep == 1:
+            # a suffix batch's first group ran: its shape, once per task
+            check(task.x.is_cuda and task.prefix_map.is_cuda,
+                  "a shared task's tensors are not on the card")
+            shape = (tuple(task.x.shape[:2]), tuple(task.prefix_map.shape),
+                     task.prefix_lens.tolist(), task.lengths.tolist())
+        records.append(dict(wall=t - last[0], fused=srv.last_fused,
+                            prefill=srv.last_prefill_tokens,
+                            reused=srv.last_reused_tokens, shape=shape))
+        last[0] = t
+
+    fe = OnlineFrontend(server, VirtualClock(),
+                        cycle_cost=estimator_cycle_cost, on_cycle=on_cycle)
+    fe.submit_interactions(sessions, cfg.vocab_size, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last[0] = t0
+    m = fe.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(not fe.truncated, "session replay truncated")
+    check(server.pool.available_blocks == server.pool.n_blocks,
+          "session replay: KV pool not clean")
+    return server, fe, m, secs, records
+
+
+def _streams(fe, server) -> dict:
+    """Each finished request's tokens, keyed (session, turn): rids follow
+    the order turns finish in, which a cheaper prefill may change."""
+    return {(r.session_id, r.turn_index): list(server.outputs[r.rid])
+            for r in fe.requests if r.phase.name == "FINISHED"}
+
+
+def _group_ms(records, shared: bool) -> str:
+    """Mean and max host wall ms of the serial cycles that ran a prefill
+    group of a shared (eager) or a miss (graphed) task."""
+    ts = [1e3 * r["wall"] for r in records
+          if r["prefill"] and not r["fused"]
+          and (r["reused"] > 0) == shared]
+    if not ts:
+        return "none"
+    return f"{statistics.mean(ts):.2f} ms mean, {max(ts):.2f} max, n={len(ts)}"
+
+
+def prefix_suffix_cost(b, sq, lp, h, k, d, s_lens, plens, dtype):
+    """(bytes, operations) of prefix_suffix_attention on one suffix batch:
+    q, the suffix K/V, the gathered prefix K/V and the output moved once;
+    QKᵀ and PV over the keys each real query attends (its prefix and the
+    suffix up to itself)."""
+    e = esize(dtype)
+    n_bytes = e * d * (2 * b * sq * h + 2 * b * (sq + lp) * k)
+    attended = sum(pl * s + s * (s + 1) // 2 for pl, s in zip(plens, s_lens))
+    return n_bytes, 4 * h * d * attended
+
+
+def time_prefix_suffix(timer, cfg, shape, dtype=torch.bfloat16) -> dict:
+    """prefix_suffix_attention (plain PyTorch on the card) at one suffix
+    batch's shape from the run, random inputs, beside its bound and masked
+    SDPA on the same concatenated K/V and explicit mask (enable_gqa)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import prefix_suffix_attention
+    (b, sq), (_, lp_pages), plens, s_lens = shape
+    lp = lp_pages * PS
+    h, k, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, ks, vs = rnd(b, sq, h, d), rnd(b, sq, k, d), rnd(b, sq, k, d)
+    kp, vp = rnd(b, lp, k, d), rnd(b, lp, k, d)
+    plen = torch.tensor(plens, dtype=torch.int32, device="cuda")
+    pos = (plen.long()[:, None]
+           + torch.arange(sq, device="cuda")[None]).to(torch.int32)
+    args = (q, ks, vs, kp, vp, plen, pos)
+    ms = timer(lambda: prefix_suffix_attention(*args))
+    kv_pos = torch.cat([torch.where(
+        torch.arange(lp, device="cuda")[None] < plen.long()[:, None],
+        torch.arange(lp, device="cuda")[None], 1 << 30), pos.long()], 1)
+    mask = (kv_pos[:, None, :] <= pos.long()[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+    kc = torch.cat([kp, ks], 1).transpose(1, 2)
+    vc = torch.cat([vp, vs], 1).transpose(1, 2)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qt, kc, vc, attn_mask=mask, enable_gqa=True))
+    n_bytes, n_ops = prefix_suffix_cost(b, sq, lp, h, k, d, s_lens, plens,
+                                        dtype)
+    bms, by = bound_ms(n_bytes, n_ops, dtype)
+    return dict(ms=ms, library_ms=lib, bound_ms=bms, bound_by=by,
+                shape=f"B={b} Sq={sq} Lp={lp} H={h} K={k} D={d}")
+
+
+def _logits_gate(on: dict, off: dict, cfg, tol: float = 1e-3):
+    """Each hit request's first-token logits from the shared path against
+    the same request's without sharing (its whole prompt prefilled): within
+    ``tol`` of their scale, the same greedy token. Returns (hits, worst
+    error over the scale)."""
+    worst, hits = 0.0, 0
+    for key, (a, hit) in on.items():
+        if not hit:
+            continue
+        check(key in off, f"sharing: no unshared run of {key}")
+        b = off[key][0]
+        a, b = a[:cfg.vocab_size], b[:cfg.vocab_size]
+        check(bool(torch.isfinite(a).all()), f"sharing: {key} non-finite")
+        e = (a - b).abs().max().item()
+        scale = max(1.0, b.abs().max().item())
+        check(e <= tol * scale, f"sharing: {key}'s first-token logits differ"
+              f" from the full recompute by {e} (scale {scale})")
+        check(int(a.argmax()) == int(b.argmax()),
+              f"sharing: {key}'s first token differs from the recompute")
+        worst, hits = max(worst, e / scale), hits + 1
+    return hits, worst
+
+
+def phase_sharing(card: str, timer) -> None:
+    """Closed-loop multi-turn sessions (SHARING) at full Qwen3-1.7B width
+    and depth: fp32 with sharing off, fp32 with sharing on (streams
+    identical, fewer tokens prefilled, each hit's first-token logits
+    against the unshared run's), then bf16 with sharing on (tok/s, the
+    kernels launched); prefix_suffix_attention timed at the largest suffix
+    batch of the bf16 run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.workload import generate_interactions
+
+    cfg = get_config("qwen3-1.7b")
+    sessions = generate_interactions(**SHARING)
+    log(f"sharing: qwen3-1.7b full width/depth, {len(sessions)} sessions, "
+        f"{sum(len(s.turns) for s in sessions)} turns "
+        f"({', '.join(str(len(s.turns)) for s in sessions)}), fresh tokens "
+        f"{[t.new_tokens for s in sessions for t in s.turns]}, outputs "
+        f"{[t.output_tokens for s in sessions for t in s.turns]}")
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    runs = {}
+    for share in (False, True):
+        logits = {}
+        srv, fe, m, secs, rec = _sessions(cfg, params, torch.float32,
+                                          sessions, share=share,
+                                          first_logits=logits)
+        runs[share] = (srv, fe, _streams(fe, srv), logits)
+        st = srv.stats
+        check(len(runs[share][2]) == len(fe.requests),
+              f"sharing {share}: unfinished requests")
+        log(f"sharing fp32, share_prefix={share}: {m.row()}; {len(rec)} "
+            f"cycles in {secs:.1f} s wall, prefill tokens "
+            f"{st.prefill_tokens}, reused {st.reused_prefill_tokens}, "
+            f"prefix hits {st.prefix_hits}, fused cycles {st.fused_cycles}, "
+            f"COW copies {srv.pool.ops.cow_copies}; {captures(srv)}  "
+            f"[{card}]")
+    (s_off, fe_off, st_off, lg_off), (s_on, fe_on, st_on, lg_on) = (
+        runs[False], runs[True])
+    check(st_on == st_off, "sharing: fp32 streams differ with sharing on")
+    check(s_on.stats.reused_prefill_tokens > 0, "sharing: nothing reused")
+    check(s_on.stats.prefill_tokens < s_off.stats.prefill_tokens,
+          "sharing: no fewer prefilled tokens")
+    hits, worst = _logits_gate(lg_on, lg_off, cfg)
+    check(hits > 0, "sharing: no hit request")
+    log(f"sharing fp32: {len(st_on)} streams identical on and off; "
+        f"prefilled tokens {s_off.stats.prefill_tokens} -> "
+        f"{s_on.stats.prefill_tokens} "
+        f"({s_off.stats.prefill_tokens / s_on.stats.prefill_tokens:.2f}x "
+        f"fewer); {hits} hit requests' first-token logits within "
+        f"{worst:.2e} of scale of the full recompute, same tokens")
+    del runs, s_off, s_on, fe_off, fe_on, lg_on, lg_off
+    params = {k: (tuple({n: t.to(torch.bfloat16) for n, t in blk.items()}
+                        for blk in v) if k == "blocks"
+                  else v.to(torch.bfloat16)) for k, v in params.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    FA.launches = PD.launches = BA.launches = 0
+    srv, fe, m, secs, rec = _sessions(cfg, params, torch.bfloat16, sessions,
+                                      share=True)
+    launches = {"flash_attention": FA.launches,
+                "paged_decode_attention": PD.launches,
+                "bullet_attention_paged": BA.launches}
+    for name, c in launches.items():
+        check(c > 0, f"sharing bf16: {name} never launched")
+    n_tok = sum(len(srv.outputs[r.rid]) for r in fe.requests)
+    check(srv.stats.prefix_hits > 0, "sharing bf16: no prefix hit")
+    log(f"sharing bf16, share_prefix=True: {m.row()}; {n_tok} tokens in "
+        f"{secs:.2f} s wall = {n_tok / secs:.1f} tok/s, {len(rec)} cycles, "
+        f"prefill tokens {srv.stats.prefill_tokens}, reused "
+        f"{srv.stats.reused_prefill_tokens}, hits {srv.stats.prefix_hits}, "
+        f"COW copies {srv.pool.ops.cow_copies}, fused cycles "
+        f"{srv.stats.fused_cycles}, launches {launches}; {captures(srv)}  "
+        f"[{card}]")
+    log(f"sharing bf16 host ms of a serial prefill-group cycle: shared "
+        f"(eager) {_group_ms(rec, True)}; miss (graphed) "
+        f"{_group_ms(rec, False)}  [{card}]")
+    shapes = [r["shape"] for r in rec if r["shape"] is not None]
+    big = max(shapes, key=lambda sh: sh[0][0] * sh[0][1]
+              * (sh[1][1] * PS + sh[0][1]))
+    row = time_prefix_suffix(timer, cfg, big)
+    log(f"prefix_suffix_attention (plain PyTorch), bf16: {row['ms']:.4f} ms "
+        f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, masked SDPA "
+        f"enable_gqa {row['library_ms']:.4f} ms) at {row['shape']}, the "
+        f"run's largest suffix batch  [{card}]")
+
+
+def phase_tenants(card: str) -> None:
+    """The tenant layer over multi-turn sessions (TENANTS, app 0 flooding),
+    bf16 with sharing on, at full Qwen3-1.7B width and depth: no
+    controller, a permissive one (byte-identical streams and admission
+    order), the full stack (credit and a rate limit of 2 new interactions
+    per second per app: check_oit, every request finished, shed or
+    throttled); Jain's index over per-tenant goodput."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.request import WORKLOAD_SLOS
+    from repro_torch.serving.tenancy import (TenancyConfig,
+                                             TenancyController,
+                                             generate_tenant_interactions,
+                                             jain_index, make_apps,
+                                             per_tenant_outcomes)
+
+    cfg = get_config("qwen3-1.7b")
+    kw = dict(TENANTS)
+    sessions = generate_tenant_interactions(
+        make_apps(4, rate_limit=2), kw.pop("n_sessions"), kw.pop("rate_s"),
+        **kw)
+    log(f"tenants: qwen3-1.7b bf16, {len(sessions)} sessions by app "
+        f"{collections.Counter(s.app_id for s in sessions)}, "
+        f"{sum(len(s.turns) for s in sessions)} turns")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    ctl = {"none": None,
+           "permissive": TenancyController(make_apps(4), TenancyConfig(
+               credit=False, rate_limit=0, kv_pressure=1.01)),
+           "full": TenancyController(make_apps(4, rate_limit=2),
+                                     TenancyConfig(credit=True))}
+    out = {}
+    slo = WORKLOAD_SLOS["sharegpt"]
+    for name, ten in ctl.items():
+        FA.launches = PD.launches = 0
+        srv, fe, m, secs, rec = _sessions(cfg, params, torch.bfloat16,
+                                          sessions, share=True, tenancy=ten)
+        check(FA.launches > 0 and PD.launches > 0,
+              f"tenants {name}: flash {FA.launches}, paged decode "
+              f"{PD.launches} launches")
+        for r in fe.requests:
+            check(r.phase.name == "FINISHED" or r.rid in fe.shed,
+                  f"tenants {name}: request {r.rid} neither finished nor "
+                  "shed")
+        per = per_tenant_outcomes(fe.requests, slo)
+        jain = jain_index([per[a].goodput if a in per else 0
+                           for a in range(4)])
+        out[name] = (_streams(fe, srv), fe.admitted_order, jain)
+        log(f"tenants {name}: {m.row()}; {len(fe.requests)} requests, "
+            f"throttled {len(fe.throttled)}, shed {len(fe.shed)}, goodput "
+            f"by app {[per[a].goodput if a in per else 0 for a in range(4)]}"
+            f", Jain {jain:.3f}, reused {srv.stats.reused_prefill_tokens}, "
+            f"{len(rec)} cycles in {secs:.2f} s wall  [{card}]")
+        if ten is not None and ten.credit_enabled:
+            ten.check_oit()
+            log("tenants full: " + ", ".join(
+                f"app{a} credit {ten.credit(a):.2f} admitted {st.admitted} "
+                f"throttled {st.throttled}"
+                for a, st in sorted(ten.stats.items())))
+    check(out["permissive"][:2] == out["none"][:2],
+          "tenants: a permissive controller changed the streams or order")
+    check(len(ctl["full"].throttle_log) > 0, "tenants: the flood was not cut")
+    log(f"tenants: permissive controller byte-identical to none; OIT held; "
+        f"Jain over per-tenant goodput {out['none'][2]:.3f} (none) -> "
+        f"{out['full'][2]:.3f} (full stack)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2903,6 +3259,8 @@ def main() -> int:
     replay = timed("replay", phase_replay, card)
     ssd = timed("mamba", phase_mamba, card)
     rg = timed("recurrentgemma", phase_recurrentgemma, card)
+    timed("sharing", phase_sharing, card, timer)
+    timed("tenants", phase_tenants, card)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the

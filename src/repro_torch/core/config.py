@@ -7,11 +7,12 @@ A copy of the JAX package's ``ServerConfig``:
         slo=SLO(3.0, 150.0), max_slots=8), device="cuda")
 
 The port serves the tile-granular path over the block-paged pool or the
-dense slot cache, with the observability, fault-injection and SLO-guard
-seams. Fields that select a path of a later slice of the port raise
-``NotImplementedError`` at construction, naming the ROADMAP item that
-brings them. ``launch/serve.py`` builds the config from CLI flags in one
-place (``build_server_config``).
+dense slot cache, with shared-prefix reuse and the observability,
+fault-injection, SLO-guard and tenancy seams. Fields that select chip
+granularity, a later slice of the port, raise ``NotImplementedError`` at
+construction, naming the ROADMAP item that brings it.
+``launch/serve.py`` builds the config from CLI flags in one place
+(``build_server_config``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,6 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.serving.request import SLO
 
 _LATER = {
-    "tenancy": "ROADMAP port item 'tenancy'",
-    "share_prefix": "ROADMAP port item 'shared-prefix reuse'",
     "chip": "ROADMAP port item 'chip granularity'",
 }
 
@@ -42,12 +41,8 @@ class CacheConfig:
     paged: Optional[bool] = None
     #: tokens per KV page
     page_size: int = 16
-    #: ref-counted shared-prefix page reuse (a later slice)
+    #: ref-counted shared-prefix page reuse (paged pool, tile partition)
     share_prefix: bool = False
-
-    def __post_init__(self):
-        if self.share_prefix:
-            raise _later("share_prefix", "share_prefix")
 
 
 @dataclass(frozen=True)
@@ -96,24 +91,23 @@ class ServerConfig:
     obs: Any = None                      # Observability seam
     faults: Any = None                   # FaultInjector seam
     guard: Any = None                    # SLOGuard seam
-    tenancy: Any = None                  # TenancyController (later slice)
-
-    def __post_init__(self):
-        if self.tenancy is not None:
-            raise _later("ServerConfig.tenancy", "tenancy")
+    #: TenancyController seam (docs/MULTITENANCY.md); None runs
+    #: single-tenant, byte-identical to the engine without the seam
+    tenancy: Any = None
 
 
 def build_server_config(args, *, slo=None, est=None, obs=None,
-                        faults=None, guard=None,
+                        faults=None, guard=None, tenancy=None,
                         refit: Any = None) -> ServerConfig:
     """The one place launch/serve.py turns CLI flags into a ServerConfig.
 
     ``args`` is the serve argparse namespace; objects the launcher
     constructs itself (SLO choice differs per mode, estimator, obs,
-    resilience seams) are passed explicitly."""
+    resilience seams, tenancy controller) are passed explicitly."""
     return ServerConfig(
         slo=slo, est=est,
         max_slots=args.slots, max_len=args.max_len,
-        cache=CacheConfig(page_size=args.page_size),
+        cache=CacheConfig(page_size=args.page_size,
+                          share_prefix=args.share_prefix),
         control=ControlConfig(refit=refit),
-        obs=obs, faults=faults, guard=guard)
+        obs=obs, faults=faults, guard=guard, tenancy=tenancy)

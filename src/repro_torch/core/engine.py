@@ -58,8 +58,21 @@ changes, the decode activations ``x_d``, and per (Bp, Sp) the prefill
 activations, positions, lengths and page map, written at each
 admission); the segments write their results into those buffers. The
 graphs are dropped before their cache is. The dense path's prefill
-groups stay eager (each batch fills a cache of its own). CPU tensors run
-every step eagerly, through the same calls.
+groups stay eager (each batch fills a cache of its own), and so do the
+shared-prefix suffix groups (``share_prefix``, docs/KV_SHARING.md: their
+shapes follow each batch's prefix and suffix lengths); both write the
+pool the graphs hold in place, so no graph is left reading a dead pool.
+CPU tensors run every step eagerly, through the same calls.
+
+With ``share_prefix`` a prompt batch is all hits or all misses of the
+pool's prefix index. A miss batch runs the path above; a hit batch
+prefills only each request's unshared suffix, padded to the batch's
+longest suffix, attending the prefix K/V gathered from the shared pages
+(``T.prefill_group_shared``) and splicing its own K/V in at each row's
+in-page offset (``T.scatter_suffix_group_pages``), after the copy-on-write
+tails are copied (``T.copy_pages``); it always runs serially. The tenancy
+seam (``ServerConfig.tenancy``, docs/MULTITENANCY.md) biases admission
+order and the preemption victim by tenant credit.
 """
 
 from __future__ import annotations
@@ -262,6 +275,10 @@ class EngineStats:
     restores: int = 0
     #: tokens the prefill engine computed
     prefill_tokens: int = 0
+    #: shared-prefix reuse (docs/KV_SHARING.md): tokens served from shared
+    #: pages instead of prefilled, and admissions that hit the prefix index
+    reused_prefill_tokens: int = 0
+    prefix_hits: int = 0
 
 
 class DecodeWork(NamedTuple):
@@ -298,6 +315,16 @@ class PrefillTask:
     tmp_cache: Optional[dict] = None      # dense: (R, B, max_len, K, D)
     n_tokens: int = 0                     # total prompt tokens in the batch
     rep: int = 0                          # next pattern-repeat group to run
+    #: shared-prefix reuse (docs/KV_SHARING.md): when set, ``x``,
+    #: ``positions`` (B, S) and ``lengths`` cover only each request's
+    #: unshared suffix (fresh tensors: the task runs eagerly), prefix_map
+    #: (B, Lp) gathers the reused pages (the copy-on-write tail included),
+    #: prefix_lens (B,) the reused token counts, scatter_offsets (B,) the
+    #: in-page slot of each row's first suffix token
+    prefix_map: Optional[torch.Tensor] = None
+    prefix_lens: Optional[torch.Tensor] = None
+    scatter_offsets: Optional[torch.Tensor] = None
+    reused_tokens: int = 0                # sum of prefix_lens
 
 
 class PrefillBuffers(NamedTuple):
@@ -374,8 +401,10 @@ class BulletServer:
         #: the cycle event awaiting its measured duration
         self._open_cycle: Optional[CycleEvent] = None
         self.page_size = config.cache.page_size
+        share_prefix = config.cache.share_prefix
         self.pool = PagedKVPool(self.max_slots * self.max_len,
-                                block_size=self.page_size)
+                                block_size=self.page_size,
+                                share_prefix=share_prefix)
         #: block-paged pool (default wherever the model can use it) or the
         #: dense fixed-slot cache
         if paged is None:
@@ -383,6 +412,17 @@ class BulletServer:
         elif paged and not T.supports_paged_cache(cfg):
             raise ValueError(f"{cfg.name}: pattern {cfg.pattern} cannot use "
                              "the block-paged cache (needs pure ATTN)")
+        if share_prefix:
+            if not paged:
+                raise ValueError(
+                    "share_prefix reuses pages of the block-paged pool; "
+                    "needs paged=True (docs/KV_SHARING.md)")
+            if config.execution.partition != "tile":
+                raise ValueError(
+                    "share_prefix requires partition='tile': chip-granular "
+                    "tasks stage prompt KV in a separate per-mesh pool, "
+                    "which would leave shared pages pointing at garbage")
+        self.share_prefix = share_prefix
         self.paged = paged
         # fused spatial prefill+decode execution (§3.5) by default wherever
         # the cache is paged; the serial path stays as numerics reference
@@ -458,6 +498,9 @@ class BulletServer:
         self.on_token: Optional[Callable[[Request, int, float], None]] = None
         #: what the most recent step() actually executed
         self.last_prefill_tokens: int = 0
+        #: of which, tokens served from shared prefix pages (the cycle's
+        #: prefill started at this context offset: estimator charging)
+        self.last_reused_tokens: int = 0
         self.last_decode: Optional[DecodeWork] = None
         #: True when the last step ran the fused spatial cycle
         self.last_fused: bool = False
@@ -468,6 +511,16 @@ class BulletServer:
         self.guard = config.guard
         if self.guard is not None:
             self.guard.attach(self)
+        #: tenant layer (serving.tenancy.TenancyController,
+        #: docs/MULTITENANCY.md): the frontend gates admissions through
+        #: it, the scheduler's slack sort gains a credit-tier bias, and
+        #: preemption picks its victim within the lowest-credit tenant.
+        #: None keeps every path byte-identical to the single-tenant one.
+        self.tenancy = config.tenancy
+        if self.tenancy is not None:
+            self.tenancy.attach(self)
+            if self.tenancy.credit_enabled:
+                self.scheduler.priority = self.tenancy.tier
 
     def _alloc_cache(self) -> None:
         """Allocate the device cache of the current layout. Paged: the
@@ -568,6 +621,8 @@ class BulletServer:
         req.phase = Phase.QUEUED
         req._prompt = np.asarray(prompt_tokens, np.int32)   # type: ignore
         self.pending.append(req)
+        if self.tenancy is not None:
+            self.tenancy.track(req)
         if self.obs.enabled:
             self.obs.requests_submitted.inc()
             self.obs.spans.mark(req.rid, "submit", req.arrival,
@@ -626,6 +681,16 @@ class BulletServer:
             seq = np.concatenate([seq, np.asarray(prefix, np.int32)])
         return seq
 
+    def _written_tokens(self, r: Request) -> np.ndarray:
+        """The token ids whose KV actually sits in ``r``'s pages: prompt +
+        generated output minus the last sampled token (its KV is written
+        by the *next* decode iteration)."""
+        out = self.outputs.get(r.rid) or []
+        if not out:
+            return np.asarray(r._prompt, np.int32)          # type: ignore
+        return np.concatenate(
+            [r._prompt, np.asarray(out[:-1], np.int32)])    # type: ignore
+
     def _need_tokens(self, r: Request) -> int:
         """Pool reservation for a request: the full prompt (+ resume
         prefix) and output footprint, reserved at admission so decode can
@@ -642,10 +707,16 @@ class BulletServer:
     def _preempt_for(self, req: Request, now: float) -> bool:
         """KV pressure (§3.5.2): evict the youngest strictly-younger decode
         slot, freeing its pool pages and requeueing it with its generated
-        prefix."""
+        prefix. With a credit-scoring tenancy layer attached, the victim is
+        the youngest *within the lowest-credit tenant* among the
+        candidates (docs/MULTITENANCY.md)."""
         victims = self._preempt_candidates(req)
         if not victims:
             return False
+        if self.tenancy is not None and self.tenancy.credit_enabled:
+            lo = min(self.tenancy.credit_of(v) for v in victims)
+            victims = [v for v in victims
+                       if self.tenancy.credit_of(v) <= lo + 1e-12]
         victim = max(victims, key=lambda r: r.arrival)
         self._unwind_request(victim, now, "preempt",
                              generated=float(victim.generated))
@@ -657,7 +728,8 @@ class BulletServer:
     def _admit_prefill(self, now: float) -> bool:
         """Form the next prompt batch from the pending queue, honoring the
         scheduler's slack-sorted reorder; on pool pressure, preempt before
-        head-of-line blocking."""
+        head-of-line blocking. With ``share_prefix`` a batch is all prefix
+        hits (a suffix task, ``_build_shared_task``) or all misses."""
         if self.ptask is not None or not self.pending:
             return False
         if self._free_slot() is None:        # saturated: skip the slack scan
@@ -667,16 +739,30 @@ class BulletServer:
             self._apply_reorder(
                 self.scheduler.reorder_pending(state, now,
                                                self._pending_meta()))
+        share = self.paged and self.share_prefix
         batch: List[Request] = []
+        batch_hit: Optional[bool] = None
         while (self.pending and len(batch) < self.max_prefill_batch
                and self._free_slot() is not None):
             r = self.pending[0]
             need = self._need_tokens(r)
+            if share:
+                # homogeneous batches only: hits take the suffix path,
+                # misses the plain one; mixing them would pad misses to
+                # hit geometry (and vice versa), perturbing the numerics
+                # they must match with sharing off
+                _, m_toks, cow = self.pool.match_prefix(
+                    self._seq_tokens(r))
+                hit = (m_toks + (cow[1] if cow else 0)) > 0
+                if batch_hit is not None and hit != batch_hit:
+                    break
             if not self.pool.can_admit(need):
                 if batch:
                     break
                 # evict only if the eligible victims' blocks actually
-                # cover the shortfall — never waste decode progress
+                # cover the shortfall — never waste decode progress (a
+                # victim's shared pages survive its preemption, so only
+                # sole-referenced blocks count)
                 reclaimable = sum(
                     self.pool.reclaimable_blocks(v.rid)
                     for v in self._preempt_candidates(r))
@@ -689,7 +775,11 @@ class BulletServer:
                 if not self.pool.can_admit(need):
                     break
             slot = self._free_slot()
-            self.pool.allocate(r.rid, need)
+            self.pool.allocate(r.rid, need,
+                               prompt_tokens=(self._seq_tokens(r)
+                                              if share else None))
+            if share and batch_hit is None:
+                batch_hit = hit
             if r.prefill_start is None:
                 r.prefill_start = now
             r.phase = Phase.PREFILL
@@ -709,6 +799,37 @@ class BulletServer:
             return False
 
         lens = [self._resume_len(r) for r in batch]
+        if share and batch_hit:
+            self.ptask = self._build_shared_task(batch, lens)
+        else:
+            self.ptask = self._build_task(batch, lens)
+        task = self.ptask
+        self.stats.prefill_tokens += task.n_tokens
+        self.stats.reused_prefill_tokens += task.reused_tokens
+        if task.reused_tokens:
+            self.stats.prefix_hits += len(batch)
+            if self.obs.enabled:
+                self.obs.prefix_hits.inc(len(batch))
+                self.obs.prefix_reused_tokens.inc(task.reused_tokens)
+        P = self.buffer.state.prefill
+        P.active_rid = batch[0].rid
+        P.started_at = now
+        P.layers_done = 0
+        P.total_layers = self.cfg.n_layers
+        P.n_tokens = self.ptask.n_tokens
+        P.n_waiting = len(self.pending)
+        if self.obs.enabled:
+            for r in batch:
+                t = self.pool.table(r.rid)
+                if t is not None and t.shared_tokens:
+                    self.obs.spans.mark(r.rid, "prefix_hit", now,
+                                        reused=float(t.shared_tokens))
+        return True
+
+    def _build_task(self, batch: List[Request],
+                    lens: List[int]) -> PrefillTask:
+        """The PrefillTask of a batch prefilled from its first token, in
+        the persistent buffers of its (B, length bucket)."""
         plen = prefill_bucket(max(lens), self.max_len, self.page_size)
         toks = np.zeros((len(batch), plen), np.int32)
         for i, r in enumerate(batch):
@@ -733,18 +854,57 @@ class BulletServer:
             # temporary per-batch cache (copied slot-wise at migration)
             tmp_cache = T.init_cache(self.cfg, len(batch), self.max_len,
                                      self.dtype, self.device)
-        self.ptask = PrefillTask(
-            batch, bufs.x, bufs.positions, bufs.lengths, page_map, tmp_cache,
-            n_tokens=int(sum(lens)))
-        self.stats.prefill_tokens += self.ptask.n_tokens
-        P = self.buffer.state.prefill
-        P.active_rid = batch[0].rid
-        P.started_at = now
-        P.layers_done = 0
-        P.total_layers = self.cfg.n_layers
-        P.n_tokens = self.ptask.n_tokens
-        P.n_waiting = len(self.pending)
-        return True
+        return PrefillTask(batch, bufs.x, bufs.positions, bufs.lengths,
+                           page_map, tmp_cache, n_tokens=int(sum(lens)))
+
+    def _build_shared_task(self, batch: List[Request],
+                           lens: List[int]) -> PrefillTask:
+        """The PrefillTask of a batch whose every row hit the prefix index
+        (docs/KV_SHARING.md): activations cover only each request's
+        unshared suffix, padded to the longest one, positions start at the
+        reuse boundary, and the page maps split into a read-only prefix
+        gather and a suffix scatter that starts mid-page, after the
+        copy-on-write tail, which is copied in place here, before any
+        group launches."""
+        ps = self.page_size
+        self._tables_dirty = True
+        tables = [self.pool.table(r.rid) for r in batch]
+        reused = [t.shared_tokens for t in tables]
+        s_lens = [ln - ru for ln, ru in zip(lens, reused)]
+        assert all(s > 0 for s in s_lens), (s_lens, reused)
+        n, sp = len(batch), max(s_lens)
+        toks = np.zeros((n, sp), np.int32)
+        positions = np.zeros((n, sp), np.int64)
+        offsets = np.zeros((n,), np.int32)
+        lp = max(-(-ru // ps) for ru in reused)
+        prefix_map = np.full((n, lp), self._trash_page, np.int32)
+        n_sc = max(-(-((ru % ps) + sp) // ps) for ru in reused)
+        page_map = np.full((n, n_sc), self._trash_page, np.int32)
+        cow_src: List[int] = []
+        cow_dst: List[int] = []
+        for i, r in enumerate(batch):
+            ru = reused[i]
+            toks[i, :s_lens[i]] = self._seq_tokens(r)[ru:]
+            positions[i] = ru + np.arange(sp)
+            offsets[i] = ru % ps
+            blocks = tables[i].blocks
+            prefix_map[i, :-(-ru // ps)] = blocks[:-(-ru // ps)]
+            row = blocks[ru // ps:ru // ps + n_sc]
+            page_map[i, :len(row)] = row
+            for s_b, d_b in tables[i].cow_pairs:
+                cow_src.append(s_b)
+                cow_dst.append(d_b)
+        if cow_src:
+            T.copy_pages(self.cache, self._dev(np.asarray(cow_src, np.int64)),
+                         self._dev(np.asarray(cow_dst, np.int64)))
+        return PrefillTask(
+            batch, T.embed_tokens(self.params, self._dev(toks), self.cfg),
+            self._dev(positions), self._dev(np.asarray(s_lens, np.int32)),
+            self._dev(page_map), n_tokens=int(sum(s_lens)),
+            prefix_map=self._dev(prefix_map),
+            prefix_lens=self._dev(np.asarray(reused, np.int32)),
+            scatter_offsets=self._dev(offsets),
+            reused_tokens=int(sum(reused)))
 
     def _prefill_step(self, now: float) -> bool:
         """Launch ONE pattern-repeat group of the in-flight prefill, with a
@@ -766,7 +926,16 @@ class BulletServer:
         and migrate to decode when the last group completes."""
         if self.faults.enabled:
             self.faults.dispatch("prefill")
-        if self.paged:
+        if task.prefix_map is not None:
+            # shared-prefix suffix group, eagerly: gather the reused prefix
+            # K/V, attend prefix and suffix, splice the suffix K/V in at
+            # each row's in-page offset, the pool written in place
+            task.x, entries = T.prefill_group_shared(
+                self.params, self.cache, task.x, task.positions,
+                task.prefix_map, task.prefix_lens, task.rep, self.cfg)
+            T.scatter_suffix_group_pages(self.cache, entries, task.page_map,
+                                         task.scatter_offsets, task.rep)
+        elif self.paged:
             b, s = task.x.shape[:2]
             self.graphs(("p_group", task.rep, b, s), functools.partial(
                 _prefill_group_paged, self.params, self.cache, cfg=self.cfg,
@@ -784,6 +953,7 @@ class BulletServer:
         task.rep += 1
         self.stats.prefill_cycles += 1
         self.last_prefill_tokens = task.n_tokens
+        self.last_reused_tokens = task.reused_tokens
         P = self.buffer.state.prefill
         P.layers_done = task.rep * len(self.cfg.pattern)
         for r in task.batch:
@@ -802,11 +972,16 @@ class BulletServer:
         ``max_len`` row of the batch cache into its decode slot, in place.
         Requests cancelled mid-prefill (``cancel_reason`` set) are
         finalized here instead: pages freed, no token emitted."""
-        b, s = task.x.shape[:2]
-        first_tokens = self.graphs(
-            ("p_final", b, s), functools.partial(_final_tokens, self.params,
-                                                 cfg=self.cfg),
-            task.x, task.lengths).cpu().numpy()
+        if task.prefix_map is not None:
+            first_tokens = _final_tokens(self.params, task.x, task.lengths,
+                                         cfg=self.cfg)
+        else:
+            b, s = task.x.shape[:2]
+            first_tokens = self.graphs(
+                ("p_final", b, s), functools.partial(
+                    _final_tokens, self.params, cfg=self.cfg),
+                task.x, task.lengths)
+        first_tokens = first_tokens.cpu().numpy()
         P = self.buffer.state.prefill
         if self.paged:
             # migrated slots flip PREFILL->DECODE: re-map their pages into
@@ -838,6 +1013,10 @@ class BulletServer:
             self.pos[slot] = r.prompt_len + r.generated - 1
             self.active[slot] = True
             self.pool.migrate(r.rid)
+            if self.share_prefix and self.paged:
+                # index the freshly written pages so concurrent prompts
+                # can share them before this request even finishes
+                self.pool.register_prefix(r.rid, self._written_tokens(r))
             self.stats.migrated += 1
             if self.obs.enabled:
                 self.obs.spans.mark(r.rid, "migrate", now)
@@ -859,10 +1038,18 @@ class BulletServer:
         r.phase = Phase.FINISHED
         r.finish_time = now
         self.finished.append(r)
+        if self.tenancy is not None:
+            # recompute the tenant's credit from this outcome (SLO
+            # violation + TTFT tail EWMAs, docs/MULTITENANCY.md)
+            self.tenancy.on_finish(r, self.slo)
         if self.obs.enabled:
             self.obs.requests_finished.inc()
             self.obs.spans.mark(r.rid, "finish", now,
                                 generated=float(r.generated))
+        if self.share_prefix and self.paged:
+            # extend the prefix index over the decode-written pages before
+            # releasing them (ref-0 indexed pages stay cached for hits)
+            self.pool.register_prefix(r.rid, self._written_tokens(r))
         self.pool.free(r.rid)
         if self.paged:
             self._tables_dirty = True
@@ -913,6 +1100,8 @@ class BulletServer:
         r.cancel_reason = why
         r.finish_time = now
         self.stats.cancelled += 1
+        if self.tenancy is not None:
+            self.tenancy.on_cancel(r, why)
         if self.obs.enabled:
             self.obs.requests_cancelled.labels(why=why).inc()
             self.obs.spans.mark(r.rid, "cancel", now, why=why)
@@ -994,6 +1183,12 @@ class BulletServer:
             self._unwind_request(r, now, "preempt",
                                  generated=float(r.generated))
             self.stats.preempted += 1
+        if self.share_prefix:
+            # the pages behind the prefix index are about to be
+            # reinitialized: drop the index and the cached pages. Every
+            # table was just unwound, so no page has several live readers
+            # (flush_shared refuses otherwise)
+            self.pool.flush_shared()
         self.paged = paged
         self.graphs.drop()
         self.cache = None
@@ -1179,13 +1374,15 @@ class BulletServer:
                 "fused", self.last_prefill_tokens,
                 max(R.prefill_units, 1), max(R.decode_units, 1),
                 max(w.batch, 1), max(w.mean_context, 1),
-                tuple(w.streamed) or None)
+                tuple(w.streamed) or None,
+                reused_tokens=self.last_reused_tokens)
         return CycleObservation(
             "serial", self.last_prefill_tokens,
             R.prefill_units, R.decode_units,
             w.batch if w is not None else 0,
             max(w.mean_context, 1) if w is not None else 1,
-            (tuple(w.streamed) or None) if w is not None else None)
+            (tuple(w.streamed) or None) if w is not None else None,
+            reused_tokens=self.last_reused_tokens)
 
     def record_cycle_actual(self, actual_s: float) -> None:
         """Feed the measured duration of the cycle the last step() ran:
@@ -1280,10 +1477,13 @@ class BulletServer:
         if self.faults.enabled:
             self.faults.begin_cycle(self)
         self.last_prefill_tokens = 0
+        self.last_reused_tokens = 0
         self.last_decode = None
         self.last_fused = False
         did_admit = self._admit_prefill(now)
-        if self.fused and self.ptask is not None and self.active.any():
+        # a shared-prefix suffix task always runs serially
+        if (self.fused and self.ptask is not None
+                and self.ptask.prefix_map is None and self.active.any()):
             return self._fused_cycle(now) or did_admit
         did_p = self._prefill_step(now)
         did_d = self._decode_cycle(now)

@@ -26,7 +26,8 @@ fills the cached occupancy queries and creates the split decode's and the
 fused launch's per-stream workspaces before capture, so none of them
 comes from the graph's pool. It is the only eager run: a second would
 advance a recurrent state (Mamba-2, RG-LRU) or an activation buffer twice.
-The capture itself executes nothing.
+The capture itself executes nothing, and the garbage collector is held off
+while it runs (a collection could reset a dropped graph mid-capture).
 
 A replay calls no kernel wrapper, so each entry adds to the wrappers'
 launch counters exactly what its capture's calls added to them, and the
@@ -36,6 +37,7 @@ the step runs eagerly, as every kernel wrapper dispatches by device.
 
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 from typing import Callable, Dict, Hashable, List, NamedTuple, Tuple
@@ -156,13 +158,23 @@ class StepGraphs:
         # not torch.cuda.graph(): its context synchronizes the device,
         # collects garbage and empties the allocator's cache at every
         # capture, none of which a capture on a stream that waits for the
-        # caller needs (the eager steps would then allocate anew)
-        with torch.cuda.stream(side):
-            graph.capture_begin(pool=self._pool)
-            try:
-                static_out = fn(*static)
-            finally:
-                graph.capture_end()
+        # caller needs (the eager steps would then allocate anew). The
+        # collector is held off instead: a collection during the capture
+        # would finalize the graphs of servers dropped in reference
+        # cycles, and a graph's reset is not permitted while a stream
+        # captures (it invalidates the capture)
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool)
+                try:
+                    static_out = fn(*static)
+                finally:
+                    graph.capture_end()
+        finally:
+            if gc_was_on:
+                gc.enable()
         after = launch_counts()
         _set_counts(before)
         caller.wait_stream(side)

@@ -11,11 +11,19 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
   ``--max-len``) is released into the engine by arrival time on a
   deterministic virtual clock or the (scaled) wall clock, scored against
   the dataset's Table-2 SLO; ``--fault-plan`` and the deadline/queue flags
-  attach seeded fault injection and the SLO guard.
+  attach seeded fault injection and the SLO guard. ``--tenants N``
+  replays a Zipf-skewed closed-loop multi-turn session trace of N apps
+  instead (``--requests`` sessions), gated by the tenant admission layer
+  (``--credit``, ``--rate-limit``; docs/MULTITENANCY.md), and prints each
+  tenant's credit and outcomes. ``--share-prefix`` maps the resident
+  pages of a prompt's indexed prefix instead of prefilling it again
+  (docs/KV_SHARING.md).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode host
   PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
       --device cpu --dataset sharegpt --rate 8 --duration 5 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
+      --device cpu --share-prefix --tenants 4 --credit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --mode replay --requests 8
 """
@@ -125,9 +133,17 @@ def _replay(args) -> None:
     slo = WORKLOAD_SLOS[args.dataset]
     est = PerfEstimator()
     faults, guard = _resilience(args)
+    tenancy = None
+    if args.tenants > 0:
+        from repro_torch.serving.tenancy import (TenancyConfig,
+                                                 TenancyController, make_apps)
+        tenancy = TenancyController(
+            make_apps(args.tenants, rate_limit=args.rate_limit),
+            TenancyConfig(credit=args.credit))
     server = BulletServer(cfg, params, config=build_server_config(
         args, slo=slo, est=est, refit=not args.no_refit,
-        obs=Observability(), faults=faults, guard=guard), device=args.device)
+        obs=Observability(), faults=faults, guard=guard, tenancy=tenancy),
+        device=args.device)
     trace = fit_trace_to_context(
         generate_trace(args.dataset, args.rate, args.duration,
                        seed=args.seed, max_requests=args.requests),
@@ -144,17 +160,36 @@ def _replay(args) -> None:
     if args.stream:
         fe.on_token = lambda r, tok, t: print(
             f"  [{t:8.3f}s] rid={r.rid} tok#{r.generated}={tok}")
-    fe.submit_trace(trace, cfg.vocab_size, seed=args.seed)
+    if tenancy is not None:
+        # multi-tenant replay: a Zipf-skewed closed-loop interaction
+        # trace instead of the flat open-loop one (docs/MULTITENANCY.md)
+        from repro_torch.serving.tenancy import generate_tenant_interactions
+        sessions = generate_tenant_interactions(
+            list(tenancy.apps.values()),
+            n_sessions=max(args.requests, 1), rate_s=args.rate,
+            seed=args.seed)
+        fe.submit_interactions(sessions, cfg.vocab_size, seed=args.seed)
+        n_submitted, kind = len(sessions), "sessions"
+    else:
+        fe.submit_trace(trace, cfg.vocab_size, seed=args.seed)
+        n_submitted, kind = len(trace), "requests"
     m = fe.run()
     if fe.truncated:
         print("WARNING: replay hit max_cycles with unfinished requests; "
               "metrics cover the completed subset only")
     print(run_report(server, metrics=m, header=(
         f"replay({args.clock}) {args.dataset} rate={args.rate}/s "
-        f"dur={args.duration}s -> {len(trace)} requests")))
+        f"dur={args.duration}s -> {n_submitted} {kind}")))
     if guard is not None and guard.transitions:
         print("guard transitions: " + " ".join(
             t["transition"] for t in guard.transitions))
+    if tenancy is not None:
+        tenancy.check_oit()
+        for app_id, st in sorted(tenancy.stats.items()):
+            print(f"  tenant {tenancy._label(app_id):8s} "
+                  f"credit={tenancy.credit(app_id):.2f} "
+                  f"admitted={st.admitted} throttled={st.throttled} "
+                  f"finished={st.finished} goodput={st.goodput}")
     _write_obs_outputs(args, server)
 
 
@@ -167,6 +202,11 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="ref-counted shared-prefix KV page reuse: "
+                         "requests whose prompt matches resident pages "
+                         "map them read-only instead of re-prefilling "
+                         "(paged pool only; docs/KV_SHARING.md)")
     ap.add_argument("--slo-ttft", type=float, default=3.0)
     ap.add_argument("--slo-tpot", type=float, default=150.0)
     ap.add_argument("--seed", type=int, default=0)
@@ -205,6 +245,19 @@ def main(argv=None) -> int:
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bound the pending queue; the frontend retries "
                          "rejected submissions, then sheds")
+    ap.add_argument("--tenants", type=int, default=0, metavar="N",
+                    help="multi-tenant replay: N apps with Zipf-skewed "
+                         "closed-loop sessions over a 50k-user id space, "
+                         "gated by the tenant admission layer "
+                         "(docs/MULTITENANCY.md; replay mode)")
+    ap.add_argument("--credit", action="store_true",
+                    help="credit-biased admission order and preemption-"
+                         "victim choice (per-tenant SLO-violation / "
+                         "tail-latency history; needs --tenants)")
+    ap.add_argument("--rate-limit", type=int, default=0, metavar="N",
+                    help="per-tenant sliding-window budget of new "
+                         "interactions per second (0 = unlimited); "
+                         "mid-conversation turns are never throttled")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the per-cycle Chrome trace-event JSON here")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -212,6 +265,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.oracle and args.clock != "virtual":
         ap.error("--oracle needs --clock virtual")
+    if args.credit and args.tenants <= 0:
+        ap.error("--credit biases the tenant admission layer; "
+                 "needs --tenants N")
+    if args.tenants > 0 and args.mode != "replay":
+        ap.error("--tenants drives the multi-tenant interaction replay; "
+                 "use --mode replay")
     if args.mode == "replay":
         _replay(args)
     else:

@@ -4,10 +4,12 @@ The plain attention math (``flash_ref_attention``, ``decode_attention``,
 ``gather_pages``, ``paged_decode_ref``, ``NEG_INF``) lives once, in
 ``repro_torch.kernels.ref``, next to the kernels it is the plain version
 of; it is re-exported here under the JAX package's names. This module adds
-the in-place cache writes (``write_paged_kv``, ``write_cache_slot``) and
-the model's entry points, the dispatchers at the end, which reach the
-kernels through ``repro_torch.kernels.ops``: a CUDA tensor launches the
-CUDA kernel, a CPU tensor runs the plain version.
+the in-place cache writes (``write_paged_kv``, ``write_cache_slot``), the
+shared-prefix suffix attention (``prefix_suffix_attention``, XLA in the
+JAX package and plain PyTorch here, on either device) and the model's
+entry points, the dispatchers at the end, which reach the kernels through
+``repro_torch.kernels.ops``: a CUDA tensor launches the CUDA kernel, a CPU
+tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import (NEG_INF, decode_attention,  # noqa: F401
-                                     flash_ref_attention, gather_pages,
-                                     paged_decode_ref)
+from repro_torch.kernels.ref import (NEG_INF, _gqa_logits,  # noqa: F401
+                                     decode_attention, flash_ref_attention,
+                                     gather_pages, paged_decode_ref)
 
 
 def write_paged_kv(k_pages, v_pages, k_new, v_new, block_tables, pos):
@@ -51,6 +53,43 @@ def write_cache_slot(cache, new, slot):
     idx = slot.long().clamp(0, cache.shape[1] - 1)
     cache[rows, idx] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def prefix_suffix_attention(q, k_sfx, v_sfx, k_pre, v_pre, prefix_len,
+                            q_positions):
+    """Suffix prefill attending over a reused (gathered) KV prefix: the
+    shared-prefix prefill path (docs/KV_SHARING.md), where a cache-hit
+    request recomputes only its unshared suffix.
+
+    q: (B, S, H, D) suffix queries at absolute positions ``q_positions``
+    (B, S); k_sfx/v_sfx: (B, S, K, D) the suffix's own K/V; k_pre/v_pre:
+    (B, Lp, K, D) the prefix K/V gathered from the page pool, slot ``t``
+    valid iff ``t < prefix_len[b]`` (slot index is the absolute position:
+    shared pages are prompt-aligned from 0). Padded suffix columns are
+    masked by causality. One block, the JAX op sequence: scale q,
+    concatenate prefix and suffix, mask by absolute positions, fp32
+    logits, subtract the max, exp, sum, divide; so an empty prefix gives
+    the plain prefill path's numbers."""
+    b, sq, h, d = q.shape
+    lp = k_pre.shape[1]
+    q = (q * d ** -0.5).to(q.dtype)
+    kc = torch.cat([k_pre.to(k_sfx.dtype), k_sfx], dim=1)
+    vc = torch.cat([v_pre.to(v_sfx.dtype), v_sfx], dim=1)
+    q_pos = q_positions.long()
+    pre_pos = torch.arange(lp, device=q.device)[None].expand(b, lp)
+    pre_pos = torch.where(pre_pos < prefix_len.long()[:, None], pre_pos,
+                          torch.iinfo(torch.int32).max)
+    kv_pos = torch.cat([pre_pos, q_pos], dim=1)               # (B, Lp+S)
+    logits = _gqa_logits(q, kc)                           # (B,K,G,Sq,Lp+S)
+    mask = kv_pos[:, None, :] <= q_pos[:, :, None]            # (B,Sq,Sk)
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(vc.dtype), vc).float()
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The transformer of the Bullet serving path: init, page pool, dense slot
-cache, prefill, paged and dense decode, and the fused prefill-group +
-decode cycle.
+cache, prefill (also of a suffix over shared-prefix pages), paged and
+dense decode, and the fused prefill-group + decode cycle.
 
 The port covers stacks of full-attention blocks with an MLP (the paged
 path, ``supports_paged_cache``), of Mamba-2 SSD blocks, and of RG-LRU and
@@ -440,6 +440,51 @@ def scatter_prefill_pages(pages, kv, page_map, rep=None):
     return pages
 
 
+def scatter_suffix_pages(pages, kv, page_map, offsets, rep=None):
+    """Scatter a *suffix* prefill's K or V (B, Ss, K, D) into a block-paged
+    pool at a per-row page offset, in place (shared-prefix path,
+    docs/KV_SHARING.md; the JAX engine donated the pool instead).
+
+    Row ``b``'s suffix starts mid-page: its first token lands in page
+    ``page_map[b, 0]`` at slot ``offsets[b]`` (the tail of a copy-on-write
+    page, whose copied prefix below the offset must survive). Read-modify-
+    write: gather the mapped pages, splice the suffix in at the offset
+    (clamped so it fits, as ``dynamic_update_slice`` clamps), write the
+    whole pages back. Rows pad with the trash page; a row's real pages are
+    disjoint from every other row's, so the trash index is the only one
+    that repeats, and it holds garbage by contract. ``pages`` is one
+    layer's pool (P+1, ps, K, D), or the repeat-stacked pool with ``rep``
+    naming the slice. Returns the (same) pool."""
+    ps = pages.shape[-3]
+    b, n_b = page_map.shape
+    ss = kv.shape[1]
+    dst = pages if rep is None else pages[rep]
+    idx = page_map.reshape(-1).long()
+    flat = dst.index_select(0, idx).reshape(b, n_b * ps, *dst.shape[2:])
+    start = offsets.long().clamp(0, n_b * ps - ss)
+    cols = start[:, None] + torch.arange(ss, device=kv.device)[None]
+    rows = torch.arange(b, device=kv.device)[:, None]
+    flat[rows, cols] = kv.to(pages.dtype)
+    dst.index_copy_(0, idx, flat.reshape(-1, ps, *dst.shape[2:]))
+    return pages
+
+
+def _apply_block_prefix(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
+                        k_pre, v_pre, prefix_lens):
+    """Prefill block application for a suffix continuing reused prefix KV
+    (docs/KV_SHARING.md). ``x`` (B, Ss, D) holds only the unshared suffix
+    at absolute ``positions`` (B, Ss); ``k_pre/v_pre`` (B, Lp, K, D) is
+    the prefix KV gathered from shared pages, valid below ``prefix_lens``.
+    Returns (x, {"k","v"}) with the *suffix's own* KV for page scatter."""
+    assert blk.mixer == ATTN, blk.mixer
+    h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
+    q, k, v = _project_qkv(h, p, cfg, positions)
+    o = attn_ops.prefix_suffix_attention(q, k, v, k_pre, v_pre,
+                                         prefix_lens, positions)
+    x = x + _merge_heads(o) @ p["wo"]
+    return x + _ff(x, p, blk, cfg), {"k": k, "v": v}
+
+
 def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
                        positions_p, pos_d, cache_entry, block_tables,
                        page_map, decode_share: float):
@@ -480,6 +525,29 @@ def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
     for j, blk in enumerate(cfg.pattern):
         x, entry = _apply_block_full(x, params_at(params["blocks"][j], rep),
                                      blk, cfg, positions, lengths)
+        entries.append(entry)
+    return x, entries
+
+
+def prefill_group_shared(params, cache, x, positions, prefix_map,
+                         prefix_lens, rep: int, cfg: ModelConfig):
+    """Pattern-repeat group ``rep`` over a *suffix* batch whose leading
+    ``prefix_lens`` tokens are served from shared pages
+    (docs/KV_SHARING.md): per layer, gather the prefix K/V from repeat
+    ``rep`` of the page pool through ``prefix_map`` (B, Lp) and attend
+    prefix and suffix jointly. The pool is only read here. Returns (x,
+    [the suffix's own ``{"k", "v"}`` per pattern position]) for
+    :func:`scatter_suffix_group_pages`."""
+    b = prefix_map.shape[0]
+    pm = prefix_map.long()
+    entries = []
+    for j, blk in enumerate(cfg.pattern):
+        leaf = cache["blocks"][j]
+        k_pre = leaf["k"][rep][pm].reshape(b, -1, *leaf["k"].shape[-2:])
+        v_pre = leaf["v"][rep][pm].reshape(b, -1, *leaf["v"].shape[-2:])
+        x, entry = _apply_block_prefix(
+            x, params_at(params["blocks"][j], rep), blk, cfg, positions,
+            k_pre, v_pre, prefix_lens)
         entries.append(entry)
     return x, entries
 
@@ -598,6 +666,26 @@ def scatter_group_pages(cache, entries, page_map, rep: int) -> None:
     for leaf, entry in zip(cache["blocks"], entries):
         for key in ("k", "v"):
             scatter_prefill_pages(leaf[key], entry[key], page_map, rep)
+
+
+def scatter_suffix_group_pages(cache, entries, page_map, offsets,
+                               rep: int) -> None:
+    """Scatter one layer group's suffix K/V (:func:`prefill_group_shared`)
+    into the pooled pages of repeat ``rep`` at each row's in-page offset,
+    in place."""
+    for leaf, entry in zip(cache["blocks"], entries):
+        for key in ("k", "v"):
+            scatter_suffix_pages(leaf[key], entry[key], page_map, offsets,
+                                 rep)
+
+
+def copy_pages(cache, src, dst) -> None:
+    """Copy-on-write: duplicate pages ``src`` into ``dst`` across every
+    repeat of every layer's pool, in place, before the first divergent
+    write lands in ``dst`` (docs/KV_SHARING.md)."""
+    for leaf in cache["blocks"]:
+        for key in ("k", "v"):
+            leaf[key].index_copy_(1, dst, leaf[key].index_select(1, src))
 
 
 def _write_entry(tpl, entry, blk: BlockSpec, cfg: ModelConfig,

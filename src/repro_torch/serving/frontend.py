@@ -1,7 +1,6 @@
 """Online serving frontend: arrival-clocked admission over the real engine
 (the port's copy of the JAX package's ``serving/frontend.py``, imports
-rewritten; multi-turn ``submit_interactions`` waits for the tenancy item
-of the port, ROADMAP).
+rewritten).
 
 Bridges the sim/real gap: the same ``generate_trace`` workloads the
 discrete-event simulator consumes (core/simulate.py) replay against the
@@ -25,6 +24,8 @@ comparable on the same trace.
 
 from __future__ import annotations
 
+import bisect
+import itertools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -77,7 +78,7 @@ def estimator_cycle_cost(server: BulletServer) -> float:
 
     Reads the engine's ``last_cycle_observation()`` record of what step()
     actually executed and prices it through the shared
-    :func:`repro_torch.core.estimator.predict_cycle` rule: a **fused** cycle
+    :func:`repro.core.estimator.predict_cycle` rule: a **fused** cycle
     costs the paper's Eq. 2 co-located ``max(prefill, decode)/(1-s)``
     with p_c/p_b contention, a **serial** cycle the SUM of its
     full-machine dispatches, with the decode charge on the KV bytes the
@@ -134,6 +135,10 @@ class OnlineFrontend:
         #: rids shed by admission backpressure / still in flight when the
         #: cycle budget ran out (filled by run())
         self.shed: List[int] = []
+        #: subset of ``shed`` rejected by the tenant gate (rate limit /
+        #: KV pressure — always opening turns, never mid-interaction;
+        #: docs/MULTITENANCY.md)
+        self.throttled: List[int] = []
         self.timed_out: List[int] = []
         self._queue: List[Tuple[Request, np.ndarray]] = []
         #: backpressured submits awaiting retry: (release_at, tries, ...)
@@ -164,10 +169,62 @@ class OnlineFrontend:
     def submit_interactions(self, sessions: Sequence, vocab_size: int,
                             seed: int = 0) -> None:
         """Closed-loop multi-turn replay of ``workload.Interaction``
-        sessions: ported with tenancy (ROADMAP port item 'tenancy')."""
-        raise NotImplementedError(
-            "multi-turn interaction replay is not ported yet; it comes with "
-            "ROADMAP port item 'tenancy'")
+        sessions. Turn ``k+1``'s prompt is turn ``k``'s full prompt plus
+        its *actual* generated tokens plus fresh user tokens, so
+        consecutive turns of a session share a growing prefix — the
+        shared-prefix reuse workload (docs/KV_SHARING.md). Follow-up
+        turns are scheduled from the finishing turn's token callback and
+        inserted into the release queue in arrival order, so they work
+        under both clocks and never require a second run() pass.
+
+        Deterministic: each session draws from ``default_rng((seed,
+        session_id))``, and follow-up content depends only on the
+        engine's (deterministic) outputs."""
+        rid_counter = itertools.count(
+            max((r.rid for r in self.requests), default=-1) + 1)
+        for sess in sessions:
+            rng = np.random.default_rng((seed, sess.session_id))
+            self._launch_turn(sess.session_id, rng, tuple(sess.turns),
+                              np.zeros(0, np.int32), sess.arrival,
+                              vocab_size, rid_counter,
+                              ident=(getattr(sess, "user_id", None),
+                                     getattr(sess, "app_id", None)),
+                              turn_index=0)
+
+    def _launch_turn(self, sid: int, rng, turns, history: np.ndarray,
+                     arrival: float, vocab_size: int, rid_counter,
+                     ident=(None, None), turn_index: int = 0) -> None:
+        max_len = self.server.max_len
+        turn, rest = turns[0], turns[1:]
+        fresh = rng.integers(0, vocab_size, turn.new_tokens, dtype=np.int32)
+        toks = np.concatenate([history, fresh]).astype(np.int32)
+        if len(toks) + 2 > max_len:
+            return                      # history outgrew the context window
+        out_len = max(1, min(turn.output_tokens, max_len - len(toks)))
+        req = Request(rid=next(rid_counter), arrival=arrival,
+                      prompt_len=len(toks), output_len=out_len,
+                      user_id=ident[0], app_id=ident[1],
+                      session_id=sid, turn_index=turn_index)
+        outputs: List[int] = []
+
+        def on_tok(r: Request, token: int, now: float) -> None:
+            outputs.append(int(token))
+            done = (r.generated >= r.output_len
+                    or r.prompt_len + r.generated >= max_len)
+            if done and rest:
+                nxt = np.concatenate(
+                    [toks, np.asarray(outputs, np.int32)])
+                self._launch_turn(sid, rng, rest, nxt,
+                                  now + rest[0].think_time_s,
+                                  vocab_size, rid_counter,
+                                  ident=ident, turn_index=turn_index + 1)
+
+        self.requests.append(req)
+        # keep the release queue sorted past the release pointer; run()
+        # re-sorts everything submitted before it starts anyway
+        bisect.insort(self._queue, (req, toks), lo=self._i,
+                      key=lambda e: (e[0].arrival, e[0].rid))
+        self._cbs[req.rid] = on_tok
 
     def _dispatch(self, req: Request, token: int, now: float) -> None:
         cb = self._cbs.get(req.rid)
@@ -198,6 +255,18 @@ class OnlineFrontend:
 
     def _try_submit(self, req: Request, toks: np.ndarray, tries: int,
                     now: float) -> None:
+        ten = self.server.tenancy
+        if ten is not None and ten.enabled:
+            verdict = ten.gate(req, now, tries)
+            if verdict == "throttle":
+                # the OIT rule guarantees this is an opening turn: the
+                # whole interaction dies before any KV was invested
+                self._shed(req, now, tries, reason="throttled")
+                return
+            if verdict == "defer":
+                self._deferred.append(
+                    (now + ten.cfg.defer_s, tries + 1, req, toks))
+                return
         guard = self.server.guard
         if guard is not None:
             try:
@@ -214,13 +283,16 @@ class OnlineFrontend:
 
     def _shed(self, req: Request, now: float, tries: int,
               reason: str = "shed") -> None:
-        """Retryable-rejection budget exhausted: the request never enters
-        the engine — terminal CANCELLED with ``reason`` as the cause."""
+        """Retryable-rejection budget exhausted (or the tenant gate said
+        no): the request never enters the engine — terminal CANCELLED
+        with ``reason`` as the cause."""
         req.phase = Phase.CANCELLED
         req.cancel_reason = reason
         req.finish_time = now
         self.server.stats.shed += 1
         self.shed.append(req.rid)
+        if reason == "throttled":
+            self.throttled.append(req.rid)
         obs = self.server.obs
         if obs.enabled:
             obs.requests_shed.inc()

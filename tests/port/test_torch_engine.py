@@ -229,13 +229,20 @@ def test_record_cycle_actual_logs_prediction(model):
 
 
 def test_later_slices_raise_not_implemented(model):
-    with pytest.raises(NotImplementedError, match="shared-prefix"):
-        CacheConfig(share_prefix=True)
+    """Chip granularity is the one later slice left in the config; the
+    shared-prefix and tenancy fields build a server, and the frontend's
+    multi-turn entry point runs."""
+    from repro_torch.serving.tenancy import TenancyController
     with pytest.raises(NotImplementedError, match="chip"):
         ExecConfig(partition="chip")
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        ServerConfig(slo=SLO(3.0, 150.0), tenancy=object())
-    _, ts = _servers(model)
+    with pytest.raises(NotImplementedError, match="chip"):
+        ExecConfig(devices=("cuda:0", "cuda:1"))
+    _, cfg, _, params = model
+    ten = TenancyController()
+    ts = BulletServer(cfg, params, config=ServerConfig(
+        slo=SLO(3.0, 150.0), cache=CacheConfig(share_prefix=True),
+        tenancy=ten), device="cpu")
+    assert ts.share_prefix and ts.pool.share_prefix and ts.tenancy is ten
     fe = OnlineFrontend(ts, VirtualClock())
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        fe.submit_interactions([], model[1].vocab_size)
+    fe.submit_interactions([], model[1].vocab_size)
+    assert fe.run().n_requests == 0

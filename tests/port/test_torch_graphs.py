@@ -324,3 +324,40 @@ def _clone_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_clone_tree(v) for v in tree)
     return tree.clone()
+
+
+class _Cycle:
+    """An object in a reference cycle: only the garbage collector frees
+    it, as it frees a dropped server and the graphs its ``StepGraphs``
+    holds."""
+
+
+@pytest.mark.cuda
+def test_capture_survives_dropped_graphs_in_cycles(card):
+    """While a graph captures, the last reference to another graph moves
+    into a reference cycle, and the step allocates enough to start
+    collections: a collection during the capture would free the dropped
+    graph, whose reset is not permitted while a stream captures and
+    invalidates the capture. ``StepGraphs`` holds the collector off during
+    a capture, so every capture succeeds and replays the step."""
+    x = torch.randn(64, 64, generator=card, device="cuda")
+    holder = []
+
+    def step(t):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            cyc = _Cycle()
+            cyc.me, cyc.graphs = cyc, holder.pop()
+            del cyc                      # only a collection frees it now
+            junk = [[i] for i in range(5000)]
+            del junk
+        return (t @ t).relu()
+
+    for _ in range(5):
+        old = StepGraphs()
+        old(("sq",), step, x)                          # holds a CUDAGraph
+        holder.append(old)
+        del old
+        g = StepGraphs()
+        g(("sq",), step, x)                            # captures
+        assert not holder
+        assert torch.equal(g(("sq",), step, x), step(x))   # replays

@@ -110,44 +110,88 @@ def _as_port(jcfg):
 
 
 def _pool_state(pool, rids, n_slots=6, max_blocks=8):
-    tables = {rid: (list(t.blocks), t.n_tokens) if (t := pool.table(rid))
-              else None for rid in rids}
+    tables = {rid: (list(t.blocks), t.n_tokens, t.shared_tokens,
+                    t.shared_blocks, list(t.cow_pairs))
+              if (t := pool.table(rid)) else None for rid in rids}
     return (pool.free_blocks, pool.available_blocks, pool.allocated_blocks,
-            sorted(pool.owners()), tables,
+            pool.cached_blocks, sorted(pool.owners()), tables,
+            sorted(vars(pool.ops).items()),
             pool.device_block_table(
                 [r if r in pool.owners() else None
                  for r in range(n_slots)], max_blocks).tolist())
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_paged_pool_copy_matches_jax(seed):
+def _prompt(rng, docs, n):
+    """``n`` tokens of one of ``docs``, half the time with one token
+    changed (a divergence mid-page: a copy-on-write tail on a hit)."""
+    toks = docs[int(rng.integers(0, len(docs)))][:n].copy()
+    if rng.random() < 0.5:
+        toks[int(rng.integers(0, n))] = int(rng.integers(50, 60))
+    return toks
+
+
+@pytest.mark.parametrize("seed,share", [(0, False), (1, False), (2, False),
+                                        (0, True), (1, True), (2, True)],
+                         ids=["0", "1", "2", "share-0", "share-1",
+                              "share-2"])
+def test_paged_pool_copy_matches_jax(seed, share):
+    """The same seeded operation storm on both pools: allocate, migrate,
+    preempt, free, extend and, sharing, allocate with prompt tokens
+    (prefix hits, copy-on-write tails), register_prefix, match_prefix,
+    flush_shared (refused under live readers) and reclaimable_blocks."""
     rng = np.random.default_rng(seed)
-    jp, tp = JPool(640, block_size=16), PagedKVPool(640, block_size=16)
+    jp = JPool(640, block_size=16, share_prefix=share)
+    tp = PagedKVPool(640, block_size=16, share_prefix=share)
     rids = list(range(6))
-    for _ in range(200):
-        op = rng.choice(["allocate", "migrate", "preempt", "free", "extend"])
+    docs = [rng.integers(0, 50, 400).astype(np.int32) for _ in range(2)]
+    prompts = {}
+    ops = ["allocate", "migrate", "preempt", "free", "extend"]
+    if share:
+        ops += ["allocate", "register", "register", "match", "flush",
+                "reclaimable"]
+    for _ in range(200 if not share else 300):
+        op = rng.choice(ops)
         rid = int(rng.choice(rids))
         n = int(rng.integers(1, 200))
+        toks = _prompt(rng, docs, n) if share else None
+        if op == "allocate" and tp.table(rid) is None:
+            prompts[rid] = toks
+        elif op == "register" and rid in prompts:
+            written = prompts[rid][:int(rng.integers(0, len(prompts[rid])
+                                                     + 1))]
         results = []
         for pool, oob in ((jp, JOutOfBlocks), (tp, OutOfBlocks)):
             try:
                 if op == "allocate":
-                    out = (pool.can_admit(n), pool.allocate(rid, n).blocks
+                    out = (pool.can_admit(n),
+                           pool.allocate(rid, n, prompt_tokens=toks).blocks
                            if pool.table(rid) is None and pool.can_admit(n)
                            else None)
+                elif op == "match":
+                    out = pool.match_prefix(toks)
+                elif op == "flush":
+                    out = pool.flush_shared()
                 elif pool.table(rid) is None:
                     out = None
                 elif op == "extend":
                     out = list(pool.extend(rid, 1).blocks)
+                elif op == "register":
+                    out = pool.register_prefix(rid, written)
+                elif op == "reclaimable":
+                    out = pool.reclaimable_blocks(rid)
                 else:
                     out = getattr(pool, op)(rid)
                     out = getattr(out, "blocks", out)
             except oob:
                 out = "out-of-blocks"
+            except RuntimeError as e:           # flush under live readers
+                out = ("refused", str(e))
             results.append(out)
             pool.check_invariants()
         assert results[0] == results[1], op
         assert _pool_state(jp, rids) == _pool_state(tp, rids)
+    if share:
+        assert tp.ops.shared_hits and tp.ops.cow_copies and tp.ops.registers
 
 
 def _state(mod, rng, total_units):

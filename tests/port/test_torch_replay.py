@@ -181,12 +181,26 @@ def test_oracle_replay_refits_like_jax(model):
 
 
 def test_submit_interactions_waits_for_tenancy(model):
+    """Multi-turn sessions, which waited for the tenancy slice, replay:
+    each follow-up turn's prompt is its session's previous prompt, the
+    answer the engine gave, and fresh tokens."""
+    from repro_torch.serving.workload import generate_interactions
     _, cfg, _, params = model
     server = BulletServer(cfg, params, config=ServerConfig(
         slo=WORKLOAD_SLOS["sharegpt"]), device="cpu")
     fe = TF.OnlineFrontend(server, TF.VirtualClock())
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        fe.submit_interactions([], cfg.vocab_size)
+    fe.submit_interactions(generate_interactions(
+        2, rate_s=100.0, turns=2, new_tokens=6, output_tokens=3, seed=1),
+        cfg.vocab_size, seed=1)
+    m = fe.run()
+    assert m.n_requests == 4 and not fe.truncated
+    for r in fe.requests:
+        if r.turn_index:
+            prev = next(p for p in fe.requests if p.session_id ==
+                        r.session_id and p.turn_index == r.turn_index - 1)
+            hist = np.concatenate([prev._prompt, server.outputs[prev.rid]])
+            assert len(r._prompt) > len(hist)
+            np.testing.assert_array_equal(r._prompt[:len(hist)], hist)
 
 
 def test_serve_replay_on_cpu(capsys, tmp_path):
