@@ -19,6 +19,20 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
   pages of a prompt's indexed prefix instead of prefilling it again
   (docs/KV_SHARING.md).
 
+- sim: the estimator-driven discrete-event comparison of Bullet against
+  the paper's baselines (``--systems``: chunked-N, nanoflow-N, naive,
+  bullet-fixN, bullet-nosched, bullet-nopart) on one ``generate_trace``
+  workload, priced on ``--chips`` H100s (``core/simulate.py``).
+- simulate-fleet: ``--replicas`` simulated Bullet instances behind a
+  ``--router`` replay a multi-tenant closed-loop session trace
+  (``--sessions`` turns; docs/SIMULATOR.md); ``--fault-plan`` dispatch
+  specs become replica outage windows.
+
+Both simulator modes run no model and use no device (``--device`` is
+ignored); they map ``qwen3-1.7b`` to the paper's ``llama3.1-8b`` and print
+the ``HardwareSpec`` they priced with before their rows: its SM count is
+the card's where one is present, else the H100's 132.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --mode host
   PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
       --device cpu --dataset sharegpt --rate 8 --duration 5 --requests 8
@@ -26,6 +40,10 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
       --device cpu --share-prefix --tenants 4 --credit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --mode replay --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim \\
+      --dataset sharegpt --rate 40
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode simulate-fleet \\
+      --replicas 4 --router prefix-affinity --sessions 2000 --rate 120
 """
 
 from __future__ import annotations
@@ -193,9 +211,100 @@ def _replay(args) -> None:
     _write_obs_outputs(args, server)
 
 
+def spec_line(hw) -> str:
+    """The HardwareSpec a simulator mode priced with, on one line."""
+    return (f"spec: {hw.name} x{hw.n_chips}, {hw.units_per_chip} SMs a card "
+            f"({hw.total_units} units, grid_slots {hw.grid_slots}), peak "
+            f"{hw.peak_flops / 1e12:g} TFLOP/s bf16, HBM "
+            f"{hw.hbm_bw / 1e12:g} TB/s, link {hw.ici_bw / 1e9:g} GB/s")
+
+
+def fitted_estimator(cfg, chips: int):
+    """The H100 spec on ``chips`` cards and an estimator fitted to its
+    surrogate profile, as the simulator modes price with."""
+    from repro_torch.core.estimator import (HardwareSpec, PerfEstimator,
+                                            fit_params)
+    from repro_torch.core.profiler import run_profiling
+
+    hw = HardwareSpec(n_chips=chips)
+    samples = run_profiling(cfg, hw, max_sl=4096, max_bs=32, max_cl=4096)
+    return hw, PerfEstimator(hw, fit_params(samples, cfg, hw, iters=30))
+
+
+def _sim(args) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiler import SurrogateMachine
+    from repro_torch.core.simulate import ServingSimulator, SimConfig
+    from repro_torch.serving.request import WORKLOAD_SLOS
+    from repro_torch.serving.workload import generate_trace
+
+    cfg = get_config(args.arch)
+    hw, est = fitted_estimator(cfg, args.chips)
+    print(spec_line(hw))
+    slo = WORKLOAD_SLOS[args.dataset]
+    for system in args.systems.split(","):
+        trace = generate_trace(args.dataset, args.rate, args.duration,
+                               seed=args.seed)
+        s = ServingSimulator(SimConfig(model=cfg, hw=hw, slo=slo), est,
+                             SurrogateMachine(hw, seed=7), system)
+        m = s.run(trace)
+        print(f"{system:16s} {m.row()}")
+
+
+def _fleet(args) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.resilience import FaultPlan
+    from repro_torch.serving.request import WORKLOAD_SLOS
+    from repro_torch.serving.tenancy import generate_fleet_interactions
+    from repro_torch.sim import ClusterConfig, ClusterSimulator, tail_point
+
+    cfg = get_config(args.arch)
+    hw, est = fitted_estimator(cfg, args.chips)
+    print(spec_line(hw))
+    slo = WORKLOAD_SLOS[args.dataset]
+    work = generate_fleet_interactions(args.sessions, args.rate,
+                                       seed=args.seed)
+    faults = (FaultPlan.from_json(args.fault_plan)
+              if args.fault_plan else None)
+    cc = ClusterConfig(sim=fleet_sim_config(cfg, hw, slo),
+                       n_replicas=args.replicas, router=args.router,
+                       faults=faults, seed=args.seed)
+    res = ClusterSimulator(cc, est).run(work)
+    print(f"fleet {args.replicas}x{args.arch} router={args.router} "
+          f"{len(res.requests)} requests ({len(work)} sessions) "
+          f"@ {args.rate:.0f} req/s")
+    print(f"  {res.metrics.row()}")
+    print("  " + tail_line(tail_point(res.requests, slo), res))
+    for i, (cycles, refits, reused) in enumerate(res.replica_stats):
+        print(f"  replica {i}: cycles={cycles} refits={refits} "
+              f"reused_prefill_tokens={reused}")
+
+
+def fleet_sim_config(cfg, hw, slo):
+    """The fleet level's fidelity/speed knobs: the scheduler over layer
+    groups of 8, run every 4th cycle on the first 64 pending requests, the
+    estimator refit every 512 cycles."""
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.core.simulate import SimConfig
+    return SimConfig(model=cfg, hw=hw, slo=slo,
+                     scheduler=SchedulerConfig(layer_group=8),
+                     sched_every=4, refit_interval=512, sched_pending_cap=64)
+
+
+def tail_line(pt, res) -> str:
+    """One ``tail_point`` of a fleet run, as ``--mode simulate-fleet``
+    prints it."""
+    return (f"attainment={pt['attainment']:.3f} "
+            f"p99_norm_ttft={pt['p99_norm_ttft_ms']:.1f}ms "
+            f"p99_tpot={pt['p99_tpot_ms']:.2f}ms "
+            f"slo_holds={pt['holds']} rerouted={res.rerouted} "
+            f"cancelled_no_replica={res.cancelled_no_replica}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--mode", choices=("host", "replay"), default="host")
+    ap.add_argument("--mode", choices=("host", "replay", "sim",
+                                       "simulate-fleet"), default="host")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--requests", type=int, default=8)
@@ -216,6 +325,23 @@ def main(argv=None) -> int:
                     help="replay arrival rate (requests per trace second)")
     ap.add_argument("--duration", type=float, default=30.0,
                     help="replay trace length in trace seconds")
+    ap.add_argument("--chips", type=int, default=1,
+                    help="H100s per instance the simulator modes price "
+                         "(the engine itself runs on one card)")
+    ap.add_argument("--systems",
+                    default="bullet,chunked-1024,chunked-2048,naive",
+                    help="comma-separated systems of --mode sim")
+    ap.add_argument("--replicas", type=int, default=4,
+                    help="fleet size for --mode simulate-fleet: number of "
+                         "simulated Bullet replicas behind the router")
+    ap.add_argument("--router", default="prefix-affinity",
+                    help="cluster routing policy (simulate-fleet mode): "
+                         "round-robin, least-kv, prefix-affinity, or "
+                         "tenant-aware (docs/SIMULATOR.md)")
+    ap.add_argument("--sessions", type=int, default=2000, metavar="N",
+                    help="closed-loop turn budget for the simulate-fleet "
+                         "multi-tenant trace (sessions are drawn until "
+                         "their turns total at least N)")
     ap.add_argument("--clock", choices=("virtual", "wall"), default="virtual",
                     help="replay clock: deterministic virtual time or "
                          "(scaled) wall time")
@@ -271,7 +397,11 @@ def main(argv=None) -> int:
     if args.tenants > 0 and args.mode != "replay":
         ap.error("--tenants drives the multi-tenant interaction replay; "
                  "use --mode replay")
-    if args.mode == "replay":
+    if args.mode in ("sim", "simulate-fleet"):
+        # the simulator modes price the paper's own model
+        args.arch = "llama3.1-8b" if args.arch == "qwen3-1.7b" else args.arch
+        (_sim if args.mode == "sim" else _fleet)(args)
+    elif args.mode == "replay":
         _replay(args)
     else:
         _host(args)
