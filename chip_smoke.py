@@ -45,7 +45,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    prefill and dense decode at the RecurrentGemma phase's shapes (H=10 on
    K=1, D=256: 4 rows of S=3000 with the 2048 window, decode over 4 slots
    of a 2048-row ring that has wrapped; bf16 also within 4 bf16 ulps of
-   each output row's scale);
+   each output row's scale); then kernels 1-4 at the shapes the
+   mixture-of-experts slice and Qwen1.5 bring (``phase_attention_moe``,
+   fp32 and bf16, each timed beside its bound and SDPA): flash over one
+   Mixtral-8x22B prompt of 4200 tokens (H=48, K=8, G=6, its 4096-token
+   window) and dense decode over 4 slots of its wrapped 4096-row ring,
+   Llama-4 Maverick's paged decode (H=40, K=8, G=5) and its paged fused
+   kernel (bit-equal to flash + paged decode at every tile-table share),
+   Qwen1.5-4B's flash and paged decode (H=K=20, G=1);
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
@@ -53,7 +60,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    apart;
 5. reference: a 2-layer cut of Qwen3-1.7B at full width, fp32, prefill +
    decode on the card (kernels) against the same on the CPU (plain
-   versions);
+   versions); moe reference (``phase_moe_reference``): Llama-4 Maverick
+   (paged) and Mixtral-8x22B (its ring) at reduced widths with head dim
+   128 and their own heads, experts and top-k, fp32, prompts of 150 and
+   80 tokens (past the reduced 64-token window) and 8 decode steps, card
+   against CPU: logits within 1e-3 of scale, tokens and every MoE call's
+   dropped fraction equal; Llama-4 fused and Qwen1.5-4B (H=K=20) serial
+   through BulletServer, card against CPU, streams, cycles and MoE sums
+   equal; Qwen1.5-4B in bf16 (the G=1 rows' launches);
 6. serve: Qwen3-1.7B at full width and depth, bf16, seeded random
    weights, 12 requests through BulletServer fused (the default) with the
    launch counters read around that run, the decode_share of each fused
@@ -160,7 +174,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    replay phase's trace, 8 slots: the same table and split candidates.
    Both gaps are printed, not gated (the engine prices each decode on
    the page-bucketed contexts it streamed, the simulator on the mean
-   context).
+   context);
+13. moe (``phase_moe``): (b) Llama-4 Maverick at its published widths,
+   one pattern repeat (a dense and a MoE layer: 128 experts top-1 and the
+   shared expert; 18.6 G params, drawn an expert at a time), bf16, the
+   serve phase's 12 requests fused (pause off, launches counted, decode
+   shares, host split, each prefill group's drops) and serial, token
+   streams identical (the bf16 split decode cuts each slot's own rows, so
+   the table buckets the two schedules set apart change nothing; a
+   profile window of 10 decode cycles in the serial run); the
+   scheduler's defaults with their host split; the MoE layer's card ms at (8, 1) and (1, 1024) tokens beside
+   the bytes of all experts and of the experts routed to; (c) its graphs
+   against the eager steps with the MoE layer inside, on two repeats that
+   share the one repeat's weights: serial decode at the serve's table
+   buckets, the fused cycle in segments (``d_rep`` included) and the
+   prefill groups and first tokens, MoE sums bit-equal; (d)
+   Mixtral-8x22B at its published widths over 8 of its 56 layers (8
+   experts top-2, 20.5 G params), bf16, the dense ring cache, serial:
+   prompts of 4200, 1500, 600 and 64 tokens, 32 decode steps each,
+   windowed flash and ring decode launches counted, drops, the MoE
+   layer's card ms at 4 slots, and its dense decode iteration's graph
+   against the eager step.
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -195,6 +229,8 @@ HBM_BW = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 H, K, G, D, PS = 16, 8, 2, 128, 16
+#: the attention kernels' source (kernels 1-5)
+ATTN_SRC = "src/repro_torch/kernels/csrc/attention.cu"
 #: the replay phase's context window, and so the dense cache's rows: not a
 #: multiple of 128 (nor of the kernel's 16-row tile), so the tail path runs
 MAX_LEN = 1000
@@ -429,10 +465,10 @@ class PaddedShare:
 # inputs
 # ---------------------------------------------------------------------------
 
-def flash_inputs(gen, bp, s, dtype):
-    q = torch.randn(bp * H, s, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(bp * K, s, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(bp * K, s, D, generator=gen, device="cuda").to(dtype)
+def flash_inputs(gen, bp, s, dtype, h: int = H, kh: int = K, d: int = D):
+    q = torch.randn(bp * h, s, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(bp * kh, s, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(bp * kh, s, d, generator=gen, device="cuda").to(dtype)
     return q, k, v
 
 
@@ -440,18 +476,19 @@ def flash_inputs(gen, bp, s, dtype):
 CONTEXTS = (1, 15, 16, 17, 257, 500, 1000, 0)
 
 
-def decode_inputs(gen, dtype, ps: int = PS):
+def decode_inputs(gen, dtype, ps: int = PS, kh: int = K, g: int = G):
     """8 slots over a pool of ``ps``-row pages: mixed contexts, page-edge
     cases, one inactive slot (pos = -1), the table bucketed to a power of
     two with the trash page past each slot's live pages; the trash page
-    holds large garbage so any read of it would show."""
+    holds large garbage so any read of it would show. ``kh`` kv heads of
+    ``g`` query heads each."""
     b = len(CONTEXTS)
     need = [-(-c // ps) for c in CONTEXTS]
     n_b = 1 << (max(need) - 1).bit_length()
     n_pages = sum(need) + 8
     trash = n_pages
-    kp = torch.randn(n_pages + 1, ps, K, D, generator=gen, device="cuda")
-    vp = torch.randn(n_pages + 1, ps, K, D, generator=gen, device="cuda")
+    kp = torch.randn(n_pages + 1, ps, kh, D, generator=gen, device="cuda")
+    vp = torch.randn(n_pages + 1, ps, kh, D, generator=gen, device="cuda")
     kp[trash] = 1e4
     vp[trash] = -1e4
     perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
@@ -462,7 +499,7 @@ def decode_inputs(gen, dtype, ps: int = PS):
         used += n
     pos = torch.tensor([c - 1 for c in CONTEXTS], dtype=torch.int32,
                        device="cuda")
-    q = torch.randn(b, K, G, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, kh, g, D, generator=gen, device="cuda").to(dtype)
     return (q, kp.to(dtype), vp.to(dtype),
             torch.from_numpy(bt).cuda(), pos)
 
@@ -499,16 +536,20 @@ def dense_cost(q, kvpos, pos, dtype):
     V rows whose position is attended (0 <= kv_position <= pos), q read
     and the output written, kv_positions and pos read; the scores and the
     PV product over those rows."""
+    _, kh, g, d = q.shape
     rows = int(((kvpos >= 0) & (kvpos <= pos[:, None])).sum())
-    n_bytes = (2 * rows * K * D + 2 * q.numel()) * esize(dtype) \
+    n_bytes = (2 * rows * kh * d + 2 * q.numel()) * esize(dtype) \
         + 4 * (kvpos.numel() + pos.numel())
-    return n_bytes, 4 * G * D * K * rows
+    return n_bytes, 4 * g * d * kh * rows
 
 
-def flash_cost(bp, s, dtype):
-    n_bytes = (2 * bp * H * s * D + 2 * bp * K * s * D) * esize(dtype)
-    n_ops = 4 * D * bp * H * s * (s + 1) / 2          # causal pairs
-    return n_bytes, n_ops
+def flash_cost(bp, s, dtype, h: int = H, kh: int = K, window: int = 0,
+               d: int = D):
+    """Flash's bytes (q, k, v read, the output written) and operations
+    (both products over the causal pairs, within ``window`` keys)."""
+    n_bytes = (2 * bp * h * s * d + 2 * bp * kh * s * d) * esize(dtype)
+    pairs = sum(min(i + 1, window or s) for i in range(s))
+    return n_bytes, 4 * d * bp * h * pairs
 
 
 def ssd_inputs(gen, b, s, dtype):
@@ -556,13 +597,242 @@ def decode_cost(q, pos, dtype):
     V rows of every active slot's positions <= pos, q read and the output
     written, the block-table entries of the live pages and pos; the
     scores and the PV product over those rows."""
+    _, kh, g, d = q.shape
     live = [int(p) + 1 for p in pos.tolist() if p >= 0]
     tokens = sum(live)
     entries = sum(-(-c // PS) for c in live)
-    n_bytes = (2 * tokens * K * D + 2 * q.numel()) * esize(dtype) \
+    n_bytes = (2 * tokens * kh * d + 2 * q.numel()) * esize(dtype) \
         + 4 * (entries + pos.numel())
-    n_ops = 4 * G * D * K * tokens
+    n_ops = 4 * g * d * kh * tokens
     return n_bytes, n_ops
+
+
+# ---------------------------------------------------------------------------
+# kernel checks and rows: one of each per kernel, at every shape
+# ---------------------------------------------------------------------------
+
+def _dt_name(dtype) -> str:
+    return str(dtype)[6:]
+
+
+def _dt_suffix(dtype) -> tuple:
+    """(row-name suffix, shape tag): the bf16 rows carry no suffix."""
+    return ("", "bf16") if dtype == torch.bfloat16 else ("_fp32", "fp32")
+
+
+def flash_check(gen, bp, s, dtype, *, h: int = H, kh: int = K, d: int = D,
+                window: int = 0, what: str = ""):
+    """Flash over ``bp`` rows of ``s`` tokens (``h`` query heads on ``kh``
+    kv heads, head dim ``d``, causal, within ``window`` keys) against its
+    plain version within TOL; in bf16 also per output row within
+    RG_ATTN_ULPS, beside what the plain version reads with the window one
+    key short (for window 0, the last row's oldest key left out). Returns
+    (error, (q, k, v))."""
+    from repro_torch.kernels import flash_attention as FA
+    g = h // kh
+    q, k, v = flash_inputs(gen, bp, s, dtype, h, kh, d)
+    out = FA.flash_attention(q, k, v, causal=True, window=window, group=g)
+    ref = FA.flash_attention_plain(q, k, v, causal=True, window=window,
+                                   group=g)
+    torch.cuda.synchronize()
+    e = (out.float() - ref.float()).abs().max().item()
+    name = (f"flash {what}{_dt_name(dtype)} Bp={bp} S={s} H={h} K={kh} "
+            f"D={d} window={window}")
+    check(math.isfinite(e) and e <= TOL[dtype], f"{name}: err {e}")
+    how = ""
+    if dtype == torch.bfloat16:
+        u = row_ulps(out, ref)
+        check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+              f"{name}: {u} ulps of the row scale")
+        wu = row_ulps(FA.flash_attention_plain(
+            q, k, v, causal=True, window=(window or s) - 1, group=g), ref)
+        how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
+               f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (window one "
+               "key short)")
+    log(f"{name}: max|kernel-plain| = {e:.3e}{how}")
+    return e, (q, k, v)
+
+
+def paged_check(gen, dtype, *, ps: int = PS, kh: int = K, g: int = G,
+                what: str = ""):
+    """Paged decode over the 8 slots of CONTEXTS (``decode_inputs``)
+    against its plain version within TOL on the active slots, the inactive
+    slot zeros; in bf16 (the split body) also per output row within
+    RG_ATTN_ULPS, beside what the plain version reads with each slot's
+    newest key left out. Returns (error, inputs)."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_decode_attention as PD
+    q, kp, vp, bt, pos = inputs = decode_inputs(gen, dtype, ps, kh, g)
+    out = PD.paged_decode_attention(q, kp, vp, bt, pos)
+    ref = PD.paged_decode_attention_plain(q, kp, vp, bt, pos)
+    torch.cuda.synchronize()
+    act = pos >= 0
+    e = (out[act].float() - ref[act].float()).abs().max().item()
+    name = f"paged decode {what}{_dt_name(dtype)} K={kh} G={g} ps={ps}"
+    check(math.isfinite(e) and e <= TOL[dtype], f"{name}: err {e}")
+    check(bool((out[~act] == 0).all()), f"{name}: inactive slot not zero")
+    how = ""
+    if dtype == torch.bfloat16:
+        u = row_ulps(out[act], ref[act])
+        check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+              f"{name}: {u} ulps of the row scale")
+        # the slots with a key left after the newest is dropped
+        two = pos >= 1
+        wu = row_ulps(PD.paged_decode_attention_plain(
+            q, kp, vp, bt, pos - 1)[two], ref[two])
+        n = DA.n_split(q, bt.shape[1] * ps, paged=True)
+        how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
+               f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (newest key "
+               f"left out); {n} pieces per (slot, kv head) in the launch")
+    log(f"{name} contexts {CONTEXTS} n_b {bt.shape[1]}: max|kernel-plain| "
+        f"(active) = {e:.3e}{how}, inactive slot zeros")
+    return e, inputs
+
+
+def dense_check(inputs, dtype, what: str) -> float:
+    """Dense decode over ``inputs`` (q, k_cache, v_cache, kv_positions,
+    pos) against its plain version within TOL on the slots with an
+    attended row, the others zeros; in bf16 also per output row within
+    RG_ATTN_ULPS, beside what the plain version reads with each slot's
+    newest key left out. Returns the error."""
+    from repro_torch.kernels import decode_attention as DA
+    q, kc, vc, kvpos, pos = inputs
+    b, kh, g, d = q.shape
+    out = DA.decode_attention(q, kc, vc, kvpos, pos)
+    ref = DA.decode_attention_plain(q, kc, vc, kvpos, pos)
+    torch.cuda.synchronize()
+    act = attended(kvpos, pos)
+    e = (out[act].float() - ref[act].float()).abs().max().item()
+    name = (f"dense decode {what} {_dt_name(dtype)} {b} slots x S="
+            f"{kc.shape[1]} K={kh} G={g} D={d}")
+    check(math.isfinite(e) and e <= TOL[dtype], f"{name}: err {e}")
+    check(bool((out[~act] == 0).all()),
+          f"{name}: a slot with no attended row not zero")
+    how = ""
+    if dtype == torch.bfloat16:
+        u = row_ulps(out[act], ref[act])
+        check(math.isfinite(u) and u <= RG_ATTN_ULPS,
+              f"{name}: {u} ulps of the row scale")
+        newest = torch.where(kvpos == pos[:, None], -1, kvpos)
+        wu = row_ulps(DA.decode_attention_plain(
+            q, kc, vc, newest, pos)[act], ref[act])
+        how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
+               f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (newest key "
+               "left out)")
+    log(f"{name}: max|kernel-plain| ({int(act.sum())} slots with an "
+        f"attended row) = {e:.3e}{how}; {int((~act).sum())} slots without "
+        "one return zeros")
+    return e
+
+
+def flash_row(timer, name, dtype, inputs, err, bp, s, *, h: int = H,
+              kh: int = K, d: int = D, window: int = 0, what: str = ""):
+    """Flash's kernel-table row: card ms, plain ms and SDPA (on expanded
+    K/V, with the window as a mask) on ``inputs``, beside the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    F = torch.nn.functional
+    g = h // kh
+    sfx, tag = _dt_suffix(dtype)
+    q, k, v = inputs
+    nb, no = flash_cost(bp, s, dtype, h, kh, window, d)
+    bms, bby = bound_ms(nb, no, dtype)
+    qs = q.reshape(bp, h, s, d)
+    ks = k.reshape(bp, kh, s, d).repeat_interleave(g, 1)
+    vs = v.reshape(bp, kh, s, d).repeat_interleave(g, 1)
+    if window:
+        i = torch.arange(s, device="cuda")
+        wmask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=wmask))
+    else:
+        lib = timer(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                           is_causal=True))
+    return with_tflops(dict(
+        name=name + sfx, route="cuda", source=ATTN_SRC,
+        replaces="src/repro/kernels/flash_attention.py:77",
+        ms=timer(lambda: FA.flash_attention(q, k, v, window=window,
+                                            group=g)),
+        plain_ms=timer(lambda: FA.flash_attention_plain(
+            q, k, v, window=window, group=g)),
+        bound_ms=bms, bound_by=bby, library_ms=lib, max_abs_err=err,
+        shape=f"{what}Bp={bp} S={s} H={h} K={kh} D={d} window {window} "
+              f"causal {tag}"), no)
+
+
+def paged_row(timer, name, dtype, inputs, err, *, what: str = "",
+              sweep: bool = False) -> dict:
+    """Paged decode's kernel-table row: card ms, plain ms and SDPA (on the
+    gathered K/V, expanded and with ``enable_gqa``) on ``inputs``
+    (``decode_inputs``), beside the bound; ``sweep`` also times bf16 over
+    forced piece counts."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import paged_decode_attention as PD
+    sfx, tag = _dt_suffix(dtype)
+    qd, kpg, vpg, bt, pos = inputs
+    b, kh, g, d = qd.shape
+    nb, no = decode_cost(qd, pos, dtype)
+    bms, bby = bound_ms(nb, no, dtype)
+    kd = kpg[bt.long()].reshape(b, -1, kh, d).transpose(1, 2).contiguous()
+    vd = vpg[bt.long()].reshape(b, -1, kh, d).transpose(1, 2).contiguous()
+    kvpos = torch.arange(kd.shape[2], device="cuda")
+    mask = (kvpos[None, :] <= pos[:, None])[:, None, None, :]
+    exp_ms, gqa_ms = sdpa_yardsticks(timer, qd.reshape(b, kh * g, 1, d), kd,
+                                     vd, mask, g)
+    if dtype == torch.bfloat16:
+        n = DA.n_split(qd, bt.shape[1] * PS, paged=True)
+        if sweep:
+            split_sweep(timer, lambda: PD.paged_decode_attention(
+                qd, kpg, vpg, bt, pos), n, f"paged decode D={d} {b} slots")
+        body = f"{n} pieces per (slot, kv head) in the launch"
+    else:
+        body = "one CTA per (slot, kv head)"
+    return dict(
+        name=name + sfx, route="cuda", source=ATTN_SRC,
+        replaces="src/repro/kernels/paged_decode_attention.py:73",
+        ms=timer(lambda: PD.paged_decode_attention(qd, kpg, vpg, bt, pos)),
+        plain_ms=timer(lambda: PD.paged_decode_attention_plain(
+            qd, kpg, vpg, bt, pos)),
+        bound_ms=bms, bound_by=bby, library_ms=min(exp_ms, gqa_ms),
+        library_expanded_ms=exp_ms, library_gqa_ms=gqa_ms, max_abs_err=err,
+        shape=f"{what}{b} slots contexts {CONTEXTS} K={kh} G={g} "
+              f"n_b={bt.shape[1]} ps={PS} {tag}, {body}")
+
+
+def dense_row(timer, name, dtype, inputs, err, *, what: str = "",
+              sweep: bool = False) -> dict:
+    """Dense decode's kernel-table row: card ms, plain ms and SDPA (masked
+    by the attended positions, expanded and with ``enable_gqa``) on
+    ``inputs``, beside the bound; ``sweep`` also times bf16 over forced
+    piece counts."""
+    from repro_torch.kernels import decode_attention as DA
+    sfx, tag = _dt_suffix(dtype)
+    qd, kc, vc, kvpos, pos = inputs
+    b, kh, g, d = qd.shape
+    nb, no = dense_cost(qd, kvpos, pos, dtype)
+    bms, bby = bound_ms(nb, no, dtype)
+    att = (kvpos >= 0) & (kvpos <= pos[:, None])
+    exp_ms, gqa_ms = sdpa_yardsticks(
+        timer, qd.reshape(b, kh * g, 1, d), kc.transpose(1, 2).contiguous(),
+        vc.transpose(1, 2).contiguous(), att[:, None, None, :], g)
+    if dtype == torch.bfloat16:
+        n = DA.n_split(qd, kc.shape[1])
+        if sweep:
+            split_sweep(timer, lambda: DA.decode_attention(
+                qd, kc, vc, kvpos, pos), n, f"dense decode D={d} {b} slots")
+        body = f"{n} pieces per (slot, kv head)"
+    else:
+        body = "one CTA per (slot, kv head)"
+    return dict(
+        name=name + sfx, route="cuda", source=ATTN_SRC,
+        replaces="src/repro/kernels/decode_attention.py:62",
+        ms=timer(lambda: DA.decode_attention(qd, kc, vc, kvpos, pos)),
+        plain_ms=timer(lambda: DA.decode_attention_plain(
+            qd, kc, vc, kvpos, pos)),
+        bound_ms=bms, bound_by=bby, library_ms=min(exp_ms, gqa_ms),
+        library_expanded_ms=exp_ms, library_gqa_ms=gqa_ms, max_abs_err=err,
+        shape=f"{what}{b} slots x S={kc.shape[1]} rows, pos "
+              f"{pos.tolist()} ({int(att.sum())} attended rows), K={kh} "
+              f"G={g} D={d} {tag}, {body}")
 
 
 # ---------------------------------------------------------------------------
@@ -665,104 +935,26 @@ def phase_kernels(timer: Timer):
     def worst(key, e):
         err[key] = max(err.get(key, 0.0), e)
 
-    # -- flash: S in {128, 200, 1000}, Bp in {1, 4}, plus a window case; in
-    # bf16 also per output row within RG_ATTN_ULPS, beside what the plain
-    # version reads with the window one key short (for window 0, the last
-    # row's oldest key left out)
+    # -- flash: S in {128, 200, 1000}, Bp in {1, 4}, plus a window case
     for dtype in (torch.float32, torch.bfloat16):
         for bp in (1, 4):
             for s, window in ((128, 0), (200, 0), (1000, 0), (200, 17)):
-                q, k, v = flash_inputs(gen, bp, s, dtype)
-                out = FA.flash_attention(q, k, v, causal=True, window=window,
-                                         group=G)
-                ref = FA.flash_attention_plain(q, k, v, causal=True,
-                                               window=window, group=G)
-                torch.cuda.synchronize()
-                e = (out.float() - ref.float()).abs().max().item()
-                check(math.isfinite(e) and e <= TOL[dtype],
-                      f"flash {dtype} Bp={bp} S={s} w={window}: err {e}")
+                e, _ = flash_check(gen, bp, s, dtype, window=window)
                 worst(("flash", dtype), e)
-                how = ""
-                if dtype == torch.bfloat16:
-                    u = row_ulps(out, ref)
-                    check(math.isfinite(u) and u <= RG_ATTN_ULPS,
-                          f"flash {dtype} Bp={bp} S={s} w={window}: {u} ulps "
-                          "of the row scale")
-                    wu = row_ulps(FA.flash_attention_plain(
-                        q, k, v, causal=True, window=(window or s) - 1,
-                        group=G), ref)
-                    how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
-                           f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} "
-                           f"(one key short)")
-                log(f"flash {str(dtype)[6:]} Bp={bp} S={s} window={window}: "
-                    f"max|kernel-plain| = {e:.3e}{how}")
 
     # -- paged decode: 8 slots, mixed contexts, inactive slot, trash page;
-    # in bf16 (the split body) also per output row within RG_ATTN_ULPS,
-    # beside what the plain version reads with each slot's newest key left
-    # out, and at page sizes 8 and 32 besides the served 16
+    # in bf16 (the split body) at page sizes 8 and 32 besides the served 16
     for dtype, ps in ((torch.float32, PS), (torch.bfloat16, PS),
                       (torch.bfloat16, 8), (torch.bfloat16, 32)):
-        q, kp, vp, bt, pos = decode_inputs(gen, dtype, ps)
-        out = PD.paged_decode_attention(q, kp, vp, bt, pos)
-        ref = PD.paged_decode_attention_plain(q, kp, vp, bt, pos)
-        torch.cuda.synchronize()
-        act = pos >= 0
-        e = (out[act].float() - ref[act].float()).abs().max().item()
-        check(math.isfinite(e) and e <= TOL[dtype],
-              f"paged decode {dtype} ps={ps}: err {e}")
-        check(bool((out[~act] == 0).all()), "inactive slot not zero")
+        e, _ = paged_check(gen, dtype, ps=ps)
         worst(("decode", dtype), e)
-        how = ""
-        if dtype == torch.bfloat16:
-            u = row_ulps(out[act], ref[act])
-            check(math.isfinite(u) and u <= RG_ATTN_ULPS,
-                  f"paged decode {dtype} ps={ps}: {u} ulps of the row scale")
-            # the slots with a key left after the newest is dropped
-            two = pos >= 1
-            wu = row_ulps(PD.paged_decode_attention_plain(
-                q, kp, vp, bt, pos - 1)[two], ref[two])
-            n = DA.n_split(q, bt.shape[1] * ps, paged=True)
-            how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
-                   f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (newest "
-                   f"key left out); {n} pieces per (slot, kv head)")
-        log(f"paged decode {str(dtype)[6:]} contexts {CONTEXTS} ps {ps} n_b "
-            f"{bt.shape[1]}: max|kernel-plain| (active) = {e:.3e}{how}, "
-            f"inactive slot zeros")
 
-    # -- dense decode: 8 slots over MAX_LEN rows, linear and ring positions;
-    # in bf16 also per output row within RG_ATTN_ULPS, beside what the plain
-    # version reads with each slot's newest key left out
+    # -- dense decode: 8 slots over MAX_LEN rows, linear and ring positions
     for dtype in (torch.float32, torch.bfloat16):
         for ring in (False, True):
-            q, kc, vc, kvpos, pos = dense_inputs(gen, dtype, ring)
-            out = DA.decode_attention(q, kc, vc, kvpos, pos)
-            ref = DA.decode_attention_plain(q, kc, vc, kvpos, pos)
-            torch.cuda.synchronize()
-            act = attended(kvpos, pos)
-            e = (out[act].float() - ref[act].float()).abs().max().item()
-            kind = "ring with holes" if ring else "linear"
-            check(math.isfinite(e) and e <= TOL[dtype],
-                  f"dense decode {dtype} {kind}: err {e}")
-            check(bool((out[~act] == 0).all()),
-                  "dense slot with no attended row not zero")
+            e = dense_check(dense_inputs(gen, dtype, ring), dtype,
+                            "ring with holes" if ring else "linear")
             worst(("dense", dtype), e)
-            how = ""
-            if dtype == torch.bfloat16:
-                u = row_ulps(out[act], ref[act])
-                check(math.isfinite(u) and u <= RG_ATTN_ULPS,
-                      f"dense decode {dtype} {kind}: {u} ulps of the row "
-                      "scale")
-                newest = torch.where(kvpos == pos[:, None], -1, kvpos)
-                wu = row_ulps(DA.decode_attention_plain(
-                    q, kc, vc, newest, pos)[act], ref[act])
-                how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
-                       f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} "
-                       f"(newest key left out)")
-            log(f"dense decode {str(dtype)[6:]} S={MAX_LEN} {kind}: "
-                f"max|kernel-plain| ({int(act.sum())} slots with an attended "
-                f"row) = {e:.3e}{how}; {int((~act).sum())} slots without one "
-                f"return zeros")
 
     # -- bullet: every decode_share of the tile table, bit-equal
     rm = ResourceManager(HardwareSpec(), SchedulerConfig().unit_quantum)
@@ -858,85 +1050,23 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
 
-    F = torch.nn.functional
     bf16 = dt == torch.bfloat16
-    sfx, tag = ("", "bf16") if bf16 else ("_fp32", "fp32")
-    src = "src/repro_torch/kernels/csrc/attention.cu"
+    sfx, tag = _dt_suffix(dt)
     rows = []
 
     q, k, v = flash_inputs(gen, 1, 1000, dt)
-    qs, ks, vs = (t.reshape(1, -1, 1000, D) for t in (q, k, v))
-    ks, vs = ks.repeat_interleave(G, 1), vs.repeat_interleave(G, 1)
+    rows.append(flash_row(timer, "flash_attention", dt, (q, k, v),
+                          err[("flash", dt)], 1, 1000))
     nb, no = flash_cost(1, 1000, dt)
-    bms, bby = bound_ms(nb, no, dt)
-    rows.append(with_tflops(dict(
-        name="flash_attention" + sfx, route="cuda", source=src,
-        replaces="src/repro/kernels/flash_attention.py:77",
-        ms=timer(lambda: FA.flash_attention(q, k, v, group=G)),
-        plain_ms=timer(lambda: FA.flash_attention_plain(q, k, v, group=G)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)),
-        max_abs_err=err[("flash", dt)],
-        shape=f"Bp=1 S=1000 H=16 K=8 D=128 {tag}"), no))
-
-    qd, kpg, vpg, bt, pos = decode_inputs(gen, dt)
+    qd, kpg, vpg, bt, pos = paged_in = decode_inputs(gen, dt)
+    rows.append(paged_row(timer, "paged_decode_attention", dt, paged_in,
+                          err[("decode", dt)], sweep=True))
     nb_d, no_d = decode_cost(qd, pos, dt)
-    bms, bby = bound_ms(nb_d, no_d, dt)
-    b = qd.shape[0]
-    kd = kpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
-    vd = vpg[bt.long()].reshape(b, -1, K, D).transpose(1, 2).contiguous()
-    kvpos = torch.arange(kd.shape[2], device="cuda")
-    mask = (kvpos[None, :] <= pos[:, None])[:, None, None, :]
-    qsd = qd.reshape(b, H, 1, D)
-    exp_ms, gqa_ms = sdpa_yardsticks(timer, qsd, kd, vd, mask, G)
-    if bf16:
-        n = DA.n_split(qd, bt.shape[1] * PS, paged=True)
-        split_sweep(timer, lambda: PD.paged_decode_attention(
-            qd, kpg, vpg, bt, pos), n, f"paged decode D={D} 8 slots")
-        body = f"{n} pieces per (slot, kv head)"
-    else:
-        body = "one CTA per (slot, kv head)"
-    rows.append(dict(
-        name="paged_decode_attention" + sfx, route="cuda", source=src,
-        replaces="src/repro/kernels/paged_decode_attention.py:73",
-        ms=timer(lambda: PD.paged_decode_attention(qd, kpg, vpg, bt, pos)),
-        plain_ms=timer(lambda: PD.paged_decode_attention_plain(
-            qd, kpg, vpg, bt, pos)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
-        library_gqa_ms=gqa_ms,
-        max_abs_err=err[("decode", dt)],
-        shape=f"8 slots contexts {CONTEXTS} n_b={bt.shape[1]} ps={PS} "
-              f"{tag}, {body}"))
-
-    qdd, kc, vc, kvpos, posd = dense_inputs(gen, dt, False)
+    qdd, kc, vc, kvpos, posd = dense_in = dense_inputs(gen, dt, False)
+    rows.append(dense_row(timer, "decode_attention", dt, dense_in,
+                          err[("dense", dt)], what="linear positions, ",
+                          sweep=True))
     nb_dd, no_dd = dense_cost(qdd, kvpos, posd, dt)
-    bms, bby = bound_ms(nb_dd, no_dd, dt)
-    dmask = ((kvpos >= 0) & (kvpos <= posd[:, None]))[:, None, None, :]
-    qsdd = qdd.reshape(qdd.shape[0], H, 1, D)
-    exp_ms, gqa_ms = sdpa_yardsticks(
-        timer, qsdd, kc.transpose(1, 2).contiguous(),
-        vc.transpose(1, 2).contiguous(), dmask, G)
-    if bf16:
-        n = DA.n_split(qdd, MAX_LEN)
-        split_sweep(timer, lambda: DA.decode_attention(
-            qdd, kc, vc, kvpos, posd), n, f"dense decode D={D} 8 slots")
-        body = f"{n} pieces per (slot, kv head)"
-    else:
-        body = "one CTA per (slot, kv head)"
-    rows.append(dict(
-        name="decode_attention" + sfx, route="cuda", source=src,
-        replaces="src/repro/kernels/decode_attention.py:62",
-        ms=timer(lambda: DA.decode_attention(qdd, kc, vc, kvpos, posd)),
-        plain_ms=timer(lambda: DA.decode_attention_plain(
-            qdd, kc, vc, kvpos, posd)),
-        bound_ms=bms, bound_by=bby,
-        library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
-        library_gqa_ms=gqa_ms,
-        max_abs_err=err[("dense", dt)],
-        shape=f"8 slots x S={MAX_LEN} rows, contexts {CONTEXTS} clipped to "
-              f"the row, linear positions, {tag}, {body}"))
 
     share = round(rm.current.decode_share, 6)
     code = 1 if bf16 else 0
@@ -957,7 +1087,7 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
         f"decode_share: {sweep}; flash + paged decode launched apart "
         f"{apart:.4f}")
     rows.append(dict(
-        name="bullet_attention_paged" + sfx, route="cuda", source=src,
+        name="bullet_attention_paged" + sfx, route="cuda", source=ATTN_SRC,
         replaces="src/repro/kernels/bullet_attention.py:260",
         ms=timer(lambda: BA.bullet_attention_paged(
             q, k, v, qd, kpg, vpg, bt, pos, decode_share=share, group=G)),
@@ -971,7 +1101,7 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
     n_ctas = BA.grid_ctas(torch.cuda.current_device(), code, D, G, PS,
                           dense=True)
     rows.append(dict(
-        name="bullet_attention" + sfx, route="cuda", source=src,
+        name="bullet_attention" + sfx, route="cuda", source=ATTN_SRC,
         replaces="src/repro/kernels/bullet_attention.py:361",
         ms=timer(lambda: BA.bullet_attention(
             q, k, v, qdd, kc, vc, kvpos, posd, decode_share=share, group=G)),
@@ -1144,11 +1274,8 @@ def phase_attention_d256(timer: Timer) -> list:
     result reads in those units (flash with the window one key short,
     decode without the newest key). Timed in bf16 at the same shapes,
     beside SDPA."""
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.models.transformer import _kv_positions
 
-    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(8)
     bp, s, g = 4, 3000, RG_H // RG_K
     #: decode positions after prefills of 3000, 2300, 1200, 300 tokens and
@@ -1156,108 +1283,165 @@ def phase_attention_d256(timer: Timer) -> list:
     dpos = torch.tensor([3039, 2339, 1239, 339], dtype=torch.int32,
                         device="cuda")
     kvpos = _kv_positions(dpos, RG_WINDOW, True)     # the model's ring map
-    att = (kvpos >= 0) & (kvpos <= dpos[:, None])
     err, inputs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         def rn(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-        q, k, v = (rn(bp * RG_H, s, RG_D), rn(bp * RG_K, s, RG_D),
-                   rn(bp * RG_K, s, RG_D))
-        out = FA.flash_attention(q, k, v, causal=True, window=RG_WINDOW,
-                                 group=g)
-        ref = FA.flash_attention_plain(q, k, v, causal=True, window=RG_WINDOW,
-                                       group=g)
-        qd, kc, vc = (rn(bp, RG_K, g, RG_D), rn(bp, RG_WINDOW, RG_K, RG_D),
-                      rn(bp, RG_WINDOW, RG_K, RG_D))
-        od = DA.decode_attention(qd, kc, vc, kvpos, dpos)
-        rd = DA.decode_attention_plain(qd, kc, vc, kvpos, dpos)
-        inputs[dtype] = (q, k, v, qd, kc, vc)
-        torch.cuda.synchronize()
-        e = (out.float() - ref.float()).abs().max().item()
-        ed = (od.float() - rd.float()).abs().max().item()
-        err[("flash", dtype)], err[("decode", dtype)] = e, ed
-        check(math.isfinite(e) and e <= TOL[dtype],
-              f"flash D=256 {dtype}: err {e}")
-        check(math.isfinite(ed) and ed <= TOL[dtype],
-              f"dense decode D=256 {dtype}: err {ed}")
-        how = (f"max|kernel-plain| {e:.3e} / {ed:.3e} (tolerance "
-               f"{TOL[dtype]:g})")
-        if dtype == torch.bfloat16:
-            u, ud = row_ulps(out, ref), row_ulps(od, rd)
-            check(math.isfinite(u) and u <= RG_ATTN_ULPS,
-                  f"flash D=256 {dtype}: {u} ulps of the row scale")
-            check(math.isfinite(ud) and ud <= RG_ATTN_ULPS,
-                  f"dense decode D=256 {dtype}: {ud} ulps of the row scale")
-            wu = row_ulps(FA.flash_attention_plain(
-                q, k, v, causal=True, window=RG_WINDOW - 1, group=g), ref)
-            newest = torch.where(kvpos == dpos[:, None], -1, kvpos)
-            wud = row_ulps(DA.decode_attention_plain(qd, kc, vc, newest, dpos),
-                           rd)
-            how += (f", in bf16 ulps of the row scale {u:.2f} / {ud:.2f} "
-                    f"(tolerance {RG_ATTN_ULPS}); a wrong result reads "
-                    f"{wu:.2f} (window one key short) / {wud:.2f} (newest "
-                    f"key left out)")
-        log(f"D=256 {str(dtype)[6:]}: flash {bp} rows H={RG_H} K={RG_K} "
-            f"S={s} window {RG_WINDOW} causal / dense decode G={g} over a "
-            f"{RG_WINDOW}-row ring at pos {dpos.tolist()}: {how}")
+        err[("flash", dtype)], inputs[("flash", dtype)] = flash_check(
+            gen, bp, s, dtype, h=RG_H, kh=RG_K, d=RG_D, window=RG_WINDOW,
+            what="D=256 ")
+        inputs[("decode", dtype)] = (
+            rn(bp, RG_K, g, RG_D), rn(bp, RG_WINDOW, RG_K, RG_D),
+            rn(bp, RG_WINDOW, RG_K, RG_D), kvpos, dpos)
+        err[("decode", dtype)] = dense_check(
+            inputs[("decode", dtype)], dtype, f"{RG_WINDOW}-row ring")
 
     # timed in bf16 (the served model's bodies) and fp32 (the first
     # CUDA-core bodies, which the fp32 reference runs)
-    pairs = bp * sum(min(i + 1, RG_WINDOW) for i in range(s))
-    i = torch.arange(s, device="cuda")
-    wmask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - RG_WINDOW)
-    n_rows = int(att.sum())
-    src = "src/repro_torch/kernels/csrc/attention.cu"
     rows = []
     for dt in (torch.bfloat16, torch.float32):
-        q, k, v, qd, kc, vc = inputs[dt]
-        sfx, tag = ("", "bf16") if dt == torch.bfloat16 else ("_fp32", "fp32")
-        nb = (2 * q.numel() + 2 * k.numel()) * esize(dt)
-        n_ops = 4 * RG_D * g * pairs
-        bms, bby = bound_ms(nb, n_ops, dt)
-        qs = q.reshape(bp, RG_H, s, RG_D)
-        ks = k.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
-        vs = v.reshape(bp, RG_K, s, RG_D).repeat_interleave(g, 1)
-        rows.append(with_tflops(dict(
-            name="flash_attention_d256" + sfx, route="cuda", source=src,
-            replaces="src/repro/kernels/flash_attention.py:77",
-            ms=timer(lambda: FA.flash_attention(q, k, v, window=RG_WINDOW,
-                                                group=g)),
-            plain_ms=timer(lambda: FA.flash_attention_plain(
-                q, k, v, window=RG_WINDOW, group=g)),
-            bound_ms=bms, bound_by=bby,
-            library_ms=timer(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=wmask)),
-            max_abs_err=err[("flash", dt)],
-            shape=f"Bp={bp} S={s} H={RG_H} K={RG_K} D={RG_D} window "
-                  f"{RG_WINDOW} causal {tag}"), n_ops))
-        nb = (2 * n_rows * RG_K * RG_D + 2 * qd.numel()) * esize(dt) \
-            + 4 * (kvpos.numel() + bp)
-        bms, bby = bound_ms(nb, 4 * g * RG_D * RG_K * n_rows, dt)
-        qx = qd.reshape(bp, RG_H, 1, RG_D)
-        exp_ms, gqa_ms = sdpa_yardsticks(
-            timer, qx, kc.transpose(1, 2).contiguous(),
-            vc.transpose(1, 2).contiguous(), att[:, None, None, :], g)
-        if dt == torch.bfloat16:
-            n = DA.n_split(qd, RG_WINDOW)
-            split_sweep(timer, lambda: DA.decode_attention(
-                qd, kc, vc, kvpos, dpos), n, f"dense decode D={RG_D} {bp} "
-                "slots")
-            body = f"{n} pieces per (slot, kv head)"
-        else:
-            body = "one CTA per (slot, kv head)"
+        rows.append(flash_row(timer, "flash_attention_d256", dt,
+                              inputs[("flash", dt)], err[("flash", dt)], bp,
+                              s, h=RG_H, kh=RG_K, d=RG_D, window=RG_WINDOW))
+        rows.append(dense_row(timer, "decode_attention_d256", dt,
+                              inputs[("decode", dt)], err[("decode", dt)],
+                              what=f"{RG_WINDOW}-row ring, ", sweep=True))
+    for r in rows:
+        log_row(r)
+    return rows
+
+
+#: the attention shapes the mixture-of-experts slice and the Qwen1.5
+#: configs bring, all at D = 128: Mixtral-8x22B's 48 query heads on 8 kv
+#: heads (G = 6) with its 4096-token window (a prompt of MX_S tokens, and
+#: a dense ring of MX_WINDOW rows, wrapped, at the decode positions
+#: MX_DPOS: 4 slots after prefills of about 4200, 1500, 600 and 64 tokens
+#: and 40 decode steps), Llama-4 Maverick's 40 on 8 (G = 5), Qwen1.5-4B's
+#: 20 on 20 (G = 1)
+MX_H, MX_K, MX_WINDOW, MX_S = 48, 8, 4096, 4200
+MX_DPOS = (4239, 1539, 639, 103)
+L4_H, L4_K = 40, 8
+Q15_H = 20
+
+
+def phase_attention_moe(timer: Timer) -> list:
+    """Kernels 1-4 at the shapes the MoE slice and the Qwen1.5 configs
+    serve, each against its plain version (fp32 and bf16; bf16 also per
+    output row within RG_ATTN_ULPS) and timed in both dtypes beside its
+    bound and SDPA: flash over one Mixtral prompt of MX_S tokens (G = 6,
+    the 4096-token window, first run at D = 128) and dense decode over 4
+    slots of its wrapped 4096-row ring; Llama-4's paged decode (G = 5) and
+    its paged fused kernel, bit-equal to flash + paged decode at every
+    decode_share of the tile table; Qwen1.5-4B's flash and paged decode
+    (G = 1, the first multi-head model the kernels serve)."""
+    from repro_torch.core.estimator import HardwareSpec
+    from repro_torch.core.resource import ResourceManager
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.models.transformer import _kv_positions
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    g6, g5 = MX_H // MX_K, L4_H // L4_K
+    dpos = torch.tensor(MX_DPOS, dtype=torch.int32, device="cuda")
+    kvpos = _kv_positions(dpos, MX_WINDOW, True)      # the model's ring map
+    rm = ResourceManager(HardwareSpec(), SchedulerConfig().unit_quantum)
+    shares = sorted({round(p.decode_share, 6) for p in rm.tile_entries})
+    err, inp = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        # -- Mixtral: windowed flash, and dense decode over the wrapped ring
+        err["mx_flash", dtype], inp["mx_flash", dtype] = flash_check(
+            gen, 1, MX_S, dtype, h=MX_H, kh=MX_K, window=MX_WINDOW,
+            what="mixtral-8x22b ")
+        b = len(MX_DPOS)
+        inp["mx_dense", dtype] = (rn(b, MX_K, g6, D), rn(b, MX_WINDOW, MX_K, D),
+                                  rn(b, MX_WINDOW, MX_K, D), kvpos, dpos)
+        err["mx_dense", dtype] = dense_check(
+            inp["mx_dense", dtype], dtype, f"mixtral-8x22b {MX_WINDOW}-row ring")
+
+        # -- Llama-4: paged decode at G = 5, and the paged fused kernel
+        # bit-equal to flash + paged decode at every tile-table share
+        err["l4_decode", dtype], inp["l4_decode", dtype] = paged_check(
+            gen, dtype, kh=L4_K, g=g5, what="llama4-maverick ")
+        qp, kpp, vpp = inp["l4_flash", dtype] = flash_inputs(
+            gen, 1, MAX_LEN, dtype, L4_H, L4_K)
+        qd, kpg, vpg, bt, pos = inp["l4_decode", dtype]
+        fo = FA.flash_attention(qp, kpp, vpp, causal=True, group=g5)
+        do = PD.paged_decode_attention(qd, kpg, vpg, bt, pos)
+        for share in shares:
+            op, od = BA.bullet_attention_paged(qp, kpp, vpp, qd, kpg, vpg,
+                                               bt, pos, decode_share=share,
+                                               group=g5)
+            torch.cuda.synchronize()
+            check(torch.equal(op, fo) and torch.equal(od, do),
+                  f"bullet llama4-maverick {dtype} share {share}: not "
+                  "bit-equal to flash + paged decode")
+        rp, rd = BA.bullet_attention_paged_plain(qp, kpp, vpp, qd, kpg, vpg,
+                                                 bt, pos, group=g5)
+        act = pos >= 0
+        e = max((op.float() - rp.float()).abs().max().item(),
+                (od[act].float() - rd[act].float()).abs().max().item())
+        check(math.isfinite(e) and e <= TOL[dtype],
+              f"bullet llama4-maverick {dtype}: {e}")
+        err["l4_bullet", dtype] = e
+        log(f"bullet llama4-maverick {_dt_name(dtype)} (H={L4_H} K={L4_K}): "
+            f"bit-equal to flash + paged decode at all {len(shares)} "
+            f"tile-table shares; max|kernel-plain| = {e:.3e}")
+
+        # -- Qwen1.5-4B: multi-head flash and paged decode, G = 1
+        err["q15_flash", dtype], inp["q15_flash", dtype] = flash_check(
+            gen, 1, MAX_LEN, dtype, h=Q15_H, kh=Q15_H, what="qwen1.5-4b ")
+        err["q15_decode", dtype], inp["q15_decode", dtype] = paged_check(
+            gen, dtype, kh=Q15_H, g=1, what="qwen1.5-4b ")
+
+    share = round(rm.current.decode_share, 6)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        sfx, tag = _dt_suffix(dt)
+        rows.append(flash_row(timer, "flash_attention_mixtral", dt,
+                              inp["mx_flash", dt], err["mx_flash", dt], 1,
+                              MX_S, h=MX_H, kh=MX_K, window=MX_WINDOW,
+                              what="mixtral-8x22b: "))
+        rows.append(dense_row(timer, "decode_attention_mixtral", dt,
+                              inp["mx_dense", dt], err["mx_dense", dt],
+                              what=f"mixtral-8x22b {MX_WINDOW}-row ring: "))
+        rows.append(paged_row(timer, "paged_decode_attention_llama4", dt,
+                              inp["l4_decode", dt], err["l4_decode", dt],
+                              what="llama4-maverick: "))
+        qp, kpp, vpp = inp["l4_flash", dt]
+        qd, kpg, vpg, bt, pos = inp["l4_decode", dt]
+        nb_p, no_p = flash_cost(1, MAX_LEN, dt, L4_H, L4_K)
+        nb_d, no_d = decode_cost(qd, pos, dt)
+        bms, bby = bound_ms(nb_p + nb_d, no_p + no_d, dt)
+        n_sm = DA.sm_count(torch.cuda.current_device())
+        n_ctas = BA.grid_ctas(torch.cuda.current_device(),
+                              int(dt == torch.bfloat16), D, g5, PS)
         rows.append(dict(
-            name="decode_attention_d256" + sfx, route="cuda", source=src,
-            replaces="src/repro/kernels/decode_attention.py:62",
-            ms=timer(lambda: DA.decode_attention(qd, kc, vc, kvpos, dpos)),
-            plain_ms=timer(lambda: DA.decode_attention_plain(
-                qd, kc, vc, kvpos, dpos)),
-            bound_ms=bms, bound_by=bby,
-            library_ms=min(exp_ms, gqa_ms), library_expanded_ms=exp_ms,
-            library_gqa_ms=gqa_ms,
-            max_abs_err=err[("decode", dt)],
-            shape=f"{bp} slots x {RG_WINDOW}-row ring, pos {dpos.tolist()} "
-                  f"({n_rows} attended rows), G={g} D={RG_D} {tag}, {body}"))
+            name="bullet_attention_paged_llama4" + sfx, route="cuda",
+            source=ATTN_SRC,
+            replaces="src/repro/kernels/bullet_attention.py:260",
+            ms=timer(lambda: BA.bullet_attention_paged(
+                qp, kpp, vpp, qd, kpg, vpg, bt, pos, decode_share=share,
+                group=g5)),
+            plain_ms=timer(lambda: BA.bullet_attention_paged_plain(
+                qp, kpp, vpp, qd, kpg, vpg, bt, pos, group=g5)),
+            bound_ms=bms, bound_by=bby, library_ms=None,
+            max_abs_err=err["l4_bullet", dt],
+            shape=f"llama4-maverick: flash Bp=1 S={MAX_LEN} H={L4_H} "
+                  f"K={L4_K} + paged decode as its row, decode_share={share}"
+                  f": {BA.decode_sms(share, n_sm, True, True)} of {n_sm} SMs "
+                  f"decode first, {n_ctas} CTAs, {tag}"))
+        rows.append(flash_row(timer, "flash_attention_qwen15", dt,
+                              inp["q15_flash", dt], err["q15_flash", dt], 1,
+                              MAX_LEN, h=Q15_H, kh=Q15_H,
+                              what="qwen1.5-4b: "))
+        rows.append(paged_row(timer, "paged_decode_attention_qwen15", dt,
+                              inp["q15_decode", dt], err["q15_decode", dt],
+                              what="qwen1.5-4b: "))
     for r in rows:
         log_row(r)
     return rows
@@ -1380,7 +1564,8 @@ def _card_vs_cpu(outs, cfg, tol: float = 1e-3) -> float:
 
 
 def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
-           audit=None, default_sched: bool = False, paged: bool = True):
+           audit=None, default_sched: bool = False, paged: bool = True,
+           max_len: int = 1152, max_slots: int = 8):
     """Serve the requests, each released when the virtual clock reaches its
     arrival. The clock advances by the H100 estimator's price of each cycle
     (as the JAX package's virtual replay does), so the scheduler's
@@ -1398,7 +1583,7 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
 
     ``audit(server)`` runs after every cycle (e.g. a
     :class:`ProfileCycles`). ``paged=False`` serves on the dense slot
-    cache (serial)."""
+    cache (serial). ``max_len`` and ``max_slots`` size the cache."""
     from repro_torch.core.config import (CacheConfig, ControlConfig,
                                          ExecConfig, ServerConfig)
     from repro_torch.core.engine import BulletServer
@@ -1407,12 +1592,12 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
     from repro_torch.serving.request import SLO, Request
 
     if default_sched:
-        config = ServerConfig(slo=SLO(3.0, 150.0), max_slots=8, max_len=1152,
-                              dtype=torch.bfloat16,
+        config = ServerConfig(slo=SLO(3.0, 150.0), max_slots=max_slots,
+                              max_len=max_len, dtype=torch.bfloat16,
                               execution=ExecConfig(fused=fused))
     else:
         config = ServerConfig(
-            slo=SLO(3.0, 150.0), max_slots=8, max_len=1152,
+            slo=SLO(3.0, 150.0), max_slots=max_slots, max_len=max_len,
             max_prefill_batch=1, dtype=torch.bfloat16,
             cache=CacheConfig(paged=paged), execution=ExecConfig(fused=fused),
             control=ControlConfig(
@@ -1901,20 +2086,30 @@ def _moved(c0, c1) -> tuple:
     return tuple(b - a for a, b in zip(c0, c1))
 
 
-def fused_graphs_check(cfg, params, cache, buckets, card: str) -> None:
+def fused_graphs_check(cfg, params, cache, buckets, card: str,
+                       name: str = "qwen3-1.7b", reps=FUSED_REPS,
+                       moe: bool = False) -> None:
     """The fused cycle in segments through a StepGraphs
     (``engine._fused_step``: the embedding, each decode repeat but the
     fused one and the head replayed, the fused repeat eager) against
     ``T.fused_group_decode`` called directly on a copy of the page pool,
     bf16, full width and depth: at the smallest and largest table bucket
-    the serve reached, the fused repeat ``rep`` in FUSED_REPS, each at both
+    the serve reached, the fused repeat ``rep`` in ``reps``, each at both
     FUSED_SHARES, decode tables and the prompt drawn anew every step. Fatal
     unless after every step the prompt activations, the tokens, the logits
-    and the page pool are bit-equal and the launch counters moved alike."""
+    and the page pool are bit-equal and the launch counters moved alike.
+    ``moe``: the prompt is shorter than its padded length, and the
+    prefill side's MoE metrics summed on each side are bit-equal too."""
     from repro_torch.core import engine as E
     from repro_torch.core.graphs import StepGraphs, launch_counts
     from repro_torch.models import transformer as T
+    from repro_torch.models.moe import MoEStats
     slots, max_blocks = 8, -(-1152 // PS)
+    stats_e = stats_g = lengths = None
+    if moe:
+        stats_e, stats_g = MoEStats("cuda"), MoEStats("cuda")
+        lengths = torch.tensor([FUSED_SP - 37], dtype=torch.int32,
+                               device="cuda")
     twin = _clone_tree(cache)
     graphs = StepGraphs()
     x_d = torch.zeros((slots, 1, cfg.d_model), dtype=torch.bfloat16,
@@ -1928,7 +2123,7 @@ def fused_graphs_check(cfg, params, cache, buckets, card: str) -> None:
     tok_e, n, per_step = tok.clone(), 0, set()
     widths = sorted({buckets[0], buckets[-1]})
     for n_b in widths:
-        for rep in FUSED_REPS:
+        for rep in reps:
             for share in FUSED_SHARES:
                 pos, active, bt, spare = _decode_feed(rng, n_b, slots,
                                                       max_blocks)
@@ -1939,15 +2134,17 @@ def fused_graphs_check(cfg, params, cache, buckets, card: str) -> None:
                 c0 = launch_counts()
                 x_e, lg_e = T.fused_group_decode(
                     params, twin, x_p.clone(), positions, page_map, tok_e,
-                    pos, cfg, rep=rep, decode_share=share, block_tables=bt)
+                    pos, cfg, rep=rep, decode_share=share, block_tables=bt,
+                    lengths=lengths, stats=stats_e)
                 nt_e = torch.where(active, lg_e.argmax(-1).to(torch.int32),
                                    0)[:, None]
                 c1 = launch_counts()
                 nt_g, lg_g = E._fused_step(
                     graphs, params, cache, x_p, positions, page_map, x_d, tok,
-                    pos, active, bt, cfg=cfg, rep=rep, decode_share=share)
+                    pos, active, bt, cfg=cfg, rep=rep, decode_share=share,
+                    lengths=lengths, stats=stats_g)
                 c2 = launch_counts()
-                what = (f"graphs qwen3-1.7b fused, rep {rep}, n_b {n_b}, "
+                what = (f"graphs {name} fused, rep {rep}, n_b {n_b}, "
                         f"share {share:.4f}")
                 check(torch.equal(x_p, x_e), f"{what}: x_p differs")
                 check(torch.equal(nt_g, nt_e), f"{what}: tokens differ")
@@ -1962,8 +2159,12 @@ def fused_graphs_check(cfg, params, cache, buckets, card: str) -> None:
                 tok, tok_e, n = nt_g.clone(), nt_e.clone(), n + 1
     check(len(per_step) == 1, f"fused steps moved the counters unalike: "
           f"{per_step}")
+    if moe:
+        check(torch.equal(stats_e.sums, stats_g.sums),
+              f"graphs {name} fused: MoE sums {stats_e.sums.tolist()} eager, "
+              f"{stats_g.sums.tolist()} segmented")
     one = {k: d for k, d in zip(_counter_names(), per_step.pop()) if d}
-    log(f"graphs qwen3-1.7b fused: {n} fused steps (rep {FUSED_REPS}, "
+    log(f"graphs {name} fused: {n} fused steps (rep {tuple(reps)}, "
         f"table buckets {widths}, shares "
         f"{[round(x, 4) for x in FUSED_SHARES]}), prompt activations, "
         f"tokens, logits and page pool bit-equal to T.fused_group_decode; "
@@ -1972,7 +2173,8 @@ def fused_graphs_check(cfg, params, cache, buckets, card: str) -> None:
     graphs.drop()
 
 
-def prefill_graphs_check(cfg, params, cache, card: str) -> None:
+def prefill_graphs_check(cfg, params, cache, card: str,
+                         name: str = "qwen3-1.7b", moe: bool = False) -> None:
     """The paged prefill groups (``engine._prefill_group_paged``) and the
     prompts' first tokens (``engine._final_tokens``) through a StepGraphs
     keyed ``("p_group", rep, Bp, S)`` and ``("p_final", Bp, S)`` against
@@ -1983,11 +2185,15 @@ def prefill_graphs_check(cfg, params, cache, card: str) -> None:
     lengths drawn anew). Fatal unless after every group the activations,
     after every batch the page pool (but the trash page, which the padded
     rows reach in no set order) and the first tokens are bit-equal and the
-    launch counters moved alike."""
+    launch counters moved alike. The groups read each batch's lengths, as
+    the engine's do; ``moe``: the MoE metrics summed on each side are
+    bit-equal too."""
     from repro_torch.core import engine as E
     from repro_torch.core.graphs import StepGraphs, launch_counts
-    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import MoEStats
     n_pages = 8 * -(-1152 // PS)
+    stats_e = MoEStats("cuda") if moe else None
+    stats_g = MoEStats("cuda") if moe else None
     twin = _clone_tree(cache)
     graphs = StepGraphs()
     rng = np.random.default_rng(14)
@@ -2014,16 +2220,18 @@ def prefill_graphs_check(cfg, params, cache, card: str) -> None:
                 bufs[0].copy_(x_e)
                 bufs[2].copy_(torch.from_numpy(lens))
                 bufs[3].copy_(torch.from_numpy(pm))
-                what = f"graphs qwen3-1.7b prefill, Bp {bp}, S {s}"
+                what = f"graphs {name} prefill, Bp {bp}, S {s}"
                 for rep in range(cfg.n_pattern_repeats):
                     c0 = launch_counts()
                     x_e = E._prefill_group_paged(params, twin, x_e.clone(),
-                                                 bufs[1], bufs[3], cfg=cfg,
-                                                 rep=rep)
+                                                 bufs[1], bufs[3], bufs[2],
+                                                 cfg=cfg, rep=rep,
+                                                 stats=stats_e)
                     c1 = launch_counts()
                     graphs(("p_group", rep, bp, s), functools.partial(
                         E._prefill_group_paged, params, cache, cfg=cfg,
-                        rep=rep), bufs[0], bufs[1], bufs[3])
+                        rep=rep, stats=stats_g), bufs[0], bufs[1], bufs[3],
+                        bufs[2])
                     c2 = launch_counts()
                     check(torch.equal(bufs[0], x_e),
                           f"{what}: activations after rep {rep} differ")
@@ -2041,7 +2249,11 @@ def prefill_graphs_check(cfg, params, cache, card: str) -> None:
                 ft_g = graphs(("p_final", bp, s), functools.partial(
                     E._final_tokens, params, cfg=cfg), bufs[0], bufs[2])
                 check(torch.equal(ft_g, ft_e), f"{what}: first tokens differ")
-    log(f"graphs qwen3-1.7b prefill: {groups} groups over Bp {PREFILL_BPS} "
+    if moe:
+        check(torch.equal(stats_e.sums, stats_g.sums),
+              f"graphs {name} prefill: MoE sums {stats_e.sums.tolist()} "
+              f"eager, {stats_g.sums.tolist()} graphed")
+    log(f"graphs {name} prefill: {groups} groups over Bp {PREFILL_BPS} "
         f"x S {PREFILL_LENS}, two batches each (capture, replay): "
         f"activations, page pool and first tokens bit-equal to the eager "
         f"functions, launches graphed as eager; {captures(graphs)}  [{card}]")
@@ -2116,6 +2328,483 @@ def phase_graphs(card: str, buckets) -> None:
     log(f"graphs recurrentgemma-2b: {captures(dec)}")
     del twin, dec, cache, params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts: Llama-4 Maverick (paged, fused) and Mixtral-8x22B
+# (sliding window, dense ring cache), and the multi-head Qwen1.5-4B
+# ---------------------------------------------------------------------------
+
+#: the reference's prompts (both past the reduced 64-token window) and
+#: decode steps; the engine reference's requests
+MOE_REF_PROMPTS, MOE_REF_DECODE = (150, 80), 8
+MOE_ENGINE = dict(n=6, lo=30, hi=120, out=8)
+#: Mixtral's serve: prompts of about 4200, 1500, 600 and 64 tokens, each
+#: decoding MX_DECODE tokens, at the published widths over MX_LAYERS of
+#: its 56 layers
+MX_PROMPTS, MX_DECODE, MX_LAYERS = (4200, 1500, 600, 64), 32, 8
+
+
+def _reduced_heads(name: str):
+    """``name`` at the reduced widths with head dim 128 (the kernels'),
+    its own query and kv heads (so its own G), experts and top-k."""
+    from repro_torch.configs import get_config
+    full = get_config(name)
+    return full.reduced(head_dim=128, n_heads=full.n_heads,
+                        n_kv_heads=full.n_kv_heads,
+                        n_experts=full.n_experts,
+                        n_experts_per_token=full.n_experts_per_token)
+
+
+def _to_cpu(params):
+    return {k: (tuple({n: t.cpu() for n, t in b.items()} for b in v)
+                if isinstance(v, tuple) else v.cpu())
+            for k, v in params.items()}
+
+
+def _kernel_counts():
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    return {"flash": FA.launches, "paged_decode": PD.launches,
+            "decode": DA.launches, "bullet_paged": BA.launches}
+
+
+def _reset_counts() -> None:
+    from repro_torch.core.graphs import COUNTERS
+    for m, a in COUNTERS:
+        setattr(m, a, 0)
+
+
+class _Calls(list):
+    """A model ``stats`` argument that keeps each MoE call's metrics in
+    order (eager calls only)."""
+    add = list.append
+
+
+def _engine_streams(cfg, params, device, dtype, prompts, fused: bool):
+    """The port's BulletServer over ``prompts`` (MOE_ENGINE's outputs, one
+    prompt per prefill batch, pause off) on ``device``, the virtual clock
+    advancing 1 ms a cycle: (outputs, cycles, stats, moe sums)."""
+    from repro_torch.core.config import (ControlConfig, ExecConfig,
+                                         ServerConfig)
+    from repro_torch.core.engine import BulletServer
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.serving.request import SLO, Request
+
+    server = BulletServer(cfg, params, config=ServerConfig(
+        slo=SLO(3.0, 150.0), max_slots=4, max_len=256, max_prefill_batch=1,
+        dtype=dtype, execution=ExecConfig(fused=fused),
+        control=ControlConfig(sched=SchedulerConfig(
+            max_decode_pause_cycles=0))), device=device)
+    for rid, p in enumerate(prompts):
+        server.submit(Request(rid=rid, arrival=0.0, prompt_len=len(p),
+                              output_len=MOE_ENGINE["out"]), p)
+    now, cycles = 0.0, 0
+    while not server.idle:
+        check(cycles < 5000, f"{cfg.name} engine on {device} did not drain")
+        server.step(now)
+        server.check_invariants()
+        now += 1e-3
+        cycles += 1
+    moe = server.moe_stats.read() if server.moe_stats is not None else None
+    return server.outputs, cycles, server.stats, moe
+
+
+def phase_moe_reference(card: str) -> dict:
+    """(a) The MoE models at reduced widths with head dim 128 and their own
+    heads, experts and top-k, fp32, card (kernels) against CPU (plain
+    versions): Llama-4 Maverick's prefill into the page pool + paged
+    decode, Mixtral's into its 64-row ring + ring decode (prompts of
+    MOE_REF_PROMPTS tokens as one padded batch, MOE_REF_DECODE greedy
+    steps): logits within 1e-3 of scale, tokens equal, every MoE call's
+    dropped fraction equal; then Llama-4 through BulletServer fused and
+    Qwen1.5-4B (H = K = 20) serial, card against CPU, streams equal, and
+    Qwen1.5-4B in bf16 on the card. Returns the launches of each fp32 row
+    (and the G = 1 rows' in both dtypes)."""
+    from repro_torch.models import transformer as T
+
+    launches = {}
+    for name in ("llama4-maverick-400b-a17b", "mixtral-8x22b"):
+        cfg = _reduced_heads(name)
+        paged = T.supports_paged_cache(cfg)
+        params = T.init_params(cfg, seed=3, dtype=torch.float32,
+                               device="cuda")
+        cpu = _to_cpu(params)
+        toks, lens = _prompt_batch(cfg, MOE_REF_PROMPTS, seed=4)
+        b, s = toks.shape
+        max_len = s + MOE_REF_DECODE
+        n_b = -(-max_len // PS)
+        page_map = torch.arange(b * n_b, dtype=torch.int32).reshape(b, n_b)
+        outs, drops = {}, {}
+        for side, p in (("cuda", params), ("cpu", cpu)):
+            dev = p["embed"].device
+            stats = _Calls()
+            _reset_counts()
+            if paged:
+                cache = T.init_paged_cache(cfg, b * n_b, PS, torch.float32,
+                                           dev)
+                pm = page_map[:, :-(-s // PS)].to(dev)
+            else:
+                cache = T.init_cache(cfg, b, max_len, torch.float32, dev)
+                pm = None
+            logits, _ = T.prefill(p, toks.to(dev), lens.to(dev), cache, pm,
+                                  cfg, stats=stats)
+            seq = [logits.float().cpu()]
+            tok = logits.argmax(-1)
+            for i in range(MOE_REF_DECODE):
+                logits, _ = T.decode_step(
+                    p, cache, tok[:, None].to(torch.int32),
+                    (lens + i).to(torch.int32).to(dev), cfg,
+                    block_tables=page_map.to(dev) if paged else None)
+                seq.append(logits.float().cpu())
+                tok = logits.argmax(-1)
+            outs[side] = seq
+            drops[side] = [float(m.dropped_fraction) for m in stats]
+            if side == "cuda":
+                counts = _kernel_counts()
+        worst = _card_vs_cpu(outs, cfg)
+        check(drops["cuda"] == drops["cpu"],
+              f"{name}: per-call dropped fractions differ, card "
+              f"{drops['cuda']}, CPU {drops['cpu']}")
+        decode_kind = "paged_decode" if paged else "decode"
+        check(counts["flash"] > 0 and counts[decode_kind] > 0,
+              f"{name} reference: launches {counts}")
+        if paged:
+            launches["paged_decode_attention_llama4_fp32"] = \
+                counts["paged_decode"]
+        else:
+            launches["flash_attention_mixtral_fp32"] = counts["flash"]
+            launches["decode_attention_mixtral_fp32"] = counts["decode"]
+        log(f"moe reference {name}: reduced widths, H={cfg.n_heads} "
+            f"K={cfg.n_kv_heads} D={cfg.head_dim}, {cfg.n_experts} experts "
+            f"top-{cfg.n_experts_per_token}, fp32, "
+            f"{'paged' if paged else 'dense ring'} cache, prompts "
+            f"{list(MOE_REF_PROMPTS)} + {MOE_REF_DECODE} decode steps: card "
+            f"vs CPU max rel logit err {worst:.2e}, tokens equal, per-call "
+            f"dropped fractions equal {[round(x, 4) for x in drops['cuda']]}"
+            f"; launches {counts}  [{card}]")
+
+    rng = np.random.default_rng(6)
+    m = MOE_ENGINE
+    for name, fused in (("llama4-maverick-400b-a17b", True),
+                        ("qwen1.5-4b", False)):
+        cfg = _reduced_heads(name)
+        prompts = [rng.integers(0, cfg.vocab_size,
+                                int(rng.integers(m["lo"], m["hi"])))
+                   .astype(np.int32) for _ in range(m["n"])]
+        params = T.init_params(cfg, seed=5, dtype=torch.float32,
+                               device="cuda")
+        got = {}
+        for side, p in (("cuda", params), ("cpu", _to_cpu(params))):
+            _reset_counts()
+            got[side] = _engine_streams(cfg, p, p["embed"].device,
+                                        torch.float32, prompts, fused)
+            if side == "cuda":
+                counts = _kernel_counts()
+        check(got["cuda"][0] == got["cpu"][0],
+              f"{name} engine: card and CPU streams differ")
+        check(got["cuda"][1] == got["cpu"][1],
+              f"{name} engine: {got['cuda'][1]} cycles on the card, "
+              f"{got['cpu'][1]} on the CPU")
+        moe_c, moe_h = got["cuda"][3], got["cpu"][3]
+        if moe_c is not None:
+            # the drops follow from the routing alone; the load-balance
+            # loss sums softmax outputs, rounded apart on the two devices
+            check({k: v for k, v in moe_c.items() if k != "load_balance_loss"}
+                  == {k: v for k, v in moe_h.items()
+                      if k != "load_balance_loss"}
+                  and math.isclose(moe_c["load_balance_loss"],
+                                   moe_h["load_balance_loss"], rel_tol=1e-4),
+                  f"{name} engine: MoE sums {moe_c} on the card, {moe_h} on "
+                  "the CPU")
+        st = got["cuda"][2]
+        if fused:
+            check(st.fused_cycles > 0 and counts["bullet_paged"] > 0,
+                  f"{name} engine: no fused cycle")
+            launches["bullet_attention_paged_llama4_fp32"] = \
+                counts["bullet_paged"]
+        else:
+            launches["flash_attention_qwen15_fp32"] = counts["flash"]
+            launches["paged_decode_attention_qwen15_fp32"] = \
+                counts["paged_decode"]
+        log(f"moe reference engine {name}: reduced widths, H="
+            f"{cfg.n_heads} K={cfg.n_kv_heads}, fp32, "
+            f"{'fused' if fused else 'serial'}, {m['n']} requests: card and "
+            f"CPU streams, cycles ({got['cuda'][1]}) and MoE sums "
+            f"{got['cuda'][3]} equal; {st.fused_cycles} fused cycles; card "
+            f"launches {counts}  [{card}]")
+        if name == "qwen1.5-4b":
+            p16 = T.init_params(cfg, seed=5, dtype=torch.bfloat16,
+                                device="cuda")
+            _reset_counts()
+            outs, cycles, st16, _ = _engine_streams(cfg, p16, "cuda",
+                                                    torch.bfloat16, prompts,
+                                                    True)
+            counts = _kernel_counts()
+            check(all(len(v) == m["out"] for v in outs.values()),
+                  "qwen1.5-4b bf16: a request unfinished")
+            check(counts["flash"] > 0 and counts["paged_decode"] > 0,
+                  f"qwen1.5-4b bf16: launches {counts}")
+            launches["flash_attention_qwen15"] = counts["flash"]
+            launches["paged_decode_attention_qwen15"] = counts["paged_decode"]
+            log(f"moe reference qwen1.5-4b bf16 on the card, fused: "
+                f"{cycles} cycles, {st16.fused_cycles} fused, launches "
+                f"{counts}  [{card}]")
+    return launches
+
+
+def _first_diff(a, b) -> int:
+    """The first index where two token streams differ."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _moe_ms(timer, cfg, params, card: str, what: str, b: int, s: int):
+    """One MoE layer (``T._ff`` of the first MoE block: norm, router,
+    every expert's two products, the shared expert) on (b, s) random
+    activations in the served dtype, card ms, beside two bounds: the bytes
+    of every expert's weights (what the einsum reads whatever the routing)
+    and of the experts this call routed to (what a grouped kernel would
+    read, ROADMAP R14)."""
+    from repro_torch.configs.base import MOE
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    j = next(i for i, blk in enumerate(cfg.pattern) if blk.ff == MOE)
+    p = T.params_at(params["blocks"][j], 0)
+    blk = cfg.pattern[j]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device="cuda").to(p["w_in"].dtype)
+    # a prefill call routes each row's length, a decode call the slot array
+    lengths = (torch.full((b,), s, dtype=torch.int32, device="cuda")
+               if s > 1 else None)
+    ms = timer(lambda: T._ff(x, p, blk, cfg, lengths))
+    hn = L.rms_norm(x, p["ln2"], cfg.rmsnorm_eps).reshape(-1, cfg.d_model)
+    _, experts, _ = M.route_topk(hn @ p["router"], cfg.n_experts_per_token)
+    touched = int(torch.unique(experts).numel())
+    e_bytes = (p["w_in"][0].numel() + p["w_out"][0].numel()) \
+        * esize(p["w_in"].dtype)
+    other = sum(p[n].numel() for n in ("ln2", "router", "shared_wi",
+                                       "shared_wo") if n in p) \
+        * esize(p["w_in"].dtype)
+    all_ms = (cfg.n_experts * e_bytes + other) / HBM_BW * 1e3
+    routed_ms = (touched * e_bytes + other) / HBM_BW * 1e3
+    log(f"moe layer {what}: {ms:.3f} ms card time on ({b}, {s}) tokens; "
+        f"bound by the bytes of all {cfg.n_experts} experts {all_ms:.3f} ms "
+        f"({100 * all_ms / ms:.1f}% of it), of the {touched} routed to "
+        f"{routed_ms:.3f} ms  [{card}]")
+    return ms
+
+
+def phase_moe(card: str, timer: Timer) -> dict:
+    """(b) Llama-4 Maverick at its published widths, one pattern repeat (a
+    dense and a MoE layer of its 48; 128 experts top-1 and the shared
+    expert), bf16: the serve phase's 12 requests fused (pause off) and
+    serial, streams identical (the bf16 split decode cuts each slot's own
+    rows, so a slot's result does not depend on the table bucket the
+    other slots set), then under the scheduler's defaults;
+    kernel 1-3 launches, the fused shares, the host split, tok/s, the
+    prefill groups' drops, a profile window of serial decode cycles and
+    the MoE layer's card ms at the decode and a prefill shape. (c) its
+    graphs against the eager steps, with the MoE layer inside, on two
+    repeats sharing the one repeat's weights: the serial decode iteration
+    at the serve's table buckets, the fused cycle in segments (``d_rep``
+    included) and the prefill groups and first tokens; then Mixtral's
+    dense decode iteration. (d) Mixtral-8x22B at its published widths over
+    MX_LAYERS layers, bf16, dense ring cache, serial: prompts of
+    MX_PROMPTS tokens, MX_DECODE steps each; windowed flash and ring decode
+    launches. Returns the bf16 rows' launches."""
+    launches = _moe_llama4(card, timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(_moe_mixtral(card, timer))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _moe_llama4(card: str, timer: Timer) -> dict:
+    """``phase_moe``'s (b) and (c); returns the bf16 Llama-4 rows'
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import prefill_bucket
+    from repro_torch.models import transformer as T
+
+    launches = {}
+    full = get_config("llama4-maverick-400b-a17b")
+    check(full.d_model == 5120 and full.n_heads == 40 and full.n_kv_heads == 8
+          and full.n_experts == 128 and full.n_experts_per_token == 1
+          and full.d_ff == 8192 and full.n_shared_experts == 1,
+          "not the published Llama-4 Maverick widths")
+    cfg = dataclasses.replace(full, n_layers=2)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"moe llama4-maverick: {T.param_count(params) / 1e9:.2f} G params "
+        f"in bf16 ({torch.cuda.memory_allocated() / 2**30:.1f} GiB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    prompts, out_lens, arrivals = serve_workload(cfg)
+    n_tok = int(sum(out_lens))
+    _serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
+
+    _reset_counts()
+    fused_shares, split = FusedShares(), HostSplit()
+    server, secs, cycles = _serve(
+        cfg, params, prompts, out_lens, arrivals, fused=True,
+        audit=lambda srv: (fused_shares(srv), split(srv)))
+    counts = _kernel_counts()
+    for rid, o in enumerate(out_lens):
+        got = server.outputs.get(rid, [])
+        check(len(got) == o and all(0 <= t < cfg.vocab_size for t in got),
+              f"llama4 serve: request {rid}: {len(got)} tokens, want {o}")
+    check(server.pool.available_blocks == server.pool.n_blocks,
+          "llama4 serve: KV pool not clean")
+    check(server.stats.fused_cycles > 0, "llama4 serve: no fused cycle")
+    for kind in ("flash", "paged_decode", "bullet_paged"):
+        check(counts[kind] > 0, f"llama4 serve: no {kind} launch")
+    launches["paged_decode_attention_llama4"] = counts["paged_decode"]
+    launches["bullet_attention_paged_llama4"] = counts["bullet_paged"]
+    moe = server.moe_stats.read()
+    check(moe["calls"] == server.stats.prefill_cycles,
+          f"llama4 serve: {moe['calls']} MoE prefill calls, "
+          f"{server.stats.prefill_cycles} prefill groups")
+    log(f"moe llama4-maverick serve fused: {n_tok} tokens in {secs:.3f} s "
+        f"= {n_tok / secs:.1f} tok/s, {cycles} cycles, "
+        f"{server.stats.fused_cycles} fused, {server.stats.prefill_cycles} "
+        f"prefill groups, launches {counts}; drops per prefill group: "
+        f"{moe['dropping_calls']} of {moe['calls']} groups dropped, mean "
+        f"dropped fraction {moe['mean_dropped_fraction']:.4f}; "
+        f"{captures(server)}  [{card}]")
+    # one prompt per prefill batch, each padded to its length bucket
+    real = sum(len(p) for p in prompts)
+    pad = sum(prefill_bucket(len(p), 1152, PS) for p in prompts)
+    log(f"moe llama4-maverick serve fused: decode_share of the fused "
+        f"cycles: {share_histogram(fused_shares.shares)}; prefill batches: "
+        f"{real} prompt tokens padded to {pad} "
+        f"({100 * (1 - real / pad):.1f}% padding)")
+    for kind in sorted(split.cycles):
+        log(f"moe llama4-maverick fused host split: "
+            f"{host_split_line(split, kind)}")
+
+    # the serial run profiles 10 decode cycles once every prompt is in
+    prof = ProfileCycles(1, 10, when=lambda srv: (srv.ptask is None
+                                                  and not srv.pending))
+    serial, s_secs, s_cycles = _serve(cfg, params, prompts, out_lens,
+                                      arrivals, fused=False, audit=prof)
+    check(serial.stats.fused_cycles == 0, "llama4 serial run fused")
+    for rid in range(len(prompts)):
+        check(serial.outputs[rid] == server.outputs[rid],
+              f"llama4 request {rid}: fused and serial streams differ from "
+              f"token {_first_diff(serial.outputs[rid], server.outputs[rid])}")
+    buckets = sorted({k[1] for k, _ in serial.graphs.captures
+                      if k[0] == "paged"})
+    log(f"moe llama4-maverick serve serial: {n_tok / s_secs:.1f} tok/s, "
+        f"{s_cycles} cycles; token streams identical to the fused run's "
+        f"({server.stats.fused_cycles} fused cycles), decode table buckets "
+        f"{buckets} pages; {captures(serial)}  [{card}]")
+    prof.report("10 serial decode cycles of Llama-4 Maverick's serial "
+                "serve (8 slots)", card)
+    d_split = HostSplit()
+    _reset_counts()
+    dflt, d_secs, d_cycles = _serve(cfg, params, prompts, out_lens,
+                                    arrivals, fused=True, default_sched=True,
+                                    audit=d_split)
+    for rid, o in enumerate(out_lens):
+        check(len(dflt.outputs.get(rid, [])) == o,
+              f"llama4 default scheduler: request {rid} unfinished")
+    log(f"moe llama4-maverick serve default scheduler: "
+        f"{n_tok / d_secs:.1f} tok/s, {dflt.stats.fused_cycles} of "
+        f"{d_cycles} cycles fused, {dflt.stats.paused_cycles} paused, "
+        f"launches {_kernel_counts()}; {captures(dflt)}  [{card}]")
+    for kind in sorted(d_split.cycles):
+        log(f"moe llama4-maverick default scheduler host split: "
+            f"{host_split_line(d_split, kind)}")
+    _moe_ms(timer, cfg, params, card, "llama4-maverick decode", 8, 1)
+    _moe_ms(timer, cfg, params, card, "llama4-maverick prefill", 1, 1024)
+    del server, serial, dflt, split, d_split
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the graphs, with the MoE layer inside: two pattern repeats that
+    # share the one repeat's weights (views, no copy)
+    cfg2 = dataclasses.replace(full, n_layers=4)
+    params2 = dict(params, blocks=tuple(
+        {n: t.expand(2, *t.shape[1:]) for n, t in b.items()}
+        for b in params["blocks"]))
+    max_blocks = -(-1152 // PS)
+    cache = T.init_paged_cache(cfg2, 8 * max_blocks, PS, torch.bfloat16,
+                               "cuda")
+    _fill_random(cache, 16)
+    engine_graphs_check("llama4-maverick paged", cfg2, params2, cache,
+                        paged_graph_steps(buckets, 8, max_blocks, 17), card)
+    fused_graphs_check(cfg2, params2, cache, buckets, card,
+                       name="llama4-maverick", reps=(0, 1), moe=True)
+    prefill_graphs_check(cfg2, params2, cache, card, name="llama4-maverick",
+                         moe=True)
+    return launches
+
+
+def _moe_mixtral(card: str, timer: Timer) -> dict:
+    """``phase_moe``'s (d) and Mixtral's graph; returns the bf16 Mixtral
+    rows' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    launches = {}
+    full = get_config("mixtral-8x22b")
+    check(full.d_model == 6144 and full.n_heads == 48 and full.n_kv_heads == 8
+          and full.n_experts == 8 and full.n_experts_per_token == 2
+          and full.sliding_window == 4096 and full.d_ff == 16384,
+          "not the published Mixtral-8x22B widths")
+    cfg = dataclasses.replace(full, n_layers=MX_LAYERS)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"moe mixtral-8x22b: {T.param_count(params) / 1e9:.2f} G params in "
+        f"bf16 ({torch.cuda.memory_allocated() / 2**30:.1f} GiB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in MX_PROMPTS]
+    outs = [MX_DECODE] * len(prompts)
+    max_len = -(-(max(MX_PROMPTS) + MX_DECODE) // PS) * PS
+    _reset_counts()
+    mx, m_secs, m_cycles = _serve(cfg, params, prompts, outs,
+                                  [0.0] * len(prompts), fused=False,
+                                  paged=False, max_len=max_len,
+                                  max_slots=len(prompts))
+    counts = _kernel_counts()
+    for rid, o in enumerate(outs):
+        got = mx.outputs.get(rid, [])
+        check(len(got) == o and all(0 <= t < cfg.vocab_size for t in got),
+              f"mixtral serve: request {rid}: {len(got)} tokens, want {o}")
+    check(counts["flash"] == MX_LAYERS * len(prompts),
+          f"mixtral serve: {counts['flash']} flash launches")
+    check(counts["decode"] >= MX_LAYERS * (MX_DECODE - 1),
+          f"mixtral serve: {counts['decode']} decode_attention launches")
+    launches["flash_attention_mixtral"] = counts["flash"]
+    launches["decode_attention_mixtral"] = counts["decode"]
+    moe = mx.moe_stats.read()
+    n_tok = len(prompts) * MX_DECODE
+    log(f"moe mixtral-8x22b serve: {MX_LAYERS} layers, dense ring cache of "
+        f"{min(cfg.sliding_window, max_len)} rows, serial, prompts "
+        f"{list(MX_PROMPTS)}, {n_tok} tokens in {m_secs:.3f} s = "
+        f"{n_tok / m_secs:.1f} tok/s, {m_cycles} cycles, launches {counts} "
+        f"(windowed flash, ring decode); drops per prefill group: "
+        f"{moe['dropping_calls']} of {moe['calls']} MoE calls dropped, mean "
+        f"dropped fraction {moe['mean_dropped_fraction']:.4f}; "
+        f"{captures(mx)}  [{card}]")
+    _moe_ms(timer, cfg, params, card, "mixtral-8x22b decode",
+            len(prompts), 1)
+    del mx
+    cache = T.init_cache(cfg, len(prompts), max_len, torch.bfloat16, "cuda")
+    _fill_random(cache, 19)
+    engine_graphs_check("mixtral-8x22b dense", cfg, params, cache,
+                        dense_graph_steps(len(prompts), max_len, 20), card)
+    return launches
 
 
 def serve_workload(cfg):
@@ -3467,12 +4156,14 @@ def main() -> int:
     rows += timed("ssd kernel", phase_ssd, timer)
     rows.append(timed("rglru kernel", phase_rglru, timer))
     rows += timed("attention D=256", phase_attention_d256, timer)
+    rows += timed("attention MoE shapes", phase_attention_moe, timer)
     colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
     timed("reference", phase_reference)
     timed("mamba reference", phase_mamba_reference)
     rg_ref = timed("recurrentgemma reference", phase_rg_reference)
+    moe_ref = timed("moe reference", phase_moe_reference, card)
     launches, _, buckets = timed("serve", phase_serve, card)
     timed("graphs", phase_graphs, card, buckets)
     replay = timed("replay", phase_replay, card)
@@ -3481,6 +4172,7 @@ def main() -> int:
     timed("sharing", phase_sharing, card, timer)
     timed("tenants", phase_tenants, card)
     timed("sim", phase_sim, card)
+    moe = timed("moe", phase_moe, card, timer)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the
@@ -3489,7 +4181,9 @@ def main() -> int:
     # chaos replay (flash, dense decode, the paged fused kernel), the fp32
     # colocated sweep and the RecurrentGemma reference (kernels 1 and 4 at
     # D = 256); the SSD scan from the Mamba-2 replays, the wall-clock one
-    # in bf16 and the virtual-clock one in fp32
+    # in bf16 and the virtual-clock one in fp32; the rows of the MoE and
+    # Qwen1.5 shapes from the moe phase's serves in bf16 (Llama-4 Maverick
+    # fused, Mixtral on its ring, Qwen1.5-4B) and its fp32 reference
     launches = {**launches, "bullet_attention": colocated[torch.bfloat16],
                 "ssd_scan": ssd["bf16"], "ssd_scan_fp32": ssd["fp32"],
                 "rglru_scan": rg["rglru_scan"],
@@ -3503,7 +4197,8 @@ def main() -> int:
                     replay["bullet_attention_paged"],
                 "bullet_attention_fp32": colocated[torch.float32],
                 "flash_attention_d256_fp32": rg_ref["flash_attention"],
-                "decode_attention_d256_fp32": rg_ref["decode_attention"]}
+                "decode_attention_d256_fp32": rg_ref["decode_attention"],
+                **moe_ref, **moe}
     for r in rows:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on its path")

@@ -64,6 +64,12 @@ shapes follow each batch's prefix and suffix lengths); both write the
 pool the graphs hold in place, so no graph is left reading a dead pool.
 CPU tensors run every step eagerly, through the same calls.
 
+A MoE model's prefill groups route each request's own tokens: the prefill
+lengths reach every prefill step (the graphs read them in their persistent
+buffer), so a prompt's capacity does not depend on its bucket's padding
+(``models/moe.py``); decode passes route the slot array as the JAX engine
+does. ``BulletServer.moe_stats`` sums the prefill side's metrics.
+
 With ``share_prefix`` a prompt batch is all hits or all misses of the
 pool's prefix index. A miss batch runs the path above; a hit batch
 prefills only each request's unshared suffix, padded to the batch's
@@ -97,6 +103,7 @@ from repro_torch.core.scheduler import SchedulerConfig, SLOScheduler
 from repro_torch.kvcache.paged import PagedKVPool
 from repro_torch.launch.submesh import HandoffPolicy
 from repro_torch.models import transformer as T
+from repro_torch.models.moe import MoEStats
 from repro_torch.obs import NULL_OBS, CycleEvent
 from repro_torch.resilience.faults import NULL_FAULTS, DispatchError
 from repro_torch.serving.request import Phase, Request, SLO
@@ -127,24 +134,29 @@ def _final_tokens(params, x, lengths, *, cfg: ModelConfig):
 
 
 def _prefill_group(params, x, positions, tmp_cache, lengths, *,
-                   cfg: ModelConfig, rep: int):
+                   cfg: ModelConfig, rep: int, stats=None):
     """Dense path: pattern-repeat group ``rep`` over the prompt batch; each
     layer's entry (KV padded to the cache row length, or an SSD block's
     conv window and state at each request's own length) is written into
-    repeat ``rep`` of the batch's own cache ``tmp_cache``, in place.
+    repeat ``rep`` of the batch's own cache ``tmp_cache``, in place. A MoE
+    block routes each request's own tokens (its metrics to ``stats``).
     Returns the activations."""
-    x, entries = T.prefill_group(params, x, positions, rep, cfg, lengths)
+    x, entries = T.prefill_group(params, x, positions, rep, cfg, lengths,
+                                 stats)
     T.write_dense_entries(tmp_cache, entries, cfg, lengths, rep)
     return x
 
 
-def _prefill_group_paged(params, cache, x, positions, page_map, *,
-                         cfg: ModelConfig, rep: int):
+def _prefill_group_paged(params, cache, x, positions, page_map, lengths=None,
+                         *, cfg: ModelConfig, rep: int, stats=None):
     """Paged path: pattern-repeat group ``rep`` over the prompt batch
-    ``x`` (Bp, Sp, D), its K/V scattered into the pooled pages that
-    ``page_map`` names; the activations are written back into ``x`` in
-    place (the step a ``("p_group", rep, Bp, Sp)`` graph replays)."""
-    y, entries = T.prefill_group(params, x, positions, rep, cfg)
+    ``x`` (Bp, Sp, D) of ``lengths`` (Bp,) tokens a row, its K/V scattered
+    into the pooled pages that ``page_map`` names; the activations are
+    written back into ``x`` in place (the step a ``("p_group", rep, Bp,
+    Sp)`` graph replays, reading the lengths in place; a MoE block routes
+    each row's own tokens, its metrics added to ``stats``)."""
+    y, entries = T.prefill_group(params, x, positions, rep, cfg, lengths,
+                                 stats)
     T.scatter_group_pages(cache, entries, page_map, rep)
     x.copy_(y)
     return x
@@ -196,21 +208,23 @@ def _decode_head(params, x_d, active, *, cfg: ModelConfig):
 
 def _fused_repeat(params, cache, x_p, positions, page_map, x_d, pos,
                   block_tables, *, cfg: ModelConfig, rep: int,
-                  decode_share: float) -> None:
+                  decode_share: float, lengths=None, stats=None) -> None:
     """The fused repeat of a fused cycle, eagerly: prefill group ``rep``
-    and the decode pass's repeat ``rep``, each layer's attention one fused
-    launch split by ``decode_share``; ``x_p`` and ``x_d`` updated in
-    place."""
+    (prompts of ``lengths`` tokens) and the decode pass's repeat ``rep``,
+    each layer's attention one fused launch split by ``decode_share``;
+    ``x_p`` and ``x_d`` updated in place."""
     y_p, y_d = T.fused_repeat(params, cache, x_p, x_d, positions, page_map,
                               pos, rep, cfg, decode_share=decode_share,
-                              block_tables=block_tables)
+                              block_tables=block_tables, lengths=lengths,
+                              stats=stats)
     x_p.copy_(y_p)
     x_d.copy_(y_d)
 
 
 def _fused_step(graphs: StepGraphs, params, cache, x_p, positions, page_map,
                 x_d, tokens, pos, active, block_tables, *, cfg: ModelConfig,
-                rep: int, decode_share: float, fused_repeat=_fused_repeat):
+                rep: int, decode_share: float, fused_repeat=_fused_repeat,
+                lengths=None, stats=None):
     """One spatially-fused engine cycle (§3.5 co-execution): pattern-repeat
     group ``rep`` of the in-flight prefill AND one continuous-batching
     decode iteration, op for op ``T.fused_group_decode``. At repeat ``rep``
@@ -219,8 +233,9 @@ def _fused_step(graphs: StepGraphs, params, cache, x_p, positions, page_map,
     inactive slots' sampled tokens are masked exactly like
     ``_decode_iteration``. In segments: the embedding, every other decode
     repeat and the head through ``graphs`` (replays on the card), the
-    fused repeat eagerly (``fused_repeat``). ``x_p`` (the prefill
-    activations) and ``x_d`` (B, 1, D) are updated in place. Returns (next
+    fused repeat eagerly (``fused_repeat``, given the prefill side's
+    ``lengths`` and MoE ``stats``). ``x_p`` (the prefill activations) and
+    ``x_d`` (B, 1, D) are updated in place. Returns (next
     tokens (B, 1), logits (B, V))."""
     n_b = block_tables.shape[1]
     graphs(("d_embed",), functools.partial(_embed_into, params, cfg=cfg),
@@ -229,7 +244,8 @@ def _fused_step(graphs: StepGraphs, params, cache, x_p, positions, page_map,
         if r == rep:
             fused_repeat(params, cache, x_p, positions, page_map, x_d, pos,
                          block_tables, cfg=cfg, rep=rep,
-                         decode_share=decode_share)
+                         decode_share=decode_share, lengths=lengths,
+                         stats=stats)
         else:
             graphs(("d_rep", r, n_b), functools.partial(
                 _decode_repeat_into, params, cache, cfg=cfg, rep=r),
@@ -359,10 +375,6 @@ class BulletServer:
                 f"{cfg.name}: BulletServer's layer-group loop does not "
                 "handle pattern_tail or cross-attention configs; use a "
                 "homogeneous-pattern model")
-        if any(blk.ff == MOE for blk in cfg.pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE blocks come with a later slice (ROADMAP "
-                "port item 'the other architectures')")
         self.device = torch.device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -467,6 +479,11 @@ class BulletServer:
         self.dtype = dtype
         #: the engine steps' CUDA graphs, by static shape
         self.graphs = StepGraphs()
+        #: the prefill side's MoE metrics, summed on the device (every
+        #: prefill group adds to them, its graphs on every replay); None
+        #: without MoE blocks
+        self.moe_stats = (MoEStats(self.device) if cfg.has_ff(MOE)
+                          else None)
         self._alloc_cache()
         #: the activations' dtype (the params'; ``dtype`` is the cache's)
         self._act_dtype = params["embed"].dtype
@@ -932,18 +949,21 @@ class BulletServer:
             # each row's in-page offset, the pool written in place
             task.x, entries = T.prefill_group_shared(
                 self.params, self.cache, task.x, task.positions,
-                task.prefix_map, task.prefix_lens, task.rep, self.cfg)
+                task.prefix_map, task.prefix_lens, task.rep, self.cfg,
+                task.lengths, self.moe_stats)
             T.scatter_suffix_group_pages(self.cache, entries, task.page_map,
                                          task.scatter_offsets, task.rep)
         elif self.paged:
             b, s = task.x.shape[:2]
             self.graphs(("p_group", task.rep, b, s), functools.partial(
                 _prefill_group_paged, self.params, self.cache, cfg=self.cfg,
-                rep=task.rep), task.x, task.positions, task.page_map)
+                rep=task.rep, stats=self.moe_stats), task.x, task.positions,
+                task.page_map, task.lengths)
         else:
             task.x.copy_(_prefill_group(self.params, task.x, task.positions,
                                         task.tmp_cache, task.lengths,
-                                        cfg=self.cfg, rep=task.rep))
+                                        cfg=self.cfg, rep=task.rep,
+                                        stats=self.moe_stats))
         self._prefill_group_done(task, now)
 
     def _prefill_group_done(self, task: PrefillTask, now: float) -> None:
@@ -1350,7 +1370,8 @@ class BulletServer:
         next_tokens, _ = ex.fn(
             self.graphs, self.params, self.cache, task.x, task.positions,
             task.page_map, self._x_d, tokens, pos, active, bt, rep=task.rep,
-            fused_repeat=self._fused_repeat)
+            fused_repeat=self._fused_repeat, lengths=task.lengths,
+            stats=self.moe_stats)
         self.last_fused = True
         self.last_fused_exec = ex.config_id
         self.stats.fused_cycles += 1

@@ -37,14 +37,17 @@
 //   bytes of KV is far below the card's ~295 FLOP/byte ridge). Two bodies,
 //   by dtype:
 //   - bf16 (split_decode_item over the PagedRows source: dense decode's
-//     split body, so the two caches share one bf16 decode path): each
-//     (slot, kv head)'s n_b·ps table rows are cut into 64-row tiles and
-//     split into n_split pieces, one CTA each (the count from the shapes
-//     alone, decode_attention.split_count, so the host never reads pos);
-//     a tile's attended rows are its first min(64, pos + 1 - 64·ti), their
-//     page ids read by warp 0 one tile ahead, their K/V through cp.async,
-//     both products on mma.sync; a piece past a short slot's live rows
-//     walks no tile and weighs 0 in the piece-order merge. Its entry is
+//     split body, so the two caches share one bf16 decode path): the
+//     launch holds n_split pieces per (slot, kv head), one CTA each (the
+//     count from the shapes alone, decode_attention.split_count, so the
+//     host never reads pos); a slot's own pos + 1 live rows are cut into
+//     64-row tiles T and split into min(T / SPLIT_MIN_TILES, n_split)
+//     pieces (at least 1; the pieces past them return at once), so a
+//     slot's result does not depend on the table's width, nor on the
+//     other slots of its launch; a tile's attended rows are its first
+//     min(64, pos + 1 - 64·ti), their page ids read by warp 0 one tile
+//     ahead, their K/V through cp.async, both products on mma.sync. Its
+//     entry is
 //     paged_decode_split_fwd (n_split, workspace and counters from the
 //     wrapper, as decode_attention_split_fwd); paged_decode_fwd in bf16
 //     runs the same body with one piece.
@@ -80,7 +83,9 @@
 //     never from the tile's index). With linear positions it walks
 //     paged_decode_fwd's rows in the same 16-row tiles with the same
 //     arithmetic, so the two agree bit for bit; in bf16 both caches run
-//     split_decode_item, which lists the same rows in the same tiles.
+//     split_decode_item, which lists the same rows in the same tiles (the
+//     pieces agree where a slot's pieces, from its live rows, are the
+//     dense cache's, from its S rows).
 //
 // bullet_attention_paged_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:260

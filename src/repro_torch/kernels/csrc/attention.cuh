@@ -23,9 +23,10 @@
 // runs flash_item, paged_decode_item and decode_item, bfloat16
 // flash_tc_item and split_decode_item, so each dtype's arithmetic is fixed.
 //
-// The split's geometry (SPLIT_TILE, MAX_SPLIT, SPLIT_G) is not stated
-// here: the build passes it as -D defines from the one Python module that
-// the wrappers read too (repro_torch/kernels/geometry.py).
+// The split's geometry (SPLIT_TILE, MAX_SPLIT, SPLIT_G, SPLIT_MIN_TILES)
+// is not stated here: the build passes it as -D defines from the one
+// Python module that the wrappers read too (repro_torch/kernels/
+// geometry.py).
 //
 // Numerics follow the TPU kernels they replace: softmax statistics and
 // accumulators stay fp32, masked logits are -1e30, out = acc / max(l,
@@ -42,8 +43,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#if !defined(SPLIT_TILE) || !defined(MAX_SPLIT) || !defined(SPLIT_G)
-#error "SPLIT_TILE, MAX_SPLIT, SPLIT_G come from the build (geometry.py)"
+#if !defined(SPLIT_TILE) || !defined(MAX_SPLIT) || !defined(SPLIT_G) || \
+    !defined(SPLIT_MIN_TILES)
+#error "SPLIT_TILE, MAX_SPLIT, SPLIT_G, SPLIT_MIN_TILES come from the build (geometry.py)"
 #endif
 
 namespace bullet {
@@ -948,7 +950,10 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 // they lie, as the item does, so they hold no registers of their own).
 // Warp 0 holds what a tile's row list needs (r0 for rows lane, r1 for
 // rows lane + 32), read one tile ahead of the copies:
-//   rows(a)                    the rows the pieces split (S, or n_b * ps);
+//   rows(a, pos)               the rows the pieces split (S, or the slot's
+//                              live rows);
+//   pieces(a, pos, ns)         how many of the launch's ns pieces of the
+//                              (slot, kv head) take rows;
 //   tiles_end(a, pos, t_lo, t_end)  the end of the tiles a piece walks;
 //   fetch(a, b, ti, lane, r0, r1)   read what tile ti's list needs;
 //   list(a, pos, ti, r0, r1, lane, idx)  write the numbers of tile ti's
@@ -966,7 +971,8 @@ template <typename A> struct RowSource;
 // the index. Warp 0 holds a tile's positions.
 template <> struct RowSource<DenseDecodeArgs> {
   using A = DenseDecodeArgs;
-  __device__ static int rows(const A &a) { return a.s; }
+  __device__ static int rows(const A &a, int) { return a.s; }
+  __device__ static int pieces(const A &, int, int ns) { return ns; }
   __device__ static int tiles_end(const A &, int pos, int t_lo, int t_end) {
     return pos < 0 ? t_lo : t_end;
   }
@@ -1000,8 +1006,12 @@ template <> struct RowSource<DenseDecodeArgs> {
 
 // The page pool: positions are linear, so the slot's attended rows are its
 // first live = min(pos + 1, n_b ps) (none for pos < 0) and tile ti's are
-// its first min(64, live - 64 ti); no position is read, and a piece walks
-// no tile past live. Row r of the slot lives at pool row bt[b, r / ps] ps
+// its first min(64, live - 64 ti); no position is read. The pieces split
+// the slot's own T = ceil(live / 64) tiles, min(T / SPLIT_MIN_TILES, ns)
+// of them (at least 1): for any table that holds the slot that is the
+// split count at the slot's own rows, so where the pieces fall, and the
+// slot's result, do not depend on the table's width (the bucket the other
+// slots set). Row r of the slot lives at pool row bt[b, r / ps] ps
 // + r % ps, so warp 0 holds each row's page id (the lanes of one page
 // read one table entry together); any page size works. Only listed rows
 // are copied, so a page past live (the trash page) is never read.
@@ -1010,7 +1020,11 @@ template <> struct RowSource<DecodeArgs> {
   __device__ static int live(const A &a, int pos) {
     return pos < 0 ? 0 : min(pos + 1, a.n_b * a.ps);
   }
-  __device__ static int rows(const A &a) { return a.n_b * a.ps; }
+  __device__ static int rows(const A &a, int pos) { return live(a, pos); }
+  __device__ static int pieces(const A &a, int pos, int ns) {
+    const int t = (live(a, pos) + SPLIT_TILE - 1) / SPLIT_TILE;
+    return max(1, min(t / SPLIT_MIN_TILES, ns));
+  }
   __device__ static int tiles_end(const A &a, int pos, int t_lo, int t_end) {
     return max(t_lo, min(t_end, (live(a, pos) + SPLIT_TILE - 1) / SPLIT_TILE));
   }
@@ -1041,12 +1055,14 @@ template <> struct RowSource<DecodeArgs> {
 };
 
 // Item = (slot b, kv head h, piece p) with item = (b*K + h)*n_split + p:
-// piece p walks tiles [p*T/n, (p+1)*T/n) of the slot's T = ceil(rows / 64)
-// row tiles (A = DenseDecodeArgs: the dense cache's S rows;
-// A = DecodeArgs: the n_b * ps rows of the slot's block table). Per tile
-// warp 0 lists the attended rows (the row source above) and only those
-// rows' K and V are read, 16 bytes a thread with neighbouring threads on
-// neighbouring addresses, through cp.async into two shared buffers: the
+// of the n = pieces(...) <= n_split pieces that take rows, piece p walks
+// tiles [p*T/n, (p+1)*T/n) of the slot's T = ceil(rows / 64) row tiles
+// (A = DenseDecodeArgs: the dense cache's S rows, n = n_split;
+// A = DecodeArgs: the slot's own live rows); a piece p >= n returns at
+// once. Per tile warp 0 lists the attended rows (the row source above)
+// and only those rows' K and V are read, 16 bytes a thread with
+// neighbouring threads on neighbouring addresses, through cp.async into
+// two shared buffers: the
 // next tile's rows (and what the list of the one after needs) are in
 // flight while this tile computes. Both products run on the
 // tensor cores with mma.sync m16n8k16 (bf16 operands, fp32 accumulators):
@@ -1054,10 +1070,10 @@ template <> struct RowSource<DecodeArgs> {
 // scores (warp w takes rows 8w..8w+7), one warp per query head for the
 // online softmax in fp32, the probabilities rounded to bf16 times V for
 // the output (warp w takes columns D/8 w .. D/8 (w+1)), kept in registers
-// across the tiles. With n_split = 1 the item writes its output. Otherwise
+// across the tiles. With n = 1 the item writes its output. Otherwise
 // it writes its partial (m, l, acc) to the workspace and counts itself in
 // with a fence and an atomic add; the last piece of the (b, h) to arrive
-// merges the n_split partials in piece order 0..n-1 (so the result is the
+// merges the n partials in piece order 0..n-1 (so the result is the
 // same whatever the arrival order), weighting each by exp(m_i - max m) (0
 // for a piece with no attended row), writes the output and resets the
 // counter. A slot with no attended row returns zeros.
@@ -1085,13 +1101,16 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const size_t qo = (size_t)bkh * G * D;
 
-  // the first loads leave together: pos, what the first tile's list needs
-  // (warp 0 holds it one tile ahead: rows lane, lane + 32) and q (cp.async)
+  // pos first (the pieces may depend on it), then together what the first
+  // tile's list needs (warp 0 holds it one tile ahead: rows lane, lane +
+  // 32) and q (cp.async)
   using Rows = RowSource<A>;
   const int pos = a.pos[b];
-  const int n_t = (Rows::rows(a) + R - 1) / R;
-  const int t_lo = (int)((long long)piece * n_t / ns);
-  const int t_end = (int)((long long)(piece + 1) * n_t / ns);
+  const int np = Rows::pieces(a, pos, ns);
+  if (piece >= np) return;  // uniform: a piece without rows of its own
+  const int n_t = (Rows::rows(a, pos) + R - 1) / R;
+  const int t_lo = (int)((long long)piece * n_t / np);
+  const int t_end = (int)((long long)(piece + 1) * n_t / np);
   int r0 = -1, r1 = -1;
   if (warp == 0 && t_lo < t_end) Rows::fetch(a, b, t_lo, lane, r0, r1);
   __syncthreads();  // smem may still be read by the previous item
@@ -1252,7 +1271,7 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
 
   // this thread's outputs: rows g0 and g1, columns d0 + 8n + 2 (lane % 4)
   const int dc = warp * (D / 8) + 2 * (lane % 4);
-  if (ns == 1) {
+  if (np == 1) {
     const float i0 = 1.f / fmaxf(ls[g0], 1e-30f), i1 = 1.f / fmaxf(ls[g1], 1e-30f);
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
@@ -1284,17 +1303,17 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
   }
   __threadfence();  // the partial is visible before the arrival counts
   __syncthreads();
-  if (tid == 0) flag[2] = atomicAdd(a.counts + bkh, 1) == ns - 1;
+  if (tid == 0) flag[2] = atomicAdd(a.counts + bkh, 1) == np - 1;
   __syncthreads();
   if (!flag[2]) return;  // uniform: another piece merges
   __threadfence();
 
   // every piece's (m, l) at once, then each query head's weights from
   // shared memory: the loads overlap instead of chaining
-  float *wt = reinterpret_cast<float *>(smem);  // (n_split, G) weights
-  float *lt = wt + ns * G;                      // (n_split, G) l
+  float *wt = reinterpret_cast<float *>(smem);  // (n, G) weights
+  float *lt = wt + np * G;                      // (n, G) l
   const float *mlb = a.ws_ml + (size_t)bkh * ns * G * 2;
-  for (int e = tid; e < ns * G; e += THREADS) {
+  for (int e = tid; e < np * G; e += THREADS) {
     const float2 ml = __ldcg(reinterpret_cast<const float2 *>(mlb) + e);
     wt[e] = ml.x;
     lt[e] = ml.y;
@@ -1302,9 +1321,9 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
   __syncthreads();
   for (int g = tid; g < G; g += THREADS) {
     float mx = NEG_INF;
-    for (int i = 0; i < ns; ++i) mx = fmaxf(mx, wt[i * G + g]);
+    for (int i = 0; i < np; ++i) mx = fmaxf(mx, wt[i * G + g]);
     float l = 0.f;
-    for (int i = 0; i < ns; ++i) {
+    for (int i = 0; i < np; ++i) {
       const float mi = wt[i * G + g];
       const float w = mi == NEG_INF ? 0.f : expf(mi - mx);
       wt[i * G + g] = w;
@@ -1320,16 +1339,16 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
   for (int e = tid * 4; e < G * D; e += THREADS * 4) {
     const int g = e / D;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int i0 = 0; i0 < ns; i0 += U) {
+    for (int i0 = 0; i0 < np; i0 += U) {
       float4 v[U];
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (i0 + u < ns)
+        if (i0 + u < np)
           v[u] = __ldcg(reinterpret_cast<const float4 *>(
               accb + (size_t)(i0 + u) * G * D + e));
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (i0 + u < ns) {
+        if (i0 + u < np) {
           const float w = wt[(i0 + u) * G + g];
           x.x = fmaf(w, v[u].x, x.x);
           x.y = fmaf(w, v[u].y, x.y);

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
-from repro_torch.kernels.geometry import MAX_SPLIT, SPLIT_G, SPLIT_TILE
+from repro_torch.kernels.geometry import (MAX_SPLIT, SPLIT_G,
+                                          SPLIT_MIN_TILES, SPLIT_TILE)
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
@@ -41,25 +42,21 @@ launches = 0
 decode_attention_plain = ref.decode_attention_ref
 
 # SPLIT_TILE (rows per tile of the bf16 split body), MAX_SPLIT (pieces per
-# (slot, kv head) at most) and SPLIT_G (query heads per kv head at most)
-# come from geometry.py, which the build passes to nvcc as well
-
-#: row tiles a piece takes at least, where there are enough: a piece's
-#: fixed cost (its first loads, its partial's write and share of the merge)
-#: outweighs a tile's
-MIN_TILES = 2
+# (slot, kv head) at most), SPLIT_G (query heads per kv head at most) and
+# SPLIT_MIN_TILES (row tiles a piece takes at least) come from
+# geometry.py, which the build passes to nvcc as well
 
 
 def split_count(b: int, kh: int, s: int, n_sm: int, ctas_per_sm: int) -> int:
     """Pieces the bf16 kernel splits each (slot, kv head)'s ``s`` rows
     into: as many as keep the launch's ``b·kh·n`` CTAs within one wave of
     ``n_sm`` SMs that hold ``ctas_per_sm`` split CTAs each, but at least
-    ``MIN_TILES`` row tiles a piece; at least 1, at most the row tiles (and
+    ``SPLIT_MIN_TILES`` row tiles a piece; at least 1, at most the row tiles (and
     ``MAX_SPLIT``). The fused kernels and the paged decode kernel take the
     same count, so the fused kernels' decode CTAs run the same items."""
     tiles = max(1, -(-s // SPLIT_TILE))
     want = max(1, ctas_per_sm) * n_sm // max(1, b * kh)
-    return max(1, min(tiles // MIN_TILES, want, MAX_SPLIT))
+    return max(1, min(tiles // SPLIT_MIN_TILES, want, MAX_SPLIT))
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,6 +15,10 @@ MAX_SPLIT = 64
 #: query heads per kv head the bf16 body takes (one 16-row tensor-core
 #: operand)
 SPLIT_G = 16
+#: row tiles a piece takes at least, where there are enough: a piece's
+#: fixed cost (its first loads, its partial's write and share of the merge)
+#: outweighs a tile's
+SPLIT_MIN_TILES = 2
 
 #: SM ids the fused launches' schedule workspace holds a slot for (the
 #: CTAs arrived and the rank of each SM id ``%smid`` below it; an id at or
@@ -34,11 +38,22 @@ SSD_P_SLICES = (16, 32, 64)
 
 #: the split decode's defines (``csrc/attention.cuh``), by name
 DEFINES = {"SPLIT_TILE": SPLIT_TILE, "MAX_SPLIT": MAX_SPLIT,
-           "SPLIT_G": SPLIT_G}
+           "SPLIT_G": SPLIT_G, "SPLIT_MIN_TILES": SPLIT_MIN_TILES}
 #: the fused launches' schedule's define (``csrc/attention.cu``), by name
 SCHED_DEFINES = {"SCHED_SMS": SCHED_SMS}
 #: the bf16 SSD scan's defines (``csrc/ssd_scan.cu``), by name
 SSD_DEFINES = {"SSD_TILE": SSD_TILE, "SSD_P_SLICE": SSD_P_SLICE}
+
+
+def slot_pieces(n_split: int, live: int) -> int:
+    """Pieces of a launch's ``n_split`` per (slot, kv head) that a paged
+    slot of ``live`` attended rows takes in the bf16 split body
+    (``RowSource<DecodeArgs>::pieces`` in ``csrc/attention.cuh``): its own
+    row tiles over SPLIT_MIN_TILES, at least 1, at most ``n_split``. With
+    ``n_split`` the split count of a table that holds the slot, this is the
+    split count at the slot's own rows, whatever the table's width."""
+    tiles = -(-max(live, 0) // SPLIT_TILE)
+    return max(1, min(tiles // SPLIT_MIN_TILES, n_split))
 
 
 def all_defines() -> dict:

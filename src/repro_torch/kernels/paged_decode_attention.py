@@ -11,14 +11,16 @@ covers absolute positions ``[i·ps, (i+1)·ps)``. A slot attends positions
 ``<= pos``; any ``n_b`` works (the engine buckets it to powers of two).
 
 In bf16 the kernel is the dense decode kernel's split body over the page
-pool: each (slot, kv head)'s ``n_b·ps`` table rows are split into
-``decode_attention.split_count`` pieces (from the shapes alone), one CTA
-each, both products on the tensor cores (G <= 16 query heads per kv head),
-the last piece to finish merging the partials in piece order; the
-workspace comes from ``decode_attention.split_workspace``. A piece past a
-short slot's live rows reads nothing and weighs 0. In fp32 it runs one CTA
-per (slot, kv head) walking the live pages (the first port's body, which
-stays bit-equal to fp32 dense decode).
+pool: the launch holds ``decode_attention.split_count`` pieces (from the
+shapes alone) per (slot, kv head), one CTA each; a slot's own live rows,
+in 64-row tiles, are split into ``geometry.slot_pieces`` of them (the
+rest return at once), both products on the tensor cores (G <= 16 query
+heads per kv head), the last piece to finish merging the partials in
+piece order; the workspace comes from ``decode_attention.split_workspace``.
+Where a slot's pieces fall depends on its own rows alone, so its result
+is the same at every table width and beside any other slots. In fp32 it
+runs one CTA per (slot, kv head) walking the live pages (the first
+port's body, which stays bit-equal to fp32 dense decode).
 
 Inactive slots (``pos < 0``): the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``paged_decode_ref`` and

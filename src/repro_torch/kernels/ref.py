@@ -36,6 +36,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.geometry import slot_pieces
+
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
@@ -209,17 +211,26 @@ def decode_attention_split_ref(q, k_cache, v_cache, kv_positions, pos,
 def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables, pos,
                                      n_split: int, tile: int = 64):
     """The bf16 paged decode kernel's split and merge, plainly: each
-    slot's table gathered into ``n_b·ps`` rows with linear positions, then
-    ``decode_attention_split_ref``. No arithmetic of its own: it states
-    that the paged body is the dense body over the gathered rows. Shapes
-    as ``paged_decode_attention_ref``; an inactive slot returns zeros."""
+    slot's first ``live = min(pos + 1, n_b·ps)`` gathered rows, with linear
+    positions, through ``decode_attention_split_ref`` in
+    ``geometry.slot_pieces(n_split, live)`` pieces (the slot's own tiles
+    are split, whatever the table's width). No arithmetic of its own: it
+    states that the paged body is the dense body over the slot's live
+    rows. Shapes as ``paged_decode_attention_ref``; an inactive slot
+    returns zeros."""
     b, n_b = block_tables.shape
     rows = n_b * k_pages.shape[1]
-    kvpos = torch.arange(rows, dtype=torch.int32,
-                         device=q.device)[None].expand(b, rows)
-    return decode_attention_split_ref(
-        q, gather_pages(k_pages, block_tables),
-        gather_pages(v_pages, block_tables), kvpos, pos, n_split, tile)
+    kc = gather_pages(k_pages, block_tables)
+    vc = gather_pages(v_pages, block_tables)
+    outs = []
+    for i, p in enumerate(pos.tolist()):
+        live = max(0, min(p + 1, rows))
+        kvpos = torch.arange(live, dtype=torch.int32,
+                             device=q.device)[None]
+        outs.append(decode_attention_split_ref(
+            q[i:i + 1], kc[i:i + 1, :live], vc[i:i + 1, :live], kvpos,
+            pos[i:i + 1], slot_pieces(n_split, live), tile))
+    return torch.cat(outs)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos):

@@ -4,8 +4,14 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
 
 - host (default): run the Bullet runtime (paged KV pool, fused
   prefill+decode cycles, SLO scheduler; the dense slot cache, serial, for
-  ``--arch mamba2-2.7b``) over a reduced model variant with seeded random
-  weights on a batch of requests.
+  ``--arch mamba2-2.7b`` and for ``--arch mixtral-8x22b``, whose sliding
+  window the page pool does not hold) over a reduced model variant with
+  seeded random weights on a batch of requests. ``--arch`` takes every
+  registered config but ``recurrentgemma-2b`` (whose ``pattern_tail`` the
+  engine refuses): ``qwen3-1.7b``, ``llama3.1-8b``, ``qwen1.5-4b``,
+  ``codeqwen1.5-7b``, the mixture-of-experts ``llama4-maverick-400b-a17b``
+  and ``mixtral-8x22b`` (the reduced variants keep 4 experts), and
+  ``mamba2-2.7b``.
 - replay: online trace replay through the ``OnlineFrontend``: a
   ``generate_trace`` workload (capped at ``--requests``, lengths fitted to
   ``--max-len``) is released into the engine by arrival time on a
@@ -40,6 +46,10 @@ the card's where one is present, else the H100's 132.
       --device cpu --share-prefix --tenants 4 --credit
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --mode replay --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama4-maverick-400b-a17b --mode replay --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sim \\
+      --arch mixtral-8x22b --dataset sharegpt --rate 20
   PYTHONPATH=src python -m repro_torch.launch.serve --mode sim \\
       --dataset sharegpt --rate 40
   PYTHONPATH=src python -m repro_torch.launch.serve --mode simulate-fleet \\

@@ -6,6 +6,7 @@ scales by ``(1 + scale)`` in fp32, RoPE rotates split halves in fp32."""
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional
 
@@ -92,16 +93,33 @@ def conv_state_at(x: torch.Tensor, lengths: torch.Tensor, k: int,
 # jax.random, so parity tests bridge the JAX params instead.
 # ---------------------------------------------------------------------------
 
+#: a leaf of more elements than this is drawn one leading slice at a time
+#: (one expert of a full-width MoE weight: Llama-4 Maverick's ``w_in`` of
+#: 128 experts would otherwise take a 43 GB fp32 temporary beside its 21.5
+#: GB bf16 self); every smaller leaf is drawn whole, as before
+DRAW_LIMIT = 1 << 31
+
+
+def _normal(gen: torch.Generator, shape, dtype, std: float) -> torch.Tensor:
+    shape = tuple(shape)
+    if math.prod(shape) <= DRAW_LIMIT:
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (w * std).to(dtype)
+    lead = 1
+    while math.prod(shape[lead:]) > DRAW_LIMIT:
+        lead += 1
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for idx in itertools.product(*map(range, shape[:lead])):
+        out[idx] = _normal(gen, shape[lead:], dtype, std)
+    return out
+
+
 def dense_init(gen: torch.Generator, shape, dtype,
                fan_in: Optional[int] = None) -> torch.Tensor:
     fan_in = fan_in or shape[0]
-    std = 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * std).to(dtype)
+    return _normal(gen, shape, dtype, 1.0 / math.sqrt(fan_in))
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * 0.02).to(dtype)
+    return _normal(gen, shape, dtype, 0.02)

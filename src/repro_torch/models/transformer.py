@@ -2,10 +2,12 @@
 cache, prefill (also of a suffix over shared-prefix pages), paged and
 dense decode, and the fused prefill-group + decode cycle.
 
-The port covers stacks of full-attention blocks with an MLP (the paged
-path, ``supports_paged_cache``), of Mamba-2 SSD blocks, and of RG-LRU and
-sliding-window attention blocks (RecurrentGemma), the last two on the dense
-slot cache only: ``n_pattern_repeats`` repeats of ``cfg.pattern``, with
+The port covers stacks of full-attention blocks with an MLP or a routed
+mixture of experts (the paged path, ``supports_paged_cache``), of
+sliding-window attention blocks with either (Mixtral), of Mamba-2 SSD
+blocks, and of RG-LRU and sliding-window attention blocks
+(RecurrentGemma), the last three on the dense slot cache only:
+``n_pattern_repeats`` repeats of ``cfg.pattern``, with
 per-pattern parameters stacked along a leading repeat axis R, then the
 unstacked ``cfg.pattern_tail`` blocks (``params["tail_blocks"]``,
 ``cache["tail"]``), as in the JAX package. Python loops over the repeats
@@ -15,7 +17,16 @@ keeps the JAX package's ring semantics, addressed through
 ``_kv_positions``: a sliding-window block's cache of ``min(window,
 max_len)`` rows is always a ring, a full-attention cache only under
 ``long_context``; an SSD or RG-LRU block's entry is its conv window and
-recurrent state. MoE and cross-attention stacks raise (ROADMAP).
+recurrent state. Cross-attention, the encoder and the frontend raise
+(ROADMAP).
+
+A MoE block's capacity counts the tokens of its call (``models/moe.py``).
+Every prefill path passes each row's length, so padded rows take no
+capacity and a prompt's result does not depend on its padding (the JAX
+package counts the padding; ROADMAP §3). A decode pass passes none: its
+(B, 1, D) slot array has the JAX engine's shape, and with at most 8 slots
+the capacity (at least 8) is never reached; past 8 slots inactive slots
+take capacity as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,10 +36,11 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import (ATTN, MLP, RGLRU, SSD, SWA, BlockSpec,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, MLP, MOE, RGLRU, SSD, SWA,
+                                      BlockSpec, ModelConfig)
 from repro_torch.models import attention as attn_ops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoEStats, moe_ffn
 from repro_torch.models.rglru import RGLRUState, rglru_block
 from repro_torch.models.ssm import SSDState, ssd_block
 
@@ -94,25 +106,46 @@ def _rglru_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
     }
 
 
+def _moe_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
+    """The JAX shapes: the router, every expert's fused gate|up and down
+    projections, and the shared expert's when ``n_shared_experts``. A
+    dense leaf's init scale is 1/sqrt(its first dim), the expert count for
+    ``w_in`` / ``w_out``, as in the JAX package."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    defs = {
+        "router": ((d, e), "dense"),
+        "w_in": ((e, d, 2 * f), "dense"),
+        "w_out": ((e, f, d), "dense"),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        defs["shared_wi"] = ((d, 2 * fs), "dense")
+        defs["shared_wo"] = ((fs, d), "dense")
+    return defs
+
+
 _MIXER_DEFS = {ATTN: _attn_defs, SWA: _attn_defs, SSD: _ssd_defs,
                RGLRU: _rglru_defs}
 
 
 def _block_defs(cfg: ModelConfig, blk: BlockSpec):
-    if (blk.mixer not in _MIXER_DEFS or blk.ff not in (MLP, "none")
-            or cfg.cross_attention or cfg.n_encoder_layers):
+    if (blk.mixer not in _MIXER_DEFS or cfg.cross_attention
+            or cfg.n_encoder_layers):
         raise NotImplementedError(
             f"{cfg.name} block {blk}: the port serves full-attention, "
-            "sliding-window, Mamba-2 SSD and RG-LRU blocks with an MLP or "
-            "none; MoE and cross-attention come with a later slice "
-            "(ROADMAP port item 'the other architectures')")
+            "sliding-window, Mamba-2 SSD and RG-LRU blocks; cross-attention "
+            "and the encoder come with a later slice (ROADMAP port item "
+            "'the other architectures')")
     d = cfg.d_model
     defs = {"ln1": ((d,), "zeros")}
     defs.update(_MIXER_DEFS[blk.mixer](cfg))
-    if blk.ff == MLP:
+    if blk.ff != "none":
         defs["ln2"] = ((d,), "zeros")
+    if blk.ff == MLP:
         defs["wi"] = ((d, 2 * cfg.d_ff), "dense")
         defs["wo_mlp"] = ((cfg.d_ff, d), "dense")
+    elif blk.ff == MOE:
+        defs.update(_moe_defs(cfg))
     return defs
 
 
@@ -335,12 +368,27 @@ def _project_qkv(x, p, cfg: ModelConfig, positions):
     return q, kk, v
 
 
-def _ff(x, p, blk: BlockSpec, cfg: ModelConfig):
-    """Feed-forward sub-block (the MLP branch)."""
+def _ff(x, p, blk: BlockSpec, cfg: ModelConfig, lengths=None, stats=None):
+    """Feed-forward sub-block: the MLP, or the routed experts over each
+    row's first ``lengths`` tokens (all of them without ``lengths``;
+    ``models/moe.py``), their metrics added to ``stats`` (a
+    :class:`MoEStats`) when given."""
     if blk.ff == "none":
         return torch.zeros_like(x)
     h = L.rms_norm(x, p["ln2"], cfg.rmsnorm_eps)
-    return L.gated_mlp(h, p["wi"], p["wo_mlp"])
+    if blk.ff == MLP:
+        return L.gated_mlp(h, p["wi"], p["wo_mlp"])
+    valid = None
+    if lengths is not None:
+        cols = torch.arange(x.shape[1], device=x.device)[None, :]
+        valid = cols < lengths[:, None]
+    y, metrics = moe_ffn(h, p, n_experts=cfg.n_experts,
+                         k=cfg.n_experts_per_token,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         valid=valid)
+    if stats is not None:
+        stats.add(metrics)
+    return y
 
 
 def _merge_heads(o):
@@ -348,12 +396,13 @@ def _merge_heads(o):
 
 
 def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
-                      lengths=None):
+                      lengths=None, stats=None):
     """Prefill block application over a full sequence. Returns (x, entry):
     this layer's full-sequence KV ``{"k", "v"}`` (a sliding-window block
     attends over its window), or an SSD block's state ``{"conv", "ssm"}``
     or an RG-LRU block's ``{"conv", "hidden"}`` after each row's
-    ``lengths[b]`` tokens (after all of them without ``lengths``)."""
+    ``lengths[b]`` tokens (after all of them without ``lengths``). A MoE
+    block routes only the rows below ``lengths``."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     if blk.mixer == SSD:
         y, st = ssd_block(h, p, cfg, lengths=lengths)
@@ -368,7 +417,7 @@ def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
         y = _merge_heads(o) @ p["wo"]
         entry = {"k": k, "v": v}
     x = x + y
-    x = x + _ff(x, p, blk, cfg)
+    x = x + _ff(x, p, blk, cfg, lengths, stats)
     return x, entry
 
 
@@ -470,24 +519,26 @@ def scatter_suffix_pages(pages, kv, page_map, offsets, rep=None):
 
 
 def _apply_block_prefix(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
-                        k_pre, v_pre, prefix_lens):
+                        k_pre, v_pre, prefix_lens, lengths=None, stats=None):
     """Prefill block application for a suffix continuing reused prefix KV
     (docs/KV_SHARING.md). ``x`` (B, Ss, D) holds only the unshared suffix
-    at absolute ``positions`` (B, Ss); ``k_pre/v_pre`` (B, Lp, K, D) is
-    the prefix KV gathered from shared pages, valid below ``prefix_lens``.
-    Returns (x, {"k","v"}) with the *suffix's own* KV for page scatter."""
+    at absolute ``positions`` (B, Ss), ``lengths`` (B,) tokens of it per
+    row; ``k_pre/v_pre`` (B, Lp, K, D) is the prefix KV gathered from
+    shared pages, valid below ``prefix_lens``. Returns (x, {"k","v"}) with
+    the *suffix's own* KV for page scatter."""
     assert blk.mixer == ATTN, blk.mixer
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     q, k, v = _project_qkv(h, p, cfg, positions)
     o = attn_ops.prefix_suffix_attention(q, k, v, k_pre, v_pre,
                                          prefix_lens, positions)
     x = x + _merge_heads(o) @ p["wo"]
-    return x + _ff(x, p, blk, cfg), {"k": k, "v": v}
+    return x + _ff(x, p, blk, cfg, lengths, stats), {"k": k, "v": v}
 
 
 def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
                        positions_p, pos_d, cache_entry, block_tables,
-                       page_map, decode_share: float):
+                       page_map, decode_share: float, lengths=None,
+                       stats=None):
     """Spatially-fused block application: one prefill layer of the current
     layer group AND one decode layer of the same (repeat, pattern)
     position share a single attention launch (paper §3.5 co-execution).
@@ -495,7 +546,8 @@ def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
     The decode token's K/V is written to its slot's page FIRST, then the
     prefill group's K/V is scattered into its requests' pages (disjoint
     page sets: mid-prefill slots sit on the trash page in
-    ``block_tables``). Returns (x_p, x_d)."""
+    ``block_tables``). The prefill side's MoE routes only the rows below
+    ``lengths`` and adds its metrics to ``stats``. Returns (x_p, x_d)."""
     hp = L.rms_norm(x_p, p["ln1"], cfg.rmsnorm_eps)
     qp, kp_new, vp_new = _project_qkv(hp, p, cfg, positions_p)
     hd = L.rms_norm(x_d, p["ln1"], cfg.rmsnorm_eps)
@@ -509,33 +561,36 @@ def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
         qp, kp_new, vp_new, qd, kpg, vpg, block_tables, pos_d,
         decode_share=decode_share, causal=True, window=0)
     x_p = x_p + _merge_heads(op) @ p["wo"]
-    x_p = x_p + _ff(x_p, p, blk, cfg)
+    x_p = x_p + _ff(x_p, p, blk, cfg, lengths, stats)
     x_d = x_d + _merge_heads(od) @ p["wo"]
     x_d = x_d + _ff(x_d, p, blk, cfg)
     return x_p, x_d
 
 
 def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
-                  lengths=None):
+                  lengths=None, stats=None):
     """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [entry
     per pattern position]) — the raw full-sequence KV ``{"k", "v"}`` the
     caller scatters into pooled pages or writes into slot rows, or an SSD
-    or RG-LRU block's recurrent state at each row's ``lengths``."""
+    or RG-LRU block's recurrent state at each row's ``lengths`` (below
+    which a MoE block routes; its metrics go to ``stats``)."""
     entries = []
     for j, blk in enumerate(cfg.pattern):
         x, entry = _apply_block_full(x, params_at(params["blocks"][j], rep),
-                                     blk, cfg, positions, lengths)
+                                     blk, cfg, positions, lengths, stats)
         entries.append(entry)
     return x, entries
 
 
 def prefill_group_shared(params, cache, x, positions, prefix_map,
-                         prefix_lens, rep: int, cfg: ModelConfig):
+                         prefix_lens, rep: int, cfg: ModelConfig,
+                         lengths=None, stats=None):
     """Pattern-repeat group ``rep`` over a *suffix* batch whose leading
     ``prefix_lens`` tokens are served from shared pages
     (docs/KV_SHARING.md): per layer, gather the prefix K/V from repeat
     ``rep`` of the page pool through ``prefix_map`` (B, Lp) and attend
-    prefix and suffix jointly. The pool is only read here. Returns (x,
+    prefix and suffix jointly (a MoE block routes each row's first
+    ``lengths`` suffix tokens). The pool is only read here. Returns (x,
     [the suffix's own ``{"k", "v"}`` per pattern position]) for
     :func:`scatter_suffix_group_pages`."""
     b = prefix_map.shape[0]
@@ -547,7 +602,7 @@ def prefill_group_shared(params, cache, x, positions, prefix_map,
         v_pre = leaf["v"][rep][pm].reshape(b, -1, *leaf["v"].shape[-2:])
         x, entry = _apply_block_prefix(
             x, params_at(params["blocks"][j], rep), blk, cfg, positions,
-            k_pre, v_pre, prefix_lens)
+            k_pre, v_pre, prefix_lens, lengths, stats)
         entries.append(entry)
     return x, entries
 
@@ -568,22 +623,22 @@ def decode_repeat(params, cache, x, pos, rep: int, cfg: ModelConfig,
 
 def fused_repeat(params, cache, x_p, x_d, positions, page_map, pos,
                  rep: int, cfg: ModelConfig, *, decode_share: float,
-                 block_tables):
+                 block_tables, lengths=None, stats=None):
     """Pattern repeat ``rep`` of a fused cycle: one
     :func:`_apply_block_fused` per pattern position, prefill group ``rep``
-    and the decode pass's repeat ``rep`` sharing each attention launch.
-    Returns (x_p, x_d)."""
+    (its prompts of ``lengths`` tokens) and the decode pass's repeat
+    ``rep`` sharing each attention launch. Returns (x_p, x_d)."""
     for j, blk in enumerate(cfg.pattern):
         x_p, x_d = _apply_block_fused(
             x_p, x_d, params_at(params["blocks"][j], rep), blk, cfg,
             positions, pos, params_at(cache["blocks"][j], rep),
-            block_tables, page_map, decode_share)
+            block_tables, page_map, decode_share, lengths, stats)
     return x_p, x_d
 
 
 def fused_group_decode(params, cache, x_p, positions, page_map, tokens, pos,
                        cfg: ModelConfig, *, rep: int, decode_share: float,
-                       block_tables):
+                       block_tables, lengths=None, stats=None):
     """One fused engine cycle: pattern-repeat group ``rep`` of an in-flight
     prefill AND a full continuous-batching decode iteration.
 
@@ -591,8 +646,9 @@ def fused_group_decode(params, cache, x_p, positions, page_map, tokens, pos,
     ``rep`` each layer fuses with the matching prefill layer
     (:func:`fused_repeat`), scattering the group's prompt KV into pooled
     pages as it goes. Layer math is op-for-op the serial path's, so token
-    streams are identical. Returns (x_p, decode_logits (B, V)); ``cache``
-    is updated in place.
+    streams are identical. ``lengths`` and ``stats`` are the prefill
+    side's, as in :func:`prefill_group`. Returns (x_p, decode_logits (B,
+    V)); ``cache`` is updated in place.
     """
     assert supports_paged_cache(cfg), cfg.pattern
     x_d = embed_tokens(params, tokens, cfg)
@@ -601,7 +657,8 @@ def fused_group_decode(params, cache, x_p, positions, page_map, tokens, pos,
             x_p, x_d = fused_repeat(params, cache, x_p, x_d, positions,
                                     page_map, pos, r, cfg,
                                     decode_share=decode_share,
-                                    block_tables=block_tables)
+                                    block_tables=block_tables,
+                                    lengths=lengths, stats=stats)
         else:
             x_d = decode_repeat(params, cache, x_d, pos, r, cfg,
                                 block_tables)
@@ -707,7 +764,8 @@ def write_dense_entries(cache, entries, cfg: ModelConfig, lengths,
                      cfg, lengths)
 
 
-def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
+def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
+            stats=None):
     """Process a prompt batch and write its cache entries.
 
     tokens: (B, S) with ``lengths`` (B,) valid tokens each. With
@@ -717,19 +775,21 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig):
     :func:`init_cache` with B rows, which takes each row's KV (a
     sliding-window block's gathered into its ring), or recurrent state at
     its own length. The ``pattern_tail`` blocks run after the repeats and
-    fill ``cache["tail"]``. Returns (last_logits (B, V), cache), the cache
-    updated in place."""
+    fill ``cache["tail"]``. A MoE block routes each row's ``lengths``
+    tokens, its metrics added to ``stats``. Returns (last_logits (B, V),
+    cache), the cache updated in place."""
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for r in range(cfg.n_pattern_repeats):
-        x, entries = prefill_group(params, x, positions, r, cfg, lengths)
+        x, entries = prefill_group(params, x, positions, r, cfg, lengths,
+                                   stats)
         if page_map is None:
             write_dense_entries(cache, entries, cfg, lengths, r)
         else:
             scatter_group_pages(cache, entries, page_map, r)
     for j, blk in enumerate(cfg.pattern_tail):
         x, entry = _apply_block_full(x, params["tail_blocks"][j], blk, cfg,
-                                     positions, lengths)
+                                     positions, lengths, stats)
         _write_entry(cache["tail"][j], entry, blk, cfg, lengths)
     return last_token_logits(params, x, lengths, cfg), cache
 
@@ -772,3 +832,39 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
             x, params["tail_blocks"][j], blk, cfg, cache["tail"][j], pos,
             long_context=long_context, kv_positions=kvpos)
     return decode_logits(params, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Teacher forcing
+# ---------------------------------------------------------------------------
+
+def param_count(params) -> int:
+    """Elements over every leaf of a param tree."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (tuple, list)):
+        return sum(param_count(v) for v in params)
+    return params.numel()
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    """Teacher-forcing forward over ``tokens`` (B, S), every row a full
+    sequence. Returns (logits (B, S, V), aux): ``aux`` the MoE
+    load-balance losses summed over the layers in order (zero without
+    MoE blocks), as the JAX ``forward``. The frontend and the encoder
+    raise."""
+    if cfg.frontend_embed_len or cfg.n_encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the frontend projector and the encoder come with "
+            "a later slice (ROADMAP port item 'the other architectures')")
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    stats = MoEStats(x.device)
+    for r in range(cfg.n_pattern_repeats):
+        x, _ = prefill_group(params, x, positions, r, cfg, stats=stats)
+    for j, blk in enumerate(cfg.pattern_tail):
+        x, _ = _apply_block_full(x, params["tail_blocks"][j], blk, cfg,
+                                 positions, stats=stats)
+    aux = stats.sums[3]
+    x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
+    return lm_logits(params, x, cfg), aux

@@ -26,6 +26,7 @@ from repro_torch.kernels import paged_decode_attention as TP
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rglru_scan as TR
 from repro_torch.kernels import ssd_scan as TS
+from repro_torch.kernels.geometry import slot_pieces
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: the bf16 flash and split decode bodies also hold each output row
@@ -157,9 +158,11 @@ def test_dense_decode_equals_paged_decode_bit_for_bit(gen, monkeypatch,
                                                        dtype, ps, n_split):
     """With linear positions over the gathered rows the dense kernel walks
     the paged kernel's rows in the same tiles: fp32 in 16-row tiles over
-    16-row pages, bf16 in the split body's 64-row tiles over any page size,
-    with S = n_b·ps giving both the same pieces (None: each wrapper's own
-    count; else forced)."""
+    16-row pages, all S = n_b·ps rows at once; bf16 in the split body's
+    64-row tiles over any page size, each slot's own live rows in its own
+    pieces (``geometry.slot_pieces`` of the paged launch's count), which
+    the dense kernel takes over S = live rows with that count (None: the
+    paged wrapper's own count; else forced)."""
     if n_split is not None:
         monkeypatch.setattr(TD, "split_count", lambda *a: n_split)
     q, kp, vp, bt, pos = _paged_split_case(gen, dtype, ps)
@@ -167,13 +170,57 @@ def test_dense_decode_equals_paged_decode_bit_for_bit(gen, monkeypatch,
     b, n_b = bt.shape
     kc = kp[bt.long()].reshape(b, -1, *kp.shape[2:]).contiguous()
     vc = vp[bt.long()].reshape(b, -1, *vp.shape[2:]).contiguous()
-    kvpos = torch.arange(kc.shape[1], dtype=torch.int32,
-                         device="cuda")[None].expand(b, -1).contiguous()
-    if dtype == torch.bfloat16:
-        assert TD.n_split(q, n_b * ps) == TD.n_split(q, n_b * ps, paged=True)
-    dense = TD.decode_attention(q, kc, vc, kvpos, pos)
     paged = TP.paged_decode_attention(q, kp, vp, bt, pos)
-    assert torch.equal(dense[act], paged[act])
+    if dtype == torch.float32:
+        kvpos = torch.arange(kc.shape[1], dtype=torch.int32,
+                             device="cuda")[None].expand(b, -1).contiguous()
+        dense = TD.decode_attention(q, kc, vc, kvpos, pos)
+        assert torch.equal(dense[act], paged[act])
+        return
+    n = TD.n_split(q, n_b * ps, paged=True)
+    for i in act.nonzero().flatten().tolist():
+        live = int(pos[i]) + 1
+        pieces = slot_pieces(n, live)
+        monkeypatch.setattr(TD, "split_count", lambda *a: pieces)
+        kvpos = torch.arange(live, dtype=torch.int32, device="cuda")[None]
+        dense = TD.decode_attention(q[i:i + 1], kc[i:i + 1, :live].clone(),
+                                    vc[i:i + 1, :live].clone(), kvpos,
+                                    pos[i:i + 1])
+        assert torch.equal(dense[0], paged[i]), i
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_split_paged_decode_same_at_every_table_width(gen, ps):
+    """A slot's bf16 paged decode is bit-equal whatever the table's width
+    (the engine's bucket, which the longest slot of a batch sets) and
+    whatever the other slots of its launch hold (their number fixed, as
+    the engine's decode batch is): slots of up to 2000 rows in tables
+    widened by trash-page columns to 2 and 4 times 2048 rows, which raise
+    the launch's piece count, and each slot with the others inactive and
+    the table cut to its own bucket."""
+    contexts = (1, 65, 300, 1000, 2000, 0)
+    q, kp, vp, bt, pos = _paged_split_case(gen, torch.bfloat16, ps,
+                                           contexts=contexts, rows=2048)
+    base = TP.paged_decode_attention(q, kp, vp, bt, pos)
+    trash = kp.shape[0] - 1
+    counts = {TD.n_split(q, bt.shape[1] * ps, paged=True)}
+    for f in (2, 4):
+        wide = torch.full((bt.shape[0], f * bt.shape[1]), trash,
+                          dtype=torch.int32, device="cuda")
+        wide[:, :bt.shape[1]] = bt
+        counts.add(TD.n_split(q, wide.shape[1] * ps, paged=True))
+        out = TP.paged_decode_attention(q, kp, vp, wide, pos)
+        assert torch.equal(out, base), f
+    assert len(counts) > 1, counts
+    for i, c in enumerate(contexts):
+        if not c:
+            continue
+        n_b = 1 << (-(-c // ps) - 1).bit_length()
+        alone = torch.full_like(pos, -1)
+        alone[i] = pos[i]
+        own = TP.paged_decode_attention(q, kp, vp,
+                                        bt[:, :n_b].contiguous(), alone)
+        assert torch.equal(own[i], base[i]), i
 
 
 @pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
@@ -517,13 +564,13 @@ def test_split_dense_decode_refuses_more_than_16_query_heads(gen):
         TD.decode_attention(q, kc, kc, kvpos, pos)
 
 
-def _paged_split_case(gen, dtype, ps, kh=2, g=3, d=128, rows=256):
+def _paged_split_case(gen, dtype, ps, kh=2, g=3, d=128, rows=256,
+                      contexts=(1, 64, 65, 150, 0)):
     """tests/port/test_torch_split_decode.py's paged slots: tables of 256
     rows (4 tiles of 64) over ``ps``-row pages, contexts 1, 64 (a tile's
-    edge), 65, 150 and an inactive slot, pages shuffled; past each slot's
-    live pages the table points at the trash page (the pool's last), which
-    holds large garbage."""
-    contexts = (1, 64, 65, 150, 0)
+    edge), 65, 150 and an inactive slot (or ``rows`` and ``contexts``
+    given), pages shuffled; past each slot's live pages the table points
+    at the trash page (the pool's last), which holds large garbage."""
     b, n_b = len(contexts), rows // ps
     need = [-(-c // ps) for c in contexts]
     n_pages = sum(need) + 3

@@ -73,8 +73,10 @@ def test_registry_holds_the_paged_models():
 
 def test_registry_holds_mamba2():
     assert get_config("mamba2-2.7b") == _as_port(jax_config("mamba2-2.7b"))
-    assert sorted(list_configs()) == ["llama3.1-8b", "mamba2-2.7b",
-                                      "qwen3-1.7b", "recurrentgemma-2b"]
+    assert sorted(list_configs()) == [
+        "codeqwen1.5-7b", "llama3.1-8b", "llama4-maverick-400b-a17b",
+        "mamba2-2.7b", "mixtral-8x22b", "qwen1.5-4b", "qwen3-1.7b",
+        "recurrentgemma-2b"]
 
 
 def test_registry_holds_recurrentgemma():

@@ -5,9 +5,11 @@ both are priced with the same ``HardwareSpec`` fields and fitted alike,
 on the JAX test's spec and on the H100's (132 SMs, a 67-entry table);
 ``tests/test_simulator.py``'s structural recipes on the port's side on
 the H100 spec; the port's ``cross_validate`` against its own engine, and
-equal to the JAX one; and the launcher's ``--mode sim``."""
+equal to the JAX one; and the launcher's ``--mode sim``, also for
+``mixtral-8x22b``, whose rows equal the JAX launcher's."""
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from repro.core.profiler import SurrogateMachine as JSurrogate
 from repro.core.profiler import run_profiling as jax_run_profiling
 from repro.core.simulate import ServingSimulator as JSimulator
 from repro.core.simulate import SimConfig as JSimConfig
+from repro.launch import serve as jax_serve
 from repro.models import init_params as jax_init_params
 from repro.serving.request import WORKLOAD_SLOS as JSLOS
 from repro.serving.workload import fit_trace_to_context as jax_fit_trace
@@ -271,3 +274,27 @@ def test_serve_sim_mode_prints_the_spec_and_a_row_per_system(capsys):
     assert lines[0].startswith("spec: h100-sxm x1, 132 SMs a card")
     rows = [ln for ln in lines if "goodput=" in ln]
     assert [ln.split()[0] for ln in rows] == ["bullet", "chunked-1024"]
+
+
+def test_serve_sim_mixtral_equals_the_jax_rows(capsys, monkeypatch):
+    """``--mode sim --arch mixtral-8x22b``: the port's rows are the JAX
+    simulator's, bit for bit, when the JAX launcher prices with the same
+    H100 fields the port's does without a card (on one card: the JAX
+    launcher defaults to two)."""
+    argv = ["--mode", "sim", "--arch", "mixtral-8x22b", "--systems",
+            "bullet,chunked-1024", "--rate", "20", "--duration", "2",
+            "--chips", "1"]
+    assert serve.main(argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("spec: h100-sxm x1, 132 SMs a card")
+    ours = [ln for ln in lines if "goodput=" in ln]
+    h100 = dataclasses.asdict(TE.HardwareSpec())
+    spec = JE.HardwareSpec
+    monkeypatch.setattr(JE, "HardwareSpec",
+                        lambda n_chips: spec(**{**h100, "n_chips": n_chips}))
+    monkeypatch.setattr(sys, "argv", ["serve.py"] + argv)
+    jax_serve.main()
+    theirs = [ln for ln in capsys.readouterr().out.splitlines()
+              if "goodput=" in ln]
+    assert [ln.split()[0] for ln in ours] == ["bullet", "chunked-1024"]
+    assert ours == theirs

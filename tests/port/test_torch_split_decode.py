@@ -49,11 +49,11 @@ def test_split_count_bounds(b, kh, s, n_sm, per_sm):
     tiles = -(-s // TD.SPLIT_TILE)
     assert 1 <= n <= min(tiles, TD.MAX_SPLIT)
     # two row tiles a piece at least, where there are two
-    assert n == 1 or tiles // n >= TD.MIN_TILES
+    assert n == 1 or tiles // n >= TD.SPLIT_MIN_TILES
     # one wave of CTAs, as full as the rows allow
     if b * kh and n > 1:
         assert b * kh * n <= per_sm * n_sm
-    if b * kh and n < min(tiles // TD.MIN_TILES, TD.MAX_SPLIT):
+    if b * kh and n < min(tiles // TD.SPLIT_MIN_TILES, TD.MAX_SPLIT):
         assert b * kh * (n + 1) > per_sm * n_sm
     assert n == TD.split_count(b, kh, s, n_sm, per_sm)    # a pure function
 
@@ -174,9 +174,10 @@ def _pallas_paged(ps):
 @pytest.mark.parametrize("ps", [8, 16, 32])
 @pytest.mark.parametrize("n_split", [1, 2, 3, 7])
 def test_paged_split_mirror_matches_pallas(ps, n_split):
-    """n_split = 7 is more pieces than the 4 tiles; the slot of context 1
-    leaves every piece but the first without a row, the inactive slot
-    every piece (zeros, as the Pallas kernel returns)."""
+    """n_split = 7 is more pieces than the 4 tiles; each slot takes the
+    pieces of its own live tiles (one for the slot of context 1), the
+    inactive slot one without a row (zeros, as the Pallas kernel
+    returns)."""
     args = [torch.from_numpy(x) for x in _paged_cases(ps)]
     got = ref.paged_decode_attention_split_ref(*args, n_split).numpy()
     np.testing.assert_allclose(got, _pallas_paged(ps), atol=ATOL)
@@ -192,6 +193,52 @@ def test_paged_split_mirror_matches_plain_on_active_slots(ps):
     want = TP.paged_decode_attention(*args)
     act = args[4] >= 0
     torch.testing.assert_close(got[act], want[act], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,kh,n_sm,per_sm", [
+    (8, 8, 132, 2), (1, 8, 132, 4), (6, 2, 132, 1), (64, 8, 132, 2)])
+def test_slot_pieces_is_the_split_count_at_the_slots_rows(b, kh, n_sm,
+                                                          per_sm):
+    """A paged slot's pieces, from the count of any table width that
+    holds it, are the split count at its own live rows: where the pieces
+    fall depends on the slot alone (the launch's slot count fixed)."""
+    for live in (0, 1, 63, 64, 65, 127, 128, 129, 700, 2000, 5000):
+        want = TD.split_count(b, kh, live, n_sm, per_sm)
+        for width in (64, 256, 1024, 4096, 8192, 32768):
+            if width < live:
+                continue
+            n = TD.split_count(b, kh, width, n_sm, per_sm)
+            assert geometry.slot_pieces(n, live) == want, (live, width)
+
+
+def test_paged_split_mirror_same_at_every_table_width():
+    """The paged mirror cuts each slot's own live rows: tables widened by
+    trash-page columns (a larger launch count) give every slot the same
+    result bit for bit, and slots of 300 and 2000 rows take 2 and 16
+    pieces of a count of 32."""
+    rng = np.random.default_rng(3)
+    ps, kh, g, d, contexts = 16, 2, 3, 32, (1, 300, 2000, 0)
+    need = [-(-c // ps) for c in contexts]
+    n_pages = sum(need)
+    kp = torch.from_numpy(rng.normal(size=(n_pages + 1, ps, kh, d)))
+    vp = torch.from_numpy(rng.normal(size=(n_pages + 1, ps, kh, d)))
+    kp[n_pages], vp[n_pages] = 1e4, -1e4
+    bt = torch.full((len(contexts), 128), n_pages, dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = torch.arange(used, used + n)
+        used += n
+    pos = torch.tensor([c - 1 for c in contexts], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(len(contexts), kh, g, d)))
+    assert [geometry.slot_pieces(32, c) for c in contexts] == [1, 2, 16, 1]
+    base = ref.paged_decode_attention_split_ref(q, kp, vp, bt, pos, 16)
+    wide = torch.cat([bt, torch.full_like(bt, n_pages)], dim=1)
+    got = ref.paged_decode_attention_split_ref(q, kp, vp, wide, pos, 32)
+    assert torch.equal(got, base)
+    act = pos >= 0
+    torch.testing.assert_close(
+        got[act], TP.paged_decode_attention(q, kp, vp, bt, pos)[act],
+        atol=ATOL, rtol=0)
 
 
 def test_paged_kernels_take_the_same_split():

@@ -11,6 +11,8 @@ prefill returns each row's state at its own length, the JAX package's the
 state after the padded tail (ROADMAP §3), so the port is held against JAX
 runs that prefill one prompt at a time, and the split is pinned."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -388,14 +390,22 @@ def test_engine_resolves_dense_serial_for_mamba(model):
 
 
 def test_engine_still_refuses_moe():
+    """The engine refused MoE stacks until the MoE slice: now it builds
+    over one and init_params gives its expert leaves, while what ROADMAP
+    item 'the other architectures' still holds back (the encoder and
+    cross-attention) raises naming it."""
     cfg = get_config("qwen3-1.7b").reduced(
         pattern=(BlockSpec(mixer=ATTN, ff=MOE),), n_experts=4,
         n_experts_per_token=2)
+    params = T.init_params(cfg, dtype=torch.float32, device="cpu")
+    assert params["blocks"][0]["w_in"].shape == (
+        cfg.n_pattern_repeats, 4, cfg.d_model, 2 * cfg.d_ff)
+    server = BulletServer(cfg, params, config=ServerConfig(
+        slo=SLO(3.0, 150.0)), device="cpu")
+    assert server.moe_stats is not None
+    enc = dataclasses.replace(cfg, n_encoder_layers=1, cross_attention=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BulletServer(cfg, {}, config=ServerConfig(slo=SLO(3.0, 150.0)),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, device="cpu")
+        T.init_params(enc, device="cpu")
 
 
 def test_engine_streams_match_jax(model, jax_streams):
