@@ -52,7 +52,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    window) and dense decode over 4 slots of its wrapped 4096-row ring,
    Llama-4 Maverick's paged decode (H=40, K=8, G=5) and its paged fused
    kernel (bit-equal to flash + paged decode at every tile-table share),
-   Qwen1.5-4B's flash and paged decode (H=K=20, G=1);
+   Qwen1.5-4B's flash and paged decode (H=K=20, G=1); then the D = 64
+   instances of kernels 1-5 (``phase_attention_d64``, fp32 and bf16,
+   each timed beside its bound and SDPA): Granite-3.0-2B's causal flash
+   over one prompt of 1000 tokens (H=32, K=8, G=4) and paged decode over
+   the 8 slots, SeamlessM4T's encoder flash (4 rows of 1024 frames,
+   H=K=16, non-causal), its cross-attention flash (64 prompt rows over
+   the 1024 encoder rows) and cross decode (kernel 4 over 4 slots of 1024
+   rows, all attended), both fused kernels bit-equal to flash + their
+   decode kernel at every tile-table share (the dense one's launches are
+   that sweep's), the paged one's SM partition read from its record;
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
@@ -67,7 +76,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against CPU: logits within 1e-3 of scale, tokens and every MoE call's
    dropped fraction equal; Llama-4 fused and Qwen1.5-4B (H=K=20) serial
    through BulletServer, card against CPU, streams, cycles and MoE sums
-   equal; Qwen1.5-4B in bf16 (the G=1 rows' launches);
+   equal; Qwen1.5-4B in bf16 (the G=1 rows' launches); archs reference
+   (``phase_archs_reference``): Granite, Seamless (its encoder over 16
+   stub frames, cross-attention, the cross cache) and InternVL2 (8 stub
+   patches prepended) at reduced widths with head dim 64 and their own
+   heads, fp32, prefill + 8 decode steps through ``GraphedDecode``, card
+   against CPU within the MoE reference's gate, then reduced Granite
+   fused through BulletServer, card against CPU (the fp32 D = 64 rows'
+   launches);
 6. serve: Qwen3-1.7B at full width and depth, bf16, seeded random
    weights, 12 requests through BulletServer fused (the default) with the
    launch counters read around that run, the decode_share of each fused
@@ -194,7 +210,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
    prompts of 4200, 1500, 600 and 64 tokens, 32 decode steps each,
    windowed flash and ring decode launches counted, drops, the MoE
    layer's card ms at 4 slots, and its dense decode iteration's graph
-   against the eager step.
+   against the eager step;
+14. head dim 64 and the encoder-decoder: (a) granite: Granite-3.0-2B at
+   its published depth and widths (40 layers, 2.53 G params, D = 64, G =
+   4), bf16, the serve phase's 12 requests through BulletServer on the
+   paged path fused (pause off, launches counted: the bf16 D = 64 rows of
+   kernels 1-3) and serial, streams identical, a profile window of 10
+   serial decode cycles (device busy share), the scheduler's defaults,
+   then its graphs against the eager steps (serial decode at the serve's
+   buckets, the fused cycle in segments at repeats 0, 20 and 39, the
+   prefill groups and first tokens); (b) seamless: SeamlessM4T-Large-v2
+   at full depth (24 encoder and 24 decoder layers, 2.0 G params), bf16,
+   4 rows of 1024 stub frames encoded, decoder prompts of 8, 16, 32 and
+   64 tokens prefilled (3 flash launches a layer: encoder, decoder,
+   cross), 64 greedy steps through ``GraphedDecode`` bit-equal to the
+   eager ``decode_step`` (2 dense decode launches a layer a step: self
+   and cross): encoder, prefill and per-step ms; (c) internvl:
+   InternVL2-76B at its published widths over 8 of its 80 layers (9.0 G
+   params, the depth cut printed), bf16, dense slot cache, 2 rows of 256
+   stub patches prepended to prompts of 64 and 500 tokens, 32 greedy steps
+   through ``GraphedDecode`` bit-equal to eager.
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -465,10 +500,13 @@ class PaddedShare:
 # inputs
 # ---------------------------------------------------------------------------
 
-def flash_inputs(gen, bp, s, dtype, h: int = H, kh: int = K, d: int = D):
+def flash_inputs(gen, bp, s, dtype, h: int = H, kh: int = K, d: int = D,
+                 sk: int = 0):
+    """q of ``s`` rows, k and v of ``sk`` rows (0: ``s``)."""
+    sk = sk or s
     q = torch.randn(bp * h, s, d, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(bp * kh, s, d, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(bp * kh, s, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(bp * kh, sk, d, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(bp * kh, sk, d, generator=gen, device="cuda").to(dtype)
     return q, k, v
 
 
@@ -476,19 +514,20 @@ def flash_inputs(gen, bp, s, dtype, h: int = H, kh: int = K, d: int = D):
 CONTEXTS = (1, 15, 16, 17, 257, 500, 1000, 0)
 
 
-def decode_inputs(gen, dtype, ps: int = PS, kh: int = K, g: int = G):
+def decode_inputs(gen, dtype, ps: int = PS, kh: int = K, g: int = G,
+                  d: int = D):
     """8 slots over a pool of ``ps``-row pages: mixed contexts, page-edge
     cases, one inactive slot (pos = -1), the table bucketed to a power of
     two with the trash page past each slot's live pages; the trash page
     holds large garbage so any read of it would show. ``kh`` kv heads of
-    ``g`` query heads each."""
+    ``g`` query heads each, head dim ``d``."""
     b = len(CONTEXTS)
     need = [-(-c // ps) for c in CONTEXTS]
     n_b = 1 << (max(need) - 1).bit_length()
     n_pages = sum(need) + 8
     trash = n_pages
-    kp = torch.randn(n_pages + 1, ps, kh, D, generator=gen, device="cuda")
-    vp = torch.randn(n_pages + 1, ps, kh, D, generator=gen, device="cuda")
+    kp = torch.randn(n_pages + 1, ps, kh, d, generator=gen, device="cuda")
+    vp = torch.randn(n_pages + 1, ps, kh, d, generator=gen, device="cuda")
     kp[trash] = 1e4
     vp[trash] = -1e4
     perm = torch.randperm(n_pages, generator=gen, device="cuda").cpu()
@@ -499,16 +538,18 @@ def decode_inputs(gen, dtype, ps: int = PS, kh: int = K, g: int = G):
         used += n
     pos = torch.tensor([c - 1 for c in CONTEXTS], dtype=torch.int32,
                        device="cuda")
-    q = torch.randn(b, kh, g, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, kh, g, d, generator=gen, device="cuda").to(dtype)
     return (q, kp.to(dtype), vp.to(dtype),
             torch.from_numpy(bt).cuda(), pos)
 
 
-def dense_inputs(gen, dtype, ring: bool):
+def dense_inputs(gen, dtype, ring: bool, kh: int = K, g: int = G,
+                 d: int = D):
     """8 slots over dense rows of MAX_LEN: the contexts of the paged case
     (clipped to the row), one inactive slot, and either linear positions
     or tests/test_kernels.py's scrambled ring with holes (-1), in which
-    the first slot (pos 0) attends no row."""
+    the first slot (pos 0) attends no row; ``kh`` kv heads of ``g`` query
+    heads, head dim ``d``."""
     b, s = len(CONTEXTS), MAX_LEN
     base = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
     if ring:
@@ -517,9 +558,9 @@ def dense_inputs(gen, dtype, ring: bool):
         kvpos = base
     pos = torch.tensor([min(c, s) - 1 for c in CONTEXTS], dtype=torch.int32,
                        device="cuda")
-    q = torch.randn(b, K, G, D, generator=gen, device="cuda").to(dtype)
-    kc = torch.randn(b, s, K, D, generator=gen, device="cuda").to(dtype)
-    vc = torch.randn(b, s, K, D, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(b, kh, g, d, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(b, s, kh, d, generator=gen, device="cuda").to(dtype)
     return q, kc, vc, kvpos.to(torch.int32).contiguous(), pos
 
 
@@ -544,11 +585,14 @@ def dense_cost(q, kvpos, pos, dtype):
 
 
 def flash_cost(bp, s, dtype, h: int = H, kh: int = K, window: int = 0,
-               d: int = D):
+               d: int = D, causal: bool = True, sk: int = 0):
     """Flash's bytes (q, k, v read, the output written) and operations
-    (both products over the causal pairs, within ``window`` keys)."""
-    n_bytes = (2 * bp * h * s * d + 2 * bp * kh * s * d) * esize(dtype)
-    pairs = sum(min(i + 1, window or s) for i in range(s))
+    (both products over the causal pairs, within ``window`` keys; not
+    ``causal``: every query of ``s`` with every key of ``sk`` or ``s``)."""
+    sk = sk or s
+    n_bytes = (2 * bp * h * s * d + 2 * bp * kh * sk * d) * esize(dtype)
+    pairs = (sum(min(i + 1, window or s) for i in range(s)) if causal
+             else s * sk)
     return n_bytes, 4 * d * bp * h * pairs
 
 
@@ -621,23 +665,25 @@ def _dt_suffix(dtype) -> tuple:
 
 
 def flash_check(gen, bp, s, dtype, *, h: int = H, kh: int = K, d: int = D,
-                window: int = 0, what: str = ""):
-    """Flash over ``bp`` rows of ``s`` tokens (``h`` query heads on ``kh``
-    kv heads, head dim ``d``, causal, within ``window`` keys) against its
-    plain version within TOL; in bf16 also per output row within
-    RG_ATTN_ULPS, beside what the plain version reads with the window one
-    key short (for window 0, the last row's oldest key left out). Returns
-    (error, (q, k, v))."""
+                window: int = 0, what: str = "", causal: bool = True,
+                sk: int = 0):
+    """Flash over ``bp`` rows of ``s`` query tokens and ``sk`` keys (0:
+    ``s``; ``h`` query heads on ``kh`` kv heads, head dim ``d``, causal or
+    not, within ``window`` keys) against its plain version within TOL; in
+    bf16 also per output row within RG_ATTN_ULPS, beside what the plain
+    version reads with the window one key short (for window 0, the last
+    row's oldest key left out). Returns (error, (q, k, v))."""
     from repro_torch.kernels import flash_attention as FA
     g = h // kh
-    q, k, v = flash_inputs(gen, bp, s, dtype, h, kh, d)
-    out = FA.flash_attention(q, k, v, causal=True, window=window, group=g)
-    ref = FA.flash_attention_plain(q, k, v, causal=True, window=window,
+    q, k, v = flash_inputs(gen, bp, s, dtype, h, kh, d, sk)
+    out = FA.flash_attention(q, k, v, causal=causal, window=window, group=g)
+    ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
                                    group=g)
     torch.cuda.synchronize()
     e = (out.float() - ref.float()).abs().max().item()
-    name = (f"flash {what}{_dt_name(dtype)} Bp={bp} S={s} H={h} K={kh} "
-            f"D={d} window={window}")
+    name = (f"flash {what}{_dt_name(dtype)} Bp={bp} S={s}"
+            f"{f' Sk={sk}' if sk else ''} H={h} K={kh} D={d} "
+            f"window={window}{'' if causal else ' non-causal'}")
     check(math.isfinite(e) and e <= TOL[dtype], f"{name}: err {e}")
     how = ""
     if dtype == torch.bfloat16:
@@ -645,7 +691,7 @@ def flash_check(gen, bp, s, dtype, *, h: int = H, kh: int = K, d: int = D,
         check(math.isfinite(u) and u <= RG_ATTN_ULPS,
               f"{name}: {u} ulps of the row scale")
         wu = row_ulps(FA.flash_attention_plain(
-            q, k, v, causal=True, window=(window or s) - 1, group=g), ref)
+            q, k, v, causal=causal, window=(window or s) - 1, group=g), ref)
         how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
                f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (window one "
                "key short)")
@@ -654,7 +700,7 @@ def flash_check(gen, bp, s, dtype, *, h: int = H, kh: int = K, d: int = D,
 
 
 def paged_check(gen, dtype, *, ps: int = PS, kh: int = K, g: int = G,
-                what: str = ""):
+                d: int = D, what: str = ""):
     """Paged decode over the 8 slots of CONTEXTS (``decode_inputs``)
     against its plain version within TOL on the active slots, the inactive
     slot zeros; in bf16 (the split body) also per output row within
@@ -662,13 +708,14 @@ def paged_check(gen, dtype, *, ps: int = PS, kh: int = K, g: int = G,
     newest key left out. Returns (error, inputs)."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import paged_decode_attention as PD
-    q, kp, vp, bt, pos = inputs = decode_inputs(gen, dtype, ps, kh, g)
+    q, kp, vp, bt, pos = inputs = decode_inputs(gen, dtype, ps, kh, g, d)
     out = PD.paged_decode_attention(q, kp, vp, bt, pos)
     ref = PD.paged_decode_attention_plain(q, kp, vp, bt, pos)
     torch.cuda.synchronize()
     act = pos >= 0
     e = (out[act].float() - ref[act].float()).abs().max().item()
-    name = f"paged decode {what}{_dt_name(dtype)} K={kh} G={g} ps={ps}"
+    name = (f"paged decode {what}{_dt_name(dtype)} K={kh} G={g} D={d} "
+            f"ps={ps}")
     check(math.isfinite(e) and e <= TOL[dtype], f"{name}: err {e}")
     check(bool((out[~act] == 0).all()), f"{name}: inactive slot not zero")
     how = ""
@@ -726,7 +773,8 @@ def dense_check(inputs, dtype, what: str) -> float:
 
 
 def flash_row(timer, name, dtype, inputs, err, bp, s, *, h: int = H,
-              kh: int = K, d: int = D, window: int = 0, what: str = ""):
+              kh: int = K, d: int = D, window: int = 0, what: str = "",
+              causal: bool = True):
     """Flash's kernel-table row: card ms, plain ms and SDPA (on expanded
     K/V, with the window as a mask) on ``inputs``, beside the bound."""
     from repro_torch.kernels import flash_attention as FA
@@ -734,7 +782,7 @@ def flash_row(timer, name, dtype, inputs, err, bp, s, *, h: int = H,
     g = h // kh
     sfx, tag = _dt_suffix(dtype)
     q, k, v = inputs
-    nb, no = flash_cost(bp, s, dtype, h, kh, window, d)
+    nb, no = flash_cost(bp, s, dtype, h, kh, window, d, causal)
     bms, bby = bound_ms(nb, no, dtype)
     qs = q.reshape(bp, h, s, d)
     ks = k.reshape(bp, kh, s, d).repeat_interleave(g, 1)
@@ -745,18 +793,18 @@ def flash_row(timer, name, dtype, inputs, err, bp, s, *, h: int = H,
         lib = timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=wmask))
     else:
-        lib = timer(lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                           is_causal=True))
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal))
     return with_tflops(dict(
         name=name + sfx, route="cuda", source=ATTN_SRC,
         replaces="src/repro/kernels/flash_attention.py:77",
-        ms=timer(lambda: FA.flash_attention(q, k, v, window=window,
-                                            group=g)),
+        ms=timer(lambda: FA.flash_attention(q, k, v, causal=causal,
+                                            window=window, group=g)),
         plain_ms=timer(lambda: FA.flash_attention_plain(
-            q, k, v, window=window, group=g)),
+            q, k, v, causal=causal, window=window, group=g)),
         bound_ms=bms, bound_by=bby, library_ms=lib, max_abs_err=err,
         shape=f"{what}Bp={bp} S={s} H={h} K={kh} D={d} window {window} "
-              f"causal {tag}"), no)
+              f"{'causal' if causal else 'non-causal'} {tag}"), no)
 
 
 def paged_row(timer, name, dtype, inputs, err, *, what: str = "",
@@ -835,6 +883,27 @@ def dense_row(timer, name, dtype, inputs, err, *, what: str = "",
               f"G={g} D={d} {tag}, {body}")
 
 
+def _sweep_fused(fused, args, outs, shares, what: str):
+    """``fused(*args, decode_share=share)`` at every share, each result
+    bit-equal to ``outs`` (flash + the decode kernel launched apart).
+    Returns the last result."""
+    for share in shares:
+        got = fused(*args, decode_share=share)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], outs[0]) and torch.equal(got[1], outs[1]),
+              f"{what} share {share}: not bit-equal to flash + decode")
+    return got
+
+
+def _fused_err(got, ref, act, dtype, what: str) -> float:
+    """max|kernel - plain| of a fused launch (the decode side on its
+    slots ``act``), within TOL."""
+    e = max((got[0].float() - ref[0].float()).abs().max().item(),
+            (got[1][act].float() - ref[1][act].float()).abs().max().item())
+    check(math.isfinite(e) and e <= TOL[dtype], f"{what}: {e}")
+    return e
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -902,12 +971,12 @@ def phase_build():
             f"{r['spill_st']} B spill stores, {r['spill_ld']} B spill loads, "
             f"{r['smem']} B static smem")
     # the bf16 paged fused kernel runs the split body at two CTAs an SM:
-    # it must fit its 128 registers without spilling
+    # it must fit its 128 registers without spilling, at every head dim
     fused = [r for r in report if "bullet_tc_kernel" in r["kernel"]
              and "10DecodeArgs" in r["kernel"]]
-    check(len(fused) == 1 and fused[0]["spill_st"] == 0
-          and fused[0]["spill_ld"] == 0,
-          f"bullet_tc_kernel<128, DecodeArgs> spills: {fused}")
+    check(len(fused) == len(build.PAGED_HEAD_DIMS)
+          and all(r["spill_st"] == 0 and r["spill_ld"] == 0 for r in fused),
+          f"bullet_tc_kernel<D, DecodeArgs> spills: {fused}")
     # no SSD kernel may spill: the bf16 body keeps its accumulators in
     # registers across each product
     ssd = [r for r in report if any(k in r["kernel"] for k in SSD_KERNELS)]
@@ -961,24 +1030,15 @@ def phase_kernels(timer: Timer):
     shares = sorted({round(p.decode_share, 6) for p in rm.tile_entries})
     for dtype in (torch.float32, torch.bfloat16):
         qp, kpp, vpp = flash_inputs(gen, 2, 200, dtype)
-        qd, kpg, vpg, bt, pos = decode_inputs(gen, dtype)
+        dec = decode_inputs(gen, dtype)
         fo = FA.flash_attention(qp, kpp, vpp, causal=True, group=G)
-        do = PD.paged_decode_attention(qd, kpg, vpg, bt, pos)
-        rp, rd = BA.bullet_attention_paged_plain(qp, kpp, vpp, qd, kpg, vpg,
-                                                 bt, pos, group=G)
-        act = pos >= 0
-        for share in shares:
-            op, od = BA.bullet_attention_paged(qp, kpp, vpp, qd, kpg, vpg,
-                                               bt, pos, decode_share=share,
-                                               group=G)
-            torch.cuda.synchronize()
-            check(torch.equal(op, fo) and torch.equal(od, do),
-                  f"bullet {dtype} share {share}: not bit-equal to "
-                  "flash + paged decode")
-        e = max((op.float() - rp.float()).abs().max().item(),
-                (od[act].float() - rd[act].float()).abs().max().item())
-        check(math.isfinite(e) and e <= TOL[dtype], f"bullet {dtype}: {e}")
-        err[("bullet", dtype)] = e
+        do = PD.paged_decode_attention(*dec)
+        got = _sweep_fused(
+            functools.partial(BA.bullet_attention_paged, group=G),
+            (qp, kpp, vpp, *dec), (fo, do), shares, f"bullet {dtype}")
+        err[("bullet", dtype)] = e = _fused_err(
+            got, BA.bullet_attention_paged_plain(qp, kpp, vpp, *dec, group=G),
+            dec[4] >= 0, dtype, f"bullet {dtype}")
         log(f"bullet {str(dtype)[6:]}: bit-equal to flash + paged decode at "
             f"all {len(shares)} tile-table shares; max|kernel-plain| = "
             f"{e:.3e}")
@@ -986,23 +1046,14 @@ def phase_kernels(timer: Timer):
         qp, kpp, vpp = flash_inputs(gen, 2, 200, dtype)
         fo = FA.flash_attention(qp, kpp, vpp, causal=True, group=G)
         for ring in (False, True):
-            qd, kc, vc, kvpos, pos = dense_inputs(gen, dtype, ring)
-            do = DA.decode_attention(qd, kc, vc, kvpos, pos)
-            for share in shares:
-                op, od = BA.bullet_attention(qp, kpp, vpp, qd, kc, vc, kvpos,
-                                             pos, decode_share=share, group=G)
-                torch.cuda.synchronize()
-                check(torch.equal(op, fo) and torch.equal(od, do),
-                      f"dense bullet {dtype} ring={ring} share {share}: not "
-                      "bit-equal to flash + dense decode")
-        rp, rd = BA.bullet_attention_plain(qp, kpp, vpp, qd, kc, vc, kvpos,
-                                           pos, group=G)
-        act = attended(kvpos, pos)
-        e = max((op.float() - rp.float()).abs().max().item(),
-                (od[act].float() - rd[act].float()).abs().max().item())
-        check(math.isfinite(e) and e <= TOL[dtype],
-              f"dense bullet {dtype}: {e}")
-        err[("bullet_dense", dtype)] = e
+            dec = dense_inputs(gen, dtype, ring)
+            got = _sweep_fused(
+                functools.partial(BA.bullet_attention, group=G),
+                (qp, kpp, vpp, *dec), (fo, DA.decode_attention(*dec)),
+                shares, f"dense bullet {dtype} ring={ring}")
+        err[("bullet_dense", dtype)] = e = _fused_err(
+            got, BA.bullet_attention_plain(qp, kpp, vpp, *dec, group=G),
+            attended(dec[3], dec[4]), dtype, f"dense bullet {dtype}")
         log(f"dense bullet {str(dtype)[6:]}: bit-equal to flash + dense decode "
             f"at all {len(shares)} tile-table shares, linear and ring; "
             f"max|kernel-plain| = {e:.3e}")
@@ -1322,6 +1373,9 @@ MX_H, MX_K, MX_WINDOW, MX_S = 48, 8, 4096, 4200
 MX_DPOS = (4239, 1539, 639, 103)
 L4_H, L4_K = 40, 8
 Q15_H = 20
+#: InternVL2-76B's 64 query heads on 8 kv heads (G = 8) and the patches
+#: its stub frontend prepends to each prompt
+IV_H, IV_K, IV_PATCHES = 64, 8, 256
 
 
 def phase_attention_moe(timer: Timer) -> list:
@@ -1333,7 +1387,10 @@ def phase_attention_moe(timer: Timer) -> list:
     slots of its wrapped 4096-row ring; Llama-4's paged decode (G = 5) and
     its paged fused kernel, bit-equal to flash + paged decode at every
     decode_share of the tile table; Qwen1.5-4B's flash and paged decode
-    (G = 1, the first multi-head model the kernels serve)."""
+    (G = 1, the first multi-head model the kernels serve); InternVL2-76B's
+    (G = 8) flash over the internvl phase's padded prefill batch and dense
+    decode over its slot cache at the last decode step (checked, not
+    timed)."""
     from repro_torch.core.estimator import HardwareSpec
     from repro_torch.core.resource import ResourceManager
     from repro_torch.core.scheduler import SchedulerConfig
@@ -1369,25 +1426,16 @@ def phase_attention_moe(timer: Timer) -> list:
             gen, dtype, kh=L4_K, g=g5, what="llama4-maverick ")
         qp, kpp, vpp = inp["l4_flash", dtype] = flash_inputs(
             gen, 1, MAX_LEN, dtype, L4_H, L4_K)
-        qd, kpg, vpg, bt, pos = inp["l4_decode", dtype]
+        dec = inp["l4_decode", dtype]
         fo = FA.flash_attention(qp, kpp, vpp, causal=True, group=g5)
-        do = PD.paged_decode_attention(qd, kpg, vpg, bt, pos)
-        for share in shares:
-            op, od = BA.bullet_attention_paged(qp, kpp, vpp, qd, kpg, vpg,
-                                               bt, pos, decode_share=share,
-                                               group=g5)
-            torch.cuda.synchronize()
-            check(torch.equal(op, fo) and torch.equal(od, do),
-                  f"bullet llama4-maverick {dtype} share {share}: not "
-                  "bit-equal to flash + paged decode")
-        rp, rd = BA.bullet_attention_paged_plain(qp, kpp, vpp, qd, kpg, vpg,
-                                                 bt, pos, group=g5)
-        act = pos >= 0
-        e = max((op.float() - rp.float()).abs().max().item(),
-                (od[act].float() - rd[act].float()).abs().max().item())
-        check(math.isfinite(e) and e <= TOL[dtype],
-              f"bullet llama4-maverick {dtype}: {e}")
-        err["l4_bullet", dtype] = e
+        got = _sweep_fused(
+            functools.partial(BA.bullet_attention_paged, group=g5),
+            (qp, kpp, vpp, *dec), (fo, PD.paged_decode_attention(*dec)),
+            shares, f"bullet llama4-maverick {dtype}")
+        err["l4_bullet", dtype] = e = _fused_err(
+            got, BA.bullet_attention_paged_plain(qp, kpp, vpp, *dec,
+                                                 group=g5),
+            dec[4] >= 0, dtype, f"bullet llama4-maverick {dtype}")
         log(f"bullet llama4-maverick {_dt_name(dtype)} (H={L4_H} K={L4_K}): "
             f"bit-equal to flash + paged decode at all {len(shares)} "
             f"tile-table shares; max|kernel-plain| = {e:.3e}")
@@ -1397,6 +1445,25 @@ def phase_attention_moe(timer: Timer) -> list:
             gen, 1, MAX_LEN, dtype, h=Q15_H, kh=Q15_H, what="qwen1.5-4b ")
         err["q15_decode", dtype], inp["q15_decode", dtype] = paged_check(
             gen, dtype, kh=Q15_H, g=1, what="qwen1.5-4b ")
+
+    # -- InternVL2-76B: IV_PATCHES patches before each of IV_PROMPTS, one
+    # padded batch, and the slot cache of the internvl phase at its last
+    # step (a generator of its own: the rows above keep their inputs)
+    ivgen = torch.Generator(device="cuda").manual_seed(76)
+    b, s_iv = len(IV_PROMPTS), IV_PATCHES + max(IV_PROMPTS)
+    n_rows = s_iv + IV_DECODE
+    ivpos = torch.tensor([IV_PATCHES + n + IV_DECODE - 1 for n in IV_PROMPTS],
+                         dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        def rn(*shape):
+            return torch.randn(*shape, generator=ivgen,
+                               device="cuda").to(dtype)
+        flash_check(ivgen, b, s_iv, dtype, h=IV_H, kh=IV_K,
+                    what="internvl2-76b ")
+        dense_check((rn(b, IV_K, IV_H // IV_K, D), rn(b, n_rows, IV_K, D),
+                     rn(b, n_rows, IV_K, D),
+                     _kv_positions(ivpos, n_rows, False), ivpos), dtype,
+                    f"internvl2-76b {n_rows}-row slot cache")
 
     share = round(rm.current.decode_share, 6)
     rows = []
@@ -1445,6 +1512,184 @@ def phase_attention_moe(timer: Timer) -> list:
     for r in rows:
         log_row(r)
     return rows
+
+
+#: head dim 64: Granite-3.0-2B's attention (32 query heads on 8 kv heads,
+#: G = 4) and SeamlessM4T-Large-v2's (16 on 16, G = 1) over its SM_SE stub
+#: frames (the encoder's length and the cross cache's rows)
+D64, GR_H, GR_K = 64, 32, 8
+SM_H, SM_SE = 16, 1024
+#: the Seamless phase's rows: decoder prompts and greedy decode steps
+SM_PROMPTS, SM_DECODE = (8, 16, 32, 64), 64
+
+
+def phase_attention_d64(timer: Timer):
+    """The D = 64 instances of kernels 1-5, fp32 and bf16, each against
+    its plain version (bf16 also per output row within RG_ATTN_ULPS) at
+    the shapes the head-dim-64 models serve, timed beside its bound and
+    SDPA: Granite's causal flash over one prompt of MAX_LEN tokens (G = 4)
+    and its paged decode over the 8 slots of CONTEXTS; Seamless's encoder
+    flash, non-causal, over 4 rows of SM_SE frames (G = 1), its
+    cross-attention flash (Sq = 64 prompt rows over the SM_SE encoder
+    rows, non-causal: checked, not timed) and its cross decode, kernel 4
+    over 4 slots of SM_SE rows all attended; both fused kernels bit-equal
+    to flash + their decode kernel at every decode_share of the tile table
+    (Granite's prompt with its paged decode, and with dense decode over 8
+    slots of MAX_LEN rows), the paged one's SM partition read from its
+    record at shares 0.25 and 0.75. Returns (rows, the dense fused
+    kernel's launches in each dtype's share sweep: no serving path runs
+    it, as at D = 128)."""
+    from repro_torch.core.estimator import HardwareSpec
+    from repro_torch.core.resource import ResourceManager
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.kernels import bullet_attention as BA
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    g4 = GR_H // GR_K
+    rm = ResourceManager(HardwareSpec(), SchedulerConfig().unit_quantum)
+    shares = sorted({round(p.decode_share, 6) for p in rm.tile_entries})
+    dev = torch.cuda.current_device()
+    err, inp, dense_launches = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        # -- Granite: causal flash (G = 4) and paged decode
+        err["gr_flash", dtype], inp["gr_flash", dtype] = flash_check(
+            gen, 1, MAX_LEN, dtype, h=GR_H, kh=GR_K, d=D64,
+            what="granite-3-2b ")
+        err["gr_decode", dtype], inp["gr_decode", dtype] = paged_check(
+            gen, dtype, kh=GR_K, g=g4, d=D64, what="granite-3-2b ")
+        # -- Seamless: the encoder's non-causal flash (G = 1), the
+        # cross-attention's (a 64-token prompt over SM_SE rows) and the
+        # cross decode over SM_SE rows, every one attended
+        err["sm_flash", dtype], inp["sm_flash", dtype] = flash_check(
+            gen, 4, SM_SE, dtype, h=SM_H, kh=SM_H, d=D64, causal=False,
+            what="seamless encoder ")
+        flash_check(gen, 4, 64, dtype, h=SM_H, kh=SM_H, d=D64,
+                    causal=False, sk=SM_SE, what="seamless cross-attention ")
+        b = 4
+        kvpos = torch.arange(SM_SE, dtype=torch.int32, device="cuda")[
+            None].expand(b, SM_SE).contiguous()
+        inp["sm_cross", dtype] = (
+            rn(b, SM_H, 1, D64), rn(b, SM_SE, SM_H, D64),
+            rn(b, SM_SE, SM_H, D64), kvpos,
+            torch.full((b,), SM_SE - 1, dtype=torch.int32, device="cuda"))
+        err["sm_cross", dtype] = dense_check(
+            inp["sm_cross", dtype], dtype,
+            f"seamless cross-attention, {SM_SE} rows all attended,")
+
+        # -- the paged fused kernel: Granite's prompt and paged decode,
+        # bit-equal at every share, the SM partition from its record
+        qp, kpp, vpp = inp["gr_flash", dtype]
+        dec = inp["gr_decode", dtype]
+        fo = FA.flash_attention(qp, kpp, vpp, causal=True, group=g4)
+        do = PD.paged_decode_attention(*dec)
+        got = _sweep_fused(
+            functools.partial(BA.bullet_attention_paged, group=g4),
+            (qp, kpp, vpp, *dec), (fo, do), shares,
+            f"bullet granite-3-2b {dtype}")
+        err["gr_bullet", dtype] = _fused_err(
+            got, BA.bullet_attention_paged_plain(qp, kpp, vpp, *dec,
+                                                 group=g4),
+            dec[4] >= 0, dtype, f"bullet granite-3-2b {dtype}")
+        for share in (0.25, 0.75):
+            op, od, sched = BA.bullet_attention_paged(
+                qp, kpp, vpp, *dec, decode_share=share, group=g4,
+                record=True)
+            torch.cuda.synchronize()
+            what = f"paged bullet D=64 {_dt_name(dtype)} share {share}"
+            check(torch.equal(op, fo) and torch.equal(od, do),
+                  f"{what}: not bit-equal to flash + decode")
+            log(f"{what} at granite's shape: {schedule_gate(sched, what)}")
+        code = int(dtype == torch.bfloat16)
+        log(f"bullet granite-3-2b {_dt_name(dtype)} (H={GR_H} K={GR_K} "
+            f"D={D64}): bit-equal to flash + paged decode at all "
+            f"{len(shares)} tile-table shares; max|kernel-plain| = "
+            f"{err['gr_bullet', dtype]:.3e}; "
+            f"{BA.grid_ctas(dev, code, D64, g4, PS)} CTAs a wave (D=128: "
+            f"{BA.grid_ctas(dev, code, D, g4, PS)})")
+
+        # -- the dense fused kernel: Granite's prompt with dense decode over
+        # 8 slots of MAX_LEN rows, bit-equal at every share; its launches
+        # are this sweep's
+        dd = inp["gr_dense", dtype] = dense_inputs(gen, dtype, False, GR_K,
+                                                   g4, D64)
+        ddo = DA.decode_attention(*dd)
+        BA.dense_launches = 0
+        got = _sweep_fused(functools.partial(BA.bullet_attention, group=g4),
+                           (qp, kpp, vpp, *dd), (fo, ddo), shares,
+                           f"dense bullet granite-3-2b {dtype}")
+        dense_launches[dtype] = BA.dense_launches
+        check(dense_launches[dtype] == len(shares),
+              f"dense bullet D=64 {dtype}: {dense_launches[dtype]} launches")
+        err["gr_dbullet", dtype] = _fused_err(
+            got, BA.bullet_attention_plain(qp, kpp, vpp, *dd, group=g4),
+            attended(dd[3], dd[4]), dtype, f"dense bullet D=64 {dtype}")
+        log(f"dense bullet granite-3-2b {_dt_name(dtype)}: bit-equal to "
+            f"flash + dense decode at all {len(shares)} tile-table shares; "
+            f"max|kernel-plain| = {err['gr_dbullet', dtype]:.3e}")
+    log(f"split decode CTAs an SM, bf16: dense D=64 "
+        f"{DA.split_ctas_per_sm(dev, D64)}, D=128 "
+        f"{DA.split_ctas_per_sm(dev, D)}; paged D=64 "
+        f"{DA.split_ctas_per_sm(dev, D64, True)}, D=128 "
+        f"{DA.split_ctas_per_sm(dev, D, True)}")
+
+    share = round(rm.current.decode_share, 6)
+    n_sm = DA.sm_count(dev)
+    rows = []
+    for dt in (torch.bfloat16, torch.float32):
+        sfx, tag = _dt_suffix(dt)
+        rows.append(flash_row(timer, "flash_attention_d64", dt,
+                              inp["gr_flash", dt], err["gr_flash", dt], 1,
+                              MAX_LEN, h=GR_H, kh=GR_K, d=D64,
+                              what="granite-3-2b: "))
+        rows.append(flash_row(timer, "flash_attention_d64_encoder", dt,
+                              inp["sm_flash", dt], err["sm_flash", dt], 4,
+                              SM_SE, h=SM_H, kh=SM_H, d=D64, causal=False,
+                              what="seamless encoder: "))
+        rows.append(paged_row(timer, "paged_decode_attention_d64", dt,
+                              inp["gr_decode", dt], err["gr_decode", dt],
+                              what="granite-3-2b: ", sweep=True))
+        rows.append(dense_row(timer, "decode_attention_d64", dt,
+                              inp["sm_cross", dt], err["sm_cross", dt],
+                              what="seamless cross-attention: ", sweep=True))
+        qp, kpp, vpp = inp["gr_flash", dt]
+        nb_p, no_p = flash_cost(1, MAX_LEN, dt, GR_H, GR_K, d=D64)
+        for kind, dec in (("paged", inp["gr_decode", dt]),
+                          ("dense", inp["gr_dense", dt])):
+            if kind == "paged":
+                nb_d, no_d = decode_cost(dec[0], dec[4], dt)
+                fused, plain = BA.bullet_attention_paged, \
+                    BA.bullet_attention_paged_plain
+                name, key = "bullet_attention_paged_d64", "gr_bullet"
+                replaces = "src/repro/kernels/bullet_attention.py:260"
+            else:
+                nb_d, no_d = dense_cost(dec[0], dec[3], dec[4], dt)
+                fused, plain = BA.bullet_attention, BA.bullet_attention_plain
+                name, key = "bullet_attention_d64", "gr_dbullet"
+                replaces = "src/repro/kernels/bullet_attention.py:361"
+            bms, bby = bound_ms(nb_p + nb_d, no_p + no_d, dt)
+            n_ctas = BA.grid_ctas(dev, int(dt == torch.bfloat16), D64, g4,
+                                  PS, dense=kind == "dense")
+            rows.append(dict(
+                name=name + sfx, route="cuda", source=ATTN_SRC,
+                replaces=replaces,
+                ms=timer(lambda: fused(qp, kpp, vpp, *dec,
+                                       decode_share=share, group=g4)),
+                plain_ms=timer(lambda: plain(qp, kpp, vpp, *dec, group=g4)),
+                bound_ms=bms, bound_by=bby, library_ms=None,
+                max_abs_err=err[key, dt],
+                shape=f"granite-3-2b: flash Bp=1 S={MAX_LEN} H={GR_H} "
+                      f"K={GR_K} D={D64} + {kind} decode over 8 slots, "
+                      f"decode_share={share}: "
+                      f"{BA.decode_sms(share, n_sm, True, True)} of {n_sm} "
+                      f"SMs decode first, {n_ctas} CTAs, {tag}"))
+    for r in rows:
+        log_row(r)
+    return rows, dense_launches
 
 
 def phase_colocated(timer: Timer) -> dict:
@@ -2280,14 +2525,7 @@ def phase_graphs(card: str, buckets) -> None:
 
     cfg = get_config("qwen3-1.7b")
     params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    max_blocks = -(-1152 // PS)
-    cache = T.init_paged_cache(cfg, 8 * max_blocks, PS, torch.bfloat16,
-                               "cuda")
-    _fill_random(cache, 6)
-    engine_graphs_check("qwen3-1.7b paged", cfg, params, cache,
-                        paged_graph_steps(buckets, 8, max_blocks, 7), card)
-    fused_graphs_check(cfg, params, cache, buckets, card)
-    prefill_graphs_check(cfg, params, cache, card)
+    _paged_graphs("qwen3-1.7b", cfg, params, buckets, card, FUSED_REPS, 6)
     cache = T.init_cache(cfg, 8, 1152, torch.bfloat16, "cuda")
     _fill_random(cache, 8)
     engine_graphs_check("qwen3-1.7b dense", cfg, params, cache,
@@ -2345,21 +2583,25 @@ MOE_ENGINE = dict(n=6, lo=30, hi=120, out=8)
 MX_PROMPTS, MX_DECODE, MX_LAYERS = (4200, 1500, 600, 64), 32, 8
 
 
-def _reduced_heads(name: str):
-    """``name`` at the reduced widths with head dim 128 (the kernels'),
-    its own query and kv heads (so its own G), experts and top-k."""
+def _reduced_heads(name: str, head_dim: int = 128):
+    """``name`` at the reduced widths with a head dim the kernels are
+    built for, its own query and kv heads (so its own G), experts and
+    top-k."""
     from repro_torch.configs import get_config
     full = get_config(name)
-    return full.reduced(head_dim=128, n_heads=full.n_heads,
+    return full.reduced(head_dim=head_dim, n_heads=full.n_heads,
                         n_kv_heads=full.n_kv_heads,
                         n_experts=full.n_experts,
                         n_experts_per_token=full.n_experts_per_token)
 
 
-def _to_cpu(params):
-    return {k: (tuple({n: t.cpu() for n, t in b.items()} for b in v)
-                if isinstance(v, tuple) else v.cpu())
-            for k, v in params.items()}
+def _to_cpu(tree):
+    """A param or cache tree's tensors on the CPU, its nesting kept."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu()
 
 
 def _kernel_counts():
@@ -2410,6 +2652,52 @@ def _engine_streams(cfg, params, device, dtype, prompts, fused: bool):
         cycles += 1
     moe = server.moe_stats.read() if server.moe_stats is not None else None
     return server.outputs, cycles, server.stats, moe
+
+
+def _engine_card_vs_cpu(name: str, cfg, prompts, seed: int, fused: bool,
+                        card: str) -> dict:
+    """``cfg`` (reduced) through BulletServer in fp32 with params drawn
+    from ``seed``, on the card (kernels) and on the CPU (plain versions),
+    over ``prompts`` (``_engine_streams``): streams, cycles and MoE sums
+    equal; ``fused``: a fused cycle ran on the card. Returns the card's
+    launch counts."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, seed=seed, dtype=torch.float32,
+                           device="cuda")
+    got = {}
+    for side, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        _reset_counts()
+        got[side] = _engine_streams(cfg, p, p["embed"].device, torch.float32,
+                                    prompts, fused)
+        if side == "cuda":
+            counts = _kernel_counts()
+    check(got["cuda"][0] == got["cpu"][0],
+          f"{name} engine: card and CPU streams differ")
+    check(got["cuda"][1] == got["cpu"][1],
+          f"{name} engine: {got['cuda'][1]} cycles on the card, "
+          f"{got['cpu'][1]} on the CPU")
+    moe_c, moe_h = got["cuda"][3], got["cpu"][3]
+    if moe_c is not None:
+        # the drops follow from the routing alone; the load-balance loss
+        # sums softmax outputs, rounded apart on the two devices
+        check({k: v for k, v in moe_c.items() if k != "load_balance_loss"}
+              == {k: v for k, v in moe_h.items()
+                  if k != "load_balance_loss"}
+              and math.isclose(moe_c["load_balance_loss"],
+                               moe_h["load_balance_loss"], rel_tol=1e-4),
+              f"{name} engine: MoE sums {moe_c} on the card, {moe_h} on "
+              "the CPU")
+    st = got["cuda"][2]
+    if fused:
+        check(st.fused_cycles > 0 and counts["bullet_paged"] > 0,
+              f"{name} engine: no fused cycle")
+    sums = "" if moe_c is None else f" and MoE sums {moe_c}"
+    log(f"engine reference {name}: reduced widths, H={cfg.n_heads} "
+        f"K={cfg.n_kv_heads} D={cfg.head_dim}, fp32, "
+        f"{'fused' if fused else 'serial'}, {len(prompts)} requests: card "
+        f"and CPU streams, cycles ({got['cuda'][1]}){sums} equal; "
+        f"{st.fused_cycles} fused cycles; card launches {counts}  [{card}]")
+    return counts
 
 
 def phase_moe_reference(card: str) -> dict:
@@ -2494,47 +2782,14 @@ def phase_moe_reference(card: str) -> dict:
         prompts = [rng.integers(0, cfg.vocab_size,
                                 int(rng.integers(m["lo"], m["hi"])))
                    .astype(np.int32) for _ in range(m["n"])]
-        params = T.init_params(cfg, seed=5, dtype=torch.float32,
-                               device="cuda")
-        got = {}
-        for side, p in (("cuda", params), ("cpu", _to_cpu(params))):
-            _reset_counts()
-            got[side] = _engine_streams(cfg, p, p["embed"].device,
-                                        torch.float32, prompts, fused)
-            if side == "cuda":
-                counts = _kernel_counts()
-        check(got["cuda"][0] == got["cpu"][0],
-              f"{name} engine: card and CPU streams differ")
-        check(got["cuda"][1] == got["cpu"][1],
-              f"{name} engine: {got['cuda'][1]} cycles on the card, "
-              f"{got['cpu'][1]} on the CPU")
-        moe_c, moe_h = got["cuda"][3], got["cpu"][3]
-        if moe_c is not None:
-            # the drops follow from the routing alone; the load-balance
-            # loss sums softmax outputs, rounded apart on the two devices
-            check({k: v for k, v in moe_c.items() if k != "load_balance_loss"}
-                  == {k: v for k, v in moe_h.items()
-                      if k != "load_balance_loss"}
-                  and math.isclose(moe_c["load_balance_loss"],
-                                   moe_h["load_balance_loss"], rel_tol=1e-4),
-                  f"{name} engine: MoE sums {moe_c} on the card, {moe_h} on "
-                  "the CPU")
-        st = got["cuda"][2]
+        counts = _engine_card_vs_cpu(name, cfg, prompts, 5, fused, card)
         if fused:
-            check(st.fused_cycles > 0 and counts["bullet_paged"] > 0,
-                  f"{name} engine: no fused cycle")
             launches["bullet_attention_paged_llama4_fp32"] = \
                 counts["bullet_paged"]
         else:
             launches["flash_attention_qwen15_fp32"] = counts["flash"]
             launches["paged_decode_attention_qwen15_fp32"] = \
                 counts["paged_decode"]
-        log(f"moe reference engine {name}: reduced widths, H="
-            f"{cfg.n_heads} K={cfg.n_kv_heads}, fp32, "
-            f"{'fused' if fused else 'serial'}, {m['n']} requests: card and "
-            f"CPU streams, cycles ({got['cuda'][1]}) and MoE sums "
-            f"{got['cuda'][3]} equal; {st.fused_cycles} fused cycles; card "
-            f"launches {counts}  [{card}]")
         if name == "qwen1.5-4b":
             p16 = T.init_params(cfg, seed=5, dtype=torch.bfloat16,
                                 device="cuda")
@@ -2626,11 +2881,128 @@ def phase_moe(card: str, timer: Timer) -> dict:
     return launches
 
 
+def _serve_full(name: str, cfg, params, card: str, moe: bool = False):
+    """``cfg`` at full width on the paged path through BulletServer, bf16:
+    the serve phase's 12 requests fused (the pause off; launches counted,
+    the fused cycles' decode shares, the prefill padding, the host split),
+    serial (streams identical to the fused run's, the host split, a
+    profile window over 10 serial decode cycles once every prompt is in,
+    with its device busy share), then under the scheduler's defaults.
+    ``moe``: every prefill group made one MoE call; its drops are printed.
+    Returns (the fused serve's launch counts, the serial serve's decode
+    table buckets)."""
+    from repro_torch.core.engine import prefill_bucket
+
+    prompts, out_lens, arrivals = serve_workload(cfg)
+    n_tok = int(sum(out_lens))
+    _serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
+
+    _reset_counts()
+    fused_shares, split = FusedShares(), HostSplit()
+    server, secs, cycles = _serve(
+        cfg, params, prompts, out_lens, arrivals, fused=True,
+        audit=lambda srv: (fused_shares(srv), split(srv)))
+    counts = _kernel_counts()
+    for rid, o in enumerate(out_lens):
+        got = server.outputs.get(rid, [])
+        check(len(got) == o and all(0 <= t < cfg.vocab_size for t in got),
+              f"{name} serve: request {rid}: {len(got)} tokens, want {o}")
+    check(server.pool.available_blocks == server.pool.n_blocks,
+          f"{name} serve: KV pool not clean")
+    check(server.stats.fused_cycles > 0, f"{name} serve: no fused cycle")
+    for kind in ("flash", "paged_decode", "bullet_paged"):
+        check(counts[kind] > 0, f"{name} serve: no {kind} launch")
+    drops = ""
+    if moe:
+        m = server.moe_stats.read()
+        check(m["calls"] == server.stats.prefill_cycles,
+              f"{name} serve: {m['calls']} MoE prefill calls, "
+              f"{server.stats.prefill_cycles} prefill groups")
+        drops = (f"; drops per prefill group: {m['dropping_calls']} of "
+                 f"{m['calls']} groups dropped, mean dropped fraction "
+                 f"{m['mean_dropped_fraction']:.4f}")
+    log(f"{name} serve fused: {n_tok} tokens in {secs:.3f} s = "
+        f"{n_tok / secs:.1f} tok/s, {cycles} cycles, "
+        f"{server.stats.fused_cycles} fused, {server.stats.prefill_cycles} "
+        f"prefill groups, launches {counts}{drops}; {captures(server)}  "
+        f"[{card}]")
+    # one prompt per prefill batch, each padded to its length bucket
+    real = sum(len(p) for p in prompts)
+    pad = sum(prefill_bucket(len(p), 1152, PS) for p in prompts)
+    log(f"{name} serve fused: decode_share of the fused cycles: "
+        f"{share_histogram(fused_shares.shares)}; prefill batches: {real} "
+        f"prompt tokens padded to {pad} "
+        f"({100 * (1 - real / pad):.1f}% padding)")
+    for kind in sorted(split.cycles):
+        log(f"{name} fused host split: {host_split_line(split, kind)}")
+
+    prof = ProfileCycles(1, 10, when=lambda srv: (srv.ptask is None
+                                                  and not srv.pending))
+    s_split = HostSplit()
+    serial, s_secs, s_cycles = _serve(
+        cfg, params, prompts, out_lens, arrivals, fused=False,
+        audit=lambda srv: (prof(srv), s_split(srv)))
+    check(serial.stats.fused_cycles == 0, f"{name} serial run fused")
+    for rid in range(len(prompts)):
+        check(serial.outputs[rid] == server.outputs[rid],
+              f"{name} request {rid}: fused and serial streams differ from "
+              f"token {_first_diff(serial.outputs[rid], server.outputs[rid])}")
+    buckets = sorted({k[1] for k, _ in serial.graphs.captures
+                      if k[0] == "paged"})
+    log(f"{name} serve serial: {n_tok / s_secs:.1f} tok/s, {s_cycles} "
+        f"cycles; token streams identical to the fused run's "
+        f"({server.stats.fused_cycles} fused cycles), decode table buckets "
+        f"{buckets} pages; {captures(serial)}  [{card}]")
+    for kind in sorted(s_split.cycles):
+        log(f"{name} serial host split: {host_split_line(s_split, kind)}")
+    window = prof.report(f"10 serial decode cycles of {name}'s serial serve "
+                         "(8 slots)", card)
+    log(f"{name} decode window: device busy share "
+        f"{100 * window['busy_share']:.1f}%")
+    d_split = HostSplit()
+    _reset_counts()
+    dflt, d_secs, d_cycles = _serve(cfg, params, prompts, out_lens,
+                                    arrivals, fused=True, default_sched=True,
+                                    audit=d_split)
+    for rid, o in enumerate(out_lens):
+        check(len(dflt.outputs.get(rid, [])) == o,
+              f"{name} default scheduler: request {rid} unfinished")
+    log(f"{name} serve default scheduler: {n_tok / d_secs:.1f} tok/s, "
+        f"{dflt.stats.fused_cycles} of {d_cycles} cycles fused, "
+        f"{dflt.stats.paused_cycles} paused, launches {_kernel_counts()}; "
+        f"{captures(dflt)}  [{card}]")
+    for kind in sorted(d_split.cycles):
+        log(f"{name} default scheduler host split: "
+            f"{host_split_line(d_split, kind)}")
+    del server, serial, dflt, split, s_split, d_split
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, buckets
+
+
+def _paged_graphs(name: str, cfg, params, buckets, card: str, reps,
+                  seed: int, moe: bool = False) -> None:
+    """``cfg``'s graphs against the eager steps on a page pool of 8 slots
+    of 1152 rows drawn from ``seed``, bf16: the serial decode iteration at
+    the table ``buckets``, the fused cycle in segments at the repeats
+    ``reps``, the prefill groups and first tokens."""
+    from repro_torch.models import transformer as T
+    max_blocks = -(-1152 // PS)
+    cache = T.init_paged_cache(cfg, 8 * max_blocks, PS, torch.bfloat16,
+                               "cuda")
+    _fill_random(cache, seed)
+    engine_graphs_check(f"{name} paged", cfg, params, cache,
+                        paged_graph_steps(buckets, 8, max_blocks, seed + 1),
+                        card)
+    fused_graphs_check(cfg, params, cache, buckets, card, name=name,
+                       reps=reps, moe=moe)
+    prefill_graphs_check(cfg, params, cache, card, name=name, moe=moe)
+
+
 def _moe_llama4(card: str, timer: Timer) -> dict:
     """``phase_moe``'s (b) and (c); returns the bf16 Llama-4 rows'
     launches."""
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import prefill_bucket
     from repro_torch.models import transformer as T
 
     launches = {}
@@ -2646,87 +3018,12 @@ def _moe_llama4(card: str, timer: Timer) -> dict:
     log(f"moe llama4-maverick: {T.param_count(params) / 1e9:.2f} G params "
         f"in bf16 ({torch.cuda.memory_allocated() / 2**30:.1f} GiB) drawn in "
         f"{time.perf_counter() - t0:.1f} s  [{card}]")
-    prompts, out_lens, arrivals = serve_workload(cfg)
-    n_tok = int(sum(out_lens))
-    _serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
-
-    _reset_counts()
-    fused_shares, split = FusedShares(), HostSplit()
-    server, secs, cycles = _serve(
-        cfg, params, prompts, out_lens, arrivals, fused=True,
-        audit=lambda srv: (fused_shares(srv), split(srv)))
-    counts = _kernel_counts()
-    for rid, o in enumerate(out_lens):
-        got = server.outputs.get(rid, [])
-        check(len(got) == o and all(0 <= t < cfg.vocab_size for t in got),
-              f"llama4 serve: request {rid}: {len(got)} tokens, want {o}")
-    check(server.pool.available_blocks == server.pool.n_blocks,
-          "llama4 serve: KV pool not clean")
-    check(server.stats.fused_cycles > 0, "llama4 serve: no fused cycle")
-    for kind in ("flash", "paged_decode", "bullet_paged"):
-        check(counts[kind] > 0, f"llama4 serve: no {kind} launch")
+    counts, buckets = _serve_full("llama4-maverick", cfg, params, card,
+                                  moe=True)
     launches["paged_decode_attention_llama4"] = counts["paged_decode"]
     launches["bullet_attention_paged_llama4"] = counts["bullet_paged"]
-    moe = server.moe_stats.read()
-    check(moe["calls"] == server.stats.prefill_cycles,
-          f"llama4 serve: {moe['calls']} MoE prefill calls, "
-          f"{server.stats.prefill_cycles} prefill groups")
-    log(f"moe llama4-maverick serve fused: {n_tok} tokens in {secs:.3f} s "
-        f"= {n_tok / secs:.1f} tok/s, {cycles} cycles, "
-        f"{server.stats.fused_cycles} fused, {server.stats.prefill_cycles} "
-        f"prefill groups, launches {counts}; drops per prefill group: "
-        f"{moe['dropping_calls']} of {moe['calls']} groups dropped, mean "
-        f"dropped fraction {moe['mean_dropped_fraction']:.4f}; "
-        f"{captures(server)}  [{card}]")
-    # one prompt per prefill batch, each padded to its length bucket
-    real = sum(len(p) for p in prompts)
-    pad = sum(prefill_bucket(len(p), 1152, PS) for p in prompts)
-    log(f"moe llama4-maverick serve fused: decode_share of the fused "
-        f"cycles: {share_histogram(fused_shares.shares)}; prefill batches: "
-        f"{real} prompt tokens padded to {pad} "
-        f"({100 * (1 - real / pad):.1f}% padding)")
-    for kind in sorted(split.cycles):
-        log(f"moe llama4-maverick fused host split: "
-            f"{host_split_line(split, kind)}")
-
-    # the serial run profiles 10 decode cycles once every prompt is in
-    prof = ProfileCycles(1, 10, when=lambda srv: (srv.ptask is None
-                                                  and not srv.pending))
-    serial, s_secs, s_cycles = _serve(cfg, params, prompts, out_lens,
-                                      arrivals, fused=False, audit=prof)
-    check(serial.stats.fused_cycles == 0, "llama4 serial run fused")
-    for rid in range(len(prompts)):
-        check(serial.outputs[rid] == server.outputs[rid],
-              f"llama4 request {rid}: fused and serial streams differ from "
-              f"token {_first_diff(serial.outputs[rid], server.outputs[rid])}")
-    buckets = sorted({k[1] for k, _ in serial.graphs.captures
-                      if k[0] == "paged"})
-    log(f"moe llama4-maverick serve serial: {n_tok / s_secs:.1f} tok/s, "
-        f"{s_cycles} cycles; token streams identical to the fused run's "
-        f"({server.stats.fused_cycles} fused cycles), decode table buckets "
-        f"{buckets} pages; {captures(serial)}  [{card}]")
-    prof.report("10 serial decode cycles of Llama-4 Maverick's serial "
-                "serve (8 slots)", card)
-    d_split = HostSplit()
-    _reset_counts()
-    dflt, d_secs, d_cycles = _serve(cfg, params, prompts, out_lens,
-                                    arrivals, fused=True, default_sched=True,
-                                    audit=d_split)
-    for rid, o in enumerate(out_lens):
-        check(len(dflt.outputs.get(rid, [])) == o,
-              f"llama4 default scheduler: request {rid} unfinished")
-    log(f"moe llama4-maverick serve default scheduler: "
-        f"{n_tok / d_secs:.1f} tok/s, {dflt.stats.fused_cycles} of "
-        f"{d_cycles} cycles fused, {dflt.stats.paused_cycles} paused, "
-        f"launches {_kernel_counts()}; {captures(dflt)}  [{card}]")
-    for kind in sorted(d_split.cycles):
-        log(f"moe llama4-maverick default scheduler host split: "
-            f"{host_split_line(d_split, kind)}")
     _moe_ms(timer, cfg, params, card, "llama4-maverick decode", 8, 1)
     _moe_ms(timer, cfg, params, card, "llama4-maverick prefill", 1, 1024)
-    del server, serial, dflt, split, d_split
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # (c) the graphs, with the MoE layer inside: two pattern repeats that
     # share the one repeat's weights (views, no copy)
@@ -2734,16 +3031,8 @@ def _moe_llama4(card: str, timer: Timer) -> dict:
     params2 = dict(params, blocks=tuple(
         {n: t.expand(2, *t.shape[1:]) for n, t in b.items()}
         for b in params["blocks"]))
-    max_blocks = -(-1152 // PS)
-    cache = T.init_paged_cache(cfg2, 8 * max_blocks, PS, torch.bfloat16,
-                               "cuda")
-    _fill_random(cache, 16)
-    engine_graphs_check("llama4-maverick paged", cfg2, params2, cache,
-                        paged_graph_steps(buckets, 8, max_blocks, 17), card)
-    fused_graphs_check(cfg2, params2, cache, buckets, card,
-                       name="llama4-maverick", reps=(0, 1), moe=True)
-    prefill_graphs_check(cfg2, params2, cache, card, name="llama4-maverick",
-                         moe=True)
+    _paged_graphs("llama4-maverick", cfg2, params2, buckets, card, (0, 1),
+                  16, moe=True)
     return launches
 
 
@@ -3356,15 +3645,18 @@ def _prompt_batch(cfg, lens, seed: int):
     return torch.from_numpy(toks), torch.tensor(lens, dtype=torch.int32)
 
 
-def _greedy(params, cfg, toks, lens, cache, n_dec: int):
-    """The models-level path: ``prefill`` of the padded batch, then
-    ``n_dec`` greedy ``decode_step``s through ``GraphedDecode`` (replayed
-    as a CUDA graph on the card, eager on the CPU). Returns the logits of
-    every step (on the CPU) and the greedy tokens."""
+def _greedy(params, cfg, toks, lens, cache, n_dec: int, frontend=None):
+    """The models-level path: ``prefill`` of the padded batch (with its
+    ``frontend``, encoded or prepended), then ``n_dec`` greedy
+    ``decode_step``s through ``GraphedDecode`` (replayed as a CUDA graph on
+    the card, eager on the CPU). Returns the logits of every step (on the
+    CPU) and the greedy tokens."""
     from repro_torch.core.graphs import GraphedDecode
     from repro_torch.models import prefill
     dev = params["embed"].device
-    logits, _ = prefill(params, toks.to(dev), lens.to(dev), cache, None, cfg)
+    logits, _ = prefill(params, toks.to(dev), lens.to(dev), cache, None, cfg,
+                        frontend=None if frontend is None
+                        else frontend.to(dev))
     step = GraphedDecode(params, cache, cfg)
     seq, tokens = [logits.float().cpu()], []
     tok = logits.argmax(-1).to(torch.int32)
@@ -4124,6 +4416,357 @@ def phase_sim(card: str) -> None:
         + _over_tol(r["cycle_gap"]))
 
 
+# ---------------------------------------------------------------------------
+# head dim 64 and the encoder-decoder: Granite-3.0-2B on the paged fused
+# path, SeamlessM4T-Large-v2's encoder and cross-attention, InternVL2-76B's
+# frontend
+# ---------------------------------------------------------------------------
+
+GRANITE, SEAMLESS, INTERNVL = ("granite-3-2b", "seamless-m4t-large-v2",
+                               "internvl2-76b")
+#: the archs reference: prompts (tokens; InternVL2's behind its patches)
+#: as one padded batch, and greedy decode steps
+ARCH_REF_PROMPTS, ARCH_REF_DECODE = (40, 23), 8
+#: InternVL2-76B's cut: layers of its 80, rows of 256 stub patches
+#: prepended to prompts of IV_PROMPTS tokens, greedy decode steps
+IV_LAYERS, IV_PROMPTS, IV_DECODE = 8, (64, 500), 32
+
+
+def _frontend_rows(cfg, b: int, seed: int):
+    """Seeded stub frontend rows on the CPU (B, n, De): an encoder-decoder
+    model's ``encoder_seq_len`` frames, a VLM's ``frontend_embed_len``
+    patches; None without a frontend."""
+    n = cfg.encoder_seq_len if cfg.n_encoder_layers else cfg.frontend_embed_len
+    if not n:
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (b, n, cfg.frontend_embed_dim)).astype(np.float32))
+
+
+def _prepended(cfg) -> int:
+    """Rows a decoder-only VLM's frontend adds in front of each prompt."""
+    return 0 if cfg.n_encoder_layers else cfg.frontend_embed_len
+
+
+def phase_archs_reference(card: str) -> dict:
+    """Granite, Seamless and InternVL2 at reduced widths with head dim 64
+    (so the D = 64 kernels run) and their own heads, fp32, card (kernels)
+    against CPU (plain versions): the models-level ``prefill`` of
+    ARCH_REF_PROMPTS as one padded batch (Seamless encoding its 16 stub
+    frames, InternVL2 prepending its 8 patches) and ARCH_REF_DECODE greedy
+    ``decode_step``s through ``GraphedDecode`` on the dense slot cache,
+    logits within 1e-3 of scale and tokens equal (the MoE reference's
+    gate); then reduced Granite through BulletServer fused, card against
+    CPU, streams and cycles equal. Returns the fp32 D = 64 rows' launches:
+    Granite's engine run (flash, paged decode, the paged fused kernel) and
+    Seamless's reference (its encoder's flash, its decode)."""
+    from repro_torch.models import transformer as T
+
+    launches = {}
+    for name in (GRANITE, SEAMLESS, INTERNVL):
+        cfg = _reduced_heads(name, D64)
+        params = T.init_params(cfg, seed=7, dtype=torch.float32,
+                               device="cuda")
+        toks, lens = _prompt_batch(cfg, ARCH_REF_PROMPTS, seed=8)
+        fe = _frontend_rows(cfg, len(ARCH_REF_PROMPTS), seed=9)
+        lens = lens + _prepended(cfg)
+        max_len = int(lens.max()) + ARCH_REF_DECODE
+        outs = {}
+        for side, p in (("cuda", params), ("cpu", _to_cpu(params))):
+            dev = p["embed"].device
+            _reset_counts()
+            cache = T.init_cache(cfg, len(lens), max_len, torch.float32, dev)
+            outs[side], _ = _greedy(p, cfg, toks, lens, cache,
+                                    ARCH_REF_DECODE, frontend=fe)
+            if side == "cuda":
+                counts = _kernel_counts()
+        worst = _card_vs_cpu(outs, cfg)
+        check(counts["flash"] > 0 and counts["decode"] > 0,
+              f"{name} reference: launches {counts}")
+        if name == SEAMLESS:
+            launches["flash_attention_d64_encoder_fp32"] = counts["flash"]
+            launches["decode_attention_d64_fp32"] = counts["decode"]
+        front = (f"encoder of {cfg.encoder_seq_len} frames, "
+                 if cfg.n_encoder_layers else
+                 f"{_prepended(cfg)} patches prepended, " if fe is not None
+                 else "")
+        log(f"archs reference {name}: reduced widths, H={cfg.n_heads} "
+            f"K={cfg.n_kv_heads} D={cfg.head_dim}, fp32, {front}"
+            f"prompts {list(ARCH_REF_PROMPTS)} + {ARCH_REF_DECODE} decode "
+            f"steps: card vs CPU max rel logit err {worst:.2e}, tokens "
+            f"equal; launches {counts}  [{card}]")
+
+    cfg = _reduced_heads(GRANITE, D64)
+    rng = np.random.default_rng(10)
+    m = MOE_ENGINE
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(
+        m["lo"], m["hi"]))).astype(np.int32) for _ in range(m["n"])]
+    counts = _engine_card_vs_cpu(GRANITE, cfg, prompts, 11, True, card)
+    launches.update(flash_attention_d64_fp32=counts["flash"],
+                    paged_decode_attention_d64_fp32=counts["paged_decode"],
+                    bullet_attention_paged_d64_fp32=counts["bullet_paged"])
+    return launches
+
+
+def phase_granite(card: str) -> dict:
+    """Granite-3.0-2B at its published depth and widths (40 layers,
+    d_model 2048, 32 query heads on 8 kv heads, D = 64, seeded random
+    weights, bf16) through BulletServer on the paged path
+    (``_serve_full``: the serve phase's 12 requests fused and serial with
+    identical streams, then under the scheduler's defaults); then its
+    graphs against the eager steps (``_paged_graphs``: serial decode at
+    the serve's table buckets, the fused cycle in segments at repeats 0,
+    20 and 39, the prefill groups and first tokens). Returns the bf16
+    D = 64 rows' launches of the fused serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(GRANITE)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+          == (40, 2048, GR_H, GR_K, D64, 8192, 49155),
+          "not the published Granite-3.0-2B widths")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"granite: {T.param_count(params) / 1e9:.2f} G params in bf16 "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s; {cfg.n_layers} layers, paged KV "
+        f"{2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2} B a token "
+        f" [{card}]")
+    counts, buckets = _serve_full("granite-3-2b", cfg, params, card)
+    _paged_graphs("granite-3-2b", cfg, params, buckets, card, (0, 20, 39),
+                  24)
+    return {"flash_attention_d64": counts["flash"],
+            "paged_decode_attention_d64": counts["paged_decode"],
+            "bullet_attention_paged_d64": counts["bullet_paged"]}
+
+
+def _decode_graphed(params, cfg, cache, logits, lens, n_dec: int,
+                    what: str, card: str):
+    """``n_dec`` greedy ``decode_step``s through ``GraphedDecode`` from a
+    prefill's ``logits`` (the first step captures, the rest replay,
+    timed), then the same steps eagerly on a copy of the cache taken
+    before them, fed the same tokens: fatal unless every step's logits
+    and, after the last, every cache leaf are bit-equal. Returns (ms per
+    replayed step, the first step's ms, the launch counts of the graphed
+    steps)."""
+    from repro_torch.core.graphs import GraphedDecode
+    from repro_torch.models import transformer as T
+    twin = _clone_tree(cache)
+    _reset_counts()
+    dec = GraphedDecode(params, cache, cfg)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = lens.clone()
+    fed, seen = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_dec):
+        fed.append(tok)
+        lg = dec(tok[:, None], pos)
+        seen.append(lg.clone())
+        tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t_first, t_dec = t1 - t0, time.perf_counter() - t1
+    counts = _kernel_counts()
+    pos = lens.clone()
+    for i, tok in enumerate(fed):
+        lg, _ = T.decode_step(params, twin, tok[:, None], pos, cfg)
+        check(torch.equal(lg, seen[i]), f"{what}: decode step {i}: the "
+              "graph's logits differ from the eager step's")
+        pos = pos + 1
+    for i, (a, b) in enumerate(zip(_leaves(cache), _leaves(twin))):
+        check(torch.equal(a, b), f"{what}: cache leaf {i} differs after "
+              f"{n_dec} graphed and eager steps")
+    check(bool(torch.isfinite(seen[-1][:, :cfg.vocab_size]).all()),
+          f"{what}: non-finite decode logits")
+    log(f"{what}: {n_dec} greedy decode steps through GraphedDecode, "
+        f"logits and cache bit-equal to the eager decode_step; "
+        f"{captures(dec)}  [{card}]")
+    return 1e3 * t_dec / (n_dec - 1), 1e3 * t_first, counts
+
+
+def _profile_models_level(params, cfg, toks, lens, max_len, frontend,
+                          what: str, card: str) -> None:
+    """torch.profiler windows over one ``prefill`` call (with its
+    ``frontend``) and over 10 decode steps replayed through
+    ``GraphedDecode`` (after the step that captures)."""
+    from repro_torch.core.graphs import GraphedDecode
+    from repro_torch.models import transformer as T
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    b = toks.shape[0]
+    cache = T.init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, _ = T.prefill(params, toks, lens, cache, None, cfg,
+                              frontend=frontend)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_report(prof, wall, f"{what}, one prefill call", card)
+    dec = GraphedDecode(params, cache, cfg)
+    lg = dec(logits.argmax(-1).to(torch.int32)[:, None], lens)
+    tok, pos = lg.argmax(-1).to(torch.int32), lens + 1
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            lg = dec(tok[:, None], pos)
+            tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_report(prof, wall, f"{what}, 10 decode steps (graph replays)",
+                    card, cycles=10, tokens=10 * b)
+
+
+def phase_seamless(card: str) -> dict:
+    """SeamlessM4T-Large-v2 at its published depth and widths (24 encoder
+    and 24 decoder layers, d_model 1024, 16 heads of D = 64, vocab 256206,
+    seeded random weights, bf16) through the models-level path: 4 rows of
+    SM_SE stub frames encoded, decoder prompts of SM_PROMPTS tokens
+    prefilled (every block cross-attending the encoder's K/V, the cross
+    cache filled), then SM_DECODE greedy steps through ``GraphedDecode``,
+    bit-equal to the eager ``decode_step``: the encoder's, the prefill's
+    and a decode step's ms, and the launches (the encoder's, the
+    decoder's and the cross-attention's flash per prefill; self and cross
+    dense decode per step); profiles of one prefill call and 10 decode
+    steps. Returns the bf16 D = 64 rows' launches of this run: flash
+    (encoder row) and dense decode (cross decode row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SEAMLESS)
+    check((cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.encoder_seq_len,
+           cfg.vocab_size) == (24, 24, 1024, SM_H, SM_H, D64, SM_SE, 256206)
+          and cfg.cross_attention, "not the published SeamlessM4T widths")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    b = len(SM_PROMPTS)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    frames = torch.randn(b, SM_SE, cfg.frontend_embed_dim, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    toks, lens = _prompt_batch(cfg, SM_PROMPTS, seed=25)
+    toks, lens = toks.cuda(), lens.cuda()
+    max_len = max(SM_PROMPTS) + SM_DECODE
+    log(f"seamless: {T.param_count(params) / 1e9:.2f} G params in bf16 "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB): "
+        f"{cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder layers; "
+        f"{b} rows of {SM_SE} stub frames, decoder prompts "
+        f"{list(SM_PROMPTS)}, dense cache of {max_len} rows, cross cache "
+        f"of {SM_SE}  [{card}]")
+    # warm-up: cuBLAS handles and kernel modules load outside the timing
+    T.prefill(params, toks, lens, T.init_cache(cfg, b, max_len,
+                                               torch.bfloat16, "cuda"),
+              None, cfg, frontend=frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = T.encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    check(bool(torch.isfinite(enc).all()), "seamless: non-finite encoder")
+    del enc
+    _reset_counts()
+    cache = T.init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = T.prefill(params, toks, lens, cache, None, cfg,
+                          frontend=frames)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre = _kernel_counts()
+    want = 3 * cfg.n_layers     # encoder, decoder self, cross: one each
+    check(pre["flash"] == want and pre["decode"] == 0,
+          f"seamless prefill: launches {pre}, want {want} flash")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "seamless: non-finite prefill logits")
+    ms, first, dec = _decode_graphed(params, cfg, cache, logits, lens,
+                                     SM_DECODE, "seamless", card)
+    check(dec["decode"] == 2 * cfg.n_layers * SM_DECODE and dec["flash"] == 0,
+          f"seamless decode: launches {dec}, want {2 * cfg.n_layers} dense "
+          "decode (self and cross) a step")
+    log(f"seamless bf16: encoder {1e3 * t_enc:.2f} ms ({b} x {SM_SE} "
+        f"frames), prefill {1e3 * t_pre:.2f} ms (encoder included), decode "
+        f"{ms:.3f} ms per step over {SM_DECODE - 1} graph replays ({b} "
+        f"slots, {b * 1e3 / ms:.1f} output tok/s), the first step (eager, "
+        f"then the capture) {first:.1f} ms; launches prefill {pre}, decode "
+        f"{dec}  [{card}]")
+    _profile_models_level(params, cfg, toks, lens, max_len, frames,
+                          f"SeamlessM4T-Large-v2 bf16 ({b} rows of {SM_SE} "
+                          "frames)", card)
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"flash_attention_d64_encoder": pre["flash"],
+            "decode_attention_d64": dec["decode"]}
+
+
+def phase_internvl(card: str) -> None:
+    """InternVL2-76B at its published widths (d_model 8192, 64 query
+    heads on 8 kv heads, D = 128, d_ff 28672, vocab 128256; its stub
+    frontend of 256 patches of dim 3200 and their projector) over
+    IV_LAYERS of its 80 layers (the depth cut: all 80 in bf16 would take
+    ~150 GB), seeded random weights, bf16, on the dense slot cache
+    through the models-level path: 2 rows of 256 patches prepended to
+    prompts of IV_PROMPTS tokens, prefilled, then IV_DECODE greedy steps
+    through ``GraphedDecode``, bit-equal to the eager ``decode_step``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    full = get_config(INTERNVL)
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+           full.head_dim, full.d_ff, full.vocab_size,
+           full.frontend_embed_len, full.frontend_embed_dim)
+          == (80, 8192, IV_H, IV_K, D, 28672, 128256, IV_PATCHES, 3200),
+          "not the published InternVL2-76B widths")
+    cfg = dataclasses.replace(full, n_layers=IV_LAYERS)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    b, nf = len(IV_PROMPTS), cfg.frontend_embed_len
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    patches = torch.randn(b, nf, cfg.frontend_embed_dim, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    toks, lens = _prompt_batch(cfg, IV_PROMPTS, seed=27)
+    toks, lens = toks.cuda(), lens.cuda() + nf
+    max_len = nf + max(IV_PROMPTS) + IV_DECODE
+    log(f"internvl: {T.param_count(params) / 1e9:.2f} G params in bf16 "
+        f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB) drawn in "
+        f"{time.perf_counter() - t0:.1f} s: {IV_LAYERS} of its "
+        f"{full.n_layers} layers (depth cut), published widths; {b} rows of "
+        f"{nf} patches prepended to prompts {list(IV_PROMPTS)}, dense cache "
+        f"of {max_len} rows  [{card}]")
+    T.prefill(params, toks, lens, T.init_cache(cfg, b, max_len,
+                                               torch.bfloat16, "cuda"),
+              None, cfg, frontend=patches)
+    _reset_counts()
+    cache = T.init_cache(cfg, b, max_len, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = T.prefill(params, toks, lens, cache, None, cfg,
+                          frontend=patches)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre = _kernel_counts()
+    check(pre["flash"] == IV_LAYERS, f"internvl prefill: launches {pre}")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "internvl: non-finite prefill logits")
+    ms, first, dec = _decode_graphed(params, cfg, cache, logits, lens,
+                                     IV_DECODE, "internvl", card)
+    check(dec["decode"] == IV_LAYERS * IV_DECODE,
+          f"internvl decode: launches {dec}")
+    log(f"internvl bf16 ({IV_LAYERS} of {full.n_layers} layers): prefill "
+        f"{1e3 * t_pre:.2f} ms ({int(lens.sum())} rows, patches included), "
+        f"decode {ms:.3f} ms per step over {IV_DECODE - 1} graph replays, "
+        f"the first step {first:.1f} ms; launches prefill {pre}, decode "
+        f"{dec}  [{card}]")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4157,6 +4800,8 @@ def main() -> int:
     rows.append(timed("rglru kernel", phase_rglru, timer))
     rows += timed("attention D=256", phase_attention_d256, timer)
     rows += timed("attention MoE shapes", phase_attention_moe, timer)
+    d64_rows, d64_dense = timed("attention D=64", phase_attention_d64, timer)
+    rows += d64_rows
     colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
@@ -4164,6 +4809,7 @@ def main() -> int:
     timed("mamba reference", phase_mamba_reference)
     rg_ref = timed("recurrentgemma reference", phase_rg_reference)
     moe_ref = timed("moe reference", phase_moe_reference, card)
+    arch_ref = timed("archs reference", phase_archs_reference, card)
     launches, _, buckets = timed("serve", phase_serve, card)
     timed("graphs", phase_graphs, card, buckets)
     replay = timed("replay", phase_replay, card)
@@ -4173,6 +4819,9 @@ def main() -> int:
     timed("tenants", phase_tenants, card)
     timed("sim", phase_sim, card)
     moe = timed("moe", phase_moe, card, timer)
+    granite = timed("granite", phase_granite, card)
+    seamless = timed("seamless", phase_seamless, card)
+    timed("internvl", phase_internvl, card)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the
@@ -4198,7 +4847,9 @@ def main() -> int:
                 "bullet_attention_fp32": colocated[torch.float32],
                 "flash_attention_d256_fp32": rg_ref["flash_attention"],
                 "decode_attention_d256_fp32": rg_ref["decode_attention"],
-                **moe_ref, **moe}
+                **moe_ref, **moe, **arch_ref, **granite, **seamless,
+                "bullet_attention_d64": d64_dense[torch.bfloat16],
+                "bullet_attention_d64_fp32": d64_dense[torch.float32]}
     for r in rows:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} never launched on its path")

@@ -1,11 +1,13 @@
 """Bridge the JAX package's parameter and cache trees into the port.
 
 Both sides use the same tree: ``{"embed", "final_norm", ["lm_head"],
-"blocks": ({name: (R, ...)}, ...), ["tail_blocks": ({name: (...)}, ...)]}``
-for params, ``{"blocks": ({"k", "v"}: (R, P+1, ps, K, D), ...)}`` for the
-page pool and ``{"blocks": ({"k", "v"}: (R, B, S, K, D) | {"conv", "ssm"}
-| {"conv", "hidden"}, ...), ["tail": (... without R)]}`` for the dense
-slot cache. The caller converts the JAX tree to numpy first
+["frontend_proj"], "blocks": ({name: (R, ...)}, ...), ["tail_blocks":
+({name: (...)}, ...)], ["encoder": {name: (n_encoder_layers, ...)},
+"encoder_norm"]}`` for params, ``{"blocks": ({"k", "v"}: (R, P+1, ps, K,
+D), ...)}`` for the page pool and ``{"blocks": ({"k", "v"}: (R, B, S, K,
+D) | {"conv", "ssm"} | {"conv", "hidden"}, ...), ["tail": (... without
+R)], ["cross": {"k", "v"}: (R, B, Se, K, D)]}`` for the dense slot cache
+(``cross``: an encoder-decoder model's encoder K/V per repeat). The caller converts the JAX tree to numpy first
 (``jax.tree.map(np.asarray, tree)``), so this module imports no JAX;
 nesting and the stacked repeat axis R are kept. Each leaf gets the dtype
 the port's ``init_params`` / ``init_cache`` give it: ``dtype``, or fp32

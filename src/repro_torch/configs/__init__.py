@@ -7,9 +7,11 @@ the mixture-of-experts ``llama4-maverick-400b-a17b`` (paged) and
 attention-free ``mamba2-2.7b`` on the dense slot cache, and the RG-LRU /
 sliding-window hybrid ``recurrentgemma-2b``, which, as in the JAX package,
 only the models-level ``prefill`` / ``decode_step`` serve
-(``BulletServer`` refuses its ``pattern_tail``). ``get_config`` raises
-``NotImplementedError`` for the JAX configs still to come (``granite-3-2b``,
-``internvl2-76b``, ``seamless-m4t-large-v2``)."""
+(``BulletServer`` refuses its ``pattern_tail``); ``granite-3-2b`` (head dim
+64, paged), the encoder-decoder ``seamless-m4t-large-v2`` (which
+``BulletServer`` refuses, as it does cross-attention) and the VLM
+``internvl2-76b``, whose stub frontend the models-level ``prefill`` and
+``forward`` prepend. Every config of the JAX package is registered."""
 
 from repro_torch.configs.base import (
     ATTN, SWA, RGLRU, SSD, MLP, MOE,

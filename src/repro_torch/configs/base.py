@@ -271,21 +271,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-#: the JAX package's configs the port does not serve yet, and what each
-#: one waits for
-_LATER = {
-    "granite-3-2b": "the head-dim-64 instances of kernels 1-5",
-    "internvl2-76b": "the frontend projector",
-    "seamless-m4t-large-v2": "the encoder, cross-attention and head dim 64",
-}
-
-
 def get_config(name: str) -> ModelConfig:
     _ensure_loaded()
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} needs {_LATER[name]}, which come with a later slice "
-            "(ROADMAP port item 'the other architectures')")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
@@ -303,11 +290,13 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    # import all config modules for registration side effects; the port
-    # registers the models it serves: the dense and MoE attention ones
-    # (paged; Mixtral's sliding window on the dense slot cache), Mamba-2 on
-    # the dense slot cache, and RecurrentGemma through the models-level
-    # prefill / decode_step
+    # import all config modules for registration side effects: every model
+    # of the JAX package. The dense and MoE attention ones page (Granite at
+    # head dim 64; Mixtral's sliding window on the dense slot cache),
+    # Mamba-2 runs on the dense slot cache, and RecurrentGemma,
+    # SeamlessM4T (encoder and cross-attention) and InternVL2 (its
+    # frontend prepended) through the models-level prefill / decode_step
     from repro_torch.configs import (  # noqa: F401
         qwen3_1p7b, llama31_8b, qwen1p5_4b, codeqwen1p5_7b, mixtral_8x22b,
-        llama4_maverick, mamba2_2p7b, recurrentgemma_2b)
+        llama4_maverick, mamba2_2p7b, recurrentgemma_2b, granite_3_2b,
+        internvl2_76b, seamless_m4t_large_v2)

@@ -212,7 +212,9 @@ class GraphedDecode:
     """``transformer.decode_step``'s logits over a dense slot cache,
     through :class:`StepGraphs` keyed ``("rg", B)``: the models-level
     decode that RecurrentGemma runs (both engines refuse its
-    ``pattern_tail``), built from ``(params, cache, cfg)`` and called with
+    ``pattern_tail``), and SeamlessM4T (cross-attention, its cross
+    cache's position map made on the device inside the step) and
+    InternVL2, built from ``(params, cache, cfg)`` and called with
     ``(tokens (B, 1) int32, pos (B,) int32)``. The cache is updated in
     place; on the card the logits are the graph's static output, valid
     until the next call with the same B."""

@@ -5,8 +5,8 @@ The sources have a plain C interface: ``nvcc`` compiles each of them for
 into one shared library under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a digest of the sources so an edit rebuilds;
 ``ctypes`` loads it. ``attention.cu`` holds the attention kernels (flash
-prefill and dense decode at head dims 128 and 256, paged decode and the
-fused launches at 128; in bf16 the flash body runs on the tensor cores
+prefill and dense decode at head dims 64, 128 and 256, paged decode and the
+fused launches at 64 and 128; in bf16 the flash body runs on the tensor cores
 through wgmma and TMA, so ``sm_90a``'s ``a`` is needed), ``ssd_scan.cu``
 the Mamba-2 SSD chunk scan (in bf16 C Bᵀ once per row and chunk, the
 chunk states, a pass over the chunks and the outputs, on the tensor cores
@@ -168,13 +168,14 @@ def stream_of(t) -> ctypes.c_void_p:
 #: dtype codes of the C interface
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 #: head dims the flash prefill and dense decode kernels are instantiated
-#: for (DISPATCH in attention.cu): the D = 128 of Qwen3 and Llama, the
-#: D = 256 of RecurrentGemma
-HEAD_DIMS = (128, 256)
+#: for (DISPATCH in attention.cu): the D = 64 of Granite-3.0-2B and
+#: SeamlessM4T-Large-v2, the D = 128 of Qwen3 and Llama, the D = 256 of
+#: RecurrentGemma
+HEAD_DIMS = (64, 128, 256)
 #: head dims of the paged decode and the two fused kernels
 #: (DISPATCH_PAGED in attention.cu): only the paged path runs them, and it
-#: serves D = 128 models
-PAGED_HEAD_DIMS = (128,)
+#: serves D = 64 (Granite) and D = 128 models
+PAGED_HEAD_DIMS = (64, 128)
 
 
 def check_inputs(kernel: str, floats, ints=(), fp32=(), *,

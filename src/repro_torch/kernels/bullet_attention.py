@@ -36,8 +36,8 @@ ran each item, and from which queue. The dense variant has no serving path
 (the engine runs fused cycles on the paged pool only, as the JAX engine
 does); ``chip_smoke.py``'s colocated phase drives it, as
 ``examples/colocated_attention.py`` drives the TPU kernel. Both are built
-for head dim 128 only (``build.PAGED_HEAD_DIMS``): the paged path serves
-D = 128 models.
+for head dims 64 and 128 (``build.PAGED_HEAD_DIMS``): the paged path
+serves Granite's D = 64 and the D = 128 models.
 """
 
 from __future__ import annotations

@@ -3,10 +3,13 @@
 // (repro_torch/kernels/build.py). Every entry point launches on the stream
 // it is given, allocates nothing, and returns cudaGetLastError() after the
 // launch (or cudaErrorInvalidValue for a head dim it is not built for).
-// flash_attention_fwd and decode_attention_fwd are built for D = 128 (Qwen3,
-// Llama) and D = 256 (RecurrentGemma's sliding-window layers: 10 query heads
-// on one kv head, window 2048); paged_decode_fwd and the two fused kernels
-// for D = 128 only, the head dim of the paged path's models.
+// flash_attention_fwd and decode_attention_fwd are built for D = 64
+// (Granite-3.0-2B, SeamlessM4T-Large-v2's encoder, decoder and
+// cross-attention), D = 128 (Qwen3, Llama) and D = 256 (RecurrentGemma's
+// sliding-window layers: 10 query heads on one kv head, window 2048);
+// paged_decode_fwd and the two fused kernels for D = 64 and 128, the head
+// dims of the paged path's models. D = 64 is computed at its own width,
+// never padded to 128 (that would double the bytes every decode reads).
 //
 // flash_attention_fwd
 //   Replaces src/repro/kernels/flash_attention.py:77 `flash_attention`
@@ -643,21 +646,24 @@ template <int D, typename DA> int split_occupancy(int *ctas_per_sm) {
     return (int)cudaErrorInvalidValue;                            \
   } while (0)
 
-// flash prefill and dense decode: D = 128 (Qwen3, Llama) or 256
-// (RecurrentGemma). At D = 256 the fp32 flash_item's tiles take ~140 KB of
-// shared memory and the bf16 flash_tc_item's ~193 KB (one CTA per SM,
-// through set_smem's opt-in); flash_tc_item keeps 128 fp32 accumulators a
-// thread for its 64 x 256 output rows.
+// flash prefill and dense decode: D = 64 (Granite, Seamless), 128 (Qwen3,
+// Llama) or 256 (RecurrentGemma). At D = 256 the fp32 flash_item's tiles
+// take ~140 KB of shared memory and the bf16 flash_tc_item's ~193 KB (one
+// CTA per SM, through set_smem's opt-in); flash_tc_item keeps 128 fp32
+// accumulators a thread for its 64 x 256 output rows, 32 at D = 64 (where
+// its tiles take ~50 KB).
 #define DISPATCH(D_, DT_, CALL)                                   \
   do {                                                            \
+    if ((D_) == 64) DISPATCH_DTYPE(64, DT_, CALL);                \
     if ((D_) == 128) DISPATCH_DTYPE(128, DT_, CALL);              \
     if ((D_) == 256) DISPATCH_DTYPE(256, DT_, CALL);              \
     return (int)cudaErrorInvalidValue;                            \
   } while (0)
 
-// paged decode and the fused kernels: D = 128 only
+// paged decode and the fused kernels: D = 64 (Granite) and 128
 #define DISPATCH_PAGED(D_, DT_, CALL)                             \
   do {                                                            \
+    if ((D_) == 64) DISPATCH_DTYPE(64, DT_, CALL);                \
     if ((D_) == 128) DISPATCH_DTYPE(128, DT_, CALL);              \
     return (int)cudaErrorInvalidValue;                            \
   } while (0)
@@ -798,8 +804,8 @@ int bullet_ctas_per_sm(int d, int dtype, int g, int ps, int dense,
 
 // CTAs of the bf16 split decode kernel one SM holds at once at head dim d,
 // for the current device: over the dense cache (paged = 0; two at D = 128,
-// one at D = 256 by its shared memory) or the page pool (paged = 1, D =
-// 128 only)
+// one at D = 256 by its shared memory, at D = 64 as many as its registers
+// and ~46 KB allow) or the page pool (paged = 1, D = 64 and 128)
 int split_decode_ctas_per_sm(int d, int paged, int *ctas_per_sm) {
   if (paged)
     DISPATCH_PAGED(d, 1, (split_occupancy<D, DecodeArgs>(ctas_per_sm)));

@@ -575,6 +575,32 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D(64x64) += A(64x16, registers) * B(16x64, shared, MN-major): the PV
+// product at D = 64, where a row of V is one 128-byte swizzle chunk
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
 // D(64x128) += A(64x16, registers) * B(16x128, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
                                                  const uint32_t (&a)[4],
@@ -703,7 +729,10 @@ __host__ __device__ constexpr int flash_tc_smem_bytes(int d) {
 // products. Tiles that the causal or window mask removes whole for the
 // CTA are never loaded; a warpgroup skips the ones it masks whole. The
 // barriers are initialised per item and invalidated after it, so the
-// persistent fused kernel starts each item at phase 0.
+// persistent fused kernel starts each item at phase 0. D = 64, 128 or 256:
+// a row is D/64 chunks of 128 bytes (one at D = 64, so the q tile and each
+// K/V tile are one TMA box and half D = 128's shared memory), and the PV
+// product is one m64nDk16 wgmma per 16 keys (o holds D/2 floats a thread).
 template <int D>
 __device__ void flash_tc_item(const FlashArgs &a, int item,
                               unsigned char *smem) {
@@ -851,11 +880,14 @@ __device__ void flash_tc_item(const FlashArgs &a, int item,
       for (int kk = 0; kk < 4; ++kk) {
         // keys 16kk .. 16kk+15: rows of V, 2048 bytes apart; the D columns
         // span NC chunks KCH apart (LBO), 8-row groups 1024 apart (SBO)
+        // (at D = 64 one chunk: the LBO is never stepped)
         const uint64_t dv = sw128_desc(vb + kk * 16 * 128, KCH, 1024);
         if constexpr (D == 256)
           wgmma_rs_m64n256k16(o, pa[kk], dv, 1);
-        else
+        else if constexpr (D == 128)
           wgmma_rs_m64n128k16(o, pa[kk], dv, 1);
+        else
+          wgmma_rs_m64n64k16(o, pa[kk], dv, 1);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -934,6 +966,12 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+// two 8x8 bf16 matrices, transposed; lanes 0-15 give the row addresses
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 // C(16x8) += A(16x16, row) * B(16x8, col), bf16 in, fp32 accumulators
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
@@ -1069,8 +1107,9 @@ template <> struct RowSource<DecodeArgs> {
 // the G query heads, padded to 16 rows, times the tile's rows for the
 // scores (warp w takes rows 8w..8w+7), one warp per query head for the
 // online softmax in fp32, the probabilities rounded to bf16 times V for
-// the output (warp w takes columns D/8 w .. D/8 (w+1)), kept in registers
-// across the tiles. With n = 1 the item writes its output. Otherwise
+// the output (warp w takes columns D/8 w .. D/8 (w+1): one 8-column
+// mma.sync block at D = 64, pairs of them above), kept in registers across
+// the tiles. With n = 1 the item writes its output. Otherwise
 // it writes its partial (m, l, acc) to the workspace and counts itself in
 // with a fence and an atomic add; the last piece of the (b, h) to arrive
 // merges the n partials in piece order 0..n-1 (so the result is the
@@ -1083,6 +1122,7 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
   constexpr int R = SPLIT_TILE, GP = SPLIT_G;
   constexpr int RS = D + 8, PS_ = R + 8;   // row strides (elements)
   constexpr int NB = D / 64;               // 8-column blocks of a warp's PV
+  static_assert(NB == 1 || NB % 2 == 0, "PV takes 1 or pairs of blocks");
   const bf16 *q = static_cast<const bf16 *>(a.q);
   bf16 *o = static_cast<bf16 *>(a.o);
   const int G = a.g, ns = a.n_split;
@@ -1251,15 +1291,24 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
       for (int k16 = 0; k16 < n_ok; k16 += 16) {
         uint32_t pa[4];
         ldsm_x4(pa, smem_u32(ps + (lane % 16) * PS_ + k16 + 8 * (lane / 16)));
+        if constexpr (NB == 1) {
+          // D = 64: the warp's one block, rows k16..+7 / k16+8..+15 of V
+          // (lanes 0-15 give the addresses)
+          uint32_t vf[2];
+          ldsm_x2_t(vf, smem_u32(vs + (k16 + lane % 8 + 8 * ((lane / 8) % 2)) *
+                                          RS + d0));
+          mma_16816(oc[0], pa, vf[0], vf[1]);
+        } else {
 #pragma unroll
-        for (int n = 0; n < NB; n += 2) {
-          // matrices: rows k16..+7 / k16+8..+15 of V, columns of blocks
-          // n and n+1
-          uint32_t vf[4];
-          ldsm_x4_t(vf, smem_u32(vs + (k16 + lane % 8 + 8 * ((lane / 8) % 2)) * RS +
-                                 d0 + 8 * n + 8 * (lane / 16)));
-          mma_16816(oc[n], pa, vf[0], vf[1]);
-          mma_16816(oc[n + 1], pa, vf[2], vf[3]);
+          for (int n = 0; n < NB; n += 2) {
+            // matrices: rows k16..+7 / k16+8..+15 of V, columns of blocks
+            // n and n+1
+            uint32_t vf[4];
+            ldsm_x4_t(vf, smem_u32(vs + (k16 + lane % 8 + 8 * ((lane / 8) % 2)) *
+                                            RS + d0 + 8 * n + 8 * (lane / 16)));
+            mma_16816(oc[n], pa, vf[0], vf[1]);
+            mma_16816(oc[n + 1], pa, vf[2], vf[3]);
+          }
         }
       }
     }

@@ -25,8 +25,9 @@ port's body, which stays bit-equal to fp32 dense decode).
 Inactive slots (``pos < 0``): the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``paged_decode_ref`` and
 returns the mean of V. Compare the two on active slots only. Bound on the
-card: bytes (see the source's header note). Built for head dim 128 only
-(``build.PAGED_HEAD_DIMS``): the paged path serves D = 128 models.
+card: bytes (see the source's header note). Built for head dims 64 and
+128 (``build.PAGED_HEAD_DIMS``): the paged path serves Granite's D = 64 and
+the D = 128 models.
 """
 
 from __future__ import annotations

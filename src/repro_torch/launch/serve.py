@@ -9,9 +9,12 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
   seeded random weights on a batch of requests. ``--arch`` takes every
   registered config but ``recurrentgemma-2b`` (whose ``pattern_tail`` the
   engine refuses): ``qwen3-1.7b``, ``llama3.1-8b``, ``qwen1.5-4b``,
-  ``codeqwen1.5-7b``, the mixture-of-experts ``llama4-maverick-400b-a17b``
-  and ``mixtral-8x22b`` (the reduced variants keep 4 experts), and
-  ``mamba2-2.7b``.
+  ``codeqwen1.5-7b``, ``granite-3-2b`` (at its head dim 64), the
+  mixture-of-experts ``llama4-maverick-400b-a17b`` and ``mixtral-8x22b``
+  (the reduced variants keep 4 experts), and ``mamba2-2.7b``;
+  ``seamless-m4t-large-v2`` is refused too (cross-attention), and
+  ``internvl2-76b`` serves its text prompts without the frontend, which
+  only the models-level ``prefill`` / ``forward`` take.
 - replay: online trace replay through the ``OnlineFrontend``: a
   ``generate_trace`` workload (capped at ``--requests``, lengths fitted to
   ``--max-len``) is released into the engine by arrival time on a
@@ -95,13 +98,18 @@ def _write_obs_outputs(args, server) -> None:
 
 
 def model_config(arch: str):
-    """The reduced variant both modes serve, at the head dim the CUDA
-    attention kernels are built for (``kernels/build.py`` ``HEAD_DIMS``),
-    so the default ``cuda`` device runs the kernels. For an attention-free
-    model (``mamba2-2.7b``) the head-dim override is moot: its SSD kernel
-    takes any head dim, and the reduced config's SSD sizes stand."""
+    """The reduced variant both modes serve, at a head dim the CUDA
+    attention kernels of the paged path are built for (``kernels/build.py``
+    ``PAGED_HEAD_DIMS``), so the default ``cuda`` device runs the kernels:
+    the config's own (Granite's 64) where they are, else 128. For an
+    attention-free model (``mamba2-2.7b``) the head-dim override is moot:
+    its SSD kernel takes any head dim, and the reduced config's SSD sizes
+    stand."""
     from repro_torch.configs import get_config
-    return get_config(arch).reduced(head_dim=128)
+    from repro_torch.kernels.build import PAGED_HEAD_DIMS
+    full = get_config(arch)
+    return full.reduced(head_dim=full.head_dim
+                        if full.head_dim in PAGED_HEAD_DIMS else 128)
 
 
 def _model(args):

@@ -17,8 +17,12 @@ keeps the JAX package's ring semantics, addressed through
 ``_kv_positions``: a sliding-window block's cache of ``min(window,
 max_len)`` rows is always a ring, a full-attention cache only under
 ``long_context``; an SSD or RG-LRU block's entry is its conv window and
-recurrent state. Cross-attention, the encoder and the frontend raise
-(ROADMAP).
+recurrent state. An encoder-decoder config (SeamlessM4T) adds the
+bidirectional encoder over its stub frontend frames (``encode``) and a
+cross-attention after each decoder block's mixer, over the encoder's K/V
+(prefill) or the cross cache ``cache["cross"]`` (decode); a decoder-only
+VLM (InternVL2) prepends its projected stub frontend to the prompt. Both
+run through the models-level ``prefill`` / ``decode_step`` / ``forward``.
 
 A MoE block's capacity counts the tokens of its call (``models/moe.py``).
 Every prefill path passes each row's length, so padded rows take no
@@ -59,14 +63,21 @@ FP32_CACHE = frozenset({"ssm", "hidden"})
 # Parameter definitions: (shape, init) per name, as the JAX package's PDefs
 # ---------------------------------------------------------------------------
 
-def _attn_defs(cfg: ModelConfig) -> Dict[str, Tuple[tuple, str]]:
+def _attn_defs(cfg: ModelConfig,
+               cross: bool = False) -> Dict[str, Tuple[tuple, str]]:
+    """Self-attention's leaves, or (``cross``) a decoder block's
+    cross-attention ``cwq/cwk/cwv/cwo``, which take no bias and no qk
+    norm, as in the JAX package."""
     d, h, k, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pre = "c" if cross else ""
     defs = {
-        "wq": ((d, h * dh), "dense"),
-        "wk": ((d, k * dh), "dense"),
-        "wv": ((d, k * dh), "dense"),
-        "wo": ((h * dh, d), "dense"),
+        pre + "wq": ((d, h * dh), "dense"),
+        pre + "wk": ((d, k * dh), "dense"),
+        pre + "wv": ((d, k * dh), "dense"),
+        pre + "wo": ((h * dh, d), "dense"),
     }
+    if cross:
+        return defs
     if cfg.qkv_bias:
         defs["bq"] = ((h * dh,), "zeros")
         defs["bk"] = ((k * dh,), "zeros")
@@ -128,17 +139,19 @@ _MIXER_DEFS = {ATTN: _attn_defs, SWA: _attn_defs, SSD: _ssd_defs,
                RGLRU: _rglru_defs}
 
 
-def _block_defs(cfg: ModelConfig, blk: BlockSpec):
-    if (blk.mixer not in _MIXER_DEFS or cfg.cross_attention
-            or cfg.n_encoder_layers):
-        raise NotImplementedError(
-            f"{cfg.name} block {blk}: the port serves full-attention, "
-            "sliding-window, Mamba-2 SSD and RG-LRU blocks; cross-attention "
-            "and the encoder come with a later slice (ROADMAP port item "
-            "'the other architectures')")
+def _block_defs(cfg: ModelConfig, blk: BlockSpec, *, decoder: bool = True):
+    """A block's leaves: ``ln1``, its mixer's, for a decoder block of a
+    config with cross-attention ``ln_cross`` and the cross leaves, then
+    ``ln2`` and its feed-forward's (the encoder's blocks are built with
+    ``decoder=False``)."""
+    if blk.mixer not in _MIXER_DEFS:
+        raise ValueError(f"{cfg.name}: unknown mixer {blk.mixer!r}")
     d = cfg.d_model
     defs = {"ln1": ((d,), "zeros")}
     defs.update(_MIXER_DEFS[blk.mixer](cfg))
+    if decoder and cfg.cross_attention:
+        defs["ln_cross"] = ((d,), "zeros")
+        defs.update(_attn_defs(cfg, cross=True))
     if blk.ff != "none":
         defs["ln2"] = ((d,), "zeros")
     if blk.ff == MLP:
@@ -154,6 +167,8 @@ def _top_defs(cfg: ModelConfig):
     defs = {"embed": ((v, d), "embed"), "final_norm": ((d,), "zeros")}
     if not cfg.tie_embeddings:
         defs["lm_head"] = ((d, v), "dense")
+    if cfg.frontend_embed_len:
+        defs["frontend_proj"] = ((cfg.frontend_embed_dim, d), "dense")
     return defs
 
 
@@ -178,9 +193,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                 dtype=torch.bfloat16, device="cuda") -> Params:
     """Seeded random params with the JAX package's tree, shapes and
     distributions (no bit parity with jax.random): ``{"embed",
-    "final_norm", ["lm_head"], "blocks": (per pattern position {name:
-    (R, ...)}), ["tail_blocks": (per tail block {name: (...)})]}``, vocab
-    padded to a multiple of 256. Leaves in ``FP32_PARAMS`` stay fp32."""
+    "final_norm", ["lm_head"], ["frontend_proj"], "blocks": (per pattern
+    position {name: (R, ...)}), ["tail_blocks": (per tail block {name:
+    (...)})], ["encoder": {name: (n_encoder_layers, ...)},
+    "encoder_norm"]}``, vocab padded to a multiple of 256. Leaves in
+    ``FP32_PARAMS`` stay fp32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params: Params = {}
@@ -199,6 +216,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if cfg.pattern_tail:
         params["tail_blocks"] = tuple(block(blk, ())
                                       for blk in cfg.pattern_tail)
+    if cfg.n_encoder_layers:
+        enc = _block_defs(cfg, BlockSpec(mixer=ATTN, ff=MLP), decoder=False)
+        params["encoder"] = {
+            name: _init_one(gen, shape, init, dtype,
+                            lead=(cfg.n_encoder_layers,))
+            for name, (shape, init) in sorted(enc.items())}
+        params["encoder_norm"] = torch.zeros(cfg.d_model, dtype=dtype,
+                                             device=device)
     return params
 
 
@@ -260,8 +285,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     max_len)`` rows, and ``long_context`` switches full attention to its
     ring of the long-context window); SSD ``{"conv": (R, batch, K-1,
     di+2N), "ssm": (R, batch, H, P, N) fp32}``; RG-LRU ``{"conv": (R, batch,
-    K-1, W), "hidden": (R, batch, W) fp32}``. Other blocks raise, as
-    ``_block_defs`` does."""
+    K-1, W), "hidden": (R, batch, W) fp32}``. With cross-attention also
+    ``"cross": {"k", "v"}`` of shape (R, batch, Se, K, D): the encoder's
+    K/V as each repeat's first decoder block projects them (``prefill``
+    fills it), which every block of the repeat reads."""
     kw = cfg.rglru_conv_width
 
     def zeros(shape, dt=dtype):
@@ -287,6 +314,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                              for blk in cfg.pattern)}
     if cfg.pattern_tail:
         cache["tail"] = tuple(entry(blk, ()) for blk in cfg.pattern_tail)
+    if cfg.cross_attention:
+        shape = (cfg.n_pattern_repeats, batch, cfg.encoder_seq_len,
+                 cfg.n_kv_heads, cfg.head_dim)
+        cache["cross"] = {"k": zeros(shape), "v": zeros(shape)}
     return cache
 
 
@@ -395,14 +426,37 @@ def _merge_heads(o):
     return o.reshape(*o.shape[:2], -1)
 
 
+def _cross_attend(x, p, cfg: ModelConfig, cross_k, cross_v, cross_pos=None):
+    """A decoder block's cross-attention over the encoder's K/V (B, Se, K,
+    D): every query attends every encoder row, without RoPE. Over a prompt
+    (``cross_pos`` None) it is kernel 1 with ``causal=False`` and Sq =
+    the prompt's length, Sk = Se. In decode (``cross_pos`` = the cross
+    cache's (kv_positions (B, Se) = 0..Se-1, pos (B,) = Se-1), so every
+    row is attended) it is kernel 4, the dense decode kernel over the
+    cross cache: one query a slot over Se rows is non-causal attention at
+    Sq = 1, which kernel 1's 128-row query tile would run at 1/128 of its
+    rows, while kernel 4 splits the rows across CTAs and reads each K/V
+    row once for the slot's G query heads (the bytes bound it)."""
+    h = L.rms_norm(x, p["ln_cross"], cfg.rmsnorm_eps)
+    b, s, _ = h.shape
+    q = (h @ p["cwq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    if cross_pos is None:
+        o = attn_ops.attention_prefill(q, cross_k, cross_v, causal=False)
+    else:
+        o = attn_ops.attention_decode(q, cross_k, cross_v, *cross_pos)
+    return _merge_heads(o) @ p["cwo"]
+
+
 def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
-                      lengths=None, stats=None):
+                      lengths=None, stats=None, cross_kv=None):
     """Prefill block application over a full sequence. Returns (x, entry):
     this layer's full-sequence KV ``{"k", "v"}`` (a sliding-window block
     attends over its window), or an SSD block's state ``{"conv", "ssm"}``
     or an RG-LRU block's ``{"conv", "hidden"}`` after each row's
     ``lengths[b]`` tokens (after all of them without ``lengths``). A MoE
-    block routes only the rows below ``lengths``."""
+    block routes only the rows below ``lengths``. With ``cross_kv`` (the
+    encoder's (K, V) as this block projects them) cross-attention follows
+    the mixer."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     if blk.mixer == SSD:
         y, st = ssd_block(h, p, cfg, lengths=lengths)
@@ -417,13 +471,15 @@ def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
         y = _merge_heads(o) @ p["wo"]
         entry = {"k": k, "v": v}
     x = x + y
+    if cross_kv is not None:
+        x = x + _cross_attend(x, p, cfg, *cross_kv)
     x = x + _ff(x, p, blk, cfg, lengths, stats)
     return x, entry
 
 
 def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
                         pos, block_tables=None, *, long_context: bool = False,
-                        kv_positions=None):
+                        kv_positions=None, cross=None):
     """Single-token block application, x: (B,1,D). The new token's K/V is
     written into the cache in place, then attention reads it.
 
@@ -436,7 +492,9 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
     ``kv_positions[(S, ring)]``, which :func:`decode_step` computes once
     for all the layers that share that cache length and ring. An SSD or
     RG-LRU block steps its recurrence and writes its new conv window and
-    state into the entry in place."""
+    state into the entry in place. ``cross`` (cross_k, cross_v,
+    kv_positions, pos) of the cross cache adds cross-attention after the
+    mixer (``_cross_attend``)."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     if blk.mixer in (SSD, RGLRU):
         if blk.mixer == SSD:
@@ -450,6 +508,8 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
         for key, t in new.items():
             cache_entry[key].copy_(t)
         x = x + y
+        if cross is not None:
+            x = x + _cross_attend(x, p, cfg, cross[0], cross[1], cross[2:])
         return x + _ff(x, p, blk, cfg)
     q, k_new, v_new = _project_qkv(h, p, cfg, pos[:, None])
     if block_tables is not None:
@@ -467,6 +527,8 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
         o = attn_ops.attention_decode(q, kc, vc,
                                       kv_positions[(s_cache, ring)], pos)
     x = x + _merge_heads(o) @ p["wo"]
+    if cross is not None:
+        x = x + _cross_attend(x, p, cfg, cross[0], cross[1], cross[2:])
     return x + _ff(x, p, blk, cfg)
 
 
@@ -568,16 +630,23 @@ def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
 
 
 def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
-                  lengths=None, stats=None):
+                  lengths=None, stats=None, enc_out=None):
     """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [entry
     per pattern position]) — the raw full-sequence KV ``{"k", "v"}`` the
     caller scatters into pooled pages or writes into slot rows, or an SSD
     or RG-LRU block's recurrent state at each row's ``lengths`` (below
-    which a MoE block routes; its metrics go to ``stats``)."""
+    which a MoE block routes; its metrics go to ``stats``). With the
+    encoder's output ``enc_out`` each block cross-attends it, and its
+    entry also holds the cross K/V it projected (``"cross"``)."""
     entries = []
     for j, blk in enumerate(cfg.pattern):
-        x, entry = _apply_block_full(x, params_at(params["blocks"][j], rep),
-                                     blk, cfg, positions, lengths, stats)
+        p = params_at(params["blocks"][j], rep)
+        cross = (None if enc_out is None
+                 else _cross_kv_from_encoder(p, enc_out, cfg))
+        x, entry = _apply_block_full(x, p, blk, cfg, positions, lengths,
+                                     stats, cross)
+        if cross is not None:
+            entry["cross"] = cross
         entries.append(entry)
     return x, entries
 
@@ -609,15 +678,23 @@ def prefill_group_shared(params, cache, x, positions, prefix_map,
 
 def decode_repeat(params, cache, x, pos, rep: int, cfg: ModelConfig,
                   block_tables=None, *, long_context: bool = False,
-                  kv_positions=None):
+                  kv_positions=None, cross_pos=None):
     """Pattern repeat ``rep`` of a decode pass: one
     :func:`_apply_block_decode` per pattern position, in order (the
-    segment a decode graph of the fused cycle replays). Returns x."""
+    segment a decode graph of the fused cycle replays), each block
+    cross-attending repeat ``rep`` of ``cache["cross"]`` through
+    ``cross_pos`` (its (kv_positions, pos), :func:`decode_step`) when the
+    cache has one. Returns x."""
+    cross = None
+    if "cross" in cache:
+        cross = (cache["cross"]["k"][rep], cache["cross"]["v"][rep],
+                 *cross_pos)
     for j, blk in enumerate(cfg.pattern):
         x = _apply_block_decode(
             x, params_at(params["blocks"][j], rep), blk, cfg,
             params_at(cache["blocks"][j], rep), pos, block_tables,
-            long_context=long_context, kv_positions=kv_positions)
+            long_context=long_context, kv_positions=kv_positions,
+            cross=cross)
     return x
 
 
@@ -678,10 +755,16 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
+def embed_tokens(params, tokens, cfg: ModelConfig, frontend=None):
+    """The tokens' embeddings (B, S, D); with the stub ``frontend`` (B, Sf,
+    De) of a decoder-only VLM, its projection through ``frontend_proj``
+    prepended (B, Sf + S, D)."""
     x = params["embed"][tokens.long()]
     if cfg.tie_embeddings:
         x = x * _embed_scale(cfg.d_model, x.dtype)
+    if frontend is not None:
+        fe = frontend.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
     return x
 
 
@@ -711,6 +794,52 @@ def last_token_logits(params, x, lengths, cfg: ModelConfig):
     idx = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
     last = x[torch.arange(x.shape[0], device=x.device), idx]
     return lm_logits(params, last[:, None], cfg)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Encoder (encoder-decoder models)
+# ---------------------------------------------------------------------------
+
+def encode(params, frontend, cfg: ModelConfig):
+    """The bidirectional encoder over stub frontend embeddings (B, Se,
+    De): projected through ``frontend_proj``, then per layer RoPE'd
+    self-attention over positions 0..Se-1 with no mask (kernel 1 with
+    ``causal=False``, G = K/H of the config) and the gated MLP, then
+    ``encoder_norm``. Returns (B, Se, D)."""
+    enc = params["encoder"]
+    x = frontend.to(enc["wq"].dtype) @ params["frontend_proj"]
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for r in range(cfg.n_encoder_layers):
+        p = params_at(enc, r)
+        h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
+        q, k, v = _project_qkv(h, p, cfg, positions)
+        o = attn_ops.attention_prefill(q, k, v, causal=False)
+        x = x + _merge_heads(o) @ p["wo"]
+        h = L.rms_norm(x, p["ln2"], cfg.rmsnorm_eps)
+        x = x + L.gated_mlp(h, p["wi"], p["wo_mlp"])
+    return L.rms_norm(x, params["encoder_norm"], cfg.rmsnorm_eps)
+
+
+def _cross_kv_from_encoder(p_blk, enc_out, cfg: ModelConfig):
+    """The encoder's output projected by one decoder block's ``cwk`` /
+    ``cwv``: (K, V) of shape (B, Se, K, D), no RoPE."""
+    b, se, _ = enc_out.shape
+    k = (enc_out @ p_blk["cwk"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p_blk["cwv"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def _embed_prompt(params, tokens, cfg: ModelConfig, frontend):
+    """(x, enc_out) of a prompt batch: an encoder-decoder model encodes
+    ``frontend`` and embeds the tokens alone; a decoder-only one prepends
+    the projected ``frontend`` (when given) to the tokens' embeddings."""
+    if cfg.n_encoder_layers:
+        if frontend is None:
+            raise ValueError(f"{cfg.name}: the encoder needs its frontend "
+                             "frames")
+        return embed_tokens(params, tokens, cfg), encode(params, frontend,
+                                                         cfg)
+    return embed_tokens(params, tokens, cfg, frontend), None
 
 
 # ---------------------------------------------------------------------------
@@ -765,7 +894,7 @@ def write_dense_entries(cache, entries, cfg: ModelConfig, lengths,
 
 
 def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
-            stats=None):
+            stats=None, frontend=None):
     """Process a prompt batch and write its cache entries.
 
     tokens: (B, S) with ``lengths`` (B,) valid tokens each. With
@@ -776,20 +905,35 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
     sliding-window block's gathered into its ring), or recurrent state at
     its own length. The ``pattern_tail`` blocks run after the repeats and
     fill ``cache["tail"]``. A MoE block routes each row's ``lengths``
-    tokens, its metrics added to ``stats``. Returns (last_logits (B, V),
-    cache), the cache updated in place."""
-    x = embed_tokens(params, tokens, cfg)
+    tokens, its metrics added to ``stats``. ``frontend`` (B, Sf, De): an
+    encoder-decoder model encodes it, every decoder block cross-attends
+    the encoder's output, and ``cache["cross"]`` takes each repeat's
+    first block's cross K/V, as the JAX package's; a decoder-only VLM
+    prepends it to the tokens, and ``lengths`` count its Sf rows. Returns
+    (last_logits (B, V), cache), the cache updated in place."""
+    x, enc_out = _embed_prompt(params, tokens, cfg, frontend)
+    if enc_out is not None:
+        se = cache["cross"]["k"].shape[2]
+        if enc_out.shape[1] != se:
+            raise ValueError(f"{cfg.name}: {enc_out.shape[1]} frontend "
+                             f"frames, the cross cache holds {se}")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for r in range(cfg.n_pattern_repeats):
         x, entries = prefill_group(params, x, positions, r, cfg, lengths,
-                                   stats)
+                                   stats, enc_out)
         if page_map is None:
             write_dense_entries(cache, entries, cfg, lengths, r)
         else:
             scatter_group_pages(cache, entries, page_map, r)
+        if enc_out is not None:
+            for key, t in zip(("k", "v"), entries[0]["cross"]):
+                cache["cross"][key][r].copy_(t)
     for j, blk in enumerate(cfg.pattern_tail):
-        x, entry = _apply_block_full(x, params["tail_blocks"][j], blk, cfg,
-                                     positions, lengths, stats)
+        p = params["tail_blocks"][j]
+        cross = (None if enc_out is None
+                 else _cross_kv_from_encoder(p, enc_out, cfg))
+        x, entry = _apply_block_full(x, p, blk, cfg, positions, lengths,
+                                     stats, cross)
         _write_entry(cache["tail"][j], entry, blk, cfg, lengths)
     return last_token_logits(params, x, lengths, cfg), cache
 
@@ -819,18 +963,32 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     the dense slot cache of :func:`init_cache` (built with the same
     ``long_context``), whose attention entries are masked by one
     ``_kv_positions`` map per distinct (cache length, ring) pair, and whose
-    ``pattern_tail`` blocks run after the repeats. Returns (logits (B, V),
-    cache), the cache updated in place."""
+    ``pattern_tail`` blocks run after the repeats. With ``cache["cross"]``
+    every block of repeat r cross-attends its row r (the tail blocks the
+    last row), all of its Se rows: the map 0..Se-1 and pos Se-1 are made
+    on the device here, so a CUDA graph of this step captures them with
+    no copy from the host. Returns (logits (B, V), cache), the cache
+    updated in place."""
     x = embed_tokens(params, tokens, cfg)
     kvpos = (None if block_tables is not None
              else _position_maps(cfg, cache, pos, long_context))
+    cross_pos = None
+    if "cross" in cache:
+        se = cache["cross"]["k"].shape[2]
+        cross_pos = (_kv_positions(pos, se, False),
+                     torch.full_like(pos, se - 1))
     for r in range(cfg.n_pattern_repeats):
         x = decode_repeat(params, cache, x, pos, r, cfg, block_tables,
-                          long_context=long_context, kv_positions=kvpos)
+                          long_context=long_context, kv_positions=kvpos,
+                          cross_pos=cross_pos)
     for j, blk in enumerate(cfg.pattern_tail):
+        cross = None
+        if cross_pos is not None:
+            cross = (cache["cross"]["k"][-1], cache["cross"]["v"][-1],
+                     *cross_pos)
         x = _apply_block_decode(
             x, params["tail_blocks"][j], blk, cfg, cache["tail"][j], pos,
-            long_context=long_context, kv_positions=kvpos)
+            long_context=long_context, kv_positions=kvpos, cross=cross)
     return decode_logits(params, x, cfg), cache
 
 
@@ -847,24 +1005,25 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def forward(params, tokens, cfg: ModelConfig):
+def forward(params, tokens, cfg: ModelConfig, *, frontend=None):
     """Teacher-forcing forward over ``tokens`` (B, S), every row a full
-    sequence. Returns (logits (B, S, V), aux): ``aux`` the MoE
+    sequence, with ``frontend`` encoded (encoder-decoder) or prepended
+    (decoder-only VLM: the logits then cover its rows too), as in
+    :func:`prefill`. Returns (logits (B, S, V), aux): ``aux`` the MoE
     load-balance losses summed over the layers in order (zero without
-    MoE blocks), as the JAX ``forward``. The frontend and the encoder
-    raise."""
-    if cfg.frontend_embed_len or cfg.n_encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the frontend projector and the encoder come with "
-            "a later slice (ROADMAP port item 'the other architectures')")
-    x = embed_tokens(params, tokens, cfg)
+    MoE blocks), as the JAX ``forward``."""
+    x, enc_out = _embed_prompt(params, tokens, cfg, frontend)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     stats = MoEStats(x.device)
     for r in range(cfg.n_pattern_repeats):
-        x, _ = prefill_group(params, x, positions, r, cfg, stats=stats)
+        x, _ = prefill_group(params, x, positions, r, cfg, stats=stats,
+                             enc_out=enc_out)
     for j, blk in enumerate(cfg.pattern_tail):
-        x, _ = _apply_block_full(x, params["tail_blocks"][j], blk, cfg,
-                                 positions, stats=stats)
+        p = params["tail_blocks"][j]
+        cross = (None if enc_out is None
+                 else _cross_kv_from_encoder(p, enc_out, cfg))
+        x, _ = _apply_block_full(x, p, blk, cfg, positions, stats=stats,
+                                 cross_kv=cross)
     aux = stats.sums[3]
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     return lm_logits(params, x, cfg), aux

@@ -248,9 +248,10 @@ def test_wrappers_reject_bad_inputs(gen):
         TF.flash_attention(q.half(), k.half(), k.half(), group=2)
     with pytest.raises(ValueError):
         TF.flash_attention(q, k, k, group=3)
+    # no instance at head dim 32 (64, 128 and 256 are built)
     with pytest.raises(ValueError, match="head dim"):
-        TF.flash_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
-                           k[..., :64].contiguous(), group=2)
+        TF.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           k[..., :32].contiguous(), group=2)
     qd, kc, vc, kvpos, pos = _dense_case(gen, torch.float32, False)
     with pytest.raises(TypeError, match="int32"):
         TD.decode_attention(qd, kc, vc, kvpos.long(), pos)
@@ -719,3 +720,89 @@ def test_fused_schedule_workspace_reads_zero_after_launches(gen):
     assert len(keys) == 2
     for k in keys:
         assert not bool(TB._SCHED[k].any()), k
+
+
+# ---------------------------------------------------------------------------
+# head dim 64: Granite-3.0-2B (G = 4, paged and fused) and SeamlessM4T's
+# encoder, cross-attention and decoder (G = 1)
+# ---------------------------------------------------------------------------
+
+def _close(out, ref, dtype):
+    """TOL, and in bf16 ULPS per output row."""
+    if dtype == torch.bfloat16:
+        assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,sq,sk,g", [
+    (True, 64, 64, 4), (True, 383, 383, 4), (False, 129, 129, 1),
+    (False, 64, 1024, 1), (False, 8, 300, 4)],
+    ids=["causal-64", "causal-383", "encoder", "cross", "cross-short"])
+def test_flash_kernel_at_head_dim_64(gen, dtype, causal, sq, sk, g):
+    """One 128-byte swizzle chunk a row: causal at Granite's G = 4 (one
+    query tile, then tails past the 128-row and 64-key tiles), non-causal
+    at Seamless's G = 1 over Sq = Sk (the encoder) and Sq != Sk (the
+    cross-attention, a prompt over the encoder's rows)."""
+    q = torch.randn(2 * g, sq, 64, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, sk, 64, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(2, sk, 64, generator=gen, device="cuda").to(dtype)
+    before = TF.launches
+    out = TF.flash_attention(q, k, v, causal=causal, group=g)
+    assert TF.launches == before + 1
+    _close(out, TF.flash_attention_plain(q, k, v, causal=causal, group=g),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+def test_decode_kernels_at_head_dim_64(gen, monkeypatch, dtype, n_split):
+    """Dense decode over the split case's slots and paged decode over the
+    paged split case's (G = 4), and dense decode over a cross cache of
+    300 rows all attended (G = 1); ``n_split`` forces the bf16 pieces."""
+    if n_split is not None:
+        monkeypatch.setattr(TD, "split_count", lambda *a: n_split)
+    q, kc, vc, kvpos, pos = _split_case(gen, 64, g=4)
+    q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
+    act = torch.tensor([True, True, True, False, True], device="cuda")
+    out = TD.decode_attention(q, kc, vc, kvpos, pos)
+    _close(out[act], TD.decode_attention_plain(q, kc, vc, kvpos, pos)[act],
+           dtype)
+    assert bool((out[3] == 0).all())
+    qd, kp, vp, bt, ppos = _paged_split_case(gen, dtype, 16, g=4, d=64)
+    out = TP.paged_decode_attention(qd, kp, vp, bt, ppos)
+    pact = ppos >= 0
+    _close(out[pact], TP.paged_decode_attention_plain(
+        qd, kp, vp, bt, ppos)[pact], dtype)
+    qc = torch.randn(3, 4, 1, 64, generator=gen, device="cuda").to(dtype)
+    kx = torch.randn(3, 300, 4, 64, generator=gen, device="cuda").to(dtype)
+    vx = torch.randn(3, 300, 4, 64, generator=gen, device="cuda").to(dtype)
+    every = torch.arange(300, dtype=torch.int32, device="cuda")[None].expand(
+        3, 300).contiguous()
+    last = torch.full((3,), 299, dtype=torch.int32, device="cuda")
+    _close(TD.decode_attention(qc, kx, vx, every, last),
+           TD.decode_attention_plain(qc, kx, vx, every, last), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+def test_fused_kernels_at_head_dim_64_bit_equal_to_standalone(gen, dtype,
+                                                              share):
+    """Both fused kernels at D = 64 and G = 4 equal flash + their decode
+    kernel launched apart, bit for bit."""
+    q = torch.randn(16, 300, 64, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(4, 300, 64, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(4, 300, 64, generator=gen, device="cuda").to(dtype)
+    fo = TF.flash_attention(q, k, v, group=4)
+    qd, kp, vp, bt, pos = _paged_split_case(gen, dtype, 16, g=4, d=64)
+    op, od = TB.bullet_attention_paged(q, k, v, qd, kp, vp, bt, pos,
+                                       decode_share=share, group=4)
+    assert torch.equal(op, fo)
+    assert torch.equal(od, TP.paged_decode_attention(qd, kp, vp, bt, pos))
+    qd, kc, vc, kvpos, pos = _dense_case(gen, dtype, False, g=4, d=64)
+    op, od = TB.bullet_attention(q, k, v, qd, kc, vc, kvpos, pos,
+                                 decode_share=share, group=4)
+    assert torch.equal(op, fo)
+    assert torch.equal(od, TD.decode_attention(qd, kc, vc, kvpos, pos))

@@ -74,9 +74,10 @@ def test_registry_holds_the_paged_models():
 def test_registry_holds_mamba2():
     assert get_config("mamba2-2.7b") == _as_port(jax_config("mamba2-2.7b"))
     assert sorted(list_configs()) == [
-        "codeqwen1.5-7b", "llama3.1-8b", "llama4-maverick-400b-a17b",
-        "mamba2-2.7b", "mixtral-8x22b", "qwen1.5-4b", "qwen3-1.7b",
-        "recurrentgemma-2b"]
+        "codeqwen1.5-7b", "granite-3-2b", "internvl2-76b", "llama3.1-8b",
+        "llama4-maverick-400b-a17b", "mamba2-2.7b", "mixtral-8x22b",
+        "qwen1.5-4b", "qwen3-1.7b", "recurrentgemma-2b",
+        "seamless-m4t-large-v2"]
 
 
 def test_registry_holds_recurrentgemma():
@@ -98,7 +99,8 @@ def test_kernel_library_builds_every_source_under_a_neutral_name():
         assert f"int {name}(" in text, name
     assert "ssd_scan_fwd" in build.SIGNATURES
     assert "rglru_scan_fwd" in build.SIGNATURES
-    assert build.HEAD_DIMS == (128, 256) and build.PAGED_HEAD_DIMS == (128,)
+    assert build.HEAD_DIMS == (64, 128, 256)
+    assert build.PAGED_HEAD_DIMS == (64, 128)
 
 
 def _as_port(jcfg):

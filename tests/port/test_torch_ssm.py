@@ -391,9 +391,10 @@ def test_engine_resolves_dense_serial_for_mamba(model):
 
 def test_engine_still_refuses_moe():
     """The engine refused MoE stacks until the MoE slice: now it builds
-    over one and init_params gives its expert leaves, while what ROADMAP
-    item 'the other architectures' still holds back (the encoder and
-    cross-attention) raises naming it."""
+    over one and init_params gives its expert leaves. The encoder and
+    cross-attention came with a later slice: init_params gives their
+    leaves, and the engine refuses the cross-attention config, as the
+    JAX package's route to it is the models-level one."""
     cfg = get_config("qwen3-1.7b").reduced(
         pattern=(BlockSpec(mixer=ATTN, ff=MOE),), n_experts=4,
         n_experts_per_token=2)
@@ -403,9 +404,15 @@ def test_engine_still_refuses_moe():
     server = BulletServer(cfg, params, config=ServerConfig(
         slo=SLO(3.0, 150.0)), device="cpu")
     assert server.moe_stats is not None
-    enc = dataclasses.replace(cfg, n_encoder_layers=1, cross_attention=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(enc, device="cpu")
+    enc = dataclasses.replace(cfg, n_encoder_layers=1, cross_attention=True,
+                              encoder_seq_len=8, frontend_embed_len=8,
+                              frontend_embed_dim=16)
+    p_enc = T.init_params(enc, dtype=torch.float32, device="cpu")
+    assert p_enc["encoder"]["wq"].shape[0] == 1
+    assert {"ln_cross", "cwq", "cwk", "cwv", "cwo"} <= set(p_enc["blocks"][0])
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        BulletServer(enc, p_enc, config=ServerConfig(slo=SLO(3.0, 150.0)),
+                     device="cpu")
 
 
 def test_engine_streams_match_jax(model, jax_streams):
