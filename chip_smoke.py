@@ -62,6 +62,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    rows, all attended), both fused kernels bit-equal to flash + their
    decode kernel at every tile-table share (the dense one's launches are
    that sweep's), the paged one's SM partition read from its record;
+   then the chunked prefill's kernels (``phase_chunked_kernels``, fp32
+   and bf16): kernel 1 at a query offset, Qwen3-1.7B's chunks of 512 rows
+   at offset 7680 over 8192 keys, 1000 at 1000 over 2000, and 512 at 1024
+   over 2348 keys (the rows past the chunk at a large finite value no
+   query may attend), Granite's D = 64, RecurrentGemma's D = 256 with its
+   2048 window and Mixtral's 4096 window, each offset past the window;
+   kernel 6 from a random state at the SSD shapes (bf16 also against its
+   mirror), and in fp32 a scan split at row 300 (the second part from the
+   first part's final state) against the whole; timed: the 8192-key chunk
+   beside SDPA with the offset-causal mask and the prefix copy
+   (``copy_ms``), kernel 6 from a state at B=1 S=1000 (rows
+   ``flash_attention_chunk*``, ``ssd_scan_state*``);
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
@@ -229,7 +241,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
    InternVL2-76B at its published widths over 8 of its 80 layers (9.0 G
    params, the depth cut printed), bf16, dense slot cache, 2 rows of 256
    stub patches prepended to prompts of 64 and 500 tokens, 32 greedy steps
-   through ``GraphedDecode`` bit-equal to eager.
+   through ``GraphedDecode`` bit-equal to eager;
+15. chunked (``phase_chunked``): the chunked prefill (``prefill_chunk``)
+   and the long-context prefill at published widths, seeded random
+   weights. fp32, chunked against unchunked (the recipe of
+   tests/test_chunked_real.py): Qwen3-1.7B (28 layers, 2 × 2048, chunks
+   [512]*4 and [768, 768, 512]), Mamba-2-2.7B (64 layers, 2 × 2000,
+   [500]*4), RecurrentGemma-2B (26 layers, 2 × 2000, [512, 512, 512,
+   464]), Mixtral-8x22B (2 of 56 layers, 2 × 2048, [512]*4, capacity
+   factor 8): the last chunk's logits against ``forward``'s at S-1 and 8
+   greedy steps from the chunked cache against 8 from the unchunked
+   ``prefill``'s, within 2e-3 of scale, tokens equal; Qwen3-1.7B's
+   long-context batch (window 8192, prompts of 16384 and 12000): each
+   row's logits and every layer's ring against its solo prefill within
+   1e-3 of scale. bf16 Qwen3-1.7B: one 8192-token prompt whole and in
+   chunks of 512, 1024 and 2048 (ms in total and per chunk, the last
+   logits within 5e-2 of scale of the whole prefill's), a profile of the
+   512-token chunks, 32 greedy steps through ``GraphedDecode``; the
+   long-context batch in bf16 (prefill ms) and 32 graphed
+   ``decode_step(long_context=True)`` steps over the ring (ms a step,
+   launches); bf16 Mamba-2-2.7B, one 2000-token prompt in chunks of 512
+   (on the SSD chunks' boundaries: within 5e-2 of scale of the whole
+   prefill) and of 500 (within twice the whole bf16 prefill's distance
+   from the fp32 one), the ``ssd_scan_state`` row's launches.
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -300,6 +334,9 @@ RG_STATE_TOL = 1e-5
 #: where the window spans 3 blocks; each phase prints what a result one key
 #: short reads in the same units, well above this
 RG_ATTN_ULPS = 4
+#: the value of the key and value rows past a chunk at a query offset: a
+#: kernel that attends them misses by far more than the tolerance
+PAST_CHUNK = 1e3
 #: decode_share values of the paged fused kernel's sweep at the serving
 #: shape
 SWEEP_SHARES = (0.0, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
@@ -585,14 +622,16 @@ def dense_cost(q, kvpos, pos, dtype):
 
 
 def flash_cost(bp, s, dtype, h: int = H, kh: int = K, window: int = 0,
-               d: int = D, causal: bool = True, sk: int = 0):
+               d: int = D, causal: bool = True, sk: int = 0,
+               q_offset: int = 0):
     """Flash's bytes (q, k, v read, the output written) and operations
-    (both products over the causal pairs, within ``window`` keys; not
+    (both products over the causal pairs, query i at position ``q_offset
+    + i`` with the keys at or before it, within ``window`` keys; not
     ``causal``: every query of ``s`` with every key of ``sk`` or ``s``)."""
     sk = sk or s
     n_bytes = (2 * bp * h * s * d + 2 * bp * kh * sk * d) * esize(dtype)
-    pairs = (sum(min(i + 1, window or s) for i in range(s)) if causal
-             else s * sk)
+    pairs = (sum(min(q_offset + i + 1, window or sk) for i in range(s))
+             if causal else s * sk)
     return n_bytes, 4 * d * bp * h * pairs
 
 
@@ -627,6 +666,46 @@ def ssd_cost(xw, dtype):
     n_ops = b * nc * 2 * q * q * n \
         + b * h * nc * (2 * q * q * p + 4 * q * n * p)
     return n_bytes, n_ops
+
+
+def ssd_check(gen, b, s, dtype, state: bool = False) -> float:
+    """The SSD scan kernel against its plain version on ``ssd_inputs``
+    (with ``state`` from a random state0): y and the final state within
+    SSD_TOL / SSD_STATE_TOL of scale, the bf16 body also against its
+    plain mirror within SSD_TC_TOL / SSD_TC_STATE_TOL; with ``state`` the
+    log adds what the scan from zeros reads. Returns max|kernel - plain|
+    of y."""
+    from repro_torch.kernels import ref as KR
+    from repro_torch.kernels import ssd_scan as SK
+    xw, cum, bm, cm = ssd_inputs(gen, b, s, dtype)
+    st0 = (torch.randn(b, SSD_H, SSD_P, SSD_N, generator=gen, device="cuda")
+           if state else None)
+    y, st = SK.ssd_scan(xw, cum, bm, cm, st0)
+    ry, rst = SK.ssd_scan_plain(xw, cum, bm, cm, st0)
+    torch.cuda.synchronize()
+    what = (f"ssd_scan{' from a state' if state else ''} {_dt_name(dtype)} "
+            f"B={b} S={s}")
+    check(y.dtype == dtype and st.dtype == torch.float32,
+          f"{what}: output dtypes {y.dtype}/{st.dtype}")
+    ey, es = rel_err(y, ry), rel_err(st, rst)
+    check(math.isfinite(ey) and ey <= SSD_TOL[dtype]
+          and math.isfinite(es) and es <= SSD_STATE_TOL,
+          f"{what}: y err {ey}, state err {es}")
+    ea = (y.float() - ry.float()).abs().max().item()
+    extra = ""
+    if dtype == torch.bfloat16:
+        my, mst = KR.ssd_scan_tc_ref(xw, cum, bm, cm, st0)
+        my_e, ms_e = rel_err(y, my), rel_err(st, mst)
+        check(my_e <= SSD_TC_TOL and ms_e <= SSD_TC_STATE_TOL,
+              f"{what} against its mirror: y err {my_e}, state err {ms_e}")
+        extra = f"; against the mirror y {my_e:.3e}, state {ms_e:.3e}"
+    if state:
+        zy = rel_err(SK.ssd_scan_plain(xw, cum, bm, cm)[0], ry)
+        extra += f"; the scan from zeros reads y {zy:.3e}"
+    log(f"{what} (NC={xw.shape[1]} Q={xw.shape[2]}): max|kernel-plain|/"
+        f"scale y {ey:.3e}, state {es:.3e}; max|kernel-plain| y {ea:.3e} "
+        f"(scale {ry.float().abs().max().item():.1f}){extra}")
+    return ea
 
 
 def rel_err(out, ref) -> float:
@@ -666,22 +745,30 @@ def _dt_suffix(dtype) -> tuple:
 
 def flash_check(gen, bp, s, dtype, *, h: int = H, kh: int = K, d: int = D,
                 window: int = 0, what: str = "", causal: bool = True,
-                sk: int = 0):
+                sk: int = 0, q_offset: int = 0):
     """Flash over ``bp`` rows of ``s`` query tokens and ``sk`` keys (0:
     ``s``; ``h`` query heads on ``kh`` kv heads, head dim ``d``, causal or
-    not, within ``window`` keys) against its plain version within TOL; in
-    bf16 also per output row within RG_ATTN_ULPS, beside what the plain
-    version reads with the window one key short (for window 0, the last
-    row's oldest key left out). Returns (error, (q, k, v))."""
+    not, within ``window`` keys; query i at position ``q_offset + i``, the
+    key and value rows past the chunk at PAST_CHUNK, which no query may
+    attend) against its plain version within TOL; in bf16 also per output
+    row within RG_ATTN_ULPS, beside what the plain version reads with the
+    window one key short (for window 0, the last row's oldest key left
+    out; with an offset, the offset one short). Returns (error, (q, k,
+    v))."""
     from repro_torch.kernels import flash_attention as FA
     g = h // kh
     q, k, v = flash_inputs(gen, bp, s, dtype, h, kh, d, sk)
-    out = FA.flash_attention(q, k, v, causal=causal, window=window, group=g)
+    if q_offset:
+        k[:, q_offset + s:] = PAST_CHUNK
+        v[:, q_offset + s:] = PAST_CHUNK
+    out = FA.flash_attention(q, k, v, causal=causal, window=window, group=g,
+                             q_offset=q_offset)
     ref = FA.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                   group=g)
+                                   group=g, q_offset=q_offset)
     torch.cuda.synchronize()
     e = (out.float() - ref.float()).abs().max().item()
     name = (f"flash {what}{_dt_name(dtype)} Bp={bp} S={s}"
+            f"{f' at offset {q_offset}' if q_offset else ''}"
             f"{f' Sk={sk}' if sk else ''} H={h} K={kh} D={d} "
             f"window={window}{'' if causal else ' non-causal'}")
     check(math.isfinite(e) and e <= TOL[dtype], f"{name}: err {e}")
@@ -690,11 +777,16 @@ def flash_check(gen, bp, s, dtype, *, h: int = H, kh: int = K, d: int = D,
         u = row_ulps(out, ref)
         check(math.isfinite(u) and u <= RG_ATTN_ULPS,
               f"{name}: {u} ulps of the row scale")
-        wu = row_ulps(FA.flash_attention_plain(
-            q, k, v, causal=causal, window=(window or s) - 1, group=g), ref)
+        if q_offset:
+            short, probe = "offset one", dict(window=window,
+                                              q_offset=q_offset - 1)
+        else:
+            short, probe = "window one key", dict(window=(window or s) - 1)
+        wu = row_ulps(FA.flash_attention_plain(q, k, v, causal=causal,
+                                               group=g, **probe), ref)
         how = (f", {u:.2f} bf16 ulps of the row scale (tolerance "
-               f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} (window one "
-               "key short)")
+               f"{RG_ATTN_ULPS}); a wrong result reads {wu:.2f} ({short} "
+               "short)")
     log(f"{name}: max|kernel-plain| = {e:.3e}{how}")
     return e, (q, k, v)
 
@@ -774,36 +866,40 @@ def dense_check(inputs, dtype, what: str) -> float:
 
 def flash_row(timer, name, dtype, inputs, err, bp, s, *, h: int = H,
               kh: int = K, d: int = D, window: int = 0, what: str = "",
-              causal: bool = True):
+              causal: bool = True, sk: int = 0, q_offset: int = 0):
     """Flash's kernel-table row: card ms, plain ms and SDPA (on expanded
-    K/V, with the window as a mask) on ``inputs``, beside the bound."""
+    K/V, the window or the query offset as a causal mask) on ``inputs``
+    (``sk`` keys, 0: ``s``), beside the bound."""
     from repro_torch.kernels import flash_attention as FA
     F = torch.nn.functional
     g = h // kh
+    sk = sk or s
     sfx, tag = _dt_suffix(dtype)
     q, k, v = inputs
-    nb, no = flash_cost(bp, s, dtype, h, kh, window, d, causal)
+    nb, no = flash_cost(bp, s, dtype, h, kh, window, d, causal, sk, q_offset)
     bms, bby = bound_ms(nb, no, dtype)
     qs = q.reshape(bp, h, s, d)
-    ks = k.reshape(bp, kh, s, d).repeat_interleave(g, 1)
-    vs = v.reshape(bp, kh, s, d).repeat_interleave(g, 1)
-    if window:
-        i = torch.arange(s, device="cuda")
-        wmask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    ks = k.reshape(bp, kh, sk, d).repeat_interleave(g, 1)
+    vs = v.reshape(bp, kh, sk, d).repeat_interleave(g, 1)
+    if window or q_offset:
+        i = torch.arange(s, device="cuda")[:, None] + q_offset
+        j = torch.arange(sk, device="cuda")[None, :]
+        mask = (j <= i) & (j > i - window) if window else j <= i
         lib = timer(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=wmask))
+            qs, ks, vs, attn_mask=mask))
     else:
         lib = timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=causal))
+    kw = dict(causal=causal, window=window, group=g, q_offset=q_offset)
     return with_tflops(dict(
         name=name + sfx, route="cuda", source=ATTN_SRC,
         replaces="src/repro/kernels/flash_attention.py:77",
-        ms=timer(lambda: FA.flash_attention(q, k, v, causal=causal,
-                                            window=window, group=g)),
-        plain_ms=timer(lambda: FA.flash_attention_plain(
-            q, k, v, causal=causal, window=window, group=g)),
+        ms=timer(lambda: FA.flash_attention(q, k, v, **kw)),
+        plain_ms=timer(lambda: FA.flash_attention_plain(q, k, v, **kw)),
         bound_ms=bms, bound_by=bby, library_ms=lib, max_abs_err=err,
-        shape=f"{what}Bp={bp} S={s} H={h} K={kh} D={d} window {window} "
+        shape=f"{what}Bp={bp} S={s}"
+              f"{f' at offset {q_offset} over Sk={sk}' if q_offset else ''}"
+              f" H={h} K={kh} D={d} window {window} "
               f"{'causal' if causal else 'non-causal'} {tag}"), no)
 
 
@@ -1174,7 +1270,6 @@ def phase_ssd(timer: Timer) -> list:
     mirror. Timed at B=1, S=1000 in both dtypes (rows ``ssd_scan`` and
     ``ssd_scan_fp32``), and in bf16 at each P slice of the output kernel."""
     from repro_torch.kernels import geometry
-    from repro_torch.kernels import ref as KR
     from repro_torch.kernels import ssd_scan as SK
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1182,33 +1277,8 @@ def phase_ssd(timer: Timer) -> list:
     for dtype in (torch.float32, torch.bfloat16):
         for b in (1, 4):
             for s in (1000, 200):
-                xw, cum, bm, cm = ssd_inputs(gen, b, s, dtype)
-                y, st = SK.ssd_scan(xw, cum, bm, cm)
-                ry, rst = SK.ssd_scan_plain(xw, cum, bm, cm)
-                torch.cuda.synchronize()
-                check(y.dtype == dtype and st.dtype == torch.float32,
-                      f"ssd_scan {dtype}: output dtypes {y.dtype}/{st.dtype}")
-                ey, es = rel_err(y, ry), rel_err(st, rst)
-                check(math.isfinite(ey) and ey <= SSD_TOL[dtype]
-                      and math.isfinite(es) and es <= SSD_STATE_TOL,
-                      f"ssd_scan {dtype} B={b} S={s}: y err {ey}, state "
-                      f"err {es}")
-                ea = (y.float() - ry.float()).abs().max().item()
-                worst[dtype] = max(worst.get(dtype, 0.0), ea)
-                mirror = ""
-                if dtype == torch.bfloat16:
-                    my, mst = KR.ssd_scan_tc_ref(xw, cum, bm, cm)
-                    my_e, ms_e = rel_err(y, my), rel_err(st, mst)
-                    check(my_e <= SSD_TC_TOL and ms_e <= SSD_TC_STATE_TOL,
-                          f"ssd_scan bf16 B={b} S={s} against its mirror: "
-                          f"y err {my_e}, state err {ms_e}")
-                    mirror = (f"; against the mirror y {my_e:.3e}, state "
-                              f"{ms_e:.3e}")
-                log(f"ssd_scan {str(dtype)[6:]} B={b} S={s} (NC="
-                    f"{xw.shape[1]} Q={xw.shape[2]}): max|kernel-plain|/"
-                    f"scale y {ey:.3e}, state {es:.3e}; max|kernel-plain| "
-                    f"y {ea:.3e} (scale {ry.float().abs().max().item():.1f})"
-                    f"{mirror}")
+                worst[dtype] = max(worst.get(dtype, 0.0),
+                                   ssd_check(gen, b, s, dtype))
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, dtype)
@@ -1692,6 +1762,148 @@ def phase_attention_d64(timer: Timer):
     return rows, dense_launches
 
 
+# ---------------------------------------------------------------------------
+# the chunked prefill's kernels: kernel 1 at a query offset, kernel 6 from a
+# starting state
+# ---------------------------------------------------------------------------
+
+#: Qwen3-1.7B's chunks (Sq query rows at the offset, over Sk keys): the
+#: timed row (the last 512 tokens of an 8192-token prompt), a chunk and an
+#: offset off the tiles, and keys past the chunk
+CHUNK_CASES = ((512, 7680, 8192), (1000, 1000, 2000), (512, 1024, 2348))
+#: (model, H, K, D, window, Sq, offset, Sk) of the other shapes, each
+#: offset past its window (Granite has none)
+CHUNK_SHAPES = (
+    ("granite-3-2b ", GR_H, GR_K, D64, 0, 512, 3584, 4096),
+    ("recurrentgemma-2b ", RG_H, RG_K, RG_D, RG_WINDOW, 512, 2560, 3072),
+    ("mixtral-8x22b ", MX_H, MX_K, D, MX_WINDOW, 512, 4608, 5120))
+#: the SSD scan from a state split at this row (not a multiple of SSD_Q)
+SSD_SPLIT = 300
+
+
+def _ssd_model_inputs(gen, b, s, dtype):
+    """x, dt, A, B, C, D in the model layout at Mamba-2-2.7B's sizes (as
+    ``ssd_inputs`` draws them), for ``ops.ssd_scan_op``."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    u = torch.rand(SSD_H, generator=gen, device="cuda") * 0.8 + 0.1
+    return (rn(b, s, SSD_H, SSD_P).to(dtype),
+            torch.nn.functional.softplus(rn(b, s, SSD_H)),
+            -torch.exp(torch.log(u / (1 - u))), rn(b, s, SSD_N).to(dtype),
+            rn(b, s, SSD_N).to(dtype), rn(SSD_H))
+
+
+def phase_chunked_kernels(timer: Timer) -> list:
+    """The chunked prefill's two kernel contracts, each against its plain
+    version on the card, fp32 and bf16. Kernel 1 at a query offset:
+    Qwen3-1.7B's chunks of CHUNK_CASES and the shapes of CHUNK_SHAPES
+    (Granite's D = 64 and G = 4, RecurrentGemma's D = 256 with G = 10 and
+    its 2048 window, Mixtral's G = 6 and 4096 window), the key rows past
+    each chunk at PAST_CHUNK, within TOL and in bf16 RG_ATTN_ULPS per
+    output row. Kernel 6 from a random state0 at Mamba-2-2.7B's shapes
+    (B 1 and 4, S 1000 and 200) within SSD_TOL / SSD_STATE_TOL, the bf16
+    body also against its mirror ``ssd_scan_tc_ref(state0)`` within
+    SSD_TC_TOL / SSD_TC_STATE_TOL; in fp32 the scan of S = 1000 rows
+    equals the scan of its first SSD_SPLIT rows followed by the rest from
+    their final state (``ops.ssd_scan_op``, each part padded to its own
+    chunks), within SSD_STATE_TOL of scale. Timed: kernel 1 at
+    CHUNK_CASES[0] beside SDPA with the offset-causal mask and the prefix
+    copy, kernel 6 from a state at B=1 S=1000 (rows
+    ``flash_attention_chunk*``, ``ssd_scan_state*``). The long-context
+    prefill's own shapes too, on a generator of their own: kernel 1 over
+    the padded batch of LC_PROMPTS within Qwen3-1.7B's long-context
+    window, and kernel 4 over that batch's ring at its first decode step
+    (the ring's positions as ``decode_step`` maps them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SK
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    gen_lc = torch.Generator(device="cuda").manual_seed(33)
+    lc_window = get_config("qwen3-1.7b").long_context_window
+    lc_pos = torch.tensor(LC_PROMPTS, dtype=torch.int32, device="cuda")
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = None
+        for sq, off, sk in CHUNK_CASES:
+            e, inp = flash_check(gen, 1, sq, dtype, sk=sk, q_offset=off,
+                                 what="qwen3-1.7b chunk ")
+            timed = timed or (e, inp)
+        for what, h, kh, d, window, sq, off, sk in CHUNK_SHAPES:
+            flash_check(gen, 1, sq, dtype, h=h, kh=kh, d=d, window=window,
+                        sk=sk, q_offset=off, what=what + "chunk ")
+        flash_check(gen_lc, len(LC_PROMPTS), max(LC_PROMPTS), dtype,
+                    window=lc_window, what="qwen3-1.7b long context ")
+
+        def rn(*shape):
+            return torch.randn(*shape, generator=gen_lc,
+                               device="cuda").to(dtype)
+        b = len(LC_PROMPTS)
+        dense_check((rn(b, K, G, D), rn(b, lc_window, K, D),
+                     rn(b, lc_window, K, D),
+                     T._kv_positions(lc_pos, lc_window, True), lc_pos),
+                    dtype, "qwen3-1.7b long-context ring")
+        sq, off, sk = CHUNK_CASES[0]
+        row = flash_row(timer, "flash_attention_chunk", dtype, timed[1],
+                        timed[0], 1, sq, sk=sk, q_offset=off,
+                        what="qwen3-1.7b chunk: ")
+        # what ops.flash_attention_op spends making the cached K and V
+        # (B, Sk, K, D) heads-major for the kernel: each chunk copies its
+        # whole prefix, once a layer
+        km, vm = (t.reshape(1, K, sk, D).transpose(1, 2).contiguous()
+                  for t in timed[1][1:])
+        row["copy_ms"] = timer(lambda: (ops._heads_major(km),
+                                        ops._heads_major(vm)))
+        log_row(row)
+        log(f"  the K/V prefix made heads-major for it "
+            f"(ops.flash_attention_op, once a layer a chunk): "
+            f"{row['copy_ms']:.4f} ms")
+        rows.append(row)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (1, 4):
+            for s in (1000, 200):
+                worst[dtype] = max(worst.get(dtype, 0.0),
+                                   ssd_check(gen, b, s, dtype, state=True))
+    x, dt, A, B_, C, Dk = _ssd_model_inputs(gen, 2, 1000, torch.float32)
+    y, st = ops.ssd_scan_op(x, dt, A, B_, C, Dk, chunk=SSD_Q)
+    p = SSD_SPLIT
+    y1, st1 = ops.ssd_scan_op(x[:, :p], dt[:, :p], A, B_[:, :p], C[:, :p],
+                              Dk, chunk=SSD_Q)
+    y2, st2 = ops.ssd_scan_op(x[:, p:], dt[:, p:], A, B_[:, p:], C[:, p:],
+                              Dk, chunk=SSD_Q, state0=st1)
+    ey, es = rel_err(torch.cat([y1, y2], 1), y), rel_err(st2, st)
+    check(ey <= SSD_STATE_TOL and es <= SSD_STATE_TOL,
+          f"ssd_scan fp32 split at row {p}: y err {ey}, state err {es}")
+    log(f"ssd_scan fp32 B=2 S=1000 as rows [0, {p}) then [{p}, 1000) from "
+        f"the first part's state: against the whole scan, /scale y "
+        f"{ey:.3e}, state {es:.3e}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, dtype)
+        st0 = torch.randn(1, SSD_H, SSD_P, SSD_N, generator=gen,
+                          device="cuda")
+        nb, no = ssd_cost(xw, dtype)
+        nb += 4 * st0.numel()                       # the starting state read
+        bms, bby = bound_ms(nb, no, dtype)
+        sfx, tag = _dt_suffix(dtype)
+        row = dict(
+            name="ssd_scan_state" + sfx, route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:66",
+            ms=timer(lambda: SK.ssd_scan(xw, cum, bm, cm, st0)),
+            plain_ms=timer(lambda: SK.ssd_scan_plain(xw, cum, bm, cm, st0)),
+            bound_ms=bms, bound_by=bby, library_ms=None,
+            max_abs_err=worst[dtype],
+            shape=f"B=1 S=1000 (NC=4 Q=256) H={SSD_H} P={SSD_P} N={SSD_N} "
+                  f"from a state {tag}")
+        log_row(row)
+        rows.append(row)
+    return rows
+
+
 def phase_colocated(timer: Timer) -> dict:
     """The counterpart of examples/colocated_attention.py on the card: one
     dense fused launch computes a prefill batch's attention and a decode
@@ -1965,7 +2177,8 @@ def _profile_report(prof, wall: float, what: str, card: str,
     busy = sum(kinds.values()) / 1e3
     check(busy > 0, "the profiler saw no device time")
     out = {"wall_ms": wall * 1e3, "busy_ms": busy,
-           "busy_share": busy / (wall * 1e3)}
+           "busy_share": busy / (wall * 1e3),
+           "kind_ms": {k: t / 1e3 for k, t in kinds.items()}}
     extra = ""
     if cycles:
         out["ms_per_cycle"] = wall * 1e3 / cycles
@@ -2179,12 +2392,18 @@ def captures(server) -> str:
 GRAPH_STEPS = 4
 
 
-def _clone_tree(tree):
+def _map_tree(fn, tree):
+    """``fn`` of every tensor of a nested dict / tuple tree, the nesting
+    kept."""
     if isinstance(tree, dict):
-        return {k: _clone_tree(v) for k, v in tree.items()}
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone_tree(v) for v in tree)
-    return tree.clone()
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+#: a copy of every tensor of a tree, its nesting kept
+_clone_tree = functools.partial(_map_tree, torch.clone)
 
 
 def _counter_names():
@@ -2595,13 +2814,8 @@ def _reduced_heads(name: str, head_dim: int = 128):
                         n_experts_per_token=full.n_experts_per_token)
 
 
-def _to_cpu(tree):
-    """A param or cache tree's tensors on the CPU, its nesting kept."""
-    if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_cpu(v) for v in tree)
-    return tree.cpu()
+#: a param or cache tree's tensors on the CPU, its nesting kept
+_to_cpu = functools.partial(_map_tree, torch.Tensor.cpu)
 
 
 def _kernel_counts():
@@ -2609,8 +2823,10 @@ def _kernel_counts():
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.kernels import ssd_scan as SK
     return {"flash": FA.launches, "paged_decode": PD.launches,
-            "decode": DA.launches, "bullet_paged": BA.launches}
+            "decode": DA.launches, "bullet_paged": BA.launches,
+            "ssd": SK.launches}
 
 
 def _reset_counts() -> None:
@@ -4544,19 +4760,20 @@ def phase_granite(card: str) -> dict:
 
 
 def _decode_graphed(params, cfg, cache, logits, lens, n_dec: int,
-                    what: str, card: str):
+                    what: str, card: str, long_context: bool = False):
     """``n_dec`` greedy ``decode_step``s through ``GraphedDecode`` from a
     prefill's ``logits`` (the first step captures, the rest replay,
     timed), then the same steps eagerly on a copy of the cache taken
     before them, fed the same tokens: fatal unless every step's logits
-    and, after the last, every cache leaf are bit-equal. Returns (ms per
+    and, after the last, every cache leaf are bit-equal. ``long_context``:
+    the cache's (its full-attention entries are rings). Returns (ms per
     replayed step, the first step's ms, the launch counts of the graphed
     steps)."""
     from repro_torch.core.graphs import GraphedDecode
     from repro_torch.models import transformer as T
     twin = _clone_tree(cache)
     _reset_counts()
-    dec = GraphedDecode(params, cache, cfg)
+    dec = GraphedDecode(params, cache, cfg, long_context=long_context)
     tok = logits.argmax(-1).to(torch.int32)
     pos = lens.clone()
     fed, seen = [], []
@@ -4575,7 +4792,8 @@ def _decode_graphed(params, cfg, cache, logits, lens, n_dec: int,
     counts = _kernel_counts()
     pos = lens.clone()
     for i, tok in enumerate(fed):
-        lg, _ = T.decode_step(params, twin, tok[:, None], pos, cfg)
+        lg, _ = T.decode_step(params, twin, tok[:, None], pos, cfg,
+                              long_context=long_context)
         check(torch.equal(lg, seen[i]), f"{what}: decode step {i}: the "
               "graph's logits differ from the eager step's")
         pos = pos + 1
@@ -4767,6 +4985,396 @@ def phase_internvl(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the chunked prefill and the long-context prefill at published widths
+# ---------------------------------------------------------------------------
+
+#: fp32, chunked against unchunked: (arch, layers (0: all), rows, prompt
+#: tokens, chunk sequences); Mixtral at 2 of its 56 layers (one layer in
+#: fp32 is 10 GB)
+CHUNKED_RUNS = (
+    ("qwen3-1.7b", 0, 2, 2048, ((512,) * 4, (768, 768, 512))),
+    ("mamba2-2.7b", 0, 2, 2000, ((500,) * 4,)),
+    ("recurrentgemma-2b", 0, 2, 2000, ((512, 512, 512, 464),)),
+    ("mixtral-8x22b", 2, 2, 2048, ((512,) * 4,)))
+#: greedy decode steps after each prefill, chunked against unchunked
+CHUNKED_DECODE = 8
+#: the JAX recipe's gate (tests/test_chunked_real.py): within this much of
+#: the logits' scale max(1, max|forward|)
+CHUNKED_TOL = 2e-3
+#: bf16: one prompt of CHUNKED_PROMPT tokens, chunks of CHUNK_SIZES, then
+#: CHUNKED_GRAPHED greedy steps through GraphedDecode; the last logits
+#: bit-equal to the unchunked prefill's (every chunk starts on kernel 1's
+#: query tiles, so each row meets the same key tiles in the same order,
+#: and the GEMMs and norms are row by row)
+CHUNKED_PROMPT, CHUNK_SIZES, CHUNKED_GRAPHED = 8192, (512, 1024, 2048), 32
+#: the long-context prefill: Qwen3-1.7B's 8192-token window, one padded
+#: batch of these prompts, LC_DECODE graphed steps over the ring (bf16);
+#: fp32 rows against their solo prefills within LC_TOL of scale
+LC_PROMPTS, LC_DECODE, LC_TOL = (16384, 12000), 32, 1e-3
+
+
+def _chunked_cfg(arch: str, layers: int):
+    """The published config (depth cut to ``layers`` when given), a MoE
+    config at capacity factor 8 as the JAX recipe sets it (no token
+    drops, so chunking changes no routing)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    return cfg
+
+
+def _run_chunks(params, cfg, toks, chunks, max_len, dtype):
+    """``prefill_chunk`` over ``toks`` (B, S) in ``chunks`` through a fresh
+    dense cache of ``max_len`` rows. Returns (the last chunk's logits,
+    the cache, ms of each chunk on the host clock, synchronized)."""
+    from repro_torch.models import prefill_chunk
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, toks.shape[0], max_len, dtype, "cuda")
+    ms, start = [], 0
+    for n in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill_chunk(params, toks[:, start:start + n], start,
+                                  cache, cfg)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        start += n
+    check(start == toks.shape[1], f"chunks {chunks} do not cover the prompt")
+    return logits, cache, ms
+
+
+def _eager_greedy(params, cfg, cache, logits, pos, n_dec: int):
+    """``n_dec`` greedy eager ``decode_step``s from a prefill's logits:
+    (the logits of each step, the tokens fed)."""
+    from repro_torch.models import transformer as T
+    seq, fed = [], []
+    tok = logits.argmax(-1).to(torch.int32)
+    for _ in range(n_dec):
+        fed.append(tok)
+        lg, _ = T.decode_step(params, cache, tok[:, None], pos, cfg)
+        seq.append(lg)
+        tok, pos = lg.argmax(-1).to(torch.int32), pos + 1
+    return seq, fed
+
+
+def _chunked_fp32(params, cfg, b, s, seqs, depth: str, card: str) -> dict:
+    """One run of CHUNKED_RUNS in fp32: ``forward``'s logits at S - 1 and
+    CHUNKED_DECODE greedy steps from the unchunked ``prefill``'s cache,
+    then per chunk sequence the last chunk's logits against the former and
+    CHUNKED_DECODE steps from the chunked cache against the latter, within
+    CHUNKED_TOL of scale, tokens equal. Returns the flash and SSD launches
+    of the chunked prefills."""
+    from repro_torch.models import transformer as T
+    toks = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int32)).cuda()
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    max_len = s + CHUNKED_DECODE
+    v = cfg.vocab_size              # the padded vocabulary reads -1e30
+    full, _ = T.forward(params, toks, cfg)
+    last = full[:, -1, :v].clone()
+    scale = max(full[..., :v].abs().max().item(), 1.0)
+    del full
+    cache = T.init_cache(cfg, b, max_len, torch.float32, "cuda")
+    logits, _ = T.prefill(params, toks, lens, cache, None, cfg)
+    ref_seq, ref_fed = _eager_greedy(params, cfg, cache, logits, lens,
+                                     CHUNKED_DECODE)
+    del cache
+    out = {"flash": 0, "ssd": 0}
+    for chunks in seqs:
+        _reset_counts()
+        lg, cache, ms = _run_chunks(params, cfg, toks, chunks, max_len,
+                                    torch.float32)
+        counts = _kernel_counts()
+        out["flash"] += counts["flash"]
+        out["ssd"] += counts["ssd"]
+        e_last = (lg[:, :v] - last).abs().max().item() / scale
+        what = f"chunked {cfg.name} fp32 ({depth}) {b}x{s} in {list(chunks)}"
+        check(e_last <= CHUNKED_TOL, f"{what}: last logits {e_last} of "
+              "scale from forward's")
+        seq, fed = _eager_greedy(params, cfg, cache, lg, lens,
+                                 CHUNKED_DECODE)
+        e_dec = 0.0
+        for i, (a, r) in enumerate(zip(seq, ref_seq)):
+            check(torch.equal(fed[i], ref_fed[i]), f"{what}: decode step "
+                  f"{i} fed other tokens than the unchunked run's")
+            e_dec = max(e_dec, (a[:, :v] - r[:, :v]).abs().max().item()
+                        / scale)
+        check(e_dec <= CHUNKED_TOL, f"{what}: decode logits {e_dec} of "
+              "scale from the unchunked cache's")
+        log(f"{what}: last logits {e_last:.3e} of scale from forward's at "
+            f"S-1, {CHUNKED_DECODE} greedy steps {e_dec:.3e} of scale from "
+            f"the unchunked prefill's, tokens equal (tolerance "
+            f"{CHUNKED_TOL}); chunk ms {[round(t, 2) for t in ms]}; "
+            f"launches flash {counts['flash']}, ssd_scan {counts['ssd']}  "
+            f"[{card}]")
+        del cache
+    return out
+
+
+def _long_context(params, cfg, dtype, card: str) -> dict:
+    """Qwen3-1.7B's long-context prefill of LC_PROMPTS as one padded
+    batch. fp32: each row's last logits and every layer's ring against its
+    solo long-context prefill, within LC_TOL of scale. bf16: the prefill's
+    ms (a warm-up call first), then LC_DECODE greedy
+    ``decode_step(long_context=True)`` steps through ``GraphedDecode``,
+    bit-equal to eager (ms a step), kernel 1's (windowed) and kernel 4's
+    (over the ring) launches. Returns those launches (bf16)."""
+    from repro_torch.models import transformer as T
+    b, s = len(LC_PROMPTS), max(LC_PROMPTS)
+    window = cfg.long_context_window
+    toks, lens = _prompt_batch(cfg, LC_PROMPTS, seed=31)
+    toks, lens = toks.cuda(), lens.cuda()
+    max_len = s + LC_DECODE
+    tag = _dt_name(dtype)
+    what = (f"long context qwen3-1.7b {tag} (window {window}), prompts "
+            f"{list(LC_PROMPTS)} in one batch")
+
+    def run(t, n):
+        cache = T.init_cache(cfg, t.shape[0], max_len, dtype, "cuda",
+                             long_context=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = T.prefill(params, t, n, cache, None, cfg, long_context=True)
+        torch.cuda.synchronize()
+        return lg, cache, 1e3 * (time.perf_counter() - t0)
+
+    if dtype == torch.float32:
+        logits, cache, _ = run(toks, lens)
+        rings = _leaves(cache)
+        check(all(leaf.shape[2] == window for leaf in rings),
+              f"{what}: the rings are not {window} rows")
+        worst = [0.0, 0.0]
+        v = cfg.vocab_size
+        for i, n in enumerate(LC_PROMPTS):
+            lg, solo, _ = run(toks[i:i + 1, :n], lens[i:i + 1])
+            e = rel_err(logits[i:i + 1, :v], lg[:, :v])
+            worst[0] = max(worst[0], e)
+            for a, r in zip(rings, _leaves(solo)):
+                worst[1] = max(worst[1], rel_err(a[:, i:i + 1], r))
+            del solo
+        check(worst[0] <= LC_TOL and worst[1] <= LC_TOL,
+              f"{what}: against the solo prefills logits {worst[0]}, rings "
+              f"{worst[1]} of scale")
+        log(f"{what}: against each row's solo prefill, logits "
+            f"{worst[0]:.3e} and every layer's ring {worst[1]:.3e} of scale "
+            f"(tolerance {LC_TOL})  [{card}]")
+        return {}
+    run(toks, lens)                                  # warm-up
+    _reset_counts()
+    logits, cache, t_pre = run(toks, lens)
+    pre = _kernel_counts()
+    check(pre["flash"] == cfg.n_layers, f"{what}: prefill launches {pre}")
+    ms, first, dec = _decode_graphed(params, cfg, cache, logits, lens,
+                                     LC_DECODE, what, card,
+                                     long_context=True)
+    check(dec["decode"] == cfg.n_layers * LC_DECODE and dec["flash"] == 0,
+          f"{what}: decode launches {dec}")
+    log(f"{what}: prefill {t_pre:.2f} ms ({int(lens.sum())} tokens), decode "
+        f"{ms:.3f} ms per step over {LC_DECODE - 1} graph replays over the "
+        f"{window}-row ring, the first step {first:.1f} ms; launches "
+        f"prefill {pre['flash']} flash (window {window}), decode "
+        f"{dec['decode']} dense decode over the ring  [{card}]")
+    del cache
+    return {"flash": pre["flash"], "decode": dec["decode"]}
+
+
+def _chunked_bf16(card: str) -> dict:
+    """Qwen3-1.7B at full depth in bf16: one prompt of CHUNKED_PROMPT
+    tokens prefilled whole and in chunks of each of CHUNK_SIZES (ms in
+    total and per chunk on the host clock, first to last; the last logits
+    bit-equal to the whole prefill's), one more pass of the
+    whole prefill and of each chunk size under torch.profiler (device busy
+    ms, kernel 1's apart from the rest), then CHUNKED_GRAPHED greedy steps
+    from the cache of the chunks of CHUNK_SIZES[0] through
+    ``GraphedDecode``; then the long-context batch (``_long_context``).
+    Returns kernel 1's launches in the chunked prefills."""
+    from repro_torch.models import transformer as T
+    cfg = _chunked_cfg("qwen3-1.7b", 0)
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(30).integers(
+        0, cfg.vocab_size, (1, CHUNKED_PROMPT), dtype=np.int32)).cuda()
+    lens = torch.full((1,), CHUNKED_PROMPT, dtype=torch.int32, device="cuda")
+    max_len = CHUNKED_PROMPT + CHUNKED_GRAPHED
+    what = f"chunked qwen3-1.7b bf16 (all {cfg.n_layers} layers)"
+    # warm-up: cuBLAS handles and kernel modules load outside the timing
+    T.prefill(params, toks, lens, T.init_cache(cfg, 1, max_len,
+                                               torch.bfloat16, "cuda"),
+              None, cfg)
+    _run_chunks(params, cfg, toks, (CHUNK_SIZES[0],) * (
+        CHUNKED_PROMPT // CHUNK_SIZES[0]), max_len, torch.bfloat16)
+    cache = T.init_cache(cfg, 1, max_len, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole, _ = T.prefill(params, toks, lens, cache, None, cfg)
+    torch.cuda.synchronize()
+    t_whole = 1e3 * (time.perf_counter() - t0)
+    del cache
+    v = cfg.vocab_size
+    whole = whole[:, :v].float()
+    scale = max(whole.abs().max().item(), 1.0)
+    log(f"{what}: one prompt of {CHUNKED_PROMPT} tokens, unchunked prefill "
+        f"{t_whole:.2f} ms  [{card}]")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def profiled(fn, label, n):
+        """Device busy ms and kernel 1's of one more pass of ``fn``."""
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rep = _profile_report(prof, wall, f"{what}, {label}", card, cycles=n)
+        return rep["busy_ms"], rep["kind_ms"].get(
+            "attention (this port's kernels)", 0.0)
+
+    flash, kept = 0, None
+    for size in CHUNK_SIZES:
+        chunks = (size,) * (CHUNKED_PROMPT // size)
+        _reset_counts()
+        lg, cache, ms = _run_chunks(params, cfg, toks, chunks, max_len,
+                                    torch.bfloat16)
+        n = _kernel_counts()["flash"]
+        check(n == cfg.n_layers * len(chunks), f"{what}: chunks of {size}: "
+              f"{n} flash launches")
+        flash += n
+        e = (lg[:, :v].float() - whole).abs().max().item() / scale
+        check(torch.equal(lg[:, :v].float(), whole), f"{what}: chunks of "
+              f"{size}: last logits {e} of scale from the unchunked "
+              "prefill's, not bit-equal")
+        log(f"{what}: chunks of {size}: {sum(ms):.2f} ms in all "
+            f"({sum(ms) / t_whole:.2f}x the unchunked prefill), per chunk "
+            f"first to last {[round(t, 2) for t in ms]}; last logits "
+            f"bit-equal to the unchunked prefill's  [{card}]")
+        if size == CHUNK_SIZES[0]:
+            kept = (lg, cache)
+        else:
+            del cache
+    # the profiled passes after every timed one, so that no profiler
+    # session runs before a pass whose wall time is read
+    runs = [("the unchunked prefill", 1, lambda: T.prefill(
+        params, toks, lens, T.init_cache(cfg, 1, max_len, torch.bfloat16,
+                                         "cuda"), None, cfg))]
+    for size in CHUNK_SIZES:
+        chunks = (size,) * (CHUNKED_PROMPT // size)
+        runs.append((f"{len(chunks)} chunks of {size}", len(chunks),
+                     functools.partial(_run_chunks, params, cfg, toks,
+                                       chunks, max_len, torch.bfloat16)))
+    for label, n, fn in runs:
+        busy, attn = profiled(fn, label, n)
+        log(f"{what}: {label}: device busy {busy:.2f} ms, kernel 1 "
+            f"{attn:.2f} ms  [{card}]")
+    ms, first, _ = _decode_graphed(params, cfg, kept[1], kept[0], lens,
+                                   CHUNKED_GRAPHED, what, card)
+    log(f"{what}: {CHUNKED_GRAPHED} greedy steps from the chunked cache "
+        f"(chunks of {CHUNK_SIZES[0]}) through GraphedDecode, {ms:.3f} ms "
+        f"per step over {CHUNKED_GRAPHED - 1} replays, the first {first:.1f} "
+        f"ms  [{card}]")
+    del kept
+    lc = _long_context(params, cfg, torch.bfloat16, card)
+    del params
+    torch.cuda.empty_cache()
+    return flash, lc
+
+
+#: bf16 Mamba-2-2.7B: one prompt of SSD_CHUNKED_PROMPT tokens in these
+#: chunks, each on the SSD chunks' boundaries but the last
+SSD_CHUNKED_PROMPT, SSD_CHUNKS = 2000, (512, 512, 512, 464)
+
+
+def _ssd_chunked_bf16(card: str) -> int:
+    """Mamba-2-2.7B at full depth in bf16: one prompt of SSD_CHUNKED_PROMPT
+    tokens prefilled whole and in SSD_CHUNKS (each chunk's scan from the
+    state the chunk before left, zeros for the first). On the SSD chunks'
+    own boundaries (multiples of SSD_Q) the scan runs the whole prefill's
+    chunks and hands each call's fp32 final state on as the next one's
+    state0, which the kernel rounds to bf16 for its inter term as the
+    whole scan does the state entering a chunk: the last logits bit-equal
+    to the whole prefill's. Returns the SSD launches of the chunked
+    prefill."""
+    from repro_torch.models import transformer as T
+    cfg = _chunked_cfg("mamba2-2.7b", 0)
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    s, v = SSD_CHUNKED_PROMPT, cfg.vocab_size
+    what = f"chunked mamba2-2.7b bf16 (all {cfg.n_layers} layers)"
+    toks = torch.from_numpy(np.random.default_rng(32).integers(
+        0, cfg.vocab_size, (1, s), dtype=np.int32)).cuda()
+    lens = torch.full((1,), s, dtype=torch.int32, device="cuda")
+
+    def whole():
+        cache = T.init_cache(cfg, 1, s, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = T.prefill(params, toks, lens, cache, None, cfg)
+        torch.cuda.synchronize()
+        return lg[:, :v], 1e3 * (time.perf_counter() - t0)
+
+    whole()                                         # warm-up
+    ref, t_whole = whole()
+    _reset_counts()
+    lg, _, ms = _run_chunks(params, cfg, toks, SSD_CHUNKS, s, torch.bfloat16)
+    got = _kernel_counts()["ssd"]
+    e = rel_err(lg[:, :v], ref)
+    check(torch.equal(lg[:, :v], ref), f"{what}: chunks {list(SSD_CHUNKS)}: "
+          f"last logits {e} of scale from the unchunked prefill's, not "
+          "bit-equal")
+    check(got == len(SSD_CHUNKS) * cfg.n_layers,
+          f"{what}: {got} ssd_scan launches")
+    log(f"{what}, one prompt of {s}: unchunked {t_whole:.2f} ms; chunks "
+        f"{list(SSD_CHUNKS)}: {sum(ms):.2f} ms ({[round(t, 2) for t in ms]})"
+        f", last logits bit-equal to the unchunked prefill's; {got} "
+        f"ssd_scan launches from a state  [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_chunked(card: str) -> dict:
+    """The chunked prefill (``prefill_chunk``) and the long-context prefill
+    at published widths, seeded random weights: (1) fp32, chunked against
+    unchunked, CHUNKED_RUNS (``_chunked_fp32``), and Qwen3-1.7B's
+    long-context batch in fp32 against its solo prefills; (2) bf16,
+    Qwen3-1.7B's CHUNKED_PROMPT-token prompt whole and in chunks, then the
+    long-context batch and its graphed decode (``_chunked_bf16``); (3)
+    bf16 Mamba-2-2.7B in SSD_CHUNKS (``_ssd_chunked_bf16``).
+    Returns the launches of the rows ``flash_attention_chunk*`` and
+    ``ssd_scan_state*``: each kernel's in the chunked prefills of its
+    dtype (kernel 1 Qwen3-1.7B's, kernel 6 Mamba-2-2.7B's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    launches = {}
+    for arch, layers, b, s, seqs in CHUNKED_RUNS:
+        t0 = time.perf_counter()
+        cfg = _chunked_cfg(arch, layers)
+        depth = (f"{layers} of {get_config(arch).n_layers} layers" if layers
+                 else f"all {cfg.n_layers} layers")
+        params = T.init_params(cfg, seed=0, dtype=torch.float32,
+                               device="cuda")
+        got = _chunked_fp32(params, cfg, b, s, seqs, depth, card)
+        if arch == "qwen3-1.7b":
+            launches["flash_attention_chunk_fp32"] = got["flash"]
+            _long_context(params, cfg, torch.float32, card)
+        if arch == "mamba2-2.7b":
+            launches["ssd_scan_state_fp32"] = got["ssd"]
+        del params
+        torch.cuda.empty_cache()
+        log(f"  chunked {arch} fp32 ({depth}): "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["flash_attention_chunk"], lc = _chunked_bf16(card)
+    log(f"  chunked and long context qwen3-1.7b bf16: "
+        f"{time.perf_counter() - t0:.1f} s; long-context launches {lc}")
+    t0 = time.perf_counter()
+    launches["ssd_scan_state"] = _ssd_chunked_bf16(card)
+    log(f"  chunked mamba2-2.7b bf16: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -4802,6 +5410,7 @@ def main() -> int:
     rows += timed("attention MoE shapes", phase_attention_moe, timer)
     d64_rows, d64_dense = timed("attention D=64", phase_attention_d64, timer)
     rows += d64_rows
+    rows += timed("chunked kernels", phase_chunked_kernels, timer)
     colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
@@ -4822,6 +5431,7 @@ def main() -> int:
     granite = timed("granite", phase_granite, card)
     seamless = timed("seamless", phase_seamless, card)
     timed("internvl", phase_internvl, card)
+    chunked = timed("chunked", phase_chunked, card)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the
@@ -4832,7 +5442,9 @@ def main() -> int:
     # D = 256); the SSD scan from the Mamba-2 replays, the wall-clock one
     # in bf16 and the virtual-clock one in fp32; the rows of the MoE and
     # Qwen1.5 shapes from the moe phase's serves in bf16 (Llama-4 Maverick
-    # fused, Mixtral on its ring, Qwen1.5-4B) and its fp32 reference
+    # fused, Mixtral on its ring, Qwen1.5-4B) and its fp32 reference; the
+    # chunked rows from the chunked phase's chunked prefills (kernel 1
+    # Qwen3-1.7B's, kernel 6 Mamba-2-2.7B's, each dtype its own run)
     launches = {**launches, "bullet_attention": colocated[torch.bfloat16],
                 "ssd_scan": ssd["bf16"], "ssd_scan_fp32": ssd["fp32"],
                 "rglru_scan": rg["rglru_scan"],
@@ -4848,6 +5460,7 @@ def main() -> int:
                 "flash_attention_d256_fp32": rg_ref["flash_attention"],
                 "decode_attention_d256_fp32": rg_ref["decode_attention"],
                 **moe_ref, **moe, **arch_ref, **granite, **seamless,
+                **chunked,
                 "bullet_attention_d64": d64_dense[torch.bfloat16],
                 "bullet_attention_d64_fp32": d64_dense[torch.float32]}
     for r in rows:

@@ -8,7 +8,8 @@ Python launch each.
 :class:`StepGraphs` keeps one ``torch.cuda.CUDAGraph`` per static shape key
 of a step (the engine's serial decode ``("paged", n_b)`` per table bucket
 and ``("dense",)``, the fused cycle's segments and the paged prefill
-groups, see ``core/engine.py``; :class:`GraphedDecode`'s ``("rg", B)``).
+groups, see ``core/engine.py``; :class:`GraphedDecode`'s ``("rg", B,
+long_context)``).
 Each entry owns its static inputs, its outputs and the kernel launches its
 capture recorded; all entries share one memory pool, which is safe because
 every replay runs on the caller's stream, one after another. An input the
@@ -210,22 +211,27 @@ class StepGraphs:
 
 class GraphedDecode:
     """``transformer.decode_step``'s logits over a dense slot cache,
-    through :class:`StepGraphs` keyed ``("rg", B)``: the models-level
+    through :class:`StepGraphs` keyed by the batch: the models-level
     decode that RecurrentGemma runs (both engines refuse its
     ``pattern_tail``), and SeamlessM4T (cross-attention, its cross
     cache's position map made on the device inside the step) and
-    InternVL2, built from ``(params, cache, cfg)`` and called with
-    ``(tokens (B, 1) int32, pos (B,) int32)``. The cache is updated in
+    InternVL2, and any dense cache after a chunked or long-context
+    prefill, built from ``(params, cache, cfg)`` and called with
+    ``(tokens (B, 1) int32, pos (B,) int32)``. ``long_context`` (the
+    cache's, :func:`transformer.init_cache`) reaches ``decode_step`` and
+    the graph key, ``("rg", B, long_context)``. The cache is updated in
     place; on the card the logits are the graph's static output, valid
     until the next call with the same B."""
 
-    def __init__(self, params, cache, cfg):
+    def __init__(self, params, cache, cfg, *, long_context: bool = False):
         self.params, self.cache, self.cfg = params, cache, cfg
+        self.long_context = long_context
         self.graphs = StepGraphs()
 
     def _step(self, tokens, pos):
-        return T.decode_step(self.params, self.cache, tokens, pos,
-                             self.cfg)[0]
+        return T.decode_step(self.params, self.cache, tokens, pos, self.cfg,
+                             long_context=self.long_context)[0]
 
     def __call__(self, tokens, pos):
-        return self.graphs(("rg", tokens.shape[0]), self._step, tokens, pos)
+        return self.graphs(("rg", tokens.shape[0], self.long_context),
+                           self._step, tokens, pos)

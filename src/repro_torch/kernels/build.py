@@ -45,7 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: argtypes of every C entry point; every one returns a cudaError_t as int
 SIGNATURES = {
-    "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
@@ -56,7 +56,7 @@ SIGNATURES = {
                             + [_P, _P] + [_I] * 2 + [_P],
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
     "split_decode_ctas_per_sm": [_I, _I, ctypes.POINTER(_I)],
-    "ssd_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    "ssd_scan_fwd": [_P] * 10 + [_I] * 8 + [_P],
     "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
 }
 

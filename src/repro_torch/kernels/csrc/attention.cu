@@ -14,7 +14,10 @@
 // flash_attention_fwd
 //   Replaces src/repro/kernels/flash_attention.py:77 `flash_attention`
 //   (pl.pallas_call at :95). Causal / sliding-window prefill attention,
-//   GQA kv head = bh / group. Tails are masked, so any S works. Bound on an
+//   GQA kv head = bh / group. Tails are masked, so any S works. A query
+//   offset (the JAX flash_ref_attention's q_offset) places query row i at
+//   position q_offset + i among the keys: a chunk of a prompt attends the
+//   rows already cached before it (chunked prefill). Bound on an
 //   H100: operations (4·S²·H·D/2 causal FLOPs per sequence against
 //   ~S·(H+2K)·D·2 bytes), i.e. tensor-core rate. Two bodies, by dtype:
 //   - bf16 (flash_tc_item, the design for that bound): one CTA per
@@ -672,10 +675,13 @@ template <int D, typename DA> int split_occupancy(int *ctas_per_sm) {
 
 extern "C" {
 
+// query row i at position q_offset + i among the sk keys (0: the prompt
+// itself; a chunk of a prompt: the tokens already cached before it)
 int flash_attention_fwd(const void *q, const void *k, const void *v, void *o,
                         int bh, int sq, int sk, int d, int group, int causal,
-                        int window, int dtype, void *stream) {
-  FlashArgs a{q, k, v, o, bh, sq, sk, group, causal, window,
+                        int window, int q_offset, int dtype, void *stream) {
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
+  FlashArgs a{q, k, v, o, bh, sq, sk, group, causal, window, q_offset,
               1.0f / sqrtf((float)d)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH(d, dtype, (launch_flash<T, D>(a, s)));
@@ -725,7 +731,7 @@ int bullet_attention_paged_fwd(
     int *record, int n_dec_sm, int lift, void *stream) {
   if (ps < 1) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)d);
-  FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
+  FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, 0, scale};
   DecodeArgs da{qd, k_pages, v_pages, block_tables, pos, od, b, kh, g, ps,
                 n_b, scale, n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -776,7 +782,7 @@ int bullet_attention_fwd(const void *qp, const void *kp, const void *vp,
                          int n_ctas, int *sched, int *record, int n_dec_sm,
                          int lift, void *stream) {
   const float scale = 1.0f / sqrtf((float)d);
-  FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, scale};
+  FlashArgs fa{qp, kp, vp, op, bh, sp, sp, group, causal, window, 0, scale};
   DenseDecodeArgs da{qd, kd, vd, kv_positions, pos, od, b, kh, g, s_len,
                      scale, n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -78,7 +78,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 struct FlashArgs {
   const void *q, *k, *v;
   void *o;
-  int bh, sq, sk, group, causal, window;
+  // q_offset: the position of query row 0 among the keys (a chunk of a
+  // prompt whose first q_offset tokens are already in k and v); query row
+  // i sits at q_offset + i, key row j at j
+  int bh, sq, sk, group, causal, window, q_offset;
   float scale;
   // bf16 only: TMA maps of q, k and v as 3-D (D, S, heads) views, encoded
   // host-side by the C entry point (q in boxes of 64 columns x TC_BQ rows,
@@ -122,8 +125,10 @@ __device__ void flash_item(const FlashArgs &a, int item, float *smem) {
   const int tid = threadIdx.x;
   const int r = tid / ROW_THREADS, j = tid % ROW_THREADS;
   const int q0 = qt * BQ;
-  const int qpos = q0 + r;
   const int q_hi = min(q0 + BQ, a.sq) - 1;   // last real query row
+  // positions of the tile's first and last real rows, and of row r
+  const int p0 = q0 + a.q_offset, p_hi = q_hi + a.q_offset;
+  const int qrow = q0 + r, qpos = p0 + r;
 
   __syncthreads();  // smem may still be read by the previous item
   for (int e = tid; e < BQ * D; e += THREADS) {
@@ -142,8 +147,8 @@ __device__ void flash_item(const FlashArgs &a, int item, float *smem) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     // skip tiles every real row of this q tile masks out (uniform per CTA)
-    if (a.causal && k0 > q_hi) break;
-    if (a.window > 0 && k0 + BK - 1 <= q0 - a.window) continue;
+    if (a.causal && k0 > p_hi) break;
+    if (a.window > 0 && k0 + BK - 1 <= p0 - a.window) continue;
 
     __syncthreads();  // previous tile's K/V/P fully consumed
     for (int e = tid; e < BK * D; e += THREADS) {
@@ -205,9 +210,9 @@ __device__ void flash_item(const FlashArgs &a, int item, float *smem) {
     }
   }
 
-  if (qpos < a.sq) {
+  if (qrow < a.sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T *orow = o + ((size_t)bh * a.sq + qpos) * D;
+    T *orow = o + ((size_t)bh * a.sq + qrow) * D;
 #pragma unroll
     for (int i = 0; i < D / ROW_THREADS; ++i)
       orow[j + ROW_THREADS * i] = from_f<T>(acc[i] * inv);
@@ -754,12 +759,15 @@ __device__ void flash_tc_item(const FlashArgs &a, int item,
   const int bh = item / n_qt;
   const int qt = n_qt - 1 - item % n_qt;   // a head's longest tiles first
   const int kvh = bh / a.group;
-  const int q0 = qt * TC_BQ;
+  const int q0 = qt * TC_BQ;              // the q tile's first row (TMA)
   const int q_hi = min(q0 + TC_BQ, a.sq) - 1;
   const int n_kt = (a.sk + TC_BK - 1) / TC_BK;
-  // the K/V tiles some row of this q tile attends (uniform per CTA)
-  const int kt_lo = a.window > 0 ? max(0, q0 - a.window + 1) / TC_BK : 0;
-  const int kt_hi = a.causal ? min(n_kt, q_hi / TC_BK + 1) : n_kt;
+  // the K/V tiles some row of this q tile attends (uniform per CTA), from
+  // the positions of its first and last rows
+  const int kt_lo =
+      a.window > 0 ? max(0, q0 + a.q_offset - a.window + 1) / TC_BK : 0;
+  const int kt_hi =
+      a.causal ? min(n_kt, (q_hi + a.q_offset) / TC_BK + 1) : n_kt;
   const int n = max(0, kt_hi - kt_lo);
 
   auto load_kv = [&](int s, int kt) {
@@ -798,11 +806,15 @@ __device__ void flash_tc_item(const FlashArgs &a, int item,
   const uint32_t qa = sq + wg * 64 * 128;                // its A operand
   mbar_wait(qbar, 0);
 
+  // the masks compare keys with query rows: kq is the tile's first key
+  // position less the query offset, so query row r and key kq + c are
+  // compared as positions q_offset + r and q_offset + kq + c are
+  const int sk_q = a.sk - a.q_offset;  // the end of the keys, likewise
   for (int i = 0; i < n; ++i) {
-    const int s = i % TC_STAGES, k0 = (kt_lo + i) * TC_BK;
+    const int s = i % TC_STAGES, kq = (kt_lo + i) * TC_BK - a.q_offset;
     mbar_wait(bars + 8 * s, (i / TC_STAGES) & 1);
-    const bool need = w_lo <= w_hi && (!a.causal || k0 <= w_hi) &&
-                      (a.window <= 0 || k0 + TC_BK - 1 > w_lo - a.window);
+    const bool need = w_lo <= w_hi && (!a.causal || kq <= w_hi) &&
+                      (a.window <= 0 || kq + TC_BK - 1 > w_lo - a.window);
     if (need) {  // uniform per warpgroup
       const uint32_t kb = skv + 2 * s * KVB, vb = kb + KVB;
       float sc[32];
@@ -822,17 +834,17 @@ __device__ void flash_tc_item(const FlashArgs &a, int item,
 
       // mask only a tile that crosses the diagonal, the window's lower
       // edge or the end of the keys, for this warpgroup's rows
-      const bool edge = (a.causal && k0 + TC_BK - 1 > w_lo) ||
-                        k0 + TC_BK > a.sk ||
-                        (a.window > 0 && k0 <= w_hi - a.window);
+      const bool edge = (a.causal && kq + TC_BK - 1 > w_lo) ||
+                        kq + TC_BK > sk_q ||
+                        (a.window > 0 && kq <= w_hi - a.window);
       float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         float x = sc[j] * sl2;
         if (edge) {
-          const int kp = k0 + 8 * (j / 4) + 2 * pair + j % 2;
+          const int kp = kq + 8 * (j / 4) + 2 * pair + j % 2;
           const int qp = r0 + 8 * ((j / 2) % 2);
-          const bool ok = kp < a.sk && (!a.causal || kp <= qp) &&
+          const bool ok = kp < sk_q && (!a.causal || kp <= qp) &&
                           (a.window <= 0 || kp > qp - a.window);
           x = ok ? x : -INFINITY;
         }

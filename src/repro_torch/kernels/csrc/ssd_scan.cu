@@ -14,9 +14,11 @@
 //           + e^{cum_i} C_i S                                 (inter)
 //     S    <- e^{total} S + sum_j B_j^T e^{total - cum_j} xw_j
 //   Inputs xw (B, NC, Q, H, P), B and C (B, NC, Q, N) in fp32 or bf16, cum
-//   (B, NC, Q, H) fp32; outputs y in xw's layout and dtype and the final
-//   state (B, H, P, N) fp32, written from shared memory. The dtype picks the
-//   body.
+//   (B, NC, Q, H) fp32, and optionally the state entering the first chunk,
+//   state0 (B, H, P, N) fp32 (zeros without it: a chunk of a prompt
+//   continues from the state the chunks before it left); outputs y in xw's
+//   layout and dtype and the final state (B, H, P, N) fp32, written from
+//   shared memory. The dtype picks the body.
 //
 //   Bound on an H100: bytes, narrowly. Per row and chunk C B^T is 2 Q^2 N
 //   operations, shared by the heads, and each head adds 2 Q^2 P + 4 Q N P;
@@ -105,6 +107,7 @@ struct SsdArgs {
   const float *cum;
   void *y;
   float *state;
+  const float *state0;  // the state entering chunk 0 (B, H, P, N), or null
   int batch, nc, q, h, p, n;
 };
 
@@ -168,7 +171,13 @@ __global__ void __launch_bounds__(SSD_THREADS, 2)
   const int sr = (tid >> 4) * 4, sj = tid & 15;
   const int sn = (tid >> 3) * 4;
 
-  for (int i = tid; i < N_MAX * PC; i += SSD_THREADS) st[i] = 0.f;
+  // the starting state's slice (zeros without one, and past n and pc)
+  for (int i = tid; i < N_MAX * PC; i += SSD_THREADS) {
+    const int k = i / PC, c = i % PC;
+    st[i] = a.state0 != nullptr && k < n && c < pc
+                ? a.state0[(((long)bb * a.h + hh) * a.p + p0 + c) * n + k]
+                : 0.f;
+  }
   const int n_tiles = (q + TQ - 1) / TQ;
 
   for (int ch = 0; ch < a.nc; ++ch) {
@@ -566,10 +575,11 @@ __global__ void __launch_bounds__(TC_THREADS, 3)
 }
 
 // Launch 2: the pass over the chunks, PASS_ELEMS elements of a (b, h)
-// state a thread: S_0 = 0, S_{c+1} = e^{total_c} S_c + dS_c, four chunks'
-// dS and totals read ahead of their use. The state entering chunk c goes
-// to ws16 in bf16 (B, NC, H, P, N); the last is the final state (B, H, P,
-// N).
+// state a thread: S_0 = state0 (zeros without one), S_{c+1} = e^{total_c}
+// S_c + dS_c, four chunks' dS and totals read ahead of their use. The
+// state entering chunk c goes to ws16 in bf16 (B, NC, H, P, N), so chunk
+// 0's inter term reads bf16(state0); the last is the final state (B, H,
+// P, N).
 constexpr int PASS_THREADS = 256, PASS_ELEMS = 4;
 __global__ void __launch_bounds__(PASS_THREADS)
     ssd_pass_kernel(SsdArgs a, const float *__restrict__ ws,
@@ -580,7 +590,11 @@ __global__ void __launch_bounds__(PASS_THREADS)
   if (e0 >= pn) return;
   const int bb = blockIdx.y / a.h, hh = blockIdx.y % a.h;
   const int ne = (int)min((long)PASS_ELEMS, pn - e0);
-  float s[PASS_ELEMS] = {};
+  float s[PASS_ELEMS];
+#pragma unroll
+  for (int k = 0; k < PASS_ELEMS; ++k)
+    s[k] = a.state0 != nullptr && k < ne ? a.state0[blockIdx.y * pn + e0 + k]
+                                         : 0.f;
   for (int c0 = 0; c0 < a.nc; c0 += 4) {
     float d[4][PASS_ELEMS], t[4];
 #pragma unroll
@@ -829,19 +843,21 @@ int launch_tc(const SsdArgs &a, float *cb, float *ws, bf16 *ws16,
 
 extern "C" {
 
-// dtype 0 (fp32): ssd_scan_kernel; the workspaces are unused (may be
-// null). dtype 1 (bf16): the workspaces cb (B, NC, Qp, Qp) fp32, Qp = Q
-// rounded up to SSD_TILE, ws (B, NC, H, P, N) fp32 and ws16 (B, NC, H, P,
-// N) bf16; ssd_out_kernel takes p_slice columns of P a CTA (16, 32 or 64;
-// 0 takes the build's SSD_P_SLICE).
+// state0: the state entering the first chunk (B, H, P, N) fp32, or null
+// for zeros (a chunk of a prompt continues from the state the chunks
+// before it left: chunked prefill). dtype 0 (fp32): ssd_scan_kernel; the
+// workspaces are unused (may be null). dtype 1 (bf16): the workspaces cb
+// (B, NC, Qp, Qp) fp32, Qp = Q rounded up to SSD_TILE, ws (B, NC, H, P, N)
+// fp32 and ws16 (B, NC, H, P, N) bf16; ssd_out_kernel takes p_slice
+// columns of P a CTA (16, 32 or 64; 0 takes the build's SSD_P_SLICE).
 int ssd_scan_fwd(const void *xw, const float *cum, const void *b,
-                 const void *c, void *y, float *state, float *cb, float *ws,
-                 void *ws16, int batch, int nc, int q, int h, int p, int n,
-                 int p_slice, int dtype, void *stream) {
+                 const void *c, void *y, float *state, const float *state0,
+                 float *cb, float *ws, void *ws16, int batch, int nc, int q,
+                 int h, int p, int n, int p_slice, int dtype, void *stream) {
   if (batch < 1 || nc < 1 || q < 1 || q > Q_MAX || h < 1 || p < 1 ||
       n < 1 || n > N_MAX)
     return (int)cudaErrorInvalidValue;
-  SsdArgs a{xw, b, c, cum, y, state, batch, nc, q, h, p, n};
+  SsdArgs a{xw, b, c, cum, y, state, state0, batch, nc, q, h, p, n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_ssd<float>(a, s);
   if (dtype == 1 && cb != nullptr && ws != nullptr && ws16 != nullptr)

@@ -27,13 +27,14 @@ def _heads_major(x):
     return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
-def flash_attention_op(q, k, v, *, causal=True, window=0):
-    """Model layout: q (B,S,H,D), k/v (B,S,K,D). Returns (B,S,H,D)."""
+def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Model layout: q (B,Sq,H,D), k/v (B,Sk,K,D), query row i at position
+    ``q_offset + i`` among the keys. Returns (B,Sq,H,D)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     o = _flash.flash_attention(_heads_major(q), _heads_major(k),
                                _heads_major(v), causal=causal, window=window,
-                               group=h // kh)
+                               group=h // kh, q_offset=q_offset)
     return o.reshape(b, h, s, d).transpose(1, 2)
 
 
@@ -130,14 +131,14 @@ def ssd_scan_op(x, dt, A, B_, C, D, *, chunk=256, state0=None):
 
     The kernel's inputs come from :func:`ssd_chunk_inputs`, the ``D`` skip
     is added after the scan, and the final state is the one the kernel
-    writes. A starting state (chunked prefill) is not taken yet:
-    ``state0`` raises."""
-    if state0 is not None:
-        raise NotImplementedError(
-            "ssd_scan_op: a starting state (chunked prefill) comes with a "
-            "later slice (ROADMAP)")
+    writes. ``state0`` (B,H,P,N), the state a chunk of a prompt continues
+    from (chunked prefill), enters the first chunk; the padded tail
+    (dt = 0) carries the state unchanged, as in the JAX ``ssd_chunked``."""
     b, s, h, p = x.shape
-    y, state = _ssd.ssd_scan(*ssd_chunk_inputs(x, dt, A, B_, C, chunk=chunk))
+    if state0 is not None:
+        state0 = state0.float().contiguous()
+    y, state = _ssd.ssd_scan(*ssd_chunk_inputs(x, dt, A, B_, C, chunk=chunk),
+                             state0)
     y = y.reshape(b, -1, h, p)[:, :s].float() \
         + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), state

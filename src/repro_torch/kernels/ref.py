@@ -8,7 +8,8 @@ The math is the JAX package's XLA path (``models/attention.py``), so the
 port's CPU engine reproduces the JAX engine token for token:
 
 - ``flash_ref_attention``: blockwise online-softmax causal/windowed
-  attention (never materializes more than one KV block of scores).
+  attention, queries at a position offset (never materializes more than
+  one KV block of scores).
 - ``decode_attention``: single-token GQA attention over a per-slot cache.
 - ``paged_decode_ref``: gather a slot's pages, then ``decode_attention``.
 
@@ -60,12 +61,15 @@ def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def flash_ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0,
                         block_size: int = 1024) -> torch.Tensor:
     """Blockwise attention with online softmax.
 
-    q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0. Query and key
-    positions both start at 0. ``window`` > 0 enables sliding-window
-    masking (|i-j| < window).
+    q: (B, Sq, H, D); k, v: (B, Sk, K, D) with H % K == 0. ``q_offset``:
+    the position of q[0] among the keys (a chunk of a prompt with
+    ``q_offset`` tokens cached before it), so query row i sits at
+    ``q_offset + i`` and key row j at j. ``window`` > 0 enables
+    sliding-window masking (|i-j| < window).
     """
     b, sq, h, d = q.shape
     sk, kheads = k.shape[1], k.shape[2]
@@ -77,7 +81,7 @@ def flash_ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
     m = torch.full((b, kheads, g, sq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros_like(m)
@@ -149,16 +153,17 @@ def paged_decode_ref(q, k_pages, v_pages, block_tables, pos):
 # ---------------------------------------------------------------------------
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        group: int = 1):
+                        group: int = 1, q_offset: int = 0):
     """q: (BH, Sq, D); k, v: (BH/group, Sk, D), kv head = bh // group
     (``group=1``: kv pre-expanded, as the JAX oracle takes it). Each kv
-    head runs as a batch row with ``group`` query heads."""
+    head runs as a batch row with ``group`` query heads; query row i sits
+    at position ``q_offset + i`` among the keys."""
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     qm = q.reshape(bhk, group, sq, d).transpose(1, 2)     # (BHk, Sq, G, D)
     o = flash_ref_attention(qm, k.reshape(bhk, sk, 1, d),
                             v.reshape(bhk, sk, 1, d), causal=causal,
-                            window=window)
+                            window=window, q_offset=q_offset)
     return o.transpose(1, 2).reshape(bh, sq, d)
 
 
@@ -288,10 +293,13 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def ssd_scan_tc_ref(xw, cum, B_, C):
+def ssd_scan_tc_ref(xw, cum, B_, C, state0=None):
     """The bf16 SSD chunk scan kernel's numerics, plainly, in fp32 (the
-    kernel's arithmetic in another summation order). Per row and chunk
-    C Bᵀ is computed once, in fp32 (C and B are exact in bf16); per head:
+    kernel's arithmetic in another summation order), from ``state0`` (B,
+    H, P, N) fp32 (zeros without it; the state entering chunk 0 is
+    rounded to bf16 for its inter term, as every chunk's). Per row and
+    chunk C Bᵀ is computed once, in fp32 (C and B are exact in bf16); per
+    head:
 
     - intra: (C Bᵀ ⊙ L) rounded to bf16, times xw (exact in bf16);
     - inter: e^{cum} ⊙ (C S₁₆), with S₁₆ the state rounded to bf16;
@@ -304,7 +312,8 @@ def ssd_scan_tc_ref(xw, cum, B_, C):
     b, nc, q, h, p = xw.shape
     n = B_.shape[-1]
     causal = torch.ones(q, q, dtype=torch.bool, device=xw.device).tril()
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=xw.device)
+    state = (torch.zeros(b, h, p, n, dtype=torch.float32, device=xw.device)
+             if state0 is None else state0.float())
     ys = []
     for ci in range(nc):
         x_c = xw[:, ci].float()                             # (B,Q,H,P)

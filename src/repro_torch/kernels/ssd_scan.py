@@ -10,7 +10,10 @@ cumulative log decay:
     y_inter = (C ⊙ e^{cum}) state
     state   = e^{cum_last} state + Bᵀ (xw ⊙ e^{cum_last − cum})
 
-The kernel writes ``y`` and the final state (from shared memory), where the
+The scan starts from ``state0`` (B, H, P, N) fp32 where one is given (a
+chunk of a prompt continues from the state the chunks before it left:
+chunked prefill), else from zeros, as the TPU kernel always does. The
+kernel writes ``y`` and the final state (from shared memory), where the
 TPU kernel left its state in scratch and ``ops.ssd_scan_op`` recovered it
 analytically. It takes a chunk of up to 256 rows and a state of up to 128;
 P and H are free. Bound on the card: bytes, narrowly over operations.
@@ -38,13 +41,15 @@ launches = 0
 MAX_CHUNK, MAX_STATE = 256, 128
 
 
-def ssd_scan_plain(xw, cum, B_, C):
+def ssd_scan_plain(xw, cum, B_, C, state0=None):
     """The chunk scan in plain PyTorch: the TPU kernel's per-chunk algebra,
-    looped over the chunks, in fp32. Same contract as :func:`ssd_scan`."""
+    looped over the chunks, in fp32, from ``state0`` (zeros without it).
+    Same contract as :func:`ssd_scan`."""
     b, nc, q, h, p = xw.shape
     n = B_.shape[-1]
     causal = torch.ones(q, q, dtype=torch.bool, device=xw.device).tril()
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=xw.device)
+    state = (torch.zeros(b, h, p, n, dtype=torch.float32, device=xw.device)
+             if state0 is None else state0.float())
     ys = []
     for ci in range(nc):
         x_c = xw[:, ci].float()                             # (B,Q,H,P)
@@ -64,27 +69,32 @@ def ssd_scan_plain(xw, cum, B_, C):
     return torch.stack(ys, dim=1).to(xw.dtype), state
 
 
-def ssd_scan(xw, cum, B_, C, *, p_slice: int = 0):
+def ssd_scan(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
     """xw: (B, NC, Q, H, P) dt-scaled inputs per chunk; cum: (B, NC, Q, H)
     fp32 within-chunk cumulative log decay; B_, C: (B, NC, Q, N) in xw's
-    dtype. Returns (y (B, NC, Q, H, P) in xw's dtype, final state (B, H,
-    P, N) fp32).
+    dtype; state0: (B, H, P, N) fp32, the state entering the first chunk,
+    or None for zeros. Returns (y (B, NC, Q, H, P) in xw's dtype, final
+    state (B, H, P, N) fp32).
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     ``p_slice`` (bf16 only) names the columns of P per CTA of the output
     kernel, one of ``geometry.SSD_P_SLICES``; 0 takes the build's
     ``SSD_P_SLICE``."""
     if xw.device.type == "cpu":
-        return ssd_scan_plain(xw, cum, B_, C)
-    code = build.check_inputs("ssd_scan", (xw, B_, C), fp32=(cum,),
+        return ssd_scan_plain(xw, cum, B_, C, state0)
+    fp32 = (cum,) if state0 is None else (cum, state0)
+    code = build.check_inputs("ssd_scan", (xw, B_, C), fp32=fp32,
                               head_dim=False)
     b, nc, q, h, p = xw.shape
     n = B_.shape[-1]
     if (tuple(cum.shape) != (b, nc, q, h) or B_.shape != C.shape
-            or tuple(B_.shape) != (b, nc, q, n)):
+            or tuple(B_.shape) != (b, nc, q, n)
+            or (state0 is not None
+                and tuple(state0.shape) != (b, h, p, n))):
         raise ValueError(f"ssd_scan: xw {tuple(xw.shape)}, cum "
                          f"{tuple(cum.shape)}, B {tuple(B_.shape)}, C "
-                         f"{tuple(C.shape)}")
+                         f"{tuple(C.shape)}, state0 "
+                         f"{None if state0 is None else tuple(state0.shape)}")
     if q > MAX_CHUNK or n > MAX_STATE:
         raise ValueError(f"ssd_scan: chunk {q} (at most {MAX_CHUNK}) and "
                          f"state {n} (at most {MAX_STATE})")
@@ -94,7 +104,8 @@ def ssd_scan(xw, cum, B_, C, *, p_slice: int = 0):
     y = torch.empty_like(xw)
     state = torch.empty(b, h, p, n, dtype=torch.float32, device=xw.device)
     if y.numel() == 0:
-        return y, state.zero_()
+        return y, (state.zero_() if state0 is None
+                   else state.copy_(state0))
     work = (None, None, None)
     if xw.dtype == torch.bfloat16:
         # C Bᵀ per row and chunk (each chunk's rows rounded up to a tile),
@@ -109,6 +120,7 @@ def ssd_scan(xw, cum, B_, C, *, p_slice: int = 0):
     rc = build.library().ssd_scan_fwd(
         xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
         y.data_ptr(), state.data_ptr(),
+        None if state0 is None else state0.data_ptr(),
         *(None if t is None else t.data_ptr() for t in work),
         b, nc, q, h, p, n, p_slice, code, build.stream_of(xw))
     build.check(rc, "ssd_scan")

@@ -98,9 +98,12 @@ def prefix_suffix_attention(q, k_sfx, v_sfx, k_pre, v_pre, prefix_len,
 # CPU tensors.
 # ---------------------------------------------------------------------------
 
-def attention_prefill(q, k, v, *, causal=True, window=0):
-    """Prefill attention (model layout): q (B,S,H,D), k/v (B,S,K,D)."""
-    return ops.flash_attention_op(q, k, v, causal=causal, window=window)
+def attention_prefill(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Prefill attention (model layout): q (B,Sq,H,D), k/v (B,Sk,K,D), query
+    row i at position ``q_offset + i`` among the keys (a chunk of a prompt
+    over its cached context)."""
+    return ops.flash_attention_op(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
 
 
 def attention_decode(q, k_cache, v_cache, kv_positions, pos):

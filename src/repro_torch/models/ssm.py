@@ -4,7 +4,9 @@ Chunked formulation (arXiv:2405.21060 §6): the sequence is split into chunks
 of length Q; within-chunk outputs use the quadratic "attention" form with a
 causal decay mask, across-chunk contributions flow through the recurrent
 state h ∈ (B, H, P, N). Prefill runs it through ``ops.ssd_scan_op``, so on
-the card every prefill group goes through the hand-written SSD kernel.
+the card every prefill group goes through the hand-written SSD kernel; a
+chunk of a prompt (chunked prefill) continues from the state the chunks
+before it left, the kernel's starting state.
 
 Decode is the pure recurrence: h ← da·h + dt·(B ⊗ x); y = C·h + D·x, in
 plain PyTorch (the JAX package has no kernel for it either).
@@ -32,8 +34,8 @@ class SSDState(NamedTuple):
     ssm: torch.Tensor        # (B, H, P, N) fp32
 
 
-def ssd_chunked(x, dt, A, B_, C, D, *, chunk: int):
-    """Chunked SSD scan.
+def ssd_chunked(x, dt, A, B_, C, D, *, chunk: int, state0=None):
+    """Chunked SSD scan from ``state0`` (B,H,P,N) (zeros without it).
 
     x:  (B, S, H, P)   values (post-conv)
     dt: (B, S, H)      positive step sizes (post-softplus)
@@ -42,7 +44,7 @@ def ssd_chunked(x, dt, A, B_, C, D, *, chunk: int):
     C:  (B, S, N)      output projections
     D:  (H,)           skip
     Returns (y (B,S,H,P), final_state (B,H,P,N) fp32)."""
-    return ssd_scan_op(x, dt, A, B_, C, D, chunk=chunk)
+    return ssd_scan_op(x, dt, A, B_, C, D, chunk=chunk, state0=state0)
 
 
 def ssd_decode_step(x, dt, A, B_, C, D, state):
@@ -62,10 +64,11 @@ def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
               decode: bool = False, lengths=None):
     """Full Mamba-2 block: in_proj -> conv -> SSD -> gated norm -> out_proj.
 
-    x: (B, S, D). Returns (y, new_state). ``lengths`` (B,) marks a padded
-    prefill batch: each row's returned state is the state after its own
-    ``lengths[b]`` tokens. Prefill from a given ``state`` (chunked prefill)
-    raises.
+    x: (B, S, D). Returns (y, new_state). ``state`` starts the conv and the
+    scan from a given state (decode, or a chunk of a prompt that continues
+    one: chunked prefill). ``lengths`` (B,) marks a padded prefill batch:
+    each row's returned state is the state after its own ``lengths[b]``
+    tokens.
     params: in_proj (D, 2*di + 2*N + H), conv (K, di+2N), A_log (H,),
             D (H,), dt_bias (H,), norm (di,), out_proj (di, D)."""
     b, s, _ = x.shape
@@ -76,13 +79,9 @@ def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
 
     zxbcdt = x @ params["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
-    if not decode and state is not None:
-        raise NotImplementedError(
-            "ssd_block: prefill from a given state (chunked prefill) comes "
-            "with a later slice (ROADMAP)")
+    conv_state = state.conv if state is not None else None
     xbc_in = xbc
-    xbc, new_conv = causal_conv1d(
-        xbc, params["conv"], state.conv if state is not None else None)
+    xbc, new_conv = causal_conv1d(xbc, params["conv"], conv_state)
     xs, B_, C = torch.split(xbc, [di, n, n], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float()[None, None, :])
     A = -torch.exp(params["A_log"].float())                  # (H,) negative
@@ -100,8 +99,10 @@ def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
                      < lengths.to(x.device)[:, None])
             dt = torch.where(valid[..., None], dt, 0.0)
             new_conv = conv_state_at(xbc_in, lengths.to(x.device),
-                                     params["conv"].shape[0])
-        y, new_ssm = ssd_chunked(xs, dt, A, B_, C, D, chunk=cfg.ssm_chunk)
+                                     params["conv"].shape[0], conv_state)
+        y, new_ssm = ssd_chunked(xs, dt, A, B_, C, D, chunk=cfg.ssm_chunk,
+                                 state0=None if state is None
+                                 else state.ssm)
 
     y = y.reshape(b, s, di)
     # gated RMSNorm (mamba2)

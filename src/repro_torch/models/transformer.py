@@ -1,6 +1,8 @@
 """The transformer of the Bullet serving path: init, page pool, dense slot
-cache, prefill (also of a suffix over shared-prefix pages), paged and
-dense decode, and the fused prefill-group + decode cycle.
+cache, prefill (also of a suffix over shared-prefix pages, and under the
+long-context window), the chunked prefill (``prefill_chunk``: a chunk of a
+prompt over its cached context), paged and dense decode, and the fused
+prefill-group + decode cycle.
 
 The port covers stacks of full-attention blocks with an MLP or a routed
 mixture of experts (the paged path, ``supports_paged_cache``), of
@@ -448,10 +450,13 @@ def _cross_attend(x, p, cfg: ModelConfig, cross_k, cross_v, cross_pos=None):
 
 
 def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
-                      lengths=None, stats=None, cross_kv=None):
+                      lengths=None, stats=None, cross_kv=None,
+                      window_override=None):
     """Prefill block application over a full sequence. Returns (x, entry):
     this layer's full-sequence KV ``{"k", "v"}`` (a sliding-window block
-    attends over its window), or an SSD block's state ``{"conv", "ssm"}``
+    attends over its window, a full-attention block over
+    ``window_override`` when given: the long-context prefill), or an SSD
+    block's state ``{"conv", "ssm"}``
     or an RG-LRU block's ``{"conv", "hidden"}`` after each row's
     ``lengths[b]`` tokens (after all of them without ``lengths``). A MoE
     block routes only the rows below ``lengths``. With ``cross_kv`` (the
@@ -467,6 +472,8 @@ def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
     else:
         q, k, v = _project_qkv(h, p, cfg, positions)
         window = cfg.sliding_window if blk.mixer == SWA else 0
+        if window_override is not None and blk.mixer == ATTN:
+            window = window_override
         o = attn_ops.attention_prefill(q, k, v, causal=True, window=window)
         y = _merge_heads(o) @ p["wo"]
         entry = {"k": k, "v": v}
@@ -630,21 +637,24 @@ def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
 
 
 def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
-                  lengths=None, stats=None, enc_out=None):
+                  lengths=None, stats=None, enc_out=None,
+                  window_override=None):
     """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [entry
     per pattern position]) — the raw full-sequence KV ``{"k", "v"}`` the
     caller scatters into pooled pages or writes into slot rows, or an SSD
     or RG-LRU block's recurrent state at each row's ``lengths`` (below
     which a MoE block routes; its metrics go to ``stats``). With the
     encoder's output ``enc_out`` each block cross-attends it, and its
-    entry also holds the cross K/V it projected (``"cross"``)."""
+    entry also holds the cross K/V it projected (``"cross"``).
+    ``window_override``: the full-attention blocks' window (the
+    long-context prefill)."""
     entries = []
     for j, blk in enumerate(cfg.pattern):
         p = params_at(params["blocks"][j], rep)
         cross = (None if enc_out is None
                  else _cross_kv_from_encoder(p, enc_out, cfg))
         x, entry = _apply_block_full(x, p, blk, cfg, positions, lengths,
-                                     stats, cross)
+                                     stats, cross, window_override)
         if cross is not None:
             entry["cross"] = cross
         entries.append(entry)
@@ -875,26 +885,28 @@ def copy_pages(cache, src, dst) -> None:
 
 
 def _write_entry(tpl, entry, blk: BlockSpec, cfg: ModelConfig,
-                 lengths) -> None:
+                 lengths, long_context: bool = False) -> None:
     """Write one layer's prefill entry into its dense cache leaves ``tpl``
-    (the prompt batch's rows), in place."""
-    new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, False)
+    (the prompt batch's rows), in place (``long_context``: a full-attention
+    entry longer than its leaf is gathered into the ring)."""
+    new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, long_context)
     for key, t in tpl.items():
         t.copy_(new[key])
 
 
 def write_dense_entries(cache, entries, cfg: ModelConfig, lengths,
-                        rep: int) -> None:
+                        rep: int, long_context: bool = False) -> None:
     """Write one layer group's prefill entries (:func:`prefill_group`)
-    into repeat ``rep`` of a dense slot cache of :func:`init_cache` whose
-    batch rows are the prompt batch's, in place."""
+    into repeat ``rep`` of a dense slot cache of :func:`init_cache` (built
+    with the same ``long_context``) whose batch rows are the prompt
+    batch's, in place."""
     for blk, entry, leaf in zip(cfg.pattern, entries, cache["blocks"]):
         _write_entry({key: t[rep] for key, t in leaf.items()}, entry, blk,
-                     cfg, lengths)
+                     cfg, lengths, long_context)
 
 
 def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
-            stats=None, frontend=None):
+            stats=None, frontend=None, long_context: bool = False):
     """Process a prompt batch and write its cache entries.
 
     tokens: (B, S) with ``lengths`` (B,) valid tokens each. With
@@ -909,8 +921,15 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
     encoder-decoder model encodes it, every decoder block cross-attends
     the encoder's output, and ``cache["cross"]`` takes each repeat's
     first block's cross K/V, as the JAX package's; a decoder-only VLM
-    prepends it to the tokens, and ``lengths`` count its Sf rows. Returns
-    (last_logits (B, V), cache), the cache updated in place."""
+    prepends it to the tokens, and ``lengths`` count its Sf rows.
+    ``long_context`` (dense cache only, built by :func:`init_cache` with
+    the same flag): the full-attention blocks attend over the window
+    ``min(cfg.long_context_window, S)`` and their K/V is gathered into
+    the ring of that window, as the JAX package's ``window_override``.
+    Returns (last_logits (B, V), cache), the cache updated in place."""
+    if long_context and page_map is not None:
+        raise ValueError(f"{cfg.name}: the long-context prefill writes the "
+                         "dense slot cache's ring, not pages")
     x, enc_out = _embed_prompt(params, tokens, cfg, frontend)
     if enc_out is not None:
         se = cache["cross"]["k"].shape[2]
@@ -918,11 +937,14 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
             raise ValueError(f"{cfg.name}: {enc_out.shape[1]} frontend "
                              f"frames, the cross cache holds {se}")
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    window = (min(cfg.long_context_window, x.shape[1]) if long_context
+              else None)
     for r in range(cfg.n_pattern_repeats):
         x, entries = prefill_group(params, x, positions, r, cfg, lengths,
-                                   stats, enc_out)
+                                   stats, enc_out, window)
         if page_map is None:
-            write_dense_entries(cache, entries, cfg, lengths, r)
+            write_dense_entries(cache, entries, cfg, lengths, r,
+                                long_context)
         else:
             scatter_group_pages(cache, entries, page_map, r)
         if enc_out is not None:
@@ -933,9 +955,86 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
         cross = (None if enc_out is None
                  else _cross_kv_from_encoder(p, enc_out, cfg))
         x, entry = _apply_block_full(x, p, blk, cfg, positions, lengths,
-                                     stats, cross)
-        _write_entry(cache["tail"][j], entry, blk, cfg, lengths)
+                                     stats, cross, window)
+        _write_entry(cache["tail"][j], entry, blk, cfg, lengths,
+                     long_context)
     return last_token_logits(params, x, lengths, cfg), cache
+
+
+def _apply_block_chunk(x, p, blk: BlockSpec, cfg: ModelConfig,
+                       ctx_start: int, cache_entry, stats=None):
+    """Chunked-prefill block: a chunk of ``Sq`` prompt tokens at positions
+    ``ctx_start ..`` with ``ctx_start`` tokens already in the dense cache
+    (the paper's §2.3 workflow: attention re-reads the cached context).
+    An attention block writes the chunk's K/V into rows ``[ctx_start,
+    ctx_start + Sq)`` of its entry, in place, then kernel 1 runs with
+    ``q_offset = ctx_start`` over the entry's first ``ctx_start + Sq``
+    rows (a sliding-window block with its window); an SSD or RG-LRU block
+    continues from its entry's state and writes the new one in place; a
+    MoE block routes every row of the chunk, as the JAX ``_ff`` does.
+    Returns x."""
+    sq = x.shape[1]
+    positions = ctx_start + torch.arange(sq, device=x.device)[None, :]
+    h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
+    if blk.mixer == SSD:
+        y, st = ssd_block(h, p, cfg, state=SSDState(cache_entry["conv"],
+                                                    cache_entry["ssm"]))
+        new = {"conv": st.conv, "ssm": st.ssm}
+    elif blk.mixer == RGLRU:
+        y, st = rglru_block(h, p, cfg, state=RGLRUState(
+            cache_entry["conv"], cache_entry["hidden"]))
+        new = {"conv": st.conv, "hidden": st.hidden}
+    else:
+        end = ctx_start + sq
+        kc, vc = cache_entry["k"], cache_entry["v"]
+        if end > kc.shape[1]:
+            raise ValueError(
+                f"{cfg.name}: a chunk ending at {end} past the {blk.mixer} "
+                f"cache's {kc.shape[1]} rows (the chunked prefill needs a "
+                "cache that holds the whole prompt, not a ring)")
+        q, k_new, v_new = _project_qkv(h, p, cfg, positions)
+        kc[:, ctx_start:end] = k_new.to(kc.dtype)
+        vc[:, ctx_start:end] = v_new.to(vc.dtype)
+        window = cfg.sliding_window if blk.mixer == SWA else 0
+        o = attn_ops.attention_prefill(q, kc[:, :end], vc[:, :end],
+                                       causal=True, window=window,
+                                       q_offset=ctx_start)
+        y = _merge_heads(o) @ p["wo"]
+        new = {}
+    for key, t in new.items():
+        cache_entry[key].copy_(t)
+    x = x + y
+    return x + _ff(x, p, blk, cfg, stats=stats)
+
+
+def prefill_chunk(params, tokens, ctx_start: int, cache, cfg: ModelConfig,
+                  *, stats=None):
+    """One chunked-prefill iteration (the SARATHI-style baselines'
+    substrate, as the JAX package's ``prefill_chunk``): ``tokens`` (B, Sq)
+    through every layer with ``ctx_start`` tokens of each row already in
+    ``cache``, a dense slot cache of :func:`init_cache` sized for the
+    whole prompt (no ring shorter than it: :func:`_apply_block_chunk`
+    raises ``ValueError`` there, where the JAX ``dynamic_update_slice``
+    clamps), updated in place. A MoE block's metrics go to ``stats``.
+    Returns (last_logits (B, V), cache): the logits of the chunk's last
+    position. Encoder-decoder configs are refused, as the JAX package
+    refuses them (chunking a translation model's decoder prompt is not a
+    meaningful baseline)."""
+    if cfg.cross_attention:
+        raise ValueError(f"{cfg.name}: the chunked prefill serves "
+                         "decoder-only models")
+    if ctx_start < 0:
+        raise ValueError(f"prefill_chunk: ctx_start {ctx_start} < 0")
+    x = embed_tokens(params, tokens, cfg)
+    for r in range(cfg.n_pattern_repeats):
+        for j, blk in enumerate(cfg.pattern):
+            x = _apply_block_chunk(x, params_at(params["blocks"][j], r), blk,
+                                   cfg, ctx_start,
+                                   params_at(cache["blocks"][j], r), stats)
+    for j, blk in enumerate(cfg.pattern_tail):
+        x = _apply_block_chunk(x, params["tail_blocks"][j], blk, cfg,
+                               ctx_start, cache["tail"][j], stats)
+    return decode_logits(params, x[:, -1:], cfg), cache
 
 
 def _position_maps(cfg: ModelConfig, cache, pos, long_context: bool):

@@ -806,3 +806,118 @@ def test_fused_kernels_at_head_dim_64_bit_equal_to_standalone(gen, dtype,
                                  decode_share=share, group=4)
     assert torch.equal(op, fo)
     assert torch.equal(od, TD.decode_attention(qd, kc, vc, kvpos, pos))
+
+
+# ---------------------------------------------------------------------------
+# the chunked prefill: kernel 1 with a query offset, kernel 6 from a state
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,g,sq,off,extra,window", [
+    (128, 2, 100, 200, 0, 0), (128, 2, 130, 70, 37, 0),
+    (64, 4, 64, 129, 5, 0), (256, 10, 70, 300, 0, 64),
+    (128, 6, 129, 257, 11, 100), (128, 1, 1, 383, 0, 0)],
+    ids=["tile", "ragged", "d64", "d256-window", "window", "one-row"])
+def test_flash_kernel_with_a_query_offset(gen, dtype, d, g, sq, off, extra,
+                                          window):
+    """A chunk of ``sq`` query rows at positions ``off ..`` over ``off + sq
+    + extra`` key rows; the rows past the chunk hold large finite values,
+    which no query may attend (a kernel that attends them misses by far
+    more than the tolerance). Offsets and chunks on and off the tiles, a
+    window that ends before the cached context starts."""
+    sk = off + sq + extra
+    q = torch.randn(2 * g, sq, d, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, sk, d, generator=gen, device="cuda")
+    v = torch.randn(2, sk, d, generator=gen, device="cuda")
+    k[:, off + sq:] = 30.0
+    v[:, off + sq:] = 1e3
+    k, v = k.to(dtype), v.to(dtype)
+    before = TF.launches
+    out = TF.flash_attention(q, k, v, window=window, group=g, q_offset=off)
+    assert TF.launches == before + 1
+    _close(out, TF.flash_attention_plain(q, k, v, window=window, group=g,
+                                         q_offset=off), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_chunk_equals_its_rows_of_the_whole_prompt(gen, dtype):
+    """The prompt in chunks of 200 rows at their offsets over the keys so
+    far gives the whole prompt's rows (within TOL, and in bf16 ULPS)."""
+    s = 600
+    q = torch.randn(4, s, 128, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(2, s, 128, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(2, s, 128, generator=gen, device="cuda").to(dtype)
+    whole = TF.flash_attention(q, k, v, group=2)
+    for off in range(0, s, 200):
+        part = TF.flash_attention(q[:, off:off + 200].contiguous(),
+                                  k[:, :off + 200].contiguous(),
+                                  v[:, :off + 200].contiguous(), group=2,
+                                  q_offset=off)
+        _close(part, whole[:, off:off + 200], dtype)
+
+
+def test_flash_wrapper_rejects_a_negative_offset(gen):
+    q = torch.randn(2, 8, 128, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="q_offset"):
+        TF.flash_attention(q, q, q, q_offset=-1)
+
+
+def _ssd_case(gen, dtype, b, s, h, p, n, chunk):
+    x = torch.randn(b, s, h, p, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn(h, generator=gen, device="cuda"))
+    B_ = torch.randn(b, s, n, generator=gen, device="cuda").to(dtype)
+    C = torch.randn(b, s, n, generator=gen, device="cuda").to(dtype)
+    return x, dt, A, B_, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 48, 3, 8, 4, 16), (1, 200, 4, 64, 128, 256),
+    (2, 300, 3, 40, 16, 128)])
+def test_ssd_kernel_from_a_starting_state(gen, dtype, b, s, h, p, n, chunk):
+    """From a random state0: against the plain version (SSD limits), and
+    in bf16 against the mirror, whose entering state is rounded to bf16
+    for chunk 0's inter term as the kernel's is."""
+    x, dt, A, B_, C = _ssd_case(gen, dtype, b, s, h, p, n, chunk)
+    xw, cum, bc, cc = ops.ssd_chunk_inputs(x, dt, A, B_, C, chunk=chunk)
+    state0 = torch.randn(b, h, p, n, generator=gen, device="cuda")
+    before = TS.launches
+    y, st = TS.ssd_scan(xw, cum, bc, cc, state0)
+    assert TS.launches == before + 1
+    ry, rst = TS.ssd_scan_plain(xw, cum, bc, cc, state0)
+    assert _scaled_err(y, ry) <= (1e-4 if dtype == torch.float32 else 1e-2)
+    assert _scaled_err(st, rst) <= 1e-4
+    if dtype == torch.bfloat16:
+        my, mst = kref.ssd_scan_tc_ref(xw, cum, bc, cc, state0)
+        assert _scaled_err(y, my) <= SSD_TC_Y_TOL
+        assert _scaled_err(st, mst) <= SSD_TC_STATE_TOL
+
+
+@pytest.mark.parametrize("s1", [1, 37, 200])
+def test_ssd_scan_split_at_any_row_equals_the_whole_scan(gen, s1):
+    """fp32: the scan of S rows equals the scan of the first s1 rows
+    followed by the scan of the rest from its final state (each part
+    padded to its own chunks), within 1e-4 of scale."""
+    b, s, h, p, n, chunk = 2, 300, 3, 40, 16, 128
+    x, dt, A, B_, C = _ssd_case(gen, torch.float32, b, s, h, p, n, chunk)
+    D = torch.randn(h, generator=gen, device="cuda")
+    y, st = ops.ssd_scan_op(x, dt, A, B_, C, D, chunk=chunk)
+    y1, st1 = ops.ssd_scan_op(x[:, :s1], dt[:, :s1], A, B_[:, :s1],
+                              C[:, :s1], D, chunk=chunk)
+    y2, st2 = ops.ssd_scan_op(x[:, s1:], dt[:, s1:], A, B_[:, s1:],
+                              C[:, s1:], D, chunk=chunk, state0=st1)
+    assert _scaled_err(torch.cat([y1, y2], 1), y) <= 1e-4
+    assert _scaled_err(st2, st) <= 1e-4
+
+
+def test_ssd_wrapper_rejects_a_state_it_cannot_take(gen):
+    xw = torch.randn(1, 1, 16, 2, 8, generator=gen, device="cuda")
+    cum = torch.zeros(1, 1, 16, 2, device="cuda")
+    bc = torch.randn(1, 1, 16, 4, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="state0"):
+        TS.ssd_scan(xw, cum, bc, bc, torch.zeros(1, 2, 8, 5, device="cuda"))
+    with pytest.raises(TypeError, match="float32"):
+        TS.ssd_scan(xw, cum, bc, bc,
+                    torch.zeros(1, 2, 8, 4, device="cuda").double())

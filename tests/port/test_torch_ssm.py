@@ -115,11 +115,18 @@ def test_scan_op_pads_a_tail_chunk_with_zero_steps():
     np.testing.assert_allclose(_np(st), np.asarray(rs), atol=SCAN_ATOL)
 
 
-def test_scan_op_refuses_a_starting_state():
-    x, dt, A, B_, C, D = map(_t, _scan_inputs(1, 16, 2, 4, 4))
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        ops.ssd_scan_op(x, dt, A, B_, C, D, chunk=16,
-                        state0=torch.zeros(1, 2, 4, 4))
+def test_scan_op_from_a_starting_state_matches_jax():
+    """From a starting state (the kernel's ``state0``) the op matches the
+    JAX ``ssd_chunked(state0=)``, a padded tail chunk included."""
+    x, dt, A, B_, C, D = _scan_inputs(1, 21, 2, 4, 4)
+    state0 = np.random.default_rng(7).standard_normal(
+        (1, 2, 4, 4)).astype(np.float32)
+    ry, rs = JS.ssd_chunked(*map(jnp.asarray, (x, dt, A, B_, C, D)),
+                            chunk=16, state0=jnp.asarray(state0))
+    y, st = ops.ssd_scan_op(*map(_t, (x, dt, A, B_, C, D)), chunk=16,
+                            state0=_t(state0))
+    np.testing.assert_allclose(_np(y), np.asarray(ry), atol=SCAN_ATOL)
+    np.testing.assert_allclose(_np(st), np.asarray(rs), atol=SCAN_ATOL)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -222,14 +229,21 @@ def test_ssd_block_lengths_give_each_row_its_own_state(model):
                                    np.asarray(jst.ssm), atol=ATOL)
 
 
-def test_ssd_block_refuses_prefill_from_a_state(model):
-    _, cfg, jparams, params = model
-    _, tp = _block_params(jparams, params)
-    st = TS.SSDState(torch.zeros(1, 3, cfg.ssm_d_inner + 2 * cfg.ssm_state),
-                     torch.zeros(1, cfg.ssm_n_heads, cfg.ssm_head_dim,
-                                 cfg.ssm_state))
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        TS.ssd_block(torch.zeros(1, 4, cfg.d_model), tp, cfg, state=st)
+def test_ssd_block_prefill_from_a_state_matches_jax(model):
+    """The block continues the conv and the scan from a state, as the JAX
+    block does: the second half of a sequence from the first half's
+    state."""
+    jcfg, cfg, jparams, params = model
+    jp, tp = _block_params(jparams, params)
+    x = np.random.default_rng(8).standard_normal(
+        (2, 22, cfg.d_model)).astype(np.float32)
+    _, jst = JS.ssd_block(jnp.asarray(x[:, :9]), jp, jcfg)
+    _, st = TS.ssd_block(_t(x[:, :9]), tp, cfg)
+    jy, jst = JS.ssd_block(jnp.asarray(x[:, 9:]), jp, jcfg, state=jst)
+    y, st = TS.ssd_block(_t(x[:, 9:]), tp, cfg, state=st)
+    np.testing.assert_allclose(_np(y), np.asarray(jy), atol=ATOL)
+    np.testing.assert_allclose(_np(st.conv), np.asarray(jst.conv), atol=ATOL)
+    np.testing.assert_allclose(_np(st.ssm), np.asarray(jst.ssm), atol=ATOL)
 
 
 def _prompts(cfg, lens, seed=0):
