@@ -73,7 +73,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    first part's final state) against the whole; timed: the 8192-key chunk
    beside SDPA with the offset-causal mask and the prefix copy
    (``copy_ms``), kernel 6 from a state at B=1 S=1000 (rows
-   ``flash_attention_chunk*``, ``ssd_scan_state*``);
+   ``flash_attention_chunk*``, ``ssd_scan_state*``); then kernel 1's
+   backward (``phase_train_kernels``, fp32, the first body) at
+   BWD_SHAPES: Qwen3-1.7B's training shape (B 8, S 128), S 2048 at its
+   heads, Mixtral's G = 6 with a 256-key window, Granite's D = 64 G = 4,
+   SeamlessM4T's cross shape (128 rows over 1024, non-causal): dq, dk,
+   dv against the plain backward within TOL of its scale, timed beside
+   its bound, the plain backward and SDPA's forward + backward less its
+   forward (rows ``flash_attention_bwd*``);
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
@@ -263,7 +270,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    launches); bf16 Mamba-2-2.7B, one 2000-token prompt in chunks of 512
    (on the SSD chunks' boundaries: within 5e-2 of scale of the whole
    prefill) and of 500 (within twice the whole bf16 prefill's distance
-   from the fp32 one), the ``ssd_scan_state`` row's launches.
+   from the fp32 one), the ``ssd_scan_state`` row's launches;
+16. train (``phase_train``): (a) the train step (``compute_grads``,
+   remat on, fp32) on the card against the CPU at reduced widths and
+   depth with each model's own heads (TRAIN_REF: Qwen3-1.7B, Mixtral's
+   window, Llama-4 Maverick's router and aux loss, SeamlessM4T's encoder
+   and cross-attention at D = 64, InternVL2's frontend), B 2, S 128: the
+   loss, the aux loss, the grad norm and every gradient leaf within its
+   gate; (b) Qwen3-1.7B at full width and depth through
+   ``repro_torch.launch.train`` (fp32, AdamW, batch 8 x 128, remat, 10
+   steps): the loss falls by TRAIN_LOSS_DROP, ms a step, tok/s, peak
+   memory, a checkpoint round trip under build/ bit-equal, the first step
+   with 2 microbatches equal to the run's first step, one step profiled;
+   (c) Granite-3.0-2B at full width and depth, 3 steps (the D = 64
+   backward on a path); (d) a Mamba-2 train step on the card refused by
+   the SSD scan's wrapper (the only error caught). The rows
+   ``flash_attention_bwd*`` take their launches from (b) (Qwen3's shape
+   and S 2048, the same kernel instance), (c) (D = 64) and (a)
+   (Mixtral's window, SeamlessM4T's cross-attention).
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -1904,6 +1928,107 @@ def phase_chunked_kernels(timer: Timer) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: kernel 1's backward, the train step on the card against the CPU,
+# Qwen3-1.7B and Granite-3.0-2B through the training launcher
+# ---------------------------------------------------------------------------
+
+#: the backward's source and the forward it is the gradient of
+BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+#: (row name, B, Sq, Sk, H, K, D, causal, window): Qwen3-1.7B's training
+#: shape (batch 8 x seq 128), S 2048 at its heads, Mixtral-8x22B's G = 6
+#: with a 256-key window, Granite-3.0-2B's D = 64 G = 4, SeamlessM4T's
+#: cross-attention (128 decoder rows over 1024 encoder rows, non-causal)
+BWD_SHAPES = (
+    ("flash_attention_bwd", 8, 128, 128, 16, 8, 128, True, 0),
+    ("flash_attention_bwd_s2048", 1, 2048, 2048, 16, 8, 128, True, 0),
+    ("flash_attention_bwd_mixtral", 1, 1024, 1024, 48, 8, 128, True, 256),
+    ("flash_attention_bwd_d64", 1, 1024, 1024, 32, 8, 64, True, 0),
+    ("flash_attention_bwd_cross", 4, 128, 1024, 16, 16, 64, False, 0),
+)
+#: the backward's operations over the forward's (both products again, and
+#: dO Vᵀ, Pᵀ dO, dSᵀ Q, dS K: 5 products against the forward's 2)
+BWD_OPS = 2.5
+
+
+def bwd_cost(b, sq, sk, h, kh, d, causal, window):
+    """The backward's bytes (q, o, dO, k, v read; dq, dk, dv written, fp32)
+    and operations (BWD_OPS times the forward's over the seen pairs)."""
+    n_bytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * 4
+    _, fwd_ops = flash_cost(b, sq, torch.float32, h, kh, window, d, causal,
+                            sk)
+    return n_bytes, BWD_OPS * fwd_ops
+
+
+def phase_train_kernels(timer: Timer) -> list:
+    """Kernel 1's backward (fp32, the first body) at BWD_SHAPES against its
+    plain backward on the same inputs (q, k, v, the forward kernel's
+    output, dO ~ N(0, 1)): dq, dk and dv each within TOL of the plain's
+    scale max(1, max|plain|); timed beside its bound (max(bytes / HBM_BW,
+    BWD_OPS x the forward's operations / the fp32 peak)), the plain
+    backward and SDPA's forward + backward less its forward (``enable_gqa``,
+    the same mask). Returns the rows (launches filled by main)."""
+    from repro_torch.kernels import flash_attention as FA
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = []
+    for name, b, sq, sk, h, kh, d, causal, window in BWD_SHAPES:
+        g = h // kh
+        q, k, v = flash_inputs(gen, b, sq, torch.float32, h, kh, d, sk)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        kw = dict(causal=causal, window=window, group=g)
+        o = FA.flash_attention(q, k, v, **kw)
+        got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        shape = (f"B={b} Sq={sq} Sk={sk} H={h} K={kh} D={d} window {window} "
+                 f"{'causal' if causal else 'non-causal'} fp32")
+        check(all(math.isfinite(e) and e <= TOL[torch.float32]
+                  for e in errs), f"{name} at {shape}: dq, dk, dv err {errs}")
+        # SDPA in (B, H, S, D) with enable_gqa and the same mask
+        qs = q.reshape(b, h, sq, d).detach().requires_grad_()
+        ks = k.reshape(b, kh, sk, d).detach().requires_grad_()
+        vs = v.reshape(b, kh, sk, d).detach().requires_grad_()
+        dos = do.reshape(b, h, sq, d)
+        mask = None
+        if causal or window:
+            i = torch.arange(sq, device="cuda")[:, None]
+            j = torch.arange(sk, device="cuda")[None, :]
+            mask = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+            if causal:
+                mask &= j <= i
+            if window:
+                mask &= j > i - window
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+
+        lib_fwd = timer(lambda: sdpa().detach())
+        lib = timer(sdpa_fwd_bwd) - lib_fwd
+        nb, no = bwd_cost(b, sq, sk, h, kh, d, causal, window)
+        bms, bby = bound_ms(nb, no, torch.float32)
+        row = with_tflops(dict(
+            name=name, route="cuda", source=BWD_SRC,
+            replaces="src/repro/kernels/flash_attention.py:77 (its gradient;"
+                     " the JAX package takes it through XLA)",
+            ms=timer(lambda: FA.flash_attention_bwd(q, k, v, o, do, **kw)),
+            plain_ms=timer(lambda: FA.flash_attention_bwd_plain(
+                q, k, v, o, do, **kw)),
+            bound_ms=bms, bound_by=bby, library_ms=lib,
+            max_abs_err=max(errs), shape=shape), no)
+        log(f"{name}: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+            f"of the plain backward's scale (TOL {TOL[torch.float32]}); "
+            f"SDPA forward {lib_fwd:.4f} ms")
+        log_row(row)
+        rows.append(row)
+    return rows
+
+
 def phase_colocated(timer: Timer) -> dict:
     """The counterpart of examples/colocated_attention.py on the card: one
     dense fused launch computes a prefill batch's attention and a decode
@@ -2091,7 +2216,7 @@ def _kernel_kind(name: str) -> str:
     # dense cache) and the bf16 split kernels over either
     # (split_decode_kernel<128, DecodeArgs>, ...); the fused kernels are
     # "bullet_kernel" (fp32) and "bullet_tc_kernel" (bf16)
-    if any(k in name for k in ("flash_kernel", "decode_kernel",
+    if any(k in name for k in ("flash_kernel", "flash_bwd", "decode_kernel",
                                "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
     if any(k in name for k in SSD_KERNELS):
@@ -5375,6 +5500,258 @@ def phase_chunked(card: str) -> dict:
     return launches
 
 
+#: the card-against-CPU train step: arch, the head dim its reduced widths
+#: take (one the backward is built for), batch and sequence (past the
+#: reduced 64-key window, so Mixtral's windowed mask cuts)
+TRAIN_REF = (("qwen3-1.7b", 128), ("mixtral-8x22b", 128),
+             ("llama4-maverick-400b-a17b", 128),
+             ("seamless-m4t-large-v2", 64), ("internvl2-76b", 128))
+TRAIN_REF_B, TRAIN_REF_S = 2, 128
+#: card-against-CPU gates of the train step: the loss (relative), the grad
+#: norm (relative) and every gradient leaf within this share of its own
+#: scale max|g| on the CPU (the other card-against-CPU gates' 1e-3)
+TRAIN_LOSS_TOL, TRAIN_NORM_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4, 1e-3
+#: the full-width runs through the training launcher: its arguments
+TRAIN_QWEN = ["--arch", "qwen3-1.7b", "--full", "--steps", "10",
+              "--batch", "8", "--seq", "128"]
+TRAIN_GRANITE = ["--arch", "granite-3-2b", "--full", "--steps", "3",
+                 "--batch", "8", "--seq", "128"]
+#: the loss over Qwen3-1.7B's 10 steps must fall by at least this much
+#: (nats; the first step's loss is about ln(vocab) = 11.9, and the first
+#: run on an H100 fell 6.40, to 5.91: the 256-symbol source's order-0
+#: entropy is ln 256 = 5.5)
+TRAIN_LOSS_DROP = 3.0
+#: the first step with 2 microbatches against 1 (tests/test_training.py's
+#: tolerances): loss and grad norm, relative
+ACCUM_LOSS_TOL, ACCUM_NORM_TOL = 1e-4, 1e-3
+
+
+def _train_batch(cfg, seed: int, device):
+    """A seeded batch of TRAIN_REF_B x TRAIN_REF_S random tokens and
+    labels, with the config's stub frontend rows, on ``device``."""
+    rng = np.random.default_rng(seed)
+    shape = (TRAIN_REF_B, TRAIN_REF_S)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, shape).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, shape).astype(np.int32))}
+    fe = _frontend_rows(cfg, TRAIN_REF_B, seed + 1)
+    if fe is not None:
+        batch["frontend"] = fe
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _grad_norm(grads) -> float:
+    from repro_torch.training.tree import leaves
+    return math.sqrt(sum(float(torch.sum(torch.square(g.float())))
+                         for g in leaves(grads)))
+
+
+def _train_reference(card: str) -> dict:
+    """TRAIN_REF at reduced widths and depth with their own heads, fp32,
+    remat on: ``compute_grads`` on the card (kernel 1 forward and
+    backward) against the CPU (plain versions), params from the port's
+    seeded init on the card, copied to the CPU. Returns the backward's
+    launches by arch."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.training.trainer import compute_grads
+    from repro_torch.training.tree import leaves_with_paths, checkpoint_key
+    launches = {}
+    for name, d in TRAIN_REF:
+        cfg = _reduced_heads(name, d)
+        params = T.init_params(cfg, seed=26, dtype=torch.float32,
+                               device="cuda")
+        out = {}
+        for side, p in (("cuda", params), ("cpu", _to_cpu(params))):
+            _reset_counts()
+            grads, m = compute_grads(p, _train_batch(cfg, 27, side), cfg,
+                                     remat=True)
+            out[side] = (float(m["loss"]), float(m["aux"]),
+                         _grad_norm(grads), grads)
+            if side == "cuda":
+                torch.cuda.synchronize()
+                launches[name] = (FA.launches, FA.bwd_launches)
+        (lc, ac, nc, gc_), (lh, ah, nh, gh) = out["cuda"], out["cpu"]
+        check(math.isfinite(lc) and abs(lc - lh) <= TRAIN_LOSS_TOL * abs(lh),
+              f"train reference {name}: loss {lc} on the card, {lh} on the "
+              "CPU")
+        check(abs(ac - ah) <= TRAIN_LOSS_TOL * max(abs(ah), 1e-3),
+              f"train reference {name}: aux {ac} / {ah}")
+        check(abs(nc - nh) <= TRAIN_NORM_TOL * nh,
+              f"train reference {name}: grad norm {nc} / {nh}")
+        worst, n = 0.0, 0
+        for (path, a), (_, b) in zip(leaves_with_paths(gc_),
+                                     leaves_with_paths(gh)):
+            scale = b.abs().max().item()
+            e = (a.cpu() - b).abs().max().item()
+            check(math.isfinite(e) and e <= TRAIN_GRAD_TOL * scale + 1e-30,
+                  f"train reference {name}: gradient {checkpoint_key(path)}"
+                  f" differs by {e} at scale {scale}")
+            worst, n = max(worst, e / max(scale, 1e-30)), n + 1
+        fwd, bwd = launches[name]
+        check(fwd > 0 and bwd > 0, f"train reference {name}: kernel 1 "
+              f"launched {fwd} forward, {bwd} backward")
+        log(f"train reference {name}: reduced widths, {cfg.n_layers} "
+            f"layers, H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.head_dim}"
+            f"{f' window {cfg.sliding_window}' if cfg.has_mixer('swa') else ''}"
+            f", fp32, B={TRAIN_REF_B} S={TRAIN_REF_S}: loss {lc:.6f} (CPU "
+            f"{lh:.6f}), aux {ac:.6f}, grad norm {nc:.6f} (CPU {nh:.6f}), "
+            f"{n} gradient leaves, worst {worst:.2e} of the leaf's scale "
+            f"(gate {TRAIN_GRAD_TOL}); kernel 1 {fwd} forward and {bwd} "
+            f"backward launches  [{card}]")
+        del params, grads, gc_, gh, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _checkpoint_roundtrip(params) -> float:
+    """Save ``params`` under build/ and load them into their own tree on the
+    card: every leaf bit-equal. Returns the seconds it took."""
+    from repro_torch.training.checkpoint import load_checkpoint
+    from repro_torch.training.checkpoint import save_checkpoint
+    from repro_torch.training.tree import leaves
+    path = os.path.join(ROOT, "build", "train_smoke", "qwen3.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(path, params, step=10)
+    restored, step = load_checkpoint(path, params)
+    check(step == 10, f"checkpoint step {step}")
+    for a, b in zip(leaves(params), leaves(restored)):
+        check(a.dtype == b.dtype and bool(torch.equal(a, b)),
+              "checkpoint round trip is not bit-equal")
+    secs = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    os.remove(path)
+    log(f"  checkpoint: {size / 2**30:.2f} GiB saved and loaded back "
+        f"bit-equal in {secs:.1f} s")
+    return secs
+
+
+def _accum_check(card: str) -> tuple:
+    """Qwen3-1.7B's first step from the launcher's init (seed 0) on its
+    first batch with 2 microbatches, for the launcher's run (1) to be held
+    against; then one step with 1 microbatch under torch.profiler (device
+    time by kernel kind). Returns the first step's (loss, grad norm)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.training.trainer import make_train_step
+    args = launcher.parse_args(TRAIN_QWEN)
+    cfg = get_config(args.arch)
+    raw = next(SyntheticLM(DataConfig(cfg.vocab_size, seq_len=args.seq,
+                                      batch_size=args.batch,
+                                      n_symbols=256)).batches())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    params = T.init_params(cfg, seed=args.seed, dtype=torch.float32,
+                           device="cuda")
+    kw = dict(remat=True, lr=args.lr, warmup=min(20, args.steps // 4 + 1))
+    init_fn, step_fn = make_train_step(cfg, accum_steps=2, **kw)
+    state = init_fn(params)
+    del params
+    state, m = step_fn(state, batch)
+    first = float(m["loss"]), float(m["grad_norm"])
+    _, step1 = make_train_step(cfg, **kw)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step1(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_report(prof, wall, "qwen3-1.7b, one train step (fp32, batch 8 "
+                    "x 128, remat)", card)
+    return first
+
+
+def phase_train(card: str) -> dict:
+    """Training on the card: (1) the train step against the CPU at reduced
+    widths (``_train_reference``); (2) Qwen3-1.7B at full width and depth
+    through ``repro_torch.launch.train`` (fp32, AdamW, batch 8 x 128,
+    remat, 10 steps): the loss falls by TRAIN_LOSS_DROP, the first step
+    with 2 microbatches equals the run's first step, a checkpoint round
+    trip under build/ is bit-equal; ms a step, tok/s and peak memory; (3)
+    Granite-3.0-2B at full width and depth, 3 steps (kernel 1's D = 64
+    backward on a path); (4) a Mamba-2 train step on the card is refused
+    by the SSD scan's wrapper (``NotImplementedError``, the only error
+    caught). Returns the backward rows' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.training.trainer import make_train_step
+    ref = _train_reference(card)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    run = launcher.run(launcher.parse_args(TRAIN_QWEN))
+    secs = time.perf_counter() - t0
+    qwen = (FA.launches, FA.bwd_launches)
+    check(all(math.isfinite(x) for x in run.losses + run.grad_norms),
+          f"qwen3-1.7b training: losses {run.losses}")
+    drop = run.losses[0] - run.losses[-1]
+    check(drop > TRAIN_LOSS_DROP, f"qwen3-1.7b training: the loss fell "
+          f"{drop} over {len(run.losses)} steps (gate {TRAIN_LOSS_DROP})")
+    check(qwen[1] > 0, "qwen3-1.7b training: no backward launch")
+    log(f"train qwen3-1.7b (full width and depth, fp32, AdamW, remat, batch "
+        f"8 x 128): losses {[round(x, 4) for x in run.losses]}, fell "
+        f"{drop:.4f} (gate {TRAIN_LOSS_DROP}); grad norms "
+        f"{[round(x, 3) for x in run.grad_norms]}; "
+        f"{statistics.median(run.step_ms[1:]):.1f} ms a step (the first "
+        f"{run.step_ms[0]:.1f}), {run.tok_s:,.0f} tok/s, peak allocated "
+        f"{run.peak_bytes / 2**30:.2f} GiB; kernel 1 {qwen[0]} forward and "
+        f"{qwen[1]} backward launches; {secs:.1f} s  [{card}]")
+    _checkpoint_roundtrip(run.state.params)
+    first = (run.losses[0], run.grad_norms[0])
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc = _accum_check(card)
+    check(abs(acc[0] - first[0]) <= ACCUM_LOSS_TOL * abs(first[0])
+          and abs(acc[1] - first[1]) <= ACCUM_NORM_TOL * abs(first[1]),
+          f"accumulation: 2 microbatches {acc}, 1 {first}")
+    log(f"  accumulation: first step with 2 microbatches loss {acc[0]:.6f} "
+        f"grad norm {acc[1]:.6f}, with 1 {first[0]:.6f} / {first[1]:.6f} "
+        f"(rel {abs(acc[0] - first[0]) / first[0]:.2e} / "
+        f"{abs(acc[1] - first[1]) / first[1]:.2e})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    run = launcher.run(launcher.parse_args(TRAIN_GRANITE))
+    granite = (FA.launches, FA.bwd_launches)
+    check(all(math.isfinite(x) for x in run.losses + run.grad_norms)
+          and granite[1] > 0, f"granite-3-2b training: losses {run.losses},"
+          f" launches {granite}")
+    log(f"train granite-3-2b (full width and depth, D = 64, fp32): losses "
+        f"{[round(x, 4) for x in run.losses]}; "
+        f"{statistics.median(run.step_ms[1:]):.1f} ms a step, "
+        f"{run.tok_s:,.0f} tok/s, peak allocated "
+        f"{run.peak_bytes / 2**30:.2f} GiB; kernel 1 {granite[0]} forward "
+        f"and {granite[1]} backward launches  [{card}]")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    init_fn, step_fn = make_train_step(cfg, lr=1e-3)
+    try:
+        step_fn(init_fn(params), _train_batch(cfg, 28, "cuda"))
+    except NotImplementedError as e:
+        check("ssd_scan" in str(e) and "8b" in str(e),
+              f"mamba2 refusal names the wrong kernel or item: {e}")
+        log(f"train mamba2-2.7b on the card refused as expected: {e}")
+    else:
+        fail("a Mamba-2 train step on the card was not refused")
+    return {"flash_attention_bwd": qwen[1],
+            "flash_attention_bwd_s2048": qwen[1],
+            "flash_attention_bwd_mixtral": ref["mixtral-8x22b"][1],
+            "flash_attention_bwd_d64": granite[1],
+            "flash_attention_bwd_cross": ref["seamless-m4t-large-v2"][1]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -5411,6 +5788,7 @@ def main() -> int:
     d64_rows, d64_dense = timed("attention D=64", phase_attention_d64, timer)
     rows += d64_rows
     rows += timed("chunked kernels", phase_chunked_kernels, timer)
+    rows += timed("train kernels", phase_train_kernels, timer)
     colocated = timed("colocated", phase_colocated, timer)
     if args.kernels_only:
         return 0
@@ -5432,6 +5810,7 @@ def main() -> int:
     seamless = timed("seamless", phase_seamless, card)
     timed("internvl", phase_internvl, card)
     chunked = timed("chunked", phase_chunked, card)
+    train = timed("train", phase_train, card)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the
@@ -5460,7 +5839,7 @@ def main() -> int:
                 "flash_attention_d256_fp32": rg_ref["flash_attention"],
                 "decode_attention_d256_fp32": rg_ref["decode_attention"],
                 **moe_ref, **moe, **arch_ref, **granite, **seamless,
-                **chunked,
+                **chunked, **train,
                 "bullet_attention_d64": d64_dense[torch.bfloat16],
                 "bullet_attention_d64_fp32": d64_dense[torch.float32]}
     for r in rows:

@@ -7,7 +7,9 @@ of the checkout, named by a digest of the sources so an edit rebuilds;
 ``ctypes`` loads it. ``attention.cu`` holds the attention kernels (flash
 prefill and dense decode at head dims 64, 128 and 256, paged decode and the
 fused launches at 64 and 128; in bf16 the flash body runs on the tensor cores
-through wgmma and TMA, so ``sm_90a``'s ``a`` is needed), ``ssd_scan.cu``
+through wgmma and TMA, so ``sm_90a``'s ``a`` is needed),
+``flash_attention_bwd.cu`` the gradient of the flash prefill (fp32, D = 64
+and 128), ``ssd_scan.cu``
 the Mamba-2 SSD chunk scan (in bf16 C Bᵀ once per row and chunk, the
 chunk states, a pass over the chunks and the outputs, on the tensor cores
 through ``mma.sync``) and
@@ -35,7 +37,8 @@ from typing import NamedTuple
 from repro_torch.kernels.geometry import all_defines
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention.cu", "ssd_scan.cu", "rglru_scan.cu")
+SOURCES = ("attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu",
+           "rglru_scan.cu")
 HEADERS = ("attention.cuh",)
 #: build/ at the root of the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -46,6 +49,7 @@ _I = ctypes.c_int
 #: argtypes of every C entry point; every one returns a cudaError_t as int
 SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
     "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
@@ -176,6 +180,9 @@ HEAD_DIMS = (64, 128, 256)
 #: (DISPATCH_PAGED in attention.cu): only the paged path runs them, and it
 #: serves D = 64 (Granite) and D = 128 models
 PAGED_HEAD_DIMS = (64, 128)
+#: head dims of the flash backward (``flash_attention_bwd.cu``): those of
+#: the models that train on the card (D = 256 is ROADMAP §2 R18)
+BWD_HEAD_DIMS = (64, 128)
 
 
 def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
@@ -208,6 +215,21 @@ def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
     if head_dim and d not in head_dims:
         raise ValueError(f"{kernel}: head dim {d} not in {head_dims}")
     return code
+
+
+def refuse_grad(kernel: str, tensors, item: str) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and one of
+    ``tensors`` (None entries skipped) requires grad: the kernel writes
+    its output through a raw pointer, so autograd would see a result cut
+    off from the graph and every gradient before the call would be lost
+    without an error. ``item`` names the ROADMAP item that brings the
+    kernel's backward."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: no backward on the card yet ({item}); train this "
+            "model on the CPU, where the plain version is differentiable")
 
 
 def check_aligned(kernel: str, tensors) -> None:

@@ -226,6 +226,8 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
             qp, kp, vp, qd, k_pages, v_pages, block_tables, pos,
             causal=causal, window=window, group=group)
         return (*out, None) if record else out
+    build.refuse_grad("bullet_attention_paged",
+                      (qp, kp, vp, qd, k_pages, v_pages), "ROADMAP §2 R19")
     code = build.check_inputs("bullet_attention_paged",
                               (qp, kp, vp, qd, k_pages, v_pages),
                               (block_tables, pos),
@@ -285,6 +287,8 @@ def bullet_attention(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos, *,
             qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos,
             causal=causal, window=window, group=group)
         return (*out, None) if record else out
+    build.refuse_grad("bullet_attention",
+                      (qp, kp, vp, qd, k_cache, v_cache), "ROADMAP §2 R19")
     code = build.check_inputs("bullet_attention",
                               (qp, kp, vp, qd, k_cache, v_cache),
                               (kv_positions, pos),

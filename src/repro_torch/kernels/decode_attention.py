@@ -145,6 +145,8 @@ def decode_attention(q, k_cache, v_cache, kv_positions, pos):
     CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, kv_positions, pos)
+    build.refuse_grad("decode_attention", (q, k_cache, v_cache),
+                      "ROADMAP §2 R19")
     code = build.check_inputs("decode_attention", (q, k_cache, v_cache),
                               (kv_positions, pos))
     _check_dense("decode_attention", q, k_cache, v_cache, kv_positions, pos)

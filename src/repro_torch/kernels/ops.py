@@ -29,7 +29,9 @@ def _heads_major(x):
 
 def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
     """Model layout: q (B,Sq,H,D), k/v (B,Sk,K,D), query row i at position
-    ``q_offset + i`` among the keys. Returns (B,Sq,H,D)."""
+    ``q_offset + i`` among the keys. Returns (B,Sq,H,D). The layout
+    changes are autograd ops, so a gradient flows through kernel 1's
+    ``FlashAttention`` to q, k and v."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     o = _flash.flash_attention(_heads_major(q), _heads_major(k),

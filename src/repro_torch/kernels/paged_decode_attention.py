@@ -68,6 +68,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos):
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, pos)
+    build.refuse_grad("paged_decode_attention", (q, k_pages, v_pages),
+                      "ROADMAP §2 R19")
     code = build.check_inputs("paged_decode_attention", (q, k_pages, v_pages),
                               (block_tables, pos),
                               head_dims=build.PAGED_HEAD_DIMS)

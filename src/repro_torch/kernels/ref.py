@@ -21,6 +21,9 @@ math to the kernel layouts (``flash_attention_ref``,
 and merge spelled out, for the card tests, and
 ``paged_decode_attention_split_ref`` the same over a slot's gathered
 pages (the bf16 paged kernel runs the dense kernel's body).
+``flash_attention_bwd_ref`` is kernel 1's gradient written out (the plain
+version of ``csrc/flash_attention_bwd.cu``; the JAX package takes it
+through XLA's autodiff of ``flash_ref_attention``).
 ``ssd_scan_ref`` and ``rglru_scan_ref`` are the JAX package's sequential
 SSD and RG-LRU oracles, one step per position; the plain versions the
 kernels are held against live beside their wrappers
@@ -165,6 +168,43 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                             v.reshape(bhk, sk, 1, d), causal=causal,
                             window=window, q_offset=q_offset)
     return o.transpose(1, 2).reshape(bh, sq, d)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
+                            window: int = 0, group: int = 1):
+    """The gradient of ``flash_attention_ref`` at ``q_offset`` 0, written
+    out (the plain version of ``csrc/flash_attention_bwd.cu``): from q
+    (BH, Sq, D), k, v (BH/group, Sk, D), the forward's output ``o`` and
+    its gradient ``do`` (BH, Sq, D), recompute each query row's
+    log-sum-exp over the keys it sees and P = exp(S - lse), then dV = Pᵀ
+    dO summed over the group's heads, dP = dO Vᵀ, dS = P ⊙ (dP - rowsum(dO
+    ⊙ O)), dK = dSᵀ Q·scale and dQ = dS K·scale, in fp32. Key j is seen by
+    query i iff (not causal or j <= i) and (no window or j > i - window).
+    Returns (dq, dk, dv) in the inputs' dtypes."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    scale = d ** -0.5
+    qs = (q * scale).to(q.dtype).float().reshape(bhk, group, sq, d)
+    kf, vf = k.float(), v.float()
+    i = torch.arange(sq, device=q.device)[:, None]
+    j = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (j <= i)
+    if window > 0:
+        mask = mask & (j > i - window)
+    s = torch.einsum("hgqd,hkd->hgqk", qs, kf).masked_fill(~mask, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse).masked_fill(~mask, 0.0)
+    dof = do.float().reshape(bhk, group, sq, d)
+    delta = (dof * o.float().reshape(bhk, group, sq, d)).sum(-1,
+                                                              keepdim=True)
+    dv = torch.einsum("hgqk,hgqd->hkd", p, dof)
+    ds = p * (torch.einsum("hgqd,hkd->hgqk", dof, vf) - delta)
+    dq = torch.einsum("hgqk,hkd->hgqd", ds, kf) * scale
+    dk = torch.einsum("hgqk,hgqd->hkd", ds, qs)
+    return (dq.reshape(bh, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention_ref(q, k_cache, v_cache, kv_positions, pos):

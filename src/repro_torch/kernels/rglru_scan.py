@@ -44,6 +44,7 @@ def rglru_scan(a, b, h0=None):
     CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
+    build.refuse_grad("rglru_scan", (a, b, h0), "ROADMAP §1 item 8b")
     code = build.check_inputs("rglru_scan", (a, b),
                               fp32=() if h0 is None else (h0,),
                               head_dim=False)

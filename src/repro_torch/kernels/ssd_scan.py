@@ -82,6 +82,8 @@ def ssd_scan(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
     ``SSD_P_SLICE``."""
     if xw.device.type == "cpu":
         return ssd_scan_plain(xw, cum, B_, C, state0)
+    build.refuse_grad("ssd_scan", (xw, cum, B_, C, state0),
+                      "ROADMAP §1 item 8b")
     fp32 = (cum,) if state0 is None else (cum, state0)
     code = build.check_inputs("ssd_scan", (xw, B_, C), fp32=fp32,
                               head_dim=False)

@@ -41,6 +41,7 @@ import functools
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTN, MLP, MOE, RGLRU, SSD, SWA,
                                       BlockSpec, ModelConfig)
@@ -376,6 +377,16 @@ def _kv_positions(pos, s_cache: int, window_like: bool):
 def params_at(params_j: Dict[str, torch.Tensor], r: int):
     """One repeat's slice of a stacked per-pattern param dict (views)."""
     return {name: leaf[r] for name, leaf in params_j.items()}
+
+
+def params_by_repeat(params_j: Dict[str, torch.Tensor]):
+    """Every repeat's slice of a stacked per-pattern param dict (views),
+    from one ``unbind`` per leaf. Under autograd a leaf's gradient is then
+    one stack of its repeats' gradients, where a ``params_at`` per repeat
+    would add a zero-filled copy of the whole stacked leaf per repeat."""
+    names = list(params_j)
+    return [dict(zip(names, slices))
+            for slices in zip(*(params_j[n].unbind(0) for n in names))]
 
 
 # ---------------------------------------------------------------------------
@@ -819,8 +830,7 @@ def encode(params, frontend, cfg: ModelConfig):
     enc = params["encoder"]
     x = frontend.to(enc["wq"].dtype) @ params["frontend_proj"]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for r in range(cfg.n_encoder_layers):
-        p = params_at(enc, r)
+    for p in params_by_repeat(enc):
         h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
         q, k, v = _project_qkv(h, p, cfg, positions)
         o = attn_ops.attention_prefill(q, k, v, causal=False)
@@ -1104,25 +1114,45 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def forward(params, tokens, cfg: ModelConfig, *, frontend=None):
+def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
+            remat: bool = False):
     """Teacher-forcing forward over ``tokens`` (B, S), every row a full
     sequence, with ``frontend`` encoded (encoder-decoder) or prepended
     (decoder-only VLM: the logits then cover its rows too), as in
     :func:`prefill`. Returns (logits (B, S, V), aux): ``aux`` the MoE
     load-balance losses summed over the layers in order (zero without
-    MoE blocks), as the JAX ``forward``."""
+    MoE blocks), as the JAX ``forward``. With ``remat`` each pattern
+    block runs under ``torch.utils.checkpoint`` (non-reentrant), the JAX
+    package's per-block ``jax.checkpoint``: only the block's input is kept
+    for the backward, which runs the block again (the forward draws no
+    random numbers, so no RNG state is stashed). The tail blocks are not
+    checkpointed, as in the JAX ``forward``."""
     x, enc_out = _embed_prompt(params, tokens, cfg, frontend)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    stats = MoEStats(x.device)
-    for r in range(cfg.n_pattern_repeats):
-        x, _ = prefill_group(params, x, positions, r, cfg, stats=stats,
-                             enc_out=enc_out)
-    for j, blk in enumerate(cfg.pattern_tail):
-        p = params["tail_blocks"][j]
+
+    def one_block(x, p, blk):
         cross = (None if enc_out is None
                  else _cross_kv_from_encoder(p, enc_out, cfg))
+        # the block's own sums, returned (as the JAX ``one_block`` returns
+        # its aux), so a recomputed block counts nothing twice
+        stats = MoEStats(x.device)
         x, _ = _apply_block_full(x, p, blk, cfg, positions, stats=stats,
                                  cross_kv=cross)
-    aux = stats.sums[3]
+        return x, stats.sums[3]
+
+    run = one_block
+    if remat:
+        run = functools.partial(torch.utils.checkpoint.checkpoint, one_block,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    repeats = [params_by_repeat(p_j) for p_j in params["blocks"]]
+    for r in range(cfg.n_pattern_repeats):
+        for j, blk in enumerate(cfg.pattern):
+            x, a = run(x, repeats[j][r], blk)
+            aux = aux + a
+    for j, blk in enumerate(cfg.pattern_tail):
+        x, a = one_block(x, params["tail_blocks"][j], blk)
+        aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     return lm_logits(params, x, cfg), aux

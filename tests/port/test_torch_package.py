@@ -57,6 +57,13 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_import_scan_covers_the_training_path():
+    scanned = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"training/trainer.py", "training/optimizer.py",
+            "training/checkpoint.py", "training/tree.py",
+            "data/pipeline.py", "launch/train.py"} <= scanned
+
+
 def test_serve_host_on_cpu_drains(capsys):
     assert serve.main(["--mode", "host", "--device", "cpu",
                        "--requests", "4"]) == 0
