@@ -77,10 +77,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    backward (``phase_train_kernels``, fp32, the first body) at
    BWD_SHAPES: Qwen3-1.7B's training shape (B 8, S 128), S 2048 at its
    heads, Mixtral's G = 6 with a 256-key window, Granite's D = 64 G = 4,
-   SeamlessM4T's cross shape (128 rows over 1024, non-causal): dq, dk,
-   dv against the plain backward within TOL of its scale, timed beside
-   its bound, the plain backward and SDPA's forward + backward less its
-   forward (rows ``flash_attention_bwd*``);
+   SeamlessM4T's cross shape (128 rows over 1024, non-causal),
+   RecurrentGemma's local attention (D = 256, G = 10, window 2048, S
+   3000): dq, dk, dv against the plain backward within TOL of its scale,
+   timed beside its bound, the plain backward and SDPA's forward +
+   backward less its forward (rows ``flash_attention_bwd*``); the
+   backwards of kernel 6 at Mamba-2-2.7B's shapes (B 1, S 1000 in 4
+   chunks of 256, from zeros and from a random state with the final
+   state's gradient) and of kernel 7 at RecurrentGemma's (B 4, S 3000, W
+   2560, from h0): every gradient within TOL of the plain backward's
+   scale (kernel 7's bit-equal too), timed beside its bound and the plain
+   backward (rows ``ssd_scan_bwd*``, ``rglru_scan_bwd``);
 4. colocated: the dense fused kernel swept over decode_share in {0, 0.25,
    0.5, 0.75, 1} (the counterpart of examples/colocated_attention.py),
    fp32 and bf16: bit-equal to flash + dense decode, and its time per
@@ -283,11 +290,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    memory, a checkpoint round trip under build/ bit-equal, the first step
    with 2 microbatches equal to the run's first step, one step profiled;
    (c) Granite-3.0-2B at full width and depth, 3 steps (the D = 64
-   backward on a path); (d) a Mamba-2 train step on the card refused by
-   the SSD scan's wrapper (the only error caught). The rows
-   ``flash_attention_bwd*`` take their launches from (b) (Qwen3's shape
-   and S 2048, the same kernel instance), (c) (D = 64) and (a)
-   (Mixtral's window, SeamlessM4T's cross-attention).
+   backward on a path); (d) Mamba-2-2.7B (batch 4 x 1024: 4 chunks of
+   256 a row) and RecurrentGemma-2B (8 x 128) at full width and depth, 3
+   steps each: finite losses and grad norms, each backward launched, ms a
+   step, tok/s, peak memory; (e) a bf16 Mamba-2 train step on the card
+   raises ``ValueError`` naming R18 at the SSD scan's wrapper (the only
+   error caught). TRAIN_REF in (a) also holds Mamba-2 (kernel 6 both ways)
+   and RecurrentGemma (kernel 7, and kernel 1 at D = 256, both ways). The
+   rows ``flash_attention_bwd*`` take their launches from (b) (Qwen3's
+   shape and S 2048, the same kernel instance), (c) (D = 64), (a)
+   (Mixtral's window, SeamlessM4T's cross-attention) and (d)
+   (RecurrentGemma's D = 256); ``ssd_scan_bwd*`` and ``rglru_scan_bwd``
+   from (d) (the state row the same kernel's).
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -1938,14 +1952,20 @@ BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 #: (row name, B, Sq, Sk, H, K, D, causal, window): Qwen3-1.7B's training
 #: shape (batch 8 x seq 128), S 2048 at its heads, Mixtral-8x22B's G = 6
 #: with a 256-key window, Granite-3.0-2B's D = 64 G = 4, SeamlessM4T's
-#: cross-attention (128 decoder rows over 1024 encoder rows, non-causal)
+#: cross-attention (128 decoder rows over 1024 encoder rows, non-causal),
+#: RecurrentGemma-2B's local attention (D = 256, G = 10, its 2048 window)
 BWD_SHAPES = (
     ("flash_attention_bwd", 8, 128, 128, 16, 8, 128, True, 0),
     ("flash_attention_bwd_s2048", 1, 2048, 2048, 16, 8, 128, True, 0),
     ("flash_attention_bwd_mixtral", 1, 1024, 1024, 48, 8, 128, True, 256),
     ("flash_attention_bwd_d64", 1, 1024, 1024, 32, 8, 64, True, 0),
     ("flash_attention_bwd_cross", 4, 128, 1024, 16, 16, 64, False, 0),
+    ("flash_attention_bwd_d256", 1, 3000, 3000, RG_H, RG_K, RG_D, True,
+     RG_WINDOW),
 )
+#: the backwards of kernels 6 and 7
+SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+RG_BWD_SRC = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 #: the backward's operations over the forward's (both products again, and
 #: dO Vᵀ, Pᵀ dO, dSᵀ Q, dS K: 5 products against the forward's 2)
 BWD_OPS = 2.5
@@ -1960,6 +1980,118 @@ def bwd_cost(b, sq, sk, h, kh, d, causal, window):
     return n_bytes, BWD_OPS * fwd_ops
 
 
+def ssd_bwd_cost(xw, state: bool):
+    """What kernel 6's backward needs for these inputs (fp32): xw, dy and
+    dxw, cum and dcum, B, C, dB, dC read or written once (with ``state``
+    also state0, the final state's gradient and dstate0); operations over
+    the causal triangle: C Bᵀ (Q²·N) once per row and chunk, and per head
+    dy·xw and the dxw product (Q²·P each), the dB and dC products (Q²·N
+    each), and five P×N state products a row (the chunk's own state and
+    gradient term, Sᵀ dy, G B and Gᵀ xw: 2·Q·P·N each)."""
+    b, nc, q, h, p = xw.shape
+    n, rows = SSD_N, b * nc * q
+    n_bytes = 4 * (3 * rows * h * p + 2 * rows * h + 4 * rows * n
+                   + (3 * b * h * p * n if state else 0))
+    n_ops = b * nc * (q * q * n + h * (2 * q * q * p + 2 * q * q * n
+                                       + 10 * q * p * n))
+    return n_bytes, n_ops
+
+
+def phase_scan_bwd(timer: Timer, gen) -> list:
+    """The backwards of kernels 6 and 7 (fp32) against their plain
+    backwards on the same inputs: kernel 6 at Mamba-2-2.7B's shapes on
+    ``ssd_inputs`` (B 1, S 1000: 4 chunks of 256, the last padded), dy ~
+    N(0, 1), from zeros and from a random state0 with a random final-state
+    gradient; kernel 7 at RecurrentGemma's width (B 4, S 3000, W 2560) from
+    h0, a and b as ``phase_rglru`` makes them, y the forward kernel's. Each
+    gradient within TOL of the plain's scale (kernel 7's also bit-equal, the
+    plain order); timed beside its bound and the plain backward (no single
+    PyTorch call computes either). Returns the rows."""
+    from repro_torch.kernels import rglru_scan as RK
+    from repro_torch.kernels import ssd_scan as SK
+    f32, rows = torch.float32, []
+    xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, f32)
+    dy = torch.randn(xw.shape, generator=gen, device="cuda")
+    shape_st = (1, SSD_H, SSD_P, SSD_N)
+    for name, state in (("ssd_scan_bwd", False), ("ssd_scan_bwd_state",
+                                                  True)):
+        st0 = (torch.randn(shape_st, generator=gen, device="cuda")
+               if state else None)
+        dst = (torch.randn(shape_st, generator=gen, device="cuda")
+               if state else None)
+        args = (xw, cum, bm, cm, st0, dy, dst)
+        got = SK.ssd_scan_bwd(*args)
+        want = SK.ssd_scan_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, w) for g, w in zip(got, want) if w is not None]
+        what = (f"{name} B=1 S=1000 (NC=4 Q=256) H={SSD_H} P={SSD_P} "
+                f"N={SSD_N}{' from a random state' if state else ''} fp32")
+        check(all(math.isfinite(e) and e <= TOL[f32] for e in errs)
+              and (got[4] is None) == (st0 is None),
+              f"{what}: dxw, dcum, dB, dC(, dstate0) err {errs}")
+        again = SK.ssd_scan_bwd(*args)
+        same = all(torch.equal(g, a) for g, a in zip(got, again)
+                   if g is not None)
+        check(same, f"{what}: two runs differ")
+        nb, no = ssd_bwd_cost(xw, state)
+        bms, bby = bound_ms(nb, no, f32)
+        row = dict(
+            name=name, route="cuda", source=SSD_BWD_SRC,
+            replaces="src/repro/kernels/ssd_scan.py:66 (its gradient; the "
+                     "JAX package takes it through XLA)",
+            ms=timer(lambda: SK.ssd_scan_bwd(*args)),
+            plain_ms=timer(lambda: SK.ssd_scan_bwd_plain(*args)),
+            bound_ms=bms, bound_by=bby, library_ms=None,
+            max_abs_err=max((g - w).abs().max().item()
+                            for g, w in zip(got, want) if w is not None),
+            shape=what)
+        log(f"{name}: dxw {errs[0]:.3e}, dcum {errs[1]:.3e}, dB "
+            f"{errs[2]:.3e}, dC {errs[3]:.3e}"
+            f"{f', dstate0 {errs[4]:.3e}' if state else ''} of the plain "
+            f"backward's scale (TOL {TOL[f32]}); two runs bit-equal; "
+            f"{nb / 1e6:.1f} MB, {no / 1e9:.2f} GFLOP")
+        log_row(row)
+        rows.append(row)
+    del xw, cum, bm, cm, dy, args, got, want, again
+    b, s = 4, 3000
+    a = torch.sigmoid(torch.randn(b, s, RG_W, generator=gen, device="cuda"))
+    bb = torch.randn(b, s, RG_W, generator=gen, device="cuda")
+    h0 = torch.randn(b, RG_W, generator=gen, device="cuda")
+    y, _ = RK.rglru_scan(a, bb, h0)
+    dy = torch.randn(b, s, RG_W, generator=gen, device="cuda")
+    dh = torch.randn(b, RG_W, generator=gen, device="cuda")
+    args = (a, y, h0, dy, dh)
+    got = RK.rglru_scan_bwd(*args)
+    want = RK.rglru_scan_bwd_plain(*args)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    what = f"rglru_scan_bwd B={b} S={s} W={RG_W} from h0 fp32"
+    check(all(math.isfinite(e) and e <= TOL[f32] for e in errs),
+          f"{what}: da, db, dh0 err {errs}")
+    # a, y, dy read; da, db written; h0, dh_T read and dh0 written; an
+    # add and two multiplies a step
+    n = a.numel()
+    nb, no = 4 * (5 * n + 3 * b * RG_W), 3 * n
+    bms, bby = bound_ms(nb, no, f32)
+    row = dict(
+        name="rglru_scan_bwd", route="cuda", source=RG_BWD_SRC,
+        replaces="src/repro/kernels/rglru_scan.py:37 (its gradient; the JAX "
+                 "package takes it through XLA)",
+        ms=timer(lambda: RK.rglru_scan_bwd(*args)),
+        plain_ms=timer(lambda: RK.rglru_scan_bwd_plain(*args)),
+        bound_ms=bms, bound_by=bby, library_ms=None,
+        max_abs_err=max((g - w).abs().max().item()
+                        for g, w in zip(got, want)),
+        shape=what)
+    log(f"rglru_scan_bwd: da {errs[0]:.3e}, db {errs[1]:.3e}, dh0 "
+        f"{errs[2]:.3e} of the plain backward's scale (TOL {TOL[f32]}); "
+        f"bit-equal {equal}; {nb / 1e6:.1f} MB")
+    log_row(row)
+    rows.append(row)
+    return rows
+
+
 def phase_train_kernels(timer: Timer) -> list:
     """Kernel 1's backward (fp32, the first body) at BWD_SHAPES against its
     plain backward on the same inputs (q, k, v, the forward kernel's
@@ -1967,7 +2099,8 @@ def phase_train_kernels(timer: Timer) -> list:
     scale max(1, max|plain|); timed beside its bound (max(bytes / HBM_BW,
     BWD_OPS x the forward's operations / the fp32 peak)), the plain
     backward and SDPA's forward + backward less its forward (``enable_gqa``,
-    the same mask). Returns the rows (launches filled by main)."""
+    the same mask). Then the backwards of kernels 6 and 7
+    (``phase_scan_bwd``). Returns the rows (launches filled by main)."""
     from repro_torch.kernels import flash_attention as FA
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(26)
@@ -2026,7 +2159,9 @@ def phase_train_kernels(timer: Timer) -> list:
             f"SDPA forward {lib_fwd:.4f} ms")
         log_row(row)
         rows.append(row)
-    return rows
+        del q, k, v, do, o, got, want, qs, ks, vs, dos
+        torch.cuda.empty_cache()
+    return rows + phase_scan_bwd(timer, gen)
 
 
 def phase_colocated(timer: Timer) -> dict:
@@ -2219,9 +2354,9 @@ def _kernel_kind(name: str) -> str:
     if any(k in name for k in ("flash_kernel", "flash_bwd", "decode_kernel",
                                "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
-    if any(k in name for k in SSD_KERNELS):
+    if any(k in name for k in SSD_KERNELS) or "ssd_bwd_" in name:
         return "SSD scan (this port's kernel)"
-    if "rglru_scan_kernel" in name:
+    if "rglru_scan" in name:
         return "RG-LRU scan (this port's kernel)"
     if any(k in name.lower() for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "GEMM (cuBLAS)"
@@ -5501,11 +5636,17 @@ def phase_chunked(card: str) -> dict:
 
 
 #: the card-against-CPU train step: arch, the head dim its reduced widths
-#: take (one the backward is built for), batch and sequence (past the
-#: reduced 64-key window, so Mixtral's windowed mask cuts)
-TRAIN_REF = (("qwen3-1.7b", 128), ("mixtral-8x22b", 128),
-             ("llama4-maverick-400b-a17b", 128),
-             ("seamless-m4t-large-v2", 64), ("internvl2-76b", 128))
+#: take (one the backward is built for), the kernels its blocks run both
+#: ways; batch and sequence (past the reduced 64-key window, so Mixtral's
+#: and RecurrentGemma's windowed masks cut; 8 chunks of Mamba-2's reduced
+#: 16 rows)
+TRAIN_REF = (("qwen3-1.7b", 128, ("flash",)),
+             ("mixtral-8x22b", 128, ("flash",)),
+             ("llama4-maverick-400b-a17b", 128, ("flash",)),
+             ("seamless-m4t-large-v2", 64, ("flash",)),
+             ("internvl2-76b", 128, ("flash",)),
+             ("mamba2-2.7b", 128, ("ssd",)),
+             ("recurrentgemma-2b", RG_D, ("flash", "rglru")))
 TRAIN_REF_B, TRAIN_REF_S = 2, 128
 #: card-against-CPU gates of the train step: the loss (relative), the grad
 #: norm (relative) and every gradient leaf within this share of its own
@@ -5516,6 +5657,12 @@ TRAIN_QWEN = ["--arch", "qwen3-1.7b", "--full", "--steps", "10",
               "--batch", "8", "--seq", "128"]
 TRAIN_GRANITE = ["--arch", "granite-3-2b", "--full", "--steps", "3",
                  "--batch", "8", "--seq", "128"]
+#: Mamba-2-2.7B at 4 x 1024 (4 full chunks of 256 a row), RecurrentGemma-2B
+#: at the launcher's defaults (8 x 128)
+TRAIN_MAMBA = ["--arch", "mamba2-2.7b", "--full", "--steps", "3",
+               "--batch", "4", "--seq", "1024"]
+TRAIN_RG = ["--arch", "recurrentgemma-2b", "--full", "--steps", "3",
+            "--batch", "8", "--seq", "128"]
 #: the loss over Qwen3-1.7B's 10 steps must fall by at least this much
 #: (nats; the first step's loss is about ln(vocab) = 11.9, and the first
 #: run on an H100 fell 6.40, to 5.91: the 256-symbol source's order-0
@@ -5547,18 +5694,27 @@ def _grad_norm(grads) -> float:
                          for g in leaves(grads)))
 
 
+def _train_counts() -> dict:
+    """Forward and backward launches of the kernels a train step runs."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RK
+    from repro_torch.kernels import ssd_scan as SK
+    return {"flash": (FA.launches, FA.bwd_launches),
+            "ssd": (SK.launches, SK.bwd_launches),
+            "rglru": (RK.launches, RK.bwd_launches)}
+
+
 def _train_reference(card: str) -> dict:
     """TRAIN_REF at reduced widths and depth with their own heads, fp32,
-    remat on: ``compute_grads`` on the card (kernel 1 forward and
-    backward) against the CPU (plain versions), params from the port's
-    seeded init on the card, copied to the CPU. Returns the backward's
-    launches by arch."""
-    from repro_torch.kernels import flash_attention as FA
+    remat on: ``compute_grads`` on the card (kernels 1, 6 and 7 forward
+    and backward) against the CPU (plain versions), params from the
+    port's seeded init on the card, copied to the CPU. Returns the
+    launches (forward, backward) by arch and kernel."""
     from repro_torch.models import transformer as T
     from repro_torch.training.trainer import compute_grads
     from repro_torch.training.tree import leaves_with_paths, checkpoint_key
     launches = {}
-    for name, d in TRAIN_REF:
+    for name, d, kernels in TRAIN_REF:
         cfg = _reduced_heads(name, d)
         params = T.init_params(cfg, seed=26, dtype=torch.float32,
                                device="cuda")
@@ -5571,7 +5727,7 @@ def _train_reference(card: str) -> dict:
                          _grad_norm(grads), grads)
             if side == "cuda":
                 torch.cuda.synchronize()
-                launches[name] = (FA.launches, FA.bwd_launches)
+                launches[name] = _train_counts()
         (lc, ac, nc, gc_), (lh, ah, nh, gh) = out["cuda"], out["cpu"]
         check(math.isfinite(lc) and abs(lc - lh) <= TRAIN_LOSS_TOL * abs(lh),
               f"train reference {name}: loss {lc} on the card, {lh} on the "
@@ -5589,17 +5745,20 @@ def _train_reference(card: str) -> dict:
                   f"train reference {name}: gradient {checkpoint_key(path)}"
                   f" differs by {e} at scale {scale}")
             worst, n = max(worst, e / max(scale, 1e-30)), n + 1
-        fwd, bwd = launches[name]
-        check(fwd > 0 and bwd > 0, f"train reference {name}: kernel 1 "
-              f"launched {fwd} forward, {bwd} backward")
+        ran = {k: launches[name][k] for k in kernels}
+        check(all(f > 0 and b > 0 for f, b in ran.values()),
+              f"train reference {name}: launches (forward, backward) {ran}")
+        heads = (f"H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.head_dim}"
+                 if cfg.n_heads else f"SSD H={cfg.ssm_n_heads} "
+                 f"P={cfg.ssm_head_dim} N={cfg.ssm_state} Q={cfg.ssm_chunk}")
         log(f"train reference {name}: reduced widths, {cfg.n_layers} "
-            f"layers, H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.head_dim}"
+            f"layers, {heads}"
             f"{f' window {cfg.sliding_window}' if cfg.has_mixer('swa') else ''}"
             f", fp32, B={TRAIN_REF_B} S={TRAIN_REF_S}: loss {lc:.6f} (CPU "
             f"{lh:.6f}), aux {ac:.6f}, grad norm {nc:.6f} (CPU {nh:.6f}), "
             f"{n} gradient leaves, worst {worst:.2e} of the leaf's scale "
-            f"(gate {TRAIN_GRAD_TOL}); kernel 1 {fwd} forward and {bwd} "
-            f"backward launches  [{card}]")
+            f"(gate {TRAIN_GRAD_TOL}); launches (forward, backward) {ran}"
+            f"  [{card}]")
         del params, grads, gc_, gh, out
         torch.cuda.empty_cache()
     return launches
@@ -5673,9 +5832,11 @@ def phase_train(card: str) -> dict:
     with 2 microbatches equals the run's first step, a checkpoint round
     trip under build/ is bit-equal; ms a step, tok/s and peak memory; (3)
     Granite-3.0-2B at full width and depth, 3 steps (kernel 1's D = 64
-    backward on a path); (4) a Mamba-2 train step on the card is refused
-    by the SSD scan's wrapper (``NotImplementedError``, the only error
-    caught). Returns the backward rows' launches."""
+    backward on a path); (4) Mamba-2-2.7B and RecurrentGemma-2B at full
+    width and depth, 3 steps each (``_train_full``); (5) a bf16 Mamba-2
+    train step on the card raises ``ValueError`` naming R18 at the SSD
+    scan's wrapper (the only error caught). Returns the backward rows'
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train as launcher
@@ -5734,22 +5895,84 @@ def phase_train(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
+    mamba = _train_full(TRAIN_MAMBA, ("ssd",), card)
+    rg = _train_full(TRAIN_RG, ("rglru", "flash"), card)
+
     cfg = get_config("mamba2-2.7b").reduced()
-    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                           device="cuda")
     init_fn, step_fn = make_train_step(cfg, lr=1e-3)
     try:
         step_fn(init_fn(params), _train_batch(cfg, 28, "cuda"))
-    except NotImplementedError as e:
-        check("ssd_scan" in str(e) and "8b" in str(e),
-              f"mamba2 refusal names the wrong kernel or item: {e}")
-        log(f"train mamba2-2.7b on the card refused as expected: {e}")
+    except ValueError as e:
+        check("ssd_scan" in str(e) and "R18" in str(e),
+              f"the bf16 mamba2 refusal names the wrong kernel or item: {e}")
+        log(f"train mamba2-2.7b in bf16 on the card refused as expected: "
+            f"{e}")
     else:
-        fail("a Mamba-2 train step on the card was not refused")
+        fail("a bf16 Mamba-2 train step on the card was not refused")
     return {"flash_attention_bwd": qwen[1],
             "flash_attention_bwd_s2048": qwen[1],
-            "flash_attention_bwd_mixtral": ref["mixtral-8x22b"][1],
+            "flash_attention_bwd_mixtral": ref["mixtral-8x22b"]["flash"][1],
             "flash_attention_bwd_d64": granite[1],
-            "flash_attention_bwd_cross": ref["seamless-m4t-large-v2"][1]}
+            "flash_attention_bwd_cross":
+                ref["seamless-m4t-large-v2"]["flash"][1],
+            "flash_attention_bwd_d256": rg["flash"][1],
+            "ssd_scan_bwd": mamba["ssd"][1],
+            "ssd_scan_bwd_state": mamba["ssd"][1],
+            "rglru_scan_bwd": rg["rglru"][1]}
+
+
+def _train_full(argv, kernels, card: str) -> dict:
+    """One launcher run at full width and depth (``argv``): every loss and
+    grad norm finite, each of ``kernels`` launched forward and backward;
+    logs ms a step, tok/s and peak memory; then one more step from the
+    run's state under torch.profiler (device time by kernel kind). Returns
+    the launches (forward, backward) by kernel of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.training.trainer import make_train_step
+    _reset_counts()
+    t0 = time.perf_counter()
+    args = launcher.parse_args(argv)
+    run = launcher.run(args)
+    secs = time.perf_counter() - t0
+    counts = _train_counts()
+    ran = {k: counts[k] for k in kernels}
+    check(all(math.isfinite(x) for x in run.losses + run.grad_norms)
+          and all(f > 0 and b > 0 for f, b in ran.values()),
+          f"{args.arch} training: losses {run.losses}, grad norms "
+          f"{run.grad_norms}, launches (forward, backward) {ran}")
+    log(f"train {args.arch} (full width and depth, fp32, AdamW, remat, "
+        f"batch {args.batch} x {args.seq}): losses "
+        f"{[round(x, 4) for x in run.losses]}; grad norms "
+        f"{[round(x, 3) for x in run.grad_norms]}; "
+        f"{statistics.median(run.step_ms[1:]):.1f} ms a step (the first "
+        f"{run.step_ms[0]:.1f}), {run.tok_s:,.0f} tok/s, peak allocated "
+        f"{run.peak_bytes / 2**30:.2f} GiB; launches (forward, backward) "
+        f"{ran}; {secs:.1f} s  [{card}]")
+    cfg = get_config(args.arch)
+    raw = next(SyntheticLM(DataConfig(cfg.vocab_size, seq_len=args.seq,
+                                      batch_size=args.batch,
+                                      n_symbols=256)).batches())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    _, step = make_train_step(cfg, remat=True, lr=args.lr,
+                              warmup=min(20, args.steps // 4 + 1))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(run.state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    _profile_report(prof, wall, f"{args.arch}, one train step (fp32, batch "
+                    f"{args.batch} x {args.seq}, remat)", card)
+    del run, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:

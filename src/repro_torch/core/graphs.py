@@ -56,7 +56,8 @@ from repro_torch.models import transformer as T
 #: every kernel wrapper's launch counter, (module, attribute)
 COUNTERS = ((_FA, "launches"), (_PD, "launches"), (_DA, "launches"),
             (_BA, "launches"), (_BA, "dense_launches"), (_SK, "launches"),
-            (_RK, "launches"), (_FA, "bwd_launches"))
+            (_RK, "launches"), (_FA, "bwd_launches"), (_SK, "bwd_launches"),
+            (_RK, "bwd_launches"))
 
 
 def launch_counts() -> Tuple[int, ...]:

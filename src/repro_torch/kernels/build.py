@@ -8,12 +8,12 @@ of the checkout, named by a digest of the sources so an edit rebuilds;
 prefill and dense decode at head dims 64, 128 and 256, paged decode and the
 fused launches at 64 and 128; in bf16 the flash body runs on the tensor cores
 through wgmma and TMA, so ``sm_90a``'s ``a`` is needed),
-``flash_attention_bwd.cu`` the gradient of the flash prefill (fp32, D = 64
-and 128), ``ssd_scan.cu``
+``flash_attention_bwd.cu`` the gradient of the flash prefill (fp32, D = 64,
+128 and 256), ``ssd_scan.cu``
 the Mamba-2 SSD chunk scan (in bf16 C Bᵀ once per row and chunk, the
 chunk states, a pass over the chunks and the outputs, on the tensor cores
-through ``mma.sync``) and
-``rglru_scan.cu`` the RG-LRU linear recurrence. The geometry of the split
+through ``mma.sync``), ``ssd_scan_bwd.cu`` its gradient (fp32) and
+``rglru_scan.cu`` the RG-LRU linear recurrence and its gradient (fp32). The geometry of the split
 decode bodies and of the bf16 SSD scan (``geometry.all_defines()``)
 reaches every source as ``-D`` defines and is part of the digest.
 Nothing here runs at import: the first wrapper that launches a kernel
@@ -38,7 +38,7 @@ from repro_torch.kernels.geometry import all_defines
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu",
-           "rglru_scan.cu")
+           "ssd_scan_bwd.cu", "rglru_scan.cu")
 HEADERS = ("attention.cuh",)
 #: build/ at the root of the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -61,7 +61,9 @@ SIGNATURES = {
     "bullet_ctas_per_sm": [_I] * 5 + [ctypes.POINTER(_I)],
     "split_decode_ctas_per_sm": [_I, _I, ctypes.POINTER(_I)],
     "ssd_scan_fwd": [_P] * 10 + [_I] * 8 + [_P],
+    "ssd_scan_bwd": [_P] * 17 + [_I] * 6 + [_P],
     "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "rglru_scan_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 
@@ -181,8 +183,9 @@ HEAD_DIMS = (64, 128, 256)
 #: serves D = 64 (Granite) and D = 128 models
 PAGED_HEAD_DIMS = (64, 128)
 #: head dims of the flash backward (``flash_attention_bwd.cu``): those of
-#: the models that train on the card (D = 256 is ROADMAP §2 R18)
-BWD_HEAD_DIMS = (64, 128)
+#: the models that train on the card (D = 256: RecurrentGemma's local
+#: attention, in 32-row tiles)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 
 def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
@@ -223,7 +226,8 @@ def refuse_grad(kernel: str, tensors, item: str) -> None:
     its output through a raw pointer, so autograd would see a result cut
     off from the graph and every gradient before the call would be lost
     without an error. ``item`` names the ROADMAP item that brings the
-    kernel's backward."""
+    kernel's backward (kernels 2-5: the decode and fused serving kernels,
+    which no training path runs)."""
     import torch
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

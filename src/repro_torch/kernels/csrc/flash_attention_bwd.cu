@@ -14,38 +14,43 @@
 //   = bh / G, scale D^-0.5, query row i at position i (q_offset 0), key row
 //   j at j, key j seen by query i iff j < Sk and (non-causal or j <= i) and
 //   (no window or j > i - window). Writes dq (BH, Sq, D) and dk, dv (BH/G,
-//   Sk, D), fp32, at D = 64 and 128. Any Sq and Sk work (ragged tails are
-//   masked; Sq != Sk for cross-attention).
+//   Sk, D), fp32, at D = 64, 128 and 256. Any Sq and Sk work (ragged tails
+//   are masked; Sq != Sk for cross-attention).
 //
 //   Design (FlashAttention-2's split, no atomics), three launches:
-//   1. pre-pass, one CTA per (bh, 64-row query tile): each row's log-sum-
+//   1. pre-pass, one CTA per (bh, query tile): each row's log-sum-
 //      exp over its seen keys, recomputed with the forward's online max
 //      and sum (so the forward kernels keep their registers and write no
 //      LSE), and delta = rowsum(dO * o);
-//   2. dK/dV, one CTA per (kv head, 64-key tile): it walks the G query
+//   2. dK/dV, one CTA per (kv head, key tile): it walks the G query
 //      heads of its kv head and, for each, the query tiles that see any of
 //      its keys; per tile P^T = exp(K Q^T - lse) and dS^T = P^T (V dO^T -
 //      delta) go through shared memory, and dV += P^T dO, dK += dS^T Q
 //      accumulate in registers, so the G heads' sum into one kv head needs
 //      no second pass;
-//   3. dQ, one CTA per (bh, 64-row query tile): it walks the key tiles its
+//   3. dQ, one CTA per (bh, query tile): it walks the key tiles its
 //      rows see and accumulates dQ += dS K.
 //   A tile pair is skipped whole when the mask keeps none of its pairs
 //   (uniform per CTA): causal needs the query tile's last row at or past
 //   the key tile's first key, a window needs the query tile's first row
 //   within the window of the key tile's last key.
-//   In every tile thread t owns row t / 4, and the 4 threads of a row
-//   split the tile's 64 columns (c = j + 4i) for the dot products and the
-//   head dims (d = j + 4i) for the accumulations, as flash_item does; rows
+//   In every tile thread t owns row t / RT, and the RT threads of a row
+//   split the tile's columns (c = j + RT i) for the dot products and the
+//   head dims (d = j + RT i) for the accumulations, as flash_item does; rows
 //   in shared memory are padded by one float so column walks stay free of
-//   bank conflicts.
+//   bank conflicts. Tiles are 64 rows (RT = 4) at D = 64 and 128. At D = 256
+//   that layout would need 4 tiles of 64 x 257 floats in the dK/dV kernel
+//   (263 KB, over the 227 KB a CTA may hold), and 64 dK and 64 dV floats
+//   a thread; so D = 256 takes 32-row tiles (RT = 8: 140 KB in the dK/dV
+//   kernel, 136 KB in the dQ kernel, 32 dK and 32 dV floats a thread, as
+//   at D = 128).
 //
 //   Bound on an H100: operations. The backward does 2.5 times the forward's
 //   products (Q K^T again, dO V^T, P^T dO, dS^T Q, dS K against Q K^T and
 //   P V), 10 multiply-adds a seen (query, key) pair a head dim; its inputs
 //   and outputs are read and written once. This first body runs them on the
 //   CUDA cores in fp32 (the fp32 peak is 67 TFLOP/s); the redesign on the
-//   tensor cores, bf16 and D = 256 are ROADMAP §2 R18.
+//   tensor cores and bf16 are ROADMAP §2 R18.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,10 +58,16 @@
 namespace {
 
 constexpr int BWD_THREADS = 256;
-constexpr int RT = 4;                     // threads that share a tile row
-constexpr int TILE = BWD_THREADS / RT;    // rows and columns of every tile
-constexpr int CPT = TILE / RT;            // columns per thread
 constexpr float NEG_INF = -1e30f;
+
+// A tile of TILE rows and columns (64 at D = 64 and 128, 32 at D = 256):
+// RT threads share a tile row, each CPT of its columns
+template <int TILE> struct Tiles {
+  static constexpr int RT = BWD_THREADS / TILE;
+  static constexpr int CPT = TILE / RT;
+  static_assert(RT * TILE == BWD_THREADS && CPT * RT == TILE && RT <= 32,
+                "a tile row's threads sit in one warp");
+};
 
 struct BwdArgs {
   const float *q, *k, *v, *o, *dout;
@@ -83,7 +94,7 @@ __device__ __forceinline__ bool tiles_meet(const BwdArgs &a, int q0, int q1,
 
 // rows [r0, r0 + TILE) of an (n, D) matrix into dst[TILE][D + 1], times
 // mul, zeros past row n (consecutive threads on consecutive columns)
-template <int D>
+template <int D, int TILE>
 __device__ __forceinline__ void load_tile(float *dst, const float *src, int r0,
                                           int n, float mul) {
   for (int e = threadIdx.x; e < TILE * D; e += BWD_THREADS) {
@@ -93,9 +104,11 @@ __device__ __forceinline__ void load_tile(float *dst, const float *src, int r0,
 }
 
 // out[c] = A[r] . B[j + RT c] over D, A and B tiles of [TILE][D + 1]
-template <int D>
-__device__ __forceinline__ void row_dots(float (&out)[CPT], const float *A,
-                                         const float *B, int r, int j) {
+template <int D, int TILE>
+__device__ __forceinline__ void row_dots(float (&out)[Tiles<TILE>::CPT],
+                                         const float *A, const float *B,
+                                         int r, int j) {
+  constexpr int RT = Tiles<TILE>::RT, CPT = Tiles<TILE>::CPT;
 #pragma unroll
   for (int c = 0; c < CPT; ++c) out[c] = 0.f;
   for (int d = 0; d < D; ++d) {
@@ -105,19 +118,26 @@ __device__ __forceinline__ void row_dots(float (&out)[CPT], const float *A,
   }
 }
 
+// max and sum over the RT threads of a tile row (consecutive lanes)
+template <int RT>
 __device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+#pragma unroll
+  for (int o = 1; o < RT; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
 }
+template <int RT>
 __device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+#pragma unroll
+  for (int o = 1; o < RT; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // 1. lse and delta of one (bh, query tile)
-template <int D>
+template <int D, int TILE>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_pre_kernel(const BwdArgs a) {
+  constexpr int RT = Tiles<TILE>::RT, CPT = Tiles<TILE>::CPT;
   extern __shared__ float smem[];
   float *Qs = smem;                  // [TILE][D + 1], scaled
   float *Ks = Qs + TILE * (D + 1);   // [TILE][D + 1]
@@ -127,7 +147,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int r = threadIdx.x / RT, j = threadIdx.x % RT;
   const int q0 = qt * TILE, q1 = min(q0 + TILE, a.sq) - 1, i = q0 + r;
   const float *k = a.k + (size_t)kvh * a.sk * D;
-  load_tile<D>(Qs, a.q + (size_t)bh * a.sq * D, q0, a.sq, a.scale);
+  load_tile<D, TILE>(Qs, a.q + (size_t)bh * a.sq * D, q0, a.sq, a.scale);
 
   float m = NEG_INF, l = 0.f;
   const int n_kt = (a.sk + TILE - 1) / TILE;
@@ -135,22 +155,22 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const int k0 = kt * TILE, k1 = min(k0 + TILE, a.sk) - 1;
     if (!tiles_meet(a, q0, q1, k0, k1)) continue;
     __syncthreads();  // the previous key tile is consumed
-    load_tile<D>(Ks, k, k0, a.sk, 1.f);
+    load_tile<D, TILE>(Ks, k, k0, a.sk, 1.f);
     __syncthreads();
     float s[CPT];
-    row_dots<D>(s, Qs, Ks, r, j);
+    row_dots<D, TILE>(s, Qs, Ks, r, j);
     float tmax = NEG_INF;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       if (!seen(a, i, k0 + j + RT * c)) s[c] = NEG_INF;
       tmax = fmaxf(tmax, s[c]);
     }
-    const float m_new = fmaxf(m, row_max(tmax));
+    const float m_new = fmaxf(m, row_max<RT>(tmax));
     float psum = 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       psum += s[c] > 0.5f * NEG_INF ? expf(s[c] - m_new) : 0.f;
-    l = l * expf(m - m_new) + row_sum(psum);
+    l = l * expf(m - m_new) + row_sum<RT>(psum);
     m = m_new;
   }
 
@@ -159,7 +179,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const size_t row = ((size_t)bh * a.sq + i) * D;
     for (int d = j; d < D; d += RT) dsum += a.dout[row + d] * a.o[row + d];
   }
-  dsum = row_sum(dsum);
+  dsum = row_sum<RT>(dsum);
   if (j == 0 && i < a.sq) {
     a.lse[(size_t)bh * a.sq + i] = m + logf(fmaxf(l, 1e-30f));
     a.delta[(size_t)bh * a.sq + i] = dsum;
@@ -167,9 +187,10 @@ __global__ void __launch_bounds__(BWD_THREADS)
 }
 
 // 2. dK and dV of one (kv head, key tile), over its G query heads
-template <int D>
+template <int D, int TILE>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int RT = Tiles<TILE>::RT, CPT = Tiles<TILE>::CPT;
   extern __shared__ float smem[];
   float *Ks = smem;                    // [TILE][D + 1]
   float *Vs = Ks + TILE * (D + 1);     // [TILE][D + 1]
@@ -183,8 +204,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int kvh = blockIdx.x / n_kt, kt = blockIdx.x % n_kt;
   const int k0 = kt * TILE, k1 = min(k0 + TILE, a.sk) - 1;
   const int kr = threadIdx.x / RT, j = threadIdx.x % RT, jk = k0 + kr;
-  load_tile<D>(Ks, a.k + (size_t)kvh * a.sk * D, k0, a.sk, 1.f);
-  load_tile<D>(Vs, a.v + (size_t)kvh * a.sk * D, k0, a.sk, 1.f);
+  load_tile<D, TILE>(Ks, a.k + (size_t)kvh * a.sk * D, k0, a.sk, 1.f);
+  load_tile<D, TILE>(Vs, a.v + (size_t)kvh * a.sk * D, k0, a.sk, 1.f);
 
   float dk[D / RT], dv[D / RT];
 #pragma unroll
@@ -198,8 +219,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
       const int q0 = qt * TILE, q1 = min(q0 + TILE, a.sq) - 1;
       if (!tiles_meet(a, q0, q1, k0, k1)) continue;
       __syncthreads();  // the previous query tile is consumed
-      load_tile<D>(Qs, a.q + base * D, q0, a.sq, a.scale);
-      load_tile<D>(dOs, a.dout + base * D, q0, a.sq, 1.f);
+      load_tile<D, TILE>(Qs, a.q + base * D, q0, a.sq, a.scale);
+      load_tile<D, TILE>(dOs, a.dout + base * D, q0, a.sq, 1.f);
       for (int c = threadIdx.x; c < TILE; c += BWD_THREADS) {
         const bool in = q0 + c < a.sq;
         Ls[c] = in ? a.lse[base + q0 + c] : 0.f;
@@ -207,8 +228,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
       }
       __syncthreads();
       float s[CPT], dp[CPT];
-      row_dots<D>(s, Ks, Qs, kr, j);
-      row_dots<D>(dp, Vs, dOs, kr, j);
+      row_dots<D, TILE>(s, Ks, Qs, kr, j);
+      row_dots<D, TILE>(dp, Vs, dOs, kr, j);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int col = j + RT * c;
@@ -241,9 +262,10 @@ __global__ void __launch_bounds__(BWD_THREADS)
 }
 
 // 3. dQ of one (bh, query tile)
-template <int D>
+template <int D, int TILE>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int RT = Tiles<TILE>::RT, CPT = Tiles<TILE>::CPT;
   extern __shared__ float smem[];
   float *Qs = smem;                    // [TILE][D + 1], scaled
   float *dOs = Qs + TILE * (D + 1);    // [TILE][D + 1]
@@ -256,8 +278,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int r = threadIdx.x / RT, j = threadIdx.x % RT;
   const int q0 = qt * TILE, q1 = min(q0 + TILE, a.sq) - 1, i = q0 + r;
   const size_t base = (size_t)bh * a.sq;
-  load_tile<D>(Qs, a.q + base * D, q0, a.sq, a.scale);
-  load_tile<D>(dOs, a.dout + base * D, q0, a.sq, 1.f);
+  load_tile<D, TILE>(Qs, a.q + base * D, q0, a.sq, a.scale);
+  load_tile<D, TILE>(dOs, a.dout + base * D, q0, a.sq, 1.f);
   const float lse = i < a.sq ? a.lse[base + i] : 0.f;
   const float delta = i < a.sq ? a.delta[base + i] : 0.f;
   const float *k = a.k + (size_t)kvh * a.sk * D;
@@ -271,12 +293,12 @@ __global__ void __launch_bounds__(BWD_THREADS)
     const int k0 = kt * TILE, k1 = min(k0 + TILE, a.sk) - 1;
     if (!tiles_meet(a, q0, q1, k0, k1)) continue;
     __syncthreads();  // the previous key tile is consumed
-    load_tile<D>(Ks, k, k0, a.sk, 1.f);
-    load_tile<D>(Vs, v, k0, a.sk, 1.f);
+    load_tile<D, TILE>(Ks, k, k0, a.sk, 1.f);
+    load_tile<D, TILE>(Vs, v, k0, a.sk, 1.f);
     __syncthreads();
     float s[CPT], dp[CPT];
-    row_dots<D>(s, Qs, Ks, r, j);
-    row_dots<D>(dp, dOs, Vs, r, j);
+    row_dots<D, TILE>(s, Qs, Ks, r, j);
+    row_dots<D, TILE>(dp, dOs, Vs, r, j);
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = j + RT * c;
@@ -308,27 +330,28 @@ cudaError_t launch_one(K kern, int grid, size_t smem, const BwdArgs &a,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int TILE>
 int launch_bwd(const BwdArgs &a, cudaStream_t s) {
   const size_t row = sizeof(float) * TILE * (D + 1);
   const size_t pt = sizeof(float) * TILE * (TILE + 1);
   const int n_qt = (a.sq + TILE - 1) / TILE;
   const int n_kt = (a.sk + TILE - 1) / TILE;
-  cudaError_t e = launch_one(flash_bwd_pre_kernel<D>, a.bh * n_qt, 2 * row,
-                             a, s);
+  cudaError_t e = launch_one(flash_bwd_pre_kernel<D, TILE>, a.bh * n_qt,
+                             2 * row, a, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_one(flash_bwd_dkdv_kernel<D>, a.bh / a.group * n_kt,
+  e = launch_one(flash_bwd_dkdv_kernel<D, TILE>, a.bh / a.group * n_kt,
                  4 * row + 2 * pt + 2 * sizeof(float) * TILE, a, s);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_one(flash_bwd_dq_kernel<D>, a.bh * n_qt, 4 * row + pt,
-                         a, s);
+  return (int)launch_one(flash_bwd_dq_kernel<D, TILE>, a.bh * n_qt,
+                         4 * row + pt, a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// fp32 (dtype 0) at D = 64 or 128, q_offset 0; lse and delta are (bh, sq)
+// fp32 (dtype 0) at D = 64, 128 or 256, q_offset 0; lse and delta are
+// (bh, sq)
 // fp32 workspaces the wrapper allocates
 int flash_attention_bwd(const void *q, const void *k, const void *v,
                         const void *o, const void *dout, void *dq, void *dk,
@@ -348,8 +371,9 @@ int flash_attention_bwd(const void *q, const void *k, const void *v,
             causal,                           window,
             1.0f / sqrtf((float)d)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_bwd<64>(a, s);
-  if (d == 128) return launch_bwd<128>(a, s);
+  if (d == 64) return launch_bwd<64, 64>(a, s);
+  if (d == 128) return launch_bwd<128, 64>(a, s);
+  if (d == 256) return launch_bwd<256, 32>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,13 +19,13 @@ Its gradient: where grad mode is on and q, k or v requires grad,
 :func:`flash_attention` runs as a ``torch.autograd.Function`` whose
 forward is the kernel above (or the plain version, for CPU tensors) and
 whose backward is :func:`flash_attention_bwd`: the hand-written kernel
-``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``; fp32, D = 64
-and 128, ``q_offset`` 0) for CUDA tensors, the plain backward
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``; fp32, D = 64,
+128 and 256, ``q_offset`` 0) for CUDA tensors, the plain backward
 ``ref.flash_attention_bwd_ref`` for CPU tensors. It replaces no TPU
 kernel: the JAX package takes attention's gradient through XLA. On the
-card a bf16 input, D = 256 or a query offset that needs a gradient raises
-``ValueError`` at the forward (ROADMAP §2 R18), so no result is ever cut
-off from the graph.
+card a bf16 input (ROADMAP §2 R18), another head dim or a query offset
+that needs a gradient raises ``ValueError`` at the forward, so no result
+is ever cut off from the graph.
 """
 
 from __future__ import annotations
@@ -60,13 +60,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if q_offset:
             raise ValueError(f"flash_attention: no gradient at q_offset "
                              f"{q_offset} (the backward takes 0)")
-        if q.is_cuda and (q.dtype != torch.float32
-                          or q.shape[-1] not in build.BWD_HEAD_DIMS):
+        if q.is_cuda and q.dtype != torch.float32:
             raise ValueError(
-                f"flash_attention: the backward on the card takes float32 "
-                f"at head dims {build.BWD_HEAD_DIMS}, got {q.dtype} at "
-                f"{q.shape[-1]} (bf16, tensor cores and D = 256: ROADMAP "
-                "§2 R18)")
+                f"flash_attention: the backward on the card takes float32, "
+                f"got {q.dtype} (bf16: ROADMAP §2 R18)")
+        if q.is_cuda and q.shape[-1] not in build.BWD_HEAD_DIMS:
+            raise ValueError(
+                f"flash_attention: the backward on the card takes head dims "
+                f"{build.BWD_HEAD_DIMS}, got {q.shape[-1]}")
         return FlashAttention.apply(q, k, v, causal, window, group)
     return _forward(q, k, v, causal=causal, window=window, group=group,
                     q_offset=q_offset)
@@ -100,8 +101,8 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     (BH, Sq, D); k, v (BH/group, Sk, D). Returns (dq, dk, dv) in the
     inputs' shapes.
 
-    CUDA tensors launch ``flash_attention_bwd`` (float32, D = 64 or 128);
-    CPU tensors run the plain backward."""
+    CUDA tensors launch ``flash_attention_bwd`` (float32, D = 64, 128 or
+    256); CPU tensors run the plain backward."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          window=window, group=group)

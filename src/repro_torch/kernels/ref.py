@@ -28,6 +28,11 @@ through XLA's autodiff of ``flash_ref_attention``).
 SSD and RG-LRU oracles, one step per position; the plain versions the
 kernels are held against live beside their wrappers
 (``kernels/ssd_scan.py``, ``kernels/rglru_scan.py``).
+``ssd_scan_bwd_ref`` and ``rglru_scan_bwd_ref`` are the two scans'
+gradients written out (the plain versions of ``csrc/ssd_scan_bwd.cu``
+and of ``rglru_scan_bwd`` in ``csrc/rglru_scan.cu``; the JAX package
+takes them through XLA's autodiff of its ``lax.scan`` and associative
+scan).
 
 A decode slot with no attended key (pos < 0, or, dense, no kv position in
 [0, pos]) masks every key: here, as in the JAX reference, its softmax is
@@ -388,3 +393,105 @@ def rglru_scan_ref(a, b, h0=None):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rglru_scan_bwd_ref(a, y, h0, dy, dh_last):
+    """The gradient of the recurrence h_t = a_t·h_{t-1} + b_t (y_t = h_t,
+    h_T = h_{S-1}), written out: walking the sequence backwards,
+
+        dh_t = a_{t+1}·dh_{t+1} + dy_t,  dh_{S-1} = dh_last + dy_{S-1}
+        da_t = dh_t·h_{t-1},  db_t = dh_t,  dh0 = a_0·dh_0,
+
+    with h_{t-1} read from the forward's output ``y`` (exact in fp32) and
+    h_{-1} = h0 (zeros without it). a, y, dy: (B, S, W); h0, dh_last: (B,
+    W) or None (zeros). Each step multiplies, then adds, as the forward
+    does. Returns (da, db, dh0) in fp32, dh0 None without h0."""
+    bsz, s, w = a.shape
+    af, yf, dyf = a.float(), y.float(), dy.float()
+    g = (torch.zeros(bsz, w, dtype=torch.float32, device=a.device)
+         if dh_last is None else dh_last.float())
+    da = torch.empty_like(af)
+    db = torch.empty_like(af)
+    for t in range(s - 1, -1, -1):
+        dh = g + dyf[:, t]
+        if t > 0:
+            da[:, t] = dh * yf[:, t - 1]
+        elif h0 is not None:
+            da[:, t] = dh * h0.float()
+        else:
+            da[:, t] = 0.0
+        db[:, t] = dh
+        g = af[:, t] * dh
+    return da, db, (None if h0 is None else g)
+
+
+def ssd_scan_bwd_ref(xw, cum, B_, C, state0, dy, dstate):
+    """The gradient of the SSD chunk scan (``kernels/ssd_scan.py``'s
+    ``ssd_scan``), written out in fp32. Per chunk, with S the state
+    entering it, S' the state it leaves, G = ∂L/∂S', total = cum_{Q-1},
+    L_ij = e^{cum_i − cum_j} (j ≤ i), cb_ij = C_i·B_j and M_ij = L_ij
+    (dy_i·xw_j) per head:
+
+        dxw_j = Σ_{i≥j} cb_ij L_ij dy_i + e^{total−cum_j} G B_j
+        dC_i  = Σ_h [Σ_{j≤i} M_ij B_j + e^{cum_i} Sᵀ dy_i]
+        dB_j  = Σ_h [Σ_{i≥j} M_ij C_i + e^{total−cum_j} Gᵀ xw_j]
+        dcum_i = Σ_j cb_ij M_ij − Σ_j cb_ji M_ji       (the decay mask)
+               + dy_i·e^{cum_i} S C_i                   (the inter term)
+               − xw_i·e^{total−cum_i} G B_i             (the state update)
+               + [i = Q−1] ⟨G, S'⟩                      (e^{total})
+        ∂L/∂S = e^{total} G + Σ_i e^{cum_i} dy_i C_iᵀ
+
+    B and C are shared by the heads (n_groups = 1), so their gradients
+    sum over them. The states entering the chunks are recomputed forward
+    from ``state0`` (zeros without it), then the chunks are walked
+    backwards from ``dstate`` (zeros without it). Inputs as ``ssd_scan``'s
+    plus dy (B, NC, Q, H, P) and dstate (B, H, P, N). Returns (dxw, dcum,
+    dB, dC, dstate0) in fp32, dstate0 None without ``state0``."""
+    b, nc, q, h, p = xw.shape
+    n = B_.shape[-1]
+    dev = xw.device
+    causal = torch.ones(q, q, dtype=torch.bool, device=dev).tril()
+    xf, cf = xw.float(), cum.float()
+    bf, cc = B_.float(), C.float()
+    dyf = dy.float()
+    state = (torch.zeros(b, h, p, n, dtype=torch.float32, device=dev)
+             if state0 is None else state0.float())
+    states = [state]
+    for ci in range(nc):
+        d_end = torch.exp(cf[:, ci, -1:, :] - cf[:, ci])        # (B,Q,H)
+        state = (state * torch.exp(cf[:, ci, -1, :])[..., None, None]
+                 + torch.einsum("bjn,bjh,bjhp->bhpn", bf[:, ci], d_end,
+                                xf[:, ci]))
+        states.append(state)
+    g = (torch.zeros(b, h, p, n, dtype=torch.float32, device=dev)
+         if dstate is None else dstate.float())
+    dxw = torch.empty_like(xf)
+    dcum = torch.empty_like(cf)
+    dB = torch.empty_like(bf)
+    dC = torch.empty_like(cc)
+    for ci in range(nc - 1, -1, -1):
+        x_c, cum_c, dy_c = xf[:, ci], cf[:, ci], dyf[:, ci]
+        b_c, c_c = bf[:, ci], cc[:, ci]
+        s_in, s_out = states[ci], states[ci + 1]
+        seg = cum_c[:, :, None, :] - cum_c[:, None, :, :]       # (B,Q,Q,H)
+        L = torch.exp(torch.where(causal[None, :, :, None], seg,
+                                  float("-inf")))
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)             # (B,Q,Q)
+        M = L * torch.einsum("bihp,bjhp->bijh", dy_c, x_c)
+        A = cb[..., None] * M
+        e_cum = torch.exp(cum_c)                                # (B,Q,H)
+        d_end = torch.exp(cum_c[:, -1:, :] - cum_c)             # (B,Q,H)
+        dc_inter = torch.einsum("bih,bihp,bhpn->bihn", e_cum, dy_c, s_in)
+        u = torch.einsum("bhpn,bjn->bjhp", g, b_c) * d_end[..., None]
+        dxw[:, ci] = torch.einsum("bij,bijh,bihp->bjhp", cb, L, dy_c) + u
+        dC[:, ci] = torch.einsum("bijh,bjn->bin", M, b_c) + dc_inter.sum(2)
+        dB[:, ci] = (torch.einsum("bijh,bin->bjn", M, c_c)
+                     + torch.einsum("bjhp,bhpn,bjh->bjn", x_c, g, d_end))
+        dcum_c = (A.sum(2) - A.sum(1)
+                  + torch.einsum("bihn,bin->bih", dc_inter, c_c)
+                  - (x_c * u).sum(-1))
+        dcum_c[:, -1] += (g * s_out).sum((-2, -1))
+        dcum[:, ci] = dcum_c
+        g = (g * torch.exp(cum_c[:, -1, :])[..., None, None]
+             + torch.einsum("bih,bihp,bin->bhpn", e_cum, dy_c, c_c))
+    return dxw, dcum, dB, dC, (None if state0 is None else g)

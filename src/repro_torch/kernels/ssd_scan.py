@@ -25,6 +25,16 @@ tensor cores: C Bᵀ once per row and chunk and each chunk's own state
 every chunk's outputs at once; ``kernels/ref.py``'s ``ssd_scan_tc_ref``
 states its roundings plainly. ``launches`` counts one per call either
 way.
+
+Its gradient: where grad mode is on and an input requires grad,
+:func:`ssd_scan` runs as :class:`SsdScan`, whose forward is the kernel
+above (or the plain version, for CPU tensors) and whose backward is
+:func:`ssd_scan_bwd`: the hand-written kernels behind ``ssd_scan_bwd``
+(``csrc/ssd_scan_bwd.cu``; fp32, P up to 64) for CUDA tensors, the plain
+backward ``ref.ssd_scan_bwd_ref`` for CPU tensors. It replaces no TPU
+kernel: the JAX package takes the scan's gradient through XLA. On the card
+a bf16 input that needs a gradient raises ``ValueError`` at the forward
+(ROADMAP §2 R18), so no result is ever cut off from the graph.
 """
 
 from __future__ import annotations
@@ -32,13 +42,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
 from repro_torch.kernels.geometry import SSD_P_SLICES, SSD_TILE
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
+#: backward launches (one a backward call: its four kernels) since the
+#: counter was last reset
+bwd_launches = 0
 
 #: the largest chunk and state size the kernel's shared buffers hold
 MAX_CHUNK, MAX_STATE = 256, 128
+#: the largest head dim P the backward's shared buffers hold
+MAX_BWD_P = 64
+
+#: the plain backward: the gradient written out (ref.py)
+ssd_scan_bwd_plain = ref.ssd_scan_bwd_ref
 
 
 def ssd_scan_plain(xw, cum, B_, C, state0=None):
@@ -79,11 +98,109 @@ def ssd_scan(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     ``p_slice`` (bf16 only) names the columns of P per CTA of the output
     kernel, one of ``geometry.SSD_P_SLICES``; 0 takes the build's
-    ``SSD_P_SLICE``."""
+    ``SSD_P_SLICE``.
+
+    Where grad mode is on and an input requires grad, the call goes
+    through :class:`SsdScan` (the module docstring)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (xw, cum, B_, C, state0)):
+        if xw.is_cuda and xw.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: the backward on the card takes "
+                             f"float32, got {xw.dtype} (bf16: ROADMAP §2 "
+                             "R18)")
+        return SsdScan.apply(xw, cum, B_, C, state0, p_slice)
+    return _forward(xw, cum, B_, C, state0, p_slice=p_slice)
+
+
+class SsdScan(torch.autograd.Function):
+    """Kernel 6 with its gradient: forward :func:`_forward`, backward
+    :func:`ssd_scan_bwd` (the outputs' gradients made contiguous). Saves
+    the inputs; the backward recomputes the states entering the chunks."""
+
+    @staticmethod
+    def forward(ctx, xw, cum, B_, C, state0, p_slice):
+        y, state = _forward(xw, cum, B_, C, state0, p_slice=p_slice)
+        ctx.save_for_backward(xw, cum, B_, C, state0)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        xw, cum, B_, C, state0 = ctx.saved_tensors
+        dxw, dcum, dB, dC, dstate0 = ssd_scan_bwd(
+            xw, cum, B_, C, state0, dy.contiguous(), dstate.contiguous())
+        return (dxw.to(xw.dtype), dcum, dB.to(B_.dtype), dC.to(C.dtype),
+                dstate0, None)
+
+
+def ssd_scan_bwd(xw, cum, B_, C, state0, dy, dstate):
+    """The gradient of :func:`ssd_scan`: its inputs, dy (B, NC, Q, H, P)
+    and dstate (B, H, P, N) or None (zeros). Returns (dxw, dcum, dB, dC,
+    dstate0) fp32, dstate0 None without ``state0``.
+
+    CUDA tensors launch ``ssd_scan_bwd`` (float32, Q <= 256, N <= 128, P
+    <= 64); CPU tensors run the plain backward."""
+    if xw.device.type == "cpu":
+        return ssd_scan_bwd_plain(xw, cum, B_, C, state0, dy, dstate)
+    fp32 = tuple(t for t in (cum, state0, dstate) if t is not None)
+    code = build.check_inputs("ssd_scan_bwd", (xw, B_, C, dy), fp32=fp32,
+                              head_dim=False)
+    if code != build.DTYPE_CODES["torch.float32"]:
+        raise ValueError(f"ssd_scan_bwd: float32 only, got {xw.dtype} "
+                         "(bf16: ROADMAP §2 R18)")
+    b, nc, q, h, p = xw.shape
+    n = B_.shape[-1]
+    if (tuple(cum.shape) != (b, nc, q, h) or B_.shape != C.shape
+            or tuple(B_.shape) != (b, nc, q, n) or dy.shape != xw.shape
+            or any(tuple(t.shape) != (b, h, p, n)
+                   for t in (state0, dstate) if t is not None)):
+        raise ValueError(f"ssd_scan_bwd: xw {tuple(xw.shape)}, cum "
+                         f"{tuple(cum.shape)}, B {tuple(B_.shape)}, C "
+                         f"{tuple(C.shape)}, dy {tuple(dy.shape)}")
+    if q > MAX_CHUNK or n > MAX_STATE or p > MAX_BWD_P:
+        raise ValueError(f"ssd_scan_bwd: chunk {q} (at most {MAX_CHUNK}), "
+                         f"state {n} (at most {MAX_STATE}) and head dim {p} "
+                         f"(at most {MAX_BWD_P})")
+    dxw = torch.empty_like(xw)
+    dcum = torch.empty_like(cum)
+    dB = torch.empty_like(B_)
+    dC = torch.empty_like(C)
+    dstate0 = None if state0 is None else torch.empty_like(state0)
+    if dxw.numel() == 0 or dB.numel() == 0:
+        for t in (dxw, dcum, dB, dC):
+            t.zero_()
+        if dstate0 is not None:
+            dstate0.copy_(torch.zeros_like(state0) if dstate is None
+                          else dstate)
+        return dxw, dcum, dB, dC, dstate0
+    f32 = dict(dtype=torch.float32, device=xw.device)
+    # the states entering every chunk and the last (S), the gradient of
+    # the state each chunk leaves (G), B's and C's gradients per head, the
+    # two halves of cum's
+    states = torch.empty(b, nc + 1, h, p, n, **f32)
+    grads = torch.empty(b, nc, h, p, n, **f32)
+    dbh = torch.empty(b, nc, h, q, n, **f32)
+    dch = torch.empty(b, nc, h, q, n, **f32)
+    dcum2 = torch.empty(2, b, nc, q, h, **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = build.library().ssd_scan_bwd(
+        xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
+        ptr(state0), dy.data_ptr(), ptr(dstate), dxw.data_ptr(),
+        dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dstate0),
+        states.data_ptr(), grads.data_ptr(), dbh.data_ptr(),
+        dch.data_ptr(), dcum2.data_ptr(), b, nc, q, h, p, n,
+        build.stream_of(xw))
+    build.check(rc, "ssd_scan_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dxw, dcum, dB, dC, dstate0
+
+
+def _forward(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
+    """Kernel 6's forward: the kernel for CUDA tensors, the plain version
+    for CPU tensors (no autograd of its own)."""
     if xw.device.type == "cpu":
         return ssd_scan_plain(xw, cum, B_, C, state0)
-    build.refuse_grad("ssd_scan", (xw, cum, B_, C, state0),
-                      "ROADMAP §1 item 8b")
     fp32 = (cum,) if state0 is None else (cum, state0)
     code = build.check_inputs("ssd_scan", (xw, B_, C), fp32=fp32,
                               head_dim=False)

@@ -8,10 +8,9 @@ Two modes:
   fp32, per-block remat, the optimizer the config's size picks, the
   synthetic LM stream. It prints the JAX launcher's step lines; on the
   card also the median ms a step (the first, which builds the kernels,
-  apart), tok/s and the peak of allocated device memory. On the card a
-  model whose blocks run the SSD or RG-LRU scan (Mamba-2,
-  RecurrentGemma) is refused by those kernels' wrappers (ROADMAP §1
-  item 8b); the CPU trains every config.
+  apart), tok/s and the peak of allocated device memory. Every config
+  trains on the card and on the CPU (Mamba-2 and RecurrentGemma through
+  the hand-written backwards of the SSD and RG-LRU scans).
 - dryrun: raises ``NotImplementedError``: the dry-run and roofline tools
   come with ROADMAP §1 item 8c.
 

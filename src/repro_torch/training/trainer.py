@@ -5,12 +5,13 @@ metrics; the JAX package's ``training/trainer.py`` in plain PyTorch.
 Gradients come from ``torch.autograd.grad`` over the param tree's leaves
 (the model holds no module state): each leaf enters the loss as a
 detached alias that requires grad, so the caller's tensors never carry
-autograd state. On the card attention's gradient is kernel 1's backward
-(``kernels/flash_attention.py``); the SSD and RG-LRU scans have none yet
-(ROADMAP §1 item 8b), so their wrappers refuse a Mamba-2 or
-RecurrentGemma step there, and those models train on the CPU.
-``train_step_shardings`` waits for the sharding half of ROADMAP §1
-item 8.
+autograd state. Every config trains on the card in fp32: attention's
+gradient is kernel 1's backward (``kernels/flash_attention.py``), the SSD
+scan's kernel 6's (``kernels/ssd_scan.py``) and the RG-LRU scan's kernel
+7's (``kernels/rglru_scan.py``), each a hand-written CUDA kernel under a
+``torch.autograd.Function``; a bf16 input that needs a gradient raises
+there (ROADMAP §2 R18). ``train_step_shardings`` waits for the sharding
+half of ROADMAP §1 item 8.
 """
 
 from __future__ import annotations

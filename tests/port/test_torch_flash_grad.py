@@ -3,7 +3,8 @@ what ``FlashAttention`` runs for CPU tensors) against ``jax.vjp`` of the
 JAX ``flash_ref_attention`` (the gradient the JAX package trains
 through, XLA) and against torch autograd of the plain forward, on seeded
 numpy inputs: causal, windowed, non-causal with Sq != Sk, G 1/2/4, D
-32/64/128, ragged lengths. fp32, atol 2e-5 and rtol 1e-4 (both sides sum
+32/64/128, RecurrentGemma's local attention (D 256, G 10, a window),
+ragged lengths. fp32, atol 2e-5 and rtol 1e-4 (both sides sum
 fp32 products of the same inputs in other orders; measured under 3e-6).
 
 The card test (marked ``cuda``, skips without a device) holds the CUDA
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
@@ -37,6 +39,8 @@ CASES = [
     (False, 0, 2, 12, 29, 4, 4, 64),      # cross: Sq != Sk, G 1
     (False, 0, 1, 33, 17, 4, 2, 32),      # non-causal, Sq > Sk, G 2
     (False, 0, 1, 24, 24, 8, 2, 128),     # encoder, G 4, D 128
+    (True, 24, 1, 50, 50, 10, 1, 256),    # window, G 10, D 256
+    (True, 40, 2, 70, 70, 10, 1, 256),    # window, G 10, D 256, B 2
 ]
 IDS = [f"{'c' if c else 'nc'}-w{w}-sq{sq}-sk{sk}-h{h}k{k}-d{d}"
        for c, w, _, sq, sk, h, k, d in CASES]
@@ -121,8 +125,8 @@ def test_cuda_backward_matches_plain(case):
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     causal, window, b, sq, sk, h, k, d = case
-    if d not in (64, 128):
-        pytest.skip("the backward is built for D = 64 and 128")
+    if d not in build.BWD_HEAD_DIMS:
+        pytest.skip(f"the backward is built for D in {build.BWD_HEAD_DIMS}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn(b * h, sq, d, device="cuda", generator=gen)
     kk = torch.randn(b * k, sk, d, device="cuda", generator=gen)
@@ -175,27 +179,26 @@ def test_pallas_gradient_split_is_pinned(monkeypatch):
 
 
 def test_refuse_grad_raises_only_where_a_gradient_is_needed():
-    from repro_torch.kernels import build
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"ssd_scan.*item 8b"):
-        build.refuse_grad("ssd_scan", (None, x), "ROADMAP §1 item 8b")
+    with pytest.raises(NotImplementedError, match=r"decode_attention.*R19"):
+        build.refuse_grad("decode_attention", (None, x), "ROADMAP §2 R19")
     with torch.no_grad():
-        build.refuse_grad("ssd_scan", (None, x), "ROADMAP §1 item 8b")
-    build.refuse_grad("ssd_scan", (None, x.detach()), "ROADMAP §1 item 8b")
+        build.refuse_grad("decode_attention", (None, x), "ROADMAP §2 R19")
+    build.refuse_grad("decode_attention", (None, x.detach()),
+                      "ROADMAP §2 R19")
 
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_gradients():
-    """On the card kernels 2-7 raise when an input requires grad, and
-    kernel 1's bf16 body and D = 256 raise at the forward: no wrapper
-    returns a result cut off from the graph."""
+    """On the card kernels 2-5 raise when an input requires grad, and
+    kernel 1's bf16 body raises at the forward (at D = 256 too, which
+    trains in fp32): no wrapper returns a result cut off from the
+    graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import bullet_attention as TB
     from repro_torch.kernels import decode_attention as TD
     from repro_torch.kernels import paged_decode_attention as TP
-    from repro_torch.kernels import rglru_scan as TR
-    from repro_torch.kernels import ssd_scan as TS
     dev = "cuda"
     b, kh, g, d, s, ps = 2, 2, 2, 128, 32, 16
     qd = torch.randn(b, kh, g, d, device=dev, requires_grad=True)
@@ -216,14 +219,6 @@ def test_cuda_wrappers_refuse_gradients():
             qp, kp, kp, qd, pages, pages, tables, pos, group=g),
         "bullet_attention": lambda: TB.bullet_attention(
             qp, kp, kp, qd, cache, cache, kvpos, pos, group=g),
-        "ssd_scan": lambda: TS.ssd_scan(
-            torch.randn(1, 1, 16, 2, 8, device=dev, requires_grad=True),
-            torch.zeros(1, 1, 16, 2, device=dev),
-            torch.randn(1, 1, 16, 4, device=dev),
-            torch.randn(1, 1, 16, 4, device=dev)),
-        "rglru_scan": lambda: TR.rglru_scan(
-            torch.rand(1, 8, 4, device=dev, requires_grad=True),
-            torch.rand(1, 8, 4, device=dev)),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=name):
@@ -231,4 +226,5 @@ def test_cuda_wrappers_refuse_gradients():
     q256 = torch.randn(2, 8, 256, device=dev, requires_grad=True)
     k256 = torch.randn(1, 8, 256, device=dev)
     with pytest.raises(ValueError, match="R18"):
-        TF.flash_attention(q256, k256, k256, group=2)
+        TF.flash_attention(q256.detach().bfloat16().requires_grad_(),
+                           k256.bfloat16(), k256.bfloat16(), group=2)
