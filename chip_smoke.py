@@ -301,7 +301,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    shape and S 2048, the same kernel instance), (c) (D = 64), (a)
    (Mixtral's window, SeamlessM4T's cross-attention) and (d)
    (RecurrentGemma's D = 256); ``ssd_scan_bwd*`` and ``rglru_scan_bwd``
-   from (d) (the state row the same kernel's).
+   from (d) (the state row the same kernel's);
+17. dryrun (``phase_dryrun``): (a) every registered config x input shape
+   (44) on the 16x16 production mesh traced at full width and depth on
+   the meta device (``repro_torch.launch.dryrun``, one process per core,
+   rows under build/), no failure, Granite-3.0-2B's ``decode_32k`` under
+   16 GB a device; (b) Qwen3-1.7B at full width in bf16 on the card:
+   ``prefill`` of one 1000-token prompt (kernel 1) and ``decode_step``
+   over 8 slots of a dense 1000-row cache at contexts 1-1000 (kernel 4),
+   each: the median card ms of CUDA-event timings outside the counter,
+   the roofline counter's FLOPs and bytes on the card (the kernels
+   charged by ``kernels/cost.py``, 28 launches each, the wrappers'
+   counters moved as much), the roofline time and its share of the
+   measured ms (gated in (0, SHARE_LIMIT]), the same counts from the meta
+   trace outside the kernel (the decode kernel charging every cache row
+   there), and the meta trace's peak against ``max_memory_allocated``
+   beyond the arguments (within PEAK_TOL or PEAK_SLACK).
+
+Every bound column is ``kernels/cost.py``'s: the bytes and operations of
+each kernel and ``bound_ms`` over the H100 peaks.
 
 The second-last line is the kernel table as JSON (each row's launches
 read from a run of the row's dtype, so they count the body it times), the
@@ -331,9 +349,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: H100 SXM data-sheet peaks (dense): HBM bytes/s and operations/s by type
-HBM_BW = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the kernels' bytes and operations, and the H100 bound over them (one
+# place for the kernel table, the roofline counter and the dry-run)
+from repro_torch.kernels.cost import (HBM_BW, bound_ms,  # noqa: E402
+                                      bwd_cost, decode_cost, dense_cost,
+                                      esize, flash_cost, rglru_bwd_cost,
+                                      rglru_cost, ssd_bwd_cost, ssd_cost)
+
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 H, K, G, D, PS = 16, 8, 2, 128, 16
 #: the attention kernels' source (kernels 1-5)
@@ -437,12 +459,6 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple:
-    t_b = n_bytes / HBM_BW * 1e3
-    t_o = n_ops / PEAK_OPS[dtype] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
 def with_tflops(row: dict, n_ops: float) -> dict:
     """A flash row with the TFLOP/s its kernel achieved in this run."""
     row["tflops"] = n_ops / row["ms"] / 1e9
@@ -492,10 +508,6 @@ def sdpa_yardsticks(timer, q, k, v, mask, g):
     gqa_ms = timer(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True))
     return exp_ms, gqa_ms
-
-
-def esize(dtype) -> int:
-    return torch.tensor([], dtype=dtype).element_size()
 
 
 def schedule_gate(sched, what: str) -> str:
@@ -647,32 +659,6 @@ def attended(kvpos, pos):
     return ((kvpos >= 0) & (kvpos <= pos[:, None])).any(dim=1)
 
 
-def dense_cost(q, kvpos, pos, dtype):
-    """What the dense decode function needs for this run's data: the K and
-    V rows whose position is attended (0 <= kv_position <= pos), q read
-    and the output written, kv_positions and pos read; the scores and the
-    PV product over those rows."""
-    _, kh, g, d = q.shape
-    rows = int(((kvpos >= 0) & (kvpos <= pos[:, None])).sum())
-    n_bytes = (2 * rows * kh * d + 2 * q.numel()) * esize(dtype) \
-        + 4 * (kvpos.numel() + pos.numel())
-    return n_bytes, 4 * g * d * kh * rows
-
-
-def flash_cost(bp, s, dtype, h: int = H, kh: int = K, window: int = 0,
-               d: int = D, causal: bool = True, sk: int = 0,
-               q_offset: int = 0):
-    """Flash's bytes (q, k, v read, the output written) and operations
-    (both products over the causal pairs, query i at position ``q_offset
-    + i`` with the keys at or before it, within ``window`` keys; not
-    ``causal``: every query of ``s`` with every key of ``sk`` or ``s``)."""
-    sk = sk or s
-    n_bytes = (2 * bp * h * s * d + 2 * bp * kh * sk * d) * esize(dtype)
-    pairs = (sum(min(q_offset + i + 1, window or sk) for i in range(s))
-             if causal else s * sk)
-    return n_bytes, 4 * d * bp * h * pairs
-
-
 def ssd_inputs(gen, b, s, dtype):
     """The SSD kernel's inputs as the model's prefill makes them (through
     ``ops.ssd_chunk_inputs``): x, B, C ~ N(0, 1) in ``dtype``, dt the
@@ -688,22 +674,6 @@ def ssd_inputs(gen, b, s, dtype):
     A = -torch.exp(torch.log(u / (1 - u)))
     return ops.ssd_chunk_inputs(x, dt, A, rn(b, s, SSD_N).to(dtype),
                                 rn(b, s, SSD_N).to(dtype), chunk=SSD_Q)
-
-
-def ssd_cost(xw, dtype):
-    """What the scan needs for these inputs: xw read and y written at the
-    dtype, cum in fp32, B and C at the dtype, the final state in fp32; C Bᵀ
-    (2·Q²·N) once per row and chunk, shared by the heads, and per head and
-    chunk the masked product with xw (2·Q²·P), the inter-chunk term and the
-    state update (2·Q·N·P each)."""
-    b, nc, q, h, p = xw.shape
-    n, e = SSD_N, esize(dtype)
-    rows = b * nc * q
-    n_bytes = (2 * rows * h * p + 2 * rows * n) * e + 4 * rows * h \
-        + 4 * b * h * p * n
-    n_ops = b * nc * 2 * q * q * n \
-        + b * h * nc * (2 * q * q * p + 4 * q * n * p)
-    return n_bytes, n_ops
 
 
 def ssd_check(gen, b, s, dtype, state: bool = False) -> float:
@@ -751,21 +721,6 @@ def rel_err(out, ref) -> float:
     ref = ref.float()
     return ((out.float() - ref).abs().max()
             / ref.abs().max().clamp(min=1.0)).item()
-
-
-def decode_cost(q, pos, dtype):
-    """What the paged decode function needs for this run's data: the K and
-    V rows of every active slot's positions <= pos, q read and the output
-    written, the block-table entries of the live pages and pos; the
-    scores and the PV product over those rows."""
-    _, kh, g, d = q.shape
-    live = [int(p) + 1 for p in pos.tolist() if p >= 0]
-    tokens = sum(live)
-    entries = sum(-(-c // PS) for c in live)
-    n_bytes = (2 * tokens * kh * d + 2 * q.numel()) * esize(dtype) \
-        + 4 * (entries + pos.numel())
-    n_ops = 4 * g * d * kh * tokens
-    return n_bytes, n_ops
 
 
 # ---------------------------------------------------------------------------
@@ -914,7 +869,8 @@ def flash_row(timer, name, dtype, inputs, err, bp, s, *, h: int = H,
     sk = sk or s
     sfx, tag = _dt_suffix(dtype)
     q, k, v = inputs
-    nb, no = flash_cost(bp, s, dtype, h, kh, window, d, causal, sk, q_offset)
+    nb, no = flash_cost(bp, s, dtype, h=h, kh=kh, d=d, window=window,
+                        causal=causal, sk=sk, q_offset=q_offset)
     bms, bby = bound_ms(nb, no, dtype)
     qs = q.reshape(bp, h, s, d)
     ks = k.reshape(bp, kh, sk, d).repeat_interleave(g, 1)
@@ -952,7 +908,7 @@ def paged_row(timer, name, dtype, inputs, err, *, what: str = "",
     sfx, tag = _dt_suffix(dtype)
     qd, kpg, vpg, bt, pos = inputs
     b, kh, g, d = qd.shape
-    nb, no = decode_cost(qd, pos, dtype)
+    nb, no = decode_cost(qd, pos, dtype, PS)
     bms, bby = bound_ms(nb, no, dtype)
     kd = kpg[bt.long()].reshape(b, -1, kh, d).transpose(1, 2).contiguous()
     vd = vpg[bt.long()].reshape(b, -1, kh, d).transpose(1, 2).contiguous()
@@ -1242,11 +1198,11 @@ def _timed_d128(timer, gen, dt, err, rm) -> list:
     q, k, v = flash_inputs(gen, 1, 1000, dt)
     rows.append(flash_row(timer, "flash_attention", dt, (q, k, v),
                           err[("flash", dt)], 1, 1000))
-    nb, no = flash_cost(1, 1000, dt)
+    nb, no = flash_cost(1, 1000, dt, h=H, kh=K, d=D)
     qd, kpg, vpg, bt, pos = paged_in = decode_inputs(gen, dt)
     rows.append(paged_row(timer, "paged_decode_attention", dt, paged_in,
                           err[("decode", dt)], sweep=True))
-    nb_d, no_d = decode_cost(qd, pos, dt)
+    nb_d, no_d = decode_cost(qd, pos, dt, PS)
     qdd, kc, vc, kvpos, posd = dense_in = dense_inputs(gen, dt, False)
     rows.append(dense_row(timer, "decode_attention", dt, dense_in,
                           err[("dense", dt)], what="linear positions, ",
@@ -1320,7 +1276,7 @@ def phase_ssd(timer: Timer) -> list:
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, dtype)
-        nb, no = ssd_cost(xw, dtype)
+        nb, no = ssd_cost(xw, dtype, SSD_N)
         bms, bby = bound_ms(nb, no, dtype)
         ms = timer(lambda: SK.ssd_scan(xw, cum, bm, cm))
         plain = timer(lambda: SK.ssd_scan_plain(xw, cum, bm, cm))
@@ -1345,14 +1301,6 @@ def phase_ssd(timer: Timer) -> list:
             shape=f"B=1 S=1000 (NC=4 Q=256) H={SSD_H} P={SSD_P} N={SSD_N} "
                   f"{tag}"))
     return rows
-
-
-def rglru_cost(a, dtype):
-    """What the recurrence from zeros needs: a and b read and y written at
-    the dtype, h_T written in fp32; one multiply and one add per
-    element."""
-    n = a.numel()
-    return 3 * n * esize(dtype) + 4 * a.shape[0] * a.shape[2], 2 * n
 
 
 def phase_rglru(timer: Timer) -> dict:
@@ -1589,8 +1537,8 @@ def phase_attention_moe(timer: Timer) -> list:
                               what="llama4-maverick: "))
         qp, kpp, vpp = inp["l4_flash", dt]
         qd, kpg, vpg, bt, pos = inp["l4_decode", dt]
-        nb_p, no_p = flash_cost(1, MAX_LEN, dt, L4_H, L4_K)
-        nb_d, no_d = decode_cost(qd, pos, dt)
+        nb_p, no_p = flash_cost(1, MAX_LEN, dt, h=L4_H, kh=L4_K, d=D)
+        nb_d, no_d = decode_cost(qd, pos, dt, PS)
         bms, bby = bound_ms(nb_p + nb_d, no_p + no_d, dt)
         n_sm = DA.sm_count(torch.cuda.current_device())
         n_ctas = BA.grid_ctas(torch.cuda.current_device(),
@@ -1765,11 +1713,12 @@ def phase_attention_d64(timer: Timer):
                               inp["sm_cross", dt], err["sm_cross", dt],
                               what="seamless cross-attention: ", sweep=True))
         qp, kpp, vpp = inp["gr_flash", dt]
-        nb_p, no_p = flash_cost(1, MAX_LEN, dt, GR_H, GR_K, d=D64)
+        nb_p, no_p = flash_cost(1, MAX_LEN, dt, h=GR_H, kh=GR_K,
+                                d=D64)
         for kind, dec in (("paged", inp["gr_decode", dt]),
                           ("dense", inp["gr_dense", dt])):
             if kind == "paged":
-                nb_d, no_d = decode_cost(dec[0], dec[4], dt)
+                nb_d, no_d = decode_cost(dec[0], dec[4], dt, PS)
                 fused, plain = BA.bullet_attention_paged, \
                     BA.bullet_attention_paged_plain
                 name, key = "bullet_attention_paged_d64", "gr_bullet"
@@ -1923,8 +1872,7 @@ def phase_chunked_kernels(timer: Timer) -> list:
         xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, dtype)
         st0 = torch.randn(1, SSD_H, SSD_P, SSD_N, generator=gen,
                           device="cuda")
-        nb, no = ssd_cost(xw, dtype)
-        nb += 4 * st0.numel()                       # the starting state read
+        nb, no = ssd_cost(xw, dtype, SSD_N, state=True)
         bms, bby = bound_ms(nb, no, dtype)
         sfx, tag = _dt_suffix(dtype)
         row = dict(
@@ -1966,35 +1914,6 @@ BWD_SHAPES = (
 #: the backwards of kernels 6 and 7
 SSD_BWD_SRC = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
 RG_BWD_SRC = "src/repro_torch/kernels/csrc/rglru_scan.cu"
-#: the backward's operations over the forward's (both products again, and
-#: dO Vᵀ, Pᵀ dO, dSᵀ Q, dS K: 5 products against the forward's 2)
-BWD_OPS = 2.5
-
-
-def bwd_cost(b, sq, sk, h, kh, d, causal, window):
-    """The backward's bytes (q, o, dO, k, v read; dq, dk, dv written, fp32)
-    and operations (BWD_OPS times the forward's over the seen pairs)."""
-    n_bytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * 4
-    _, fwd_ops = flash_cost(b, sq, torch.float32, h, kh, window, d, causal,
-                            sk)
-    return n_bytes, BWD_OPS * fwd_ops
-
-
-def ssd_bwd_cost(xw, state: bool):
-    """What kernel 6's backward needs for these inputs (fp32): xw, dy and
-    dxw, cum and dcum, B, C, dB, dC read or written once (with ``state``
-    also state0, the final state's gradient and dstate0); operations over
-    the causal triangle: C Bᵀ (Q²·N) once per row and chunk, and per head
-    dy·xw and the dxw product (Q²·P each), the dB and dC products (Q²·N
-    each), and five P×N state products a row (the chunk's own state and
-    gradient term, Sᵀ dy, G B and Gᵀ xw: 2·Q·P·N each)."""
-    b, nc, q, h, p = xw.shape
-    n, rows = SSD_N, b * nc * q
-    n_bytes = 4 * (3 * rows * h * p + 2 * rows * h + 4 * rows * n
-                   + (3 * b * h * p * n if state else 0))
-    n_ops = b * nc * (q * q * n + h * (2 * q * q * p + 2 * q * q * n
-                                       + 10 * q * p * n))
-    return n_bytes, n_ops
 
 
 def phase_scan_bwd(timer: Timer, gen) -> list:
@@ -2033,7 +1952,7 @@ def phase_scan_bwd(timer: Timer, gen) -> list:
         same = all(torch.equal(g, a) for g, a in zip(got, again)
                    if g is not None)
         check(same, f"{what}: two runs differ")
-        nb, no = ssd_bwd_cost(xw, state)
+        nb, no = ssd_bwd_cost(xw, SSD_N, state)
         bms, bby = bound_ms(nb, no, f32)
         row = dict(
             name=name, route="cuda", source=SSD_BWD_SRC,
@@ -2069,10 +1988,7 @@ def phase_scan_bwd(timer: Timer, gen) -> list:
     what = f"rglru_scan_bwd B={b} S={s} W={RG_W} from h0 fp32"
     check(all(math.isfinite(e) and e <= TOL[f32] for e in errs),
           f"{what}: da, db, dh0 err {errs}")
-    # a, y, dy read; da, db written; h0, dh_T read and dh0 written; an
-    # add and two multiplies a step
-    n = a.numel()
-    nb, no = 4 * (5 * n + 3 * b * RG_W), 3 * n
+    nb, no = rglru_bwd_cost(a, h0=True)
     bms, bby = bound_ms(nb, no, f32)
     row = dict(
         name="rglru_scan_bwd", route="cuda", source=RG_BWD_SRC,
@@ -2097,7 +2013,7 @@ def phase_train_kernels(timer: Timer) -> list:
     plain backward on the same inputs (q, k, v, the forward kernel's
     output, dO ~ N(0, 1)): dq, dk and dv each within TOL of the plain's
     scale max(1, max|plain|); timed beside its bound (max(bytes / HBM_BW,
-    BWD_OPS x the forward's operations / the fp32 peak)), the plain
+    cost.BWD_OPS x the forward's operations / the fp32 peak)), the plain
     backward and SDPA's forward + backward less its forward (``enable_gqa``,
     the same mask). Then the backwards of kernels 6 and 7
     (``phase_scan_bwd``). Returns the rows (launches filled by main)."""
@@ -5975,6 +5891,180 @@ def _train_full(argv, kernels, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the dry-run matrix on the meta device, and the roofline counter
+# against measured steps on the card
+# ---------------------------------------------------------------------------
+
+#: the roofline share's gate: the counted work's least time at the card's
+#: peaks over the measured step may not pass the step's own time by more
+#: than the timing's spread
+SHARE_LIMIT = 1.05
+#: the decode step's 8 slots: their context lengths, 1 to MAX_LEN
+DRYRUN_CONTEXTS = (1, 143, 286, 429, 572, 715, 858, 1000)
+#: the dry-run's predicted peak (the meta trace's, beyond its arguments)
+#: against the card's (max_memory_allocated beyond what was allocated
+#: before the step): relative, and at least this many bytes (the first
+#: card run read 192 B apart of 82.04 MiB for the prefill and 764 B of
+#: 10.68 MiB for the decode step: the allocator's 512-byte rounding)
+PEAK_TOL, PEAK_SLACK = 0.01, 1 << 20
+DRYRUN_REPS = 10
+
+
+def _dryrun_matrix(card: str) -> int:
+    """(a) every registered config x input shape on the 16x16 mesh, traced
+    on the meta device (launch/dryrun.py, one process per core)."""
+    path = os.path.join(ROOT, "build", "torch_dryrun.json")
+    jobs = min(8, os.cpu_count() or 1)
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+         "--jobs", str(jobs), "--results", path], env=env,
+        capture_output=True, text=True)
+    print(res.stdout, end="", flush=True)
+    check(res.returncode == 0, f"dry-run matrix: exit {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    with open(path) as f:
+        rows = json.load(f)
+    check(len(rows) == 44 and all(r["mesh"] == "16x16" for r in rows),
+          f"dry-run matrix: {len(rows)} rows")
+    granite = next(r for r in rows if (r["arch"], r["shape"])
+                   == ("granite-3-2b", "decode_32k"))
+    check(granite["memory"]["resident_gb"] < 16.0,
+          f"granite decode_32k resident {granite['memory']['resident_gb']}")
+    log(f"dryrun (a): {len(rows)} combinations on 16x16 traced on the meta "
+        f"device in {time.perf_counter() - t:.1f} s with {jobs} processes, "
+        f"no failure (host CPU; no card used; {card} idle)")
+    return len(rows)
+
+
+def _count(fn, args):
+    from repro_torch.launch.roofline import Counter
+    with torch.no_grad(), Counter() as c:
+        fn(*args)
+    return c
+
+
+def _outside(rep) -> tuple:
+    """(FLOPs, bytes, dots) of a report outside its kernels."""
+    return (rep.flops - rep.kernel_flops, rep.hbm_bytes - rep.kernel_bytes,
+            rep.dots)
+
+
+def _measured_step(name, fn, args, meta_args, kernel, card: str) -> dict:
+    """(b) one step on the card: its median card ms over CUDA events, its
+    counted work on the card and on the meta device, the roofline share,
+    and the dry-run's predicted peak against the card's."""
+    from repro_torch.launch.perf import step_ms
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    with torch.no_grad():
+        ms = statistics.median(step_ms(lambda: fn(*args), DRYRUN_REPS))
+    n0 = FA.launches + DA.launches
+    on_card = _count(fn, args)
+    torch.cuda.synchronize()
+    rep = on_card.report
+    launched = FA.launches + DA.launches - n0
+    k = rep.kernels[kernel]
+    check(launched == k["launches"] == 28 and list(rep.kernels) == [kernel],
+          f"dryrun {name}: {launched} launches, counted {rep.kernels}")
+    meta = _count(fn, meta_args)
+    mrep = meta.report
+    check(_outside(rep) == _outside(mrep),
+          f"dryrun {name}: outside the kernels card {_outside(rep)} != meta "
+          f"{_outside(mrep)}")
+    mk = mrep.kernels[kernel]
+    same = (mk["operations"], mk["bytes"]) == (k["operations"], k["bytes"])
+    check(mk["launches"] == k["launches"]
+          and (same if kernel == "flash_attention"
+               else mk["operations"] >= k["operations"]),
+          f"dryrun {name}: kernel charge card {k} meta {mk}")
+    terms = rep.terms()
+    roof = rep.roofline_s() * 1e3
+    share = roof / ms
+    check(0 < share <= SHARE_LIMIT,
+          f"dryrun {name}: roofline share {share} (roofline {roof} ms, "
+          f"measured {ms} ms)")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    pred = meta.peak_bytes
+    check(abs(pred - peak) <= max(PEAK_TOL * peak, PEAK_SLACK),
+          f"dryrun {name}: predicted peak {pred} B, card {peak} B")
+    log(f"dryrun (b) {name}: {ms:.3f} ms measured (median of {DRYRUN_REPS} "
+        f"CUDA-event timings, outside the counter); counted "
+        f"{rep.flops / 1e9:.2f} GFLOP ({k['operations'] / 1e9:.3f} in "
+        f"{k['launches']} {kernel} launches), {rep.hbm_bytes / 1e9:.3f} GB "
+        f"({k['bytes'] / 1e9:.4f} in the kernel), {rep.dots} products "
+        f"outside it; roofline {roof:.4f} ms (compute "
+        f"{terms['compute_s'] * 1e3:.4f}, memory {terms['memory_s'] * 1e3:.4f}"
+        f", {rep.dominant()}), share {share:.4f}; peak beyond the arguments "
+        f"predicted {pred / 2**20:.2f} MiB, card {peak / 2**20:.2f} MiB; on "
+        f"{card}")
+    log(f"dryrun (b) {name}: the meta trace's counts equal the card's "
+        f"outside the kernel; its {kernel} charge "
+        f"{mk['operations'] / 1e9:.4f} GFLOP, {mk['bytes'] / 1e9:.4f} GB "
+        f"({'equal' if same else 'every cache row'}); on {card}")
+    return dict(ms=ms, roofline_ms=roof, share=share, flops=rep.flops,
+                bytes=rep.hbm_bytes, peak_pred=pred, peak_card=peak)
+
+
+def phase_dryrun(card: str) -> dict:
+    """The dry-run matrix (a), then Qwen3-1.7B at full width in bf16 on the
+    card (b): prefill of one 1000-token prompt (kernel 1) and a decode step
+    over 8 slots of a dense cache of 1000 rows at contexts 1-1000 (kernel
+    4), each against the roofline counter on the card and on the meta
+    device."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    out = {"matrix": _dryrun_matrix(card)}
+    cfg = get_config("qwen3-1.7b")
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    params = T.init_params(cfg, seed=28, dtype=dt, device="cuda")
+    mparams = T.init_params(cfg, dtype=dt, device="meta")
+
+    def meta_like(*ts):
+        return tuple(torch.empty_like(t, device="meta") for t in ts)
+
+    def prefill(p, c, t, n):
+        return T.prefill(p, t, n, c, None, cfg)
+
+    def decode(p, c, t, q):
+        return T.decode_step(p, c, t, q, cfg)
+
+    toks = torch.randint(0, cfg.vocab_size, (1, MAX_LEN), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    lens = torch.full((1,), MAX_LEN, dtype=torch.int32, device="cuda")
+    cache = T.init_cache(cfg, 1, MAX_LEN, dt, "cuda")
+    mcache = T.init_cache(cfg, 1, MAX_LEN, dt, "meta")
+    out["prefill"] = _measured_step(
+        "prefill B=1 S=1000", prefill, (params, cache, toks, lens),
+        (mparams, mcache, *meta_like(toks, lens)), "flash_attention", card)
+    del cache, mcache
+    b = len(DRYRUN_CONTEXTS)
+    cache = T.init_cache(cfg, b, MAX_LEN, dt, "cuda")
+    for leaf in cache["blocks"]:
+        for t in leaf.values():
+            t.normal_(generator=gen)
+    mcache = T.init_cache(cfg, b, MAX_LEN, dt, "meta")
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    pos = torch.tensor([c - 1 for c in DRYRUN_CONTEXTS], dtype=torch.int32,
+                       device="cuda")
+    out["decode"] = _measured_step(
+        f"decode_step {b} slots contexts {DRYRUN_CONTEXTS}", decode,
+        (params, cache, tok, pos), (mparams, mcache, *meta_like(tok, pos)),
+        "decode_attention", card)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -6034,6 +6124,7 @@ def main() -> int:
     timed("internvl", phase_internvl, card)
     chunked = timed("chunked", phase_chunked, card)
     train = timed("train", phase_train, card)
+    timed("dryrun", phase_dryrun, card)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the

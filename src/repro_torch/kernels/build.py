@@ -194,12 +194,15 @@ def check_inputs(kernel: str, floats, ints=(), fp32=(), *,
     every tensor on one CUDA device and contiguous, the float tensors of
     one supported dtype, the ``fp32`` tensors float32, the index tensors
     int32, and (attention kernels, ``head_dim``) the last dim of the first
-    tensor one of ``head_dims``. Returns the dtype code."""
+    tensor one of ``head_dims``. Returns the dtype code. Meta tensors (a
+    dry-run's stand-ins for the card's) pass the same checks, all on the
+    meta device."""
     first = floats[0]
     for t in (*floats, *ints, *fp32):
-        if not t.is_cuda or t.device != first.device:
+        if not (t.is_cuda or t.is_meta) or t.device != first.device:
             raise ValueError(f"{kernel}: every tensor must be on "
-                             f"{first.device} (a CUDA device), got {t.device}")
+                             f"{first.device} (a CUDA device, or meta for a "
+                             f"dry-run), got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: tensors must be contiguous")
     code = DTYPE_CODES.get(str(first.dtype))

@@ -50,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import (_check_dense, sm_count,
                                                   split_workspace)
@@ -220,7 +221,20 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
     D)), and with ``record`` the launch's :class:`Schedule` (None if no
     kernel was launched: CPU tensors, or no work).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel; CPU tensors run the plain version;
+    meta tensors get empty outputs (and no schedule)."""
+    args = (qp, kp, vp, qd, k_pages, v_pages, block_tables, pos,
+            decode_share, causal, window, group, record)
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("bullet_attention_paged", lambda: (
+                cost.bullet_paged_price(qp, kp, causal, window, group, qd,
+                                        pos, k_pages, block_tables))):
+            return _dispatch_paged(*args)
+    return _dispatch_paged(*args)
+
+
+def _dispatch_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables, pos,
+                    decode_share, causal, window, group, record):
     if qp.device.type == "cpu":
         out = bullet_attention_paged_plain(
             qp, kp, vp, qd, k_pages, v_pages, block_tables, pos,
@@ -244,7 +258,7 @@ def bullet_attention_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables,
     ps, n_b = k_pages.shape[1], block_tables.shape[1]
     out_p = torch.empty_like(qp)
     out_d = torch.empty_like(qd)
-    if out_p.numel() == 0 and out_d.numel() == 0:
+    if (out_p.numel() == 0 and out_d.numel() == 0) or qp.is_meta:
         return (out_p, out_d, None) if record else (out_p, out_d)
     n_split, ws = 1, (None, None, None)
     if code == build.DTYPE_CODES["torch.bfloat16"]:
@@ -281,7 +295,20 @@ def bullet_attention(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos, *,
     D)), and with ``record`` the launch's :class:`Schedule` (None if no
     kernel was launched: CPU tensors, or no work).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel; CPU tensors run the plain version;
+    meta tensors get empty outputs (and no schedule)."""
+    args = (qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos,
+            decode_share, causal, window, group, record)
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("bullet_attention", lambda: (
+                cost.bullet_price(qp, kp, causal, window, group, qd,
+                                  kv_positions, pos))):
+            return _dispatch_dense(*args)
+    return _dispatch_dense(*args)
+
+
+def _dispatch_dense(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos,
+                    decode_share, causal, window, group, record):
     if qp.device.type == "cpu":
         out = bullet_attention_plain(
             qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos,
@@ -304,7 +331,7 @@ def bullet_attention(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos, *,
     s = k_cache.shape[1]
     out_p = torch.empty_like(qp)
     out_d = torch.empty_like(qd)
-    if out_p.numel() == 0 and out_d.numel() == 0:
+    if (out_p.numel() == 0 and out_d.numel() == 0) or qp.is_meta:
         return (out_p, out_d, None) if record else (out_p, out_d)
     n_split, ws = 1, (None, None, None)
     if code == build.DTYPE_CODES["torch.bfloat16"]:

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.geometry import (MAX_SPLIT, SPLIT_G,
                                           SPLIT_MIN_TILES, SPLIT_TILE)
@@ -142,7 +143,16 @@ def decode_attention(q, k_cache, v_cache, kv_positions, pos):
     """q: (B, K, G, D); caches: (B, S, K, D); kv_positions: (B, S) int32
     (-1 = empty); pos: (B,) int32. Returns (B, K, G, D).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel; CPU tensors run the plain version;
+    meta tensors get an empty output."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("decode_attention", lambda: (
+                cost.dense_price(q, kv_positions, pos))):
+            return _dispatch(q, k_cache, v_cache, kv_positions, pos)
+    return _dispatch(q, k_cache, v_cache, kv_positions, pos)
+
+
+def _dispatch(q, k_cache, v_cache, kv_positions, pos):
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, kv_positions, pos)
     build.refuse_grad("decode_attention", (q, k_cache, v_cache),
@@ -153,7 +163,7 @@ def decode_attention(q, k_cache, v_cache, kv_positions, pos):
     b, kh, g, d = q.shape
     s = k_cache.shape[1]
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.is_meta:
         return out
     if code == build.DTYPE_CODES["torch.bfloat16"]:
         build.check_aligned("decode_attention", (q, k_cache, v_cache))

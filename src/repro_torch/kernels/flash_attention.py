@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 
 #: kernel launches since the counter was last reset (plain integer)
@@ -102,7 +103,18 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     inputs' shapes.
 
     CUDA tensors launch ``flash_attention_bwd`` (float32, D = 64, 128 or
-    256); CPU tensors run the plain backward."""
+    256); CPU tensors run the plain backward; meta tensors get empty
+    gradients."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("flash_attention_bwd", lambda: (
+                cost.flash_bwd_price(q, k, causal, window, group))):
+            return _backward(q, k, v, o, do, causal=causal, window=window,
+                             group=group)
+    return _backward(q, k, v, o, do, causal=causal, window=window,
+                     group=group)
+
+
+def _backward(q, k, v, o, do, *, causal, window, group):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          window=window, group=group)
@@ -124,6 +136,8 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
     dv = torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if q.is_meta:
+        return dq, dk, dv
     work = torch.empty(2, bh, sq, dtype=torch.float32, device=q.device)
     rc = build.library().flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -140,7 +154,18 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
 def _forward(q, k, v, *, causal: bool = True, window: int = 0,
              group: int = 1, q_offset: int = 0):
     """Kernel 1's forward: the kernel for CUDA tensors, the plain version
-    for CPU tensors (no autograd of its own)."""
+    for CPU tensors, an empty output for meta tensors (no autograd of its
+    own)."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("flash_attention", lambda: cost.flash_price(
+                q, k, causal, window, group, q_offset)):
+            return _dispatch(q, k, v, causal=causal, window=window,
+                             group=group, q_offset=q_offset)
+    return _dispatch(q, k, v, causal=causal, window=window, group=group,
+                     q_offset=q_offset)
+
+
+def _dispatch(q, k, v, *, causal, window, group, q_offset):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      group=group, q_offset=q_offset)
@@ -155,7 +180,7 @@ def _forward(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"group {group}, q_offset {q_offset}")
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.is_meta:
         return out
     rc = build.library().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

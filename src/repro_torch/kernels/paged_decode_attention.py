@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import split_workspace
 from repro_torch.kernels.geometry import SPLIT_TILE
@@ -64,7 +65,16 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos):
     int32, every entry a valid page; pos: (B,) int32 (−1 = inactive).
     Returns (B, K, G, D).
 
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    CUDA tensors launch the kernel; CPU tensors run the plain version;
+    meta tensors get an empty output."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("paged_decode_attention", lambda: (
+                cost.paged_price(q, pos, k_pages, block_tables))):
+            return _dispatch(q, k_pages, v_pages, block_tables, pos)
+    return _dispatch(q, k_pages, v_pages, block_tables, pos)
+
+
+def _dispatch(q, k_pages, v_pages, block_tables, pos):
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, pos)
@@ -78,7 +88,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos):
     b, kh, g, d = q.shape
     ps, n_b = k_pages.shape[1], block_tables.shape[1]
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.is_meta:
         return out
     if code == build.DTYPE_CODES["torch.bfloat16"]:
         build.check_aligned("paged_decode_attention", (q, k_pages, v_pages))

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 
 #: kernel launches since the counter was last reset (plain integer)
@@ -95,7 +96,15 @@ def rglru_scan_bwd(a, y, h0, dy, dh_last):
     None without h0.
 
     CUDA tensors launch ``rglru_scan_bwd`` (float32); CPU tensors run the
-    plain backward."""
+    plain backward; meta tensors get empty gradients."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("rglru_scan_bwd", lambda: (
+                cost.rglru_bwd_price(a, h0))):
+            return _backward(a, y, h0, dy, dh_last)
+    return _backward(a, y, h0, dy, dh_last)
+
+
+def _backward(a, y, h0, dy, dh_last):
     if a.device.type == "cpu":
         return rglru_scan_bwd_plain(a, y, h0, dy, dh_last)
     fp32 = tuple(t for t in (h0, dh_last) if t is not None)
@@ -114,6 +123,8 @@ def rglru_scan_bwd(a, y, h0, dy, dh_last):
     da = torch.empty_like(a)
     db = torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
+    if a.is_meta:
+        return da, db, dh0
     if da.numel() == 0:
         if dh0 is not None:
             dh0.copy_(torch.zeros_like(h0) if dh_last is None else dh_last)
@@ -131,7 +142,16 @@ def rglru_scan_bwd(a, y, h0, dy, dh_last):
 
 def _forward(a, b, h0=None):
     """Kernel 7's forward: the kernel for CUDA tensors, the plain version
-    for CPU tensors (no autograd of its own)."""
+    for CPU tensors, empty outputs for meta tensors (no autograd of its
+    own)."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("rglru_scan", lambda: (
+                cost.rglru_price(a, h0))):
+            return _dispatch(a, b, h0)
+    return _dispatch(a, b, h0)
+
+
+def _dispatch(a, b, h0):
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
     code = build.check_inputs("rglru_scan", (a, b),
@@ -145,6 +165,8 @@ def _forward(a, b, h0=None):
     bsz, s, w = a.shape
     y = torch.empty_like(a)
     h_last = torch.empty(bsz, w, dtype=torch.float32, device=a.device)
+    if a.is_meta:
+        return y, h_last
     if y.numel() == 0:
         return y, h_last.zero_() if h0 is None else h0.clone()
     rc = build.library().rglru_scan_fwd(

@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref
 from repro_torch.kernels.geometry import SSD_P_SLICES, SSD_TILE
 
@@ -139,7 +140,16 @@ def ssd_scan_bwd(xw, cum, B_, C, state0, dy, dstate):
     dstate0) fp32, dstate0 None without ``state0``.
 
     CUDA tensors launch ``ssd_scan_bwd`` (float32, Q <= 256, N <= 128, P
-    <= 64); CPU tensors run the plain backward."""
+    <= 64); CPU tensors run the plain backward; meta tensors get empty
+    gradients."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("ssd_scan_bwd", lambda: (
+                cost.ssd_bwd_price(xw, B_, state0))):
+            return _backward(xw, cum, B_, C, state0, dy, dstate)
+    return _backward(xw, cum, B_, C, state0, dy, dstate)
+
+
+def _backward(xw, cum, B_, C, state0, dy, dstate):
     if xw.device.type == "cpu":
         return ssd_scan_bwd_plain(xw, cum, B_, C, state0, dy, dstate)
     fp32 = tuple(t for t in (cum, state0, dstate) if t is not None)
@@ -166,6 +176,8 @@ def ssd_scan_bwd(xw, cum, B_, C, state0, dy, dstate):
     dB = torch.empty_like(B_)
     dC = torch.empty_like(C)
     dstate0 = None if state0 is None else torch.empty_like(state0)
+    if xw.is_meta:
+        return dxw, dcum, dB, dC, dstate0
     if dxw.numel() == 0 or dB.numel() == 0:
         for t in (dxw, dcum, dB, dC):
             t.zero_()
@@ -198,7 +210,16 @@ def ssd_scan_bwd(xw, cum, B_, C, state0, dy, dstate):
 
 def _forward(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
     """Kernel 6's forward: the kernel for CUDA tensors, the plain version
-    for CPU tensors (no autograd of its own)."""
+    for CPU tensors, empty outputs for meta tensors (no autograd of its
+    own)."""
+    if cost.COUNTER is not None:
+        with cost.COUNTER.kernel("ssd_scan", lambda: (
+                cost.ssd_price(xw, B_, state0))):
+            return _dispatch(xw, cum, B_, C, state0, p_slice)
+    return _dispatch(xw, cum, B_, C, state0, p_slice)
+
+
+def _dispatch(xw, cum, B_, C, state0, p_slice):
     if xw.device.type == "cpu":
         return ssd_scan_plain(xw, cum, B_, C, state0)
     fp32 = (cum,) if state0 is None else (cum, state0)
@@ -222,6 +243,8 @@ def _forward(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
                          f"{SSD_P_SLICES}")
     y = torch.empty_like(xw)
     state = torch.empty(b, h, p, n, dtype=torch.float32, device=xw.device)
+    if xw.is_meta:
+        return y, state
     if y.numel() == 0:
         return y, (state.zero_() if state0 is None
                    else state.copy_(state0))

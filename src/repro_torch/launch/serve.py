@@ -37,6 +37,11 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
   (``--sessions`` turns; docs/SIMULATOR.md); ``--fault-plan`` dispatch
   specs become replica outage windows.
 
+- dryrun: trace ``prefill_32k`` and ``decode_32k`` of ``--arch`` at full
+  width on the meta device on the 16×16 production mesh
+  (``launch/dryrun.py``, in-process, where the JAX launcher starts
+  subprocesses): each shape's ``[OK]`` line and row; no device is used.
+
 Both simulator modes run no model and use no device (``--device`` is
 ignored); they map ``qwen3-1.7b`` to the paper's ``llama3.1-8b`` and print
 the ``HardwareSpec`` they priced with before their rows: its SM count is
@@ -57,6 +62,7 @@ the card's where one is present, else the H100's 132.
       --dataset sharegpt --rate 40
   PYTHONPATH=src python -m repro_torch.launch.serve --mode simulate-fleet \\
       --replicas 4 --router prefix-affinity --sessions 2000 --rate 120
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode dryrun
 """
 
 from __future__ import annotations
@@ -322,7 +328,8 @@ def tail_line(pt, res) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=("host", "replay", "sim",
-                                       "simulate-fleet"), default="host")
+                                       "simulate-fleet", "dryrun"),
+                    default="host")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--requests", type=int, default=8)
@@ -415,6 +422,15 @@ def main(argv=None) -> int:
     if args.tenants > 0 and args.mode != "replay":
         ap.error("--tenants drives the multi-tenant interaction replay; "
                  "use --mode replay")
+    if args.mode == "dryrun":
+        from repro_torch.launch import dryrun
+        code = 0
+        for shape in ("prefill_32k", "decode_32k"):
+            try:
+                dryrun.main(["--arch", args.arch, "--shape", shape])
+            except SystemExit as e:     # a failed shape: run the other too
+                code |= int(e.code or 0)
+        return code
     if args.mode in ("sim", "simulate-fleet"):
         # the simulator modes price the paper's own model
         args.arch = "llama3.1-8b" if args.arch == "qwen3-1.7b" else args.arch

@@ -11,11 +11,14 @@ Two modes:
   apart), tok/s and the peak of allocated device memory. Every config
   trains on the card and on the CPU (Mamba-2 and RecurrentGemma through
   the hand-written backwards of the SSD and RG-LRU scans).
-- dryrun: raises ``NotImplementedError``: the dry-run and roofline tools
-  come with ROADMAP §1 item 8c.
+- dryrun: trace ``train_4k`` of the selected architecture at full width
+  on the meta device on the 16×16 production mesh (``launch/dryrun.py``,
+  in-process, where the JAX launcher starts a subprocess); no device is
+  touched.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --mode dryrun
 """
 
 from __future__ import annotations
@@ -61,11 +64,10 @@ def _sync(device: torch.device) -> None:
 
 
 def run(args: argparse.Namespace) -> TrainRun:
-    """Train as ``--mode host`` does and return the run."""
+    """Train as ``--mode host`` does and return the run (``--mode
+    dryrun`` is :func:`main`'s)."""
     if args.mode == "dryrun":
-        raise NotImplementedError(
-            "--mode dryrun is not ported yet: the dry-run and roofline "
-            "tools come with ROADMAP §1 item 8c")
+        raise ValueError("run() trains; --mode dryrun goes through main()")
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import transformer as T
@@ -126,7 +128,12 @@ def run(args: argparse.Namespace) -> TrainRun:
 
 
 def main(argv=None) -> None:
-    run(parse_args(argv))
+    args = parse_args(argv)
+    if args.mode == "dryrun":
+        from repro_torch.launch import dryrun
+        dryrun.main(["--arch", args.arch, "--shape", "train_4k"])
+        return
+    run(args)
 
 
 if __name__ == "__main__":

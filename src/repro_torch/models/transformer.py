@@ -49,6 +49,7 @@ from repro_torch.models import attention as attn_ops
 from repro_torch.models import layers as L
 from repro_torch.models.moe import MoEStats, moe_ffn
 from repro_torch.models.rglru import RGLRUState, rglru_block
+from repro_torch.models.sharding import ShardingPolicy, Spec
 from repro_torch.models.ssm import SSDState, ssd_block
 
 Params = Dict[str, Any]
@@ -177,6 +178,8 @@ def _top_defs(cfg: ModelConfig):
 
 def _init_one(gen, shape, init, dtype, *, lead=(), fan_in=None):
     full = tuple(lead) + tuple(shape)
+    if gen is None:                     # the meta device: shapes only
+        return torch.empty(full, dtype=dtype, device="meta")
     if init == "dense":
         return L.dense_init(gen, full, dtype, fan_in=fan_in or shape[0])
     if init == "embed":
@@ -200,9 +203,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     position {name: (R, ...)}), ["tail_blocks": (per tail block {name:
     (...)})], ["encoder": {name: (n_encoder_layers, ...)},
     "encoder_norm"]}``, vocab padded to a multiple of 256. Leaves in
-    ``FP32_PARAMS`` stay fp32."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    ``FP32_PARAMS`` stay fp32. On the meta device (a dry-run) the leaves
+    hold shapes and dtypes only, drawn from no generator."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     params: Params = {}
     for name, (shape, init) in sorted(_top_defs(cfg).items()):
         params[name] = _init_one(gen, shape, init, dtype)
@@ -228,6 +234,183 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         params["encoder_norm"] = torch.zeros(cfg.d_model, dtype=dtype,
                                              device=device)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Partition specs: the JAX package's, per leaf, as plain data
+# ---------------------------------------------------------------------------
+
+def _mp(policy: ShardingPolicy, cond: bool = True):
+    return policy.model_axis if (policy and cond) else None
+
+
+def _attn_specs(cfg: ModelConfig, p: ShardingPolicy, cross: bool = False):
+    pre = "c" if cross else ""
+    kv = (Spec(None, _mp(p, p.shard_kv_heads)) if p.shard_kv_heads
+          else Spec(_mp(p), None))
+    specs = {
+        pre + "wq": (Spec(None, _mp(p, p.shard_heads)) if p.shard_heads
+                     else Spec(_mp(p), None)),
+        pre + "wk": kv,
+        pre + "wv": kv,
+        pre + "wo": (Spec(_mp(p, p.shard_heads), None) if p.shard_heads
+                     else Spec(None, _mp(p))),
+    }
+    if cross:
+        return specs
+    if cfg.qkv_bias:
+        specs["bq"] = Spec(_mp(p, p.shard_heads))
+        specs["bk"] = Spec(_mp(p, p.shard_kv_heads))
+        specs["bv"] = Spec(_mp(p, p.shard_kv_heads))
+    if cfg.qk_norm:
+        specs["q_norm"] = Spec(None)
+        specs["k_norm"] = Spec(None)
+    return specs
+
+
+def _ssd_specs(cfg: ModelConfig, p: ShardingPolicy):
+    hs = Spec(_mp(p, cfg.ssm_n_heads % max(p.model_size, 1) == 0))
+    return {"in_proj": Spec(None, _mp(p)), "conv": Spec(None, _mp(p)),
+            "A_log": hs, "D": hs, "dt_bias": hs, "norm": Spec(_mp(p)),
+            "out_proj": Spec(_mp(p), None)}
+
+
+def _rglru_specs(cfg: ModelConfig, p: ShardingPolicy):
+    col, vec = Spec(None, _mp(p)), Spec(_mp(p))
+    return {"w_in": col, "conv": col, "w_a": col, "w_x": col, "b_a": vec,
+            "b_x": vec, "lambda": vec, "w_out": Spec(_mp(p), None)}
+
+
+def _moe_specs(cfg: ModelConfig, p: ShardingPolicy):
+    e = _mp(p, p.shard_experts)
+    if p.moe_2d_weights:
+        # d_ff over data (and model when experts cannot span it)
+        f = tuple(p.data_axes)
+        if not p.shard_experts and p.model_axis:
+            f = (p.model_axis,) + f
+        f = f or None
+        w_in, w_out = Spec(e, None, f), Spec(e, f, None)
+    elif p.shard_experts:
+        w_in = w_out = Spec(e, None, None)
+    else:
+        w_in, w_out = Spec(None, None, _mp(p)), Spec(None, _mp(p), None)
+    specs = {"router": Spec(None, None), "w_in": w_in, "w_out": w_out}
+    if cfg.n_shared_experts:
+        specs["shared_wi"] = Spec(None, _mp(p))
+        specs["shared_wo"] = Spec(_mp(p), None)
+    return specs
+
+
+_MIXER_SPECS = {ATTN: _attn_specs, SWA: _attn_specs, SSD: _ssd_specs,
+                RGLRU: _rglru_specs}
+
+
+def _block_specs(cfg: ModelConfig, blk: BlockSpec, p: ShardingPolicy, *,
+                 decoder: bool = True):
+    specs = {"ln1": Spec(None)}
+    specs.update(_MIXER_SPECS[blk.mixer](cfg, p))
+    if decoder and cfg.cross_attention:
+        specs["ln_cross"] = Spec(None)
+        specs.update(_attn_specs(cfg, p, cross=True))
+    if blk.ff != "none":
+        specs["ln2"] = Spec(None)
+    if blk.ff == MLP:
+        specs["wi"] = Spec(None, _mp(p))
+        specs["wo_mlp"] = Spec(_mp(p), None)
+    elif blk.ff == MOE:
+        specs.update(_moe_specs(cfg, p))
+    return specs
+
+
+def _top_specs(cfg: ModelConfig, p: ShardingPolicy):
+    specs = {"embed": (Spec(_mp(p, p.shard_vocab), None) if p.shard_vocab
+                       else Spec(None, _mp(p))),
+             "final_norm": Spec(None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (Spec(None, _mp(p, p.shard_vocab))
+                            if p.shard_vocab else Spec(_mp(p), None))
+    if cfg.frontend_embed_len:
+        specs["frontend_proj"] = Spec(None, None)
+    return specs
+
+
+def _maybe_fsdp(spec: Spec, shape, policy: ShardingPolicy) -> Spec:
+    """FSDP: shard the first unsharded dim the data axes divide over them
+    too (a leaf already sharded over a data axis keeps its spec)."""
+    if not policy.fsdp or not policy.data_axes:
+        return spec
+    for part in spec:
+        axes = part if isinstance(part, tuple) else (part,)
+        if any(a in policy.data_axes for a in axes if a):
+            return spec
+    dsz = policy.data_size
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (pt, dim) in enumerate(zip(parts, shape)):
+        if pt is None and dim % dsz == 0 and dim >= dsz:
+            parts[i] = (policy.data_axes if len(policy.data_axes) > 1
+                        else policy.data_axes[0])
+            return Spec(*parts)
+    return spec
+
+
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    """The partition-spec tree of :func:`init_params`'s params: the JAX
+    ``param_specs``, leaf for leaf (a stacked leaf's repeat axis
+    replicated)."""
+    def specs_of(defs, rules, stacked):
+        out = {}
+        for name, (shape, _) in sorted(defs.items()):
+            spec = _maybe_fsdp(rules[name], shape, policy)
+            out[name] = Spec(None, *spec) if stacked else spec
+        return out
+
+    specs = specs_of(_top_defs(cfg), _top_specs(cfg, policy), False)
+    specs["blocks"] = tuple(
+        specs_of(_block_defs(cfg, blk), _block_specs(cfg, blk, policy),
+                 True) for blk in cfg.pattern)
+    if cfg.pattern_tail:
+        specs["tail_blocks"] = tuple(
+            specs_of(_block_defs(cfg, blk), _block_specs(cfg, blk, policy),
+                     False) for blk in cfg.pattern_tail)
+    if cfg.n_encoder_layers:
+        enc = BlockSpec(mixer=ATTN, ff=MLP)
+        specs["encoder"] = specs_of(
+            _block_defs(cfg, enc, decoder=False),
+            _block_specs(cfg, enc, policy, decoder=False), True)
+        specs["encoder_norm"] = Spec(None)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Dict[str, Any]:
+    """The partition-spec tree of :func:`init_cache`'s dense cache: the
+    JAX ``cache_specs``, leaf for leaf (the repeat axis replicated, the
+    batch over the data axes when they divide it)."""
+    b = policy.data_axes if policy.shard_batch else None
+    m = policy.model_axis
+
+    def entry(blk, lead):
+        if blk.mixer in (ATTN, SWA):
+            if policy.shard_kv_heads:
+                s = Spec(*lead, b, None, m, None)
+            elif policy.seq_parallel_decode:
+                s = Spec(*lead, b, m, None, None)
+            else:
+                s = Spec(*lead, b, None, None, None)
+            return {"k": s, "v": s}
+        if blk.mixer == RGLRU:
+            return {"conv": Spec(*lead, b, None, m),
+                    "hidden": Spec(*lead, b, m)}
+        hm = m if cfg.ssm_n_heads % max(policy.model_size, 1) == 0 else None
+        return {"conv": Spec(*lead, b, None, m),
+                "ssm": Spec(*lead, b, hm, None, None)}
+
+    specs = {"blocks": tuple(entry(blk, (None,)) for blk in cfg.pattern)}
+    if cfg.pattern_tail:
+        specs["tail"] = tuple(entry(blk, ()) for blk in cfg.pattern_tail)
+    if cfg.cross_attention:
+        cs = Spec(None, b, None, m if policy.shard_kv_heads else None, None)
+        specs["cross"] = {"k": cs, "v": cs}
+    return specs
 
 
 # ---------------------------------------------------------------------------

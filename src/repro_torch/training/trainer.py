@@ -10,8 +10,9 @@ gradient is kernel 1's backward (``kernels/flash_attention.py``), the SSD
 scan's kernel 6's (``kernels/ssd_scan.py``) and the RG-LRU scan's kernel
 7's (``kernels/rglru_scan.py``), each a hand-written CUDA kernel under a
 ``torch.autograd.Function``; a bf16 input that needs a gradient raises
-there (ROADMAP §2 R18). ``train_step_shardings`` waits for the sharding
-half of ROADMAP §1 item 8.
+there (ROADMAP §2 R18). ``train_step_shardings`` gives the train state's
+partition specs (the dry-run's residency per device); the sharded step
+itself waits for ROADMAP §1 item 8d.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
-from repro_torch.training.optimizer import make_optimizer, optimizer_for
+from repro_torch.models.sharding import ShardingPolicy, Spec, map_specs
+from repro_torch.training.optimizer import (AdafactorState, AdamWState,
+                                            make_optimizer, optimizer_for)
 from repro_torch.training.tree import leaves, unflatten
 
 
@@ -138,3 +141,33 @@ def make_train_step(cfg: ModelConfig, *, optimizer: Optional[str] = None,
         return TrainState(params, opt_state), metrics
 
     return init_fn, step_fn
+
+
+def train_step_shardings(cfg: ModelConfig, policy: ShardingPolicy):
+    """((state_specs, batch_specs), (state_specs, metric_specs)): the
+    partition specs of the JAX ``train_step_shardings``, leaf for leaf, for
+    this port's ``TrainState``: the params' :func:`T.param_specs`, AdamW's
+    moments as their params, Adafactor's row moment without the last dim
+    and column moment without the second last (one dim: replicated)."""
+    pspecs = T.param_specs(cfg, policy)
+
+    def mapped(fn):
+        return map_specs(fn, pspecs)
+
+    if optimizer_for(cfg.n_params) == "adamw":
+        opt_specs = AdamWState(Spec(), mapped(lambda s: s),
+                               mapped(lambda s: s))
+    else:
+        opt_specs = AdafactorState(
+            Spec(),
+            mapped(lambda s: Spec(*s[:-1]) if len(s) >= 2 else s),
+            mapped(lambda s: (Spec(*(s[:-2] + s[-1:])) if len(s) >= 2
+                              else Spec(None))))
+    state_specs = TrainState(pspecs, opt_specs)
+    bax = policy.data_axes if policy.shard_batch else None
+    batch_specs = {"tokens": Spec(bax, None), "labels": Spec(bax, None)}
+    if cfg.frontend_embed_len:
+        batch_specs["frontend"] = Spec(bax, None, None)
+    metric_specs = {"loss": Spec(), "aux": Spec(), "grad_norm": Spec(),
+                    "total": Spec()}
+    return (state_specs, batch_specs), (state_specs, metric_specs)

@@ -31,17 +31,19 @@ def leaves(tree) -> List[Any]:
 def unflatten(like, new_leaves) -> Any:
     """A tree of ``like``'s structure holding ``new_leaves`` (in flatten
     order)."""
-    it = iter(new_leaves)
+    return _build(like, iter(new_leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}      # keep the caller's key order
-        if isinstance(t, (tuple, list)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module-level function: a recursive closure would reference itself
+    # through its cell, and that cycle would keep the iterator, and so
+    # every leaf (a step's gradients), alive until the garbage collector ran
+    if isinstance(t, dict):
+        out = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}          # keep the caller's key order
+    if isinstance(t, (tuple, list)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

@@ -6,7 +6,8 @@ the synthetic batches bit for bit, the weight-decay mask leaf by leaf,
 each optimizer's update fed the same gradients (fp32, rtol 1e-5 and atol
 1e-7: elementwise ops in the same order, XLA may fuse a multiply-add),
 checkpoints written by either package loaded by the other bit for bit,
-the launcher's host mode and its refusal of ``--mode dryrun``; and
+the launcher's host mode and ``run``'s refusal of ``--mode dryrun`` (the
+dry-run goes through ``main``, tests/port/test_torch_dryrun.py); and
 per-block remat against none (the same gradients bit for bit, the MoE aux
 loss counted once)."""
 
@@ -262,8 +263,8 @@ def test_launcher_host_mode_on_cpu(capsys, tmp_path):
 
 
 def test_launcher_dryrun_raises():
-    with pytest.raises(NotImplementedError, match="8c"):
-        launcher.main(["--mode", "dryrun"])
+    with pytest.raises(ValueError, match="main"):
+        launcher.run(launcher.parse_args(["--mode", "dryrun"]))
 
 
 @pytest.mark.parametrize("name", ["llama4-maverick-400b-a17b",
