@@ -8,12 +8,15 @@ of the checkout, named by a digest of the sources so an edit rebuilds;
 prefill and dense decode at head dims 64, 128 and 256, paged decode and the
 fused launches at 64 and 128; in bf16 the flash body runs on the tensor cores
 through wgmma and TMA, so ``sm_90a``'s ``a`` is needed),
-``flash_attention_bwd.cu`` the gradient of the flash prefill (fp32, D = 64,
-128 and 256), ``ssd_scan.cu``
+``flash_attention_bwd.cu`` the gradient of the flash prefill in fp32 and
+``flash_attention_bwd_tc.cu`` in bf16 on the tensor cores (D = 64, 128 and
+256), ``ssd_scan.cu``
 the Mamba-2 SSD chunk scan (in bf16 C Bᵀ once per row and chunk, the
 chunk states, a pass over the chunks and the outputs, on the tensor cores
-through ``mma.sync``), ``ssd_scan_bwd.cu`` its gradient (fp32) and
-``rglru_scan.cu`` the RG-LRU linear recurrence and its gradient (fp32). The geometry of the split
+through ``mma.sync``), ``ssd_scan_bwd.cu`` its gradient in fp32 and
+``ssd_scan_bwd_tc.cu`` in bf16 on the tensor cores, and
+``rglru_scan.cu`` the RG-LRU linear recurrence and its gradient (fp32 and
+bf16). The geometry of the split
 decode bodies and of the bf16 SSD scan (``geometry.all_defines()``)
 reaches every source as ``-D`` defines and is part of the digest.
 Nothing here runs at import: the first wrapper that launches a kernel
@@ -37,8 +40,9 @@ from typing import NamedTuple
 from repro_torch.kernels.geometry import all_defines
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention.cu", "flash_attention_bwd.cu", "ssd_scan.cu",
-           "ssd_scan_bwd.cu", "rglru_scan.cu")
+SOURCES = ("attention.cu", "flash_attention_bwd.cu",
+           "flash_attention_bwd_tc.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+           "ssd_scan_bwd_tc.cu", "rglru_scan.cu")
 HEADERS = ("attention.cuh",)
 #: build/ at the root of the checkout (src/repro_torch/kernels -> root)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -49,7 +53,9 @@ _I = ctypes.c_int
 #: argtypes of every C entry point; every one returns a cudaError_t as int
 SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "flash_attention_fwd_lse": [_P] * 5 + [_I] * 7 + [_P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
+    "flash_attention_bwd_tc": [_P] * 11 + [_I] * 8 + [_P],
     "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
@@ -62,8 +68,9 @@ SIGNATURES = {
     "split_decode_ctas_per_sm": [_I, _I, ctypes.POINTER(_I)],
     "ssd_scan_fwd": [_P] * 10 + [_I] * 8 + [_P],
     "ssd_scan_bwd": [_P] * 17 + [_I] * 6 + [_P],
+    "ssd_scan_bwd_tc": [_P] * 18 + [_I] * 7 + [_P],
     "rglru_scan_fwd": [_P] * 5 + [_I] * 4 + [_P],
-    "rglru_scan_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    "rglru_scan_bwd": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 

@@ -136,18 +136,19 @@ def ssd_cost(xw, dtype, n: int, state: bool = False):
     return n_bytes, n_ops
 
 
-def ssd_bwd_cost(xw, n: int, state: bool):
-    """What kernel 6's backward needs for these inputs (fp32): xw, dy and
-    dxw, cum and dcum, B, C, dB, dC read or written once (with ``state``
-    also state0, the final state's gradient and dstate0); operations over
+def ssd_bwd_cost(xw, n: int, state: bool, dtype=torch.float32):
+    """What kernel 6's backward needs for these inputs: xw, dy and dxw, B,
+    C, dB, dC at ``dtype``, cum and dcum in fp32, each read or written once
+    (with ``state`` also state0, the final state's gradient and dstate0,
+    fp32); operations over
     the causal triangle: C Bᵀ (Q²·N) once per row and chunk, and per head
     dy·xw and the dxw product (Q²·P each), the dB and dC products (Q²·N
     each), and five P×N state products a row (the chunk's own state and
     gradient term, Sᵀ dy, G B and Gᵀ xw: 2·Q·P·N each)."""
     b, nc, q, h, p = xw.shape
     rows = b * nc * q
-    n_bytes = 4 * (3 * rows * h * p + 2 * rows * h + 4 * rows * n
-                   + (3 * b * h * p * n if state else 0))
+    n_bytes = esize(dtype) * (3 * rows * h * p + 4 * rows * n) \
+        + 4 * (2 * rows * h + (3 * b * h * p * n if state else 0))
     n_ops = b * nc * (q * q * n + h * (2 * q * q * p + 2 * q * q * n
                                        + 10 * q * p * n))
     return n_bytes, n_ops
@@ -162,19 +163,20 @@ def rglru_cost(a, dtype, h0: bool = False):
             * (2 if h0 else 1), 2 * n)
 
 
-def rglru_bwd_cost(a, h0: bool):
-    """Kernel 7's backward (fp32): a, y, dy read and da, db written, the
-    final state's gradient read (with ``h0`` also h0 read and dh0
-    written); an add and two multiplies a step."""
+def rglru_bwd_cost(a, h0: bool, dtype=torch.float32):
+    """Kernel 7's backward: a, y, dy read and da, db written at ``dtype``,
+    the final state's gradient read in fp32 (with ``h0`` also h0 read and
+    dh0 written); an add and two multiplies a step."""
     n = a.numel()
-    return 4 * (5 * n + (3 if h0 else 1) * a.shape[0] * a.shape[2]), 3 * n
+    return (5 * n * esize(dtype)
+            + 4 * (3 if h0 else 1) * a.shape[0] * a.shape[2], 3 * n)
 
 
-def bwd_cost(b, sq, sk, h, kh, d, causal, window):
+def bwd_cost(b, sq, sk, h, kh, d, causal, window, dtype=torch.float32):
     """The flash backward's bytes (q, o, dO, k, v read; dq, dk, dv
-    written, fp32) and operations (:data:`BWD_OPS` times the forward's
-    over the seen pairs)."""
-    n_bytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * 4
+    written, at ``dtype``) and operations (:data:`BWD_OPS` times the
+    forward's over the seen pairs)."""
+    n_bytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * esize(dtype)
     _, fwd_ops = flash_cost(b, sq, torch.float32, h=h, kh=kh, d=d,
                             window=window, causal=causal, sk=sk)
     return n_bytes, BWD_OPS * fwd_ops
@@ -197,7 +199,7 @@ def flash_bwd_price(q, k, causal, window, group):
     """Kernel 1's backward on q (BH, Sq, D), k (BH/group, Sk, D)."""
     bh, sq, d = q.shape
     return (*bwd_cost(1, sq, k.shape[1], bh, bh // group, d, causal,
-                      window), torch.float32)
+                      window, q.dtype), q.dtype)
 
 
 def paged_price(q, pos, k_pages, block_tables):
@@ -238,8 +240,8 @@ def ssd_price(xw, B_, state0):
 
 def ssd_bwd_price(xw, B_, state0):
     """Kernel 6's backward."""
-    return (*ssd_bwd_cost(xw, B_.shape[-1], state0 is not None),
-            torch.float32)
+    return (*ssd_bwd_cost(xw, B_.shape[-1], state0 is not None, xw.dtype),
+            xw.dtype)
 
 
 def rglru_price(a, h0):
@@ -249,4 +251,4 @@ def rglru_price(a, h0):
 
 def rglru_bwd_price(a, h0):
     """Kernel 7's backward."""
-    return (*rglru_bwd_cost(a, h0 is not None), torch.float32)
+    return (*rglru_bwd_cost(a, h0 is not None, a.dtype), a.dtype)

@@ -33,6 +33,9 @@
 //     tiles in shared memory.
 //   Both keep the score tiles on chip, so no S×S matrix reaches HBM, and
 //   skip the KV tiles that the causal or window mask removes whole.
+//   flash_attention_fwd_lse is the bf16 launch of the training forward: an
+//   instantiation of its own that also writes each row's log2-sum-exp2,
+//   so kernel 1's bf16 backward need not recompute it.
 //
 // paged_decode_fwd, paged_decode_split_fwd
 //   Replace src/repro/kernels/paged_decode_attention.py:73
@@ -188,6 +191,16 @@ __global__ void __launch_bounds__(THREADS)
     flash_kernel(const __grid_constant__ FlashArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   flash_body<T, D>(a, blockIdx.x, smem);
+}
+
+// the bf16 flash body that also writes each row's log2-sum-exp2: the
+// forward of kernel 1's gradient (flash_attention_bwd_tc reads it); the
+// serving kernels instantiate flash_tc_item without it
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_lse_kernel(const __grid_constant__ FlashArgs a, float *lse2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  flash_tc_item<D, true>(a, blockIdx.x, smem, lse2);
 }
 
 // the fp32 decode bodies, one CTA per (slot, kv head)
@@ -574,6 +587,17 @@ int launch_flash(FlashArgs a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_flash_lse(FlashArgs a, float *lse2, cudaStream_t s) {
+  if (!encode_flash<bf16>(a, D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = flash_smem<bf16>(D);
+  auto kern = flash_lse_kernel<D>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<a.bh * flash_q_tiles<bf16>(a.sq), THREADS, smem, s>>>(a, lse2);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, typename DA>
 int launch_decode(const DA &a, cudaStream_t s) {
   if (!split_ok<T>(a)) return (int)cudaErrorInvalidValue;
@@ -685,6 +709,22 @@ int flash_attention_fwd(const void *q, const void *k, const void *v, void *o,
               1.0f / sqrtf((float)d)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH(d, dtype, (launch_flash<T, D>(a, s)));
+}
+
+// bf16, q_offset 0: flash_attention_fwd's bf16 launch that also writes
+// each query row's log2-sum-exp2 of its scaled logits to lse2 (bh, sq)
+// fp32, for kernel 1's bf16 backward
+int flash_attention_fwd_lse(const void *q, const void *k, const void *v,
+                            void *o, float *lse2, int bh, int sq, int sk,
+                            int d, int group, int causal, int window,
+                            void *stream) {
+  FlashArgs a{q, k, v, o, bh, sq, sk, group, causal, window, 0,
+              1.0f / sqrtf((float)d)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_flash_lse<64>(a, lse2, s);
+  if (d == 128) return launch_flash_lse<128>(a, lse2, s);
+  if (d == 256) return launch_flash_lse<256>(a, lse2, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // one item per (slot, kv head) (in bf16 the split body with one piece)

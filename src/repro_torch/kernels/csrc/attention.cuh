@@ -734,13 +734,15 @@ __host__ __device__ constexpr int flash_tc_smem_bytes(int d) {
 // products. Tiles that the causal or window mask removes whole for the
 // CTA are never loaded; a warpgroup skips the ones it masks whole. The
 // barriers are initialised per item and invalidated after it, so the
-// persistent fused kernel starts each item at phase 0. D = 64, 128 or 256:
+// persistent fused kernel starts each item at phase 0. With LSE (the
+// forward of the gradient, an instantiation of its own) each row's
+// log2-sum-exp2 goes to lse2 (BH, Sq) too. D = 64, 128 or 256:
 // a row is D/64 chunks of 128 bytes (one at D = 64, so the q tile and each
 // K/V tile are one TMA box and half D = 128's shared memory), and the PV
 // product is one m64nDk16 wgmma per 16 keys (o holds D/2 floats a thread).
-template <int D>
+template <int D, bool LSE = false>
 __device__ void flash_tc_item(const FlashArgs &a, int item,
-                              unsigned char *smem) {
+                              unsigned char *smem, float *lse2 = nullptr) {
   constexpr int NC = D / 64;            // 128-byte column chunks of a row
   constexpr int QCH = TC_BQ * 128;      // one chunk of the q tile
   constexpr int KCH = TC_BK * 128;      // one chunk of a K or V tile
@@ -918,6 +920,14 @@ __device__ void flash_tc_item(const FlashArgs &a, int item,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if constexpr (LSE) {
+    // the gradient's forward: each row's log2-sum-exp2 of its scaled
+    // logits, m + log2(l) in base 2 (the serving kernels compile this out)
+    if (pair == 0 && r0 < a.sq)
+      lse2[(size_t)bh * a.sq + r0] = m0 + log2f(fmaxf(l0, 1e-30f));
+    if (pair == 0 && r0 + 8 < a.sq)
+      lse2[(size_t)bh * a.sq + r0 + 8] = m1 + log2f(fmaxf(l1, 1e-30f));
+  }
   __nv_bfloat16 *out = static_cast<__nv_bfloat16 *>(a.o);
 #pragma unroll
   for (int j = 0; j < D / 2; j += 2) {

@@ -41,20 +41,24 @@
 //     da_t = dh_t * h_{t-1},  db_t = dh_t,  dh0 = a_0 * dh_0,
 //   with h_{t-1} read from the forward's y (exact in fp32), h_{-1} = h0
 //   (zeros when h0 is null) and dh_T the final state's gradient (zeros when
-//   null). Inputs a, y, dy (B, S, W), h0 and dh_T (B, W); outputs da, db
-//   (B, S, W) and dh0 (B, W, skipped when null), all fp32.
+//   null). Inputs a, y, dy (B, S, W) of one dtype (fp32 or bf16: the
+//   gradient of the bf16 forward, which writes y in bf16, so h_{t-1} is
+//   read as the forward rounded it), h0 and dh_T (B, W) fp32; outputs da,
+//   db (B, S, W) in a's dtype and dh0 (B, W, skipped when null) in fp32.
+//   The carried gradient and every product stay fp32 in both dtypes.
 //
 //   Design: the forward's body run backwards: one thread per channel, warps
 //   on consecutive w, the next UNROLL steps of a, y and dy loaded into
 //   registers before the current block's dependent updates. Each update is
 //   a round-to-nearest multiply, then an add, as the plain backward
 //   (kernels/ref.py rglru_scan_bwd_ref) computes it, so the two agree bit
-//   for bit.
+//   for bit (fp32; in bf16 the plain backward runs on a, y, dy as fp32 and
+//   rounds da, db once at the end, as this body does).
 //
 //   Bound on an H100: bytes. 5 elements a step are moved (a, y, dy read,
 //   da, db written) for 3 operations; at B = 4, S = 3000, W = 2560 that is
-//   614 MB, 0.18 ms at 3.35 TB/s. Like the forward it keeps only 10,240
-//   chains in flight at B = 4.
+//   614 MB in fp32 (0.18 ms at 3.35 TB/s), half in bf16. Like the forward
+//   it keeps only 10,240 chains in flight at B = 4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,19 +136,32 @@ int launch_rglru(const RglruArgs &a, cudaStream_t s) {
 }
 
 struct RglruBwdArgs {
-  const float *a, *y, *h0, *dy, *dh_last;  // h0, dh_last may be null
-  float *da, *db, *dh0;                    // dh0 may be null
+  const void *a, *y, *dy;                  // (B, S, W), fp32 or bf16
+  const float *h0, *dh_last;               // may be null
+  void *da, *db;                           // (B, S, W), a's dtype
+  float *dh0;                              // may be null
   int batch, s, w;
 };
 
+// element i of the backward's inputs as fp32: a plain load in fp32; in
+// bf16 the 16 bits widened in registers (no conversion instruction between
+// the loads of a block, so they go out together)
+__device__ __forceinline__ float ld(const float *p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const __nv_bfloat16 *p, size_t i) {
+  return __uint_as_float(
+      (unsigned)reinterpret_cast<const unsigned short *>(p)[i] << 16);
+}
+template <typename T>
 __global__ void __launch_bounds__(RG_THREADS)
     rglru_scan_bwd_kernel(RglruBwdArgs p) {
   const long ch = (long)blockIdx.x * RG_THREADS + threadIdx.x;
   if (ch >= (long)p.batch * p.w) return;
   const long bb = ch / p.w, ww = ch % p.w;
   const size_t base = (size_t)bb * p.s * p.w + ww;
-  const float *a = p.a + base, *y = p.y + base, *dy = p.dy + base;
-  float *da = p.da + base, *db = p.db + base;
+  const T *a = static_cast<const T *>(p.a) + base;
+  const T *y = static_cast<const T *>(p.y) + base;
+  const T *dy = static_cast<const T *>(p.dy) + base;
+  T *da = static_cast<T *>(p.da) + base, *db = static_cast<T *>(p.db) + base;
   const size_t stride = p.w;
   const float h_init = p.h0 ? p.h0[ch] : 0.f;
 
@@ -153,9 +170,9 @@ __global__ void __launch_bounds__(RG_THREADS)
 #pragma unroll
   for (int u = 0; u < UNROLL; ++u) {
     const int t = p.s - 1 - u;
-    an[u] = t >= 0 ? a[t * stride] : 0.f;
-    dn[u] = t >= 0 ? dy[t * stride] : 0.f;
-    hn[u] = t >= 1 ? y[(t - 1) * stride] : h_init;
+    an[u] = t >= 0 ? ld(a, t * stride) : 0.f;
+    dn[u] = t >= 0 ? ld(dy, t * stride) : 0.f;
+    hn[u] = t >= 1 ? ld(y, (t - 1) * stride) : h_init;
   }
   float g = p.dh_last ? p.dh_last[ch] : 0.f;  // a_{t+1} * dh_{t+1}
   for (int t0 = p.s - 1; t0 >= 0; t0 -= UNROLL) {
@@ -170,17 +187,17 @@ __global__ void __launch_bounds__(RG_THREADS)
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int t = t0 - UNROLL - u;
-      an[u] = t >= 0 ? a[t * stride] : 0.f;
-      dn[u] = t >= 0 ? dy[t * stride] : 0.f;
-      hn[u] = t >= 1 ? y[(t - 1) * stride] : h_init;
+      an[u] = t >= 0 ? ld(a, t * stride) : 0.f;
+      dn[u] = t >= 0 ? ld(dy, t * stride) : 0.f;
+      hn[u] = t >= 1 ? ld(y, (t - 1) * stride) : h_init;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
       const int t = t0 - u;
       if (t >= 0) {
         const float dh = __fadd_rn(g, dc[u]);
-        da[t * stride] = __fmul_rn(dh, hc[u]);
-        db[t * stride] = dh;
+        da[t * stride] = from_f<T>(__fmul_rn(dh, hc[u]));
+        db[t * stride] = from_f<T>(dh);
         g = __fmul_rn(ac[u], dh);
       }
     }
@@ -203,18 +220,24 @@ int rglru_scan_fwd(const void *a, const void *b, const float *h0, void *y,
   return (int)cudaErrorInvalidValue;
 }
 
-// fp32 only: a, y (the forward's output), dy (B, S, W); h0, dh_last (B, W)
-// or null for zeros; writes da, db (B, S, W) and, unless null, dh0 (B, W)
-int rglru_scan_bwd(const float *a, const float *y, const float *h0,
-                   const float *dy, const float *dh_last, float *da,
-                   float *db, float *dh0, int batch, int s, int w,
+// a, y (the forward's output), dy (B, S, W) of dtype 0 (fp32) or 1 (bf16);
+// h0, dh_last (B, W) fp32 or null for zeros; writes da, db (B, S, W) in
+// a's dtype and, unless null, dh0 (B, W) fp32
+int rglru_scan_bwd(const void *a, const void *y, const float *h0,
+                   const void *dy, const float *dh_last, void *da, void *db,
+                   float *dh0, int batch, int s, int w, int dtype,
                    void *stream) {
   if (batch < 1 || s < 1 || w < 1) return (int)cudaErrorInvalidValue;
-  RglruBwdArgs p{a, y, h0, dy, dh_last, da, db, dh0, batch, s, w};
+  RglruBwdArgs p{a, y, dy, h0, dh_last, da, db, dh0, batch, s, w};
   const long channels = (long)batch * w;
   const int blocks = (int)((channels + RG_THREADS - 1) / RG_THREADS);
-  rglru_scan_bwd_kernel<<<blocks, RG_THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    rglru_scan_bwd_kernel<float><<<blocks, RG_THREADS, 0, st>>>(p);
+  else if (dtype == 1)
+    rglru_scan_bwd_kernel<__nv_bfloat16><<<blocks, RG_THREADS, 0, st>>>(p);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@ engine discards those rows either way.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -175,6 +177,35 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.transpose(1, 2).reshape(bh, sq, d)
 
 
+def _flash_mask(sq: int, sk: int, causal: bool, window: int, device):
+    """(Sq, Sk) bool: key j is seen by query i iff (not causal or j <= i)
+    and (no window or j > i - window)."""
+    i = torch.arange(sq, device=device)[:, None]
+    j = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (j <= i)
+    if window > 0:
+        mask = mask & (j > i - window)
+    return mask
+
+
+def flash_lse_ref(q, k, *, causal: bool = True, window: int = 0,
+                  group: int = 1):
+    """Each query row's log2-sum-exp2 of its scaled logits over the keys
+    it sees, log2(sum_j 2^(q·k_j · D^-0.5 · log2 e)), (BH, Sq) fp32 from
+    q (BH, Sq, D) and k (BH/group, Sk, D) in fp32, at ``q_offset`` 0: the
+    plain version of what ``flash_attention_fwd_lse`` writes for kernel
+    1's bf16 backward."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    s = torch.einsum("hgqd,hkd->hgqk", q.float().reshape(bhk, group, sq, d),
+                     k.float()) * d ** -0.5
+    s = s.masked_fill(~_flash_mask(sq, sk, causal, window, q.device),
+                      NEG_INF)
+    return (torch.logsumexp(s, dim=-1) * math.log2(math.e)).reshape(bh, sq)
+
+
 def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
                             window: int = 0, group: int = 1):
     """The gradient of ``flash_attention_ref`` at ``q_offset`` 0, written
@@ -191,13 +222,7 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal: bool = True,
     scale = d ** -0.5
     qs = (q * scale).to(q.dtype).float().reshape(bhk, group, sq, d)
     kf, vf = k.float(), v.float()
-    i = torch.arange(sq, device=q.device)[:, None]
-    j = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (j <= i)
-    if window > 0:
-        mask = mask & (j > i - window)
+    mask = _flash_mask(sq, sk, causal, window, q.device)
     s = torch.einsum("hgqd,hkd->hgqk", qs, kf).masked_fill(~mask, NEG_INF)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.exp(s - lse).masked_fill(~mask, 0.0)

@@ -13,11 +13,10 @@ Its gradient: where grad mode is on and a, b or h0 requires grad,
 :func:`rglru_scan` runs as :class:`RglruScan`, whose forward is the kernel
 above (or the plain version, for CPU tensors) and whose backward is
 :func:`rglru_scan_bwd`: the hand-written kernel ``rglru_scan_bwd``
-(``csrc/rglru_scan.cu``; fp32) for CUDA tensors, the plain backward
-``ref.rglru_scan_bwd_ref`` for CPU tensors. It replaces no TPU kernel:
-the JAX package takes the recurrence's gradient through XLA. On the card a
-bf16 input that needs a gradient raises ``ValueError`` at the forward
-(ROADMAP §2 R18), so no result is ever cut off from the graph.
+(``csrc/rglru_scan.cu``; fp32 or bf16, the state and the sums in fp32)
+for CUDA tensors, the plain backward ``ref.rglru_scan_bwd_ref`` for CPU
+tensors. It replaces no TPU kernel: the JAX package takes the
+recurrence's gradient through XLA.
 """
 
 from __future__ import annotations
@@ -63,10 +62,6 @@ def rglru_scan(a, b, h0=None):
     through :class:`RglruScan` (the module docstring)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
-        if a.is_cuda and a.dtype != torch.float32:
-            raise ValueError(f"rglru_scan: the backward on the card takes "
-                             f"float32, got {a.dtype} (bf16: ROADMAP §2 "
-                             "R18)")
         return RglruScan.apply(a, b, h0)
     return _forward(a, b, h0)
 
@@ -92,11 +87,12 @@ class RglruScan(torch.autograd.Function):
 
 def rglru_scan_bwd(a, y, h0, dy, dh_last):
     """The gradient of :func:`rglru_scan`: a, y (its output), dy (B, S, W);
-    h0, dh_last (B, W) or None (zeros). Returns (da, db, dh0) fp32, dh0
+    h0, dh_last (B, W) or None (zeros). Returns (da, db, dh0): da and db
+    in a's dtype on the card (fp32 from the plain backward), dh0 fp32,
     None without h0.
 
-    CUDA tensors launch ``rglru_scan_bwd`` (float32); CPU tensors run the
-    plain backward; meta tensors get empty gradients."""
+    CUDA tensors launch ``rglru_scan_bwd`` (float32 or bfloat16); CPU
+    tensors run the plain backward; meta tensors get empty gradients."""
     if cost.COUNTER is not None:
         with cost.COUNTER.kernel("rglru_scan_bwd", lambda: (
                 cost.rglru_bwd_price(a, h0))):
@@ -110,9 +106,6 @@ def _backward(a, y, h0, dy, dh_last):
     fp32 = tuple(t for t in (h0, dh_last) if t is not None)
     code = build.check_inputs("rglru_scan_bwd", (a, y, dy), fp32=fp32,
                               head_dim=False)
-    if code != build.DTYPE_CODES["torch.float32"]:
-        raise ValueError(f"rglru_scan_bwd: float32 only, got {a.dtype} "
-                         "(bf16: ROADMAP §2 R18)")
     if (a.dim() != 3 or y.shape != a.shape or dy.shape != a.shape
             or any(tuple(t.shape) != (a.shape[0], a.shape[2])
                    for t in fp32)):
@@ -133,7 +126,7 @@ def _backward(a, y, h0, dy, dh_last):
         a.data_ptr(), y.data_ptr(), None if h0 is None else h0.data_ptr(),
         dy.data_ptr(), None if dh_last is None else dh_last.data_ptr(),
         da.data_ptr(), db.data_ptr(), None if dh0 is None else dh0.data_ptr(),
-        bsz, s, w, build.stream_of(a))
+        bsz, s, w, code, build.stream_of(a))
     build.check(rc, "rglru_scan_bwd")
     global bwd_launches
     bwd_launches += 1

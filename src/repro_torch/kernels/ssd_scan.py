@@ -29,12 +29,13 @@ way.
 Its gradient: where grad mode is on and an input requires grad,
 :func:`ssd_scan` runs as :class:`SsdScan`, whose forward is the kernel
 above (or the plain version, for CPU tensors) and whose backward is
-:func:`ssd_scan_bwd`: the hand-written kernels behind ``ssd_scan_bwd``
-(``csrc/ssd_scan_bwd.cu``; fp32, P up to 64) for CUDA tensors, the plain
-backward ``ref.ssd_scan_bwd_ref`` for CPU tensors. It replaces no TPU
-kernel: the JAX package takes the scan's gradient through XLA. On the card
-a bf16 input that needs a gradient raises ``ValueError`` at the forward
-(ROADMAP §2 R18), so no result is ever cut off from the graph.
+:func:`ssd_scan_bwd`: for CUDA tensors the hand-written kernels behind
+``ssd_scan_bwd`` (``csrc/ssd_scan_bwd.cu``; fp32, on the CUDA cores) and
+``ssd_scan_bwd_tc`` (``csrc/ssd_scan_bwd_tc.cu``; bf16, on the tensor
+cores: C Bᵀ once per (row, chunk, tile pair), a CTA walking a group of
+heads over it), P up to 64; the plain backward ``ref.ssd_scan_bwd_ref``
+for CPU tensors. It replaces no TPU kernel: the JAX package takes the
+scan's gradient through XLA.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import cost
+from repro_torch.kernels import decode_attention
 from repro_torch.kernels import ref
 from repro_torch.kernels.geometry import SSD_P_SLICES, SSD_TILE
 
@@ -59,6 +61,17 @@ MAX_BWD_P = 64
 
 #: the plain backward: the gradient written out (ref.py)
 ssd_scan_bwd_plain = ref.ssd_scan_bwd_ref
+#: rows of a chunk per tile of the bf16 backward (``csrc/ssd_scan_bwd_tc.cu``)
+BWD_TILE = 64
+
+
+def bwd_heads_a_group(ctas: int, h: int, sms: int) -> int:
+    """Heads one CTA of the bf16 backward's tile kernel walks: ``ctas``
+    CTAs a head group (batch rows × chunks × row tiles × 2 roles), enough
+    groups for four CTAs an SM on ``sms`` SMs where the heads allow, the
+    heads split evenly over them."""
+    groups = min(h, max(1, -(-4 * sms // max(ctas, 1))))
+    return -(-h // groups)
 
 
 def ssd_scan_plain(xw, cum, B_, C, state0=None):
@@ -106,10 +119,6 @@ def ssd_scan(xw, cum, B_, C, state0=None, *, p_slice: int = 0):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (xw, cum, B_, C, state0)):
-        if xw.is_cuda and xw.dtype != torch.float32:
-            raise ValueError(f"ssd_scan: the backward on the card takes "
-                             f"float32, got {xw.dtype} (bf16: ROADMAP §2 "
-                             "R18)")
         return SsdScan.apply(xw, cum, B_, C, state0, p_slice)
     return _forward(xw, cum, B_, C, state0, p_slice=p_slice)
 
@@ -155,9 +164,6 @@ def _backward(xw, cum, B_, C, state0, dy, dstate):
     fp32 = tuple(t for t in (cum, state0, dstate) if t is not None)
     code = build.check_inputs("ssd_scan_bwd", (xw, B_, C, dy), fp32=fp32,
                               head_dim=False)
-    if code != build.DTYPE_CODES["torch.float32"]:
-        raise ValueError(f"ssd_scan_bwd: float32 only, got {xw.dtype} "
-                         "(bf16: ROADMAP §2 R18)")
     b, nc, q, h, p = xw.shape
     n = B_.shape[-1]
     if (tuple(cum.shape) != (b, nc, q, h) or B_.shape != C.shape
@@ -171,6 +177,10 @@ def _backward(xw, cum, B_, C, state0, dy, dstate):
         raise ValueError(f"ssd_scan_bwd: chunk {q} (at most {MAX_CHUNK}), "
                          f"state {n} (at most {MAX_STATE}) and head dim {p} "
                          f"(at most {MAX_BWD_P})")
+    tc = code == build.DTYPE_CODES["torch.bfloat16"]
+    if tc and (n % 8 or p % 8):
+        raise ValueError(f"ssd_scan_bwd: in bfloat16 the state {n} and the "
+                         f"head dim {p} must be multiples of 8")
     dxw = torch.empty_like(xw)
     dcum = torch.empty_like(cum)
     dB = torch.empty_like(B_)
@@ -187,21 +197,40 @@ def _backward(xw, cum, B_, C, state0, dy, dstate):
         return dxw, dcum, dB, dC, dstate0
     f32 = dict(dtype=torch.float32, device=xw.device)
     # the states entering every chunk and the last (S), the gradient of
-    # the state each chunk leaves (G), B's and C's gradients per head, the
-    # two halves of cum's
+    # the state each chunk leaves (G), the two halves of cum's gradient
     states = torch.empty(b, nc + 1, h, p, n, **f32)
     grads = torch.empty(b, nc, h, p, n, **f32)
-    dbh = torch.empty(b, nc, h, q, n, **f32)
-    dch = torch.empty(b, nc, h, q, n, **f32)
     dcum2 = torch.empty(2, b, nc, q, h, **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = build.library().ssd_scan_bwd(
-        xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
-        ptr(state0), dy.data_ptr(), ptr(dstate), dxw.data_ptr(),
-        dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dstate0),
-        states.data_ptr(), grads.data_ptr(), dbh.data_ptr(),
-        dch.data_ptr(), dcum2.data_ptr(), b, nc, q, h, p, n,
-        build.stream_of(xw))
+    if tc:
+        build.check_aligned("ssd_scan_bwd", (xw, B_, C, dy))
+        nt = -(-q // BWD_TILE)
+        hg = bwd_heads_a_group(b * nc * nt * 2, h,
+                               decode_attention.sm_count(xw.device.index))
+        groups = -(-h // hg)
+        # C Bᵀ per (row, chunk) in whole tiles, B's and C's gradients per
+        # head group
+        cb = torch.empty(b, nc, nt * BWD_TILE, nt * BWD_TILE, **f32)
+        dbg = torch.empty(b, nc, groups, q, n, **f32)
+        dcg = torch.empty(b, nc, groups, q, n, **f32)
+        rc = build.library().ssd_scan_bwd_tc(
+            xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
+            ptr(state0), dy.data_ptr(), ptr(dstate), dxw.data_ptr(),
+            dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dstate0),
+            states.data_ptr(), grads.data_ptr(), cb.data_ptr(),
+            dbg.data_ptr(), dcg.data_ptr(), dcum2.data_ptr(), b, nc, q, h,
+            p, n, hg, build.stream_of(xw))
+    else:
+        # B's and C's gradients per head
+        dbh = torch.empty(b, nc, h, q, n, **f32)
+        dch = torch.empty(b, nc, h, q, n, **f32)
+        rc = build.library().ssd_scan_bwd(
+            xw.data_ptr(), cum.data_ptr(), B_.data_ptr(), C.data_ptr(),
+            ptr(state0), dy.data_ptr(), ptr(dstate), dxw.data_ptr(),
+            dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(), ptr(dstate0),
+            states.data_ptr(), grads.data_ptr(), dbh.data_ptr(),
+            dch.data_ptr(), dcum2.data_ptr(), b, nc, q, h, p, n,
+            build.stream_of(xw))
     build.check(rc, "ssd_scan_bwd")
     global bwd_launches
     bwd_launches += 1

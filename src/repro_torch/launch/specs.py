@@ -2,12 +2,14 @@
 input, the step functions the dry-run traces, and their partition specs:
 the port of the JAX package's ``launch/specs.py``.
 
-  train_4k     -> the train step (fp32, the dtype the port trains in)
+  train_4k     -> the train step (bf16 params, fp32 moments)
   prefill_32k  -> prefill(params, tokens, lengths, cache[, frontend])
   decode_32k   -> decode_step(params, cache, tokens, pos)
   long_500k    -> decode_step over the ring-window / state caches
 
-The serving steps run in bf16 on the dense slot cache. Every tensor lives
+Every step runs in bf16, as the JAX dry-run's (``DTYPE``): the train step
+on a bf16 param tree (the optimizer's moments fp32), the serving steps on
+the dense slot cache. Every tensor lives
 on the meta device: shapes and dtypes, no storage, no device touched.
 """
 
@@ -25,10 +27,8 @@ from repro_torch.training.trainer import (make_train_step,
                                           train_step_shardings)
 from repro_torch.training.tree import leaves
 
-#: the serving steps' dtype
+#: the steps' dtype, the train step's included
 DTYPE = torch.bfloat16
-#: the train step's dtype (ROADMAP §2 R18: the port trains in fp32)
-TRAIN_DTYPE = torch.float32
 
 
 def meta(shape, dtype) -> torch.Tensor:
@@ -126,7 +126,7 @@ def build_dryrun(arch: str, shape_name: str, mesh, *,
         accum = _accum_steps(cfg, policy, shape.seq_len, shape.global_batch)
         init_fn, step_fn = make_train_step(cfg, remat=True,
                                            accum_steps=accum)
-        state = init_fn(abstract_params(cfg, TRAIN_DTYPE))
+        state = init_fn(abstract_params(cfg))
         (state_specs, batch_specs), (out_state_specs, metric_specs) = \
             train_step_shardings(cfg, policy)
         bspecs = {k: batch_specs.get(k, Spec(bax, None, None)) for k in ins}

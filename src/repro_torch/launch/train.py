@@ -5,7 +5,8 @@ Two modes:
 - host (default): really train, on one CUDA card unless ``--device cpu``
   is given: the reduced variant of the selected architecture unless
   ``--full`` is passed, params from the port's seeded init (``--seed``),
-  fp32, per-block remat, the optimizer the config's size picks, the
+  fp32 (``run``'s ``param_dtype`` takes bf16, with no flag, as the JAX
+  launcher has none), per-block remat, the optimizer the config's size picks, the
   synthetic LM stream. It prints the JAX launcher's step lines; on the
   card also the median ms a step (the first, which builds the kernels,
   apart), tok/s and the peak of allocated device memory. Every config
@@ -63,9 +64,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(args: argparse.Namespace) -> TrainRun:
+def run(args: argparse.Namespace,
+        param_dtype: torch.dtype = torch.float32) -> TrainRun:
     """Train as ``--mode host`` does and return the run (``--mode
-    dryrun`` is :func:`main`'s)."""
+    dryrun`` is :func:`main`'s). ``param_dtype`` is the param tree's dtype:
+    the command line trains in fp32, as the JAX launcher does; a caller may
+    pass ``torch.bfloat16``, the JAX package's production train step (fp32
+    moments, the update in fp32, cast back)."""
     if args.mode == "dryrun":
         raise ValueError("run() trains; --mode dryrun goes through main()")
     from repro_torch.configs import get_config
@@ -78,7 +83,7 @@ def run(args: argparse.Namespace) -> TrainRun:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    params = T.init_params(cfg, seed=args.seed, dtype=torch.float32,
+    params = T.init_params(cfg, seed=args.seed, dtype=param_dtype,
                            device=device)
     print(f"training {cfg.name}: {T.param_count(params)/1e6:.1f}M params, "
           f"batch {args.batch} x seq {args.seq}, {args.steps} steps",

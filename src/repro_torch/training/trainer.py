@@ -5,14 +5,19 @@ metrics; the JAX package's ``training/trainer.py`` in plain PyTorch.
 Gradients come from ``torch.autograd.grad`` over the param tree's leaves
 (the model holds no module state): each leaf enters the loss as a
 detached alias that requires grad, so the caller's tensors never carry
-autograd state. Every config trains on the card in fp32: attention's
-gradient is kernel 1's backward (``kernels/flash_attention.py``), the SSD
-scan's kernel 6's (``kernels/ssd_scan.py``) and the RG-LRU scan's kernel
-7's (``kernels/rglru_scan.py``), each a hand-written CUDA kernel under a
-``torch.autograd.Function``; a bf16 input that needs a gradient raises
-there (ROADMAP §2 R18). ``train_step_shardings`` gives the train state's
-partition specs (the dry-run's residency per device); the sharded step
-itself waits for ROADMAP §1 item 8d.
+autograd state. Every config trains on the card in fp32 and in bf16 (a
+bf16 param tree, as the JAX dry-run's production step: the gradients
+taken in the leaves' dtypes, then cast to fp32 for the accumulation, the
+global-norm clip and the optimizer, whose moments and update are fp32,
+the update cast back to each leaf's dtype, as the JAX step does; the
+leaves the port keeps in fp32, Mamba-2's ``A_log`` and RG-LRU's
+``lambda``, stay fp32). Attention's gradient is kernel 1's backward
+(``kernels/flash_attention.py``), the SSD scan's kernel 6's
+(``kernels/ssd_scan.py``) and the RG-LRU scan's kernel 7's
+(``kernels/rglru_scan.py``), each a hand-written CUDA kernel in both
+dtypes under a ``torch.autograd.Function``. ``train_step_shardings`` gives
+the train state's partition specs (the dry-run's residency per device);
+the sharded step itself waits for ROADMAP §1 item 8d.
 """
 
 from __future__ import annotations

@@ -7,9 +7,18 @@ numpy inputs: causal, windowed, non-causal with Sq != Sk, G 1/2/4, D
 ragged lengths. fp32, atol 2e-5 and rtol 1e-4 (both sides sum
 fp32 products of the same inputs in other orders; measured under 3e-6).
 
-The card test (marked ``cuda``, skips without a device) holds the CUDA
-backward ``flash_attention_bwd`` against the plain backward at the
-smoke's TOL. Run it on a GPU host:
+The same plain backward on bf16 inputs is held against ``jax.vjp`` of the
+JAX function run in bf16, each gradient within 2e-2 of its max abs.
+
+The card tests (marked ``cuda``, skip without a device) hold the CUDA
+backwards against the plain backward: ``flash_attention_bwd`` (fp32) at
+the smoke's TOL, ``flash_attention_bwd_tc`` (bf16, on the same inputs
+rounded to bf16, the plain in fp32) within 2e-2 of each gradient's max
+abs, two runs bit-equal; and the training forward that feeds it,
+``flash_attention_fwd_lse``: its output bit-equal to the serving
+forward's and within 2e-2 of the plain one, its log2-sum-exp2 within
+1e-3 of ``ref.flash_lse_ref`` (held against numpy in float64 on the CPU).
+Run them on a GPU host:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/port/test_torch_flash_grad.py
@@ -88,6 +97,46 @@ def test_plain_backward_matches_jax_vjp(case):
                                    rtol=RTOL, err_msg=f"d{name}")
 
 
+#: bf16: the plain backward (on bf16 inputs, in fp32) against jax.vjp of
+#: the JAX flash_ref_attention run in bf16 (its q·scale, probabilities and
+#: PV blocks rounded to bf16 as its forward rounds them): each gradient's
+#: max error over its max abs (measured up to 8.4e-3; the smoke's bf16
+#: attention tolerance)
+BF16_TOL = 2e-2
+#: the bf16 training forward's log2-sum-exp2 against the plain one on the
+#: card, absolute (the smoke's LSE_TOL: the kernel's exp2 is the
+#: hardware's approximate one)
+LSE_TOL = 1e-3
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_backward_bf16_matches_jax_vjp(case):
+    import jax
+    import jax.numpy as jnp
+    from repro.models.attention import flash_ref_attention
+    causal, window, b, sq, sk, h, k, d = case
+    q, kk, v, do = (x.astype(jnp.bfloat16) for x in _inputs(b, sq, sk, h,
+                                                            k, d, seed=3))
+
+    @jax.jit
+    def vjp(a, b_, c, dout):
+        _, f = jax.vjp(lambda x, y, z: flash_ref_attention(
+            x, y, z, causal=causal, window=window), a, b_, c)
+        return f(dout)
+
+    want = [np.asarray(g).astype(np.float32) for g in vjp(
+        *(jnp.asarray(x) for x in (q, kk, v, do)))]
+    ts = [torch.from_numpy(np.asarray(x).astype(np.float32)).to(
+        torch.bfloat16) for x in (q, kk, v, do)]
+    leaves = [t.clone().requires_grad_() for t in ts[:3]]
+    out = ops.flash_attention_op(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, ts[3])
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.bfloat16
+        err = float(np.abs(g.float().numpy() - w).max() / np.abs(w).max())
+        assert err <= BF16_TOL, f"d{name}: {err}"
+
+
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_plain_backward_matches_autograd_of_plain_forward(case):
     causal, window, b, sq, sk, h, k, d = case
@@ -106,6 +155,39 @@ def test_plain_backward_matches_autograd_of_plain_forward(case):
     for a, b_, name in zip(got, want, "qkv"):
         torch.testing.assert_close(a, b_, atol=ATOL, rtol=RTOL,
                                    msg=f"d{name}")
+
+
+#: the plain log2-sum-exp2 against numpy's in float64, absolute (log2
+#: units; fp32 sums of D products)
+LSE_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_lse_matches_numpy(case):
+    """``ref.flash_lse_ref`` (what the bf16 training forward writes for
+    the backward) against each row's log2-sum-exp2 of its scaled logits
+    over the keys it sees, computed in float64 with numpy."""
+    causal, window, b, sq, sk, h, k, d = case
+    q, kk, _, _ = _inputs(b, sq, sk, h, k, d, seed=4)
+    g = h // k
+    hm = lambda x: torch.from_numpy(x).transpose(1, 2).reshape(  # noqa: E731
+        -1, x.shape[1], d).contiguous()
+    got = kref.flash_lse_ref(hm(q), hm(kk), causal=causal, window=window,
+                             group=g).numpy()
+    qh = q.astype(np.float64).transpose(0, 2, 1, 3)       # (B, H, Sq, D)
+    kh = np.repeat(kk.astype(np.float64).transpose(0, 2, 1, 3), g, axis=1)
+    s = qh @ kh.transpose(0, 1, 3, 2) / np.sqrt(d)         # (B, H, Sq, Sk)
+    i, j = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    seen = np.ones((sq, sk), bool)
+    if causal:
+        seen &= j <= i
+    if window:
+        seen &= j > i - window
+    s = np.where(seen, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    want = (m[..., 0] + np.log(np.exp(s - m).sum(-1))) / np.log(2.0)
+    np.testing.assert_allclose(got, want.reshape(b * h, sq), atol=LSE_ATOL,
+                               rtol=0)
 
 
 def test_offset_and_card_dtype_refusals():
@@ -143,10 +225,31 @@ def test_cuda_backward_matches_plain(case):
                                         window=window, group=h // k)
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a, b_, atol=1e-4, rtol=0)
-    with pytest.raises(ValueError, match="R18"):
-        TF.flash_attention(q.bfloat16().requires_grad_(), kk.bfloat16(),
-                           v.bfloat16(), causal=causal, window=window,
-                           group=h // k)
+    # bf16 (the tensor-core body) against the plain backward on the same
+    # bf16 inputs in fp32; two runs give the same bits
+    q16, k16, v16, do16 = (t.bfloat16() for t in (q, kk, v, do))
+    kw = dict(causal=causal, window=window, group=h // k)
+    o16 = TF.flash_attention(q16, k16, v16, **kw)
+    # the training forward: the serving output bit for bit, within the
+    # smoke's bf16 attention tolerance of the plain forward, and each
+    # row's log2-sum-exp2 within LSE_TOL of the plain one
+    o_l, lse = TF._forward_lse(q16, k16, v16, **kw)
+    assert torch.equal(o_l, o16)
+    plain = TF.flash_attention_plain(q16, k16, v16, **kw)
+    assert (o_l.float() - plain.float()).abs().max() <= BF16_TOL
+    assert (lse - TF.flash_lse_plain(q16, k16, **kw)).abs().max() <= LSE_TOL
+    assert torch.equal(TF.flash_attention_bwd(q16, k16, v16, o16, do16,
+                                              lse=lse, **kw)[0],
+                       TF.flash_attention_bwd(q16, k16, v16, o16, do16,
+                                              **kw)[0])
+    got = TF.flash_attention_bwd(q16, k16, v16, o16, do16, **kw)
+    again = TF.flash_attention_bwd(q16, k16, v16, o16, do16, **kw)
+    want = TF.flash_attention_bwd_plain(
+        *(t.float() for t in (q16, k16, v16, o16, do16)), **kw)
+    for a, a2, b_ in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
+        assert ((a.float() - b_).abs().max() / b_.abs().max()
+                <= BF16_TOL)
 
 
 def test_pallas_gradient_split_is_pinned(monkeypatch):
@@ -190,10 +293,9 @@ def test_refuse_grad_raises_only_where_a_gradient_is_needed():
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_gradients():
-    """On the card kernels 2-5 raise when an input requires grad, and
-    kernel 1's bf16 body raises at the forward (at D = 256 too, which
-    trains in fp32): no wrapper returns a result cut off from the
-    graph."""
+    """On the card kernels 2-5 raise when an input requires grad, so no
+    wrapper returns a result cut off from the graph; kernel 1 in bf16
+    (D = 256 too) trains through its Function."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import bullet_attention as TB
@@ -223,8 +325,12 @@ def test_cuda_wrappers_refuse_gradients():
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=name):
             call()
-    q256 = torch.randn(2, 8, 256, device=dev, requires_grad=True)
-    k256 = torch.randn(1, 8, 256, device=dev)
-    with pytest.raises(ValueError, match="R18"):
-        TF.flash_attention(q256.detach().bfloat16().requires_grad_(),
-                           k256.bfloat16(), k256.bfloat16(), group=2)
+    # kernel 1 in bf16 under grad (D = 256 too) runs its Function: the
+    # gradient comes from the bf16 backward kernel, in bf16
+    q256 = torch.randn(2, 8, 256, device=dev).bfloat16().requires_grad_()
+    k256 = torch.randn(1, 8, 256, device=dev).bfloat16().requires_grad_()
+    before = TF.bwd_launches
+    out = TF.flash_attention(q256, k256, k256, group=2)
+    grads = torch.autograd.grad(out.float().sum(), (q256, k256))
+    assert TF.bwd_launches == before + 1
+    assert all(g.dtype == torch.bfloat16 for g in grads)

@@ -20,11 +20,18 @@ The last CPU test pins the reference-side split (ROADMAP §3): ``jax.grad``
 through the JAX Pallas ``ssd_scan`` and ``rglru_scan`` (interpret mode)
 raises, as it does through the Pallas flash kernel.
 
+The same model-level functions in bf16 (x, B, C or the gate weights and
+the output gradients in bf16 on both sides) are held against ``jax.vjp``
+of the JAX functions in bf16, each gradient within 2e-2 of its max abs
+(measured up to 4.8e-3).
+
 The card tests (marked ``cuda``, skip without a device) hold the CUDA
-backwards ``ssd_scan_bwd`` and ``rglru_scan_bwd`` against the plain
-backwards at the smoke's TOL, and check that a gradient through the
-wrappers on the card launches them and that bf16 raises. Run them on a
-GPU host:
+backwards against the plain backwards: ``ssd_scan_bwd`` and
+``rglru_scan_bwd`` in fp32 at the smoke's TOL, ``ssd_scan_bwd_tc`` and
+``rglru_scan_bwd`` in bf16 (the plain on the same inputs in fp32) within
+2e-2 and one bf16 ulp of each gradient's max abs, and check that a
+gradient through the wrappers on the card launches them, in both dtypes.
+Run them on a GPU host:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/port/test_torch_scan_grad.py
@@ -213,6 +220,58 @@ def test_ssd_chunked_gradients_match_jax_vjp(case):
         _close(g, w, MODEL_TOL, f"d{name}")
 
 
+#: bf16: x, B, C (SSD) or x and the gate weights (RG-LRU) and the output
+#: gradients in bf16, the rest fp32, on both sides; each gradient's max
+#: error over its max abs (the port's plain backwards run in fp32 on the
+#: bf16 values, JAX rounds at its own places)
+BF16_TOL = 2e-2
+
+
+def _bf16(a):
+    """numpy fp32 values rounded to bf16 (still fp32 arrays)."""
+    return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _close_bf16(got, want, what):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    assert err <= BF16_TOL, f"{what}: {err}"
+
+
+@pytest.mark.parametrize("case", SSD_MODEL_CASES,
+                         ids=["pad-tail", "state0", "one-chunk"])
+def test_ssd_chunked_bf16_gradients_match_jax_vjp(case):
+    import jax.numpy as jnp
+    b, s, h, p, n, chunk, with_s0, with_ds = case
+    args, s0, dy, ds = _ssd_model_inputs(b, s, h, p, n, 8)
+    s0 = s0 if with_s0 else None
+    ds = ds if with_ds else None
+    x, dt, A, bm, cm, D = args
+    lo = (0, 3, 4)                         # x, B, C in bf16
+    leaves = [torch.from_numpy(_bf16(a)).to(torch.bfloat16)
+              if i in lo else torch.from_numpy(a)
+              for i, a in enumerate(args)]
+    leaves = [t.requires_grad_() for t in leaves]
+    st0 = None if s0 is None else torch.from_numpy(s0).requires_grad_()
+    y, st = port_ssm.ssd_chunked(*leaves, chunk=chunk, state0=st0)
+    assert y.dtype == torch.bfloat16
+    dy16 = torch.from_numpy(_bf16(dy)).to(torch.bfloat16)
+    got = torch.autograd.grad(
+        (y, st), leaves + ([] if st0 is None else [st0]),
+        (dy16, torch.zeros_like(st) if ds is None else torch.from_numpy(ds)))
+    for i, g in enumerate(got[:6]):
+        assert g.dtype == leaves[i].dtype
+    jargs = [jnp.asarray(_bf16(a)).astype(jnp.bfloat16) if i in lo
+             else a for i, a in enumerate(args)]
+    want = _jax_ssd_grads(jargs, s0, jnp.asarray(_bf16(dy)).astype(
+        jnp.bfloat16), ds, chunk)
+    for g, w, name in zip(got, want, ("x", "dt", "A", "B", "C", "D",
+                                      "state0")):
+        _close_bf16(g.float().numpy(), np.asarray(w, np.float32),
+                    f"d{name}")
+
+
 def test_ssd_chunked_ragged_lengths_match_jax_rows():
     """A padded batch (dt = 0 past each row's length, as ``ssd_block``
     masks it) against JAX runs of each row cut to its length: the
@@ -309,6 +368,44 @@ def test_rglru_scan_gradients_match_jax_vjp(with_h0, with_dh):
     assert len(got) == len(want)
     for g, w_, name in zip(got, want, ("x",) + PARAM_KEYS + ("h0",)):
         _close(g, w_, MODEL_TOL, f"d{name}")
+
+
+@pytest.mark.parametrize("with_h0,with_dh", [(False, True), (True, True),
+                                             (True, False)],
+                         ids=["dh", "h0-dh", "h0"])
+def test_rglru_scan_bf16_gradients_match_jax_vjp(with_h0, with_dh):
+    import jax.numpy as jnp
+    b, s, w = 2, 29, 16
+    rng = np.random.default_rng(9)
+    x = _bf16(rng.standard_normal((b, s, w)))
+    params = {k: (v if k == "lambda" else _bf16(v))
+              for k, v in _rglru_params(w, 10).items()}
+    h0 = rng.standard_normal((b, w)).astype(np.float32) if with_h0 else None
+    dy = _bf16(rng.standard_normal((b, s, w)))
+    dh = rng.standard_normal((b, w)).astype(np.float32) if with_dh else None
+    xt = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    pt = {k: (torch.from_numpy(v) if k == "lambda" else
+              torch.from_numpy(v).to(torch.bfloat16)).requires_grad_()
+          for k, v in params.items()}
+    h0t = None if h0 is None else torch.from_numpy(h0).requires_grad_()
+    y, h_t = port_rglru.rglru_scan(xt, pt, h0t)
+    assert y.dtype == torch.bfloat16
+    wrt = [xt] + [pt[k] for k in PARAM_KEYS] + ([] if h0t is None
+                                                 else [h0t])
+    got = torch.autograd.grad(
+        (y, h_t), wrt, (torch.from_numpy(dy).to(torch.bfloat16),
+                        torch.zeros_like(h_t) if dh is None
+                        else torch.from_numpy(dh)))
+    for g, t in zip(got, wrt):
+        assert g.dtype == t.dtype
+    want = _jax_rglru_grads(
+        jnp.asarray(x).astype(jnp.bfloat16),
+        {k: (v if k == "lambda" else jnp.asarray(v).astype(jnp.bfloat16))
+         for k, v in params.items()}, h0,
+        jnp.asarray(dy).astype(jnp.bfloat16), dh)
+    for g, w_, name in zip(got, want, ("x",) + PARAM_KEYS + ("h0",)):
+        _close_bf16(g.float().numpy(), np.asarray(w_, np.float32),
+                    f"d{name}")
 
 
 def test_rglru_scan_ragged_lengths_match_jax_rows():
@@ -447,8 +544,7 @@ def test_cuda_rglru_backward_matches_plain(b, s, w, with_h0):
 @pytest.mark.cuda
 def test_cuda_scan_gradients_go_through_the_kernels():
     """A gradient through the wrappers on the card launches each backward
-    once and agrees with the plain backward; a bf16 input that needs a
-    gradient raises at the forward and names R18."""
+    once and agrees with the plain backward, in fp32 and in bf16."""
     gen = _card()
     xw = torch.randn(1, 2, 32, 2, 8, generator=gen, device="cuda")
     cum = torch.cumsum(-0.3 * torch.rand(1, 2, 32, 2, generator=gen,
@@ -472,8 +568,94 @@ def test_cuda_scan_gradients_go_through_the_kernels():
     y, h_t = TR.rglru_scan(a, bb)
     torch.autograd.grad(y.sum() + h_t.sum(), (a, bb))
     assert TR.bwd_launches == before + 1
-    with pytest.raises(ValueError, match="R18"):
-        TS.ssd_scan(leaves[0].detach().bfloat16().requires_grad_(), cum,
-                    bm.bfloat16(), cm.bfloat16())
-    with pytest.raises(ValueError, match="R18"):
-        TR.rglru_scan(a.detach().bfloat16().requires_grad_(), bb.bfloat16())
+    # bf16 under grad (N a multiple of 8): the bf16 backward kernels,
+    # gradients in the inputs' dtypes (cum's fp32), against the plain
+    # backwards in fp32
+    bm8 = torch.randn(1, 2, 32, 8, generator=gen, device="cuda")
+    cm8 = torch.randn(1, 2, 32, 8, generator=gen, device="cuda")
+    leaves16 = [t.detach().to(torch.bfloat16 if i != 1 else torch.float32)
+                .requires_grad_() for i, t in enumerate((xw, cum, bm8, cm8))]
+    before = TS.bwd_launches
+    y, st = TS.ssd_scan(*leaves16)
+    grads = torch.autograd.grad(y.float().sum() + st.sum(), leaves16)
+    assert TS.bwd_launches == before + 1
+    want = TS.ssd_scan_bwd_plain(*(t.detach().float() for t in leaves16),
+                                 None, torch.ones(y.shape, device="cuda"),
+                                 torch.ones_like(st))
+    for g, w, t in zip(grads, want, leaves16):
+        assert g.dtype == t.dtype
+        assert _scaled(g, w) <= BF16_TOL
+    a16 = a.detach().bfloat16().requires_grad_()
+    b16 = bb.detach().bfloat16().requires_grad_()
+    before = TR.bwd_launches
+    y, h_t = TR.rglru_scan(a16, b16)
+    grads = torch.autograd.grad(y.float().sum() + h_t.sum(), (a16, b16))
+    assert TR.bwd_launches == before + 1
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
+def _scaled(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+#: bf16 kernel cases (N and P multiples of 8): Mamba-2-2.7B's widths, a
+#: ragged chunk, the reduced config's
+SSD_BF16_CASES = [
+    (1, 4, 256, 8, 64, 128, True, True),
+    (2, 3, 100, 3, 40, 72, False, True),
+    (2, 8, 16, 2, 32, 16, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BF16_CASES)
+def test_cuda_ssd_bf16_backward_matches_plain(case):
+    """The bf16 backward (tensor cores) against the plain backward on the
+    same bf16 inputs in fp32, within BF16_TOL of each gradient's max abs;
+    two runs give the same bits."""
+    gen = _card()
+    b, nc, q, h, p, n, with_s0, with_ds = case
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    xw, bm, cm = (t.bfloat16() for t in (rn(b, nc, q, h, p),
+                                         rn(b, nc, q, n), rn(b, nc, q, n)))
+    cum = torch.cumsum(-0.3 * torch.rand(b, nc, q, h, generator=gen,
+                                         device="cuda"), dim=2)
+    s0 = rn(b, h, p, n) if with_s0 else None
+    dy = rn(b, nc, q, h, p).bfloat16()
+    ds = rn(b, h, p, n) if with_ds else None
+    before = TS.bwd_launches
+    got = TS.ssd_scan_bwd(xw, cum, bm, cm, s0, dy, ds)
+    assert TS.bwd_launches == before + 1
+    again = TS.ssd_scan_bwd(xw, cum, bm, cm, s0, dy, ds)
+    want = TS.ssd_scan_bwd_plain(xw.float(), cum, bm.float(), cm.float(),
+                                 s0, dy.float(), ds)
+    for g, w, g2, t in zip(got, want, again, (xw, cum, bm, cm, s0)):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == t.dtype and torch.equal(g, g2)
+        assert _scaled(g, w) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_rglru_bf16_backward_matches_plain():
+    """The bf16 backward against the plain backward on the same bf16
+    inputs in fp32: da and db rounded once, so within one bf16 ulp of
+    their scale."""
+    gen = _card()
+    b, s, w = 4, 3000, 2560
+    a = (torch.rand(b, s, w, generator=gen, device="cuda") * 0.8
+         + 0.2).bfloat16()
+    bb = torch.randn(b, s, w, generator=gen, device="cuda").bfloat16()
+    h0 = torch.randn(b, w, generator=gen, device="cuda")
+    y, _ = TR.rglru_scan(a, bb, h0)
+    dy = torch.randn(b, s, w, generator=gen, device="cuda").bfloat16()
+    dh = torch.randn(b, w, generator=gen, device="cuda")
+    got = TR.rglru_scan_bwd(a, y, h0, dy, dh)
+    want = TR.rglru_scan_bwd_plain(a.float(), y.float(), h0, dy.float(), dh)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    for g, w_ in zip(got, want):
+        assert _scaled(g, w_) <= 2.0 ** -8

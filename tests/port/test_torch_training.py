@@ -6,10 +6,10 @@ the synthetic batches bit for bit, the weight-decay mask leaf by leaf,
 each optimizer's update fed the same gradients (fp32, rtol 1e-5 and atol
 1e-7: elementwise ops in the same order, XLA may fuse a multiply-add),
 checkpoints written by either package loaded by the other bit for bit,
-the launcher's host mode and ``run``'s refusal of ``--mode dryrun`` (the
-dry-run goes through ``main``, tests/port/test_torch_dryrun.py); and
-per-block remat against none (the same gradients bit for bit, the MoE aux
-loss counted once)."""
+the launcher's host mode (on a bf16 param tree too) and ``run``'s
+refusal of ``--mode dryrun`` (the dry-run goes through ``main``,
+tests/port/test_torch_dryrun.py); and per-block remat against none (the
+same gradients bit for bit, the MoE aux loss counted once)."""
 
 import os
 
@@ -260,6 +260,19 @@ def test_launcher_host_mode_on_cpu(capsys, tmp_path):
     assert step == 12
     for a, b in zip(leaves(run.state.params), leaves(restored)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_launcher_run_takes_a_bf16_param_tree():
+    """``run(..., param_dtype=torch.bfloat16)``, the JAX package's
+    production dtype with no command-line flag: the params stay bf16
+    through the steps (the update in fp32, cast back) and the loss falls
+    as in fp32."""
+    run = launcher.run(launcher.parse_args(
+        ["--device", "cpu", "--steps", "12", "--batch", "4", "--seq", "32"]),
+        param_dtype=torch.bfloat16)
+    assert {a.dtype for a in leaves(run.state.params)} == {torch.bfloat16}
+    assert len(run.losses) == 12 and all(np.isfinite(run.losses))
+    assert run.losses[-1] < run.losses[0]
 
 
 def test_launcher_dryrun_raises():
