@@ -140,6 +140,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    table bucket or for the dense cache, the fused cycle's segments, the
    paged prefill groups and first tokens) counted by kind with their
    capture seconds, and the graph pool's peak;
+   chip (``phase_chip``): chip granularity over the group CHIP_GROUP,
+   the one card named twice (each side its own stream and page pool):
+   (a) ``partition="chip"`` on the same 12 requests, 8 slots: streams
+   identical to the fused serve's, chip cycles, one handoff a request, no
+   fused cycle, the pool free and audited, the staging pool apart from
+   the decode pool, no graph dropped or captured twice; tok/s beside the
+   fused serve's (one card that stands for two), the chip cycles' host
+   split, each handoff's pages, MiB and card ms (CUDA events around the
+   copy, the prefill side's stream held while the host queues it; the
+   copy's first launches timed apart before) beside ``kv_handoff_time``'s
+   prediction at the spec's ``ici_bw``; (b)
+   ``partition="auto"`` under tests/test_submesh.py's cheap-handoff
+   (chip cycles) and dear-handoff (none, fused cycles) regimes, streams
+   identical; (c) seeded handoff faults on 6 of the requests: two
+   transient failures retried through, then a window that exhausts the
+   retry budget and degrades chip -> tile, streams identical, the pool
+   free; (d) a 2-layer full-width fp32 cut of the chip engine on the card
+   against the same over ("cpu", "cpu"): streams, chip cycles and
+   handoffs equal; (e) the ``c_group`` and ``c_final`` graphs over a
+   staging pool and the decode graph, each replayed on a side stream,
+   bit-equal to their eager steps;
    graphs: the engine's graphs against the eager step (the module-level
    step function called directly) on two copies of one cache, bf16, full
    width and depth: Qwen3-1.7B's engine iteration on the paged cache at
@@ -2453,7 +2474,8 @@ def _card_vs_cpu(outs, cfg, tol: float = 1e-3) -> float:
 
 def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
            audit=None, default_sched: bool = False, paged: bool = True,
-           max_len: int = 1152, max_slots: int = 8):
+           max_len: int = 1152, max_slots: int = 8, partition: str = "tile",
+           devices=None, est=None, faults=None, guard=None):
     """Serve the requests, each released when the virtual clock reaches its
     arrival. The clock advances by the H100 estimator's price of each cycle
     (as the JAX package's virtual replay does), so the scheduler's
@@ -2471,7 +2493,9 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
 
     ``audit(server)`` runs after every cycle (e.g. a
     :class:`ProfileCycles`). ``paged=False`` serves on the dense slot
-    cache (serial). ``max_len`` and ``max_slots`` size the cache."""
+    cache (serial). ``max_len`` and ``max_slots`` size the cache.
+    ``partition`` and ``devices`` select chip granularity over a device
+    group; ``est``, ``faults`` and ``guard`` are the server's seams."""
     from repro_torch.core.config import (CacheConfig, ControlConfig,
                                          ExecConfig, ServerConfig)
     from repro_torch.core.engine import BulletServer
@@ -2485,11 +2509,14 @@ def _serve(cfg, params, prompts, outs, arrivals, fused: bool,
                               execution=ExecConfig(fused=fused))
     else:
         config = ServerConfig(
-            slo=SLO(3.0, 150.0), max_slots=max_slots, max_len=max_len,
-            max_prefill_batch=1, dtype=torch.bfloat16,
-            cache=CacheConfig(paged=paged), execution=ExecConfig(fused=fused),
+            slo=SLO(3.0, 150.0), est=est, max_slots=max_slots,
+            max_len=max_len, max_prefill_batch=1, dtype=torch.bfloat16,
+            cache=CacheConfig(paged=paged),
+            execution=ExecConfig(fused=fused, partition=partition,
+                                 devices=devices),
             control=ControlConfig(
-                sched=SchedulerConfig(max_decode_pause_cycles=0)))
+                sched=SchedulerConfig(max_decode_pause_cycles=0)),
+            faults=faults, guard=guard)
     server = BulletServer(cfg, params, config=config, device="cuda")
     queue = sorted(zip(arrivals, range(len(prompts))))
     torch.cuda.synchronize()
@@ -2638,12 +2665,13 @@ class HostSplit:
     runs on while the host goes on), the prefill graphs' replays, graph
     captures (the miss's eager run and the capture), the read-back and
     bookkeeping of the sampled tokens (in a fused cycle the wait for its
-    device work too), the rest of a fused cycle, a prefill group's launch;
-    each part exclusive of the parts it calls. The rest of the cycle's wall
-    is the engine's and the serve loop's other work. Cycles are split by
-    kind: a decode iteration alone, fused, or other, and apart from each a
-    cycle of that kind that captured a graph ("fused (capturing)"). A part
-    whose method a checkout lacks is left out."""
+    device work too), the rest of a fused or chip cycle, a prefill group's
+    launch, a chip cycle's page handoff; each part exclusive of the parts
+    it calls. The rest of the cycle's wall is the engine's and the serve
+    loop's other work. Cycles are split by kind: a decode iteration alone,
+    fused, chip, or other, and apart from each a cycle of that kind that
+    captured a graph ("fused (capturing)"). A part whose method a checkout
+    lacks is left out."""
 
     #: (part, owner, method) of the timed calls; owner "" is the server
     PARTS = (("schedule", "scheduler", "schedule"),
@@ -2651,7 +2679,9 @@ class HostSplit:
              ("read back, bookkeeping", "", "_finish_decode_iteration"),
              ("eager fused repeat", "", "_fused_repeat"),
              ("rest of the fused cycle", "", "_fused_cycle"),
-             ("prefill group launch", "", "_launch_prefill_group"))
+             ("prefill group launch", "", "_launch_prefill_group"),
+             ("rest of the chip cycle", "", "_chip_cycle"),
+             ("handoff", "", "_handoff"))
 
     def __init__(self):
         self.last = None
@@ -2713,8 +2743,11 @@ class HostSplit:
                     setattr(obj, name, self._timed(getattr(obj, name), part))
             if hasattr(srv, "graphs"):          # a checkout without graphs
                 srv.graphs = self._graphs(srv.graphs)
+            if hasattr(srv, "graphs_p"):        # the chip prefill side's
+                srv.graphs_p = self._graphs(srv.graphs_p)
         else:
-            kind = ("fused" if srv.last_fused else "decode"
+            kind = ("chip" if getattr(srv, "last_chip", False)
+                    else "fused" if srv.last_fused else "decode"
                     if srv.last_decode is not None
                     and not srv.last_prefill_tokens else "other")
             if self.capturing:
@@ -2889,11 +2922,28 @@ def graph_vs_eager(what, steps, eager, graphed, cache_e, cache_g, tok,
         f" [{card}]")
 
 
-def engine_graphs_check(what, cfg, params, cache, steps, card: str) -> None:
+@contextlib.contextmanager
+def _side(stream):
+    """Run the body on ``stream`` (None: the current stream), ordered
+    after the current stream's work and before its later work, as the chip
+    engine runs each side."""
+    if stream is None:
+        yield
+        return
+    cur = torch.cuda.current_stream()
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        yield
+    cur.wait_stream(stream)
+
+
+def engine_graphs_check(what, cfg, params, cache, steps, card: str,
+                        stream=None) -> None:
     """``graph_vs_eager`` for the engine's decode iteration
     (``engine._decode_iteration``) over ``cache`` and its copy, each step's
     feed its pos, active and (paged) block tables, through a StepGraphs
-    keyed as the engine keys it."""
+    keyed as the engine keys it, replayed on ``stream`` (a chip decode
+    side's; None: the current stream)."""
     from repro_torch.core import engine as E
     from repro_torch.core.graphs import StepGraphs
     twin = _clone_tree(cache)
@@ -2907,8 +2957,9 @@ def engine_graphs_check(what, cfg, params, cache, steps, card: str) -> None:
         return E._decode_iteration(params, twin, tok, *args(feed), cfg=cfg)
 
     def graphed(key, tok, feed):
-        return graphs(key, lambda *a: E._decode_iteration(
-            params, cache, *a, cfg=cfg), tok, *args(feed))
+        with _side(stream):
+            return graphs(key, lambda *a: E._decode_iteration(
+                params, cache, *a, cfg=cfg), tok, *args(feed))
     b = steps[0][1]["pos"].shape[0]
     tok = torch.randint(0, cfg.vocab_size, (b, 1), dtype=torch.int32,
                         generator=torch.Generator(device="cuda").manual_seed(
@@ -3069,10 +3120,14 @@ def fused_graphs_check(cfg, params, cache, buckets, card: str,
 
 
 def prefill_graphs_check(cfg, params, cache, card: str,
-                         name: str = "qwen3-1.7b", moe: bool = False) -> None:
+                         name: str = "qwen3-1.7b", moe: bool = False,
+                         kinds=("p_group", "p_final"), stream=None,
+                         bps=None) -> None:
     """The paged prefill groups (``engine._prefill_group_paged``) and the
     prompts' first tokens (``engine._final_tokens``) through a StepGraphs
-    keyed ``("p_group", rep, Bp, S)`` and ``("p_final", Bp, S)`` against
+    keyed ``(kinds[0], rep, Bp, S)`` and ``(kinds[1], Bp, S)`` (the chip
+    prefill side's ``c_group`` and ``c_final`` replayed on its ``stream``,
+    over its staging pool; Bp in ``bps``, default PREFILL_BPS) against
     the same functions called directly on a copy of the page pool, bf16,
     full width and depth: for each Bp in PREFILL_BPS and padded length S
     in PREFILL_LENS two prompt batches, one after the other, in one set of
@@ -3094,7 +3149,8 @@ def prefill_graphs_check(cfg, params, cache, card: str,
     rng = np.random.default_rng(14)
     gen = torch.Generator(device="cuda").manual_seed(15)
     groups = 0
-    for bp in PREFILL_BPS:
+    bps = bps or PREFILL_BPS
+    for bp in bps:
         for s in PREFILL_LENS:
             bufs = (torch.empty((bp, s, cfg.d_model), dtype=torch.bfloat16,
                                 device="cuda"),
@@ -3115,7 +3171,7 @@ def prefill_graphs_check(cfg, params, cache, card: str,
                 bufs[0].copy_(x_e)
                 bufs[2].copy_(torch.from_numpy(lens))
                 bufs[3].copy_(torch.from_numpy(pm))
-                what = f"graphs {name} prefill, Bp {bp}, S {s}"
+                what = f"graphs {name} {kinds[0]}, Bp {bp}, S {s}"
                 for rep in range(cfg.n_pattern_repeats):
                     c0 = launch_counts()
                     x_e = E._prefill_group_paged(params, twin, x_e.clone(),
@@ -3123,10 +3179,11 @@ def prefill_graphs_check(cfg, params, cache, card: str,
                                                  cfg=cfg, rep=rep,
                                                  stats=stats_e)
                     c1 = launch_counts()
-                    graphs(("p_group", rep, bp, s), functools.partial(
-                        E._prefill_group_paged, params, cache, cfg=cfg,
-                        rep=rep, stats=stats_g), bufs[0], bufs[1], bufs[3],
-                        bufs[2])
+                    with _side(stream):
+                        graphs((kinds[0], rep, bp, s), functools.partial(
+                            E._prefill_group_paged, params, cache, cfg=cfg,
+                            rep=rep, stats=stats_g), bufs[0], bufs[1],
+                            bufs[3], bufs[2])
                     c2 = launch_counts()
                     check(torch.equal(bufs[0], x_e),
                           f"{what}: activations after rep {rep} differ")
@@ -3141,15 +3198,18 @@ def prefill_graphs_check(cfg, params, cache, card: str,
                     check(torch.equal(a[:, :n_pages], b[:, :n_pages]),
                           f"{what}: pool leaf {i} differs")
                 ft_e = E._final_tokens(params, x_e, bufs[2], cfg=cfg)
-                ft_g = graphs(("p_final", bp, s), functools.partial(
-                    E._final_tokens, params, cfg=cfg), bufs[0], bufs[2])
+                with _side(stream):
+                    ft_g = graphs((kinds[1], bp, s), functools.partial(
+                        E._final_tokens, params, cfg=cfg), bufs[0], bufs[2])
                 check(torch.equal(ft_g, ft_e), f"{what}: first tokens differ")
     if moe:
         check(torch.equal(stats_e.sums, stats_g.sums),
               f"graphs {name} prefill: MoE sums {stats_e.sums.tolist()} "
               f"eager, {stats_g.sums.tolist()} graphed")
-    log(f"graphs {name} prefill: {groups} groups over Bp {PREFILL_BPS} "
-        f"x S {PREFILL_LENS}, two batches each (capture, replay): "
+    log(f"graphs {name} prefill ({kinds[0]}, {kinds[1]}"
+        f"{', on a side stream' if stream is not None else ''}): {groups} "
+        f"groups over Bp {bps} x S {PREFILL_LENS}, two batches each "
+        f"(capture, replay): "
         f"activations, page pool and first tokens bit-equal to the eager "
         f"functions, launches graphed as eager; {captures(graphs)}  [{card}]")
     graphs.drop()
@@ -3861,9 +3921,362 @@ def phase_serve(card: str):
     # the table buckets the serial serve's decode graphs were captured for
     buckets = sorted({k[1] for k, _ in serial.graphs.captures
                       if k[0] == "paged"})
+    streams = {rid: list(o) for rid, o in server.outputs.items()}
     del server, serial, dense, dflt, params
     torch.cuda.empty_cache()
-    return launches, n_tok / secs, buckets
+    return launches, n_tok / secs, buckets, streams
+
+
+# ---------------------------------------------------------------------------
+# chip granularity: disjoint prefill and decode sides with a page handoff
+# ---------------------------------------------------------------------------
+
+#: the device group of the chip phase: the one card named twice, so each
+#: side has its own stream and page pool on it
+CHIP_GROUP = ("cuda:0", "cuda:0")
+#: the estimator regimes of tests/test_submesh.py for partition="auto"
+#: (hardware fields, params): cheap handoff (chip must win), dear (tile)
+CHIP_REGIMES = (("cheap", dict(ici_bw=1e13), dict(p_c=0.5, p_b=0.5)),
+                ("dear", dict(ici_bw=1e6), dict(p_c=1.0, p_b=1.0)))
+#: requests of the fault runs and of the card-vs-CPU reference
+CHIP_FAULT_REQUESTS, CHIP_REF_REQUESTS = 6, 4
+#: cycles (about 2 ms) the prefill side's stream is held before a timed
+#: handoff: longer than the host takes to queue one
+HANDOFF_HOLD = 4 * HOLD_CYCLES
+
+
+class Handoffs:
+    """Times every page handoff of a server's run: while entered, the
+    engine's ``transfer_pages`` is wrapped so CUDA events bracket each copy
+    (recorded on the prefill side's stream before the selection and on the
+    decode side's after the writes, the prefill side's stream held busy
+    with ``torch.cuda._sleep`` while the host queues the copy, so the
+    events bracket the card's work alone, as ``Timer``'s do; the hold adds
+    HANDOFF_HOLD cycles to each handoff of the timed run, and the garbage
+    collector held off while the host queues it); as an audit
+    after each cycle it pairs the handoff with the tokens the cycle moved.
+    ``rows()``: (pages, bytes, tokens, card ms) per handoff."""
+
+    def __init__(self):
+        self.calls = []
+        self.tokens = []
+
+    def __enter__(self):
+        from repro_torch.core import engine as E
+        self._real = real = E.transfer_pages
+
+        def timed(src, dst, blocks, placement=None, fault=None, *,
+                  streams=None):
+            p_stream, d_stream = streams
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            # no collection while the host queues the copy: a pause longer
+            # than the hold would be read as card time
+            gc_was_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.stream(p_stream):
+                    torch.cuda._sleep(HANDOFF_HOLD)
+                t0.record(p_stream)
+                out = real(src, dst, blocks, placement, fault,
+                           streams=streams)
+                t1.record(d_stream)
+            finally:
+                if gc_was_on:
+                    gc.enable()
+            page = sum(t[:, 0].numel() * t.element_size()
+                       for t in _leaves(src))
+            self.calls.append((len(blocks), len(blocks) * page, t0, t1))
+            return out
+        E.transfer_pages = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine as E
+        E.transfer_pages = self._real
+
+    def __call__(self, server) -> None:
+        if server.last_handoff_tokens:
+            self.tokens.append(server.last_handoff_tokens)
+
+    def rows(self):
+        torch.cuda.synchronize()
+        check(len(self.calls) == len(self.tokens),
+              f"{len(self.calls)} handoffs timed, {len(self.tokens)} seen")
+        return [(n, b, tok, t0.elapsed_time(t1))
+                for (n, b, t0, t1), tok in zip(self.calls, self.tokens)]
+
+
+def _handoff_first_use(cfg, card: str) -> None:
+    """A handoff's first launches, apart: ``transfer_pages`` between two
+    64-page pools of ``cfg``'s shape on two streams, 5 pages (PyTorch's
+    small-index ``index_select``, at most 16 indices) and 60 (its
+    large-index one), each twice, card ms as ``Handoffs`` reads them. The
+    first call of each loads kernels the run has not used yet, so the chip
+    serve's handoffs after this read the copy's own time."""
+    from repro_torch.kvcache.paged import transfer_pages
+    from repro_torch.models import transformer as T
+    src = T.init_paged_cache(cfg, 64, PS, torch.bfloat16, "cuda")
+    dst = T.init_paged_cache(cfg, 64, PS, torch.bfloat16, "cuda")
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    got = []
+    for n in (5, 60):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(streams[0]):
+                torch.cuda._sleep(HANDOFF_HOLD)
+            t0.record(streams[0])
+            transfer_pages(src, dst, list(range(n)), streams=streams)
+            t1.record(streams[1])
+            torch.cuda.synchronize()
+            got.append(t0.elapsed_time(t1))
+    log(f"chip handoff first use: 5 pages {got[0]:.4f} ms then "
+        f"{got[1]:.4f}, 60 pages {got[2]:.4f} ms then {got[3]:.4f}  "
+        f"[{card}]")
+
+
+def _distinct_pools(a, b) -> bool:
+    """No leaf of page pool ``a`` shares storage with one of ``b``."""
+    return {t.data_ptr() for t in _leaves(a)}.isdisjoint(
+        t.data_ptr() for t in _leaves(b))
+
+
+def _no_recapture(server, what: str) -> str:
+    """Fatal if a server dropped a graph or captured a key twice (after
+    the first chip cycle every key replays); returns the captures by kind
+    of both of its StepGraphs."""
+    for g in (server.graphs, server.graphs_p):
+        keys = [k for k, _ in g.captures]
+        check(g.dropped == 0, f"{what}: {g.dropped} graphs dropped")
+        check(len(keys) == len(set(keys)), f"{what}: a key captured twice")
+    return (f"decode side {captures(server.graphs)}, dropped "
+            f"{server.graphs.dropped}; prefill side "
+            f"{captures(server.graphs_p)}, dropped {server.graphs_p.dropped}")
+
+
+def _chip_streams_equal(server, want: dict, what: str) -> None:
+    for rid, toks in want.items():
+        check(server.outputs.get(rid) == toks,
+              f"{what}: request {rid}'s stream differs")
+
+
+def _chip_reference(card: str, prompts, out_lens) -> None:
+    """(d): a 2-layer cut of Qwen3-1.7B at full width, fp32, the chip
+    engine over CHIP_GROUP on the card and over ("cpu", "cpu") on the CPU
+    (plain versions), the same estimator, the virtual clock 1 ms a cycle:
+    streams, chip cycles and handoffs equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import (ControlConfig, ExecConfig,
+                                         ServerConfig)
+    from repro_torch.core.engine import BulletServer
+    from repro_torch.core.estimator import HardwareSpec, PerfEstimator
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.request import SLO, Request
+
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2)
+    params = T.init_params(cfg, seed=2, dtype=torch.float32, device="cuda")
+    got = {}
+    for dev, group, p in (("cuda", CHIP_GROUP, params),
+                          ("cpu", ("cpu", "cpu"), _to_cpu(params))):
+        server = BulletServer(cfg, p, config=ServerConfig(
+            slo=SLO(3.0, 150.0), est=PerfEstimator(HardwareSpec(n_chips=2)),
+            max_slots=8, max_len=1152, max_prefill_batch=1,
+            dtype=torch.float32,
+            execution=ExecConfig(partition="chip", devices=group),
+            control=ControlConfig(sched=SchedulerConfig(
+                max_decode_pause_cycles=0))), device=dev)
+        for rid, (pr, o) in enumerate(zip(prompts, out_lens)):
+            server.submit(Request(rid=rid, arrival=0.0, prompt_len=len(pr),
+                                  output_len=o), pr)
+        now = 0.0
+        while not server.idle:
+            server.step(now)
+            server.check_invariants()
+            now += 1e-3
+        st = server.stats
+        got[dev] = (dict(server.outputs), st.chip_cycles, st.handoffs)
+    check(got["cuda"][0] == got["cpu"][0],
+          "chip reference: card and CPU streams differ")
+    check(got["cuda"][1:] == got["cpu"][1:],
+          f"chip reference: (chip cycles, handoffs) {got['cuda'][1:]} on "
+          f"the card, {got['cpu'][1:]} on the CPU")
+    check(got["cuda"][1] > 0 and got["cuda"][2] == len(prompts),
+          f"chip reference: {got['cuda'][1:]}")
+    log(f"chip (d) reference: 2-layer full-width Qwen3-1.7B fp32, "
+        f"{len(prompts)} requests (prompts {[len(p) for p in prompts]}), "
+        f"the chip engine over {CHIP_GROUP} and over ('cpu', 'cpu'): "
+        f"streams, chip cycles ({got['cuda'][1]}) and handoffs "
+        f"({got['cuda'][2]}) equal  [{card}]")
+
+
+def phase_chip(card: str, fused=None, fused_tps=None) -> None:
+    """Chip granularity on the card: Qwen3-1.7B at full width and depth,
+    bf16, the serve phase's 12 requests and 8 slots, over the group
+    CHIP_GROUP (one card named twice: each side its own stream and page
+    pool). ``fused``, ``fused_tps``: the serve phase's fused streams and
+    tok/s (None: served here first). Fatal checks: (a) partition="chip":
+    streams identical to the fused serve's, chip cycles, one handoff per
+    request, no fused cycle, the pool free and audited, the staging pool
+    apart from the decode pool, no graph dropped or captured twice; (b)
+    partition="auto" under the cheap- and dear-handoff regimes of
+    tests/test_submesh.py: chip cycles in the first, none and fused cycles
+    in the second, streams identical; (c) seeded handoff faults: two
+    transient failures retried through, then a failure window past the
+    retry budget that degrades chip -> tile, streams identical to the
+    clean run's, the pool free; (d) the card against the CPU on a 2-layer
+    fp32 cut (``_chip_reference``); (e) the new graph keys (``c_group``,
+    ``c_final``) and the decode graph replayed on a side stream bit-equal
+    to their eager steps. Prints the chip serve's tok/s beside the fused
+    serve's, each handoff's pages, bytes and card ms beside
+    ``kv_handoff_time``'s prediction, the chip cycles and the captures by
+    kind; a handoff's first launches are timed apart first
+    (``_handoff_first_use``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.estimator import (EstimatorParams, HardwareSpec,
+                                            PerfEstimator)
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_decode_attention as PD
+    from repro_torch.models import transformer as T
+    from repro_torch.resilience import (FaultInjector, FaultPlan, FaultSpec,
+                                        GuardConfig, SLOGuard)
+
+    cfg = get_config("qwen3-1.7b")
+    params = T.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    prompts, out_lens, arrivals = serve_workload(cfg)
+    n = len(prompts)
+    n_tok = int(sum(out_lens))
+    if fused is None:
+        _serve(cfg, params, prompts[:2], [2, 2], [0.0, 0.0], fused=True)
+        ref, secs, _ = _serve(cfg, params, prompts, out_lens, arrivals,
+                              fused=True)
+        fused = {rid: list(o) for rid, o in ref.outputs.items()}
+        fused_tps = n_tok / secs
+        del ref
+    chip = dict(partition="chip", devices=CHIP_GROUP)
+    _handoff_first_use(cfg, card)
+
+    # (a) partition="chip"
+    _reset_counts()
+    split = HostSplit()
+    with Handoffs() as handoffs:
+        server, secs, cycles = _serve(
+            cfg, params, prompts, out_lens, arrivals, fused=True,
+            audit=lambda srv: (handoffs(srv), split(srv)), **chip)
+    launches = {"flash_attention": FA.launches,
+                "paged_decode_attention": PD.launches}
+    st = server.stats
+    _chip_streams_equal(server, fused, "chip (a)")
+    check(st.chip_cycles > 0 and st.handoffs == n and st.fused_cycles == 0,
+          f"chip (a): chip cycles {st.chip_cycles}, handoffs {st.handoffs}, "
+          f"fused cycles {st.fused_cycles}")
+    check(server.pool.free_blocks == server.pool.n_blocks,
+          "chip (a): KV pool not free")
+    server.pool.check_invariants()
+    check(_distinct_pools(server.cache_p, server.cache),
+          "chip (a): the staging pool shares storage with the decode pool")
+    check(all(c > 0 for c in launches.values()),
+          f"chip (a): launches {launches}")
+    log(f"chip (a) partition='chip' over {CHIP_GROUP}: {n} requests, "
+        f"{n_tok / secs:.1f} tok/s on one card that stands for two (fused "
+        f"serve {fused_tps:.1f} tok/s), {cycles} cycles, {st.chip_cycles} "
+        f"chip, {st.handoffs} handoffs, streams identical to the fused "
+        f"serve's, launches {launches}, KV pool clean: True; "
+        f"{_no_recapture(server, 'chip (a)')}  [{card}]")
+    for kind in sorted(split.cycles):
+        log(f"chip (a) host split: {host_split_line(split, kind)}")
+    rows = handoffs.rows()
+    for pages, nbytes, tok, ms in rows:
+        pred = server.est.kv_handoff_time(cfg, tok) * 1e3
+        log(f"chip (a) handoff: {tok} tokens, {pages} pages, "
+            f"{nbytes / 2**20:.2f} MiB, {ms:.4f} ms on the card "
+            f"({nbytes / ms / 1e6:.1f} GB/s); kv_handoff_time at ici_bw "
+            f"{server.est.hw.ici_bw:.3g} B/s: {pred:.4f} ms  [{card}]")
+    ms_all = [r[3] for r in rows]
+    log(f"chip (a) handoffs: {len(rows)}, card ms median "
+        f"{statistics.median(ms_all):.4f}, max {max(ms_all):.4f}, "
+        f"{sum(r[1] for r in rows) / 2**20:.1f} MiB in all  [{card}]")
+    del server
+
+    # (b) partition="auto" under the two regimes
+    for name, hw, par in CHIP_REGIMES:
+        est = PerfEstimator(HardwareSpec(n_chips=len(CHIP_GROUP), **hw),
+                            EstimatorParams(**par))
+        _reset_counts()
+        auto, a_secs, _ = _serve(cfg, params, prompts, out_lens, arrivals,
+                                 fused=True, est=est, partition="auto",
+                                 devices=CHIP_GROUP)
+        st = auto.stats
+        _chip_streams_equal(auto, fused, f"chip (b) auto {name}")
+        if name == "cheap":
+            check(st.chip_cycles > 0, "chip (b) cheap: no chip cycle")
+        else:
+            check(st.chip_cycles == 0 and st.fused_cycles > 0,
+                  f"chip (b) dear: {st.chip_cycles} chip cycles, "
+                  f"{st.fused_cycles} fused")
+        check(auto.pool.free_blocks == auto.pool.n_blocks,
+              f"chip (b) auto {name}: KV pool not free")
+        log(f"chip (b) partition='auto', {name} handoff (ici_bw "
+            f"{hw['ici_bw']:.0e}, p_c=p_b={par['p_c']}): {st.chip_cycles} "
+            f"chip and {st.fused_cycles} fused cycles, {st.handoffs} "
+            f"handoffs, {n_tok / a_secs:.1f} tok/s, streams identical to "
+            f"the fused serve's; launches {_kernel_counts()}  [{card}]")
+        del auto
+
+    # (c) seeded handoff faults on the first CHIP_FAULT_REQUESTS requests
+    k = CHIP_FAULT_REQUESTS
+    want = {rid: fused[rid] for rid in range(k)}
+    # the first handoff comes at the end of the first prompt's layer
+    # groups: a window a little past it fails that one past the budget
+    window = cfg.n_pattern_repeats + 12
+    for name, spec, cooldown in (
+            ("transient", FaultSpec("handoff", count=2), 8),
+            ("exhausted", FaultSpec("handoff", start=0, end=window), 6)):
+        guard = SLOGuard(GuardConfig(cooldown_cycles=cooldown))
+        srv, _, _ = _serve(cfg, params, prompts[:k], out_lens[:k],
+                           arrivals[:k], fused=True,
+                           faults=FaultInjector(FaultPlan([spec], seed=1)),
+                           guard=guard, **chip)
+        st = srv.stats
+        kinds = [t["transition"] for t in guard.transitions]
+        _chip_streams_equal(srv, want, f"chip (c) {name}")
+        check(srv.pool.free_blocks == srv.pool.n_blocks,
+              f"chip (c) {name}: KV pool not free")
+        if name == "transient":
+            check(st.handoff_retries == 2 and st.prefill_aborts == 0
+                  and not kinds,
+                  f"chip (c) transient: retries {st.handoff_retries}, "
+                  f"aborts {st.prefill_aborts}, transitions {kinds}")
+        else:
+            check("degrade:chip" in kinds and st.prefill_aborts >= 1,
+                  f"chip (c) exhausted: transitions {kinds}, aborts "
+                  f"{st.prefill_aborts}")
+        log(f"chip (c) handoff faults, {name}: {k} requests, retries "
+            f"{st.handoff_retries}, prefill aborts {st.prefill_aborts}, "
+            f"transitions {kinds}, {st.chip_cycles} chip and "
+            f"{st.fused_cycles} fused cycles, streams identical to the "
+            f"clean run's, KV pool clean: True  [{card}]")
+        del srv
+
+    # (d) the card against the CPU
+    ref_prompts = [p[:160] for p in prompts[:CHIP_REF_REQUESTS]]
+    _chip_reference(card, ref_prompts, [8] * CHIP_REF_REQUESTS)
+
+    # (e) the chip graph keys against their eager steps
+    max_blocks = -(-1152 // PS)
+    pool = T.init_paged_cache(cfg, 8 * max_blocks, PS, torch.bfloat16,
+                              "cuda")
+    _fill_random(pool, 21)
+    prefill_graphs_check(cfg, params, pool, card, kinds=("c_group",
+                                                         "c_final"),
+                         stream=torch.cuda.Stream(), bps=(1,))
+    engine_graphs_check("qwen3-1.7b chip decode side", cfg, params, pool,
+                        paged_graph_steps((4, 64), 8, max_blocks, 22), card,
+                        stream=torch.cuda.Stream())
+    del pool, params
+    torch.cuda.empty_cache()
 
 
 #: the replay trace: ShareGPT-shaped lengths fitted to MAX_LEN, Poisson
@@ -6461,7 +6874,9 @@ def main() -> int:
     rg_ref = timed("recurrentgemma reference", phase_rg_reference)
     moe_ref = timed("moe reference", phase_moe_reference, card)
     arch_ref = timed("archs reference", phase_archs_reference, card)
-    launches, _, buckets = timed("serve", phase_serve, card)
+    launches, serve_tps, buckets, serve_streams = timed(
+        "serve", phase_serve, card)
+    timed("chip", phase_chip, card, serve_streams, serve_tps)
     timed("graphs", phase_graphs, card, buckets)
     replay = timed("replay", phase_replay, card)
     ssd = timed("mamba", phase_mamba, card)

@@ -7,10 +7,9 @@ A copy of the JAX package's ``ServerConfig``:
         slo=SLO(3.0, 150.0), max_slots=8), device="cuda")
 
 The port serves the tile-granular path over the block-paged pool or the
-dense slot cache, with shared-prefix reuse and the observability,
-fault-injection, SLO-guard and tenancy seams. Fields that select chip
-granularity, a later slice of the port, raise ``NotImplementedError`` at
-construction, naming the ROADMAP item that brings it.
+dense slot cache and the chip-granular path over a device group
+(``ExecConfig(partition="chip"|"auto", devices=...)``), with shared-prefix
+reuse and the observability, fault-injection, SLO-guard and tenancy seams.
 ``launch/serve.py`` builds the config from CLI flags in one place
 (``build_server_config``).
 """
@@ -22,15 +21,6 @@ from typing import Any, Optional, Tuple
 
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.serving.request import SLO
-
-_LATER = {
-    "chip": "ROADMAP port item 'chip granularity'",
-}
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with {_LATER[item]}")
 
 
 @dataclass(frozen=True)
@@ -50,17 +40,11 @@ class ExecConfig:
     """Where and how cycles execute (docs/PARTITIONS.md)."""
     #: fused spatial-sharing cycles (None = engine default: fused)
     fused: Optional[bool] = None
-    #: partition granularity: "tile" (the chip/auto granularities are a
-    #: later slice)
+    #: partition granularity: "tile" | "chip" | "auto"
     partition: str = "tile"
-    #: explicit device list for chip-granular sub-meshes (a later slice)
+    #: explicit device group for chip-granular splits (None = every
+    #: visible card; a card may be named more than once only here)
     devices: Optional[Tuple[Any, ...]] = None
-
-    def __post_init__(self):
-        if self.partition != "tile":
-            raise _later(f"partition={self.partition!r}", "chip")
-        if self.devices is not None:
-            raise _later("an explicit device list", "chip")
 
 
 @dataclass(frozen=True)
@@ -109,5 +93,6 @@ def build_server_config(args, *, slo=None, est=None, obs=None,
         max_slots=args.slots, max_len=args.max_len,
         cache=CacheConfig(page_size=args.page_size,
                           share_prefix=args.share_prefix),
+        execution=ExecConfig(partition=args.partition, devices=args.devices),
         control=ControlConfig(refit=refit),
         obs=obs, faults=faults, guard=guard, tenancy=tenancy)

@@ -1,5 +1,5 @@
-"""Concurrent execution engine (paper §3.5) on PyTorch: the tile-granular
-Bullet path.
+"""Concurrent execution engine (paper §3.5) on PyTorch: the Bullet path at
+both of §3.4's granularities.
 
 Two engine roles (prefill, decode) share a MetadataBuffer and one block-
 paged KV pool ((R, pages+1, ps, K, D) per pattern position) driven by
@@ -17,6 +17,19 @@ paged KV pool ((R, pages+1, ps, K, D) per pattern position) driven by
   group's layers both phases' attention is one launch of the bullet
   kernel, whose CTAs split the SMs by the active partition's
   ``decode_share``.
+- Chip granularity (``ExecConfig(partition="chip"|"auto", devices=...)``,
+  docs/PARTITIONS.md) carves a device group into disjoint (prefill side,
+  decode side) splits (``launch/submesh.py``). A chip-pinned task runs
+  every layer group on the prefill side's lead device and stream,
+  scattering its K/V into a staging page pool there (``cache_p``),
+  while the decode iteration runs on the decode side's device and stream
+  over the decode pool; when the prompt finishes, exactly its written
+  pages are copied across (``kvcache.paged.transfer_pages``), with
+  retries, an abort and the guard's chip→tile rung behind it. Under
+  ``"auto"`` the scheduler's combined-table argmin pins each task to
+  chip or tile at admission. A group may name one card twice: the sides
+  then share the card, each on its own stream and pool. Tile and serial
+  cycles run on the group's first entry, the server's device.
 
 Preempt / resume / migrate move block ownership in the table; pages never
 move on the device. The dense fixed-slot cache ((R, slots, S, K, D), one
@@ -50,7 +63,12 @@ one per static shape, all in one ``StepGraphs`` and its shared pool:
 - the paged prefill groups ``("p_group", rep, Bp, Sp)`` and the prompts'
   first tokens ``("p_final", Bp, Sp)``, ``Sp`` the batch's padded length:
   a prompt batch is padded to a length bucket (``prefill_bucket``), so
-  the keys repeat across prompts.
+  the keys repeat across prompts;
+- a chip task's prefill groups ``("c_group", rep, Bp, Sp)`` and first
+  tokens ``("c_final", Bp, Sp)`` over the staging pool, in a StepGraphs
+  of their own (``graphs_p``, its own pool), as they replay on the
+  prefill side's stream while the decode side's graphs replay; the chip
+  decode iteration replays the serial decode's ``("paged", n_b)``.
 
 Inputs live in persistent buffers the graphs read in place (tokens, pos,
 active, one block table per bucket copied again whenever ownership
@@ -83,6 +101,7 @@ order and the preemption victim by tenant credit.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from collections import deque
@@ -93,20 +112,27 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MOE, ModelConfig
+from repro_torch.core import analytics
 from repro_torch.core.config import ServerConfig
-from repro_torch.core.estimator import (CycleObservation, OnlineRefitter,
-                                        PerfEstimator, predict_cycle)
+from repro_torch.core.estimator import (CycleObservation, HardwareSpec,
+                                        OnlineRefitter, PerfEstimator,
+                                        predict_cycle)
 from repro_torch.core.graphs import StepGraphs
 from repro_torch.core.metadata import MetadataBuffer
 from repro_torch.core.resource import ResourceManager
 from repro_torch.core.scheduler import SchedulerConfig, SLOScheduler
-from repro_torch.kvcache.paged import PagedKVPool
-from repro_torch.launch.submesh import HandoffPolicy
+from repro_torch.kvcache.paged import PagedKVPool, on_stream, transfer_pages
+from repro_torch.launch.submesh import (HandoffPolicy, SubMeshSplit,
+                                        carve_submeshes, find_split)
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import MoEStats
+from repro_torch.models.sharding import (submesh_cache_sharding,
+                                         submesh_param_sharding)
 from repro_torch.obs import NULL_OBS, CycleEvent
-from repro_torch.resilience.faults import NULL_FAULTS, DispatchError
+from repro_torch.resilience.faults import (NULL_FAULTS, DispatchError,
+                                           HandoffError)
 from repro_torch.serving.request import Phase, Request, SLO
+from repro_torch.training.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +291,62 @@ class FusedExecutable(NamedTuple):
     fn: Callable
 
 
+class ChipExecutable(NamedTuple):
+    """One chip-granular execution state of the resource manager's table
+    (§3.4.2, second granularity), bound to a disjoint (prefill side,
+    decode side) split of the device group: each side's placement (its
+    lead device, where one copy of the params computes) and, on the card,
+    a CUDA stream of its own, so the two sides overlap as the JAX
+    package's two meshes do under async dispatch. The prefill side runs
+    layer groups (``("c_group", rep, Bp, S)`` graphs over the staging
+    page pool) and the prompts' first tokens (``("c_final", Bp, S)``),
+    the decode side continuous-batching iterations (the serial decode's
+    ``("paged", n_b)`` graphs) on the decode pool; the two only meet at
+    the KV handoff (kvcache.paged.transfer_pages) when a prompt finishes
+    and at the host's read of the decode tokens. Switching entries is a
+    dict lookup, as for FusedExecutable."""
+    config_id: int
+    split: SubMeshSplit
+    p_placement: torch.device
+    d_placement: torch.device
+    p_stream: Optional[torch.cuda.Stream]     # None on the CPU
+    d_stream: Optional[torch.cuda.Stream]
+
+
+def _canon(d) -> torch.device:
+    """``d`` as a ``torch.device`` with its card index (``cuda`` names the
+    current card), so that placements compare by identity of device."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def device_group(devices, device) -> List[torch.device]:
+    """The device group chip granularity carves: ``devices`` as given (a
+    card may be named more than once, only here), else every visible card
+    for a server on ``cuda`` and the one CPU for a server on ``cpu``."""
+    if devices is not None:
+        return [_canon(d) for d in devices]
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _at(device: torch.device):
+    """The context that makes ``device`` the current card (none on the
+    CPU), so a graph of that card replays on its stream."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _to(tree, device: torch.device):
+    """Every tensor of a tree of dicts and tuples on ``device``."""
+    return tree_map(lambda t: t.to(device), tree)
+
+
 # ---------------------------------------------------------------------------
 
 @dataclass
@@ -280,11 +362,17 @@ class EngineStats:
     #: OnlineRefitter rejected on its hysteresis margin
     refits: int = 0
     refits_rejected: int = 0
+    #: chip-granular cycles (disjoint-side dispatches) and KV handoffs
+    #: (requests whose pages were copied from the prefill side's pool)
+    chip_cycles: int = 0
+    handoffs: int = 0
     #: resilience counters (docs/RESILIENCE.md): deadline/explicit
-    #: cancels, backpressure sheds, unwound prefill batches, dispatch
-    #: failures absorbed, and guard lattice transitions
+    #: cancels, backpressure sheds, transient-handoff retries, unwound
+    #: prefill batches, dispatch failures absorbed, and guard lattice
+    #: transitions
     cancelled: int = 0
     shed: int = 0
+    handoff_retries: int = 0
     prefill_aborts: int = 0
     dispatch_failures: int = 0
     degrades: int = 0
@@ -331,6 +419,11 @@ class PrefillTask:
     tmp_cache: Optional[dict] = None      # dense: (R, B, max_len, K, D)
     n_tokens: int = 0                     # total prompt tokens in the batch
     rep: int = 0                          # next pattern-repeat group to run
+    #: partition granularity pinned at admission: "tile" runs the fused
+    #: (or serial) co-located path, "chip" runs every layer group on the
+    #: current chip entry's prefill side with a KV handoff at migration.
+    #: Pinned for the task's lifetime, so pages scatter into one pool.
+    granularity: str = "tile"
     #: shared-prefix reuse (docs/KV_SHARING.md): when set, ``x``,
     #: ``positions`` (B, S) and ``lengths`` cover only each request's
     #: unshared suffix (fresh tensors: the task runs eagerly), prefix_map
@@ -379,6 +472,7 @@ class BulletServer:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the server on {self.device}")
+        self.device = _canon(self.device)
         if self.device.type == "cuda":
             # pinned fp32 matmul precision: no TF32 anywhere on the path
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -406,9 +500,8 @@ class BulletServer:
         #: default, every seam gated on ``self.faults.enabled``
         self.faults = config.faults if config.faults is not None \
             else NULL_FAULTS
-        #: retry policy for cross-mesh handoffs; an attached SLOGuard
-        #: installs its own (the port has no chip granularity yet, so
-        #: nothing hands off)
+        #: retry-with-backoff policy for transient handoff failures; an
+        #: attached SLOGuard installs its own
         self.handoff_policy = HandoffPolicy()
         #: the cycle event awaiting its measured duration
         self._open_cycle: Optional[CycleEvent] = None
@@ -445,20 +538,69 @@ class BulletServer:
                 f"{cfg.name}: fused spatial execution streams decode KV "
                 "from the block-paged pool; needs paged=True")
         self.fused = fused
-        #: partition granularity; only "tile" is ported (the guard reads
-        #: and restores it)
-        self.partition = "tile"
-        self._chip_enabled = False
+        # chip-granular partitions (§3.4 second granularity,
+        # docs/PARTITIONS.md): "chip" forces every prefill task onto a
+        # disjoint (prefill side, decode side) split of the device group
+        # with a KV handoff at migration; "auto" lets the scheduler's
+        # combined-table argmin pick per task; "tile" (default) keeps the
+        # one-card fused/serial paths untouched
+        partition = config.execution.partition
+        if partition not in ("tile", "chip", "auto"):
+            raise ValueError(f"partition={partition!r}: want tile|chip|auto")
+        self.partition = partition
+        splits: List[SubMeshSplit] = []
+        if partition in ("chip", "auto"):
+            if not self.paged and partition == "chip":
+                raise ValueError(
+                    f"{cfg.name}: chip-granular partitions hand KV off "
+                    "through the block-paged pool; needs paged=True")
+            devs = device_group(config.execution.devices, self.device)
+            splits = carve_submeshes(devs) if self.paged else []
+            if partition == "chip" and not splits:
+                raise ValueError(
+                    "partition='chip' needs >= 2 devices to carve "
+                    f"sub-meshes from (have {len(devs)}); pass devices= "
+                    "with two or more entries (a card may be listed "
+                    "twice) or use partition='auto' to fall back to tile")
+        self._chip_enabled = bool(splits)
+        if self._chip_enabled:
+            if devs[0] != self.device:
+                raise ValueError(
+                    f"the device group starts at {devs[0]}, the server "
+                    f"runs on {self.device}: tile and serial cycles run on "
+                    "the group's first entry")
+            # the estimator prices the group: a chip entry's units are
+            # U * k / n_chips (core/resource.py)
+            if config.est is None:
+                self.est = PerfEstimator(HardwareSpec(n_chips=len(devs)))
+            elif self.est.hw.n_chips != len(devs):
+                raise ValueError(
+                    f"the estimator's spec has n_chips="
+                    f"{self.est.hw.n_chips}, the device group "
+                    f"{len(devs)} entries")
         sched = replace(sched, fused=self.fused)
         self.scheduler = SLOScheduler(cfg, self.est, slo, sched)
         self.scheduler.obs = self.obs
-        # pre-build one fused launcher per tile partition (§3.4.2) so
-        # _switch selects among real execution states, not just numbers;
-        # built even when serial so set_fused(True) can switch at once
-        self.rm = ResourceManager(self.est.hw, sched.unit_quantum,
-                                  builder=self._build_fused_executable)
+        # pre-build one execution state per partition (§3.4.2) so _switch
+        # selects among real execution states, not just numbers: fused
+        # launchers for the tile half (built even when serial so
+        # set_fused(True) can switch at once), stream pairs for the chip
+        # half
+        self.rm = ResourceManager(
+            self.est.hw, sched.unit_quantum,
+            builder=self._build_fused_executable,
+            chip_splits=[sp.key for sp in splits],
+            chip_builder=(functools.partial(self._build_chip_executable,
+                                            splits=splits)
+                          if splits else None))
         self.scheduler.split_candidates = [
             (p.prefill_units, p.decode_units) for p in self.rm.tile_entries]
+        if self._chip_enabled:
+            # the combined table: the fused-objective search prices chip
+            # entries (no co-location contention + handoff) against tile
+            # entries (Eq. 2 contention): disaggregation against sharing
+            # as a table argmin
+            self.scheduler.partition_table = self.rm.partitions
         # online estimator refit (§3.2.2 closed loop): refit=False pins
         # the offline params; True/None builds a default OnlineRefitter;
         # an OnlineRefitter instance is used as-is
@@ -479,12 +621,31 @@ class BulletServer:
         self.dtype = dtype
         #: the engine steps' CUDA graphs, by static shape
         self.graphs = StepGraphs()
+        #: the chip prefill side's graphs (``("c_group", ...)``,
+        #: ``("c_final", ...)``): a pool of their own, as they replay on
+        #: the prefill side's stream while the decode side's replay
+        self.graphs_p = StepGraphs()
+        #: where the decode-side state (page pool, slot buffers) lives and
+        #: the params it computes with: the server's device, or under
+        #: chip-enabled serving the last chip entry's decode side
+        self._decode_placement = self.device
+        self._d_params = params
+        #: params copied to a side's placement other than the server's
+        #: device, by placement
+        self._side_params: Dict[torch.device, dict] = {}
         #: the prefill side's MoE metrics, summed on the device (every
         #: prefill group adds to them, its graphs on every replay); None
         #: without MoE blocks
         self.moe_stats = (MoEStats(self.device) if cfg.has_ff(MOE)
                           else None)
         self._alloc_cache()
+        if self._chip_enabled:
+            #: the prefill side's staging page pool: chip tasks scatter
+            #: prompt KV here; transfer_pages copies the written pages into
+            #: self.cache at migration
+            self.cache_p = T.init_paged_cache(cfg, self.pool.n_blocks,
+                                              self.page_size, dtype,
+                                              self.device)
         #: the activations' dtype (the params'; ``dtype`` is the cache's)
         self._act_dtype = params["embed"].dtype
         #: the fused cycle's decode activations, updated in place
@@ -523,6 +684,11 @@ class BulletServer:
         self.last_fused: bool = False
         #: config_id of the pre-built executable the last fused cycle ran
         self.last_fused_exec: Optional[int] = None
+        #: True when the last step ran a chip-granular (disjoint-side)
+        #: cycle; handoff_tokens > 0 on the cycle whose finished prefill
+        #: copied its pages to the decode side
+        self.last_chip: bool = False
+        self.last_handoff_tokens: int = 0
         #: SLO watchdog (resilience.guard.SLOGuard), consulted in step();
         #: None runs ungoverned
         self.guard = config.guard
@@ -569,6 +735,58 @@ class BulletServer:
                                decode_share=round(part.decode_share, 6))
         return FusedExecutable(part.config_id, part.decode_share, fn)
 
+    def _build_chip_executable(self, part, *, splits) -> ChipExecutable:
+        """ResourceManager chip builder: one execution state per chip
+        split, its sides' placements and (on the card) a stream for each
+        side, made once. Switching entries never rebuilds one."""
+        split = find_split(splits, part.prefill_chips, part.decode_chips)
+        assert split is not None, part
+        p_dev = submesh_param_sharding(split.prefill_mesh)
+        d_dev = submesh_cache_sharding(split.decode_mesh)
+        # split k's prefill side is devices[:k], led by the group's first
+        # entry, the server's device: a prefill task is built there and
+        # never moves (what the JAX engine's _home_task re-homes between
+        # meshes stays put)
+        assert p_dev == self.device, (p_dev, self.device)
+        cuda = self.device.type == "cuda"
+        return ChipExecutable(
+            part.config_id, split, p_dev, d_dev,
+            torch.cuda.Stream(p_dev) if cuda else None,
+            torch.cuda.Stream(d_dev) if cuda else None)
+
+    # -- side placement (chip-enabled serving only) ---------------------
+    def _params_for(self, device: torch.device):
+        """The params on ``device``: the server's own there, else a copy
+        made once per placement (the resident copies of the
+        pre-configured execution states)."""
+        if device == self.device:
+            return self.params
+        p = self._side_params.get(device)
+        if p is None:
+            p = self._side_params[device] = _to(self.params, device)
+        return p
+
+    def _home_decode(self, device: torch.device) -> None:
+        """Re-home the decode-side state (page pool, slot buffers, block
+        tables) onto ``device``: the decode side of the current chip entry,
+        or the server's device for tile-granular and serial cycles. A no-op
+        where it already lives, so on a group that names one card twice
+        nothing moves. A move leaves every graph of ``self.graphs`` reading
+        the old tensors: they are dropped (``StepGraphs.dropped`` counts
+        them) and captured again on first use."""
+        if not self._chip_enabled or self._decode_placement == device:
+            return
+        self.graphs.drop()
+        if self.cache is not None:
+            self.cache = _to(self.cache, device)
+        self._dev_tokens = self._dev_tokens.to(device)
+        self._dev_pos = self._dev_pos.to(device)
+        self._dev_active = self._dev_active.to(device)
+        self.graphs.keep(self._dev_tokens, self._dev_pos, self._dev_active)
+        self._dev_tables = {}
+        self._d_params = self._params_for(device)
+        self._decode_placement = device
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device)
 
@@ -593,7 +811,8 @@ class BulletServer:
         ``_sync_tables`` keeps every one current."""
         bt = self._dev_tables.get(n_b)
         if bt is None:
-            bt = self._dev(np.ascontiguousarray(self._host_tables[:, :n_b]))
+            bt = torch.as_tensor(np.ascontiguousarray(
+                self._host_tables[:, :n_b])).to(self._decode_placement)
             self._dev_tables[n_b] = bt
             self.graphs.keep(bt)
         return bt
@@ -615,6 +834,7 @@ class BulletServer:
                             device=dev))
             self._pbufs[(b, s)] = bufs
             self.graphs.keep(*bufs)
+            self.graphs_p.keep(*bufs)
         return bufs
 
     def _decode_block_bucket(self, ctxs_ran: Tuple[int, ...]) -> int:
@@ -666,11 +886,13 @@ class BulletServer:
         """Swap partitions, counting only actual re-configurations."""
         if self.fused:
             # the split search is defined over the prebuilt executable
-            # table; a proposal off it means scheduler and resource
-            # manager have drifted apart
+            # table (both granularities); a proposal off it means
+            # scheduler and resource manager have drifted apart
             assert self.rm.on_table(resources), (
                 f"scheduler proposed off-table partition "
-                f"({resources.prefill_units}, {resources.decode_units}); "
+                f"({resources.granularity}: {resources.prefill_units}, "
+                f"{resources.decode_units}, chips "
+                f"{resources.prefill_chips}+{resources.decode_chips}); "
                 f"table quantum={self.rm.quantum}")
         before = self.rm.current.config_id
         part = self.rm.switch(resources)
@@ -841,6 +1063,15 @@ class BulletServer:
                 if t is not None and t.shared_tokens:
                     self.obs.spans.mark(r.rid, "prefix_hit", now,
                                         reused=float(t.shared_tokens))
+        if self._chip_enabled and self.partition != "tile":
+            # pin the task's granularity for its lifetime (pages scatter
+            # into one pool consistently): forced under partition="chip",
+            # the scheduler's combined-table argmin under "auto". A guard
+            # degraded to partition="tile" keeps new tasks off the chip
+            # path though the split table stays built.
+            task.granularity = (
+                "chip" if self.partition == "chip"
+                else self.scheduler.preferred_granularity(self.buffer.state))
         return True
 
     def _build_task(self, batch: List[Request],
@@ -943,6 +1174,9 @@ class BulletServer:
         and migrate to decode when the last group completes."""
         if self.faults.enabled:
             self.faults.dispatch("prefill")
+        # serial launches own the whole group: tile semantics, on the
+        # server's device (the pool they scatter into lives there too)
+        self._home_decode(self.device)
         if task.prefix_map is not None:
             # shared-prefix suffix group, eagerly: gather the reused prefix
             # K/V, attend prefix and suffix, splice the suffix K/V in at
@@ -988,20 +1222,32 @@ class BulletServer:
     def _finish_prefill(self, task: PrefillTask, now: float) -> None:
         """Migrate the finished batch to decode. Paged: the KV already
         sits in pooled pages, so the handoff is pure block-table ownership
-        (pool.migrate) — no device copy. Dense: copy each request's
-        ``max_len`` row of the batch cache into its decode slot, in place.
-        Requests cancelled mid-prefill (``cancel_reason`` set) are
-        finalized here instead: pages freed, no token emitted."""
-        if task.prefix_map is not None:
-            first_tokens = _final_tokens(self.params, task.x, task.lengths,
-                                         cfg=self.cfg)
+        (pool.migrate) — no device copy. Chip-granular tasks first copy the
+        written pages from the prefill side's staging pool into the decode
+        side's (``_handoff``). Dense: copy each request's ``max_len`` row
+        of the batch cache into its decode slot, in place. Requests
+        cancelled mid-prefill (``cancel_reason`` set) are finalized here
+        instead: pages freed, no token emitted, no page handed off."""
+        b, s = task.x.shape[:2]
+        if task.granularity == "chip" and self._chip_enabled:
+            ex = self.rm.executable()
+            assert isinstance(ex, ChipExecutable), type(ex).__name__
+            with on_stream(ex.p_stream):
+                first_tokens = self.graphs_p(
+                    ("c_final", b, s), functools.partial(
+                        _final_tokens, self.params, cfg=self.cfg),
+                    task.x, task.lengths).cpu().numpy()
+            if not self._handoff(task, ex, now):
+                return
+        elif task.prefix_map is not None:
+            first_tokens = _final_tokens(
+                self.params, task.x, task.lengths,
+                cfg=self.cfg).cpu().numpy()
         else:
-            b, s = task.x.shape[:2]
             first_tokens = self.graphs(
                 ("p_final", b, s), functools.partial(
                     _final_tokens, self.params, cfg=self.cfg),
-                task.x, task.lengths)
-        first_tokens = first_tokens.cpu().numpy()
+                task.x, task.lengths).cpu().numpy()
         P = self.buffer.state.prefill
         if self.paged:
             # migrated slots flip PREFILL->DECODE: re-map their pages into
@@ -1053,6 +1299,49 @@ class BulletServer:
         P.active_rid = None
         P.layers_done = 0
         P.n_tokens = 0
+
+    def _handoff(self, task: PrefillTask, ex: ChipExecutable,
+                 now: float) -> bool:
+        """Copy a finished chip task's written pages (its live requests')
+        from the staging pool into the decode pool, on ``ex``'s streams:
+        the KV handoff the estimator charges at ``ici_bw``. A transient
+        failure retries with backoff (the fault hook raises before any page
+        moves, so a retry re-attempts the identical transfer); an exhausted
+        budget unwinds the whole batch back to the queue and lets the guard
+        leave the chip rung, and returns False."""
+        live = [r for r in task.batch if r.cancel_reason is None]
+        blocks: List[int] = []
+        for r in live:
+            blocks.extend(self.pool.written_blocks(r.rid,
+                                                   self._resume_len(r)))
+        fault = self.faults.handoff_hook() if self.faults.enabled else None
+        attempt = 0
+        while True:
+            try:
+                transfer_pages(self.cache_p, self.cache, blocks,
+                               self._decode_placement, fault=fault,
+                               streams=(ex.p_stream, ex.d_stream))
+                break
+            except HandoffError:
+                attempt += 1
+                self.stats.handoff_retries += 1
+                if attempt > self.handoff_policy.max_retries:
+                    self._abort_prefill_task(task, now)
+                    # clear before notifying: the guard's chip degrade
+                    # aborts any live chip task, and this one is torn down
+                    self.ptask = None
+                    if self.guard is not None:
+                        self.guard.on_handoff_exhausted(self, now)
+                    return False
+                self.faults.charge_delay(
+                    self.handoff_policy.backoff(attempt))
+        self.stats.handoffs += len(live)
+        self.last_handoff_tokens += sum(self._resume_len(r) for r in live)
+        if self.obs.enabled:
+            for r in live:
+                self.obs.spans.mark(r.rid, "handoff", now,
+                                    tokens=float(self._resume_len(r)))
+        return True
 
     def _finish_request(self, r: Request, slot: int, now: float) -> None:
         r.phase = Phase.FINISHED
@@ -1213,6 +1502,9 @@ class BulletServer:
         self.graphs.drop()
         self.cache = None
         self._dev_tables = {}
+        # the new cache is allocated on the server's device: the slot
+        # buffers go home with it
+        self._home_decode(self.device)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self._alloc_cache()
@@ -1289,6 +1581,19 @@ class BulletServer:
         self._switch(decision.resources)
         if self.faults.enabled:
             self.faults.dispatch("decode")
+        # decode-only cycles run wherever the decode state already lives
+        # (the server's device at first, the last chip entry's decode side
+        # between chip tasks): re-homing is left to the cycle kinds that
+        # need a placement, so the page pool never ping-pongs between
+        # sides across task boundaries, traffic the estimator's handoff
+        # charge does not cover
+        with _at(self._decode_placement):
+            self._run_decode(now)
+        return True
+
+    def _run_decode(self, now: float) -> None:
+        """One decode iteration on the current stream, through the graph of
+        its table bucket (or the dense cache's), and its bookkeeping."""
         act_np = self.active.copy()
         ctxs_ran, streamed, (tokens, pos, active, bt) = self._decode_inputs()
         if bt is None:
@@ -1300,13 +1605,12 @@ class BulletServer:
                                          active, bt)
         self._finish_decode_iteration(next_tokens, act_np, ctxs_ran,
                                       streamed, now)
-        return True
 
     def _decode_step(self, tokens, pos, active, block_tables=None):
-        """``_decode_iteration`` on the current params and cache: the step
-        the server's graphs capture."""
-        return _decode_iteration(self.params, self.cache, tokens, pos, active,
-                                 block_tables, cfg=self.cfg)
+        """``_decode_iteration`` on the decode side's params and the
+        current cache: the step the server's graphs capture."""
+        return _decode_iteration(self._d_params, self.cache, tokens, pos,
+                                 active, block_tables, cfg=self.cfg)
 
     def _finish_decode_iteration(self, next_tokens, act_np, ctxs_ran,
                                  streamed, now: float) -> None:
@@ -1365,6 +1669,8 @@ class BulletServer:
         ex = self.rm.executable()
         if self.faults.enabled:
             self.faults.dispatch("fused")
+        # tile-granular fused cycle: both phases on the server's device
+        self._home_decode(self.device)
         act_np = self.active.copy()
         ctxs_ran, streamed, (tokens, pos, active, bt) = self._decode_inputs()
         next_tokens, _ = ex.fn(
@@ -1382,6 +1688,71 @@ class BulletServer:
         self._prefill_group_done(task, now)
         return True
 
+    # -- chip engine (disjoint-side co-execution, §3.4) -------------------
+    @contextlib.contextmanager
+    def _sides(self, ex: ChipExecutable):
+        """Bracket a chip cycle's work on ``ex``'s side streams: each
+        starts after the work already queued on its card's current stream,
+        and that stream waits for both before any later work (a tile cycle,
+        the next admission's writes, the next chip cycle's sides). No host
+        synchronization: within the cycle the two sides overlap."""
+        pairs = [(st, torch.cuda.current_stream(st.device))
+                 for st in (ex.p_stream, ex.d_stream) if st is not None]
+        for st, cur in pairs:
+            st.wait_stream(cur)
+        try:
+            yield
+        finally:
+            for st, cur in pairs:
+                cur.wait_stream(st)
+
+    def _chip_cycle(self, now: float) -> bool:
+        """One chip-granular engine cycle: the prefill layer group and the
+        decode iteration run on DISJOINT sides of the device group, each
+        on its own stream, so they overlap (the estimator charges the max
+        of the sides). One scheduling cycle covers both phases, restricted
+        to the chip half of the table; the §3.3.3 pause never fires (decode
+        owns its side: nothing to borrow). Prefill scatters prompt KV into
+        the staging pool; a finished prompt's pages are copied to the
+        decode side in ``_finish_prefill``. Only the handoff and the host's
+        read of the decode tokens wait on the sides."""
+        task = self.ptask
+        state = self.buffer.read()
+        decision = self.scheduler.schedule(state, now, self._pending_meta(),
+                                           granularity="chip")
+        self._apply_reorder(decision.reorder)
+        self._switch(decision.resources)
+        ex = self.rm.executable()
+        assert isinstance(ex, ChipExecutable), (
+            f"chip task but executable {type(ex).__name__} for config "
+            f"{self.rm.current}")
+        # both chip seams fire before any device work: the prefill group
+        # advances task.x, so a later raise would apply the group twice
+        # when the cycle retries at the same ``rep``
+        did_decode = bool(self.active.any())
+        if self.faults.enabled:
+            self.faults.dispatch("chip_prefill")
+            if did_decode:
+                self.faults.dispatch("chip_decode")
+        # the decode side's placement first: a move is queued on the
+        # current stream, which the sides wait for
+        self._home_decode(ex.d_placement)
+        with self._sides(ex):
+            b, s = task.x.shape[:2]
+            with on_stream(ex.p_stream):
+                self.graphs_p(("c_group", task.rep, b, s), functools.partial(
+                    _prefill_group_paged, self.params, self.cache_p,
+                    cfg=self.cfg, rep=task.rep, stats=self.moe_stats),
+                    task.x, task.positions, task.page_map, task.lengths)
+            self.last_chip = True
+            self.stats.chip_cycles += 1
+            if did_decode:
+                # the host's read of the tokens waits for this side alone
+                with on_stream(ex.d_stream):
+                    self._run_decode(now)
+            self._prefill_group_done(task, now)
+        return True
+
     # -- online estimator refit (§3.2.2 closed loop) ----------------------
     def last_cycle_observation(self) -> Optional[CycleObservation]:
         """What the most recent step() executed, as the estimator-facing
@@ -1390,6 +1761,14 @@ class BulletServer:
         if w is None and not self.last_prefill_tokens:
             return None
         R = self.buffer.state.resources
+        if self.last_chip:
+            return CycleObservation(
+                "chip", self.last_prefill_tokens,
+                max(R.prefill_units, 1), max(R.decode_units, 1),
+                w.batch if w is not None else 0,
+                max(w.mean_context, 1) if w is not None else 1,
+                (tuple(w.streamed) or None) if w is not None else None,
+                handoff_tokens=self.last_handoff_tokens)
         if self.last_fused and w is not None and self.last_prefill_tokens:
             return CycleObservation(
                 "fused", self.last_prefill_tokens,
@@ -1443,9 +1822,9 @@ class BulletServer:
     def _record_cycle_event(self, now: float) -> None:
         """Append the cycle that step() just executed to the structured
         trace: kind, the partition that ran, predicted duration (the
-        actual arrives via record_cycle_actual), KV-pool occupancy and
-        the scheduler's rationale. No-op when the step ran no device
-        work."""
+        actual arrives via record_cycle_actual), handoff bytes, KV-pool
+        occupancy and the scheduler's rationale. No-op when the step ran
+        no device work."""
         self._open_cycle = None
         rec = self.last_cycle_observation()
         if rec is None:
@@ -1461,6 +1840,10 @@ class BulletServer:
             prefill_tokens=self.last_prefill_tokens,
             decode_batch=(self.last_decode.batch
                           if self.last_decode is not None else 0),
+            handoff_tokens=self.last_handoff_tokens,
+            handoff_bytes=int(analytics.kv_transfer_bytes(
+                self.cfg, self.last_handoff_tokens))
+            if self.last_handoff_tokens else 0,
             kv_used_blocks=self.pool.allocated_blocks,
             kv_total_blocks=self.pool.n_blocks,
             kv_occupancy=self.pool.occupancy(),
@@ -1501,7 +1884,13 @@ class BulletServer:
         self.last_reused_tokens = 0
         self.last_decode = None
         self.last_fused = False
+        self.last_chip = False
+        self.last_handoff_tokens = 0
         did_admit = self._admit_prefill(now)
+        if self.ptask is not None and self.ptask.granularity == "chip":
+            # chip-pinned task: every layer group runs on its prefill
+            # side, with the decode iteration concurrent on the other
+            return self._chip_cycle(now) or did_admit
         # a shared-prefix suffix task always runs serially
         if (self.fused and self.ptask is not None
                 and self.ptask.prefix_map is None and self.active.any()):

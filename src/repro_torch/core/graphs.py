@@ -96,6 +96,8 @@ class StepGraphs:
         self._kept = weakref.WeakValueDictionary()
         #: (key, capture seconds) of every capture, in order (drops kept)
         self.captures: List[Tuple[Hashable, float]] = []
+        #: graphs released by ``drop`` so far
+        self.dropped = 0
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -202,12 +204,15 @@ class StepGraphs:
                    if tuple(s["segment_pool_id"]) == tuple(self._pool))
 
     def drop(self) -> None:
-        """Release every graph and the pool they share (the caching
-        allocator returns the pool's memory at its next ``empty_cache``)."""
+        """Release every graph, the pool they share (the caching allocator
+        returns the pool's memory at its next ``empty_cache``) and the
+        capture stream, so the next capture may be on another card."""
         for e in self._entries.values():
             e.graph.reset()
+        self.dropped += len(self._entries)
         self._entries.clear()
         self._pool = None
+        self._stream = None
 
 
 class GraphedDecode:

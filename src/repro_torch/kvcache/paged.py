@@ -484,3 +484,85 @@ class PagedKVPool:
                 assert block in self._node
         for block in self._cached:
             assert block in self._node, f"cached block {block} unindexed"
+
+
+# ---------------------------------------------------------------------------
+# Per-side device pools: the cross-mesh page handoff (chip granularity)
+# ---------------------------------------------------------------------------
+# Under chip-granular partitions (launch/submesh.py) the engine keeps TWO
+# device page pools addressed by the same logical block ids of one
+# PagedKVPool: a prefill-staging pool on the prefill side's device and the
+# decode pool on the decode side's. Prefill scatters prompt KV into its own
+# side's pages; when a prompt finishes, ``transfer_pages`` copies exactly
+# the written pages onto the decode side: the copy below IS the
+# interconnect traffic the estimator's ``kv_handoff_time`` charges. Block
+# ownership never moves: the single host allocator keeps page ids stable
+# across the copy, so preempt / resume / migrate stay pure table edits on
+# both sides.
+
+def on_stream(stream):
+    """The context that makes ``stream`` current (None: none, as on the
+    CPU)."""
+    import contextlib
+
+    import torch
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+def transfer_pages(src_cache, dst_cache, blocks: Sequence[int],
+                   placement=None, fault=None, *, streams=None):
+    """Prefill→decode KV handoff: for every leaf of every layer of the
+    source page pool (``(R, P+1, ps, K, D)``, the page axis dim 1), select
+    ``blocks``, copy them to ``placement`` (the decode pool's device; None:
+    the destination leaf's own) and ``index_copy_`` them into the
+    destination pool in place. Returns ``dst_cache``.
+
+    ``fault`` is the resilience seam (docs/RESILIENCE.md): a callable
+    invoked as ``fault(len(blocks))`` before any device work, so an
+    injected ``HandoffError`` raised from it leaves both pools untouched
+    and the engine's retry re-attempts the identical transfer. Empty
+    ``blocks`` is a no-op.
+
+    ``streams`` (CUDA): the (prefill side's, decode side's) streams. The
+    pages are selected on the prefill side's stream, after the prefill
+    work queued there; the copy and the write run on the decode side's
+    stream after an event recorded on the prefill side's. A tensor used
+    on a stream it was not made on is marked with ``record_stream``, so
+    the caching allocator does not hand its memory out early. The block
+    ids reach a card from pinned memory without a host wait, so the
+    handoff only queues work on the two streams."""
+    if not len(blocks):
+        return dst_cache
+    if fault is not None:
+        fault(len(blocks))
+    import torch
+
+    p_stream, d_stream = streams if streams is not None else (None, None)
+    idx = torch.as_tensor(np.asarray(blocks, np.int64))
+
+    def upload(dev):
+        if dev.type != "cuda":
+            return idx.to(dev)
+        return idx.pin_memory().to(dev, non_blocking=True)
+    with on_stream(p_stream):
+        src_dev = src_cache["blocks"][0]["k"].device
+        idx_s = upload(src_dev)
+        pages = [{key: leaf.index_select(1, idx_s) for key, leaf in e.items()}
+                 for e in src_cache["blocks"]]
+        ready = p_stream.record_event() if p_stream is not None else None
+        with on_stream(d_stream):
+            if ready is not None:
+                d_stream.wait_event(ready)
+            dst_dev = (torch.device(placement) if placement is not None
+                       else dst_cache["blocks"][0]["k"].device)
+            idx_d = upload(dst_dev)
+            for src_entry, dst_entry in zip(pages, dst_cache["blocks"]):
+                for key, dst_leaf in dst_entry.items():
+                    moved = src_entry[key].to(dst_dev)
+                    if d_stream is not None and moved is src_entry[key]:
+                        # one card: the pages made on the prefill side's
+                        # stream are read on the decode side's
+                        moved.record_stream(d_stream)
+                    dst_leaf.index_copy_(1, idx_d, moved)
+    return dst_cache

@@ -28,6 +28,13 @@ Modes (on one CUDA card by default, on the CPU with ``--device cpu``):
   pages of a prompt's indexed prefix instead of prefilling it again
   (docs/KV_SHARING.md).
 
+Both engine modes take ``--partition tile|chip|auto`` (docs/PARTITIONS.md)
+and ``--devices``, the device group chip granularity carves into a
+prefill side and a decode side (default: every visible card; a card may
+be listed twice, ``--devices cuda:0,cuda:0``, and then each side has its
+own stream and page pool on it). ``--partition chip`` on fewer than two
+entries exits with the engine's ``ValueError``.
+
 - sim: the estimator-driven discrete-event comparison of Bullet against
   the paper's baselines (``--systems``: chunked-N, nanoflow-N, naive,
   bullet-fixN, bullet-nosched, bullet-nopart) on one ``generate_trace``
@@ -52,6 +59,9 @@ the card's where one is present, else the H100's 132.
       --device cpu --dataset sharegpt --rate 8 --duration 5 --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
       --device cpu --share-prefix --tenants 4 --credit
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode replay \\
+      --device cpu --devices cpu,cpu --partition chip --rate 4000 \\
+      --duration 0.02 --requests 10
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --mode replay --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -101,6 +111,10 @@ def _write_obs_outputs(args, server) -> None:
     if args.metrics_out:
         server.obs.write_metrics(args.metrics_out, server=server)
         print(f"wrote metrics snapshot to {args.metrics_out}")
+
+
+def _device_list(text: str):
+    return tuple(d.strip() for d in text.split(",") if d.strip())
 
 
 def model_config(arch: str):
@@ -158,7 +172,6 @@ def _host(args) -> None:
 def _replay(args) -> None:
     from repro_torch.core.config import build_server_config
     from repro_torch.core.engine import BulletServer
-    from repro_torch.core.estimator import PerfEstimator
     from repro_torch.core.profiler import SurrogateMachine
     from repro_torch.obs import Observability
     from repro_torch.obs.report import run_report
@@ -173,7 +186,6 @@ def _replay(args) -> None:
     # replay scores against the dataset's Table-2 SLO (--slo-* applies to
     # host mode); the estimator prices cycles on the H100 spec
     slo = WORKLOAD_SLOS[args.dataset]
-    est = PerfEstimator()
     faults, guard = _resilience(args)
     tenancy = None
     if args.tenants > 0:
@@ -183,7 +195,7 @@ def _replay(args) -> None:
             make_apps(args.tenants, rate_limit=args.rate_limit),
             TenancyConfig(credit=args.credit))
     server = BulletServer(cfg, params, config=build_server_config(
-        args, slo=slo, est=est, refit=not args.no_refit,
+        args, slo=slo, refit=not args.no_refit,
         obs=Observability(), faults=faults, guard=guard, tenancy=tenancy),
         device=args.device)
     trace = fit_trace_to_context(
@@ -194,7 +206,8 @@ def _replay(args) -> None:
         # --oracle charges the surrogate machine's hidden-truth timings
         # instead of the engine's own estimate, so the refit loop has
         # something to close
-        cost = (oracle_cycle_cost(SurrogateMachine(est.hw, seed=args.seed))
+        cost = (oracle_cycle_cost(SurrogateMachine(server.est.hw,
+                                                   seed=args.seed))
                 if args.oracle else estimator_cycle_cost)
         fe = OnlineFrontend(server, VirtualClock(), cycle_cost=cost)
     else:
@@ -341,6 +354,18 @@ def main(argv=None) -> int:
                          "requests whose prompt matches resident pages "
                          "map them read-only instead of re-prefilling "
                          "(paged pool only; docs/KV_SHARING.md)")
+    ap.add_argument("--partition", choices=("tile", "chip", "auto"),
+                    default="tile",
+                    help="partition granularity (docs/PARTITIONS.md): tile "
+                         "= fused spatial sharing on every chip; chip = "
+                         "disjoint prefill/decode sub-meshes with KV "
+                         "handoff (needs >= 2 devices); auto = per-task "
+                         "combined-table argmin")
+    ap.add_argument("--devices", type=_device_list, default=None,
+                    metavar="DEV,DEV,...",
+                    help="the device group --partition chip|auto carves, "
+                         "e.g. cuda:0,cuda:1 (default: every visible "
+                         "card); a card may be listed twice")
     ap.add_argument("--slo-ttft", type=float, default=3.0)
     ap.add_argument("--slo-tpot", type=float, default=150.0)
     ap.add_argument("--seed", type=int, default=0)

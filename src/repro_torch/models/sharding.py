@@ -18,15 +18,19 @@ The rules are the JAX package's:
 A mesh here is its shape alone (``launch/mesh.MeshShape``: axis names and
 sizes), and a partition spec is a :class:`Spec`: one entry per dim of its
 leaf, a mesh axis name, a tuple of names or None (replicated). Nothing
-places a tensor on devices yet: the sharded runtime (DTensor, the
+places a tensor on several devices yet: the sharded runtime (DTensor, the
 collectives, the sequence-parallel decode and the sharded MoE) comes with
-ROADMAP §1 item 8d, and the per-sub-mesh placements with item 7.
+ROADMAP §1 item 8d. The per-sub-mesh placements of chip granularity
+(``submesh_param_sharding``, ``submesh_cache_sharding``) place a side's
+whole copy on one device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -136,6 +140,31 @@ def make_policy(cfg: ModelConfig, mesh, *, global_batch: int = 0,
         moe_token_shard_map=moe_token_shard_map,
         moe_2d_weights=moe_2d_weights,
     )
+
+
+# ---------------------------------------------------------------------------
+# Per-sub-mesh placements (chip-granular partitions, launch/submesh.py)
+# ---------------------------------------------------------------------------
+
+def submesh_param_sharding(mesh: Sequence[Any]):
+    """Parameter placement for one side of a chip-granular split: the
+    side's lead device, its first entry. The JAX package replicates the
+    params over every device of the side and each computes the same
+    values; here one copy on the lead device computes them, so the
+    results, and the token streams, are the same. Each side runs its
+    phase with its own resident copy (the pre-configured execution state
+    of §3.4.2: no cross-side traffic but the explicit KV handoff)."""
+    return torch.device(mesh[0])
+
+
+def submesh_cache_sharding(mesh: Sequence[Any]):
+    """KV-page-pool placement on a side: its lead device, like the
+    params. Copying pages from the prefill side's pool onto the decode
+    side's placement is the handoff (kvcache/paged.py ``transfer_pages``)
+    charged to the interconnect. (The same placement as the params today;
+    kept apart so placing the pool differently within a side stays a
+    one-function change.)"""
+    return torch.device(mesh[0])
 
 
 def with_fsdp(spec: Spec, policy: ShardingPolicy) -> Spec:

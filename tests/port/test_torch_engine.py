@@ -228,16 +228,28 @@ def test_record_cycle_actual_logs_prediction(model):
     assert kind == "serial" and pred > 0 and actual == 1e-3
 
 
-def test_later_slices_raise_not_implemented(model):
-    """Chip granularity is the one later slice left in the config; the
-    shared-prefix and tenancy fields build a server, and the frontend's
-    multi-turn entry point runs."""
+def test_chip_config_builds_and_one_device_refuses_chip(model):
+    """Chip granularity is in the config: ``ExecConfig(partition="chip",
+    devices=...)`` builds, ``partition="chip"`` on one device raises the
+    JAX engine's ValueError (naming ``devices=`` where the JAX one names
+    the XLA flag), and ``partition="auto"`` on one device leaves chip
+    granularity off. The shared-prefix and tenancy fields build a server,
+    and the frontend's multi-turn entry point runs."""
     from repro_torch.serving.tenancy import TenancyController
-    with pytest.raises(NotImplementedError, match="chip"):
-        ExecConfig(partition="chip")
-    with pytest.raises(NotImplementedError, match="chip"):
-        ExecConfig(devices=("cuda:0", "cuda:1"))
+    ex = ExecConfig(partition="chip", devices=("cpu", "cpu"))
+    assert ex.partition == "chip" and ex.devices == ("cpu", "cpu")
     _, cfg, _, params = model
+    with pytest.raises(ValueError, match=r"partition='chip' needs >= 2 "
+                                         r"devices to carve sub-meshes from "
+                                         r"\(have 1\)"):
+        BulletServer(cfg, params, config=ServerConfig(
+            slo=SLO(3.0, 150.0), execution=ExecConfig(partition="chip")),
+            device="cpu")
+    auto = BulletServer(cfg, params, config=ServerConfig(
+        slo=SLO(3.0, 150.0), execution=ExecConfig(partition="auto")),
+        device="cpu")
+    assert auto.partition == "auto" and not auto._chip_enabled
+    assert not auto.rm.chip_entries
     ten = TenancyController()
     ts = BulletServer(cfg, params, config=ServerConfig(
         slo=SLO(3.0, 150.0), cache=CacheConfig(share_prefix=True),
