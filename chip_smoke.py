@@ -343,11 +343,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    from (d) (the state row the same kernel's); the ``*_bf16`` rows from
    the same runs in (e) (a bf16 RecurrentGemma step runs kernel 7 in
    fp32: its gates are fp32, as the JAX package's);
-17. dryrun (``phase_dryrun``): (a) every registered config x input shape
+17. sharded (``phase_sharded``, ROADMAP §1 item 8d): ranks spawned on
+   cuda:0 over gloo (every collective staged through the host: no measure
+   of TP speed), while the dry-run matrix (18 (a)) traces on the host's
+   cores: Qwen3-1.7B at full width and depth on 1 x 2, fp32 (gate TP_TOL
+   of the real vocab's logit scale against the unsharded port on the
+   card) and bf16 (printed); RecurrentGemma-2B's (R, R, L) and
+   Mamba-2-2.7B at depth 2 on 1 x 2; Mixtral-8x22B (one layer, capacity
+   factor 8) on 2 x 2, token-parallel and 2D; a depth-2 Qwen3-1.7B fp32
+   train step with FSDP on 2 x 2 against the unsharded step; each rank's
+   parameter bytes equal to ``sharded_resident_gb``, its launches (1 and
+   4 in Qwen3, 1 and 7 in RecurrentGemma, 6 in Mamba-2) and collective
+   bytes printed;
+18. dryrun (``phase_dryrun``): (a) every registered config x input shape
    (44) on the 16x16 production mesh traced at full width and depth on
-   the meta device (``repro_torch.launch.dryrun``, one process per core,
-   rows under build/), no failure, Granite-3.0-2B's ``decode_32k`` under
-   16 GB a device; (b) Qwen3-1.7B at full width in bf16 on the card:
+   the meta device, the whole step and rank 0's local step
+   (``repro_torch.launch.dryrun``, DRYRUN_JOBS processes, rows under
+   build/), no failure, Granite-3.0-2B's ``decode_32k`` under 16 GB a
+   device; (b) Qwen3-1.7B at full width in bf16 on the card:
    ``prefill`` of one 1000-token prompt (kernel 1) and ``decode_step``
    over 8 slots of a dense 1000-row cache at contexts 1-1000 (kernel 4),
    each: the median card ms of CUDA-event timings outside the counter,
@@ -6675,21 +6688,36 @@ PEAK_TOL, PEAK_SLACK = 0.01, 1 << 20
 DRYRUN_REPS = 10
 
 
-def _dryrun_matrix(card: str) -> int:
-    """(a) every registered config x input shape on the 16x16 mesh, traced
-    on the meta device (launch/dryrun.py, one process per core)."""
+#: the dry-run matrix's processes: the host's cores but two, left to the
+#: sharded phase's ranks, which run on the card meanwhile
+DRYRUN_JOBS = max(1, min(8, (os.cpu_count() or 1) - 2))
+
+
+def _dryrun_matrix_start():
+    """Start (a), every registered config x input shape on the 16x16 mesh
+    traced on the meta device (launch/dryrun.py, DRYRUN_JOBS processes),
+    in the background on the host's CPU: (a, its start, its log)."""
     path = os.path.join(ROOT, "build", "torch_dryrun.json")
-    jobs = min(8, os.cpu_count() or 1)
-    t = time.perf_counter()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    log_path = path + ".log"
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    res = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
-         "--jobs", str(jobs), "--results", path], env=env,
-        capture_output=True, text=True)
-    print(res.stdout, end="", flush=True)
-    check(res.returncode == 0, f"dry-run matrix: exit {res.returncode}: "
-          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
-    with open(path) as f:
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+             "--jobs", str(DRYRUN_JOBS), "--results", path], env=env,
+            stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter(), log_path
+
+
+def _dryrun_matrix(card: str, started) -> int:
+    """(a)'s end: its rows checked, its output printed."""
+    proc, t, log_path = started
+    rc = proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    print(text, end="", flush=True)
+    check(rc == 0, f"dry-run matrix: exit {rc}: {text[-3000:]}")
+    with open(os.path.join(ROOT, "build", "torch_dryrun.json")) as f:
         rows = json.load(f)
     check(len(rows) == 44 and all(r["mesh"] == "16x16" for r in rows),
           f"dry-run matrix: {len(rows)} rows")
@@ -6698,8 +6726,9 @@ def _dryrun_matrix(card: str) -> int:
     check(granite["memory"]["resident_gb"] < 16.0,
           f"granite decode_32k resident {granite['memory']['resident_gb']}")
     log(f"dryrun (a): {len(rows)} combinations on 16x16 traced on the meta "
-        f"device in {time.perf_counter() - t:.1f} s with {jobs} processes, "
-        f"no failure (host CPU; no card used; {card} idle)")
+        f"device (each the whole step and rank 0's local step) in "
+        f"{time.perf_counter() - t:.1f} s with {DRYRUN_JOBS} processes, "
+        f"no failure (host CPU, beside the sharded phase on the card)")
     return len(rows)
 
 
@@ -6778,15 +6807,15 @@ def _measured_step(name, fn, args, meta_args, kernel, card: str) -> dict:
                 bytes=rep.hbm_bytes, peak_pred=pred, peak_card=peak)
 
 
-def phase_dryrun(card: str) -> dict:
-    """The dry-run matrix (a), then Qwen3-1.7B at full width in bf16 on the
-    card (b): prefill of one 1000-token prompt (kernel 1) and a decode step
-    over 8 slots of a dense cache of 1000 rows at contexts 1-1000 (kernel
-    4), each against the roofline counter on the card and on the meta
-    device."""
+def phase_dryrun(card: str, matrix) -> dict:
+    """The dry-run matrix (a) (started by ``_dryrun_matrix_start``), then
+    Qwen3-1.7B at full width in bf16 on the card (b): prefill of one
+    1000-token prompt (kernel 1) and a decode step over 8 slots of a dense
+    cache of 1000 rows at contexts 1-1000 (kernel 4), each against the
+    roofline counter on the card and on the meta device."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
-    out = {"matrix": _dryrun_matrix(card)}
+    out = {"matrix": _dryrun_matrix(card, matrix)}
     cfg = get_config("qwen3-1.7b")
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda")
@@ -6827,6 +6856,359 @@ def phase_dryrun(card: str) -> dict:
         (params, cache, tok, pos), (mparams, mcache, *meta_like(tok, pos)),
         "decode_attention", card)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharded: the tensor-parallel runtime over gloo ranks that share the card
+# ---------------------------------------------------------------------------
+
+#: the sharded phase's gate against the unsharded port on the card, of
+#: the logits' scale: the JAX sharded script's bound
+TP_TOL = 5e-3
+#: the sharded train step against the unsharded one: loss and grad norm
+#: relative, params of each leaf's scale
+TP_TRAIN_TOL, TP_PARAM_TOL = 1e-4, 1e-5
+#: (a)'s batch and prompt, then TP_DECODE teacher-forced decode steps
+TP_B, TP_S, TP_S0, TP_DECODE = 2, 128, 120, 4
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+def _tp_cfg(name: str, small: bool, **fields):
+    """The config at full width (``fields`` cut its depth), or at the
+    reduced widths with its own structure (``small``: the CPU rehearsal of
+    this phase)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if small:
+        heads = min(cfg.n_heads, 4)
+        cfg = cfg.reduced(n_heads=heads, n_kv_heads=min(cfg.n_kv_heads, 2)
+                          if cfg.n_kv_heads > 1 else cfg.n_kv_heads)
+    return dataclasses.replace(cfg, **fields)
+
+
+def _tp_launches():
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rglru_scan as RK
+    from repro_torch.kernels import ssd_scan as SK
+    return {"flash": FA.launches, "decode": DA.launches, "ssd": SK.launches,
+            "rglru": RK.launches}
+
+
+def _tp_drive(params, cfg, toks, lens, max_len, dtype, device, rows: int,
+              s0: int, policy=None, forward=True):
+    """forward (optional), prefill of the first ``lens`` tokens of each row
+    (padded to ``s0``, the longest of every rank's rows) and TP_DECODE
+    teacher-forced decode steps, with ``policy`` (``toks`` and ``lens``
+    this rank's rows of ``rows``) or without: the logits of each, on the
+    card."""
+    from repro_torch.models import transformer as T
+    out = {}
+    with torch.no_grad():
+        if forward:
+            out["forward"], _ = T.forward(params, toks, cfg, policy=policy)
+        cache = T.init_cache(cfg, rows, max_len, dtype, device,
+                             policy=policy)
+        out["prefill"], cache = T.prefill(params, toks[:, :s0], lens, cache,
+                                          None, cfg, policy=policy)
+        pos = lens.clone()
+        for i in range(TP_DECODE):
+            tok = toks.gather(1, (pos[:, None] % toks.shape[1]).long())
+            out[f"decode{i}"], cache = T.decode_step(
+                params, cache, tok, pos, cfg, policy=policy)
+            pos = pos + 1
+    return out
+
+
+def _tp_gathered(out, policy, mesh):
+    """Each output's logits, gathered over the mesh."""
+    from repro_torch.models import sharding as SH
+    bax = policy.data_axes if policy.shard_batch else None
+    voc = policy.model_axis if policy.shard_vocab else None
+    return {k: SH.gather_leaf(v, SH.Spec(bax, None, voc) if v.dim() == 3
+                              else SH.Spec(bax, voc), mesh)
+            for k, v in out.items()}
+
+
+def _tp_err(got, want, vocab: int) -> dict:
+    """Per output: (max abs error, the unsharded logits' scale over the
+    ``vocab`` real entries: the padded tail holds -1e30 on both sides)."""
+    return {k: (float((got[k].float() - want[k].float()).abs().max()),
+                max(float(want[k][..., :vocab].float().abs().max()), 1.0))
+            for k in want}
+
+
+def _tp_bytes(cfg, policy, mesh, params, dtype) -> tuple:
+    """(this rank's parameter bytes, ``sharded_resident_gb``'s count)."""
+    from repro_torch.launch.specs import sharded_resident_gb
+    from repro_torch.models import transformer as T
+    from repro_torch.training.tree import leaves
+    full = T.init_params(cfg, dtype=dtype, device="meta")
+    mine = sum(t.numel() * t.element_size() for t in leaves(params))
+    return mine, sharded_resident_gb(full, T.param_specs(cfg, policy),
+                                     mesh) * 2**30
+
+
+def _tp_model(mesh, name, cfg, dtype, toks, lens, max_len, seed,
+              forward=True, **policy_kw):
+    """One model on this rank's shards: init leaf by leaf, the main path
+    (forward, prefill, decode) with the counters reset just before it and
+    read just after. Returns (this rank's row, the gathered logits)."""
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as T
+    rows = toks.shape[0]
+    policy = SH.make_policy(cfg, mesh, global_batch=rows, **policy_kw)
+    dev = mesh.device
+    params = T.init_params(cfg, seed=seed, dtype=dtype, device=dev,
+                           policy=policy)
+    mine, resident = _tp_bytes(cfg, policy, mesh, params, dtype)
+    bax = policy.data_axes if policy.shard_batch else None
+    ltoks = SH.shard_leaf(toks.to(dev), SH.Spec(bax), mesh).contiguous()
+    llens = SH.shard_leaf(lens.to(dev), SH.Spec(bax), mesh).contiguous()
+    _reset_counts()
+    SH.COLLECTIVES.reset()
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = _tp_drive(params, cfg, ltoks, llens, max_len, dtype, dev, rows,
+                    int(lens.max()), policy, forward)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    row = {"rank": mesh.rank, "what": name, "launches": _tp_launches(),
+           "gated": dtype == torch.float32,
+           "collectives": SH.COLLECTIVES.read(), "seconds": secs,
+           "param_bytes": mine, "resident_bytes": resident,
+           "policy": {k: getattr(policy, k) for k in (
+               "shard_heads", "shard_kv_heads", "seq_parallel_decode",
+               "shard_experts", "shard_vocab", "shard_batch")}}
+    got = _tp_gathered(out, policy, mesh)
+    del params, out
+    _sync(dev)
+    return row, got
+
+
+def _tp_reference(cfg, dtype, toks, lens, max_len, seed, dev,
+                  forward=True):
+    """The unsharded port on ``dev``, rank 0's card."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, seed=seed, dtype=dtype, device=dev)
+    out = _tp_drive(params, cfg, toks.to(dev), lens.to(dev), max_len, dtype,
+                    dev, toks.shape[0], int(lens.max()), None, forward)
+    del params
+    _sync(dev)
+    return out
+
+
+def _tp_case(mesh, name, cfg, dtype, toks, lens, max_len, seed, *, refs,
+             forward=True, **policy_kw):
+    """:func:`_tp_model`, and on rank 0 its error against ``refs[key]``
+    (computed once per (config, dtype) and kept)."""
+    row, got = _tp_model(mesh, name, cfg, dtype, toks, lens, max_len, seed,
+                         forward, **policy_kw)
+    if mesh.rank == 0:
+        key = (cfg.name, cfg.n_layers, dtype)
+        if key not in refs:
+            refs[key] = _tp_reference(cfg, dtype, toks, lens, max_len, seed,
+                                      mesh.device, forward)
+        row["errors"] = _tp_err(got, refs[key], cfg.vocab_size)
+    del got
+    _sync(mesh.device)
+    return row
+
+
+def _tp_first(mesh, small: bool = False) -> list:
+    """(a) Qwen3-1.7B full width and depth on 1 x 2, fp32 then bf16; (b)
+    RecurrentGemma-2B one (R, R, L) repeat and Mamba-2-2.7B at depth 2 on
+    1 x 2, fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows, refs = [], {}
+    qwen = _tp_cfg("qwen3-1.7b", small)
+    gen = torch.Generator().manual_seed(31)
+    toks = torch.randint(0, qwen.vocab_size, (TP_B, TP_S), generator=gen,
+                         dtype=torch.int32)
+    lens = torch.full((TP_B,), TP_S0, dtype=torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        rows.append(_tp_case(mesh, f"(a) qwen3-1.7b {_dt_name(dt)}", qwen,
+                             dt, toks, lens, TP_S, 31, refs=refs))
+        refs.clear()
+    rg = _tp_cfg("recurrentgemma-2b", small, n_layers=3, pattern_tail=())
+    lens = [100, 50] if small else [2100, 1100]
+    toks, lens = _prompt_batch(rg, lens, seed=32)
+    rows.append(_tp_case(mesh, "(b) recurrentgemma-2b (R, R, L) fp32", rg,
+                         torch.float32, toks, lens,
+                         toks.shape[1] + TP_DECODE, 32, refs=refs,
+                         forward=False))
+    refs.clear()
+    mamba = _tp_cfg("mamba2-2.7b", small, n_layers=2)
+    toks, lens = _prompt_batch(mamba, [256, 200], seed=33)
+    rows.append(_tp_case(mesh, "(b) mamba2-2.7b depth 2 fp32", mamba,
+                         torch.float32, toks, lens, 256 + TP_DECODE, 33,
+                         refs=refs))
+    return rows
+
+
+def _tp_train(mesh, cfg, seed: int) -> dict:
+    """(d) one fp32 train step of ``cfg`` with FSDP on this rank's shards
+    (AdamW, eps 1e-3 as the CPU test's), the gathered params, loss and grad
+    norm; rank 0 then the unsharded step and the errors."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.training.trainer import make_train_step
+    from repro_torch.training.tree import leaves
+    b, s = 4, 128
+    gen = torch.Generator().manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                              dtype=torch.int32) for k in ("tokens",
+                                                           "labels")}
+    kw = dict(optimizer="adamw", eps=1e-3, lr=1e-3, warmup=1, remat=True)
+    policy = SH.make_policy(cfg, mesh, global_batch=b, fsdp=True)
+    specs = T.param_specs(cfg, policy)
+    dev = mesh.device
+    params = T.init_params(cfg, seed=seed, dtype=torch.float32, device=dev,
+                           policy=policy)
+    mine, resident = _tp_bytes(cfg, policy, mesh, params, torch.float32)
+    local = {k: SH.shard_leaf(v.to(dev), SH.Spec(policy.data_axes),
+                              mesh).contiguous() for k, v in batch.items()}
+    init_fn, step_fn = make_train_step(cfg, policy, **kw)
+    state = init_fn(params)
+    del params
+    _reset_counts()
+    SH.COLLECTIVES.reset()
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, m = step_fn(state, local)
+    _sync(dev)
+    row = {"rank": mesh.rank, "what": f"(d) qwen3-1.7b depth "
+           f"{cfg.n_layers} train step fp32, FSDP",
+           "launches": _tp_launches(),
+           "bwd_flash": FA.bwd_launches,
+           "collectives": SH.COLLECTIVES.read(),
+           "seconds": time.perf_counter() - t0, "param_bytes": mine,
+           "resident_bytes": resident}
+    got = SH.gather_tree(state.params, specs, mesh, cfg)
+    metrics = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    del state
+    _sync(dev)
+    if mesh.rank == 0:
+        init_fn, step_fn = make_train_step(cfg, **kw)
+        ref = init_fn(T.init_params(cfg, seed=seed, dtype=torch.float32,
+                                    device=dev))
+        ref, rm = step_fn(ref, {k: v.to(dev) for k, v in batch.items()})
+        worst = max(float((a - b_).abs().max())
+                    / max(float(b_.abs().max()), 1e-30)
+                    for a, b_ in zip(leaves(got), leaves(ref.params)))
+        row["errors"] = {k: (abs(metrics[k] - float(rm[k])),
+                             abs(float(rm[k]))) for k in metrics}
+        row["param_err"] = worst
+        del ref
+    del got
+    _sync(dev)
+    return row
+
+
+def _tp_second(mesh, small: bool = False) -> list:
+    """(c) Mixtral-8x22B at full width, one pattern repeat, on 2 x 2, fp32
+    with capacity factor 8: token-parallel, then 2D expert weights; (d)
+    the train step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mix = _tp_cfg("mixtral-8x22b", small, n_layers=1,
+                  moe_capacity_factor=8.0)
+    gen = torch.Generator().manual_seed(34)
+    toks = torch.randint(0, mix.vocab_size, (4, 64), generator=gen,
+                         dtype=torch.int32)
+    lens = torch.tensor([60, 60, 48, 30], dtype=torch.int32)
+    refs, rows = {}, []
+    rows.append(_tp_case(mesh, "(c) mixtral-8x22b token-parallel fp32", mix,
+                         torch.float32, toks, lens, 64 + TP_DECODE, 34,
+                         refs=refs))
+    rows.append(_tp_case(mesh, "(c) mixtral-8x22b 2D weights fp32", mix,
+                         torch.float32, toks, lens, 64 + TP_DECODE, 34,
+                         refs=refs, moe_2d_weights=True))
+    refs.clear()
+    rows.append(_tp_train(mesh, _tp_cfg("qwen3-1.7b", small, n_layers=2),
+                          35))
+    return rows
+
+
+#: what each part must launch on every rank
+TP_NEEDS = {"(a)": ("flash", "decode"), "(b) recurrentgemma": ("flash",
+                                                                "rglru"),
+            "(b) mamba2": ("ssd",), "(c)": ("flash", "decode"),
+            "(d)": ("flash",)}
+
+
+def phase_sharded(card: str, device: str = "cuda:0",
+                  small: bool = False) -> None:
+    """Tensor parallelism on the card (ROADMAP §1 item 8d): ranks spawned on
+    cuda:0 over gloo (``launch/mesh.run_on_mesh``; the library was built
+    by this process before), (a) and (b) on 1 x 2, (c) and (d) on 2 x 2,
+    each against the unsharded port on the card (rank 0): logits within
+    TP_TOL of their scale (fp32; bf16 printed), the train step within
+    TP_TRAIN_TOL / TP_PARAM_TOL; each rank's parameter bytes equal to
+    ``sharded_resident_gb``, its kernel launches (1 and 4 in (a), 1 and 7
+    in RecurrentGemma, 6 in Mamba-2, 1 forward and backward in (d)) and
+    its collective bytes printed. gloo stages every collective through the
+    host: these times are no measure of tensor-parallel speed. ``device``
+    and ``small`` (reduced widths): the phase's rehearsal on the CPU."""
+    from repro_torch.launch.mesh import mesh_shape, run_on_mesh
+    t0 = time.perf_counter()
+    rows = []
+    for fn, shape in ((_tp_first, (1, 2)), (_tp_second, (2, 2))):
+        n = shape[0] * shape[1]
+        for ranks in zip(*run_on_mesh(fn, mesh_shape(shape), small,
+                                      devices=[device] * n, timeout=600)):
+            rows.extend(ranks)
+    for r in rows:
+        need = next(v for k, v in TP_NEEDS.items() if r["what"].startswith(k))
+        ran = r["launches"]
+        # a wrapper counts the launches of its kernel, which runs on a card
+        check(torch.device(device).type != "cuda"
+              or all(ran[k] > 0 for k in need),
+              f"sharded {r['what']} rank {r['rank']}: launches {ran}")
+        check(r["param_bytes"] == r["resident_bytes"],
+              f"sharded {r['what']} rank {r['rank']}: {r['param_bytes']} B "
+              f"of params, sharded_resident_gb {r['resident_bytes']} B")
+        coll = r["collectives"]
+        bwd = (f", flash backward {r['bwd_flash']}" if "bwd_flash" in r
+               else "")
+        log(f"sharded {r['what']} rank {r['rank']}: params "
+            f"{r['param_bytes'] / 2**30:.3f} GiB (sharded_resident_gb "
+            f"{r['resident_bytes'] / 2**30:.3f}); launches {ran}"
+            f"{bwd}; "
+            f"collectives {coll['count']} "
+            f"{ {k: f'{v / 2**20:.1f} MiB' for k, v in coll['bytes'].items()} }"
+            f", staged through the host {coll['staged_copies']} copies "
+            f"{coll['staged_bytes'] / 2**20:.1f} MiB; main path "
+            f"{r['seconds']:.2f} s (gloo, host-staged: not TP speed)  "
+            f"[{card}]")
+        if "errors" not in r:
+            continue
+        if r["what"].startswith("(d)"):
+            for k, (e, sc) in r["errors"].items():
+                check(e <= TP_TRAIN_TOL * sc,
+                      f"sharded {r['what']}: {k} off by {e} of {sc}")
+            check(r["param_err"] <= TP_PARAM_TOL,
+                  f"sharded {r['what']}: params off by {r['param_err']}")
+            log(f"sharded {r['what']}: loss and grad norm against the "
+                f"unsharded step {r['errors']}, params within "
+                f"{r['param_err']:.2e} of each leaf's scale (gates "
+                f"{TP_TRAIN_TOL}, {TP_PARAM_TOL})")
+            continue
+        worst = max(e / sc for e, sc in r["errors"].values())
+        if r["gated"]:
+            check(worst <= TP_TOL, f"sharded {r['what']}: logits off by "
+                  f"{r['errors']}")
+        check(math.isfinite(worst), f"sharded {r['what']}: {r['errors']}")
+        gate = f"(gate {TP_TOL})" if r["gated"] else "(printed)"
+        log(f"sharded {r['what']}: against the unsharded port on the card, "
+            f"worst {worst:.2e} of the logits' scale {gate}"
+            f": { {k: f'{e:.3g} of {sc:.3g}' for k, (e, sc) in r['errors'].items()} }")
+    log(f"sharded: {time.perf_counter() - t0:.1f} s, {len(rows)} rank rows")
 
 
 def main() -> int:
@@ -6890,7 +7272,11 @@ def main() -> int:
     timed("internvl", phase_internvl, card)
     chunked = timed("chunked", phase_chunked, card)
     train = timed("train", phase_train, card)
-    timed("dryrun", phase_dryrun, card)
+    # the dry-run matrix traces on the host's cores while the sharded
+    # phase runs on the card; the dry-run's card steps (b) come after
+    matrix = _dryrun_matrix_start()
+    timed("sharded", phase_sharded, card)
+    timed("dryrun", phase_dryrun, card, matrix)
     # each kernel's launches on a path that runs its body: in bf16 the serve
     # phase's fused run (flash, paged decode, the paged fused kernel) and
     # its dense-cache run (dense decode), the bf16 colocated sweep (the

@@ -14,10 +14,15 @@ row holds the JAX row's fields where they mean the same:
   JAX ``tpu_resident_gb``);
 - ``cost_analysis`` (the counted FLOPs and bytes), ``roofline`` (the
   whole step's terms at one H100's peaks, with every kernel's launches)
-  and ``policy``.
-
-The per-device program of a sharded mesh needs the sharded runtime of
-ROADMAP §1 item 8d, so ``roofline_per_device`` is null until then.
+  and ``policy``;
+- ``roofline_per_device``: rank 0's local step on the mesh, traced on the
+  meta device under the ``fake`` process group (``launch/mesh.fake_mesh``:
+  every collective runs, moving nothing) with the sharded runtime
+  (ROADMAP §1 item 8d): its FLOPs, HBM bytes and collective bytes by type,
+  and its terms, ``collective_s`` at the NVLink rate (``roofline.ICI_BW``,
+  450 GB/s each way; a 16-wide model axis spans two 8-card hosts, whose
+  link is slower, so that term is a lower bound). The JAX dry-run's
+  numbers are per device too (post-SPMD HLO).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun            # 11 x 4, 16x16
@@ -40,14 +45,13 @@ from pathlib import Path
 import torch
 
 from repro_torch.configs import INPUT_SHAPES, get_config, list_configs
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.launch.roofline import Counter
 from repro_torch.launch.specs import build_dryrun, sharded_resident_gb
 from repro_torch.training.tree import leaves
 
 RESULTS = (Path(__file__).resolve().parents[3] / "launch_results"
            / "torch_dryrun.json")
-PER_DEVICE_NOTE = "the sharded per-device step: ROADMAP §1 item 8d"
 
 
 def trace(fn, args):
@@ -100,14 +104,19 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
     rep = counter.report
     memory = memory_gb(args, out, counter)
     memory["resident_gb"] = sharded_resident_gb(args, in_specs, mesh)
+    del out
+    with fake_mesh(mesh) as rank0:
+        fn, largs, *_ = build_dryrun(arch, shape_name, rank0, **policy_kw)
+        local, _ = trace(fn, largs)
+    per_device = local.report
     result = {
         "arch": arch, "shape": shape_name, "mesh": mesh.name,
         "trace_s": round(time.time() - t0, 1),
         "memory": memory,
         "cost_analysis": {"flops": rep.flops, "bytes accessed": rep.hbm_bytes},
         "roofline": rep.to_json(),
-        "roofline_per_device": None,
-        "roofline_per_device_note": PER_DEVICE_NOTE,
+        "roofline_per_device": dict(per_device.to_json(),
+                                    devices=mesh.size),
         "policy": policy_row(policy),
     }
     if verbose:
@@ -120,6 +129,14 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
               f"memory={t['memory_s']*1e3:9.2f}ms "
               f"coll={t['collective_s']*1e3:5.2f}ms "
               f"dom={rep.dominant()}", flush=True)
+        d = per_device.terms()
+        print(f"     per device (rank 0 of {mesh.size}): "
+              f"compute={d['compute_s']*1e3:.3f}ms "
+              f"memory={d['memory_s']*1e3:.3f}ms "
+              f"coll={d['collective_s']*1e3:.3f}ms "
+              f"dom={per_device.dominant()}; collective bytes "
+              f"{ {k: f'{v / 1e9:.3f} GB' for k, v in per_device.collective_bytes.items()} }",
+              flush=True)
         kernels = ", ".join(f"{k} x{v['launches']}"
                             for k, v in rep.kernels.items())
         print(f"     memory: argument={memory['argument_gb']:.2f}GB "

@@ -29,11 +29,23 @@ stream under a ``TorchDispatchMode``: on the meta device for a dry-run
   dtypes and its other arguments: the same op on the same metadata gets
   fresh empty results of the remembered shapes. Counts are unchanged.
 
+- Collectives: a sharded step's collectives (``models/sharding.py``)
+  charge their bytes by type while a counter runs (``collective_bytes``,
+  ``collective_count``: an all-reduce twice its bytes, an all-gather its
+  output, a reduce-scatter its input, the JAX tool's traffic), and their
+  input and output once to the HBM bytes, as the JAX tool charges a
+  collective outside a fusion; the ops inside one are not counted.
+
 Terms are seconds at one H100 SXM's peaks (``kernels/cost.py``): compute
 at the peak of each operation's type (989 TFLOP/s bf16, 67 TFLOP/s fp32),
-memory at 3.35 TB/s. Nothing is sharded yet, so the counted step is the
-whole step on one card and ``collective_s`` is 0 until ROADMAP §1 item 8d
-brings the sharded runtime.
+memory at 3.35 TB/s, and collectives at the NVLink rate of the port's
+``HardwareSpec`` (``core/estimator.py``: 450 GB/s each way). A step
+counted on one card has no collectives, and its ``collective_s`` is 0; a
+rank's local step of a sharded run (the dry-run's per-device trace,
+ROADMAP §1 item 8d) charges its own. An H100 host joins 8 cards by
+NVLink; a 16-wide model axis spans two hosts, whose link (InfiniBand, 50
+GB/s a card each way on an HGX H100 host) is slower, so its
+``collective_s`` is a lower bound.
 """
 
 from __future__ import annotations
@@ -48,7 +60,11 @@ from typing import Dict, List, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.core.estimator import HardwareSpec
 from repro_torch.kernels import cost
+
+#: NVLink bytes a second each way: the port's ``HardwareSpec.ici_bw``
+ICI_BW = HardwareSpec.__dataclass_fields__["ici_bw"].default
 
 #: the product ops and how each finds (M·N·K or its like) from its operands
 _DOT_OPS = ("mm", "addmm", "bmm", "baddbmm", "mv", "addmv", "dot",
@@ -157,8 +173,8 @@ def _dot_flops(name: str, args, out) -> float:
 class RooflineReport:
     """The counted work of a step: dot FLOPs and HBM bytes outside the
     kernels plus every kernel launch's charge, the JAX report's fields
-    (``collective_*`` stay empty until ROADMAP §1 item 8d), and per kernel
-    its launches, operations and bytes."""
+    (``collective_*``: a sharded step's collectives, ROADMAP §1 item 8d),
+    and per kernel its launches, operations and bytes."""
 
     flops: float = 0.0
     hbm_bytes: float = 0.0
@@ -183,14 +199,18 @@ class RooflineReport:
         self.flops += n
         self.flops_by_dtype[key] = self.flops_by_dtype.get(key, 0.0) + n
 
+    @property
+    def total_collective_bytes(self) -> float:
+        return sum(self.collective_bytes.values())
+
     def terms(self) -> Dict[str, float]:
-        """Seconds at one H100's peaks. ``collective_s`` is 0: nothing is
-        sharded until ROADMAP §1 item 8d."""
+        """Seconds at one H100's peaks; ``collective_s`` the collective
+        bytes at :data:`ICI_BW` (0 for a step on one card)."""
         compute = sum(n / cost.peak_ops(getattr(torch, dt))
                       for dt, n in self.flops_by_dtype.items())
         return {"compute_s": compute,
                 "memory_s": self.hbm_bytes / cost.HBM_BW,
-                "collective_s": 0.0}
+                "collective_s": self.total_collective_bytes / ICI_BW}
 
     def dominant(self) -> str:
         t = self.terms()
@@ -255,6 +275,24 @@ class Counter(TorchDispatchMode):
                 k["bytes"] += n_bytes
                 self.report.add_flops(n_ops, dtype)
                 self.report.hbm_bytes += n_bytes
+            yield
+        finally:
+            self.depth -= 1
+
+    @contextlib.contextmanager
+    def collective(self, kind: str, traffic: float, io_bytes: float):
+        """A collective of type ``kind`` (``all-reduce``, ``all-gather``,
+        ``reduce-scatter``): ``traffic`` bytes charged to it and its input
+        and output bytes to the HBM, the ops inside it not counted."""
+        self.depth += 1
+        try:
+            if self.depth == 1:
+                rep = self.report
+                rep.collective_bytes[kind] = (
+                    rep.collective_bytes.get(kind, 0.0) + traffic)
+                rep.collective_count[kind] = (
+                    rep.collective_count.get(kind, 0) + 1)
+                rep.hbm_bytes += io_bytes
             yield
         finally:
             self.depth -= 1

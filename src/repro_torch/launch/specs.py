@@ -11,6 +11,12 @@ Every step runs in bf16, as the JAX dry-run's (``DTYPE``): the train step
 on a bf16 param tree (the optimizer's moments fp32), the serving steps on
 the dense slot cache. Every tensor lives
 on the meta device: shapes and dtypes, no storage, no device touched.
+
+Given a mesh shape, :func:`build_dryrun` builds the whole step (what one
+card would run unsharded); given one rank's view of a running mesh
+(``launch/mesh.RankMesh``, the dry-run's ``fake_mesh``), it builds that
+rank's local step: its shards of the params, cache or train state and its
+rows of the inputs, the step called with the policy (ROADMAP §1 item 8d).
 """
 
 from __future__ import annotations
@@ -40,12 +46,13 @@ def _batch_axes(policy: ShardingPolicy):
     return policy.data_axes if policy.shard_batch else None
 
 
-def input_specs(arch: str, shape_name: str) -> Dict[str, Any]:
+def input_specs(arch: str, shape_name: str, batch: int = 0) -> Dict[str, Any]:
     """Meta model inputs for one (architecture × input shape): the JAX
-    ``input_specs``' keys, shapes and dtypes."""
+    ``input_specs``' keys, shapes and dtypes (``batch``: the rows, the
+    shape's global batch by default)."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
-    b, s = shape.global_batch, shape.seq_len
+    b, s = batch or shape.global_batch, shape.seq_len
     out: Dict[str, Any] = {}
     fe_len = (cfg.encoder_seq_len if cfg.n_encoder_layers
               else cfg.frontend_embed_len)
@@ -66,16 +73,18 @@ def input_specs(arch: str, shape_name: str) -> Dict[str, Any]:
     return out
 
 
-def abstract_params(cfg: ModelConfig, dtype=DTYPE):
-    """``T.init_params``' tree on the meta device."""
-    return T.init_params(cfg, dtype=dtype, device="meta")
+def abstract_params(cfg: ModelConfig, dtype=DTYPE, policy=None):
+    """``T.init_params``' tree on the meta device (``policy``: a rank's
+    shards)."""
+    return T.init_params(cfg, dtype=dtype, device="meta", policy=policy)
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
-                   long_context: bool):
-    """``T.init_cache``'s dense slot cache on the meta device."""
+                   long_context: bool, policy=None):
+    """``T.init_cache``'s dense slot cache on the meta device
+    (``policy``: a rank's shards)."""
     return T.init_cache(cfg, batch, max_len, DTYPE, device="meta",
-                        long_context=long_context)
+                        long_context=long_context, policy=policy)
 
 
 def _accum_steps(cfg: ModelConfig, policy: ShardingPolicy, seq_len: int,
@@ -102,7 +111,9 @@ def build_dryrun(arch: str, shape_name: str, mesh, *,
     JAX dry-run's ``REPRO_MOE_2D``) and ``moe_2d_train`` (its
     ``REPRO_MOE_2D_TRAIN``) pick the 2D expert-weight layout; ``fsdp``
     (default: always for training, for serving when tensor parallelism
-    alone leaves more than 8 GB of weights a device) the FSDP layout."""
+    alone leaves more than 8 GB of weights a device) the FSDP layout.
+    ``mesh`` a ``RankMesh``: that rank's local step (the module
+    docstring), every argument its own."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     model_axis_size = mesh.shape.get("model", 1)
@@ -117,33 +128,38 @@ def build_dryrun(arch: str, shape_name: str, mesh, *,
                          moe_token_shard_map=(shape.kind != "train"
                                               and not moe_2d),
                          moe_2d_weights=moe_2d)
-    ins = input_specs(arch, shape_name)
+    local = hasattr(mesh, "group") and mesh.size > 1
+    run_policy = policy if local else None
+    rows = shape.global_batch
+    if local and policy.shard_batch:
+        rows //= policy.data_size
+    ins = input_specs(arch, shape_name, rows)
     bax = _batch_axes(policy)
     pspecs = T.param_specs(cfg, policy)
     long_ctx = shape_name == "long_500k"
 
     if shape.kind == "train":
         accum = _accum_steps(cfg, policy, shape.seq_len, shape.global_batch)
-        init_fn, step_fn = make_train_step(cfg, remat=True,
+        init_fn, step_fn = make_train_step(cfg, run_policy, remat=True,
                                            accum_steps=accum)
-        state = init_fn(abstract_params(cfg))
+        state = init_fn(abstract_params(cfg, policy=run_policy))
         (state_specs, batch_specs), (out_state_specs, metric_specs) = \
             train_step_shardings(cfg, policy)
         bspecs = {k: batch_specs.get(k, Spec(bax, None, None)) for k in ins}
         return (step_fn, (state, ins), (state_specs, bspecs),
                 (out_state_specs, metric_specs), policy)
 
-    params = abstract_params(cfg)
+    params = abstract_params(cfg, policy=run_policy)
     cspecs = T.cache_specs(cfg, policy)
     logits_spec = Spec(bax, policy.model_axis if policy.shard_vocab
                        else None)
     if shape.kind == "prefill":
         cache = abstract_cache(cfg, shape.global_batch, shape.seq_len,
-                               long_context=False)
+                               long_context=False, policy=run_policy)
 
         def fn(params, cache, tokens, lengths, frontend=None):
             return T.prefill(params, tokens, lengths, cache, None, cfg,
-                             frontend=frontend)
+                             frontend=frontend, policy=run_policy)
 
         args = [params, cache, ins["tokens"], ins["lengths"]]
         in_specs = [pspecs, cspecs, Spec(bax, None), Spec(bax)]
@@ -154,11 +170,11 @@ def build_dryrun(arch: str, shape_name: str, mesh, *,
             policy
 
     cache = abstract_cache(cfg, shape.global_batch, shape.seq_len,
-                           long_context=long_ctx)
+                           long_context=long_ctx, policy=run_policy)
 
     def fn(params, cache, tokens, pos):
         return T.decode_step(params, cache, tokens, pos, cfg,
-                             long_context=long_ctx)
+                             long_context=long_ctx, policy=run_policy)
 
     args = (params, cache, ins["tokens"], ins["pos"])
     in_specs = (pspecs, cspecs, Spec(bax, None), Spec(bax))

@@ -10,6 +10,15 @@ JAX package and plain PyTorch here, on either device) and the model's
 entry points, the dispatchers at the end, which reach the kernels through
 ``repro_torch.kernels.ops``: a CUDA tensor launches the CUDA kernel, a CPU
 tensor runs the plain version.
+
+The sequence-parallel pair (ROADMAP §1 item 8d) are the bodies of the JAX
+package's two ``shard_map`` functions, run by each rank on its own block
+of a cache sharded over the sequence on one mesh axis:
+``write_cache_slot_seq_sharded`` (the rank that owns ``slot`` writes) and
+``seq_parallel_decode_attention`` (a local (m, l, o) partial over the
+rank's rows, merged with ``pmax`` and ``psum`` over the axis: flash
+decoding). The partial is plain PyTorch on either device, in the JAX op
+order, as it is XLA in the JAX package and no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as SH
 from repro_torch.kernels.ref import (NEG_INF, _gqa_logits,  # noqa: F401
                                      decode_attention, flash_ref_attention,
                                      gather_pages, paged_decode_ref)
@@ -53,6 +63,52 @@ def write_cache_slot(cache, new, slot):
     idx = slot.long().clamp(0, cache.shape[1] - 1)
     cache[rows, idx] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def write_cache_slot_seq_sharded(cache, new, slot, *, mesh, axis: str):
+    """``write_cache_slot`` on a cache sharded over its sequence dim on
+    ``axis``: ``cache`` is this rank's block (B, S_loc, K, D) of rows
+    ``[i·S_loc, (i+1)·S_loc)``, i the rank's index on ``axis``; a row whose
+    ``slot`` (global, B,) falls in the block is written, in place, the
+    others keep their values (the JAX ``where(owns, written, ci)``).
+    Returns the (same) block."""
+    s_loc = cache.shape[1]
+    local = slot.long() - SH.axis_index(mesh, axis) * s_loc
+    owns = (local >= 0) & (local < s_loc)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    idx = local.clamp(0, s_loc - 1)
+    cache[rows, idx] = torch.where(owns[:, None, None],
+                                   new[:, 0].to(cache.dtype),
+                                   cache[rows, idx])
+    return cache
+
+
+def seq_parallel_decode_attention(q, k_cache, v_cache, kv_positions, pos, *,
+                                  mesh, axis: str):
+    """Flash decoding over a cache sharded over its sequence on ``axis``:
+    ``q`` (B, 1, H, D) and ``pos`` (B,) the same on every rank of the axis,
+    ``k_cache`` / ``v_cache`` (B, S_loc, K, D) and ``kv_positions`` (B,
+    S_loc) this rank's rows. Each rank's partial softmax (m, l, o) over its
+    rows, merged with exp-weighted sums over ``axis``. Returns (B, 1, H,
+    D), the same on every rank."""
+    d = q.shape[-1]
+    logits = _gqa_logits(q * d ** -0.5, k_cache)       # (B,K,G,1,S_loc)
+    valid = (kv_positions >= 0) & (kv_positions <= pos[:, None])
+    vmask = valid[:, None, None, None, :]
+    logits = torch.where(vmask, logits, NEG_INF)
+    m = logits.amax(dim=-1)                                # (B,K,G,1)
+    p = torch.exp(logits - m[..., None])
+    p = torch.where(vmask, p, 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype),
+                     v_cache).float()
+    m_g = SH.pmax(m, axis, mesh)
+    scale = torch.exp(m - m_g)
+    l_g = SH.psum(l * scale, axis, mesh)
+    o_g = SH.psum(o * scale[..., None], axis, mesh)
+    out = o_g / l_g.clamp(min=1e-30)[..., None]
+    b, kh, g, sq, dd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kh * g, dd).to(q.dtype)
 
 
 def prefix_suffix_attention(q, k_sfx, v_sfx, k_pre, v_pre, prefix_len,

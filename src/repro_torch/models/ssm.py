@@ -16,6 +16,15 @@ length: ``dt`` is 0 at padded positions, so the scan carries the state
 through the padding unchanged, and the conv state is the K-1 conv inputs
 ending at the row's last token. The JAX package's prefill returns the state
 after the padded tail instead (ROADMAP §3).
+
+Sharded (``tp``, ROADMAP §1 item 8d): ``in_proj`` and ``conv`` hold this
+rank's columns of every section (``models/sharding.py``), so z, x and dt
+are its own heads' and B and C its block of the state dim, all-gathered
+after the (depthwise) conv; kernel 6 runs on the rank's heads with the
+whole B and C, the gated norm's mean square is summed over the ranks,
+and ``out_proj`` is row parallel. Every section must split evenly, the
+heads too (the JAX package's condition for splitting them): a leaf that
+does not is refused when it is placed.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_scan_op
+from repro_torch.models import sharding as SH
 from repro_torch.models.layers import causal_conv1d, conv_state_at
 
 
@@ -61,31 +71,39 @@ def ssd_decode_step(x, dt, A, B_, C, D, state):
 
 
 def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
-              decode: bool = False, lengths=None):
+              decode: bool = False, lengths=None, tp=None):
     """Full Mamba-2 block: in_proj -> conv -> SSD -> gated norm -> out_proj.
 
     x: (B, S, D). Returns (y, new_state). ``state`` starts the conv and the
     scan from a given state (decode, or a chunk of a prompt that continues
     one: chunked prefill). ``lengths`` (B,) marks a padded prefill batch:
     each row's returned state is the state after its own ``lengths[b]``
-    tokens.
+    tokens. ``tp`` (``models/sharding.TP``): this rank's shards (the
+    module docstring); the state is its shard too.
     params: in_proj (D, 2*di + 2*N + H), conv (K, di+2N), A_log (H,),
             D (H,), dt_bias (H,), norm (di,), out_proj (di, D)."""
+    sharded = tp is not None and tp.model is not None
+    m = tp.m if sharded else 1
     b, s, _ = x.shape
     di = cfg.ssm_d_inner
     n = cfg.ssm_state
     h = cfg.ssm_n_heads
     p = cfg.ssm_head_dim
 
-    zxbcdt = x @ params["in_proj"]
-    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+    zxbcdt = (tp.copy(x) if sharded else x) @ params["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [di // m, (di + 2 * n) // m, h // m],
+                             dim=-1)
     conv_state = state.conv if state is not None else None
     xbc_in = xbc
     xbc, new_conv = causal_conv1d(xbc, params["conv"], conv_state)
-    xs, B_, C = torch.split(xbc, [di, n, n], dim=-1)
+    xs, B_, C = torch.split(xbc, [di // m, n // m, n // m], dim=-1)
+    if sharded:
+        # each rank's own heads read the whole B and C
+        B_, C = tp.gather_sum(B_), tp.gather_sum(C)
+    hl = h // m
     dt = F.softplus(dt.float() + params["dt_bias"].float()[None, None, :])
     A = -torch.exp(params["A_log"].float())                  # (H,) negative
-    xs = xs.reshape(b, s, h, p)
+    xs = xs.reshape(b, s, hl, p)
     D = params["D"].float()
 
     if decode:
@@ -104,11 +122,16 @@ def ssd_block(x, params, cfg, *, state: Optional[SSDState] = None,
                                  state0=None if state is None
                                  else state.ssm)
 
-    y = y.reshape(b, s, di)
-    # gated RMSNorm (mamba2)
+    y = y.reshape(b, s, hl * p)
+    # gated RMSNorm (mamba2); split heads sum their mean square over ranks
     yf = y.float() * F.silu(z.float())
-    var = yf.square().mean(dim=-1, keepdim=True)
+    if sharded:
+        var = SH.psum_shared(yf.square().sum(dim=-1, keepdim=True),
+                             tp.model, tp.mesh) / di
+    else:
+        var = yf.square().mean(dim=-1, keepdim=True)
     yf = yf * torch.rsqrt(var + cfg.rmsnorm_eps)
     yf = yf * (1.0 + params["norm"].float())
-    out = yf.to(x.dtype) @ params["out_proj"]
+    out = SH.tp_matmul(yf.to(x.dtype), params["out_proj"], tp, "in",
+                       x_local=True)
     return out, SSDState(new_conv, new_ssm)

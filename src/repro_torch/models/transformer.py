@@ -33,12 +33,36 @@ package counts the padding; ROADMAP §3). A decode pass passes none: its
 (B, 1, D) slot array has the JAX engine's shape, and with at most 8 slots
 the capacity (at least 8) is never reached; past 8 slots inactive slots
 take capacity as in the JAX package.
+
+Sharded (ROADMAP §1 item 8d): ``forward``, ``prefill`` (dense cache) and
+``decode_step`` (dense cache) take ``policy=`` as the JAX functions do;
+``init_params`` and ``init_cache`` take it too and build this rank's
+shards. With ``policy.mesh`` a running mesh of more than one rank
+(``launch/mesh.RankMesh``) every argument and result is the rank's own:
+the batch rows over the data axes when ``policy.shard_batch``, the
+logits' vocab block over "model" when ``policy.shard_vocab``, every leaf
+cut by ``param_specs`` / ``cache_specs``. The JAX package's GSPMD
+constraints become explicit collectives (``models/sharding.py``): query
+heads split when ``shard_heads`` (kernel 1 and kernel 4 on the rank's
+heads, ``wo`` row parallel), else the attention runs replicated with
+``wq``/``wk``/``wv`` row parallel and ``wo`` column parallel; KV heads
+split when ``shard_kv_heads``, else under ``seq_parallel_decode`` the
+dense cache is split over its sequence and decode writes through
+``write_cache_slot_seq_sharded`` and attends through
+``seq_parallel_decode_attention``; the MLP, the MoE
+(``moe_ffn_sharded``: 2D weights, token-parallel, or the whole-batch
+default), SSD heads and the RG-LRU width as their specs split them; the
+embedding and the head by ``shard_vocab`` (the padded-vocab mask offset
+by the rank's block); FSDP leaves all-gathered over the data axes at use.
+The paged functions, the fused cycle and the chunked prefill take no
+policy, as in the JAX engine, which never passes one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -47,9 +71,10 @@ from repro_torch.configs.base import (ATTN, MLP, MOE, RGLRU, SSD, SWA,
                                       BlockSpec, ModelConfig)
 from repro_torch.models import attention as attn_ops
 from repro_torch.models import layers as L
-from repro_torch.models.moe import MoEStats, moe_ffn
+from repro_torch.models import sharding as SH
+from repro_torch.models.moe import MoEStats, moe_ffn, moe_ffn_sharded
 from repro_torch.models.rglru import RGLRUState, rglru_block
-from repro_torch.models.sharding import ShardingPolicy, Spec
+from repro_torch.models.sharding import TP, ShardingPolicy, Spec, tp_matmul
 from repro_torch.models.ssm import SSDState, ssd_block
 
 Params = Dict[str, Any]
@@ -196,7 +221,8 @@ def _init_one(gen, shape, init, dtype, *, lead=(), fan_in=None):
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                dtype=torch.bfloat16, device="cuda") -> Params:
+                dtype=torch.bfloat16, device="cuda",
+                policy: Optional[ShardingPolicy] = None) -> Params:
     """Seeded random params with the JAX package's tree, shapes and
     distributions (no bit parity with jax.random): ``{"embed",
     "final_norm", ["lm_head"], ["frontend_proj"], "blocks": (per pattern
@@ -204,36 +230,64 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     (...)})], ["encoder": {name: (n_encoder_layers, ...)},
     "encoder_norm"]}``, vocab padded to a multiple of 256. Leaves in
     ``FP32_PARAMS`` stay fp32. On the meta device (a dry-run) the leaves
-    hold shapes and dtypes only, drawn from no generator."""
+    hold shapes and dtypes only, drawn from no generator. With a
+    ``policy`` on a mesh, this rank's shards (``param_specs``): each leaf
+    is drawn whole, as without one, and cut at once, so a rank holds one
+    full leaf at a time, never the full tree, and its shards equal the
+    unsharded init's."""
     gen = None
     if torch.device(device).type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+    place = _placer(cfg, policy)
+
+    def one(path, shape, init, dt, lead=()):
+        return place(path, _init_one(gen, shape, init, dt, lead=lead))
+
     params: Params = {}
     for name, (shape, init) in sorted(_top_defs(cfg).items()):
-        params[name] = _init_one(gen, shape, init, dtype)
+        params[name] = one((name,), shape, init, dtype)
 
-    def block(blk, lead):
-        return {name: _init_one(gen, shape, init,
-                                torch.float32 if name in FP32_PARAMS
-                                else dtype, lead=lead)
+    def block(key, j, blk, lead):
+        return {name: one((key, j, name), shape, init,
+                          torch.float32 if name in FP32_PARAMS else dtype,
+                          lead)
                 for name, (shape, init)
                 in sorted(_block_defs(cfg, blk).items())}
 
-    params["blocks"] = tuple(block(blk, (cfg.n_pattern_repeats,))
-                             for blk in cfg.pattern)
+    params["blocks"] = tuple(block("blocks", j, blk,
+                                   (cfg.n_pattern_repeats,))
+                             for j, blk in enumerate(cfg.pattern))
     if cfg.pattern_tail:
-        params["tail_blocks"] = tuple(block(blk, ())
-                                      for blk in cfg.pattern_tail)
+        params["tail_blocks"] = tuple(block("tail_blocks", j, blk, ())
+                                      for j, blk
+                                      in enumerate(cfg.pattern_tail))
     if cfg.n_encoder_layers:
         enc = _block_defs(cfg, BlockSpec(mixer=ATTN, ff=MLP), decoder=False)
         params["encoder"] = {
-            name: _init_one(gen, shape, init, dtype,
-                            lead=(cfg.n_encoder_layers,))
+            name: one(("encoder", name), shape, init, dtype,
+                      (cfg.n_encoder_layers,))
             for name, (shape, init) in sorted(enc.items())}
-        params["encoder_norm"] = torch.zeros(cfg.d_model, dtype=dtype,
-                                             device=device)
+        params["encoder_norm"] = place(("encoder_norm",), torch.zeros(
+            cfg.d_model, dtype=dtype, device=device))
     return params
+
+
+def _placer(cfg: ModelConfig, policy: Optional[ShardingPolicy],
+            specs=None):
+    """(path, full leaf) -> this rank's shard of it under ``policy``'s
+    specs (``param_specs``, or ``specs``), copied out; the leaf itself
+    without a policy on a mesh."""
+    if TP.of(policy) is None:
+        return lambda path, t: t
+    specs = param_specs(cfg, policy) if specs is None else specs
+
+    def place(path, t):
+        secs = SH.leaf_sections(cfg, path[-1], t.shape[-1]) if t.dim() \
+            else None
+        local = SH.shard_leaf(t, SH.spec_at(specs, path), policy.mesh, secs)
+        return local if local is t else local.clone()
+    return place
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +516,8 @@ def _is_ring(blk: BlockSpec, long_context: bool) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda", *,
-               long_context: bool = False):
+               long_context: bool = False,
+               policy: Optional[ShardingPolicy] = None):
     """Dense decode cache, one entry per pattern position with a leading
     repeat axis R (``"blocks"``), and one per tail block without it
     (``"tail"``, when ``cfg.pattern_tail``): attention ``{"k", "v"}`` of
@@ -474,36 +529,52 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     K-1, W), "hidden": (R, batch, W) fp32}``. With cross-attention also
     ``"cross": {"k", "v"}`` of shape (R, batch, Se, K, D): the encoder's
     K/V as each repeat's first decoder block projects them (``prefill``
-    fills it), which every block of the repeat reads."""
+    fills it), which every block of the repeat reads. With a ``policy`` on
+    a mesh (``batch`` the global batch), this rank's shard of every leaf
+    (``cache_specs``), allocated at its local shape."""
     kw = cfg.rglru_conv_width
+    tp = TP.of(policy)
+    cspecs = cache_specs(cfg, policy) if tp is not None else None
 
-    def zeros(shape, dt=dtype):
+    def zeros(shape, dt=dtype, path=None):
+        if tp is not None:
+            secs = SH.leaf_sections(cfg, path[-1], shape[-1])
+            shape = SH.shard_leaf(torch.empty(shape, device="meta"),
+                                  SH.spec_at(cspecs, path), tp.mesh,
+                                  secs).shape
         return torch.zeros(shape, dtype=dt, device=device)
 
-    def entry(blk, lead):
+    def entry(blk, lead, at):
         _block_defs(cfg, blk)           # raises for blocks not served
         if blk.mixer == SSD:
             ch = cfg.ssm_d_inner + 2 * cfg.ssm_state
-            return {"conv": zeros(lead + (batch, kw - 1, ch)),
+            return {"conv": zeros(lead + (batch, kw - 1, ch),
+                                  path=at + ("conv",)),
                     "ssm": zeros(lead + (batch, cfg.ssm_n_heads,
                                          cfg.ssm_head_dim, cfg.ssm_state),
-                                 torch.float32)}
+                                 torch.float32, at + ("ssm",))}
         if blk.mixer == RGLRU:
             w = cfg.lru_width
-            return {"conv": zeros(lead + (batch, kw - 1, w)),
-                    "hidden": zeros(lead + (batch, w), torch.float32)}
+            return {"conv": zeros(lead + (batch, kw - 1, w),
+                                  path=at + ("conv",)),
+                    "hidden": zeros(lead + (batch, w), torch.float32,
+                                    at + ("hidden",))}
         s = _cache_len(cfg, blk, max_len, long_context)
         shape = lead + (batch, s, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": zeros(shape), "v": zeros(shape)}
+        return {"k": zeros(shape, path=at + ("k",)),
+                "v": zeros(shape, path=at + ("v",))}
 
-    cache = {"blocks": tuple(entry(blk, (cfg.n_pattern_repeats,))
-                             for blk in cfg.pattern)}
+    cache = {"blocks": tuple(entry(blk, (cfg.n_pattern_repeats,),
+                                   ("blocks", j))
+                             for j, blk in enumerate(cfg.pattern))}
     if cfg.pattern_tail:
-        cache["tail"] = tuple(entry(blk, ()) for blk in cfg.pattern_tail)
+        cache["tail"] = tuple(entry(blk, (), ("tail", j))
+                              for j, blk in enumerate(cfg.pattern_tail))
     if cfg.cross_attention:
         shape = (cfg.n_pattern_repeats, batch, cfg.encoder_seq_len,
                  cfg.n_kv_heads, cfg.head_dim)
-        cache["cross"] = {"k": zeros(shape), "v": zeros(shape)}
+        cache["cross"] = {"k": zeros(shape, path=("cross", "k")),
+                          "v": zeros(shape, path=("cross", "v"))}
     return cache
 
 
@@ -525,14 +596,16 @@ def _window_gather(full_k, full_v, lengths, wsize: int):
 
 
 def _prefill_cache_entry(entry, blk: BlockSpec, cfg: ModelConfig, lengths,
-                         cache_tpl, long_context: bool):
+                         cache_tpl, long_context: bool, shards: int = 1):
     """Convert a full-sequence cache entry into the decode cache layout of
     ``cache_tpl`` (pad full KV to the cache length, or gather into the
     ring window: always for a sliding-window block; recurrent states are
-    cast to the template's dtypes)."""
+    cast to the template's dtypes). ``shards``: the template is one of
+    that many blocks of the cache's sequence, and the whole layout is
+    returned."""
     if blk.mixer not in (ATTN, SWA):
         return {key: entry[key].to(cache_tpl[key].dtype) for key in cache_tpl}
-    tgt = cache_tpl["k"].shape[1]                     # (B, S_cache, K, D)
+    tgt = cache_tpl["k"].shape[1] * shards            # (B, S_cache, K, D)
     k, v = entry["k"], entry["v"]
     s = k.shape[1]
     if blk.mixer == SWA or (long_context and tgt < s):
@@ -576,43 +649,152 @@ def params_by_repeat(params_j: Dict[str, torch.Tensor]):
 # Forward building blocks
 # ---------------------------------------------------------------------------
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
+def _tp(policy: Optional[ShardingPolicy], cfg: ModelConfig):
+    """The call's :class:`TP` (None unless ``policy`` spans several
+    ranks), with its FSDP plan (:func:`_fsdp_plan`) under ``policy.fsdp``.
+    A page pool or a fused cycle is never sharded."""
+    tp = TP.of(policy)
+    if tp is not None:
+        tp.fsdp = _fsdp_plan(cfg, policy) if policy.fsdp else None
+    return tp
+
+
+def _heads(tp: Optional[TP]) -> Tuple[bool, bool]:
+    """(query heads split, KV heads split) over the model axis."""
+    if tp is None or tp.model is None:
+        return False, False
+    return tp.policy.shard_heads, tp.policy.shard_kv_heads
+
+
+def _fsdp_plan(cfg: ModelConfig, policy: ShardingPolicy):
+    """What FSDP adds to each leaf's spec: ``{"top": {name: how},
+    "blocks": ({name: how}, ...), ["tail_blocks"], ["encoder"]}``, each
+    ``how`` (dim, data axes) or None, the dim counted in one repeat's
+    slice for the stacked leaves."""
+    full = param_specs(cfg, policy)
+    base = param_specs(cfg, dataclasses.replace(policy, fsdp=False))
+
+    def diff(f, b, stacked):
+        if isinstance(f, Spec):
+            for dim, (pf, pb) in enumerate(zip(f, b)):
+                if pf != pb:
+                    return (dim - stacked, pf)
+            return None
+        return {k: diff(f[k], b[k], stacked) for k in f}
+
+    plan = {"top": {k: diff(full[k], base[k], 0) for k in full
+                    if k not in ("blocks", "tail_blocks", "encoder")}}
+    plan["blocks"] = tuple(diff(f, b, 1) for f, b
+                           in zip(full["blocks"], base["blocks"]))
+    if "tail_blocks" in full:
+        plan["tail_blocks"] = tuple(diff(f, b, 0) for f, b in
+                                    zip(full["tail_blocks"],
+                                        base["tail_blocks"]))
+    if "encoder" in full:
+        plan["encoder"] = diff(full["encoder"], base["encoder"], 1)
+    return plan
+
+
+def _unfsdp(p: Dict[str, Any], plan, tp: Optional[TP]):
+    """``p`` (one block's leaves, or the top-level ones) with its FSDP
+    leaves all-gathered over the data axes (their gradient
+    reduce-scattered back)."""
+    if tp is None or not plan:
+        return p
+    out = dict(p)
+    for name, how in plan.items():
+        if how is not None and name in out:
+            dim, axes = how
+            out[name] = SH.gather_sum(out[name], dim, axes, tp.mesh)
+    return out
+
+
+def _kv_for_heads(k, v, cfg: ModelConfig, tp: Optional[TP]):
+    """The K/V heads this rank's query heads read: all of them, or this
+    rank's when both split; when only the query heads split, those of the
+    whole K/V its heads map to (a slice when they map evenly, else one
+    K/V head per query head)."""
+    qs, kvs = _heads(tp)
+    if not qs or kvs:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    hl = cfg.n_heads // tp.m
+    first = tp.r * hl
+    if hl % g == 0:
+        sl = slice(first // g, first // g + hl // g)
+        return k[:, :, sl], v[:, :, sl]
+    if g % hl == 0:
+        sl = slice(first // g, first // g + 1)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.arange(first, first + hl, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _attn_out(o, w, tp: Optional[TP]):
+    """The attention output (B, S, H_loc, D) through ``wo`` / ``cwo``:
+    row parallel over the rank's heads when they split, else column
+    parallel and all-gathered (the Megatron fallback)."""
+    qs, _ = _heads(tp)
+    if qs:
+        return tp_matmul(_merge_heads(o), w, tp, "in", x_local=True)
+    return tp_matmul(_merge_heads(o), w, tp, "out", gather=True)
+
+
+def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
+    """q (B, S, H, D), k and v (B, S, K, D), each RoPE'd; sharded, H and
+    K are this rank's heads where they split."""
     b, s, _ = x.shape
     h, k, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
-    kk = x @ p["wk"]
-    v = x @ p["wv"]
+    qs, kvs = _heads(tp)
+    q = tp_matmul(x, p["wq"], tp, "out" if qs else "in")
+    kk = tp_matmul(x, p["wk"], tp, "out" if kvs else "in")
+    v = tp_matmul(x, p["wv"], tp, "out" if kvs else "in")
+    h, k = (h // tp.m if qs else h), (k // tp.m if kvs else k)
     if cfg.qkv_bias:
         q, kk, v = q + p["bq"], kk + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, dh)
     kk = kk.reshape(b, s, k, dh)
     v = v.reshape(b, s, k, dh)
     if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.rmsnorm_eps)
-        kk = L.rms_norm(kk, p["k_norm"], cfg.rmsnorm_eps)
+        # a replicated scale on this rank's own heads
+        qn = tp.copy(p["q_norm"]) if qs else p["q_norm"]
+        kn = tp.copy(p["k_norm"]) if kvs else p["k_norm"]
+        q = L.rms_norm(q, qn, cfg.rmsnorm_eps)
+        kk = L.rms_norm(kk, kn, cfg.rmsnorm_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     kk = L.apply_rope(kk, positions, cfg.rope_theta)
     return q, kk, v
 
 
-def _ff(x, p, blk: BlockSpec, cfg: ModelConfig, lengths=None, stats=None):
+def _ff(x, p, blk: BlockSpec, cfg: ModelConfig, lengths=None, stats=None,
+        tp=None):
     """Feed-forward sub-block: the MLP, or the routed experts over each
     row's first ``lengths`` tokens (all of them without ``lengths``;
     ``models/moe.py``), their metrics added to ``stats`` (a
-    :class:`MoEStats`) when given."""
+    :class:`MoEStats`) when given. Sharded: the MLP's d_ff over the model
+    axis; the experts by the JAX dispatch rule, 2D weights first, then
+    the token-parallel ``moe_ffn_sharded``, else the whole batch at
+    once."""
     if blk.ff == "none":
         return torch.zeros_like(x)
     h = L.rms_norm(x, p["ln2"], cfg.rmsnorm_eps)
     if blk.ff == MLP:
-        return L.gated_mlp(h, p["wi"], p["wo_mlp"])
+        # ``L.gated_mlp`` by the matmul rule
+        gate, up = tp_matmul(h, p["wi"], tp, "out").chunk(2, dim=-1)
+        return tp_matmul(torch.nn.functional.silu(gate) * up, p["wo_mlp"],
+                         tp, "in", x_local=True)
     valid = None
     if lengths is not None:
         cols = torch.arange(x.shape[1], device=x.device)[None, :]
         valid = cols < lengths[:, None]
-    y, metrics = moe_ffn(h, p, n_experts=cfg.n_experts,
-                         k=cfg.n_experts_per_token,
-                         capacity_factor=cfg.moe_capacity_factor,
-                         valid=valid)
+    kw = dict(n_experts=cfg.n_experts, k=cfg.n_experts_per_token,
+              capacity_factor=cfg.moe_capacity_factor, valid=valid)
+    if tp is None:
+        y, metrics = moe_ffn(h, p, **kw)
+    else:
+        y, metrics = moe_ffn_sharded(
+            h, p, policy=tp.policy, **kw,
+            token_parallel=tp.policy.moe_token_shard_map)
     if stats is not None:
         stats.add(metrics)
     return y
@@ -622,7 +804,8 @@ def _merge_heads(o):
     return o.reshape(*o.shape[:2], -1)
 
 
-def _cross_attend(x, p, cfg: ModelConfig, cross_k, cross_v, cross_pos=None):
+def _cross_attend(x, p, cfg: ModelConfig, cross_k, cross_v, cross_pos=None,
+                  tp=None):
     """A decoder block's cross-attention over the encoder's K/V (B, Se, K,
     D): every query attends every encoder row, without RoPE. Over a prompt
     (``cross_pos`` None) it is kernel 1 with ``causal=False`` and Sq =
@@ -635,17 +818,19 @@ def _cross_attend(x, p, cfg: ModelConfig, cross_k, cross_v, cross_pos=None):
     row once for the slot's G query heads (the bytes bound it)."""
     h = L.rms_norm(x, p["ln_cross"], cfg.rmsnorm_eps)
     b, s, _ = h.shape
-    q = (h @ p["cwq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = tp_matmul(h, p["cwq"], tp, "out" if _heads(tp)[0] else "in")
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    cross_k, cross_v = _kv_for_heads(cross_k, cross_v, cfg, tp)
     if cross_pos is None:
         o = attn_ops.attention_prefill(q, cross_k, cross_v, causal=False)
     else:
         o = attn_ops.attention_decode(q, cross_k, cross_v, *cross_pos)
-    return _merge_heads(o) @ p["cwo"]
+    return _attn_out(o, p["cwo"], tp)
 
 
 def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
                       lengths=None, stats=None, cross_kv=None,
-                      window_override=None):
+                      window_override=None, tp=None):
     """Prefill block application over a full sequence. Returns (x, entry):
     this layer's full-sequence KV ``{"k", "v"}`` (a sliding-window block
     attends over its window, a full-attention block over
@@ -655,32 +840,34 @@ def _apply_block_full(x, p, blk: BlockSpec, cfg: ModelConfig, positions,
     ``lengths[b]`` tokens (after all of them without ``lengths``). A MoE
     block routes only the rows below ``lengths``. With ``cross_kv`` (the
     encoder's (K, V) as this block projects them) cross-attention follows
-    the mixer."""
+    the mixer. Sharded (``tp``): the entry is this rank's (its K/V heads
+    when they split, else all of them; its state's shard)."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     if blk.mixer == SSD:
-        y, st = ssd_block(h, p, cfg, lengths=lengths)
+        y, st = ssd_block(h, p, cfg, lengths=lengths, tp=tp)
         entry = {"conv": st.conv, "ssm": st.ssm}
     elif blk.mixer == RGLRU:
-        y, st = rglru_block(h, p, cfg, lengths=lengths)
+        y, st = rglru_block(h, p, cfg, lengths=lengths, tp=tp)
         entry = {"conv": st.conv, "hidden": st.hidden}
     else:
-        q, k, v = _project_qkv(h, p, cfg, positions)
+        q, k, v = _project_qkv(h, p, cfg, positions, tp)
         window = cfg.sliding_window if blk.mixer == SWA else 0
         if window_override is not None and blk.mixer == ATTN:
             window = window_override
-        o = attn_ops.attention_prefill(q, k, v, causal=True, window=window)
-        y = _merge_heads(o) @ p["wo"]
+        ka, va = _kv_for_heads(k, v, cfg, tp)
+        o = attn_ops.attention_prefill(q, ka, va, causal=True, window=window)
+        y = _attn_out(o, p["wo"], tp)
         entry = {"k": k, "v": v}
     x = x + y
     if cross_kv is not None:
-        x = x + _cross_attend(x, p, cfg, *cross_kv)
-    x = x + _ff(x, p, blk, cfg, lengths, stats)
+        x = x + _cross_attend(x, p, cfg, *cross_kv, tp=tp)
+    x = x + _ff(x, p, blk, cfg, lengths, stats, tp)
     return x, entry
 
 
 def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
                         pos, block_tables=None, *, long_context: bool = False,
-                        kv_positions=None, cross=None):
+                        kv_positions=None, cross=None, tp=None):
     """Single-token block application, x: (B,1,D). The new token's K/V is
     written into the cache in place, then attention reads it.
 
@@ -695,28 +882,50 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
     RG-LRU block steps its recurrence and writes its new conv window and
     state into the entry in place. ``cross`` (cross_k, cross_v,
     kv_positions, pos) of the cross cache adds cross-attention after the
-    mixer (``_cross_attend``)."""
+    mixer (``_cross_attend``). Sharded (``tp``, dense cache): the entry is
+    this rank's; under ``seq_parallel_decode`` it is the rank's block of
+    the sequence, the map covers the whole cache, and the token is written
+    by the block's owner and attended by flash decoding over the blocks,
+    every query head on every rank."""
     h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
     if blk.mixer in (SSD, RGLRU):
         if blk.mixer == SSD:
             y, st = ssd_block(h, p, cfg, decode=True, state=SSDState(
-                cache_entry["conv"], cache_entry["ssm"]))
+                cache_entry["conv"], cache_entry["ssm"]), tp=tp)
             new = {"conv": st.conv, "ssm": st.ssm}
         else:
             y, st = rglru_block(h, p, cfg, decode=True, state=RGLRUState(
-                cache_entry["conv"], cache_entry["hidden"]))
+                cache_entry["conv"], cache_entry["hidden"]), tp=tp)
             new = {"conv": st.conv, "hidden": st.hidden}
         for key, t in new.items():
             cache_entry[key].copy_(t)
         x = x + y
         if cross is not None:
-            x = x + _cross_attend(x, p, cfg, cross[0], cross[1], cross[2:])
-        return x + _ff(x, p, blk, cfg)
-    q, k_new, v_new = _project_qkv(h, p, cfg, pos[:, None])
+            x = x + _cross_attend(x, p, cfg, cross[0], cross[1], cross[2:],
+                                  tp=tp)
+        return x + _ff(x, p, blk, cfg, tp=tp)
+    q, k_new, v_new = _project_qkv(h, p, cfg, pos[:, None], tp)
     if block_tables is not None:
         kp, vp = attn_ops.write_paged_kv(cache_entry["k"], cache_entry["v"],
                                          k_new, v_new, block_tables, pos)
         o = attn_ops.attention_decode_paged(q, kp, vp, block_tables, pos)
+    elif _seq_par(tp):
+        kc, vc = cache_entry["k"], cache_entry["v"]
+        s_cache = kc.shape[1] * tp.m
+        ring = _is_ring(blk, long_context)
+        slot = (torch.remainder(pos, s_cache) if ring
+                else pos.clamp(max=s_cache - 1))
+        kw = dict(mesh=tp.mesh, axis=tp.model)
+        attn_ops.write_cache_slot_seq_sharded(kc, k_new, slot, **kw)
+        attn_ops.write_cache_slot_seq_sharded(vc, v_new, slot, **kw)
+        kvpos = SH.split_to(kv_positions[(s_cache, ring)], 1, tp.model,
+                            tp.mesh)
+        if _heads(tp)[0]:
+            q = tp.gather(q, 2)
+        o = attn_ops.seq_parallel_decode_attention(q, kc, vc, kvpos, pos,
+                                                   **kw)
+        if _heads(tp)[0]:
+            o = SH.split_to(o, 2, tp.model, tp.mesh)
     else:
         kc, vc = cache_entry["k"], cache_entry["v"]
         s_cache = kc.shape[1]
@@ -725,12 +934,21 @@ def _apply_block_decode(x, p, blk: BlockSpec, cfg: ModelConfig, cache_entry,
                 else pos.clamp(max=s_cache - 1))
         attn_ops.write_cache_slot(kc, k_new, slot)
         attn_ops.write_cache_slot(vc, v_new, slot)
+        kc, vc = _kv_for_heads(kc, vc, cfg, tp)
         o = attn_ops.attention_decode(q, kc, vc,
                                       kv_positions[(s_cache, ring)], pos)
-    x = x + _merge_heads(o) @ p["wo"]
+    x = x + _attn_out(o, p["wo"], tp)
     if cross is not None:
-        x = x + _cross_attend(x, p, cfg, cross[0], cross[1], cross[2:])
-    return x + _ff(x, p, blk, cfg)
+        x = x + _cross_attend(x, p, cfg, cross[0], cross[1], cross[2:],
+                              tp=tp)
+    return x + _ff(x, p, blk, cfg, tp=tp)
+
+
+def _seq_par(tp: Optional[TP]) -> bool:
+    """The dense cache's attention entries split over their sequence (the
+    JAX ``seq_parallel_decode`` with ``policy.mesh.size > 1``)."""
+    return (tp is not None and tp.model is not None
+            and tp.policy.seq_parallel_decode)
 
 
 def scatter_prefill_pages(pages, kv, page_map, rep=None):
@@ -832,7 +1050,7 @@ def _apply_block_fused(x_p, x_d, p, blk: BlockSpec, cfg: ModelConfig,
 
 def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
                   lengths=None, stats=None, enc_out=None,
-                  window_override=None):
+                  window_override=None, tp=None):
     """Pattern-repeat group ``rep`` over a prompt batch: returns (x, [entry
     per pattern position]) — the raw full-sequence KV ``{"k", "v"}`` the
     caller scatters into pooled pages or writes into slot rows, or an SSD
@@ -841,14 +1059,16 @@ def prefill_group(params, x, positions, rep: int, cfg: ModelConfig,
     encoder's output ``enc_out`` each block cross-attends it, and its
     entry also holds the cross K/V it projected (``"cross"``).
     ``window_override``: the full-attention blocks' window (the
-    long-context prefill)."""
+    long-context prefill). ``tp``: sharded (the module docstring)."""
     entries = []
     for j, blk in enumerate(cfg.pattern):
         p = params_at(params["blocks"][j], rep)
+        if tp is not None and tp.fsdp:
+            p = _unfsdp(p, tp.fsdp["blocks"][j], tp)
         cross = (None if enc_out is None
-                 else _cross_kv_from_encoder(p, enc_out, cfg))
+                 else _cross_kv_from_encoder(p, enc_out, cfg, tp))
         x, entry = _apply_block_full(x, p, blk, cfg, positions, lengths,
-                                     stats, cross, window_override)
+                                     stats, cross, window_override, tp)
         if cross is not None:
             entry["cross"] = cross
         entries.append(entry)
@@ -882,7 +1102,7 @@ def prefill_group_shared(params, cache, x, positions, prefix_map,
 
 def decode_repeat(params, cache, x, pos, rep: int, cfg: ModelConfig,
                   block_tables=None, *, long_context: bool = False,
-                  kv_positions=None, cross_pos=None):
+                  kv_positions=None, cross_pos=None, tp=None):
     """Pattern repeat ``rep`` of a decode pass: one
     :func:`_apply_block_decode` per pattern position, in order (the
     segment a decode graph of the fused cycle replays), each block
@@ -894,11 +1114,13 @@ def decode_repeat(params, cache, x, pos, rep: int, cfg: ModelConfig,
         cross = (cache["cross"]["k"][rep], cache["cross"]["v"][rep],
                  *cross_pos)
     for j, blk in enumerate(cfg.pattern):
+        p = params_at(params["blocks"][j], rep)
+        if tp is not None and tp.fsdp:
+            p = _unfsdp(p, tp.fsdp["blocks"][j], tp)
         x = _apply_block_decode(
-            x, params_at(params["blocks"][j], rep), blk, cfg,
-            params_at(cache["blocks"][j], rep), pos, block_tables,
-            long_context=long_context, kv_positions=kv_positions,
-            cross=cross)
+            x, p, blk, cfg, params_at(cache["blocks"][j], rep), pos,
+            block_tables, long_context=long_context,
+            kv_positions=kv_positions, cross=cross, tp=tp)
     return x
 
 
@@ -959,11 +1181,22 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model ** 0.5, dtype=dtype))
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig, frontend=None):
+def embed_tokens(params, tokens, cfg: ModelConfig, frontend=None, tp=None):
     """The tokens' embeddings (B, S, D); with the stub ``frontend`` (B, Sf,
     De) of a decoder-only VLM, its projection through ``frontend_proj``
-    prepended (B, Sf + S, D)."""
-    x = params["embed"][tokens.long()]
+    prepended (B, Sf + S, D). Sharded: the embedding's vocab rows over
+    the model axis (``shard_vocab``: each rank looks up the tokens in its
+    block, the rows summed) or its columns (all-gathered)."""
+    if tp is None or tp.model is None:
+        x = params["embed"][tokens.long()]
+    elif tp.policy.shard_vocab:
+        vl = params["embed"].shape[0]
+        ids = tokens.long() - tp.r * vl
+        inside = ((ids >= 0) & (ids < vl))[..., None]
+        x = tp.reduce(torch.where(inside, params["embed"][ids.clamp(0, vl - 1)],
+                                  0))
+    else:
+        x = tp.gather(params["embed"][tokens.long()])
     if cfg.tie_embeddings:
         x = x * _embed_scale(cfg.d_model, x.dtype)
     if frontend is not None:
@@ -972,39 +1205,41 @@ def embed_tokens(params, tokens, cfg: ModelConfig, frontend=None):
     return x
 
 
-def lm_logits(params, x, cfg: ModelConfig):
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["lm_head"]
-    logits = logits.float()
+def lm_logits(params, x, cfg: ModelConfig, tp=None):
+    """fp32 logits (B, S, V), the padded vocab tail at -1e30. Sharded:
+    this rank's vocab block under ``shard_vocab`` (column parallel), else
+    the whole vocab from a row-parallel product."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    vocab = tp is not None and tp.policy.shard_vocab
+    logits = tp_matmul(x, w, tp, "out" if vocab else "in").float()
     if cfg.vocab_padded != cfg.vocab_size:
         # mask the padded vocab tail out of the softmax
-        idx = torch.arange(cfg.vocab_padded, device=logits.device)
+        first = tp.r * logits.shape[-1] if vocab else 0
+        idx = first + torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(idx < cfg.vocab_size, logits, -1e30)
     return logits
 
 
-def decode_logits(params, x, cfg: ModelConfig):
+def decode_logits(params, x, cfg: ModelConfig, tp=None):
     """Final norm, then the logits of a decode pass's activations (B, 1,
     D): (B, V)."""
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
-    return lm_logits(params, x, cfg)[:, 0]
+    return lm_logits(params, x, cfg, tp)[:, 0]
 
 
-def last_token_logits(params, x, lengths, cfg: ModelConfig):
+def last_token_logits(params, x, lengths, cfg: ModelConfig, tp=None):
     """Final norm, then logits of each row's last valid token: (B, V)."""
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
     idx = (lengths.long() - 1).clamp(0, x.shape[1] - 1)
     last = x[torch.arange(x.shape[0], device=x.device), idx]
-    return lm_logits(params, last[:, None], cfg)[:, 0]
+    return lm_logits(params, last[:, None], cfg, tp)[:, 0]
 
 
 # ---------------------------------------------------------------------------
 # Encoder (encoder-decoder models)
 # ---------------------------------------------------------------------------
 
-def encode(params, frontend, cfg: ModelConfig):
+def encode(params, frontend, cfg: ModelConfig, tp=None):
     """The bidirectional encoder over stub frontend embeddings (B, Se,
     De): projected through ``frontend_proj``, then per layer RoPE'd
     self-attention over positions 0..Se-1 with no mask (kernel 1 with
@@ -1014,25 +1249,30 @@ def encode(params, frontend, cfg: ModelConfig):
     x = frontend.to(enc["wq"].dtype) @ params["frontend_proj"]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for p in params_by_repeat(enc):
+        if tp is not None and tp.fsdp:
+            p = _unfsdp(p, tp.fsdp["encoder"], tp)
         h = L.rms_norm(x, p["ln1"], cfg.rmsnorm_eps)
-        q, k, v = _project_qkv(h, p, cfg, positions)
+        q, k, v = _project_qkv(h, p, cfg, positions, tp)
+        k, v = _kv_for_heads(k, v, cfg, tp)
         o = attn_ops.attention_prefill(q, k, v, causal=False)
-        x = x + _merge_heads(o) @ p["wo"]
-        h = L.rms_norm(x, p["ln2"], cfg.rmsnorm_eps)
-        x = x + L.gated_mlp(h, p["wi"], p["wo_mlp"])
+        x = x + _attn_out(o, p["wo"], tp)
+        x = x + _ff(x, p, BlockSpec(mixer=ATTN, ff=MLP), cfg, tp=tp)
     return L.rms_norm(x, params["encoder_norm"], cfg.rmsnorm_eps)
 
 
-def _cross_kv_from_encoder(p_blk, enc_out, cfg: ModelConfig):
+def _cross_kv_from_encoder(p_blk, enc_out, cfg: ModelConfig, tp=None):
     """The encoder's output projected by one decoder block's ``cwk`` /
-    ``cwv``: (K, V) of shape (B, Se, K, D), no RoPE."""
+    ``cwv``: (K, V) of shape (B, Se, K, D), no RoPE (sharded: this rank's
+    K/V heads when they split)."""
     b, se, _ = enc_out.shape
-    k = (enc_out @ p_blk["cwk"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p_blk["cwv"]).reshape(b, se, cfg.n_kv_heads, cfg.head_dim)
-    return k, v
+    split = "out" if _heads(tp)[1] else "in"
+    k = tp_matmul(enc_out, p_blk["cwk"], tp, split)
+    v = tp_matmul(enc_out, p_blk["cwv"], tp, split)
+    return (k.reshape(b, se, -1, cfg.head_dim),
+            v.reshape(b, se, -1, cfg.head_dim))
 
 
-def _embed_prompt(params, tokens, cfg: ModelConfig, frontend):
+def _embed_prompt(params, tokens, cfg: ModelConfig, frontend, tp=None):
     """(x, enc_out) of a prompt batch: an encoder-decoder model encodes
     ``frontend`` and embeds the tokens alone; a decoder-only one prepends
     the projected ``frontend`` (when given) to the tokens' embeddings."""
@@ -1040,9 +1280,9 @@ def _embed_prompt(params, tokens, cfg: ModelConfig, frontend):
         if frontend is None:
             raise ValueError(f"{cfg.name}: the encoder needs its frontend "
                              "frames")
-        return embed_tokens(params, tokens, cfg), encode(params, frontend,
-                                                         cfg)
-    return embed_tokens(params, tokens, cfg, frontend), None
+        return (embed_tokens(params, tokens, cfg, tp=tp),
+                encode(params, frontend, cfg, tp))
+    return embed_tokens(params, tokens, cfg, frontend, tp), None
 
 
 # ---------------------------------------------------------------------------
@@ -1078,28 +1318,35 @@ def copy_pages(cache, src, dst) -> None:
 
 
 def _write_entry(tpl, entry, blk: BlockSpec, cfg: ModelConfig,
-                 lengths, long_context: bool = False) -> None:
+                 lengths, long_context: bool = False, tp=None) -> None:
     """Write one layer's prefill entry into its dense cache leaves ``tpl``
     (the prompt batch's rows), in place (``long_context``: a full-attention
-    entry longer than its leaf is gathered into the ring)."""
-    new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, long_context)
+    entry longer than its leaf is gathered into the ring). Under the
+    sequence-parallel layout the leaves are this rank's block of the
+    sequence and take that block of the layout."""
+    seq = _seq_par(tp) and blk.mixer in (ATTN, SWA)
+    new = _prefill_cache_entry(entry, blk, cfg, lengths, tpl, long_context,
+                               tp.m if seq else 1)
     for key, t in tpl.items():
-        t.copy_(new[key])
+        t.copy_(SH.split_to(new[key], 1, tp.model, tp.mesh) if seq
+                else new[key])
 
 
 def write_dense_entries(cache, entries, cfg: ModelConfig, lengths,
-                        rep: int, long_context: bool = False) -> None:
+                        rep: int, long_context: bool = False,
+                        tp=None) -> None:
     """Write one layer group's prefill entries (:func:`prefill_group`)
     into repeat ``rep`` of a dense slot cache of :func:`init_cache` (built
     with the same ``long_context``) whose batch rows are the prompt
     batch's, in place."""
     for blk, entry, leaf in zip(cfg.pattern, entries, cache["blocks"]):
         _write_entry({key: t[rep] for key, t in leaf.items()}, entry, blk,
-                     cfg, lengths, long_context)
+                     cfg, lengths, long_context, tp)
 
 
 def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
-            stats=None, frontend=None, long_context: bool = False):
+            stats=None, frontend=None, long_context: bool = False,
+            policy: Optional[ShardingPolicy] = None):
     """Process a prompt batch and write its cache entries.
 
     tokens: (B, S) with ``lengths`` (B,) valid tokens each. With
@@ -1119,11 +1366,18 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
     the same flag): the full-attention blocks attend over the window
     ``min(cfg.long_context_window, S)`` and their K/V is gathered into
     the ring of that window, as the JAX package's ``window_override``.
+    ``policy`` (dense cache only): sharded over its mesh, every argument
+    and result this rank's (the module docstring).
     Returns (last_logits (B, V), cache), the cache updated in place."""
     if long_context and page_map is not None:
         raise ValueError(f"{cfg.name}: the long-context prefill writes the "
                          "dense slot cache's ring, not pages")
-    x, enc_out = _embed_prompt(params, tokens, cfg, frontend)
+    tp = _tp(policy, cfg)
+    if tp is not None and page_map is not None:
+        raise ValueError(f"{cfg.name}: a sharded prefill writes the dense "
+                         "slot cache, not pages")
+    params = _top_params(params, tp)
+    x, enc_out = _embed_prompt(params, tokens, cfg, frontend, tp)
     if enc_out is not None:
         se = cache["cross"]["k"].shape[2]
         if enc_out.shape[1] != se:
@@ -1134,24 +1388,39 @@ def prefill(params, tokens, lengths, cache, page_map, cfg: ModelConfig, *,
               else None)
     for r in range(cfg.n_pattern_repeats):
         x, entries = prefill_group(params, x, positions, r, cfg, lengths,
-                                   stats, enc_out, window)
+                                   stats, enc_out, window, tp)
         if page_map is None:
             write_dense_entries(cache, entries, cfg, lengths, r,
-                                long_context)
+                                long_context, tp)
         else:
             scatter_group_pages(cache, entries, page_map, r)
         if enc_out is not None:
             for key, t in zip(("k", "v"), entries[0]["cross"]):
                 cache["cross"][key][r].copy_(t)
     for j, blk in enumerate(cfg.pattern_tail):
-        p = params["tail_blocks"][j]
+        p = _tail_params(params, j, tp)
         cross = (None if enc_out is None
-                 else _cross_kv_from_encoder(p, enc_out, cfg))
+                 else _cross_kv_from_encoder(p, enc_out, cfg, tp))
         x, entry = _apply_block_full(x, p, blk, cfg, positions, lengths,
-                                     stats, cross, window)
+                                     stats, cross, window, tp)
         _write_entry(cache["tail"][j], entry, blk, cfg, lengths,
-                     long_context)
-    return last_token_logits(params, x, lengths, cfg), cache
+                     long_context, tp)
+    return last_token_logits(params, x, lengths, cfg, tp), cache
+
+
+def _top_params(params, tp: Optional[TP]):
+    """``params`` with its top-level FSDP leaves all-gathered (the
+    embedding, the head, the norms, the frontend projection)."""
+    if tp is None or not tp.fsdp:
+        return params
+    return _unfsdp(params, tp.fsdp["top"], tp)
+
+
+def _tail_params(params, j: int, tp: Optional[TP]):
+    p = params["tail_blocks"][j]
+    if tp is None or not tp.fsdp:
+        return p
+    return _unfsdp(p, tp.fsdp["tail_blocks"][j], tp)
 
 
 def _apply_block_chunk(x, p, blk: BlockSpec, cfg: ModelConfig,
@@ -1230,23 +1499,27 @@ def prefill_chunk(params, tokens, ctx_start: int, cache, cfg: ModelConfig,
     return decode_logits(params, x[:, -1:], cfg), cache
 
 
-def _position_maps(cfg: ModelConfig, cache, pos, long_context: bool):
+def _position_maps(cfg: ModelConfig, cache, pos, long_context: bool,
+                   shards: int = 1):
     """The (B, S) ``_kv_positions`` map of every distinct (cache length,
     ring) pair among the dense cache's attention entries, computed once
-    for all the layers that share it."""
+    for all the layers that share it (``shards``: each entry is one of
+    that many blocks of its sequence; the maps cover the whole)."""
     maps = {}
     entries = list(zip(cfg.pattern, cache["blocks"]))
     entries += list(zip(cfg.pattern_tail, cache.get("tail", ())))
     for blk, leaf in entries:
         if blk.mixer in (ATTN, SWA):
-            key = (leaf["k"].shape[-3], _is_ring(blk, long_context))
+            key = (leaf["k"].shape[-3] * shards,
+                   _is_ring(blk, long_context))
             if key not in maps:
                 maps[key] = _kv_positions(pos, *key)
     return maps
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
-                block_tables=None, long_context: bool = False):
+                block_tables=None, long_context: bool = False,
+                policy: Optional[ShardingPolicy] = None):
     """One decode iteration.
 
     tokens: (B, 1) int; pos: (B,) int32 absolute position of the new token.
@@ -1259,11 +1532,18 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     every block of repeat r cross-attends its row r (the tail blocks the
     last row), all of its Se rows: the map 0..Se-1 and pos Se-1 are made
     on the device here, so a CUDA graph of this step captures them with
-    no copy from the host. Returns (logits (B, V), cache), the cache
-    updated in place."""
-    x = embed_tokens(params, tokens, cfg)
+    no copy from the host. ``policy`` (dense cache only): sharded over its
+    mesh, every argument and result this rank's (the module docstring).
+    Returns (logits (B, V), cache), the cache updated in place."""
+    tp = _tp(policy, cfg)
+    if tp is not None and block_tables is not None:
+        raise ValueError(f"{cfg.name}: a sharded decode step reads the "
+                         "dense slot cache, not pages")
+    params = _top_params(params, tp)
+    x = embed_tokens(params, tokens, cfg, tp=tp)
     kvpos = (None if block_tables is not None
-             else _position_maps(cfg, cache, pos, long_context))
+             else _position_maps(cfg, cache, pos, long_context,
+                                 tp.m if _seq_par(tp) else 1))
     cross_pos = None
     if "cross" in cache:
         se = cache["cross"]["k"].shape[2]
@@ -1272,16 +1552,17 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, *,
     for r in range(cfg.n_pattern_repeats):
         x = decode_repeat(params, cache, x, pos, r, cfg, block_tables,
                           long_context=long_context, kv_positions=kvpos,
-                          cross_pos=cross_pos)
+                          cross_pos=cross_pos, tp=tp)
     for j, blk in enumerate(cfg.pattern_tail):
         cross = None
         if cross_pos is not None:
             cross = (cache["cross"]["k"][-1], cache["cross"]["v"][-1],
                      *cross_pos)
         x = _apply_block_decode(
-            x, params["tail_blocks"][j], blk, cfg, cache["tail"][j], pos,
-            long_context=long_context, kv_positions=kvpos, cross=cross)
-    return decode_logits(params, x, cfg), cache
+            x, _tail_params(params, j, tp), blk, cfg, cache["tail"][j], pos,
+            long_context=long_context, kv_positions=kvpos, cross=cross,
+            tp=tp)
+    return decode_logits(params, x, cfg, tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -1298,7 +1579,7 @@ def param_count(params) -> int:
 
 
 def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
-            remat: bool = False):
+            remat: bool = False, policy: Optional[ShardingPolicy] = None):
     """Teacher-forcing forward over ``tokens`` (B, S), every row a full
     sequence, with ``frontend`` encoded (encoder-decoder) or prepended
     (decoder-only VLM: the logits then cover its rows too), as in
@@ -1309,18 +1590,25 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
     package's per-block ``jax.checkpoint``: only the block's input is kept
     for the backward, which runs the block again (the forward draws no
     random numbers, so no RNG state is stashed). The tail blocks are not
-    checkpointed, as in the JAX ``forward``."""
-    x, enc_out = _embed_prompt(params, tokens, cfg, frontend)
+    checkpointed, as in the JAX ``forward``. ``policy``: sharded over its
+    mesh, every argument and result this rank's (the module docstring); a
+    block's FSDP leaves are gathered inside its checkpoint, so the
+    backward gathers them again."""
+    tp = _tp(policy, cfg)
+    params = _top_params(params, tp)
+    x, enc_out = _embed_prompt(params, tokens, cfg, frontend, tp)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
 
-    def one_block(x, p, blk):
+    def one_block(x, p, blk, plan=None):
+        if plan:
+            p = _unfsdp(p, plan, tp)
         cross = (None if enc_out is None
-                 else _cross_kv_from_encoder(p, enc_out, cfg))
+                 else _cross_kv_from_encoder(p, enc_out, cfg, tp))
         # the block's own sums, returned (as the JAX ``one_block`` returns
         # its aux), so a recomputed block counts nothing twice
         stats = MoEStats(x.device)
         x, _ = _apply_block_full(x, p, blk, cfg, positions, stats=stats,
-                                 cross_kv=cross)
+                                 cross_kv=cross, tp=tp)
         return x, stats.sums[3]
 
     run = one_block
@@ -1330,12 +1618,15 @@ def forward(params, tokens, cfg: ModelConfig, *, frontend=None,
                                 preserve_rng_state=False)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     repeats = [params_by_repeat(p_j) for p_j in params["blocks"]]
+    plans = tp.fsdp if tp is not None and tp.fsdp else None
     for r in range(cfg.n_pattern_repeats):
         for j, blk in enumerate(cfg.pattern):
-            x, a = run(x, repeats[j][r], blk)
+            x, a = run(x, repeats[j][r], blk,
+                       plans["blocks"][j] if plans else None)
             aux = aux + a
     for j, blk in enumerate(cfg.pattern_tail):
-        x, a = one_block(x, params["tail_blocks"][j], blk)
+        x, a = one_block(x, params["tail_blocks"][j], blk,
+                         plans["tail_blocks"][j] if plans else None)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.rmsnorm_eps)
-    return lm_logits(params, x, cfg), aux
+    return lm_logits(params, x, cfg, tp), aux

@@ -15,6 +15,13 @@ One difference from the JAX module: ``update`` writes the new params and
 moments into the tensors it is given and returns them (the JAX update
 returns new trees). The old values are not needed again, and overwriting
 them keeps one copy of the params and moments on the card, not two.
+
+Sharded (``specs``, ``mesh``: each leaf's partition spec in flatten order
+and the rank's mesh, ROADMAP §1 item 8d): the params, gradients and
+moments are this rank's shards. AdamW is elementwise and needs nothing
+more; Adafactor's means over a leaf's last two dims, the row moment's
+mean and the update's mean square sum over the mesh axes that split the
+dims they reduce, so each rank's update is its block of the whole's.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.models import sharding as SH
 from repro_torch.training.tree import (leaves, leaves_with_paths, mask_name,
                                        tree_map)
 
@@ -98,9 +106,21 @@ def make_adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
 
 def make_adafactor(lr: float = 1e-3, decay: float = 0.8,
                    eps: float = 1e-30, clip: float = 1.0,
-                   warmup: int = 100):
+                   warmup: int = 100, specs=None, mesh=None):
     def schedule(step):
         return lr * torch.clamp(step.float() / max(warmup, 1), max=1.0)
+
+    def mean(t, dims, spec, keepdim=False):
+        """The mean of ``t`` (this rank's block of a leaf under ``spec``)
+        over ``dims`` of the whole leaf."""
+        if spec is None:
+            if len(dims) == t.dim() and not keepdim:
+                return t.mean()
+            return t.mean(dims, keepdim=keepdim)
+        axes = [a for d in dims if d % t.dim() < len(spec)
+                for a in SH.axis_tuple(spec[d % t.dim()])]
+        n = SH.axis_size(mesh, axes) * math.prod(t.shape[d] for d in dims)
+        return SH.psum(t.sum(dims, keepdim=keepdim), axes, mesh) / n
 
     def init(params) -> AdafactorState:
         def rows(p):
@@ -122,20 +142,23 @@ def make_adafactor(lr: float = 1e-3, decay: float = 0.8,
         step = state.step + 1
         lr_t = schedule(step)
         beta = 1.0 - (step.float() + 1) ** -decay
-        for p, g, vr, vc in zip(leaves(params), leaves(grads),
-                                leaves(state.vr), leaves(state.vc)):
+        sp = specs if specs is not None else [None] * len(leaves(params))
+        for p, g, vr, vc, spec in zip(leaves(params), leaves(grads),
+                                      leaves(state.vr), leaves(state.vc),
+                                      sp):
             g = g.float()
             g2 = g * g + eps
             if p.dim() >= 2:
-                vr.mul_(beta).add_((1 - beta) * g2.mean(-1))
-                vc.mul_(beta).add_((1 - beta) * g2.mean(-2))
-                r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+                vr.mul_(beta).add_((1 - beta) * mean(g2, (-1,), spec))
+                vc.mul_(beta).add_((1 - beta) * mean(g2, (-2,), spec))
+                rspec = None if spec is None else SH.Spec(*spec[:-1])
+                r = vr / torch.clamp(mean(vr, (-1,), rspec, True), min=eps)
                 denom = torch.sqrt(r[..., None] * vc[..., None, :])
             else:
                 vr.mul_(beta).add_((1 - beta) * g2)
                 denom = torch.sqrt(vr)
             u = g / torch.clamp(denom, min=eps)
-            norm = torch.sqrt(torch.mean(u * u))
+            norm = torch.sqrt(mean(u * u, tuple(range(u.dim())), spec))
             u = u / torch.clamp(norm / clip, min=1.0)
             _write(p, lr_t * u)
         return params, AdafactorState(step, state.vr, state.vc)

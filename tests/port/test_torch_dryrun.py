@@ -173,8 +173,13 @@ def _check_row(r, arch, shape):
     roof = r["roofline"]
     assert roof["flops"] > 0 and roof["hbm_bytes"] > 0
     assert roof["terms"]["collective_s"] == 0.0
-    assert r["roofline_per_device"] is None
-    assert "8d" in r["roofline_per_device_note"]
+    # rank 0's local step on the 256 devices: the policy shards, so it
+    # runs collectives, and the devices do at least the whole step's work
+    dev = r["roofline_per_device"]
+    assert dev["devices"] == 256
+    assert dev["terms"]["collective_s"] > 0
+    assert sum(dev["collective_bytes"].values()) > 0
+    assert dev["flops"] * dev["devices"] >= roof["flops"]
     return roof["kernels"]
 
 
