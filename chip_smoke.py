@@ -8,8 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. the card: name and power limit as nvidia-smi reports them;
 2. build: the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source in parallel; ptxas's registers and
-   spills per kernel (the bf16 paged fused kernel and every SSD kernel
-   must not spill);
+   spills per kernel (the bf16 paged fused kernel, every fp32 attention
+   kernel and every SSD kernel must not spill);
 3. kernels, at the main-path shapes of Qwen3-1.7B (H=16, K=8, G=2, D=128,
    page size 16, dense cache rows of the replay's max_len = 1000, which is
    not a multiple of 128): each kernel against its plain PyTorch version
@@ -410,6 +410,8 @@ from repro_torch.kernels.cost import (HBM_BW, bound_ms,  # noqa: E402
                                       bwd_cost, decode_cost, dense_cost,
                                       esize, flash_cost, rglru_bwd_cost,
                                       rglru_cost, ssd_bwd_cost, ssd_cost)
+from repro_torch.kernels.geometry import (PIECE_ROWS,  # noqa: E402
+                                          fp32_pieces)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 H, K, G, D, PS = 16, 8, 2, 128, 16
@@ -978,7 +980,8 @@ def paged_row(timer, name, dtype, inputs, err, *, what: str = "",
                 qd, kpg, vpg, bt, pos), n, f"paged decode D={d} {b} slots")
         body = f"{n} pieces per (slot, kv head) in the launch"
     else:
-        body = "one CTA per (slot, kv head)"
+        body = (f"{fp32_pieces(bt.shape[1] * PS)} pieces of {PIECE_ROWS} "
+                "rows per (slot, kv head) in the launch, each slot its own")
     return dict(
         name=name + sfx, route="cuda", source=ATTN_SRC,
         replaces="src/repro/kernels/paged_decode_attention.py:73",
@@ -1014,7 +1017,8 @@ def dense_row(timer, name, dtype, inputs, err, *, what: str = "",
                 qd, kc, vc, kvpos, pos), n, f"dense decode D={d} {b} slots")
         body = f"{n} pieces per (slot, kv head)"
     else:
-        body = "one CTA per (slot, kv head)"
+        body = (f"{fp32_pieces(kc.shape[1])} pieces of {PIECE_ROWS} rows "
+                "per (slot, kv head)")
     return dict(
         name=name + sfx, route="cuda", source=ATTN_SRC,
         replaces="src/repro/kernels/decode_attention.py:62",
@@ -1122,6 +1126,14 @@ def phase_build():
     check(len(fused) == len(build.PAGED_HEAD_DIMS)
           and all(r["spill_st"] == 0 and r["spill_ld"] == 0 for r in fused),
           f"bullet_tc_kernel<D, DecodeArgs> spills: {fused}")
+    # no fp32 attention kernel may spill: the register-tiled flash body
+    # (standalone and in both fused kernels) and the fp32 split decode body
+    fp32 = [r for r in report if any(k in r["kernel"] for k in (
+        "flash_rt_kernel", "decode_kernelIf", "bullet_kernelIf"))]
+    want = 2 * len(build.HEAD_DIMS) + 3 * len(build.PAGED_HEAD_DIMS)
+    check(len(fp32) == want
+          and all(r["spill_st"] == 0 and r["spill_ld"] == 0 for r in fp32),
+          f"fp32 attention kernels ({len(fp32)} of {want}) spill: {fp32}")
     # no SSD kernel may spill: the bf16 body keeps its accumulators in
     # registers across each product
     ssd = [r for r in report if any(k in r["kernel"] for k in SSD_KERNELS)]
@@ -1227,7 +1239,7 @@ def phase_kernels(timer: Timer):
                     f"{schedule_gate(sched, what)}")
 
     # -- timings at the serving shapes: bf16 (the bodies the served model
-    # runs) and fp32 (the first CUDA-core bodies, which the fp32 replays
+    # runs) and fp32 (the CUDA-core bodies, which the fp32 replays
     # and references run)
     rows = []
     for dt in (torch.bfloat16, torch.float32):
@@ -2560,9 +2572,11 @@ def _kernel_kind(name: str) -> str:
     # "decode_kernel" matches the fp32 decode kernels (decode_kernel<float,
     # 128, DecodeArgs> over the page pool, <..., DenseDecodeArgs> over the
     # dense cache) and the bf16 split kernels over either
-    # (split_decode_kernel<128, DecodeArgs>, ...); the fused kernels are
+    # (split_decode_kernel<128, DecodeArgs>, ...); flash is "flash_kernel"
+    # (bf16) and "flash_rt_kernel" (fp32); the fused kernels are
     # "bullet_kernel" (fp32) and "bullet_tc_kernel" (bf16)
-    if any(k in name for k in ("flash_kernel", "flash_bwd", "decode_kernel",
+    if any(k in name for k in ("flash_kernel", "flash_rt_kernel",
+                               "flash_bwd", "decode_kernel",
                                "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
     if any(k in name for k in SSD_KERNELS) or "ssd_bwd_" in name:

@@ -109,6 +109,17 @@ def smoke_module():
     return mod
 
 
+def use_tree(tree: str) -> None:
+    """Put ``tree``'s ``src`` first on the path and drop every
+    ``repro_torch`` module imported so far (this checkout's
+    ``chip_smoke.py`` imports the package where ``smoke_module`` loads
+    it), so that the next import of the package is ``tree``'s."""
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, os.path.join(tree, "src"))
+
+
 def smoke_timer():
     """This checkout's ``chip_smoke.Timer`` (see ``smoke_module``)."""
     return smoke_module().Timer()
@@ -173,6 +184,7 @@ def fused(tree: str, path: str) -> None:
     launches at the serving shape, bf16, share 0.5."""
     import torch
     timer = smoke_timer()
+    use_tree(tree)
     sys.path.insert(0, tree)
     import chip_smoke as CS
     from repro_torch.kernels import bullet_attention as BA
@@ -271,7 +283,7 @@ def windows(tree: str, path: str) -> None:
     import importlib.util
     import torch
     cs = smoke_module()
-    sys.path.insert(0, os.path.join(tree, "src"))
+    use_tree(tree)
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     assert T.__file__.startswith(tree), T.__file__

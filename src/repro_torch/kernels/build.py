@@ -56,11 +56,9 @@ SIGNATURES = {
     "flash_attention_fwd_lse": [_P] * 5 + [_I] * 7 + [_P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
     "flash_attention_bwd_tc": [_P] * 11 + [_I] * 8 + [_P],
-    "paged_decode_fwd": [_P] * 6 + [_I] * 7 + [_P],
     "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
                                   + [_I] * 9 + [_P, _P] + [_I] * 2 + [_P],
-    "decode_attention_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "decode_attention_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9 + [_I] * 8
                             + [_P, _P] + [_I] * 2 + [_P],
@@ -247,9 +245,10 @@ def refuse_grad(kernel: str, tensors, item: str) -> None:
 
 
 def check_aligned(kernel: str, tensors) -> None:
-    """The bf16 attention bodies read through TMA maps and 16-byte
-    ``cp.async`` copies: each tensor must start 16-byte aligned."""
+    """The attention bodies read through TMA maps (bf16 prefill) and
+    16-byte ``cp.async`` copies and loads (both dtypes): each tensor must
+    start 16-byte aligned."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: bfloat16 tensors must start "
-                             f"16-byte aligned")
+            raise ValueError(f"{kernel}: tensors must start 16-byte "
+                             f"aligned")

@@ -28,9 +28,10 @@ longest causal tiles start first and not two on one SM. The queues'
 counters live in a workspace kept per (device, stream), zero at launch
 and left zero by the launch's last CTA. The per-item bodies are the standalone kernels' device functions, so
 the outputs equal ``flash_attention`` + ``paged_decode_attention`` (or +
-``decode_attention``) bit for bit, whichever CTA ran an item: in bf16
-either variant's decode items are the standalone split launch's (slot, kv
-head, piece) items (both size it with ``decode_attention.split_workspace``).
+``decode_attention``) bit for bit, whichever CTA ran an item: either
+variant's decode items are the standalone split launch's (slot, kv head,
+piece) items in both dtypes (both size it with
+``decode_attention.split_workspace``).
 With ``record=True`` a launch also returns a :class:`Schedule`: which SM
 ran each item, and from which queue. The dense variant has no serving path
 (the engine runs fused cycles on the paged pool only, as the JAX engine
@@ -67,9 +68,9 @@ bullet_attention_paged_plain = ref.bullet_attention_paged_ref
 bullet_attention_plain = ref.bullet_attention_ref
 
 #: (query rows, keys) per tile of the prefill bodies, by dtype code:
-#: ``flash_item``'s BQ, BK in fp32 and ``flash_tc_item``'s TC_BQ, TC_BK in
-#: bf16 (``csrc/attention.cuh``)
-FLASH_TILES = {0: (64, 32), 1: (128, 64)}
+#: ``flash_rt_item``'s FQ, FK in fp32 and ``flash_tc_item``'s TC_BQ, TC_BK
+#: in bf16 (``csrc/attention.cuh``)
+FLASH_TILES = {0: (64, 64), 1: (128, 64)}
 
 #: ints the record holds per ticket (``REC`` in ``csrc/attention.cu``)
 RECORD_INTS = 7
@@ -260,12 +261,10 @@ def _dispatch_paged(qp, kp, vp, qd, k_pages, v_pages, block_tables, pos,
     out_d = torch.empty_like(qd)
     if (out_p.numel() == 0 and out_d.numel() == 0) or qp.is_meta:
         return (out_p, out_d, None) if record else (out_p, out_d)
-    n_split, ws = 1, (None, None, None)
-    if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("bullet_attention_paged",
-                            (qp, kp, vp, qd, k_pages, v_pages))
-        # the standalone paged decode's pieces, so the outputs stay equal
-        n_split, *ws = split_workspace(qd, n_b * ps, paged=True)
+    build.check_aligned("bullet_attention_paged",
+                        (qp, kp, vp, qd, k_pages, v_pages))
+    # the standalone paged decode's pieces, so the outputs stay equal
+    n_split, *ws = split_workspace(qd, n_b * ps, paged=True)
     n_ctas = grid_ctas(qp.device.index if qp.device.index is not None
                        else torch.cuda.current_device(), code, d, g, ps)
     stream = build.stream_of(qp)
@@ -333,12 +332,10 @@ def _dispatch_dense(qp, kp, vp, qd, k_cache, v_cache, kv_positions, pos,
     out_d = torch.empty_like(qd)
     if (out_p.numel() == 0 and out_d.numel() == 0) or qp.is_meta:
         return (out_p, out_d, None) if record else (out_p, out_d)
-    n_split, ws = 1, (None, None, None)
-    if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("bullet_attention",
-                            (qp, kp, vp, qd, k_cache, v_cache))
-        # the standalone dense decode's pieces, so the outputs stay equal
-        n_split, *ws = split_workspace(qd, s)
+    build.check_aligned("bullet_attention",
+                        (qp, kp, vp, qd, k_cache, v_cache))
+    # the standalone dense decode's pieces, so the outputs stay equal
+    n_split, *ws = split_workspace(qd, s)
     n_ctas = grid_ctas(qp.device.index if qp.device.index is not None
                        else torch.cuda.current_device(), code, d, g, 0,
                        dense=True)

@@ -3,12 +3,12 @@
 // (repro_torch/kernels/build.py). Every entry point launches on the stream
 // it is given, allocates nothing, and returns cudaGetLastError() after the
 // launch (or cudaErrorInvalidValue for a head dim it is not built for).
-// flash_attention_fwd and decode_attention_fwd are built for D = 64
+// flash_attention_fwd and decode_attention_split_fwd are built for D = 64
 // (Granite-3.0-2B, SeamlessM4T-Large-v2's encoder, decoder and
 // cross-attention), D = 128 (Qwen3, Llama) and D = 256 (RecurrentGemma's
 // sliding-window layers: 10 query heads on one kv head, window 2048);
-// paged_decode_fwd and the two fused kernels for D = 64 and 128, the head
-// dims of the paged path's models. D = 64 is computed at its own width,
+// paged_decode_split_fwd and the two fused kernels for D = 64 and 128, the
+// head dims of the paged path's models. D = 64 is computed at its own width,
 // never padded to 128 (that would double the bytes every decode reads).
 //
 // flash_attention_fwd
@@ -28,17 +28,23 @@
 //     2-stage ring behind mbarriers, the online softmax in fp32 registers.
 //     The TMA maps are encoded here, on the host, through the runtime's
 //     driver entry point (no -lcuda).
-//   - fp32 (flash_item, the first port's body, kept so every fp32 gate
-//     stays exact): one CTA per 64-row query tile on the CUDA cores, 32-key
-//     tiles in shared memory.
+//   - fp32 (flash_rt_item, register-tiled on the CUDA cores; fp32 FMAs,
+//     no TF32): one CTA per 64-row query tile, 64-key K/V tiles through
+//     cp.async (K and V staggered, so loads overlap both products); each
+//     thread holds an 8 x 8 block of the score tile over a quarter of D
+//     (the quarters added by shuffles) and an 8 x 8 block of the output
+//     over a share of the keys, so each float it loads from shared
+//     memory feeds 4 FMAs, the ratio at which the SM's shared memory
+//     keeps its FMA units busy. The standalone launch takes a head's
+//     longest causal tiles first.
 //   Both keep the score tiles on chip, so no S×S matrix reaches HBM, and
 //   skip the KV tiles that the causal or window mask removes whole.
 //   flash_attention_fwd_lse is the bf16 launch of the training forward: an
 //   instantiation of its own that also writes each row's log2-sum-exp2,
 //   so kernel 1's bf16 backward need not recompute it.
 //
-// paged_decode_fwd, paged_decode_split_fwd
-//   Replace src/repro/kernels/paged_decode_attention.py:73
+// paged_decode_split_fwd
+//   Replaces src/repro/kernels/paged_decode_attention.py:73
 //   `paged_decode_attention` (pl.pallas_call at :106). One-token GQA
 //   decode over the shared page pool: a slot attends its positions <= pos,
 //   row r at page bt[b, r / ps], row r % ps (any n_b). Bound: bytes (every
@@ -55,17 +61,22 @@
 //     slot's result does not depend on the table's width, nor on the
 //     other slots of its launch; a tile's attended rows are its first
 //     min(64, pos + 1 - 64·ti), their page ids read by warp 0 one tile
-//     ahead, their K/V through cp.async, both products on mma.sync. Its
-//     entry is
-//     paged_decode_split_fwd (n_split, workspace and counters from the
-//     wrapper, as decode_attention_split_fwd); paged_decode_fwd in bf16
-//     runs the same body with one piece.
-//   - fp32 (paged_decode_item, the first port's body): one CTA per (slot,
-//     kv head) walks the live pages one at a time on the CUDA cores. Kept
-//     so fp32 paged decode stays bit-equal to fp32 dense decode.
+//     ahead, their K/V through cp.async, both products on mma.sync.
+//   - fp32 (piece_decode_item over the PagedRows source: dense decode's
+//     fp32 body): the launch holds ceil(n_b·ps / PIECE_ROWS) pieces per
+//     (slot, kv head), one CTA each; a slot's own pos + 1 live rows are cut
+//     into pieces of PIECE_ROWS rows (the pieces past them return at
+//     once), walked in 16-row tiles through cp.async, double-buffered,
+//     both products as fp32 FMAs on the CUDA cores, the last piece merging
+//     in piece order. So a slot's result does not depend on the table's
+//     width nor on the other slots, and equals fp32 dense decode's bit for
+//     bit with linear positions.
+//   Its entry is paged_decode_split_fwd for both dtypes (n_split,
+//   workspace and counters from the wrapper, as
+//   decode_attention_split_fwd).
 //
-// decode_attention_fwd, decode_attention_split_fwd
-//   Replace src/repro/kernels/decode_attention.py:62 `decode_attention`
+// decode_attention_split_fwd
+//   Replaces src/repro/kernels/decode_attention.py:62 `decode_attention`
 //   (pl.pallas_call at :82). One-token GQA decode over a dense per-slot
 //   cache (B, S, K, D), masked by kv_positions (B, S): row j of slot b is
 //   attended when 0 <= kv_positions[b, j] <= pos[b], so ring caches (any
@@ -79,22 +90,23 @@
 //     products on the tensor cores (mma.sync, the G <= 16 query heads of a
 //     kv head as one 16-row operand), and the last piece of a (slot, kv
 //     head) to finish merges the partials in piece order, so the result
-//     does not depend on the order the CTAs ran in. Its entry is
-//     decode_attention_split_fwd, which takes n_split, the workspace and
-//     the counters from the wrapper (no workspace for n_split = 1) and
-//     checks the wrapper's tile against SPLIT_TILE;
+//     does not depend on the order the CTAs ran in;
 //     split_decode_ctas_per_sm gives the CTAs an SM holds, which the
-//     wrapper's split count sizes its wave with. decode_attention_fwd is
-//     the fp32 entry (in bf16 it runs the split body with one piece).
-//   - fp32 (decode_item, the first port's body, unsplit): one CTA per
-//     (slot, kv head) walks the rows in tiles of DECODE_TILE = 16 and skips
-//     a tile none of whose rows is attended (decided from the positions,
-//     never from the tile's index). With linear positions it walks
-//     paged_decode_fwd's rows in the same 16-row tiles with the same
-//     arithmetic, so the two agree bit for bit; in bf16 both caches run
-//     split_decode_item, which lists the same rows in the same tiles (the
-//     pieces agree where a slot's pieces, from its live rows, are the
-//     dense cache's, from its S rows).
+//     wrapper's split count sizes its wave with.
+//   - fp32 (piece_decode_item over the dense source): ceil(S / PIECE_ROWS)
+//     pieces of PIECE_ROWS rows per (slot, kv head), one CTA each, any G;
+//     a piece skips a 16-row tile none of whose rows is attended (decided
+//     from the positions, never from the tile's index). With linear
+//     positions it walks the paged body's rows in the same pieces and
+//     tiles with the same instructions (its pieces past the slot's live
+//     rows weigh 0 exactly), so the two agree bit for bit; in bf16 both
+//     caches run split_decode_item, which lists the same rows in the same
+//     tiles (the pieces agree where a slot's pieces, from its live rows,
+//     are the dense cache's, from its S rows).
+//   Its entry is decode_attention_split_fwd for both dtypes, which takes
+//   n_split, the workspace and the counters from the wrapper (no workspace
+//   for n_split = 1) and checks the wrapper's tile against SPLIT_TILE
+//   (bf16) or PIECE_ROWS (fp32).
 //
 // bullet_attention_paged_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:260
@@ -127,13 +139,11 @@
 //   operations can overlap on disjoint SMs, so the fused launch can beat
 //   the two launches' bounds added. Its per-item bodies are the standalone
 //   kernels' device functions at the same block size; in bf16 also at the
-//   same CTAs per SM (two, as flash_kernel's), while the fp32 kernel's
-//   schedule raises its registers above flash_kernel's (two CTAs an SM
-//   where the standalone fp32 flash kernel runs three); in bf16 its decode
-//   items are the same (slot, kv head, piece) items as the
-//   standalone split launch's (the wrapper sizes both with one call), so
-//   its outputs equal flash_attention_fwd + the paged decode wrapper's
-//   launch bit for bit at every decode_share, whichever CTA ran an item.
+//   same CTAs per SM (two, as flash_kernel's); its decode items are the
+//   same (slot, kv head, piece) items as the standalone split launch's in
+//   either dtype (the wrapper sizes both with one call), so its outputs
+//   equal flash_attention_fwd + the paged decode wrapper's launch bit for
+//   bit at every decode_share, whichever CTA ran an item.
 //
 // bullet_attention_fwd
 //   Replaces src/repro/kernels/bullet_attention.py:361 `bullet_attention`
@@ -155,16 +165,16 @@ namespace {
 using bf16 = __nv_bfloat16;
 template <typename T> constexpr bool is_bf16 = std::is_same<T, bf16>::value;
 
-// The per-item bodies by dtype: the fp32 CUDA-core bodies for float, the
-// tensor-core flash body and the split decode body (over either cache) for
-// bfloat16.
+// The per-item bodies by dtype: the register-tiled flash body and the
+// fp32 split decode body (over either cache) on the CUDA cores for float,
+// the tensor-core flash body and the bf16 split decode body for bfloat16.
 template <typename T, int D>
 __device__ __forceinline__ void flash_body(const FlashArgs &a, int item,
                                            unsigned char *smem) {
   if constexpr (is_bf16<T>)
     flash_tc_item<D>(a, item, smem);
   else
-    flash_item<T, D>(a, item, reinterpret_cast<float *>(smem));
+    flash_rt_item<D>(a, item, reinterpret_cast<float *>(smem));
 }
 
 // DA = DecodeArgs (paged cache) or DenseDecodeArgs (dense cache)
@@ -173,17 +183,14 @@ __device__ __forceinline__ void decode_body(const DA &a, int item,
                                             unsigned char *smem) {
   if constexpr (is_bf16<T>)
     split_decode_item<D>(a, item, smem);
-  else if constexpr (std::is_same<DA, DecodeArgs>::value)
-    paged_decode_item<T, D>(a, item, reinterpret_cast<float *>(smem));
   else
-    decode_item<T, D>(a, item, reinterpret_cast<float *>(smem));
+    piece_decode_item<D>(a, item, reinterpret_cast<float *>(smem));
 }
 
-// work items of a decode launch: (slot, kv head), times the pieces of the
-// bf16 split body
+// work items of a decode launch: (slot, kv head, piece)
 template <typename T, typename DA>
 __host__ __device__ inline int decode_items(const DA &a) {
-  return a.b * a.kh * (is_bf16<T> ? a.n_split : 1);
+  return a.b * a.kh * a.n_split;
 }
 
 template <typename T, int D>
@@ -191,6 +198,19 @@ __global__ void __launch_bounds__(THREADS)
     flash_kernel(const __grid_constant__ FlashArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   flash_body<T, D>(a, blockIdx.x, smem);
+}
+
+// the fp32 body's kernel: one item per CTA, a head's causal query tiles
+// longest first, heads inner; one CTA an SM (its 8 x 8 register blocks of
+// both products take more than 128 registers a thread)
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_rt_kernel(const __grid_constant__ FlashArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_qt = flash_q_tiles<float>(a.sq);
+  const int r = blockIdx.x / a.bh, h = blockIdx.x % a.bh;
+  flash_rt_item<D>(a, h * n_qt + (a.causal ? n_qt - 1 - r : r),
+                   reinterpret_cast<float *>(smem));
 }
 
 // the bf16 flash body that also writes each row's log2-sum-exp2: the
@@ -203,7 +223,7 @@ __global__ void __launch_bounds__(THREADS)
   flash_tc_item<D, true>(a, blockIdx.x, smem, lse2);
 }
 
-// the fp32 decode bodies, one CTA per (slot, kv head)
+// the fp32 split decode body over either cache, one CTA per piece
 template <typename T, int D, typename DA>
 __global__ void __launch_bounds__(THREADS)
     decode_kernel(DA a) {
@@ -466,7 +486,13 @@ __global__ void __launch_bounds__(THREADS, 2)
   bullet_body<bf16, D, DA>(fa, da, sc, smem);
 }
 
-// the kernel of a dtype: the fp32 ones keep the first port's launch bounds
+// the kernel of a dtype
+template <typename T, int D> auto flash_fn() {
+  if constexpr (is_bf16<T>)
+    return flash_kernel<T, D>;
+  else
+    return flash_rt_kernel<D>;
+}
 template <typename T, int D, typename DA> auto decode_fn() {
   if constexpr (is_bf16<T>)
     return split_decode_kernel<D, DA>;
@@ -554,36 +580,36 @@ template <typename T> size_t flash_smem(int d) {
   return is_bf16<T> ? (size_t)flash_tc_smem_bytes(d)
                     : sizeof(float) * flash_smem_floats(d);
 }
-// shared memory of a decode body: the split body's in bf16, else the fp32
-// body's tiles (the paged one's are pages of ps rows)
-template <typename T> size_t decode_smem(const DecodeArgs &a, int d) {
-  return is_bf16<T> ? split_smem_bytes(d)
-                    : sizeof(float) * decode_smem_floats(a.g, a.ps, d);
-}
-template <typename T> size_t decode_smem(const DenseDecodeArgs &a, int d) {
-  return is_bf16<T> ? split_smem_bytes(d)
-                    : sizeof(float) * decode_smem_floats(a.g, DECODE_TILE, d);
+// shared memory of a decode body: the bf16 split body's, or the fp32
+// one's (its q and accumulators grow with G)
+template <typename T, typename DA> size_t decode_smem(const DA &a, int d) {
+  return is_bf16<T> ? split_smem_bytes(d) : piece_smem_bytes(a.g, d);
 }
 
-// the bf16 split body's launch conditions: a piece count it takes, at most
-// SPLIT_G query heads, and for more than one piece the workspace and the
-// arrival counters
+// the split bodies' launch conditions: a piece count they take (bf16: at
+// most MAX_SPLIT, at most SPLIT_G query heads), and for more than one
+// piece the workspace and the arrival counters
 template <typename T, typename DA> bool split_ok(const DA &a) {
-  return !is_bf16<T> ||
-         (a.n_split >= 1 && a.n_split <= MAX_SPLIT && a.g <= SPLIT_G &&
-          (a.n_split == 1 || (a.ws_acc != nullptr && a.ws_ml != nullptr &&
-                              a.counts != nullptr)));
+  return a.n_split >= 1 && a.g >= 1 &&
+         (!is_bf16<T> || (a.n_split <= MAX_SPLIT && a.g <= SPLIT_G)) &&
+         (a.n_split == 1 || (a.ws_acc != nullptr && a.ws_ml != nullptr &&
+                             a.counts != nullptr));
+}
+
+// the rows a piece takes, by dtype: the wrapper's tile must equal it
+template <typename T> constexpr int piece_tile() {
+  return is_bf16<T> ? SPLIT_TILE : PIECE_ROWS;
 }
 
 template <typename T, int D>
 int launch_flash(FlashArgs a, cudaStream_t s) {
   if (!encode_flash<T>(a, D)) return (int)cudaErrorInvalidValue;
   const size_t smem = flash_smem<T>(D);
-  auto kern = flash_kernel<T, D>;
+  auto kern = flash_fn<T, D>();
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = a.bh * flash_q_tiles<T>(a.sq);
-  flash_kernel<T, D><<<grid, THREADS, smem, s>>>(a);
+  kern<<<grid, THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -674,11 +700,13 @@ template <int D, typename DA> int split_occupancy(int *ctas_per_sm) {
   } while (0)
 
 // flash prefill and dense decode: D = 64 (Granite, Seamless), 128 (Qwen3,
-// Llama) or 256 (RecurrentGemma). At D = 256 the fp32 flash_item's tiles
-// take ~140 KB of shared memory and the bf16 flash_tc_item's ~193 KB (one
+// Llama) or 256 (RecurrentGemma). At D = 256 the fp32 flash_rt_item's
+// tiles take 209 KB of shared memory (177 KB at D = 128 and 97 KB at 64,
+// with two K and two V tiles) and the bf16 flash_tc_item's ~193 KB (one
 // CTA per SM, through set_smem's opt-in); flash_tc_item keeps 128 fp32
-// accumulators a thread for its 64 x 256 output rows, 32 at D = 64 (where
-// its tiles take ~50 KB).
+// accumulators a thread for its 64 x 256 output rows, 32 at D = 64
+// (where its tiles take ~50 KB); flash_rt_item 64 at every D (8 rows x 8
+// columns of a key share).
 #define DISPATCH(D_, DT_, CALL)                                   \
   do {                                                            \
     if ((D_) == 64) DISPATCH_DTYPE(64, DT_, CALL);                \
@@ -727,21 +755,9 @@ int flash_attention_fwd_lse(const void *q, const void *k, const void *v,
   return (int)cudaErrorInvalidValue;
 }
 
-// one item per (slot, kv head) (in bf16 the split body with one piece)
-int paged_decode_fwd(const void *q, const void *k_pages, const void *v_pages,
-                     const int *block_tables, const int *pos, void *o, int b,
-                     int kh, int g, int d, int ps, int n_b, int dtype,
-                     void *stream) {
-  if (ps < 1) return (int)cudaErrorInvalidValue;
-  DecodeArgs a{q, k_pages, v_pages, block_tables, pos, o, b, kh, g, ps, n_b,
-               1.0f / sqrtf((float)d), 1, nullptr, nullptr, nullptr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_PAGED(d, dtype, (launch_decode<T, D>(a, s)));
-}
-
-// bf16 only: n_split pieces per (slot, kv head) over the n_b * ps rows of
-// the block table in tiles of `tile` rows (the wrapper's constant, which
-// must equal SPLIT_TILE); workspace and counters as
+// n_split pieces per (slot, kv head) over the n_b * ps rows of the block
+// table, a piece `tile` rows (the wrapper's constant: SPLIT_TILE-row tiles
+// in bf16, PIECE_ROWS rows in fp32); workspace and counters as
 // decode_attention_split_fwd
 int paged_decode_split_fwd(const void *q, const void *k_pages,
                            const void *v_pages, const int *block_tables,
@@ -749,16 +765,17 @@ int paged_decode_split_fwd(const void *q, const void *k_pages,
                            float *ws_ml, int *counts, int b, int kh, int g,
                            int d, int ps, int n_b, int n_split, int tile,
                            int dtype, void *stream) {
-  if (dtype != 1 || tile != SPLIT_TILE || ps < 1)
-    return (int)cudaErrorInvalidValue;
+  if (ps < 1) return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, k_pages, v_pages, block_tables, pos, o, b, kh, g, ps, n_b,
                1.0f / sqrtf((float)d), n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_PAGED(d, dtype, (launch_decode<T, D>(a, s)));
+  DISPATCH_PAGED(d, dtype, (tile != piece_tile<T>()
+                                ? (int)cudaErrorInvalidValue
+                                : launch_decode<T, D>(a, s)));
 }
 
-// bf16: the decode items are the paged split launch's, n_split pieces per
-// (slot, kv head) with its workspace (null for one piece). The schedule:
+// the decode items are the paged split launch's, n_split pieces per (slot,
+// kv head) with its workspace (null for one piece). The schedule:
 // the workspace `sched` (SCHED_WORDS ints, 8-byte aligned, zero at launch
 // and left zero), the decode SMs n_dec_sm, the prefill order's lift and
 // `record` (null, or REC ints per ticket, zero at launch)
@@ -781,33 +798,22 @@ int bullet_attention_paged_fwd(
       n_ctas, s)));
 }
 
-// one item per (slot, kv head) (in bf16 the split body with one piece)
-int decode_attention_fwd(const void *q, const void *k, const void *v,
-                         const int *kv_positions, const int *pos, void *o,
-                         int b, int kh, int g, int d, int s_len, int dtype,
-                         void *stream) {
-  DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
-                    1.0f / sqrtf((float)d), 1, nullptr, nullptr, nullptr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_decode<T, D>(a, s)));
-}
-
-// bf16 only: n_split pieces per (slot, kv head) over row tiles of `tile`
-// rows (the wrapper's constant, which must equal SPLIT_TILE); for
-// n_split > 1 the partials go to ws_acc / ws_ml and the arrival counters
-// in counts (zero at launch, left zero), for n_split = 1 all three may be
-// null
+// n_split pieces per (slot, kv head) over the S rows (bf16: row tiles of
+// `tile` rows, the wrapper's constant, which must equal SPLIT_TILE; fp32:
+// pieces of `tile` = PIECE_ROWS rows); for n_split > 1 the partials go to
+// ws_acc / ws_ml and the arrival counters in counts (zero at launch, left
+// zero), for n_split = 1 all three may be null
 int decode_attention_split_fwd(const void *q, const void *k, const void *v,
                                const int *kv_positions, const int *pos,
                                void *o, float *ws_acc, float *ws_ml,
                                int *counts, int b, int kh, int g, int d,
                                int s_len, int n_split, int tile, int dtype,
                                void *stream) {
-  if (dtype != 1 || tile != SPLIT_TILE) return (int)cudaErrorInvalidValue;
   DenseDecodeArgs a{q, k, v, kv_positions, pos, o, b, kh, g, s_len,
                     1.0f / sqrtf((float)d), n_split, ws_acc, ws_ml, counts};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH(d, dtype, (launch_decode<T, D>(a, s)));
+  DISPATCH(d, dtype, (tile != piece_tile<T>() ? (int)cudaErrorInvalidValue
+                                               : launch_decode<T, D>(a, s)));
 }
 
 // the paged fused launch over the dense cache (schedule arguments as

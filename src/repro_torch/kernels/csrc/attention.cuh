@@ -1,31 +1,34 @@
 // Device bodies shared by the five attention kernels of attention.cu.
 //
 // Each body computes ONE work item with the whole CTA (THREADS threads):
-//   flash_item        one (batch*head, 64-row query tile) of causal /
-//                     windowed prefill attention on the CUDA cores, fp32;
+//   flash_rt_item     one (batch*head, 64-row query tile) of causal /
+//                     windowed prefill attention on the CUDA cores, fp32:
+//                     each thread a 4 x 4 block of scores and 4 rows of
+//                     the output in registers, K/V tiles through cp.async;
 //   flash_tc_item     the same over a 128-row query tile on the tensor
 //                     cores (wgmma, bf16 operands, fp32 accumulators), K/V
 //                     tiles through TMA: the bf16 body;
-//   paged_decode_item one (slot, kv head) of single-token GQA decode over
-//                     the shared page pool, online softmax over pages: the
-//                     fp32 body;
-//   decode_item       the same over a dense per-slot cache, masked by
-//                     kv_positions (ring caches included): the fp32 body;
+//   piece_decode_item one piece of PIECE_ROWS rows of a (slot, kv head)'s
+//                     single-token GQA decode, of the dense cache or of the
+//                     page pool (a row-source policy says where a row lives
+//                     and whether it is attended), 16-row tiles through
+//                     cp.async, fp32 FMAs on the CUDA cores; the last piece
+//                     to finish merges them all: the fp32 body of both
+//                     caches;
 //   split_decode_item one piece of a (slot, kv head)'s rows, of the dense
-//                     cache or of the page pool (a row-source policy says
-//                     where a tile's rows live); the last piece to finish
-//                     merges them all: the bf16 body of both caches
-//                     (flash-decoding).
+//                     cache or of the page pool (the same policies); the
+//                     last piece to finish merges them all: the bf16 body
+//                     of both caches (flash-decoding on mma.sync).
 // The standalone kernels run one item per CTA; the fused bullet kernels
 // loop their CTAs over items of either kind. Because the fused kernels
 // call these same bodies with the same block size, their outputs equal
 // the standalone kernels' bit for bit. The type decides the body: float
-// runs flash_item, paged_decode_item and decode_item, bfloat16
-// flash_tc_item and split_decode_item, so each dtype's arithmetic is fixed.
+// runs flash_rt_item and piece_decode_item, bfloat16 flash_tc_item and
+// split_decode_item, so each dtype's arithmetic is fixed.
 //
-// The split's geometry (SPLIT_TILE, MAX_SPLIT, SPLIT_G, SPLIT_MIN_TILES)
-// is not stated here: the build passes it as -D defines from the one
-// Python module that the wrappers read too (repro_torch/kernels/
+// The split's geometry (SPLIT_TILE, MAX_SPLIT, SPLIT_G, SPLIT_MIN_TILES,
+// PIECE_ROWS) is not stated here: the build passes it as -D defines from
+// the one Python module that the wrappers read too (repro_torch/kernels/
 // geometry.py).
 //
 // Numerics follow the TPU kernels they replace: softmax statistics and
@@ -44,17 +47,13 @@
 #include <cuda_runtime.h>
 
 #if !defined(SPLIT_TILE) || !defined(MAX_SPLIT) || !defined(SPLIT_G) || \
-    !defined(SPLIT_MIN_TILES)
-#error "SPLIT_TILE, MAX_SPLIT, SPLIT_G, SPLIT_MIN_TILES come from the build (geometry.py)"
+    !defined(SPLIT_MIN_TILES) || !defined(PIECE_ROWS)
+#error "SPLIT_TILE, MAX_SPLIT, SPLIT_G, SPLIT_MIN_TILES, PIECE_ROWS come from the build (geometry.py)"
 #endif
 
 namespace bullet {
 
 constexpr int THREADS = 256;              // every kernel's block size
-constexpr int ROW_THREADS = 4;            // threads that share a query row
-constexpr int BQ = THREADS / ROW_THREADS; // query rows per prefill tile
-constexpr int BK = 32;                    // keys per prefill KV tile
-constexpr int COLS = BK / ROW_THREADS;    // score columns per thread
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
 
@@ -90,139 +89,41 @@ struct FlashArgs {
   CUtensorMap tq, tk, tv;
 };
 
-// shared floats: Q tile [BQ][D+1], K tile [BK][D+1], V tile [BK][D],
-// P tile [BQ][BK+1] (+1 pads keep the column walks free of bank conflicts)
+// the fp32 prefill body's tiles: FQ query rows per item, FK keys per K/V
+// tile (bullet_attention.FLASH_TILES[0] in Python)
+constexpr int FQ = 64;
+constexpr int FK = 64;
+
+// K/V tiles in flight in flash_rt_item: two of each up to D = 128, one
+// at D = 256 (two would not fit shared memory)
+__host__ __device__ constexpr int flash_stages(int d) {
+  return d <= 128 ? 2 : 1;
+}
+// shared floats of flash_rt_item: the q tile [FQ][D], the K and V tiles
+// [stages][FK][D], the probabilities transposed [FK][FQ + 4], a float per
+// query row
 __host__ __device__ constexpr int flash_smem_floats(int d) {
-  return BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1);
+  return FQ * d + 2 * flash_stages(d) * FK * d + FK * (FQ + 4) + FQ;
 }
 
-// query rows per prefill item: BQ for the fp32 body, TC_BQ for bf16
+// query rows per prefill item: FQ for the fp32 body, TC_BQ for bf16
 constexpr int TC_BQ = 128;
 template <typename T> __host__ __device__ constexpr int flash_bq() {
-  return std::is_same<T, float>::value ? BQ : TC_BQ;
+  return std::is_same<T, float>::value ? FQ : TC_BQ;
 }
 template <typename T> __host__ __device__ inline int flash_q_tiles(int sq) {
   return (sq + flash_bq<T>() - 1) / flash_bq<T>();
-}
-
-// One (bh, q-tile) item. Thread t owns query row r = t / 4 of the tile; the
-// 4 threads of a row split the tile's BK key columns (c = j + 4*i) for
-// QK^T and the head dims (d = j + 4*i) for PV.
-template <typename T, int D>
-__device__ void flash_item(const FlashArgs &a, int item, float *smem) {
-  const T *q = static_cast<const T *>(a.q);
-  const T *k = static_cast<const T *>(a.k);
-  const T *v = static_cast<const T *>(a.v);
-  T *o = static_cast<T *>(a.o);
-  float *Qs = smem;
-  float *Ks = Qs + BQ * (D + 1);
-  float *Vs = Ks + BK * (D + 1);
-  float *Ps = Vs + BK * D;
-
-  const int n_qt = flash_q_tiles<float>(a.sq);
-  const int bh = item / n_qt, qt = item % n_qt;
-  const int kvh = bh / a.group;
-  const int tid = threadIdx.x;
-  const int r = tid / ROW_THREADS, j = tid % ROW_THREADS;
-  const int q0 = qt * BQ;
-  const int q_hi = min(q0 + BQ, a.sq) - 1;   // last real query row
-  // positions of the tile's first and last real rows, and of row r
-  const int p0 = q0 + a.q_offset, p_hi = q_hi + a.q_offset;
-  const int qrow = q0 + r, qpos = p0 + r;
-
-  __syncthreads();  // smem may still be read by the previous item
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int row = e / D, col = e % D;
-    const int s = q0 + row;
-    Qs[row * (D + 1) + col] =
-        s < a.sq ? to_f(q[((size_t)bh * a.sq + s) * D + col]) * a.scale : 0.f;
-  }
-
-  float m = NEG_INF, l = 0.f;
-  float acc[D / ROW_THREADS];
-#pragma unroll
-  for (int i = 0; i < D / ROW_THREADS; ++i) acc[i] = 0.f;
-
-  const int n_kt = (a.sk + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    // skip tiles every real row of this q tile masks out (uniform per CTA)
-    if (a.causal && k0 > p_hi) break;
-    if (a.window > 0 && k0 + BK - 1 <= p0 - a.window) continue;
-
-    __syncthreads();  // previous tile's K/V/P fully consumed
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int row = e / D, col = e % D;
-      const int s = k0 + row;
-      const bool in = s < a.sk;
-      const size_t g = ((size_t)kvh * a.sk + s) * D + col;
-      Ks[row * (D + 1) + col] = in ? to_f(k[g]) : 0.f;
-      Vs[row * D + col] = in ? to_f(v[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float sc[COLS];
-#pragma unroll
-    for (int i = 0; i < COLS; ++i) sc[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = Qs[r * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < COLS; ++i)
-        sc[i] += qd * Ks[(j + ROW_THREADS * i) * (D + 1) + d];
-    }
-    float tmax = NEG_INF;
-    bool valid[COLS];
-#pragma unroll
-    for (int i = 0; i < COLS; ++i) {
-      const int kpos = k0 + j + ROW_THREADS * i;
-      bool ok = kpos < a.sk;
-      if (a.causal) ok = ok && kpos <= qpos;
-      if (a.window > 0) ok = ok && kpos > qpos - a.window;
-      valid[i] = ok;
-      sc[i] = ok ? sc[i] : NEG_INF;
-      tmax = fmaxf(tmax, sc[i]);
-    }
-    // the 4 threads of a row are adjacent lanes: butterfly over them
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < COLS; ++i) {
-      const float p = valid[i] ? expf(sc[i] - m_new) : 0.f;
-      Ps[r * (BK + 1) + j + ROW_THREADS * i] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_new;
-    __syncthreads();  // the row's P values come from all 4 of its threads
-
-#pragma unroll
-    for (int i = 0; i < D / ROW_THREADS; ++i) acc[i] *= alpha;
-    for (int c = 0; c < BK; ++c) {
-      const float p = Ps[r * (BK + 1) + c];
-#pragma unroll
-      for (int i = 0; i < D / ROW_THREADS; ++i)
-        acc[i] += p * Vs[c * D + j + ROW_THREADS * i];
-    }
-  }
-
-  if (qrow < a.sq) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T *orow = o + ((size_t)bh * a.sq + qrow) * D;
-#pragma unroll
-    for (int i = 0; i < D / ROW_THREADS; ++i)
-      orow[j + ROW_THREADS * i] = from_f<T>(acc[i] * inv);
-  }
 }
 
 // -------------------------------------------------------------------------
 // Decode: one token per slot, over the page pool or over a per-slot cache.
 // -------------------------------------------------------------------------
 
+// Both dtypes split a (slot, kv head)'s rows into pieces, one CTA each:
+// n_split pieces per (slot, kv head) in the launch (bf16: SPLIT_TILE-row
+// tiles split by decode_attention.split_count; fp32: PIECE_ROWS rows a
+// piece), and for n_split > 1 the partials' workspace and the arrival
+// counters.
 struct DecodeArgs {              // the paged cache
   const void *q;                 // (B, K, G, D)
   const void *kp, *vp;           // (P+1, ps, K, D)
@@ -231,7 +132,6 @@ struct DecodeArgs {              // the paged cache
   void *o;                       // (B, K, G, D)
   int b, kh, g, ps, n_b;
   float scale;
-  // bf16 only (split_decode_item), as DenseDecodeArgs
   int n_split;
   float *ws_acc;                 // (B*K, n_split, G, D) partial accumulators
   float *ws_ml;                  // (B*K, n_split, G, 2) partial (m, l)
@@ -246,239 +146,31 @@ struct DenseDecodeArgs {         // the dense per-slot cache
   void *o;                       // (B, K, G, D)
   int b, kh, g, s;
   float scale;
-  // bf16 only (split_decode_item): pieces per (slot, kv head), and for
-  // n_split > 1 the partials' workspace and the arrival counters
-  int n_split;
+  int n_split;                   // as DecodeArgs
   float *ws_acc;                 // (B*K, n_split, G, D) partial accumulators
   float *ws_ml;                  // (B*K, n_split, G, 2) partial (m, l)
   int *counts;                   // (B*K,) zero at launch; reset by the merger
 };
 
-// rows per tile of the dense cache: the paged pool's page size, so that with
-// linear positions dense and paged decode walk the same rows in the same
-// tiles
+// rows per tile of the fp32 split decode body: a piece of PIECE_ROWS rows
+// is PIECE_ROWS / DECODE_TILE tiles
 constexpr int DECODE_TILE = 16;
+static_assert(PIECE_ROWS % DECODE_TILE == 0 && PIECE_ROWS % 32 == 0 &&
+                  PIECE_ROWS <= THREADS && PIECE_ROWS / DECODE_TILE <= 32,
+              "a piece is whole tiles, whole warps of rows, one row a "
+              "thread, at most 32 tiles");
 
-// shared floats: q [G][D], K tile [rows][D], V tile [rows][D], scores
-// [G][rows], acc [G][D], m / l / alpha [G], then (dense) one int per tile
-// row: the row is attended
-__host__ __device__ inline int decode_smem_floats(int g, int rows, int d) {
-  return 2 * g * d + 2 * rows * d + g * rows + 3 * g + rows;
+// dynamic shared memory of piece_decode_item: two buffers of a K and a V
+// tile [DECODE_TILE][D], q [G][D], the accumulators [G][D], the scores and
+// probabilities [G][DECODE_TILE], m / l / alpha [G]; then ints: where
+// each of the piece's rows lives, the attended rows' masks (a word per 32
+// rows) and the merge flag
+__host__ __device__ inline size_t piece_smem_bytes(int g, int d) {
+  return sizeof(float) * (4 * DECODE_TILE * d + 2 * g * d +
+                          g * DECODE_TILE + 3 * g) +
+         sizeof(int) * (PIECE_ROWS + PIECE_ROWS / 32 + 1);
 }
 
-// One (slot, kv head) item: the G query heads of that kv head share the
-// CTA. Walks only the pages that hold positions <= pos; the rest of the
-// table is fully masked and would leave m, l and acc unchanged exactly.
-template <typename T, int D>
-__device__ void paged_decode_item(const DecodeArgs &a, int item,
-                                  float *smem) {
-  const T *q = static_cast<const T *>(a.q);
-  const T *kp = static_cast<const T *>(a.kp);
-  const T *vp = static_cast<const T *>(a.vp);
-  T *o = static_cast<T *>(a.o);
-  const int G = a.g, PS = a.ps;
-  float *qs = smem;
-  float *ks = qs + G * D;
-  float *vs = ks + PS * D;
-  float *sc = vs + PS * D;
-  float *acc = sc + G * PS;
-  float *ms = acc + G * D;
-  float *ls = ms + G;
-  float *al = ls + G;
-
-  const int b = item / a.kh, h = item % a.kh;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int pos = a.pos[b];
-  const int n_live = pos < 0 ? 0 : min(a.n_b, pos / PS + 1);
-  const size_t qo = ((size_t)b * a.kh + h) * G * D;
-
-  __syncthreads();  // smem may still be read by the previous item
-  for (int e = tid; e < G * D; e += THREADS) {
-    qs[e] = to_f(q[qo + e]) * a.scale;
-    acc[e] = 0.f;
-  }
-  for (int e = tid; e < G; e += THREADS) {
-    ms[e] = NEG_INF;
-    ls[e] = 0.f;
-  }
-
-  for (int i = 0; i < n_live; ++i) {
-    const int page = a.bt[(size_t)b * a.n_b + i];
-    __syncthreads();  // previous page fully consumed
-    for (int e = tid; e < PS * D; e += THREADS) {
-      const int t = e / D, d = e % D;
-      const size_t gi = (((size_t)page * PS + t) * a.kh + h) * D + d;
-      ks[e] = to_f(kp[gi]);
-      vs[e] = to_f(vp[gi]);
-    }
-    __syncthreads();
-    // scores: one warp per (g, t), lanes split the head dim
-    for (int s = warp; s < G * PS; s += WARPS) {
-      const int gg = s / PS, t = s % PS;
-      float part = 0.f;
-      for (int d = lane; d < D; d += 32) part += qs[gg * D + d] * ks[t * D + d];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) sc[s] = i * PS + t <= pos ? part : NEG_INF;
-    }
-    __syncthreads();
-    // online softmax: one warp per query head g
-    for (int gg = warp; gg < G; gg += WARPS) {
-      float tmax = NEG_INF;
-      for (int t = lane; t < PS; t += 32) tmax = fmaxf(tmax, sc[gg * PS + t]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_old = ms[gg];
-      const float m_new = fmaxf(m_old, tmax);
-      float psum = 0.f;
-      for (int t = lane; t < PS; t += 32) {
-        const float p =
-            i * PS + t <= pos ? expf(sc[gg * PS + t] - m_new) : 0.f;
-        sc[gg * PS + t] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        al[gg] = alpha;
-        ls[gg] = ls[gg] * alpha + psum;
-        ms[gg] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < G * D; e += THREADS) {
-      const int gg = e / D, d = e % D;
-      float x = acc[e] * al[gg];
-      for (int t = 0; t < PS; ++t) x += sc[gg * PS + t] * vs[t * D + d];
-      acc[e] = x;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < G * D; e += THREADS)
-    o[qo + e] = from_f<T>(acc[e] / fmaxf(ls[e / D], 1e-30f));
-}
-
-// One (slot b, kv head h) item over the dense per-slot cache: the G query
-// heads of that kv head share the CTA and walk the slot's S rows in tiles of
-// DECODE_TILE rows with an online softmax. Row j is attended when
-// 0 <= kv_positions[b, j] <= pos; the tail tile is masked, so any S works.
-// A tile none of whose rows is attended is skipped whole (it would leave m,
-// l and acc unchanged exactly); that is decided from the positions, never
-// from the tile's index, since a ring cache's rows are not ordered by
-// position. A slot with no attended row returns zeros. Products and sums
-// are spelled with the round-to-nearest intrinsics in the order of the
-// paged body's compiled arithmetic, so with linear positions the two agree
-// bit for bit (tests/port/test_torch_kernels_cuda.py checks it on the card).
-template <typename T, int D>
-__device__ void decode_item(const DenseDecodeArgs &a, int item,
-                            float *smem) {
-  constexpr int R = DECODE_TILE;
-  const T *q = static_cast<const T *>(a.q);
-  const T *kc = static_cast<const T *>(a.k);
-  const T *vc = static_cast<const T *>(a.v);
-  T *o = static_cast<T *>(a.o);
-  const int G = a.g;
-  float *qs = smem;
-  float *ks = qs + G * D;
-  float *vs = ks + R * D;
-  float *sc = vs + R * D;
-  float *acc = sc + G * R;
-  float *ms = acc + G * D;
-  float *ls = ms + G;
-  float *al = ls + G;
-  int *ok = reinterpret_cast<int *>(al + G);
-
-  const int b = item / a.kh, h = item % a.kh;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int pos = a.pos[b];
-  const int n_tiles = pos < 0 ? 0 : (a.s + R - 1) / R;
-  const size_t qo = ((size_t)b * a.kh + h) * G * D;
-
-  __syncthreads();  // smem may still be read by the previous item
-  for (int e = tid; e < G * D; e += THREADS) {
-    qs[e] = __fmul_rn(to_f(q[qo + e]), a.scale);
-    acc[e] = 0.f;
-  }
-  for (int e = tid; e < G; e += THREADS) {
-    ms[e] = NEG_INF;
-    ls[e] = 0.f;
-  }
-
-  for (int i = 0; i < n_tiles; ++i) {
-    __syncthreads();  // previous tile fully consumed
-    int any = 0;
-    for (int t = tid; t < R; t += THREADS) {
-      const int j = i * R + t;                // row of the slot
-      const int p = j < a.s ? a.kvpos[(size_t)b * a.s + j] : -1;
-      ok[t] = p >= 0 && p <= pos;
-      any |= ok[t];
-    }
-    if (!__syncthreads_or(any)) continue;   // uniform across the CTA
-    const size_t row0 = (size_t)b * a.s + (size_t)i * R;  // the tile's row 0
-    const int live = min(R, a.s - i * R);                 // rows that exist
-    for (int e = tid; e < R * D; e += THREADS) {
-      const int t = e / D, d = e % D;
-      const size_t gi = ((row0 + t) * a.kh + h) * D + d;
-      ks[e] = t < live ? to_f(kc[gi]) : 0.f;
-      vs[e] = t < live ? to_f(vc[gi]) : 0.f;
-    }
-    __syncthreads();
-    // scores: one warp per (g, t), lanes split the head dim
-    for (int s = warp; s < G * R; s += WARPS) {
-      const int gg = s / R, t = s % R;
-      float part = 0.f;
-      for (int d = lane; d < D; d += 32)
-        part = __fmaf_rn(qs[gg * D + d], ks[t * D + d], part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
-      if (lane == 0) sc[s] = ok[t] ? part : NEG_INF;
-    }
-    __syncthreads();
-    // online softmax: one warp per query head g
-    for (int gg = warp; gg < G; gg += WARPS) {
-      float tmax = NEG_INF;
-      for (int t = lane; t < R; t += 32) tmax = fmaxf(tmax, sc[gg * R + t]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_old = ms[gg];
-      const float m_new = fmaxf(m_old, tmax);
-      float psum = 0.f;
-      for (int t = lane; t < R; t += 32) {
-        const float p = ok[t] ? expf(__fsub_rn(sc[gg * R + t], m_new)) : 0.f;
-        sc[gg * R + t] = p;
-        psum = __fadd_rn(psum, p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, off));
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(__fsub_rn(m_old, m_new));
-        al[gg] = alpha;
-        ls[gg] = __fmaf_rn(ls[gg], alpha, psum);
-        ms[gg] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < G * D; e += THREADS) {
-      const int gg = e / D, d = e % D;
-      float x = __fmul_rn(acc[e], al[gg]);
-      for (int t = 0; t < R; ++t)
-        x = __fmaf_rn(sc[gg * R + t], vs[t * D + d], x);
-      acc[e] = x;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < G * D; e += THREADS)
-    o[qo + e] = from_f<T>(__fdiv_rn(acc[e], fmaxf(ls[e / D], 1e-30f)));
-}
 
 // -------------------------------------------------------------------------
 // Hopper (sm_90a) primitives of the bf16 bodies: mbarriers, TMA, wgmma.
@@ -970,6 +662,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void *src) {
                "l"(src)
                : "memory");
 }
+// 16 bytes from global memory, or (valid false) 16 zero bytes: src is
+// then not read
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void *src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -1062,6 +762,23 @@ template <> struct RowSource<DenseDecodeArgs> {
   __device__ static const __nv_bfloat16 *v(const A &a) {
     return static_cast<const __nv_bfloat16 *>(a.v);
   }
+  // the fp32 body: every piece of the launch takes S rows' share (for pos
+  // < 0 one piece, which walks no tile); row r of slot b lives at cache row
+  // b S + r, attended when 0 <= kv_positions[b, r] <= pos
+  __device__ static int piece_count(const A &, int pos, int ns) {
+    return pos < 0 ? 1 : ns;
+  }
+  __device__ static int piece_row(const A &a, int b, int pos, int r) {
+    if (r >= a.s) return -1;
+    const int p = a.kvpos[(size_t)b * a.s + r];
+    return p >= 0 && p <= pos ? b * a.s + r : -1;
+  }
+  __device__ static const float *kf(const A &a) {
+    return static_cast<const float *>(a.k);
+  }
+  __device__ static const float *vf(const A &a) {
+    return static_cast<const float *>(a.v);
+  }
 };
 
 // The page pool: positions are linear, so the slot's attended rows are its
@@ -1111,6 +828,22 @@ template <> struct RowSource<DecodeArgs> {
   }
   __device__ static const __nv_bfloat16 *v(const A &a) {
     return static_cast<const __nv_bfloat16 *>(a.vp);
+  }
+  // the fp32 body: the slot's own live rows in pieces of PIECE_ROWS (at
+  // least one); row r of the slot lives at pool row bt[b, r / ps] ps +
+  // r % ps, attended when r < live
+  __device__ static int piece_count(const A &a, int pos, int) {
+    return max(1, (live(a, pos) + PIECE_ROWS - 1) / PIECE_ROWS);
+  }
+  __device__ static int piece_row(const A &a, int b, int pos, int r) {
+    if (r >= live(a, pos)) return -1;
+    return a.bt[(size_t)b * a.n_b + r / a.ps] * a.ps + r % a.ps;
+  }
+  __device__ static const float *kf(const A &a) {
+    return static_cast<const float *>(a.kp);
+  }
+  __device__ static const float *vf(const A &a) {
+    return static_cast<const float *>(a.vp);
   }
 };
 
@@ -1433,6 +1166,541 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
         __floats2bfloat162_rn(x.x / l, x.y / l);
     *reinterpret_cast<__nv_bfloat162 *>(o + qo + e + 2) =
         __floats2bfloat162_rn(x.z / l, x.w / l);
+  }
+  if (tid == 0) a.counts[bkh] = 0;  // ready for the next launch
+}
+
+// -------------------------------------------------------------------------
+// The fp32 bodies: register-tiled prefill (flash_rt_item) and one split
+// decode body over either cache (piece_decode_item), both on the CUDA
+// cores in fp32 (no TF32). Every sum and product is spelled with the
+// round-to-nearest intrinsics, so the same inputs give the same bits in
+// every kernel that inlines a body (the standalone and the fused ones).
+// -------------------------------------------------------------------------
+
+// One (bh, FQ-row query tile) item of fp32 prefill. Warp w owns query
+// rows 8w .. 8w+7 of the tile in both products; each thread holds 8 x 8
+// blocks in registers, so every float it loads from shared memory feeds 4
+// FMAs (shared memory serves an SM 128 bytes a cycle, a warp's 16-byte
+// load in four, while its FMA units take four warp instructions a cycle:
+// a thinner block would leave them waiting on shared memory).
+//   Q K^T: lane = 4 g + q; the thread takes keys g + 8j (j < 8) and the
+//   D-quarter of 16-byte chunks c = 4m + q, and sums its 8 x 8 block over
+//   that quarter, its slot r holding row r ^ 2q; the 4 lanes of a key
+//   group then add their quarters with two shuffle steps (partners xor 2,
+//   then xor 1), each handing its partner the upper half of its slots, so
+//   lane q ends with rows 2q, 2q+1 x its 8 keys.
+//   softmax: a row's 64 scores lie on the 8 lanes of one q, combined with
+//   shuffles (xor 4, 8, 16); P goes to shared memory transposed, each
+//   row's alpha (then 1/l) beside it. A warp's P and alphas are its own
+//   rows', so they pass between its lanes without a CTA barrier.
+//   P V: lane = c + CG k (CG = D/8 column groups, KS = 32/CG key shares);
+//   the thread takes columns 4c.. and 4(c + CG).., and keys k + KS t of
+//   each tile, for its warp's 8 rows; at the end the KS shares are added
+//   with shuffles.
+// Every sum is in a fixed order that depends on the key's and the
+// column's place alone, never on the row's place in the tile. K keeps its
+// 16-byte chunks xor-swizzled by 4 (key & 1), so the K^T loads are free
+// of bank conflicts; Q, V and P need none. The q tile is scaled by D^-0.5
+// once as it is stored. K and V tiles come by cp.async (rows past the
+// keys zero-filled): up to D = 128 into two buffers each, tile t+1's
+// loading during all of tile t (one barrier a tile); at D = 256 into one
+// buffer each, staggered: K(t+1) loads during tile t's softmax and P V,
+// V(t+1) during tile t+1's Q K^T (four barriers a tile). Key tiles start
+// at multiples of FK from key 0 and only those some row of the item
+// attends are walked; a tile masked whole for a row leaves its m, l and
+// accumulators unchanged exactly, so a row's result does not depend on
+// which rows share its item (a chunk's rows equal the whole prompt's).
+template <int D>
+__device__ __forceinline__ void flash_rt_item(const FlashArgs &a, int item,
+                                              float *smem) {
+  constexpr int C4 = D / 4;          // 16-byte chunks of a row
+  constexpr int QC = C4 / 4;         // chunks of a D-quarter
+  constexpr int CG = D / 8;          // P V column groups
+  constexpr int KS = 32 / CG;        // P V key shares: 4, 2, 1
+  constexpr int PT = FQ + 4;         // row stride of P transposed
+  constexpr int ST = flash_stages(D);
+  static_assert(D % 64 == 0 && FQ == 64 && FK == 64 && THREADS == 256,
+                "8 warps x 8 rows, 8 key groups x 8 keys");
+  const float *q = static_cast<const float *>(a.q);
+  const float *k = static_cast<const float *>(a.k);
+  const float *v = static_cast<const float *>(a.v);
+  float *o = static_cast<float *>(a.o);
+  float *Qs = smem;                  // [FQ][D]
+  float *Kb = Qs + FQ * D;           // [ST][FK][D], chunks ^ 4 (key & 1)
+  float *Vb = Kb + ST * FK * D;      // [ST][FK][D]
+  float *Pt = Vb + ST * FK * D;      // [FK][PT]: P transposed
+  float *rs = Pt + FK * PT;          // [FQ]: a row's alpha, at the end 1/l
+
+  const int n_qt = flash_q_tiles<float>(a.sq);
+  const int bh = item / n_qt, qt = item % n_qt;
+  const int kvh = bh / a.group;
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const int g = lane / 4, qq = lane % 4;   // Q K^T: key group, D-quarter
+  const int cg = lane % CG, ks = lane / CG;  // P V: column group, key share
+  const int q0 = qt * FQ;
+  const int q_hi = min(q0 + FQ, a.sq) - 1;    // last real query row
+  const int p0 = q0 + a.q_offset, p_hi = q_hi + a.q_offset;
+  const int n_kt = (a.sk + FK - 1) / FK;
+  // the key tiles some real row of this item attends (uniform per CTA)
+  const int kt_lo = a.window > 0 ? max(0, p0 - a.window + 1) / FK : 0;
+  const int kt_hi = a.causal ? min(n_kt, p_hi / FK + 1) : n_kt;
+  const int n = max(0, kt_hi - kt_lo);
+  const size_t kvo = (size_t)kvh * a.sk * D;
+
+  auto load = [&](float *dst, const float *src, int kt, bool swz) {
+    for (int e = tid; e < FK * C4; e += THREADS) {
+      const int r = e / C4, c = e % C4, key = kt * FK + r;
+      const bool in = key < a.sk;
+      cp_async16_zfill(
+          smem_u32(dst + r * D + 4 * (swz ? c ^ (4 * (r & 1)) : c)),
+          src + (in ? kvo + (size_t)key * D + 4 * c : 0), in);
+    }
+    cp_async_commit();
+  };
+
+  __syncthreads();  // smem may still be read by the previous item
+  if (n > 0) {
+    load(Kb, k, kt_lo, true);
+    load(Vb, v, kt_lo, false);
+  }
+  for (int e = tid; e < FQ * C4; e += THREADS) {
+    const int r = e / C4, c = e % C4, s = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < a.sq) {
+      x = *reinterpret_cast<const float4 *>(q + ((size_t)bh * a.sq + s) * D +
+                                            4 * c);
+      x = make_float4(__fmul_rn(x.x, a.scale), __fmul_rn(x.y, a.scale),
+                      __fmul_rn(x.z, a.scale), __fmul_rn(x.w, a.scale));
+    }
+    *reinterpret_cast<float4 *>(Qs + r * D + 4 * c) = x;
+  }
+
+  float m[2], l[2];                  // rows 8w + 2qq + i
+  float acc[8][8];                   // rows 8w + r, columns as above
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  const float *Qw = Qs + 8 * w * D;
+  const int kswz = 4 * (g & 1);
+
+  for (int it = 0; it < n; ++it) {
+    const int kt = kt_lo + it, k0 = kt * FK;
+    const bool more = it + 1 < n;
+    const float *Ks = Kb + (it % ST) * FK * D, *Vs = Vb + (it % ST) * FK * D;
+    if constexpr (ST == 2) {
+      cp_async_wait<0>();  // K(kt) and V(kt) have landed
+      __syncthreads();     // ... for all; tile kt - 1 is consumed
+      if (more) {
+        load(Kb + ((it + 1) % 2) * FK * D, k, kt + 1, true);
+        load(Vb + ((it + 1) % 2) * FK * D, v, kt + 1, false);
+      }
+    } else {
+      cp_async_wait<1>();  // K(kt) has landed; V(kt) may still be in flight
+      __syncthreads();
+    }
+
+    // Q K^T over this lane's D-quarter: rows 8w + r, keys g + 8j
+    float s[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
+#pragma unroll 2
+    for (int mm = 0; mm < QC; ++mm) {
+      const int c = 4 * mm + qq;
+      float4 qf[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        qf[r] = *reinterpret_cast<const float4 *>(Qw + (r ^ 2 * qq) * D +
+                                                  4 * c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 kf = *reinterpret_cast<const float4 *>(
+            Ks + (g + 8 * j) * D + 4 * (c ^ kswz));
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          s[r][j] = __fmaf_rn(qf[r].x, kf.x, s[r][j]);
+          s[r][j] = __fmaf_rn(qf[r].y, kf.y, s[r][j]);
+          s[r][j] = __fmaf_rn(qf[r].z, kf.z, s[r][j]);
+          s[r][j] = __fmaf_rn(qf[r].w, kf.w, s[r][j]);
+        }
+      }
+    }
+    if constexpr (ST == 1) {
+      __syncthreads();  // every thread is done with K(kt)
+      if (more) load(Kb, k, kt + 1, true);
+    }
+
+    // the quarters added: each lane keeps its lower slots and hands its
+    // partner the upper ones (xor 2, then xor 1); slot i of u holds row
+    // i ^ 2 qq = 2 qq + i
+    float t[4][8], u[2][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        t[i][j] = __fadd_rn(s[i][j],
+                            __shfl_xor_sync(0xffffffffu, s[4 + i][j], 2));
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        u[i][j] = __fadd_rn(t[i][j],
+                            __shfl_xor_sync(0xffffffffu, t[2 + i][j], 1));
+
+    // mask only a tile that crosses the diagonal, the window's lower edge
+    // or the end of the keys for some row of the item
+    const bool edge = (a.causal && k0 + FK - 1 > p0) || k0 + FK > a.sk ||
+                      (a.window > 0 && k0 <= p_hi - a.window);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = 8 * w + 2 * qq + i, qpos = p0 + row;
+      unsigned ok = 0xffu;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (edge) {
+          const int kpos = k0 + g + 8 * j;
+          const bool in = kpos < a.sk && (!a.causal || kpos <= qpos) &&
+                          (a.window <= 0 || kpos > qpos - a.window);
+          if (!in) {
+            ok &= ~(1u << j);
+            u[i][j] = NEG_INF;
+          }
+        }
+        mx = fmaxf(mx, u[i][j]);
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(__fsub_rn(m[i], m_new));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = (ok >> j) & 1u ? expf(__fsub_rn(u[i][j], m_new)) : 0.f;
+        sum = __fadd_rn(sum, p);
+        Pt[(g + 8 * j) * PT + row] = p;
+      }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+      l[i] = __fmaf_rn(l[i], alpha, sum);
+      m[i] = m_new;
+      if (g == 0) rs[row] = alpha;
+    }
+    if constexpr (ST == 1) {
+      if (more)
+        cp_async_wait<1>();  // V(kt) has landed; K(kt + 1) may still fly
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // V(kt) is in place, and the warp's P and alphas
+    } else {
+      __syncwarp();     // the warp's P and alphas are in place
+    }
+
+    {
+      const float4 a0 = *reinterpret_cast<const float4 *>(rs + 8 * w);
+      const float4 a1 = *reinterpret_cast<const float4 *>(rs + 8 * w + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      // alpha is 1 for a row whose max stayed: x * 1 = x, so the scaling
+      // is skipped where every row of the warp kept its max
+      if (a0.x != 1.f || a0.y != 1.f || a0.z != 1.f || a0.w != 1.f ||
+          a1.x != 1.f || a1.y != 1.f || a1.z != 1.f || a1.w != 1.f) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            acc[r][c] = __fmul_rn(acc[r][c], al[r]);
+      }
+    }
+#pragma unroll 4
+    for (int tt = 0; tt < FK / KS; ++tt) {
+      const int key = ks + KS * tt;
+      const float4 pa = *reinterpret_cast<const float4 *>(Pt + key * PT +
+                                                          8 * w);
+      const float4 pb = *reinterpret_cast<const float4 *>(Pt + key * PT +
+                                                          8 * w + 4);
+      const float4 va = *reinterpret_cast<const float4 *>(Vs + key * D +
+                                                          4 * cg);
+      const float4 vb = *reinterpret_cast<const float4 *>(
+          Vs + key * D + 4 * (cg + CG));
+      const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      const float vv[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[r][c] = __fmaf_rn(p[r], vv[c], acc[r][c]);
+    }
+    if constexpr (ST == 1) {
+      __syncthreads();  // every thread is done with V(kt), P and the alphas
+      if (more) load(Vb, v, kt + 1, false);
+    }
+  }
+
+  // each row's 1/l beside P (once the warp has read its alphas); the KS
+  // key shares added
+  __syncwarp();
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rs[8 * w + 2 * qq + i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int off = CG; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[r][c] = __fadd_rn(acc[r][c],
+                              __shfl_xor_sync(0xffffffffu, acc[r][c], off));
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + 8 * w + r;
+    if (r % KS != ks || row >= a.sq) continue;
+    const float inv = rs[8 * w + r];
+    float *orow = o + ((size_t)bh * a.sq + row) * D;
+    *reinterpret_cast<float4 *>(orow + 4 * cg) =
+        make_float4(acc[r][0] * inv, acc[r][1] * inv, acc[r][2] * inv,
+                    acc[r][3] * inv);
+    *reinterpret_cast<float4 *>(orow + 4 * (cg + CG)) =
+        make_float4(acc[r][4] * inv, acc[r][5] * inv, acc[r][6] * inv,
+                    acc[r][7] * inv);
+  }
+}
+
+// Item = (slot b, kv head h, piece p) with item = (b*K + h)*n_split + p,
+// fp32 (flash-decoding on the CUDA cores). Piece p takes rows [p PIECE_ROWS,
+// (p + 1) PIECE_ROWS) of the slot; of the launch's n_split pieces the slot
+// takes the row source's piece_count (paged: its own live rows, so where
+// the pieces fall does not depend on the table's width nor on the other
+// slots; dense: all, over S), and a piece past them returns at once. The
+// piece first lists where each of its rows lives, -1 for a row it does not
+// attend (the positions decide, never the index: a ring's rows are
+// unordered), and walks only the DECODE_TILE-row tiles with an attended
+// row. Each tile's rows come by 16-byte cp.async into one of two buffers,
+// the next tile's while this one computes; a row that is not attended is
+// zero-filled and never read. The G query heads of the kv head are in
+// shared memory, scaled by D^-0.5. Scores: half-warp j takes row j of the
+// tile, its 16 lanes split D in 16-byte chunks held in registers, summed
+// by shuffles, for each query head; the online softmax: a half-warp per
+// query head, a lane per row; P V: a thread per (query head, column),
+// the tile's rows in order. The same instructions in the same order for
+// both caches: with linear positions dense and paged decode agree bit for
+// bit (a dense slot's pieces past its live rows weigh 0 exactly, and one
+// piece's output equals its merge with empty ones). With one piece taking
+// rows the item writes its output; otherwise it writes its partial (m, l,
+// acc) to the workspace and counts itself in with a fence and an atomic
+// add, and the last piece of the (b, h) to arrive merges the partials in
+// piece order (weights exp(m_i - max m), 0 for a piece with no attended
+// row), writes the output and resets the counter. A slot with no attended
+// row returns zeros.
+template <int D, typename A>
+__device__ __forceinline__ void piece_decode_item(const A &a, int item, float *smem) {
+  constexpr int R = DECODE_TILE, C4 = D / 4, NCH = D / 64;
+  constexpr int NT = PIECE_ROWS / R;          // tiles of a piece
+  static_assert(D % 64 == 0 && R == 16, "16 lanes x D/64 chunks a row");
+  using Rows = RowSource<A>;
+  const float *q = static_cast<const float *>(a.q);
+  float *o = static_cast<float *>(a.o);
+  const int G = a.g, ns = a.n_split;
+  float *kv = smem;                 // [2 buffers][K, V][R][D]
+  float *qs = kv + 4 * R * D;       // [G][D]
+  float *acc = qs + G * D;          // [G][D]
+  float *ps = acc + G * D;          // [G][R]
+  float *ms = ps + G * R;
+  float *ls = ms + G;
+  float *al = ls + G;
+  int *rows = reinterpret_cast<int *>(al + G);  // [PIECE_ROWS]
+  int *mask = rows + PIECE_ROWS;                // [PIECE_ROWS / 32]
+  int *flag = mask + PIECE_ROWS / 32;
+
+  const int bkh = item / ns, piece = item % ns;
+  const int b = bkh / a.kh, h = bkh % a.kh;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int pos = a.pos[b];
+  const int np = Rows::piece_count(a, pos, ns);
+  if (piece >= np) return;  // uniform: a piece without rows of its own
+  const size_t qo = (size_t)bkh * G * D;
+
+  __syncthreads();  // smem may still be read by the previous item
+  if (tid < PIECE_ROWS) {
+    const int r = Rows::piece_row(a, b, pos, piece * PIECE_ROWS + tid);
+    rows[tid] = r;
+    const unsigned m = __ballot_sync(0xffffffffu, r >= 0);
+    if (lane == 0) mask[tid / 32] = (int)m;
+  }
+  for (int e = tid; e < G * D; e += THREADS) {
+    qs[e] = __fmul_rn(q[qo + e], a.scale);
+    acc[e] = 0.f;
+  }
+  for (int g = tid; g < G; g += THREADS) {
+    ms[g] = NEG_INF;
+    ls[g] = 0.f;
+  }
+  __syncthreads();
+
+  // bit t: tile t of the piece has an attended row (uniform)
+  unsigned todo = 0;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    if (((unsigned)mask[t / 2] >> (16 * (t % 2))) & 0xffffu) todo |= 1u << t;
+
+  const float *kc = Rows::kf(a), *vc = Rows::vf(a);
+  auto load = [&](int t, int bf) {
+    float *kb = kv + 2 * bf * R * D, *vb = kb + R * D;
+    for (int e = tid; e < R * C4; e += THREADS) {
+      const int j = e / C4, c = 4 * (e % C4);
+      const int r = rows[t * R + j];
+      const size_t gi = r >= 0 ? ((size_t)r * a.kh + h) * D + c : 0;
+      cp_async16_zfill(smem_u32(kb + j * D + c), kc + gi, r >= 0);
+      cp_async16_zfill(smem_u32(vb + j * D + c), vc + gi, r >= 0);
+    }
+    cp_async_commit();
+  };
+
+  const int hw = tid / 16, l16 = tid % 16;
+  const unsigned half = 0xffffu << (16 * (hw & 1));
+  int t = todo ? __ffs(todo) - 1 : -1, bf = 0;
+  if (t >= 0) load(t, 0);
+  while (t >= 0) {
+    const unsigned later = todo & ~((2u << t) - 1u);
+    const int nt = later ? __ffs(later) - 1 : -1;
+    if (nt >= 0) {
+      load(nt, bf ^ 1);
+      cp_async_wait<1>();  // tile t's copies have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float *ks = kv + 2 * bf * R * D, *vs = ks + R * D;
+    const int *tr = rows + t * R;
+
+    // scores: half-warp hw takes row hw of the tile
+    {
+      float4 kr[NCH];
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+        kr[i] = reinterpret_cast<const float4 *>(ks + hw * D)[l16 + 16 * i];
+      const bool ok = tr[hw] >= 0;
+      for (int g = 0; g < G; ++g) {
+        const float4 *qg = reinterpret_cast<const float4 *>(qs + g * D);
+        float sc = 0.f;
+#pragma unroll
+        for (int i = 0; i < NCH; ++i) {
+          const float4 x = qg[l16 + 16 * i];
+          sc = __fmaf_rn(x.x, kr[i].x, sc);
+          sc = __fmaf_rn(x.y, kr[i].y, sc);
+          sc = __fmaf_rn(x.z, kr[i].z, sc);
+          sc = __fmaf_rn(x.w, kr[i].w, sc);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          sc = __fadd_rn(sc, __shfl_xor_sync(half, sc, off));
+        if (l16 == 0) ps[g * R + hw] = ok ? sc : NEG_INF;
+      }
+    }
+    __syncthreads();
+    // online softmax: half-warp hw takes query heads hw, hw + 16, ...
+    for (int g = hw; g < G; g += THREADS / 16) {
+      const float sc = ps[g * R + l16];
+      float mx = sc;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(half, mx, off));
+      const float m_old = ms[g], m_new = fmaxf(m_old, mx);
+      const float p = tr[l16] >= 0 ? expf(__fsub_rn(sc, m_new)) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(half, sum, off));
+      ps[g * R + l16] = p;
+      if (l16 == 0) {
+        const float alpha = expf(__fsub_rn(m_old, m_new));
+        al[g] = alpha;
+        ls[g] = __fmaf_rn(ls[g], alpha, sum);
+        ms[g] = m_new;
+      }
+    }
+    __syncthreads();
+    // P V: a thread per (query head, column), the tile's rows in order
+    for (int e = tid; e < G * D; e += THREADS) {
+      const int g = e / D, d = e % D;
+      const float4 *pg = reinterpret_cast<const float4 *>(ps + g * R);
+      float x = __fmul_rn(acc[e], al[g]);
+#pragma unroll
+      for (int j4 = 0; j4 < R / 4; ++j4) {
+        const float4 p = pg[j4];
+        x = __fmaf_rn(p.x, vs[(4 * j4) * D + d], x);
+        x = __fmaf_rn(p.y, vs[(4 * j4 + 1) * D + d], x);
+        x = __fmaf_rn(p.z, vs[(4 * j4 + 2) * D + d], x);
+        x = __fmaf_rn(p.w, vs[(4 * j4 + 3) * D + d], x);
+      }
+      acc[e] = x;
+    }
+    __syncthreads();  // buffer bf and the scores are consumed
+    t = nt;
+    bf ^= 1;
+  }
+
+  if (np == 1) {
+    for (int e = tid; e < G * D; e += THREADS)
+      o[qo + e] = __fdiv_rn(acc[e], fmaxf(ls[e / D], 1e-30f));
+    return;
+  }
+  float *wacc = a.ws_acc + (size_t)item * G * D;
+  float *wml = a.ws_ml + (size_t)item * G * 2;
+  for (int e = tid; e < G * D; e += THREADS) wacc[e] = acc[e];
+  for (int g = tid; g < G; g += THREADS) {
+    wml[2 * g] = ms[g];
+    wml[2 * g + 1] = ls[g];
+  }
+  __threadfence();  // the partial is visible before the arrival counts
+  __syncthreads();
+  if (tid == 0) flag[0] = atomicAdd(a.counts + bkh, 1) == np - 1;
+  __syncthreads();
+  if (!flag[0]) return;  // uniform: another piece merges
+  __threadfence();
+
+  // the merge, in piece order: each query head's max m and weighted l,
+  // then every accumulator (the weights recomputed alike by each thread)
+  const float *mlb = a.ws_ml + (size_t)bkh * ns * G * 2;
+  const float *accb = a.ws_acc + (size_t)bkh * ns * G * D;
+  for (int g = tid; g < G; g += THREADS) {
+    float mx = NEG_INF;
+    for (int i = 0; i < np; ++i)
+      mx = fmaxf(mx, __ldcg(mlb + (size_t)i * G * 2 + 2 * g));
+    float l = 0.f;
+    for (int i = 0; i < np; ++i) {
+      const float2 ml =
+          __ldcg(reinterpret_cast<const float2 *>(mlb + (size_t)i * G * 2) + g);
+      const float w = ml.x == NEG_INF ? 0.f : expf(__fsub_rn(ml.x, mx));
+      l = __fmaf_rn(w, ml.y, l);
+    }
+    ms[g] = mx;
+    ls[g] = l;
+  }
+  __syncthreads();
+  for (int e = tid; e < G * D; e += THREADS) {
+    const int g = e / D;
+    const float mx = ms[g];
+    float x = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < np; ++i) {
+      const float mi = __ldcg(mlb + (size_t)i * G * 2 + 2 * g);
+      const float w = mi == NEG_INF ? 0.f : expf(__fsub_rn(mi, mx));
+      x = __fmaf_rn(w, __ldcg(accb + (size_t)i * G * D + e), x);
+    }
+    o[qo + e] = __fdiv_rn(x, fmaxf(ls[g], 1e-30f));
   }
   if (tid == 0) a.counts[bkh] = 0;  // ready for the next launch
 }

@@ -1,7 +1,7 @@
 """Single-token GQA decode attention over a dense per-slot cache: the
-wrapper of the CUDA kernels behind ``decode_attention_fwd`` (fp32) and
-``decode_attention_split_fwd`` (bf16) in ``csrc/attention.cu``, its launch
-counter and its plain PyTorch version.
+wrapper of the CUDA kernel behind ``decode_attention_split_fwd`` (fp32 and
+bf16) in ``csrc/attention.cu``, its launch counter and its plain PyTorch
+version.
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py:62``
 (``decode_attention``). Each slot owns a contiguous cache row ``(S, K, D)``
@@ -11,11 +11,13 @@ cache (positions in any order, holes of -1) is masked by position, not by
 index. Any ``S`` works: the kernel masks the tail tile where the TPU
 dispatcher only took ``S % 128 == 0``.
 
-In bf16 the kernel splits each (slot, kv head)'s rows into
-``split_count(B, K, S, SMs, CTAs per SM)`` pieces, one CTA each, computes
-both products on the tensor cores (G <= 16 query heads per kv head) and
-the last piece to finish merges the partial softmaxes in piece order (flash-decoding; the
-workspace is allocated here); in fp32 it runs one CTA per (slot, kv head).
+Both dtypes split each (slot, kv head)'s rows into pieces, one CTA each,
+and the last piece to finish merges the partial softmaxes in piece order
+(flash-decoding; the workspace is allocated here, ``split_workspace``). In
+bf16 the rows are split into ``split_count(B, K, S, SMs, CTAs per SM)``
+pieces and both products run on the tensor cores (G <= 16 query heads per
+kv head); in fp32 into ``geometry.fp32_pieces(S)`` pieces of
+``PIECE_ROWS`` rows, both products as fp32 FMAs on the CUDA cores (any G).
 
 A slot with no attended row: the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``decode_attention``
@@ -33,8 +35,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import cost
 from repro_torch.kernels import ref
-from repro_torch.kernels.geometry import (MAX_SPLIT, SPLIT_G,
-                                          SPLIT_MIN_TILES, SPLIT_TILE)
+from repro_torch.kernels.geometry import (MAX_SPLIT, PIECE_ROWS, SPLIT_G,
+                                          SPLIT_MIN_TILES, SPLIT_TILE,
+                                          fp32_pieces)
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
@@ -43,9 +46,10 @@ launches = 0
 decode_attention_plain = ref.decode_attention_ref
 
 # SPLIT_TILE (rows per tile of the bf16 split body), MAX_SPLIT (pieces per
-# (slot, kv head) at most), SPLIT_G (query heads per kv head at most) and
-# SPLIT_MIN_TILES (row tiles a piece takes at least) come from
-# geometry.py, which the build passes to nvcc as well
+# (slot, kv head) at most), SPLIT_G (query heads per kv head at most),
+# SPLIT_MIN_TILES (row tiles a piece takes at least) and PIECE_ROWS (rows
+# per piece of the fp32 body) come from geometry.py, which the build
+# passes to nvcc as well
 
 
 def split_count(b: int, kh: int, s: int, n_sm: int, ctas_per_sm: int) -> int:
@@ -105,20 +109,30 @@ def _counts(device: torch.device, n: int) -> torch.Tensor:
     return cnt
 
 
+def split_tile(dtype) -> int:
+    """The rows a piece of the split body is counted in, which the C entry
+    checks against its own: SPLIT_TILE-row tiles in bf16, pieces of
+    PIECE_ROWS rows in fp32."""
+    return PIECE_ROWS if dtype == torch.float32 else SPLIT_TILE
+
+
 def split_workspace(q, s: int, *, paged: bool = False):
-    """(n_split, ws_acc, ws_ml, counts) of a bf16 decode over ``s`` rows
+    """(n_split, ws_acc, ws_ml, counts) of a decode over ``s`` rows
     (``paged``: over the page pool, ``s`` = n_b·ps) for ``q`` (B, K, G,
-    D): the partial accumulators and (m, l) of every piece, and the
-    arrival counters. With one piece no workspace is needed (``None``s).
-    The paged and the dense kernels, and each fused kernel, size their
-    splits here."""
+    D): the pieces per (slot, kv head) (bf16: ``n_split``; fp32:
+    ``fp32_pieces(s)``, from the rows alone), the partial accumulators and
+    (m, l) of every piece, and the arrival counters. With one piece no
+    workspace is needed (``None``s). The paged and the dense kernels, and
+    each fused kernel, size their splits here."""
     b, kh, g, d = q.shape
-    if g > SPLIT_G:
+    fp32 = q.dtype == torch.float32
+    if g > SPLIT_G and not fp32:
         name = "paged_decode_attention" if paged else "decode_attention"
         raise ValueError(f"{name}: bfloat16 takes at most {SPLIT_G} query "
                          f"heads per kv head, got {g}")
     dev = q.device
-    n = n_split(q, s, paged=paged) if b * kh else 1
+    n = (fp32_pieces(s) if fp32 else n_split(q, s, paged=paged)) \
+        if b * kh else 1
     if n == 1:
         return 1, None, None, None
     ws_acc = torch.empty(b * kh * n * g * d, dtype=torch.float32, device=dev)
@@ -165,19 +179,13 @@ def _dispatch(q, k_cache, v_cache, kv_positions, pos):
     out = torch.empty_like(q)
     if out.numel() == 0 or q.is_meta:
         return out
-    if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("decode_attention", (q, k_cache, v_cache))
-        n, *ws = split_workspace(q, s)
-        rc = build.library().decode_attention_split_fwd(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in ws),
-            b, kh, g, d, s, n, SPLIT_TILE, code, build.stream_of(q))
-    else:
-        rc = build.library().decode_attention_fwd(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, kh, g, d, s, code, build.stream_of(q))
+    build.check_aligned("decode_attention", (q, k_cache, v_cache))
+    n, *ws = split_workspace(q, s)
+    rc = build.library().decode_attention_split_fwd(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ws),
+        b, kh, g, d, s, n, split_tile(q.dtype), code, build.stream_of(q))
     build.check(rc, "decode_attention")
     global launches
     launches += 1

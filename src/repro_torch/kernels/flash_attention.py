@@ -11,9 +11,10 @@ the rows cached before it; 0 for a whole prompt, as the TPU kernel
 takes it). Unlike the TPU kernel it masks ragged tails, so any Sq and Sk
 work. In bf16 the kernel computes both products on the
 tensor cores (wgmma, fp32 accumulators, probabilities rounded to bf16),
-with K/V tiles brought by TMA; in fp32 it runs its CUDA-core body. Bound on
-the card: operations (see the source's header note for what the design
-does about it).
+with K/V tiles brought by TMA; in fp32 it runs its register-tiled body on
+the CUDA cores (fp32 FMAs, K/V tiles through cp.async). Bound on the card:
+operations (see the source's header note for what the design does about
+it).
 
 Its gradient: where grad mode is on and q, k or v requires grad,
 :func:`flash_attention` runs as a ``torch.autograd.Function`` whose
@@ -275,8 +276,7 @@ def _dispatch(q, k, v, *, causal, window, group, q_offset):
     bh, sq, d = q.shape
     sk = k.shape[1]
     code = build.check_inputs("flash_attention", (q, k, v))
-    if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("flash_attention", (q, k, v))
+    build.check_aligned("flash_attention", (q, k, v))
     if (k.shape != v.shape or k.shape[0] * group != bh
             or k.shape[2] != d or q_offset < 0):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "

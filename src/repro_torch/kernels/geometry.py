@@ -1,5 +1,5 @@
-"""The geometry of the split decode bodies, of the fused launches'
-schedule and of the bf16 SSD scan, stated once.
+"""The geometry of the split decode bodies (bf16 and fp32), of the fused
+launches' schedule and of the bf16 SSD scan, stated once.
 
 ``build.py`` passes these to ``nvcc`` as ``-D`` defines, and
 ``csrc/attention.cuh`` and ``csrc/ssd_scan.cu`` take them from there (they
@@ -19,6 +19,10 @@ SPLIT_G = 16
 #: fixed cost (its first loads, its partial's write and share of the merge)
 #: outweighs a tile's
 SPLIT_MIN_TILES = 2
+#: rows per piece of the fp32 split decode body (a multiple of its 16-row
+#: tile): each (slot, kv head)'s rows are cut into pieces of this many,
+#: one CTA each, a count that depends on the rows alone
+PIECE_ROWS = 64
 
 #: SM ids the fused launches' schedule workspace holds a slot for (the
 #: CTAs arrived and the rank of each SM id ``%smid`` below it; an id at or
@@ -38,7 +42,8 @@ SSD_P_SLICES = (16, 32, 64)
 
 #: the split decode's defines (``csrc/attention.cuh``), by name
 DEFINES = {"SPLIT_TILE": SPLIT_TILE, "MAX_SPLIT": MAX_SPLIT,
-           "SPLIT_G": SPLIT_G, "SPLIT_MIN_TILES": SPLIT_MIN_TILES}
+           "SPLIT_G": SPLIT_G, "SPLIT_MIN_TILES": SPLIT_MIN_TILES,
+           "PIECE_ROWS": PIECE_ROWS}
 #: the fused launches' schedule's define (``csrc/attention.cu``), by name
 SCHED_DEFINES = {"SCHED_SMS": SCHED_SMS}
 #: the bf16 SSD scan's defines (``csrc/ssd_scan.cu``), by name
@@ -54,6 +59,15 @@ def slot_pieces(n_split: int, live: int) -> int:
     split count at the slot's own rows, whatever the table's width."""
     tiles = -(-max(live, 0) // SPLIT_TILE)
     return max(1, min(tiles // SPLIT_MIN_TILES, n_split))
+
+
+def fp32_pieces(rows: int) -> int:
+    """Pieces of PIECE_ROWS rows that ``rows`` rows make, at least 1: the
+    fp32 decode launch's pieces per (slot, kv head) over the dense cache's
+    S rows or the table's n_b·ps, and a paged slot's own pieces over its
+    live rows (``RowSource<...>::piece_count`` in ``csrc/attention.cuh``),
+    so a slot's split depends on its own rows alone."""
+    return max(1, -(-max(rows, 0) // PIECE_ROWS))
 
 
 def all_defines() -> dict:

@@ -1,7 +1,6 @@
 """Block-paged single-token GQA decode attention: the wrapper of the CUDA
-kernels behind ``paged_decode_fwd`` (fp32) and ``paged_decode_split_fwd``
-(bf16) in ``csrc/attention.cu``, its launch counter and its plain PyTorch
-version.
+kernel behind ``paged_decode_split_fwd`` (fp32 and bf16) in
+``csrc/attention.cu``, its launch counter and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_decode_attention.py:73``
 (``paged_decode_attention``). The KV cache lives in a shared page pool
@@ -18,9 +17,14 @@ rest return at once), both products on the tensor cores (G <= 16 query
 heads per kv head), the last piece to finish merging the partials in
 piece order; the workspace comes from ``decode_attention.split_workspace``.
 Where a slot's pieces fall depends on its own rows alone, so its result
-is the same at every table width and beside any other slots. In fp32 it
-runs one CTA per (slot, kv head) walking the live pages (the first
-port's body, which stays bit-equal to fp32 dense decode).
+is the same at every table width and beside any other slots. In fp32 it is
+the dense kernel's fp32 split body over the page pool: the launch holds
+``geometry.fp32_pieces(n_b·ps)`` pieces per (slot, kv head); a slot's own
+live rows are cut into pieces of ``PIECE_ROWS`` rows (the rest return at
+once), both products as fp32 FMAs on the CUDA cores, the last piece to
+finish merging in piece order, so its result is the same at every table
+width and beside any other slots too, and with linear positions equals
+fp32 dense decode's bit for bit.
 
 Inactive slots (``pos < 0``): the kernel returns zeros, as the TPU kernel
 does; the plain version follows the XLA reference ``paged_decode_ref`` and
@@ -37,8 +41,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import cost
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import split_workspace
-from repro_torch.kernels.geometry import SPLIT_TILE
+from repro_torch.kernels.decode_attention import split_tile, split_workspace
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
@@ -90,19 +93,14 @@ def _dispatch(q, k_pages, v_pages, block_tables, pos):
     out = torch.empty_like(q)
     if out.numel() == 0 or q.is_meta:
         return out
-    if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("paged_decode_attention", (q, k_pages, v_pages))
-        n, *ws = split_workspace(q, n_b * ps, paged=True)
-        rc = build.library().paged_decode_split_fwd(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in ws),
-            b, kh, g, d, ps, n_b, n, SPLIT_TILE, code, build.stream_of(q))
-    else:
-        rc = build.library().paged_decode_fwd(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, kh, g, d, ps, n_b, code, build.stream_of(q))
+    build.check_aligned("paged_decode_attention", (q, k_pages, v_pages))
+    n, *ws = split_workspace(q, n_b * ps, paged=True)
+    rc = build.library().paged_decode_split_fwd(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ws),
+        b, kh, g, d, ps, n_b, n, split_tile(q.dtype), code,
+        build.stream_of(q))
     build.check(rc, "paged_decode_attention")
     global launches
     launches += 1

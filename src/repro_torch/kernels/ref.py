@@ -20,7 +20,10 @@ math to the kernel layouts (``flash_attention_ref``,
 ``decode_attention_split_ref`` is the bf16 dense decode kernel's split
 and merge spelled out, for the card tests, and
 ``paged_decode_attention_split_ref`` the same over a slot's gathered
-pages (the bf16 paged kernel runs the dense kernel's body).
+pages (the bf16 paged kernel runs the dense kernel's body);
+``decode_attention_fp32_split_ref`` and
+``paged_decode_attention_fp32_split_ref`` are the fp32 body's pieces of
+``geometry.PIECE_ROWS`` rows and their merge, on either cache.
 ``flash_attention_bwd_ref`` is kernel 1's gradient written out (the plain
 version of ``csrc/flash_attention_bwd.cu``; the JAX package takes it
 through XLA's autodiff of ``flash_ref_attention``).
@@ -47,7 +50,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.geometry import slot_pieces
+from repro_torch.kernels.geometry import PIECE_ROWS, slot_pieces
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -283,6 +286,39 @@ def decode_attention_split_ref(q, k_cache, v_cache, kv_positions, pos,
     return (acc / l_all.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
+def decode_attention_fp32_split_ref(q, k_cache, v_cache, kv_positions, pos,
+                                    piece_rows: int = PIECE_ROWS):
+    """The fp32 decode body's split and merge over the dense cache,
+    plainly: the S rows cut into ``fp32_pieces(S)`` pieces of
+    ``piece_rows`` rows, each keeping its own (m, l, acc) over its attended
+    rows, merged in piece order; that is ``decode_attention_split_ref``
+    with one ``piece_rows``-row tile a piece (no arithmetic of its own).
+    Shapes as ``decode_attention_ref``; a slot with no attended row returns
+    zeros."""
+    s = k_cache.shape[1]
+    n = max(1, -(-s // piece_rows))
+    return decode_attention_split_ref(q, k_cache, v_cache, kv_positions, pos,
+                                      n, piece_rows)
+
+
+def _live_slots(q, k_pages, v_pages, block_tables, pos, dense):
+    """Each slot's first ``live = min(pos + 1, n_b·ps)`` gathered rows with
+    linear positions through ``dense(q, k, v, kv_positions, pos, live)``,
+    one slot at a time: a paged slot's rows are the dense cache's over its
+    live rows. Returns (B, K, G, D)."""
+    rows = block_tables.shape[1] * k_pages.shape[1]
+    kc = gather_pages(k_pages, block_tables)
+    vc = gather_pages(v_pages, block_tables)
+    outs = []
+    for i, p in enumerate(pos.tolist()):
+        live = max(0, min(p + 1, rows))
+        kvpos = torch.arange(live, dtype=torch.int32,
+                             device=q.device)[None]
+        outs.append(dense(q[i:i + 1], kc[i:i + 1, :live],
+                          vc[i:i + 1, :live], kvpos, pos[i:i + 1], live))
+    return torch.cat(outs)
+
+
 def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables, pos,
                                      n_split: int, tile: int = 64):
     """The bf16 paged decode kernel's split and merge, plainly: each
@@ -293,19 +329,23 @@ def paged_decode_attention_split_ref(q, k_pages, v_pages, block_tables, pos,
     states that the paged body is the dense body over the slot's live
     rows. Shapes as ``paged_decode_attention_ref``; an inactive slot
     returns zeros."""
-    b, n_b = block_tables.shape
-    rows = n_b * k_pages.shape[1]
-    kc = gather_pages(k_pages, block_tables)
-    vc = gather_pages(v_pages, block_tables)
-    outs = []
-    for i, p in enumerate(pos.tolist()):
-        live = max(0, min(p + 1, rows))
-        kvpos = torch.arange(live, dtype=torch.int32,
-                             device=q.device)[None]
-        outs.append(decode_attention_split_ref(
-            q[i:i + 1], kc[i:i + 1, :live], vc[i:i + 1, :live], kvpos,
-            pos[i:i + 1], slot_pieces(n_split, live), tile))
-    return torch.cat(outs)
+    return _live_slots(
+        q, k_pages, v_pages, block_tables, pos,
+        lambda *a: decode_attention_split_ref(
+            *a[:5], slot_pieces(n_split, a[5]), tile))
+
+
+def paged_decode_attention_fp32_split_ref(q, k_pages, v_pages, block_tables,
+                                          pos, piece_rows: int = PIECE_ROWS):
+    """The fp32 paged decode body's split and merge, plainly: each slot's
+    first ``live`` gathered rows through
+    ``decode_attention_fp32_split_ref``, so in ``fp32_pieces(live)``
+    pieces of its own rows, whatever the table's width and the other
+    slots. Shapes as ``paged_decode_attention_ref``; an inactive slot
+    returns zeros."""
+    return _live_slots(
+        q, k_pages, v_pages, block_tables, pos,
+        lambda *a: decode_attention_fp32_split_ref(*a[:5], piece_rows))
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos):

@@ -26,7 +26,7 @@ from repro_torch.kernels import paged_decode_attention as TP
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rglru_scan as TR
 from repro_torch.kernels import ssd_scan as TS
-from repro_torch.kernels.geometry import slot_pieces
+from repro_torch.kernels.geometry import PIECE_ROWS, fp32_pieces, slot_pieces
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: the bf16 flash and split decode bodies also hold each output row
@@ -639,7 +639,8 @@ def test_split_paged_decode_refuses_more_than_16_query_heads(gen):
 
 def _many_slots(gen, dtype, paged, b=132, ctx=256, kh=8, g=2, ps=16):
     """A decode batch of ``b`` slots of ``ctx`` rows each on 8 kv heads:
-    b·kh = 1056 decode items (one piece each), four times the decode CTAs
+    b·kh = 1056 (slot, kv head) pairs, in bf16 one piece each, in fp32
+    ``ctx / PIECE_ROWS`` pieces each; at least four times the decode CTAs
     of a 131-SM share, so every decode CTA takes its first item from its
     own queue. Paged: each slot's pages in order; dense: linear
     positions."""
@@ -682,7 +683,7 @@ def test_fused_schedule_partitions_the_sms(gen, dtype, paged, share):
     torch.cuda.synchronize()
     rec = sched.record.cpu()
     n_dec, code = sched.n_dec, int(dtype == torch.bfloat16)
-    assert n_dec == 132 * 8
+    assert n_dec == 132 * 8 * (1 if code else 256 // PIECE_ROWS)
     assert bool((rec[:, 0] == 1).all()), "an item ran other than once"
     assert rec[:n_dec, 1].tolist() == list(range(n_dec))
     n_qt = -(-1000 // TB.FLASH_TILES[code][0])
@@ -921,3 +922,191 @@ def test_ssd_wrapper_rejects_a_state_it_cannot_take(gen):
     with pytest.raises(TypeError, match="float32"):
         TS.ssd_scan(xw, cum, bc, bc,
                     torch.zeros(1, 2, 8, 4, device="cuda").double())
+
+
+# ---------------------------------------------------------------------------
+# the fp32 bodies: register-tiled flash, one split decode body for both
+# caches (pieces of PIECE_ROWS rows, merged in piece order)
+# ---------------------------------------------------------------------------
+
+#: the fp32 split decode against its mirror (the same pieces and merge,
+#: the sums inside a piece in another order: a few fp32 ulps of the
+#: outputs' scale, well under TOL)
+MIRROR_TOL = 1e-5
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_split_paged_decode_same_at_every_table_width_fp32(gen, ps):
+    """fp32: a slot's paged decode is bit-equal whatever the table's width
+    (widened by trash-page columns to 2 and 4 times 2048 rows, which
+    raises the launch's piece count) and whatever the other slots hold
+    (each slot with the others inactive and the table cut to its own
+    bucket)."""
+    contexts = (1, 65, 300, 1000, 2000, 0)
+    q, kp, vp, bt, pos = _paged_split_case(gen, torch.float32, ps,
+                                           contexts=contexts, rows=2048)
+    base = TP.paged_decode_attention(q, kp, vp, bt, pos)
+    trash = kp.shape[0] - 1
+    counts = {fp32_pieces(bt.shape[1] * ps)}
+    for f in (2, 4):
+        wide = torch.full((bt.shape[0], f * bt.shape[1]), trash,
+                          dtype=torch.int32, device="cuda")
+        wide[:, :bt.shape[1]] = bt
+        counts.add(fp32_pieces(wide.shape[1] * ps))
+        out = TP.paged_decode_attention(q, kp, vp, wide, pos)
+        assert torch.equal(out, base), f
+    assert len(counts) == 3, counts
+    for i, c in enumerate(contexts):
+        if not c:
+            continue
+        n_b = 1 << (-(-c // ps) - 1).bit_length()
+        alone = torch.full_like(pos, -1)
+        alone[i] = pos[i]
+        own = TP.paged_decode_attention(q, kp, vp,
+                                        bt[:, :n_b].contiguous(), alone)
+        assert torch.equal(own[i], base[i]), i
+    assert bool((base[-1] == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", ["split", "linear", "ring"])
+def test_fp32_split_dense_decode_matches_its_mirror(gen, d, case):
+    """The fp32 dense body against ``ref.decode_attention_fp32_split_ref``
+    within MIRROR_TOL and the plain version within TOL on the slots with
+    an attended row, zeros on the others, and bit for bit the same on a
+    second launch: the split case's five slots over S = 200 (four pieces;
+    a wrapped ring, holes, no attended row, one attended row), and the
+    dense case's linear and scrambled-ring slots over S = 72."""
+    if case == "split":
+        q, kc, vc, kvpos, pos = _split_case(gen, d)
+        q, kc, vc = q.float(), kc.float(), vc.float()
+    else:
+        q, kc, vc, kvpos, pos = _dense_case(gen, torch.float32,
+                                            case == "ring", d=d)
+    before = TD.launches
+    out = TD.decode_attention(q, kc, vc, kvpos, pos)
+    assert TD.launches == before + 1
+    act = ((kvpos >= 0) & (kvpos <= pos[:, None])).any(dim=1)
+    mirror = kref.decode_attention_fp32_split_ref(q, kc, vc, kvpos, pos)
+    torch.testing.assert_close(out[act], mirror[act], atol=MIRROR_TOL,
+                               rtol=0)
+    plain = TD.decode_attention_plain(q, kc, vc, kvpos, pos)
+    torch.testing.assert_close(out[act], plain[act], atol=TOL[torch.float32],
+                               rtol=0)
+    assert bool((out[~act] == 0).all())
+    assert torch.equal(out, TD.decode_attention(q, kc, vc, kvpos, pos))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_fp32_split_paged_decode_matches_its_mirror(gen, d, ps):
+    """The fp32 paged body against
+    ``ref.paged_decode_attention_fp32_split_ref`` within MIRROR_TOL and the
+    plain version within TOL on the active slots (contexts up to 1000: 16
+    pieces), the inactive slot zeros, and NaN in the trash page changes
+    nothing, so it is never read."""
+    q, kp, vp, bt, pos = _paged_split_case(
+        gen, torch.float32, ps, d=d, rows=1024,
+        contexts=(1, 64, 65, 150, 1000, 0))
+    out = TP.paged_decode_attention(q, kp, vp, bt, pos)
+    act = pos >= 0
+    mirror = kref.paged_decode_attention_fp32_split_ref(q, kp, vp, bt, pos)
+    torch.testing.assert_close(out[act], mirror[act], atol=MIRROR_TOL,
+                               rtol=0)
+    plain = TP.paged_decode_attention_plain(q, kp, vp, bt, pos)
+    torch.testing.assert_close(out[act], plain[act], atol=TOL[torch.float32],
+                               rtol=0)
+    assert bool((out[~act] == 0).all())
+    kn, vn = kp.clone(), vp.clone()
+    kn[-1] = float("nan")
+    vn[-1] = float("nan")
+    assert torch.equal(out, TP.paged_decode_attention(q, kn, vn, bt, pos))
+
+
+@pytest.mark.parametrize("share", [0.0, 0.3, 1.0])
+def test_fused_fp32_bit_equal_to_standalone_over_many_pieces(gen, share):
+    """Both fused kernels in fp32 over slots of up to 1000 rows (16 pieces
+    a slot): bit-equal to flash + the standalone decode launched apart,
+    the paged and the dense cache (linear positions) alike."""
+    q = torch.randn(8, 300, 128, generator=gen, device="cuda")
+    k = torch.randn(4, 300, 128, generator=gen, device="cuda")
+    v = torch.randn(4, 300, 128, generator=gen, device="cuda")
+    fo = TF.flash_attention(q, k, v, group=2)
+    qd, kp, vp, bt, pos = _paged_split_case(
+        gen, torch.float32, 16, rows=1024, contexts=(1, 64, 65, 150, 1000, 0))
+    op, od = TB.bullet_attention_paged(q, k, v, qd, kp, vp, bt, pos,
+                                       decode_share=share, group=2)
+    assert torch.equal(op, fo)
+    assert torch.equal(od, TP.paged_decode_attention(qd, kp, vp, bt, pos))
+    b = bt.shape[0]
+    kc = kp[bt.long()].reshape(b, -1, *kp.shape[2:]).contiguous()
+    vc = vp[bt.long()].reshape(b, -1, *vp.shape[2:]).contiguous()
+    kvpos = torch.arange(kc.shape[1], dtype=torch.int32,
+                         device="cuda")[None].expand(b, -1).contiguous()
+    op, od = TB.bullet_attention(q, k, v, qd, kc, vc, kvpos, pos,
+                                 decode_share=share, group=2)
+    assert torch.equal(op, fo)
+    dense = TD.decode_attention(qd, kc, vc, kvpos, pos)
+    assert torch.equal(od, dense)
+    act = pos >= 0
+    assert torch.equal(dense[act], TP.paged_decode_attention(
+        qd, kp, vp, bt, pos)[act])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 383])
+def test_fp32_flash_at_tile_edges(gen, d, s):
+    """S below, at and off a multiple of the 64-row query tile and the
+    64-key K/V tile, causal, G = 2."""
+    q = torch.randn(4, s, d, generator=gen, device="cuda")
+    k = torch.randn(2, s, d, generator=gen, device="cuda")
+    v = torch.randn(2, s, d, generator=gen, device="cuda")
+    before = TF.launches
+    out = TF.flash_attention(q, k, v, group=2)
+    assert TF.launches == before + 1
+    torch.testing.assert_close(out, TF.flash_attention_plain(q, k, v, group=2),
+                               atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("window", [1, 17, 63])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_flash_window_shorter_than_a_tile(gen, d, window, causal):
+    """Windows shorter than one 64-key tile: every tile crosses an edge
+    of some row's window, and a row's first tiles are masked whole."""
+    q = torch.randn(4, 300, d, generator=gen, device="cuda")
+    k = torch.randn(2, 300, d, generator=gen, device="cuda")
+    v = torch.randn(2, 300, d, generator=gen, device="cuda")
+    out = TF.flash_attention(q, k, v, causal=causal, window=window, group=2)
+    ref = TF.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   group=2)
+    torch.testing.assert_close(out, ref, atol=TOL[torch.float32], rtol=0)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("sq,off,extra,window", [
+    (64, 128, 0, 0), (100, 200, 7, 0), (1, 383, 0, 0), (129, 70, 37, 0),
+    (70, 300, 0, 40)])
+def test_fp32_flash_at_a_query_offset(gen, d, sq, off, extra, window):
+    """A chunk of ``sq`` rows at positions ``off ..`` over ``off + sq +
+    extra`` keys, the rows past the chunk at large finite values no query
+    may attend; offsets on and off the tiles, a window that ends before
+    the cached context starts. The chunk's rows also equal the whole
+    prompt's bit for bit: key tiles start at multiples of 64 from key 0,
+    and a tile masked whole for a row leaves it unchanged exactly."""
+    sk = off + sq + extra
+    q = torch.randn(4, sq, d, generator=gen, device="cuda")
+    k = torch.randn(2, sk, d, generator=gen, device="cuda")
+    v = torch.randn(2, sk, d, generator=gen, device="cuda")
+    k[:, off + sq:] = 30.0
+    v[:, off + sq:] = 1e3
+    out = TF.flash_attention(q, k, v, window=window, group=2, q_offset=off)
+    torch.testing.assert_close(out, TF.flash_attention_plain(
+        q, k, v, window=window, group=2, q_offset=off),
+        atol=TOL[torch.float32], rtol=0)
+    qw = torch.randn(4, off + sq, d, generator=gen, device="cuda")
+    qw[:, off:] = q
+    whole = TF.flash_attention(qw, k[:, :off + sq].contiguous(),
+                               v[:, :off + sq].contiguous(), window=window,
+                               group=2)
+    assert torch.equal(out, whole[:, off:])

@@ -253,13 +253,18 @@ def test_paged_kernels_take_the_same_split():
 
 
 def test_paged_split_workspace_refuses_17_heads_and_needs_none_empty():
-    """G > 16 is refused before anything reaches the card; a launch with
-    no slot needs no workspace (one piece)."""
+    """G > 16 is refused in bf16 (one 16-row tensor-core operand) before
+    anything reaches the card, and taken in fp32 (the CUDA-core body holds
+    any G); a launch with no slot needs no workspace (one piece)."""
     with pytest.raises(ValueError, match="paged_decode_attention.*query "
                                          "heads"):
-        TD.split_workspace(torch.zeros(1, 1, 17, 128), 64, paged=True)
-    assert TD.split_workspace(torch.zeros(0, 8, 2, 128), 1024,
+        TD.split_workspace(torch.zeros(1, 1, 17, 128, dtype=torch.bfloat16),
+                           64, paged=True)
+    assert TD.split_workspace(torch.zeros(1, 1, 17, 128), 64,
                               paged=True) == (1, None, None, None)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert TD.split_workspace(torch.zeros(0, 8, 2, 128, dtype=dtype),
+                                  1024, paged=True) == (1, None, None, None)
 
 
 # ---------------------------------------------------------------------------
