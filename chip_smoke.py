@@ -74,14 +74,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    beside SDPA with the offset-causal mask and the prefix copy
    (``copy_ms``), kernel 6 from a state at B=1 S=1000 (rows
    ``flash_attention_chunk*``, ``ssd_scan_state*``); then kernel 1's
-   backward (``phase_train_kernels``, fp32, the first body) at
-   BWD_SHAPES: Qwen3-1.7B's training shape (B 8, S 128), S 2048 at its
+   backward (``phase_train_kernels``, fp32, the register-tiled body) at
+   BWD_SHAPES, as a train step runs it (from the log-sum-exp of the fp32
+   training forward ``flash_attention_fwd_lse``, held bit-equal to the
+   serving forward and within LSE_TOL of the plain log-sum-exp, timed
+   beside it: row ``flash_attention_lse_fp32``; the split count's sweep
+   logged): Qwen3-1.7B's training shape (B 8, S 128), S 2048 at its
    heads, Mixtral's G = 6 with a 256-key window, Granite's D = 64 G = 4,
    SeamlessM4T's cross shape (128 rows over 1024, non-causal),
    RecurrentGemma's local attention (D = 256, G = 10, window 2048, S
    3000): dq, dk, dv against the plain backward within TOL of its scale,
-   timed beside its bound, the plain backward and SDPA's forward +
-   backward less its forward (rows ``flash_attention_bwd*``); the
+   two runs bit-equal, timed beside its bound, the plain backward and
+   SDPA's forward + backward less its forward (``is_causal`` where there
+   is no window, a mask where there is one; the backend its backward ran
+   logged) (rows ``flash_attention_bwd*``); the
    backwards of kernel 6 at Mamba-2-2.7B's shapes (B 1, S 1000 in 4
    chunks of 256, from zeros and from a random state with the final
    state's gradient) and of kernel 7 at RecurrentGemma's (B 4, S 3000, W
@@ -1134,6 +1140,14 @@ def phase_build():
     check(len(fp32) == want
           and all(r["spill_st"] == 0 and r["spill_ld"] == 0 for r in fp32),
           f"fp32 attention kernels ({len(fp32)} of {want}) spill: {fp32}")
+    # nor may kernel 1's fp32 backward (its 8 x 8 blocks of a score and an
+    # accumulator product a thread) or the fp32 training forward
+    bwd = [r for r in report if any(k in r["kernel"] for k in (
+        "flash_bwd_rt_kernel", "flash_rt_lse_kernel"))]
+    check(len(bwd) == 2 * len(build.BWD_HEAD_DIMS)
+          and all(r["spill_st"] == 0 and r["spill_ld"] == 0 for r in bwd),
+          f"fp32 backward kernels ({len(bwd)} of "
+          f"{2 * len(build.BWD_HEAD_DIMS)}) spill: {bwd}")
     # no SSD kernel may spill: the bf16 body keeps its accumulators in
     # registers across each product
     ssd = [r for r in report if any(k in r["kernel"] for k in SSD_KERNELS)]
@@ -1990,11 +2004,11 @@ SSD_BWD_TC_SRC = "src/repro_torch/kernels/csrc/ssd_scan_bwd_tc.cu"
 #: bf16 as product operands and write bf16 gradients, the plain backward
 #: rounds nothing: the smoke's bf16 attention tolerance
 BWD_BF16_TOL = 2e-2
-#: the training forward's log2-sum-exp2 (``flash_attention_fwd_lse``)
-#: against the plain one of the same bf16 inputs in fp32, absolute, in
-#: log2 units: both sum fp32 products of the same bf16 values (the
-#: kernel's exp2 is the hardware's approximate one, a few fp32 ulps); a
-#: row that misses one key or counts one too many moves by far more
+#: the training forward's log2-sum-exp2 (``flash_attention_fwd_lse``, fp32
+#: and bf16) against the plain one of the same inputs in fp32, absolute, in
+#: log2 units: both sum fp32 products of the same values (the kernels' exp
+#: and log are the hardware's approximate ones, a few fp32 ulps); a row
+#: that misses one key or counts one too many moves by far more
 LSE_TOL = 1e-3
 
 
@@ -2091,26 +2105,33 @@ def phase_scan_bwd(timer: Timer, gen) -> list:
 
 
 def phase_train_kernels(timer: Timer) -> list:
-    """Kernel 1's backward (fp32, the first body) at BWD_SHAPES against its
-    plain backward on the same inputs (q, k, v, the forward kernel's
-    output, dO ~ N(0, 1)): dq, dk and dv each within TOL of the plain's
-    scale max(1, max|plain|); timed beside its bound (max(bytes / HBM_BW,
-    cost.BWD_OPS x the forward's operations / the fp32 peak)), the plain
-    backward and SDPA's forward + backward less its forward (``enable_gqa``,
-    the same mask). Then the backwards of kernels 6 and 7
-    (``phase_scan_bwd``) and every bf16 backward (``phase_bwd_bf16``).
-    Returns the rows (launches filled by main)."""
+    """Kernel 1's backward (fp32, the register-tiled body) at BWD_SHAPES as
+    a train step runs it: o and each row's log-sum-exp from the fp32
+    training forward ``flash_attention_fwd_lse`` (``_lse_forward_check``:
+    bit-equal to the serving forward, within LSE_TOL of the plain
+    log-sum-exp), dO ~ N(0, 1), the backward given that log-sum-exp: dq, dk
+    and dv each within TOL of the plain backward's scale max(1,
+    max|plain|), two runs bit-equal; timed beside its bound (max(bytes /
+    HBM_BW, cost.BWD_OPS x the forward's operations / the fp32 peak)), the
+    plain backward and SDPA's forward + backward less its forward
+    (``_sdpa_bwd``); the training forward timed beside the serving one at
+    each shape, and at the first (Qwen3-1.7B's training shape) a row of
+    its own, ``flash_attention_lse_fp32``. Then the backwards of kernels 6
+    and 7 (``phase_scan_bwd``) and every bf16 backward
+    (``phase_bwd_bf16``). Returns the rows (launches filled by main)."""
     from repro_torch.kernels import flash_attention as FA
-    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(26)
-    rows = []
+    rows, lse_row = [], None
     for name, b, sq, sk, h, kh, d, causal, window in BWD_SHAPES:
         g = h // kh
         q, k, v = flash_inputs(gen, b, sq, torch.float32, h, kh, d, sk)
         do = torch.randn(q.shape, generator=gen, device="cuda")
         kw = dict(causal=causal, window=window, group=g)
-        o = FA.flash_attention(q, k, v, **kw)
-        got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+        o, lse = FA._forward_lse(q, k, v, **kw)
+        _lse_forward_check(name, q, k, v, o, lse, kw)
+        fn = lambda: FA.flash_attention_bwd(q, k, v, o, do,  # noqa: E731
+                                            lse=lse, **kw)
+        got, again = fn(), fn()
         want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
         errs = [rel_err(a, w) for a, w in zip(got, want)]
@@ -2118,49 +2139,117 @@ def phase_train_kernels(timer: Timer) -> list:
                  f"{'causal' if causal else 'non-causal'} fp32")
         check(all(math.isfinite(e) and e <= TOL[torch.float32]
                   for e in errs), f"{name} at {shape}: dq, dk, dv err {errs}")
-        # SDPA in (B, H, S, D) with enable_gqa and the same mask
-        qs = q.reshape(b, h, sq, d).detach().requires_grad_()
-        ks = k.reshape(b, kh, sk, d).detach().requires_grad_()
-        vs = v.reshape(b, kh, sk, d).detach().requires_grad_()
-        dos = do.reshape(b, h, sq, d)
-        mask = None
-        if causal or window:
-            i = torch.arange(sq, device="cuda")[:, None]
-            j = torch.arange(sk, device="cuda")[None, :]
-            mask = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
-            if causal:
-                mask &= j <= i
-            if window:
-                mask &= j > i - window
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                                  enable_gqa=True)
-
-        def sdpa_fwd_bwd():
-            return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
-
-        lib_fwd = timer(lambda: sdpa().detach())
-        lib = timer(sdpa_fwd_bwd) - lib_fwd
+        check(all(torch.equal(a, a2) for a, a2 in zip(got, again)),
+              f"{name} at {shape}: two runs differ")
+        lib, lib_fwd, how = _sdpa_bwd(timer, q, k, v, do, b, h, kh, causal,
+                                      window)
+        fwd_ms = timer(lambda: FA._forward_lse(q, k, v, **kw))
+        serve_ms = timer(lambda: FA._forward(q, k, v, **kw))
         nb, no = bwd_cost(b, sq, sk, h, kh, d, causal, window)
         bms, bby = bound_ms(nb, no, torch.float32)
         row = with_tflops(dict(
             name=name, route="cuda", source=BWD_SRC,
             replaces="src/repro/kernels/flash_attention.py:77 (its gradient;"
                      " the JAX package takes it through XLA)",
-            ms=timer(lambda: FA.flash_attention_bwd(q, k, v, o, do, **kw)),
+            ms=timer(fn),
             plain_ms=timer(lambda: FA.flash_attention_bwd_plain(
                 q, k, v, o, do, **kw)),
             bound_ms=bms, bound_by=bby, library_ms=lib,
             max_abs_err=max(errs), shape=shape), no)
+        row["library"] = f"SDPA fp32 backward, {how}"
+        split = _fp32_split(FA, q, k, kw)
+        bwd_split_sweep(timer, FA, fn, split, name)
         log(f"{name}: dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
-            f"of the plain backward's scale (TOL {TOL[torch.float32]}); "
-            f"SDPA forward {lib_fwd:.4f} ms")
+            f"of the plain backward's scale (TOL {TOL[torch.float32]}); two "
+            f"runs bit-equal; split {split}; library "
+            f"{how}; SDPA forward {lib_fwd:.4f} ms; training forward "
+            f"{fwd_ms:.4f} ms, serving forward {serve_ms:.4f} ms")
         log_row(row)
         rows.append(row)
-        del q, k, v, do, o, got, want, qs, ks, vs, dos
+        if lse_row is None:
+            # the training forward at Qwen3-1.7B's training shape
+            fb, fo = flash_cost(b, sq, torch.float32, h=h, kh=kh, d=d,
+                                window=window, causal=causal, sk=sk)
+            fb += 4 * b * h * sq  # the log-sum-exp
+            fms, fby = bound_ms(fb, fo, torch.float32)
+            lse_row = with_tflops(dict(
+                name="flash_attention_lse_fp32", route="cuda",
+                source=ATTN_SRC,
+                replaces="src/repro/kernels/flash_attention.py:77 (the "
+                         "forward of its gradient: the fp32 body with each "
+                         "row's log-sum-exp stored)",
+                ms=fwd_ms, plain_ms=timer(lambda: (
+                    FA.flash_attention_plain(q, k, v, **kw),
+                    FA.flash_lse_plain(q, k, **kw))),
+                bound_ms=fms, bound_by=fby, library_ms=lib_fwd,
+                max_abs_err=rel_err(o, FA.flash_attention_plain(
+                    q, k, v, **kw)), shape=shape), fo)
+            log_row(lse_row)
+        del q, k, v, do, o, lse, got, again, want
         torch.cuda.empty_cache()
-    return rows + phase_scan_bwd(timer, gen) + phase_bwd_bf16(timer, gen)
+    return ([*rows, lse_row] + phase_scan_bwd(timer, gen)
+            + phase_bwd_bf16(timer, gen))
+
+
+def bwd_split_sweep(timer, FA, fn, chosen: int, what: str) -> None:
+    """A backward ``fn`` timed with its dK/dV items forced over 1, 2, 3, 4
+    and 6 CTAs a key tile (the wrapper's bwd_split replaced for the
+    sweep), beside the count bwd_split picks (``chosen``): the evidence
+    for its rule."""
+    pick, times = FA.bwd_split, []
+    try:
+        for n in (1, 2, 3, 4, 6):
+            FA.bwd_split = lambda *a, n=n: n
+            times.append(f"{n}: {timer(fn):.4f}")
+    finally:
+        FA.bwd_split = pick
+    log(f"{what}, ms by dK/dV CTAs a key tile (bwd_split picks {chosen}): "
+        f"{', '.join(times)}")
+
+
+def _fp32_split(FA, q, k, kw) -> int:
+    """The split the fp32 backward's wrapper picks for these inputs."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import geometry
+    bh, sq, d = q.shape
+    return FA.bwd_split(sq, k.shape[1], kw["group"], bh // kw["group"],
+                        kw["causal"], kw["window"],
+                        DA.sm_count(q.device.index), geometry.rt_bwd_tile(d))
+
+
+def _sdpa_bwd(timer, q, k, v, do, b, h, kh, causal, window):
+    """SDPA's forward + backward less its forward on the kernel's inputs
+    in (B, H, S, D) with ``enable_gqa``: its own causal form where there is
+    no window (Sq = Sk at every causal shape, so its top-left diagonal is
+    the kernel's), an explicit mask only for a window. Returns (ms,
+    forward ms, the form and the backend its backward ran)."""
+    F = torch.nn.functional
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    qs = q.reshape(b, h, sq, d).detach().requires_grad_()
+    ks = k.reshape(b, kh, sk, d).detach().requires_grad_()
+    vs = v.reshape(b, kh, sk, d).detach().requires_grad_()
+    dos = do.reshape(b, h, sq, d)
+    mask = None
+    if window:
+        i = torch.arange(sq, device="cuda")[:, None]
+        j = torch.arange(sk, device="cuda")[None, :]
+        mask = j > i - window
+        if causal:
+            mask &= j <= i
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=causal and not window,
+            enable_gqa=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+
+    lib_fwd = timer(lambda: sdpa().detach())
+    lib = timer(fwd_bwd) - lib_fwd
+    form = ("the window's mask" if window else
+            "is_causal" if causal else "no mask")
+    return lib, lib_fwd, f"{form}, {sdpa_backend(fwd_bwd)}"
 
 
 def scale_err(out, ref) -> float:
@@ -2197,10 +2286,11 @@ def _bf16_row(timer, name, src, replaces, fn, plain, got, want, n_bytes,
 
 
 def _lse_forward_check(name, q, k, v, o, lse, kw) -> None:
-    """The training forward ``flash_attention_fwd_lse`` (the serving bf16
-    body with the log-sum-exp written too) against the serving forward
-    on the same inputs, bit for bit, and against the plain forward within
-    TOL; its log2-sum-exp2 within LSE_TOL of the plain one."""
+    """The training forward ``flash_attention_fwd_lse`` (the serving body
+    of q's dtype with the log-sum-exp written too) against the serving
+    forward on the same inputs, bit for bit, and against the plain forward
+    within TOL of the dtype; its log2-sum-exp2 within LSE_TOL of the plain
+    one."""
     from repro_torch.kernels import flash_attention as FA
     serving = FA._forward(q, k, v, **kw)
     plain = FA.flash_attention_plain(q, k, v, **kw)
@@ -2210,14 +2300,14 @@ def _lse_forward_check(name, q, k, v, o, lse, kw) -> None:
     le = (lse - want).abs().max().item()
     check(torch.equal(o, serving), f"{name}: the training forward's output "
           "differs from the serving forward's")
-    check(math.isfinite(e) and e <= TOL[torch.bfloat16],
+    check(math.isfinite(e) and e <= TOL[q.dtype],
           f"{name}: training forward max|kernel-plain| {e}")
     check(math.isfinite(le) and le <= LSE_TOL,
           f"{name}: log2-sum-exp2 max|kernel-plain| {le}")
-    log(f"{name}: training forward (flash_attention_fwd_lse) bit-equal to "
-        f"the serving forward, max|kernel-plain| {e:.3e} (gate "
-        f"{TOL[torch.bfloat16]}), log2-sum-exp2 max|kernel-plain| {le:.3e} "
-        f"(gate {LSE_TOL})")
+    log(f"{name}: {_dt_name(q.dtype)} training forward "
+        f"(flash_attention_fwd_lse) bit-equal to the serving forward, "
+        f"max|kernel-plain| {e:.3e} (gate {TOL[q.dtype]}), log2-sum-exp2 "
+        f"max|kernel-plain| {le:.3e} (gate {LSE_TOL})")
 
 
 def sdpa_backend(fn) -> str:
@@ -2259,13 +2349,12 @@ def phase_bwd_bf16(timer: Timer, gen) -> list:
     which rounds only its outputs, within RG_TOL's bf16 ulp), two runs
     bit-equal, timed beside its bound at the bf16 peak and the plain
     backward; kernel 1 also beside SDPA's bf16 forward + backward less its
-    forward (``is_causal`` where there is no window, the window's mask
-    where there is one), with the backend its backward ran. Returns the rows ``*_bf16`` of kernels 1 and 6 (kernel 7's is
-    logged only: no model path runs it in bf16)."""
+    forward (``_sdpa_bwd``), with the backend its backward ran. Returns
+    the rows ``*_bf16`` of kernels 1 and 6 (kernel 7's is logged only: no
+    model path runs it in bf16)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rglru_scan as RK
     from repro_torch.kernels import ssd_scan as SK
-    F = torch.nn.functional
     bf, rows = torch.bfloat16, []
     for name, b, sq, sk, h, kh, d, causal, window in BWD_SHAPES:
         g = h // kh
@@ -2282,31 +2371,8 @@ def phase_bwd_bf16(timer: Timer, gen) -> list:
         plain = lambda: FA.flash_attention_bwd_plain(*f32, **kw)  # noqa
         got, want = fn(), plain()
         torch.cuda.synchronize()
-        qs = q.reshape(b, h, sq, d).detach().requires_grad_()
-        ks = k.reshape(b, kh, sk, d).detach().requires_grad_()
-        vs = v.reshape(b, kh, sk, d).detach().requires_grad_()
-        dos = do.reshape(b, h, sq, d)
-        # SDPA's own causal form where there is no window (Sq = Sk at
-        # every causal shape, so its top-left diagonal is the kernel's);
-        # an explicit mask only for a window
-        mask = None
-        if window:
-            i = torch.arange(sq, device="cuda")[:, None]
-            j = torch.arange(sk, device="cuda")[None, :]
-            mask = j > i - window
-            if causal:
-                mask &= j <= i
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, is_causal=causal and not window,
-                enable_gqa=True)
-
-        lib_fwd = timer(lambda: sdpa().detach())
-        lib = timer(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs),
-                                                dos)) - lib_fwd
-        backend = sdpa_backend(lambda: torch.autograd.grad(
-            sdpa(), (qs, ks, vs), dos))
+        lib, lib_fwd, how = _sdpa_bwd(timer, q, k, v, do, b, h, kh, causal,
+                                      window)
         nb, no = bwd_cost(b, sq, sk, h, kh, d, causal, window, bf)
         shape = (f"B={b} Sq={sq} Sk={sk} H={h} K={kh} D={d} window {window} "
                  f"{'causal' if causal else 'non-causal'} bf16")
@@ -2315,14 +2381,12 @@ def phase_bwd_bf16(timer: Timer, gen) -> list:
             "src/repro/kernels/flash_attention.py:77 (its gradient; the JAX "
             "package takes it through XLA)", fn, plain, got, want, nb, no,
             shape, library_ms=lib), no)
-        row["library"] = f"SDPA bf16 backward, {backend}"
+        row["library"] = f"SDPA bf16 backward, {how}"
         log_row(row)
-        form = ("the window's mask" if window else
-                "is_causal" if causal else "no mask")
-        log(f"{name}_bf16: library SDPA with {form}, its backward ran "
-            f"{backend}; SDPA forward {lib_fwd:.4f} ms")
+        log(f"{name}_bf16: library SDPA, {how}; SDPA forward "
+            f"{lib_fwd:.4f} ms")
         rows.append(row)
-        del q, k, v, do, o, lse, f32, got, want, qs, ks, vs, dos
+        del q, k, v, do, o, lse, f32, got, want
         torch.cuda.empty_cache()
 
     xw, cum, bm, cm = ssd_inputs(gen, 1, 1000, bf)
@@ -2573,9 +2637,12 @@ def _kernel_kind(name: str) -> str:
     # 128, DecodeArgs> over the page pool, <..., DenseDecodeArgs> over the
     # dense cache) and the bf16 split kernels over either
     # (split_decode_kernel<128, DecodeArgs>, ...); flash is "flash_kernel"
-    # (bf16) and "flash_rt_kernel" (fp32); the fused kernels are
-    # "bullet_kernel" (fp32) and "bullet_tc_kernel" (bf16)
+    # (bf16) and "flash_rt_kernel" (fp32), the training forwards
+    # "flash_lse_kernel" and "flash_rt_lse_kernel", the backwards
+    # "flash_bwd_*"; the fused kernels are "bullet_kernel" (fp32) and
+    # "bullet_tc_kernel" (bf16)
     if any(k in name for k in ("flash_kernel", "flash_rt_kernel",
+                               "flash_lse_kernel", "flash_rt_lse_kernel",
                                "flash_bwd", "decode_kernel",
                                "bullet_kernel", "bullet_tc_kernel")):
         return "attention (this port's kernels)"
@@ -6594,7 +6661,8 @@ def phase_train(card: str) -> dict:
     mamba16 = _train_full(TRAIN_MAMBA + bf16, ("ssd",), card, torch.bfloat16)
     rg16 = _train_full(TRAIN_RG + bf16, ("rglru", "flash"), card,
                        torch.bfloat16, profile=False)
-    return {"flash_attention_bwd": qwen[1],
+    return {"flash_attention_lse_fp32": qwen[0],
+            "flash_attention_bwd": qwen[1],
             "flash_attention_bwd_s2048": qwen[1],
             "flash_attention_bwd_mixtral": ref["mixtral-8x22b"]["flash"][1],
             "flash_attention_bwd_d64": granite["flash"][1],

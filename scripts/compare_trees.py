@@ -2,6 +2,13 @@
 
     python3 scripts/compare_trees.py OTHER_CHECKOUT
     python3 scripts/compare_trees.py OTHER_CHECKOUT --windows
+    python3 scripts/compare_trees.py OTHER_CHECKOUT --bwd
+
+``--bwd`` runs only ``bwd`` (kernel 1's fp32 backward at
+``chip_smoke.BWD_SHAPES``, the training and serving fp32 forwards there,
+and the fp32 train steps of ``BWD_TRAIN``) of each checkout, in the order
+other, this, this, other, prints every number per turn, and which kernels'
+machine code differs between the two built libraries.
 
 ``--windows`` runs only ``windows`` (the serve, Mamba-2 and
 RecurrentGemma decode paths with their profile windows, see there) of
@@ -364,6 +371,65 @@ def windows(tree: str, path: str) -> None:
         json.dump(out, f)
 
 
+#: the fp32 train steps ``bwd`` times: chip_smoke.py's launcher arguments
+#: of Qwen3-1.7B, Granite-3.0-2B and RecurrentGemma-2B (batch 8 x 128), and
+#: the steps of a run (a step's time is the median after the first)
+BWD_TRAIN = ("TRAIN_QWEN", "TRAIN_GRANITE", "TRAIN_RG")
+BWD_TRAIN_STEPS = 3
+
+
+def bwd(tree: str, path: str) -> None:
+    """Kernel 1's fp32 backward through ``tree``'s wrappers at each
+    ``chip_smoke.BWD_SHAPES`` shape (the rows' inputs), timed by this
+    checkout's ``chip_smoke.Timer``: as the tree's train step runs it, from
+    the log-sum-exp of its fp32 training forward where it has one (a tree
+    whose fp32 forward keeps none, ``_forward_lse`` raising, computes it in
+    its backward); that training forward and the serving forward; then the
+    fp32 train steps of ``BWD_TRAIN`` through the tree's launcher (ms a
+    step). Run in a process of its own, ``tree``'s ``src`` first on the
+    path; saved to ``path`` as JSON."""
+    import gc
+    import statistics as st
+    import torch
+    cs = smoke_module()
+    timer = cs.Timer()
+    use_tree(tree)
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as launcher
+    assert FA.__file__.startswith(tree), FA.__file__
+    cs.phase_card()
+    build.library()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for name, b, sq, sk, h, kh, d, causal, window in cs.BWD_SHAPES:
+        q, k, v = cs.flash_inputs(gen, b, sq, torch.float32, h, kh, d, sk)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        kw = dict(causal=causal, window=window, group=h // kh)
+        try:
+            o, lse = FA._forward_lse(q, k, v, **kw)
+            out[f"{name} training forward: ms"] = timer(
+                lambda: FA._forward_lse(q, k, v, **kw))
+        except ValueError:
+            o, lse = FA._forward(q, k, v, **kw), None
+        out[f"{name} serving forward: ms"] = timer(
+            lambda: FA._forward(q, k, v, **kw))
+        out[f"{name}: ms"] = timer(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, lse=lse, **kw))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    for arch in BWD_TRAIN:
+        argv = getattr(cs, arch) + ["--steps", str(BWD_TRAIN_STEPS)]
+        run = launcher.run(launcher.parse_args(argv))
+        out[f"train {argv[1]} fp32: ms a step"] = st.median(run.step_ms[1:])
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
 def rows(log: str) -> dict:
     """Kernel name -> ms from a --kernels-only log."""
     got = {}
@@ -400,6 +466,17 @@ def sass(tree: str) -> dict:
     return out
 
 
+def print_sass_diff(other: str) -> None:
+    """Which kernels' machine code differs between the library ``other``
+    built and this checkout's."""
+    a, b = sass(other), sass(ROOT)
+    common = sorted(set(a) & set(b))
+    differ = [k for k in common if a[k] != b[k]]
+    print(f"SASS: {len(common)} kernels in both libraries, {len(differ)} "
+          f"differ: {differ}; only in the other: {sorted(set(a) - set(b))}; "
+          f"only in this: {sorted(set(b) - set(a))}")
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--dump":
         dump(os.path.abspath(sys.argv[2]), sys.argv[3])
@@ -410,31 +487,38 @@ def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--window":
         windows(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--bwd-turn":
+        bwd(os.path.abspath(sys.argv[2]), sys.argv[3])
+        return 0
     import torch
     other = os.path.abspath(sys.argv[1])
     os.makedirs(OUT, exist_ok=True)
     os.makedirs(DUMPS, exist_ok=True)
     turns = [("other", other), ("this", ROOT), ("this", ROOT),
              ("other", other)]
-    if sys.argv[2:] == ["--windows"]:
+    if sys.argv[2:] in (["--windows"], ["--bwd"]):
+        what = "windows" if sys.argv[2] == "--windows" else "bwd"
         got = []
         for i, (tag, tree) in enumerate(turns):
-            path = os.path.join(DUMPS, f"{i}_{tag}_windows.json")
-            with open(os.path.join(OUT, f"{i}_{tag}_windows.log"), "w") as f:
+            path = os.path.join(DUMPS, f"{i}_{tag}_{what}.json")
+            with open(os.path.join(OUT, f"{i}_{tag}_{what}.log"), "w") as f:
                 rc = subprocess.run(
-                    [sys.executable, os.path.abspath(__file__), "--window",
+                    [sys.executable, os.path.abspath(__file__),
+                     "--window" if what == "windows" else "--bwd-turn",
                      tree, path], stdout=f, stderr=subprocess.STDOUT,
                     cwd=tree).returncode
-            print(f"turn {i} ({tag}): windows rc={rc}")
+            print(f"turn {i} ({tag}): {what} rc={rc}")
             if rc:
                 return rc
             with open(path) as f:
                 got.append(json.load(f))
-        print("window (turns): " + " / ".join(f"{i} {t}" for i, (t, _) in
-                                              enumerate(turns)))
+        print(f"{what} (turns): " + " / ".join(
+            f"{i} {t}" for i, (t, _) in enumerate(turns)))
         for key in got[1]:
             print(f"{key}: " + " / ".join(
                 f"{g[key]:.4f}" if key in g else "-" for g in got))
+        if what == "bwd":
+            print_sass_diff(other)
         return 0
     logs, dumps, timings = [], [], []
     for i, (tag, tree) in enumerate(turns):
@@ -464,12 +548,7 @@ def main() -> int:
     for key in timings[1]:
         print(f"{key}: " + " / ".join(
             f"{t[key]:.4f}" if key in t else "-" for t in timings))
-    a, b = sass(other), sass(ROOT)
-    common = sorted(set(a) & set(b))
-    differ = [k for k in common if a[k] != b[k]]
-    print(f"SASS: {len(common)} kernels in both libraries, {len(differ)} "
-          f"differ: {differ}; only in the other: {sorted(set(a) - set(b))}; "
-          f"only in this: {sorted(set(b) - set(a))}")
+    print_sass_diff(other)
     for key in dumps[0]:
         same = [all(torch.equal(a, b) for a, b in zip(dumps[i][key],
                                                       dumps[j][key]))

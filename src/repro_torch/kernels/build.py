@@ -8,7 +8,9 @@ of the checkout, named by a digest of the sources so an edit rebuilds;
 prefill and dense decode at head dims 64, 128 and 256, paged decode and the
 fused launches at 64 and 128; in bf16 the flash body runs on the tensor cores
 through wgmma and TMA, so ``sm_90a``'s ``a`` is needed),
-``flash_attention_bwd.cu`` the gradient of the flash prefill in fp32 and
+``flash_attention_bwd.cu`` the gradient of the flash prefill in fp32
+(register-tiled on the CUDA cores, from the log-sum-exp the training
+forward ``flash_attention_fwd_lse`` writes, dK/dV shared over CTAs) and
 ``flash_attention_bwd_tc.cu`` in bf16 on the tensor cores (D = 64, 128 and
 256), ``ssd_scan.cu``
 the Mamba-2 SSD chunk scan (in bf16 C Bᵀ once per row and chunk, the
@@ -17,8 +19,9 @@ through ``mma.sync``), ``ssd_scan_bwd.cu`` its gradient in fp32 and
 ``ssd_scan_bwd_tc.cu`` in bf16 on the tensor cores, and
 ``rglru_scan.cu`` the RG-LRU linear recurrence and its gradient (fp32 and
 bf16). The geometry of the split
-decode bodies and of the bf16 SSD scan (``geometry.all_defines()``)
-reaches every source as ``-D`` defines and is part of the digest.
+decode bodies, of the bf16 SSD scan and of the fp32 flash backward
+(``geometry.all_defines()``) reaches every source as ``-D`` defines and is
+part of the digest.
 Nothing here runs at import: the first wrapper that launches a kernel
 builds the library, and the CPU tests, which never launch one, need no
 compiler.
@@ -53,8 +56,8 @@ _I = ctypes.c_int
 #: argtypes of every C entry point; every one returns a cudaError_t as int
 SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    "flash_attention_fwd_lse": [_P] * 5 + [_I] * 7 + [_P],
-    "flash_attention_bwd": [_P] * 10 + [_I] * 9 + [_P],
+    "flash_attention_fwd_lse": [_P] * 5 + [_I] * 8 + [_P],
+    "flash_attention_bwd": [_P] * 11 + [_I] * 8 + [_P],
     "flash_attention_bwd_tc": [_P] * 11 + [_I] * 8 + [_P],
     "paged_decode_split_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bullet_attention_paged_fwd": [_P] * 4 + [_I] * 5 + [_P] * 9
@@ -189,7 +192,7 @@ HEAD_DIMS = (64, 128, 256)
 PAGED_HEAD_DIMS = (64, 128)
 #: head dims of the flash backward (``flash_attention_bwd.cu``): those of
 #: the models that train on the card (D = 256: RecurrentGemma's local
-#: attention, in 32-row tiles)
+#: attention, in ``geometry.RT_BWD_TILE_WIDE``-row tiles in fp32)
 BWD_HEAD_DIMS = (64, 128, 256)
 
 

@@ -39,9 +39,10 @@
 //     longest causal tiles first.
 //   Both keep the score tiles on chip, so no S×S matrix reaches HBM, and
 //   skip the KV tiles that the causal or window mask removes whole.
-//   flash_attention_fwd_lse is the bf16 launch of the training forward: an
-//   instantiation of its own that also writes each row's log2-sum-exp2,
-//   so kernel 1's bf16 backward need not recompute it.
+//   flash_attention_fwd_lse is the launch of the training forward, in
+//   either dtype: an instantiation of each body of its own that also
+//   writes each row's log2-sum-exp2, so kernel 1's backward need not
+//   recompute it.
 //
 // paged_decode_split_fwd
 //   Replaces src/repro/kernels/paged_decode_attention.py:73
@@ -221,6 +222,18 @@ __global__ void __launch_bounds__(THREADS)
     flash_lse_kernel(const __grid_constant__ FlashArgs a, float *lse2) {
   extern __shared__ __align__(16) unsigned char smem[];
   flash_tc_item<D, true>(a, blockIdx.x, smem, lse2);
+}
+
+// the same for the fp32 body (flash_attention_bwd reads it), in
+// flash_rt_kernel's order of items
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_rt_lse_kernel(const __grid_constant__ FlashArgs a, float *lse2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_qt = flash_q_tiles<float>(a.sq);
+  const int r = blockIdx.x / a.bh, h = blockIdx.x % a.bh;
+  flash_rt_item<D, true>(a, h * n_qt + (a.causal ? n_qt - 1 - r : r),
+                         reinterpret_cast<float *>(smem), lse2);
 }
 
 // the fp32 split decode body over either cache, one CTA per piece
@@ -613,14 +626,14 @@ int launch_flash(FlashArgs a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_flash_lse(FlashArgs a, float *lse2, cudaStream_t s) {
-  if (!encode_flash<bf16>(a, D)) return (int)cudaErrorInvalidValue;
-  const size_t smem = flash_smem<bf16>(D);
-  auto kern = flash_lse_kernel<D>;
+  if (!encode_flash<T>(a, D)) return (int)cudaErrorInvalidValue;
+  const size_t smem = flash_smem<T>(D);
+  auto kern = is_bf16<T> ? flash_lse_kernel<D> : flash_rt_lse_kernel<D>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<a.bh * flash_q_tiles<bf16>(a.sq), THREADS, smem, s>>>(a, lse2);
+  kern<<<a.bh * flash_q_tiles<T>(a.sq), THREADS, smem, s>>>(a, lse2);
   return (int)cudaGetLastError();
 }
 
@@ -739,20 +752,17 @@ int flash_attention_fwd(const void *q, const void *k, const void *v, void *o,
   DISPATCH(d, dtype, (launch_flash<T, D>(a, s)));
 }
 
-// bf16, q_offset 0: flash_attention_fwd's bf16 launch that also writes
-// each query row's log2-sum-exp2 of its scaled logits to lse2 (bh, sq)
-// fp32, for kernel 1's bf16 backward
+// q_offset 0: flash_attention_fwd's launch of either dtype that also
+// writes each query row's log2-sum-exp2 of its scaled logits to lse2 (bh,
+// sq) fp32, for kernel 1's backward of that dtype
 int flash_attention_fwd_lse(const void *q, const void *k, const void *v,
                             void *o, float *lse2, int bh, int sq, int sk,
                             int d, int group, int causal, int window,
-                            void *stream) {
+                            int dtype, void *stream) {
   FlashArgs a{q, k, v, o, bh, sq, sk, group, causal, window, 0,
               1.0f / sqrtf((float)d)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_flash_lse<64>(a, lse2, s);
-  if (d == 128) return launch_flash_lse<128>(a, lse2, s);
-  if (d == 256) return launch_flash_lse<256>(a, lse2, s);
-  return (int)cudaErrorInvalidValue;
+  DISPATCH(d, dtype, (launch_flash_lse<T, D>(a, lse2, s)));
 }
 
 // n_split pieces per (slot, kv head) over the n_b * ps rows of the block

@@ -1211,9 +1211,13 @@ __device__ void split_decode_item(const A &a, int item, unsigned char *smem) {
 // attends are walked; a tile masked whole for a row leaves its m, l and
 // accumulators unchanged exactly, so a row's result does not depend on
 // which rows share its item (a chunk's rows equal the whole prompt's).
-template <int D>
+// With LSE (the forward of kernel 1's fp32 gradient, q_offset 0) each
+// row's log2-sum-exp2 of its scaled logits goes to lse2 (BH, Sq) too; the
+// serving kernels instantiate it without.
+template <int D, bool LSE = false>
 __device__ __forceinline__ void flash_rt_item(const FlashArgs &a, int item,
-                                              float *smem) {
+                                              float *smem,
+                                              float *lse2 = nullptr) {
   constexpr int C4 = D / 4;          // 16-byte chunks of a row
   constexpr int QC = C4 / 4;         // chunks of a D-quarter
   constexpr int CG = D / 8;          // P V column groups
@@ -1453,6 +1457,16 @@ __device__ __forceinline__ void flash_rt_item(const FlashArgs &a, int item,
 #pragma unroll
     for (int i = 0; i < 2; ++i)
       rs[8 * w + 2 * qq + i] = 1.f / fmaxf(l[i], 1e-30f);
+    if constexpr (LSE) {
+      // m + ln l in base 2: m log2(e) + log2(l)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + 8 * w + 2 * qq + i;
+        if (row < a.sq)
+          lse2[(size_t)bh * a.sq + row] =
+              __fmaf_rn(m[i], 1.4426950408889634f, log2f(fmaxf(l[i], 1e-30f)));
+      }
+    }
   }
 #pragma unroll
   for (int off = CG; off < 32; off <<= 1)

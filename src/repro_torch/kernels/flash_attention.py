@@ -18,14 +18,15 @@ it).
 
 Its gradient: where grad mode is on and q, k or v requires grad,
 :func:`flash_attention` runs as a ``torch.autograd.Function`` whose
-forward is the kernel above (or the plain version, for CPU tensors) and
-whose backward is :func:`flash_attention_bwd`: for CUDA tensors the
-hand-written kernels ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``;
-fp32, on the CUDA cores) and ``flash_attention_bwd_tc``
-(``csrc/flash_attention_bwd_tc.cu``; bf16, on the tensor cores, reading
-each row's log-sum-exp from the forward, which on the card in bf16 is
-``flash_attention_fwd_lse``), D = 64, 128 and 256, ``q_offset`` 0; the
-plain backward
+forward is the kernel above (on the card ``flash_attention_fwd_lse``, the
+same body that also keeps each row's log-sum-exp; the plain version for
+CPU tensors) and whose backward is :func:`flash_attention_bwd`: for CUDA
+tensors the hand-written kernels ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``; fp32, register-tiled on the CUDA cores,
+a key tile's dK/dV items shared over CTAs by :func:`bwd_split`) and
+``flash_attention_bwd_tc`` (``csrc/flash_attention_bwd_tc.cu``; bf16, on
+the tensor cores), both reading the forward's log-sum-exp, D = 64, 128
+and 256, ``q_offset`` 0; the plain backward
 ``ref.flash_attention_bwd_ref`` for CPU tensors. It replaces no TPU
 kernel: the JAX package takes attention's gradient through XLA. On the
 card another head dim or a query offset that needs a gradient raises
@@ -40,47 +41,52 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import cost
 from repro_torch.kernels import decode_attention
+from repro_torch.kernels import geometry
 from repro_torch.kernels import ref
 
 #: kernel launches since the counter was last reset (plain integer)
 launches = 0
-#: backward launches (one a backward call: its pre-pass, dK/dV and dQ
-#: kernels) since the counter was last reset
+#: backward launches (one a backward call: its delta pass, its dK/dV and
+#: dQ items, and the split's sum) since the counter was last reset
 bwd_launches = 0
 
 #: the plain version: the XLA-path math on the kernel layout (ref.py)
 flash_attention_plain = ref.flash_attention_ref
 #: the plain backward: its gradient written out (ref.py)
 flash_attention_bwd_plain = ref.flash_attention_bwd_ref
-#: the plain log2-sum-exp2 that the bf16 training forward writes (ref.py)
+#: the plain log2-sum-exp2 that the training forward writes (ref.py)
 flash_lse_plain = ref.flash_lse_ref
 
 #: query rows and keys per tile of the bf16 backward
-#: (``csrc/flash_attention_bwd_tc.cu``)
+#: (``csrc/flash_attention_bwd_tc.cu``); the fp32 backward's are
+#: ``geometry.rt_bwd_tile(d)``
 BWD_TILE = 64
 
 
 def bwd_split(sq: int, sk: int, group: int, n_kvh: int, causal: bool,
-              window: int, slots: int) -> int:
-    """CTAs the bf16 backward's dK/dV pass splits each key tile's items
-    over: its (query head, query tile) pairs that the mask keeps, G x the
-    query tiles meeting it (the kernel's ``tiles_meet``). The pass takes
-    as long as its longest CTA, so a key tile with many items (the first
-    of a causal prompt, any inside a long window) is shared out: the
-    heaviest tile's items over the mean a CTA slot gets (``slots``: the
-    card's SMs times the CTAs one SM holds), rounded, at most 8; but a
-    tile of at most 8 items is not split, since its fp32 partials' round
-    trip through memory costs more than it saves (on an H100, read across
-    splits 1-16: S 128 best unsplit, S 2048 at 2, Granite's D = 64 at 3-4,
-    RecurrentGemma's window at 4). The partials are summed in share order,
-    so the split changes no bit from run to run."""
-    n_qt, n_kt = -(-sq // BWD_TILE), -(-sk // BWD_TILE)
+              window: int, slots: int, tile: int = BWD_TILE) -> int:
+    """CTAs a backward's dK/dV pass splits each key tile's items over, for
+    ``tile`` query rows and keys a tile (the bf16 body's BWD_TILE, the
+    fp32 body's ``geometry.rt_bwd_tile``): its (query head, query tile)
+    pairs that the mask keeps, G x the query tiles meeting it (those the
+    kernels' dK/dV items walk). The pass takes as long as its longest CTA,
+    so a key tile with many items (the first of a causal prompt, any
+    inside a long window) is shared out: the heaviest tile's items over
+    the mean a CTA slot gets (``slots``: the card's SMs times the CTAs one
+    SM holds), rounded, at most 8; but a tile of at most 8 items is not
+    split, since its fp32 partials' round trip through memory costs more
+    than it saves (on an H100 in bf16, read across splits 1-16: S 128 best
+    unsplit, S 2048 at 2, Granite's D = 64 at 3-4, RecurrentGemma's window
+    at 4; the fp32 body's sweep is chip_smoke.py's, PERF.md). The partials
+    are summed in share order, so the split changes no bit from run to
+    run."""
+    n_qt, n_kt = -(-sq // tile), -(-sk // tile)
     loads = []
     for kt in range(n_kt):
-        k0 = kt * BWD_TILE
-        k1 = min(k0 + BWD_TILE, sk) - 1
+        k0 = kt * tile
+        k1 = min(k0 + tile, sk) - 1
         lo = (kt if sq > k0 else n_qt) if causal else 0
-        hi = (min(n_qt - 1, (k1 + window - 1) // BWD_TILE) if window > 0
+        hi = (min(n_qt - 1, (k1 + window - 1) // tile) if window > 0
               else n_qt - 1)
         loads.append(group * max(0, hi - lo + 1))
     peak = max(loads)
@@ -113,16 +119,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Kernel 1 with its gradient: forward :func:`_forward` (on the card in
-    bf16 :func:`_forward_lse`, which also keeps each row's log-sum-exp),
-    backward :func:`flash_attention_bwd` (the output's gradient made
-    contiguous), q_offset 0. Saves q, k, v, the output and the
-    log-sum-exp where there is one."""
+    """Kernel 1 with its gradient: forward :func:`_forward` (on the card
+    :func:`_forward_lse`, which also keeps each row's log-sum-exp, in
+    either dtype), backward :func:`flash_attention_bwd` (the output's
+    gradient made contiguous), q_offset 0. Saves q, k, v, the output and
+    the log-sum-exp where there is one."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, group):
         lse = None
-        if q.is_cuda and q.dtype == torch.bfloat16:
+        if q.is_cuda:
             o, lse = _forward_lse(q, k, v, causal=causal, window=window,
                                   group=group)
         else:
@@ -145,14 +151,15 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
                         window: int = 0, group: int = 1, lse=None):
     """The gradient of :func:`flash_attention` at q_offset 0: q, o, do
     (BH, Sq, D); k, v (BH/group, Sk, D); ``lse`` (BH, Sq) fp32, each row's
-    log2-sum-exp2 as the bf16 training forward (:func:`_forward_lse`)
-    wrote it, or None (the bf16 kernel then runs that forward for it; the
-    fp32 kernel and the plain backward recompute it). Returns (dq, dk, dv)
-    in the inputs' shapes.
+    log2-sum-exp2 as the training forward (:func:`_forward_lse`) wrote
+    it, or None (on the card that forward then runs for it, in either
+    dtype; the plain backward recomputes it). Returns (dq, dk, dv) in the
+    inputs' shapes.
 
     CUDA tensors launch ``flash_attention_bwd`` (float32) or
-    ``flash_attention_bwd_tc`` (bfloat16), D = 64, 128 or 256; CPU tensors
-    run the plain backward; meta tensors get empty gradients."""
+    ``flash_attention_bwd_tc`` (bfloat16), D = 64, 128 or 256, each with
+    its dK/dV pass split by :func:`bwd_split`; CPU tensors run the plain
+    backward; meta tensors get empty gradients."""
     if cost.COUNTER is not None:
         with cost.COUNTER.kernel("flash_attention_bwd", lambda: (
                 cost.flash_bwd_price(q, k, causal, window, group))):
@@ -183,35 +190,31 @@ def _backward(q, k, v, o, do, *, causal, window, group, lse=None):
         return dq.zero_(), dk.zero_(), dv.zero_()
     if q.is_meta:
         return dq, dk, dv
-    if code == build.DTYPE_CODES["torch.bfloat16"]:
-        build.check_aligned("flash_attention_bwd", (q, k, v, o, do))
-        if lse is None:
-            lse = _dispatch_lse(q, k, v, causal, window, group)[1]
-        build.check_inputs("flash_attention_bwd", (q,), fp32=(lse,),
-                           head_dims=build.BWD_HEAD_DIMS)
-        if tuple(lse.shape) != (bh, sq):
-            raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}"
-                             f", want {(bh, sq)}")
-        delta = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
-        split = bwd_split(sq, sk, group, bh // group, causal, window,
-                          decode_attention.sm_count(q.device.index)
-                          * (1 if d == 256 else 2))
-        part = (None if split == 1 else
-                torch.empty(2, split, bh // group, sk, d,
-                            dtype=torch.float32, device=q.device))
-        rc = build.library().flash_attention_bwd_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if part is None else part.data_ptr(), bh, sq, sk, d,
-            group, int(causal), int(window), split, build.stream_of(q))
-    else:
-        work = torch.empty(2, bh, sq, dtype=torch.float32, device=q.device)
-        rc = build.library().flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            work[0].data_ptr(), work[1].data_ptr(), bh, sq, sk, d, group,
-            int(causal), int(window), 0, code, build.stream_of(q))
+    build.check_aligned("flash_attention_bwd", (q, k, v, o, do))
+    if lse is None:
+        lse = _dispatch_lse(q, k, v, causal, window, group)[1]
+    build.check_inputs("flash_attention_bwd", (q,), fp32=(lse,),
+                       head_dims=build.BWD_HEAD_DIMS)
+    if tuple(lse.shape) != (bh, sq):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)}, "
+                         f"want {(bh, sq)}")
+    bf16 = code == build.DTYPE_CODES["torch.bfloat16"]
+    delta = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+    # the fp32 body and the bf16 body at D = 256 hold one CTA an SM
+    split = bwd_split(sq, sk, group, bh // group, causal, window,
+                      decode_attention.sm_count(q.device.index)
+                      * (2 if bf16 and d != 256 else 1),
+                      BWD_TILE if bf16 else geometry.rt_bwd_tile(d))
+    part = (None if split == 1 else
+            torch.empty(2, split, bh // group, sk, d, dtype=torch.float32,
+                        device=q.device))
+    entry = (build.library().flash_attention_bwd_tc if bf16
+             else build.library().flash_attention_bwd)
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               lse.data_ptr(), delta.data_ptr(),
+               None if part is None else part.data_ptr(), bh, sq, sk, d,
+               group, int(causal), int(window), split, build.stream_of(q))
     build.check(rc, "flash_attention_bwd")
     global bwd_launches
     bwd_launches += 1
@@ -219,9 +222,10 @@ def _backward(q, k, v, o, do, *, causal, window, group, lse=None):
 
 
 def _forward_lse(q, k, v, *, causal: bool, window: int, group: int):
-    """Kernel 1's bf16 forward on the card as the training path runs it
-    (``flash_attention_fwd_lse``): the output, and each query row's
-    log2-sum-exp2 of its scaled logits (BH, Sq) fp32 for the backward."""
+    """Kernel 1's forward on the card as the training path runs it
+    (``flash_attention_fwd_lse``, fp32 or bf16): the output, bit for bit
+    the serving forward's, and each query row's log2-sum-exp2 of its
+    scaled logits (BH, Sq) fp32 for the backward."""
     if cost.COUNTER is not None:
         with cost.COUNTER.kernel("flash_attention", lambda: cost.flash_price(
                 q, k, causal, window, group)):
@@ -230,11 +234,12 @@ def _forward_lse(q, k, v, *, causal: bool, window: int, group: int):
 
 
 def _dispatch_lse(q, k, v, causal, window, group):
+    """The launch of ``flash_attention_fwd_lse`` on CUDA tensors of either
+    dtype (the fp32 body ``flash_rt_item`` or the bf16 ``flash_tc_item``,
+    each in an instance that also stores the log-sum-exp), D = 64, 128 or
+    256: (out, lse)."""
     code = build.check_inputs("flash_attention", (q, k, v),
                               head_dims=build.BWD_HEAD_DIMS)
-    if code != build.DTYPE_CODES["torch.bfloat16"]:
-        raise ValueError(f"flash_attention: the log-sum-exp forward takes "
-                         f"bfloat16, got {q.dtype}")
     build.check_aligned("flash_attention", (q, k, v))
     bh, sq, d = q.shape
     if k.shape != v.shape or k.shape[0] * group != bh or k.shape[2] != d:
@@ -248,7 +253,7 @@ def _dispatch_lse(q, k, v, causal, window, group):
     rc = build.library().flash_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), bh, sq, k.shape[1], d, group, int(causal),
-        int(window), build.stream_of(q))
+        int(window), code, build.stream_of(q))
     build.check(rc, "flash_attention")
     global launches
     launches += 1

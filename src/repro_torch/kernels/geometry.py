@@ -1,10 +1,12 @@
 """The geometry of the split decode bodies (bf16 and fp32), of the fused
-launches' schedule and of the bf16 SSD scan, stated once.
+launches' schedule, of the bf16 SSD scan and of kernel 1's fp32 backward,
+stated once.
 
 ``build.py`` passes these to ``nvcc`` as ``-D`` defines, and
-``csrc/attention.cuh`` and ``csrc/ssd_scan.cu`` take them from there (they
-refuse to compile without them); the wrappers size their launches and
-workspaces with the same values. The module imports nothing, so
+``csrc/attention.cuh``, ``csrc/ssd_scan.cu`` and
+``csrc/flash_attention_bwd.cu`` take them from there (they refuse to
+compile without them); the wrappers size their launches and workspaces
+with the same values. The module imports nothing, so
 ``build.py`` reads it without importing a wrapper.
 """
 
@@ -40,6 +42,13 @@ SSD_TILE = 64
 SSD_P_SLICE = 64
 SSD_P_SLICES = (16, 32, 64)
 
+#: query rows, and keys, per tile of kernel 1's fp32 backward
+#: (``csrc/flash_attention_bwd.cu``) at D = 64 and 128, and at D = 256,
+#: where one 64-row fp32 tile is 64 KB and two buffers of Q and dO beside
+#: K and V would not fit an SM's shared memory
+RT_BWD_TILE = 64
+RT_BWD_TILE_WIDE = 32
+
 #: the split decode's defines (``csrc/attention.cuh``), by name
 DEFINES = {"SPLIT_TILE": SPLIT_TILE, "MAX_SPLIT": MAX_SPLIT,
            "SPLIT_G": SPLIT_G, "SPLIT_MIN_TILES": SPLIT_MIN_TILES,
@@ -48,6 +57,14 @@ DEFINES = {"SPLIT_TILE": SPLIT_TILE, "MAX_SPLIT": MAX_SPLIT,
 SCHED_DEFINES = {"SCHED_SMS": SCHED_SMS}
 #: the bf16 SSD scan's defines (``csrc/ssd_scan.cu``), by name
 SSD_DEFINES = {"SSD_TILE": SSD_TILE, "SSD_P_SLICE": SSD_P_SLICE}
+#: the fp32 flash backward's defines (``csrc/flash_attention_bwd.cu``)
+BWD_DEFINES = {"RT_BWD_TILE": RT_BWD_TILE,
+               "RT_BWD_TILE_WIDE": RT_BWD_TILE_WIDE}
+
+
+def rt_bwd_tile(d: int) -> int:
+    """Rows per tile of kernel 1's fp32 backward at head dim ``d``."""
+    return RT_BWD_TILE_WIDE if d == 256 else RT_BWD_TILE
 
 
 def slot_pieces(n_split: int, live: int) -> int:
@@ -73,4 +90,4 @@ def fp32_pieces(rows: int) -> int:
 def all_defines() -> dict:
     """Every define the CUDA sources are compiled with (read at call time,
     so a changed value names another library)."""
-    return {**DEFINES, **SCHED_DEFINES, **SSD_DEFINES}
+    return {**DEFINES, **SCHED_DEFINES, **SSD_DEFINES, **BWD_DEFINES}

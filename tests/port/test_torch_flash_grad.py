@@ -12,12 +12,15 @@ JAX function run in bf16, each gradient within 2e-2 of its max abs.
 
 The card tests (marked ``cuda``, skip without a device) hold the CUDA
 backwards against the plain backward: ``flash_attention_bwd`` (fp32) at
-the smoke's TOL, ``flash_attention_bwd_tc`` (bf16, on the same inputs
-rounded to bf16, the plain in fp32) within 2e-2 of each gradient's max
-abs, two runs bit-equal; and the training forward that feeds it,
+the smoke's TOL, two runs bit-equal, a launch with its dK/dV items forced
+over 2 and 3 CTAs within TOL of the unsplit one;
+``flash_attention_bwd_tc`` (bf16, on the same inputs rounded to bf16, the
+plain in fp32) within 2e-2 of each gradient's max abs, two runs
+bit-equal; and, in both dtypes, the training forward that feeds them,
 ``flash_attention_fwd_lse``: its output bit-equal to the serving
-forward's and within 2e-2 of the plain one, its log2-sum-exp2 within
-1e-3 of ``ref.flash_lse_ref`` (held against numpy in float64 on the CPU).
+forward's (and in bf16 within 2e-2 of the plain one), its log2-sum-exp2
+within 1e-3 of ``ref.flash_lse_ref`` (held against numpy in float64 on
+the CPU), the backward given it bit-equal to the one that runs it.
 Run them on a GPU host:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
@@ -202,7 +205,7 @@ def test_offset_and_card_dtype_refusals():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES[1:], ids=IDS[1:])
-def test_cuda_backward_matches_plain(case):
+def test_cuda_backward_matches_plain(case, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,21 +217,38 @@ def test_cuda_backward_matches_plain(case):
     kk = torch.randn(b * k, sk, d, device="cuda", generator=gen)
     v = torch.randn(b * k, sk, d, device="cuda", generator=gen)
     do = torch.randn(b * h, sq, d, device="cuda", generator=gen)
-    o = TF.flash_attention(q, kk, v, causal=causal, window=window,
-                           group=h // k)
+    kw = dict(causal=causal, window=window, group=h // k)
+    o = TF.flash_attention(q, kk, v, **kw)
+    # the fp32 training forward: the serving output bit for bit, each
+    # row's log2-sum-exp2 within LSE_TOL of the plain one
+    o_l, lse = TF._forward_lse(q, kk, v, **kw)
+    assert torch.equal(o_l, o)
+    assert (lse - TF.flash_lse_plain(q, kk, **kw)).abs().max() <= LSE_TOL
     before = TF.bwd_launches
-    got = TF.flash_attention_bwd(q, kk, v, o, do, causal=causal,
-                                 window=window, group=h // k)
+    got = TF.flash_attention_bwd(q, kk, v, o, do, **kw)
     torch.cuda.synchronize()
     assert TF.bwd_launches == before + 1
-    want = TF.flash_attention_bwd_plain(q, kk, v, o, do, causal=causal,
-                                        window=window, group=h // k)
+    want = TF.flash_attention_bwd_plain(q, kk, v, o, do, **kw)
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a, b_, atol=1e-4, rtol=0)
+    # two runs, and the run given the forward's log-sum-exp, bit-equal
+    for again in (TF.flash_attention_bwd(q, kk, v, o, do, **kw),
+                  TF.flash_attention_bwd(q, kk, v, o, do, lse=lse, **kw)):
+        assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    # the dK/dV items shared over 2 and 3 CTAs: within the smoke's TOL of
+    # the unsplit launch, each output over its scale max(1, max|unsplit|)
+    monkeypatch.setattr(TF, "bwd_split", lambda *a, **k_: 1)
+    one = TF.flash_attention_bwd(q, kk, v, o, do, lse=lse, **kw)
+    for n in (2, 3):
+        monkeypatch.setattr(TF, "bwd_split", lambda *a, n=n, **k_: n)
+        split = TF.flash_attention_bwd(q, kk, v, o, do, lse=lse, **kw)
+        for a, b_ in zip(split, one):
+            assert ((a - b_).abs().max() / b_.abs().max().clamp(min=1)
+                    <= 1e-4)
+    monkeypatch.undo()
     # bf16 (the tensor-core body) against the plain backward on the same
     # bf16 inputs in fp32; two runs give the same bits
     q16, k16, v16, do16 = (t.bfloat16() for t in (q, kk, v, do))
-    kw = dict(causal=causal, window=window, group=h // k)
     o16 = TF.flash_attention(q16, k16, v16, **kw)
     # the training forward: the serving output bit for bit, within the
     # smoke's bf16 attention tolerance of the plain forward, and each
@@ -250,6 +270,105 @@ def test_cuda_backward_matches_plain(case):
         assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
         assert ((a.float() - b_).abs().max() / b_.abs().max()
                 <= BF16_TOL)
+
+
+#: chip_smoke.py's BWD_SHAPES, the kernel table's backward rows: (B, Sq,
+#: Sk, H, K, D, causal, window)
+BWD_SHAPES = {
+    "training": (8, 128, 128, 16, 8, 128, True, 0),
+    "s2048": (1, 2048, 2048, 16, 8, 128, True, 0),
+    "mixtral": (1, 1024, 1024, 48, 8, 128, True, 256),
+    "d64": (1, 1024, 1024, 32, 8, 64, True, 0),
+    "cross": (4, 128, 1024, 16, 16, 64, False, 0),
+    "d256": (1, 3000, 3000, 10, 1, 256, True, 2048),
+}
+#: the H100's SMs
+SMS = 132
+
+
+def _hand_split(shape, tile, slots):
+    """``bwd_split``'s rule on a count of its own: each key tile's items
+    are G x the query tiles holding a seen (query, key) pair, read off the
+    element mask itself; split = round(heaviest / mean a slot), at most
+    8, 1 where the heaviest holds at most 8."""
+    b, sq, sk, h, kh, d, causal, window = shape
+    i, j = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    seen = np.ones((sq, sk), bool)
+    if causal:
+        seen &= j <= i
+    if window:
+        seen &= j > i - window
+    n_qt, n_kt = -(-sq // tile), -(-sk // tile)
+    pad = np.zeros((n_qt * tile, n_kt * tile), bool)
+    pad[:sq, :sk] = seen
+    meet = pad.reshape(n_qt, tile, n_kt, tile).any(axis=(1, 3))
+    loads = (h // kh) * meet.sum(axis=0)
+    if loads.max() <= 8:
+        return 1
+    mean = b * kh * loads.sum() / slots
+    return max(1, min(8, round(loads.max() / mean)))
+
+
+#: the fp32 body's split at each shape on an H100 (one CTA an SM), and the
+#: bf16 body's (two CTAs an SM, one at D = 256)
+FP32_SPLITS = {"training": 1, "s2048": 1, "mixtral": 1, "d64": 2,
+               "cross": 1, "d256": 2}
+BF16_SPLITS = {"training": 1, "s2048": 2, "mixtral": 2, "d64": 4,
+               "cross": 1, "d256": 4}
+
+
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_fp32_bwd_split_matches_a_hand_count(name):
+    """``bwd_split`` at the fp32 body's tile (``geometry.rt_bwd_tile``: 64
+    rows at D <= 128, 32 at D = 256) and one CTA an SM against a count
+    from the element mask; unsplit at the training shape (S = 128)."""
+    from repro_torch.kernels import geometry
+    b, sq, sk, h, kh, d, causal, window = BWD_SHAPES[name]
+    tile = geometry.rt_bwd_tile(d)
+    assert tile == (32 if d == 256 else 64)
+    got = TF.bwd_split(sq, sk, h // kh, b * kh, causal, window, SMS, tile)
+    assert got == _hand_split(BWD_SHAPES[name], tile, SMS)
+    assert got == FP32_SPLITS[name]
+
+
+@pytest.mark.parametrize("name", list(BWD_SHAPES))
+def test_bf16_bwd_split_unchanged_at_its_tile(name):
+    """The bf16 body's split at BWD_TILE (its default tile), two CTAs an
+    SM below D = 256: the splits its PR measured (PERF.md's kernel table),
+    and the same count from the element mask."""
+    b, sq, sk, h, kh, d, causal, window = BWD_SHAPES[name]
+    slots = SMS * (1 if d == 256 else 2)
+    got = TF.bwd_split(sq, sk, h // kh, b * kh, causal, window, slots)
+    assert got == TF.bwd_split(sq, sk, h // kh, b * kh, causal, window,
+                               slots, TF.BWD_TILE)
+    assert got == _hand_split(BWD_SHAPES[name], TF.BWD_TILE, slots)
+    assert got == BF16_SPLITS[name]
+
+
+def test_fp32_bwd_geometry_is_stated_once():
+    """flash_attention_bwd.cu states no value of its tile heights (it
+    refuses to compile without them), the nvcc command carries them as
+    defines, and the wrapper's split count reads the same module."""
+    import re
+    from repro_torch.kernels import geometry
+    source = (build.CSRC / "flash_attention_bwd.cu").read_text()
+    cmd = build.compile_command("nvcc", "flash_attention_bwd.cu", "bwd.o")
+    for name, value in geometry.BWD_DEFINES.items():
+        assert not re.search(rf"#\s*define\s+{name}\b", source), name
+        assert not re.search(rf"\b{name}\s*=\s*\d", source), name
+        assert f"!defined({name})" in source, name
+        assert f"-D{name}={value}" in cmd, name
+    assert [geometry.rt_bwd_tile(d) for d in build.BWD_HEAD_DIMS] == [
+        geometry.RT_BWD_TILE, geometry.RT_BWD_TILE,
+        geometry.RT_BWD_TILE_WIDE]
+
+
+def test_fp32_bwd_geometry_is_part_of_the_digest(monkeypatch):
+    """Changing a tile height names another library, so it rebuilds."""
+    from repro_torch.kernels import geometry
+    before = build.library_path()
+    monkeypatch.setitem(geometry.BWD_DEFINES, "RT_BWD_TILE_WIDE", 16)
+    assert build.library_path() != before
 
 
 def test_pallas_gradient_split_is_pinned(monkeypatch):
